@@ -23,6 +23,17 @@ Phases, one JSON object per line each:
 5. float   - float keys with NaN and float values with NaN (1e7 rows):
              groupby sum/mean/count under dropna True/False and the skipna
              reductions; the group mean twice, bit for bit.
+6. relational - the asv relational suite at ``--rows`` rows through
+             ``modin_tpu_torch.pandas``: ``query`` and the same boolean
+             mask, ``isin``, ``sort_values`` on one key and on two keys in
+             opposite directions, ``concat`` of two frames, ``__setitem__``
+             of ``col0 % 5`` and a two-key groupby sum, a star-schema
+             ``merge`` (1e8-row fact, 1e7-row dimension with a unique key,
+             inner and left) and the asv ``TimeMerge`` recipe (5000 x 5000
+             against 2500 x 3 on ``col0``, inner and left).  Every result
+             equals pandas exactly, index included, no query defaults to
+             pandas, and every value column stays on ``cuda``.  Needs
+             pandas, the reference it is held against.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
@@ -78,11 +89,12 @@ def host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def make_data(rows: int, seed: int, ngroups: int) -> dict:
+def make_frame_data(rows: int, seed: int, cols: int = 10, ngroups=None) -> dict:
     """The asv recipe (asv_bench/benchmarks/utils.py::make_frame)."""
     rng = np.random.default_rng(seed)
-    data = {f"col{i}": rng.integers(0, 100, rows) for i in range(10)}
-    data["groupby_col"] = rng.integers(0, ngroups, rows)
+    data = {f"col{i}": rng.integers(0, 100, rows) for i in range(cols)}
+    if ngroups is not None:
+        data["groupby_col"] = rng.integers(0, ngroups, rows)
     return data
 
 
@@ -224,10 +236,14 @@ MAIN_QUERIES = {
 }
 
 
-def assert_same_values(got: np.ndarray, want: np.ndarray, what: str) -> None:
+def assert_same_values(got: np.ndarray, want: np.ndarray, what: str, exact: bool = False) -> None:
+    """Equal values: floats to ``FLOAT_RTOL`` (NaN where NaN), or exactly."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
-    if got.dtype.kind == "f" or want.dtype.kind == "f":
+    if exact:
+        if not np.array_equal(got, want, equal_nan=got.dtype.kind == "f"):
+            raise AssertionError(f"{what}: values differ")
+    elif got.dtype.kind == "f" or want.dtype.kind == "f":
         g, w = got.astype(np.float64), want.astype(np.float64)
         if not np.array_equal(np.isnan(g), np.isnan(w)):
             raise AssertionError(f"{what}: NaN positions differ")
@@ -239,7 +255,7 @@ def assert_same_values(got: np.ndarray, want: np.ndarray, what: str) -> None:
         raise AssertionError(f"{what}: values differ")
 
 
-def assert_same_pandas(got, want, what: str) -> None:
+def assert_same_pandas(got, want, what: str, exact: bool = False) -> None:
     import pandas
 
     if type(got) is not type(want):
@@ -254,7 +270,7 @@ def assert_same_pandas(got, want, what: str) -> None:
         g, w = got.iloc[:, i], want.iloc[:, i]
         if g.dtype != w.dtype:
             raise AssertionError(f"{what}[{label}]: dtype {g.dtype} != {w.dtype}")
-        assert_same_values(g.to_numpy(), w.to_numpy(), f"{what}[{label}]")
+        assert_same_values(g.to_numpy(), w.to_numpy(), f"{what}[{label}]", exact)
 
 
 def assert_on_cuda(qc, what: str) -> None:
@@ -269,8 +285,8 @@ def run_main_pandas(rows: int, seed: int) -> None:
     import modin_tpu_torch.pandas as tpd
 
     for g in (100, 10_000):
-        p1 = pandas.DataFrame(make_data(rows, seed, g))
-        p2 = pandas.DataFrame(make_data(rows, seed + 1, g))
+        p1 = pandas.DataFrame(make_frame_data(rows, seed, ngroups=g))
+        p2 = pandas.DataFrame(make_frame_data(rows, seed + 1, ngroups=g))
         t1, from_ms = host_ms(lambda: tpd.from_pandas(p1))
         t2 = tpd.from_pandas(p2)
         assert_on_cuda(t1._query_compiler, "from_pandas")
@@ -345,7 +361,8 @@ def run_main_numpy(rows: int, seed: int) -> None:
         "groupby_sum": gb("sum"), "groupby_mean": gb("mean"),
     }
     for g in (100, 10_000):
-        d1, d2 = make_data(rows, seed, g), make_data(rows, seed + 1, g)
+        d1 = make_frame_data(rows, seed, ngroups=g)
+        d2 = make_frame_data(rows, seed + 1, ngroups=g)
         labels = list(d1)
         np_refs = {
             "add": lambda: [d1[k] + 2 for k in labels],
@@ -492,7 +509,172 @@ def phase_float(rows: int, seed: int, have_pandas: bool) -> None:
     free_device_memory()
 
 
+# ---------------------------------------------------------------------- #
+# 6. the relational queries
+# ---------------------------------------------------------------------- #
+
+
+def _pandas_frame(data: dict):
+    import pandas
+
+    df = pandas.DataFrame(data)
+    data.clear()  # the frame holds its own copy
+    return df
+
+
+def dim_frame(n_dim: int, key_range: int, seed: int) -> dict:
+    """The star schema's dimension: a unique shuffled key drawn from
+    ``[0, key_range)`` and three int64 value columns."""
+    rng = np.random.default_rng(seed)
+    return {
+        "key": rng.permutation(key_range)[:n_dim],
+        "d0": rng.integers(0, 1000, n_dim),
+        "d1": rng.integers(0, 1000, n_dim),
+        "d2": rng.integers(0, 1000, n_dim),
+    }
+
+
+def _set_groupby_col2(df):
+    df["groupby_col2"] = df["col0"] % 5
+    return df
+
+
+RELATIONAL_QUERIES = {
+    # asv TimeQuery, and the same filter as a boolean mask
+    "query": lambda pd, d, d2: d.query("col0 > 50 & col1 < 30"),
+    "filter_mask": lambda pd, d, d2: d[(d.col0 > 50) & (d.col1 < 30)],
+    # asv TimeArithmetic.time_is_in
+    "isin": lambda pd, d, d2: d.isin([0, 2]),
+    # asv TimeSortValues, and two keys in opposite directions
+    "sort_values": lambda pd, d, d2: d.sort_values("col0", kind="stable"),
+    "sort_values_two_keys": lambda pd, d, d2: d.sort_values(["col0", "col1"], ascending=[True, False]),
+    # asv TimeConcat
+    "concat": lambda pd, d, d2: pd.concat([d, d2]),
+}
+
+
+def _relational_run(name: str, fn, rows: int) -> None:
+    """Run ``fn(port module)`` and ``fn(pandas)``, hold the results equal
+    exactly, and print one line of times."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    defaults = tqc.DEFAULTS_TO_PANDAS
+    torch.cuda.reset_peak_memory_stats()
+    result, port_ms = host_ms(lambda: fn(tpd))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if tqc.DEFAULTS_TO_PANDAS != defaults:
+        raise AssertionError(f"{name}: the query defaulted to pandas")
+    assert_on_cuda(result._query_compiler, name)
+    got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+    del result
+    free_device_memory()
+    t0 = time.perf_counter()
+    want = fn(pandas)
+    pandas_ms = (time.perf_counter() - t0) * 1e3
+    assert_same_pandas(got, want, name, exact=True)
+    emit({"phase": "relational", "query": name, "rows": rows, "out_rows": len(want),
+          "out_cols": int(want.shape[1]), "port_ms": port_ms, "pandas_ms": pandas_ms,
+          "to_pandas_ms": to_pandas_ms, "device_peak_gib": round(peak_gib, 3),
+          "match": True})
+    del got, want
+    gc.collect()
+
+
+def phase_relational(rows: int, seed: int) -> int:
+    """The asv relational suite at ``rows`` rows through
+    ``modin_tpu_torch.pandas``, each result equal to pandas'; returns the
+    bincount launches of the phase (the multi-key groupby's)."""
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+
+    t_phase = time.perf_counter()
+    gk.LAUNCHES = 0
+    tqc.DEFAULTS_TO_PANDAS = 0
+
+    # one asv frame (TimeQuery's seed) serves the filters, isin and sorts,
+    # and is the first half of the concat
+    p1 = _pandas_frame(make_frame_data(rows, seed + 8))
+    p2 = _pandas_frame(make_frame_data(rows, seed + 6))
+    t1, t2 = tpd.from_pandas(p1), tpd.from_pandas(p2)
+    frames = {tpd: (t1, t2)}
+    for name, fn in RELATIONAL_QUERIES.items():
+        _relational_run(
+            name, lambda pd: fn(pd, *frames.get(pd, (p1, p2))), rows
+        )
+    del t2, frames
+    p2 = None
+    free_device_memory()
+
+    # asv TimeGroupByMultiColumn: make_frame(ngroups=20), then the
+    # __setitem__ of a computed column and a two-key groupby
+    groupby_col = np.random.default_rng(seed + 20).integers(0, 20, rows)
+    p1["groupby_col"] = groupby_col
+    t1["groupby_col"] = groupby_col
+    del groupby_col
+    _relational_run(
+        "setitem_groupby_multi_sum",
+        lambda pd: _set_groupby_col2(t1 if pd is tpd else p1).groupby(
+            ["groupby_col", "groupby_col2"]).sum(),
+        rows,
+    )
+    del t1, p1
+    free_device_memory()
+
+    # the star schema: a fact frame (the recipe plus a key uniform in
+    # [0, 1.1 rows/10)) joined to a dimension of rows/10 unique keys; about
+    # 9% of the fact rows miss, so the left join promotes the dimension's
+    # int columns to float64
+    n_dim = rows // 10
+    key_range = n_dim * 11 // 10
+    fact_data = make_frame_data(rows, seed + 12)
+    fact_data["key"] = np.random.default_rng(seed + 13).integers(0, key_range, rows)
+    pf = _pandas_frame(fact_data)
+    pd_dim = _pandas_frame(dim_frame(n_dim, key_range, seed + 14))
+    tf, td = tpd.from_pandas(pf), tpd.from_pandas(pd_dim)
+    for how in ("inner", "left"):
+        _relational_run(
+            f"merge_star_{how}",
+            lambda pd, how=how: (tf if pd is tpd else pf).merge(
+                td if pd is tpd else pd_dim, on="key", how=how),
+            rows,
+        )
+    del tf, td, pf, pd_dim
+    free_device_memory()
+
+    # the asv TimeMerge recipe itself: many-to-many on 100 key values,
+    # 125 000 rows x 5002 columns out (at 1e8 rows it would give 5e13)
+    pl = _pandas_frame(make_frame_data(5000, 3, cols=5000))
+    pr = _pandas_frame(make_frame_data(2500, 4, cols=3))
+    tl, tr = tpd.from_pandas(pl), tpd.from_pandas(pr)
+    for how in ("inner", "left"):
+        _relational_run(
+            f"merge_asv_{how}",
+            lambda pd, how=how: (tl if pd is tpd else pl).merge(
+                tr if pd is tpd else pr, on="col0", how=how),
+            5000,
+        )
+    del tl, tr, pl, pr
+    free_device_memory()
+
+    launches, defaults = gk.LAUNCHES, tqc.DEFAULTS_TO_PANDAS
+    emit({"phase": "relational", "bincount_launches": launches,
+          "defaults_to_pandas": defaults,
+          "seconds": time.perf_counter() - t_phase})
+    if launches == 0:
+        raise AssertionError("the relational path never launched the bincount kernel")
+    if defaults != 0:
+        raise AssertionError(f"{defaults} relational queries defaulted to pandas")
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
+    """``launches`` maps each path (``main``, ``relational``) to the bincount
+    launches of its run; ``launches`` of the line is the main path's."""
     by_width = kernel["by_width"]
     main = by_width[100]
     return {"kernels": [{
@@ -500,7 +682,8 @@ def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
         "route": "cuda",
         "source": "modin_tpu_torch/ops/cuda/csrc/bincount.cu",
         "replaces": "modin_tpu/ops/pallas/groupby_kernels.py:29",
-        "launches": launches["bincount"],
+        "launches": launches["main"],
+        "launches_by_path": launches,
         "exact": True,
         "max_abs_err": kernel["max_abs_err"],
         "n": rows,
@@ -557,8 +740,13 @@ def main(argv=None) -> int:
         emit({"phase": "main", "note": f"host memory {mem_available_gib():.0f} GiB "
               f"cannot hold the 1e8-row frames: rows cut to {rows}"})
     kernel = phase_kernel(args.rows, args.seed)
-    launches = phase_main(rows, args.seed, have_pandas)
+    launches = {"main": phase_main(rows, args.seed, have_pandas)["bincount"]}
     phase_float(args.float_rows, args.seed, have_pandas)
+    if not have_pandas:
+        print("chip_smoke: the relational phase needs pandas, its reference",
+              file=sys.stderr)
+        return 1
+    launches["relational"] = phase_relational(rows, args.seed)
     print(smi, flush=True)
     emit(kernels_line(kernel, launches, args.rows))
     emit({"ok": True, "device": {

@@ -242,6 +242,127 @@ class TorchDataframe:
             self._index,
         )
 
+    # ------------------------------------------------------------------ #
+    # Row selection and concatenation
+    #
+    # A column these produce carries no host cache: the JAX package gathers
+    # the host copy beside the device one, host work that the query would
+    # pay for every row.  ``to_pandas`` fetches such a column instead.
+    # ------------------------------------------------------------------ #
+
+    def take_rows_positional(self, positions: Any) -> "TorchDataframe":
+        """Gather rows by position: a slice, or ints (negative from the end)."""
+        n = len(self)
+        if isinstance(positions, slice):
+            positions = np.arange(*positions.indices(n), dtype=np.int64)
+        else:
+            positions = np.asarray(positions, dtype=np.int64)
+            positions = np.where(positions < 0, positions + n, positions)
+            if len(positions) and (positions.min() < 0 or positions.max() >= n):
+                raise IndexError(f"positions out of bounds for {n} rows")
+        return self._take_host_positions(positions)
+
+    def _take_host_positions(self, pos_arr: np.ndarray) -> "TorchDataframe":
+        from modin_tpu_torch.ops.structural import gather_columns
+
+        device_idx = [i for i, c in enumerate(self._columns) if c.is_device]
+        datas, n_out = gather_columns(
+            [self._columns[i].data for i in device_idx], pos_arr
+        )
+        new_columns: List[Column] = list(self._columns)
+        for i, d in zip(device_idx, datas):
+            new_columns[i] = DeviceColumn(d, self._columns[i].pandas_dtype, length=n_out)
+        for i, col in enumerate(self._columns):
+            if not col.is_device:
+                new_columns[i] = HostColumn(col.data.take(pos_arr))
+        new_index = self._index.map_after(lambda idx: idx.take(pos_arr), n_out)
+        return self.with_columns(new_columns, index=new_index, nrows=n_out)
+
+    def filter_rows_mask(self, mask: np.ndarray) -> "TorchDataframe":
+        """Boolean-mask rows with a host mask (its positions go to the
+        device once, for every column's gather)."""
+        mask = np.asarray(mask)
+        if len(mask) != len(self):
+            raise ValueError(f"Item wrong length {len(mask)} instead of {len(self)}.")
+        return self._take_host_positions(np.nonzero(mask)[0])
+
+    def filter_rows_mask_device(self, mask: torch.Tensor) -> "TorchDataframe":
+        """Boolean-filter rows on the device with a device mask; the only
+        host sync is the kept count."""
+        from modin_tpu_torch.ops.structural import compact_rows
+
+        device_idx = [i for i, c in enumerate(self._columns) if c.is_device]
+        datas, _, positions = compact_rows(
+            [self._columns[i].data for i in device_idx], mask, len(self)
+        )
+        return self._with_gathered(device_idx, datas, positions)
+
+    def take_rows_device(self, positions: torch.Tensor, index: Optional[LazyIndex] = None) -> "TorchDataframe":
+        """Rows by a device positions tensor (a sort's permutation).
+        ``index`` replaces the row labels; by default they are this frame's,
+        taken lazily."""
+        from modin_tpu_torch.ops.structural import gather_columns_device
+
+        device_idx = [i for i, c in enumerate(self._columns) if c.is_device]
+        datas = gather_columns_device([self._columns[i].data for i in device_idx], positions)
+        return self._with_gathered(device_idx, datas, positions, index)
+
+    def _with_gathered(
+        self,
+        device_idx: List[int],
+        datas: List[torch.Tensor],
+        positions: torch.Tensor,
+        index: Optional[LazyIndex] = None,
+    ) -> "TorchDataframe":
+        """This frame's rows at device ``positions``: ``datas`` are its
+        device columns ``device_idx`` already gathered; host columns and
+        the row labels fetch the positions once, when first needed."""
+        n_out = int(positions.shape[0])
+        new_columns: List[Column] = list(self._columns)
+        for i, d in zip(device_idx, datas):
+            new_columns[i] = DeviceColumn(d, self._columns[i].pandas_dtype, length=n_out)
+
+        host_positions_cache: Dict[str, np.ndarray] = {}
+
+        def host_positions() -> np.ndarray:
+            if "pos" not in host_positions_cache:
+                host_positions_cache["pos"] = TorchWrapper.materialize(positions)
+            return host_positions_cache["pos"]
+
+        for i, col in enumerate(self._columns):
+            if not col.is_device:
+                new_columns[i] = HostColumn(col.data.take(host_positions()))
+        if index is None:
+            index = self._index.map_after(lambda idx: idx.take(host_positions()), n_out)
+        return self.with_columns(new_columns, index=index, nrows=n_out)
+
+    def concat_rows(self, others: List["TorchDataframe"]) -> "TorchDataframe":
+        """Row-wise concat of frames whose columns line up one to one with
+        equal dtypes, all on the device; the row labels append lazily."""
+        from modin_tpu_torch.ops.structural import concat_columns
+
+        frames = [self, *others]
+        for ci in range(self.num_cols):
+            cols = [f._columns[ci] for f in frames]
+            if not all(c.is_device for c in cols) or len({c.data.dtype for c in cols}) != 1:
+                raise ValueError("concat_rows takes device columns of one dtype each")
+        lengths = [len(f) for f in frames]
+        datas, total = concat_columns(
+            [[c.data for c in f._columns] for f in frames], lengths
+        )
+        new_columns: List[Column] = [
+            DeviceColumn(d, c.pandas_dtype, length=total)
+            for c, d in zip(self._columns, datas)
+        ]
+        lazies = [f._index for f in frames]
+
+        def build_index() -> Any:
+            return lazies[0].get().append([lz.get() for lz in lazies[1:]])
+
+        return self.with_columns(
+            new_columns, index=LazyIndex(build_index, total), nrows=total
+        )
+
     def get_column(self, position: int) -> Column:
         return self._columns[position]
 

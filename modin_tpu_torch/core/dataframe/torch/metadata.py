@@ -1,8 +1,9 @@
 """Lazy row labels for the torch frame.
 
 The port's counterpart of ``modin_tpu/core/dataframe/tpu/metadata.py``.  A
-row index is a pandas Index, a thunk that builds one, the default range of
-``length`` rows, or the sorted key arrays of a groupby result.  pandas is
+row index is a pandas Index, a thunk that builds one (a filter, sort or
+concat maps its input's index lazily), the default range of ``length``
+rows, or the sorted key arrays of a groupby result.  pandas is
 imported only when somebody asks for the Index itself, so the frame and the
 kernels below it run without pandas.
 """
@@ -50,6 +51,12 @@ class LazyIndex:
         index = cls(build, len(arrays[0]))
         index.arrays, index.names = arrays, names
         return index
+
+    def map_after(self, fn: Callable[[Any], Any], length: Optional[int] = None) -> "LazyIndex":
+        """A new LazyIndex applying ``fn`` to this one when materialized
+        (a filter's, sort's or gather's row labels stay a thunk until
+        ``to_pandas`` asks for them)."""
+        return LazyIndex(lambda: fn(self.get()), length)
 
     @property
     def is_materialized(self) -> bool:

@@ -14,6 +14,9 @@ Pandas semantic deltas, as in the JAX package:
 - int floordiv/mod by a zero divisor promote to float64 in pandas 3 — a
   data-dependent dtype that the query compiler sends to pandas; the kernels'
   zero-masking only backstops divisors known nonzero at dispatch.
+
+The logical ops ``&``/``|``/``^`` and ``invert`` keep the JAX package's
+names (``__and__``, ...), which are also the query compiler's method names.
 """
 
 from __future__ import annotations
@@ -127,15 +130,26 @@ def _build_ops() -> Dict[str, Callable]:
         "le": _promoted(lambda x, y: x <= y),
         "gt": _promoted(lambda x, y: x > y),
         "ge": _promoted(lambda x, y: x >= y),
+        "__and__": _promoted(lambda x, y: x & y),
+        "__or__": _promoted(lambda x, y: x | y),
+        "__xor__": _promoted(lambda x, y: x ^ y),
+        "__rand__": _promoted(lambda x, y: y & x),
+        "__ror__": _promoted(lambda x, y: y | x),
+        "__rxor__": _promoted(lambda x, y: y ^ x),
         # unary
         "abs": torch.abs,
         "negative": torch.neg,
+        # logical not of bool, bitwise not of ints
+        "invert": torch.bitwise_not,
     }
 
 
+_UNARY = ("abs", "negative", "invert")
+
 _OPS: Dict[str, Callable] = _build_ops()
 
-BINARY_OPS = frozenset(k for k in _OPS if k not in ("abs", "negative"))
+BINARY_OPS = frozenset(k for k in _OPS if k not in _UNARY)
+LOGICAL_OPS = frozenset(k for k in BINARY_OPS if k.startswith("__"))
 
 
 def binary_op_columns(op_name: str, cols: List[torch.Tensor], other: Any) -> List[torch.Tensor]:

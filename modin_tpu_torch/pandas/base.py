@@ -1,9 +1,10 @@
 """Shared surface of the port's ``DataFrame`` and ``Series``.
 
 The port's counterpart of ``modin_tpu/pandas/base.py``, cut to the main
-path: arithmetic and comparison methods with their dunders, ``abs``,
-negation, and the ``sum``/``mean``/``count``/``min``/``max`` reductions.
-Every method hands its work to the query compiler.
+path: arithmetic and comparison methods with their dunders, the logical
+``&``/``|``/``^``/``~``, ``abs``, negation, ``isin``, and the
+``sum``/``mean``/``count``/``min``/``max`` reductions.  Every method hands
+its work to the query compiler.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ _DUNDERS = {
     "__eq__": "eq", "__ne__": "ne", "__lt__": "lt", "__le__": "le",
     "__gt__": "gt", "__ge__": "ge",
 }
+_LOGICAL_DUNDERS = ("__and__", "__rand__", "__or__", "__ror__", "__xor__", "__rxor__")
 
 
 class ModinAPI:
@@ -103,6 +105,14 @@ class BasePandasDataset:
     def __neg__(self) -> Any:
         return self._wrap(self._query_compiler.negative())
 
+    def __invert__(self) -> Any:
+        return self._wrap(self._query_compiler.invert())
+
+    def isin(self, values: Any) -> Any:
+        """Whether each element is in ``values`` (a literal list runs on the
+        device; a Series, frame or dict goes to pandas)."""
+        return self._wrap(self._query_compiler.isin(self._to_compiler(values)))
+
     def _reduce(self, op: str, **kwargs: Any) -> Any:
         return self._wrap(getattr(self._query_compiler, op)(**kwargs))
 
@@ -152,9 +162,20 @@ def _make_dunder(name: str, op: str):
     return method
 
 
+def _make_logical(name: str):
+    # pandas' logical dunders take no axis: the compiler gets none either
+    def method(self, other: Any):
+        return self._binary_op(name, other)
+
+    method.__name__ = name
+    return method
+
+
 for _op in _ARITH_OPS:
     setattr(BasePandasDataset, _op, _make_arith(_op))
 for _op in _CMP_OPS:
     setattr(BasePandasDataset, _op, _make_cmp(_op))
 for _name, _op in _DUNDERS.items():
     setattr(BasePandasDataset, _name, _make_dunder(_name, _op))
+for _name in _LOGICAL_DUNDERS:
+    setattr(BasePandasDataset, _name, _make_logical(_name))

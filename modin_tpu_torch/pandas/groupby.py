@@ -14,14 +14,7 @@ import numpy as np
 from pandas.api.types import is_list_like
 
 from modin_tpu_torch.pandas.base import BasePandasDataset
-
-
-def _hashable(obj: Any) -> bool:
-    try:
-        hash(obj)
-    except TypeError:
-        return False
-    return True
+from modin_tpu_torch.utils import hashable
 
 
 class DataFrameGroupBy:
@@ -54,14 +47,14 @@ class DataFrameGroupBy:
         columns = self._df.columns
         if isinstance(by, BasePandasDataset):
             return by._query_compiler, False
-        if _hashable(by) and not isinstance(by, tuple):
+        if hashable(by) and not isinstance(by, tuple):
             if by in columns:
                 return [by], True
             return by, False
         if is_list_like(by) and not isinstance(by, np.ndarray):
             by_list = list(by)
             if all(
-                _hashable(o) and not isinstance(o, BasePandasDataset) and o in columns
+                hashable(o) and not isinstance(o, BasePandasDataset) and o in columns
                 for o in by_list
             ):
                 return by_list, True

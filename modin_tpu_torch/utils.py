@@ -34,3 +34,12 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 def has_torch_dtype(dtype: np.dtype) -> bool:
     return np.dtype(dtype) in _NP_TO_TORCH
+
+
+def hashable(obj) -> bool:
+    """Whether ``obj`` can be a label (a dict key)."""
+    try:
+        hash(obj)
+    except TypeError:
+        return False
+    return True

@@ -99,6 +99,31 @@ def test_core_and_ops_run_without_pandas():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_relational_core_runs_without_pandas():
+    # filter, sort, concat, isin and merge below the pandas API, pandas
+    # unimportable: row labels stay lazy, nothing asks pandas for them
+    proc = _run_python(
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "import numpy as np, modin_tpu_torch\n"
+        "modin_tpu_torch.set_device('cpu')\n"
+        "from modin_tpu_torch.core.storage_formats.torch.query_compiler import TorchQueryCompiler\n"
+        "qc = TorchQueryCompiler.from_numpy_columns({'k': np.array([3, 1, 2, 1]), 'v': np.array([1., 2., 3., 4.])})\n"
+        "col = lambda q, i: q._modin_frame.get_column(i).to_numpy().tolist()\n"
+        "f = qc.getitem_array(qc.gt(1).getitem_column_array(['k']))\n"
+        "assert col(f, 1) == [1.0, 3.0], col(f, 1)\n"
+        "s = qc.sort_rows_by_column_values(['k', 'v'], ascending=[True, False])\n"
+        "assert col(s, 1) == [4.0, 2.0, 3.0, 1.0], col(s, 1)\n"
+        "c = qc.concat(0, [qc])\n"
+        "assert col(c, 0) == [3, 1, 2, 1] * 2\n"
+        "assert col(qc.isin([1]), 0) == [False, True, False, True]\n"
+        "m = qc.merge(qc, on='k', how='inner')\n"
+        "assert col(m, 0) == [3, 1, 1, 2, 1, 1], col(m, 0)\n"
+        "assert col(m, 2) == [1.0, 2.0, 4.0, 3.0, 2.0, 4.0], col(m, 2)\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.fixture
 def cuda_default():
     Device.put("cuda")
