@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of modin_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--rows N] [--float-rows N] [--seed S]
+    python3 chip_smoke.py [--rows N] [--earlier-rows N] [--float-rows N] [--seed S]
+                          [--phases main,float,relational,arithmetic]
 
 Phases, one JSON object per line each:
 
@@ -13,7 +14,7 @@ Phases, one JSON object per line each:
              overflow value, and all codes in one slot; times of the
              kernel, the plain version and ``torch.bincount`` (medians of 5
              runs after a warm-up, CUDA events) beside the bound.
-4. main    - the asv main path (``make_frame((rows, 10), ngroups=g)`` for
+4. main    - the asv main path (``make_frame((N, 10), ngroups=g)`` for
              g in 100 and 10 000, plus a key of range 1e6) through
              ``modin_tpu_torch.pandas``: from_pandas, add/mul/mod/abs,
              df1 + df2, gt, sum/mean/count, groupby count/size/sum/mean,
@@ -23,19 +24,38 @@ Phases, one JSON object per line each:
 5. float   - float keys with NaN and float values with NaN (1e7 rows):
              groupby sum/mean/count under dropna True/False and the skipna
              reductions; the group mean twice, bit for bit.
-6. relational - the asv relational suite at ``--rows`` rows through
+6. relational - the asv relational suite at ``--earlier-rows`` rows through
              ``modin_tpu_torch.pandas``: ``query`` and the same boolean
              mask, ``isin``, ``sort_values`` on one key and on two keys in
              opposite directions, ``concat`` of two frames, ``__setitem__``
              of ``col0 % 5`` and a two-key groupby sum, a star-schema
-             ``merge`` (1e8-row fact, 1e7-row dimension with a unique key,
+             ``merge`` (N-row fact, N/10-row dimension with a unique key,
              inner and left) and the asv ``TimeMerge`` recipe (5000 x 5000
              against 2500 x 3 on ``col0``, inner and left).  Every result
              equals pandas exactly, index included, no query defaults to
              pandas, and every value column stays on ``cuda``.  Needs
              pandas, the reference it is held against.
+7. arithmetic - asv ``TimeArithmetic`` on ``make_frame((rows, 10))`` (1e8
+             rows by default): sum, count, median, nunique, mean, mode,
+             add/mul/mod(2) at ``axis=0`` and ``axis=1``, abs and isin
+             (which take no axis), ``quantile([0.1, 0.5, 0.9])`` and
+             ``describe()`` on the device, each against pandas (ints
+             exactly, floats to rtol 1e-12); the row-wise ``nunique``,
+             ``mode`` and ``median``, per-row loops in pandas, against numpy
+             at full size and against pandas on the first 1e5 rows.  No query
+             defaults to pandas, and each ``nunique``/``mode`` along axis 0
+             launches the bincount kernel at least once per column.  Then
+             reads through ``iloc``, ``loc`` and ``head`` at full size, on
+             the device, and ``apply``, ``aggregate`` with a callable and
+             ``transpose`` at asv's Big unary shape (1e6 x 10; 1e5 rows for
+             ``axis=1``), each defaulting to pandas exactly once.
 
-Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
+The main-path and relational phases run at ``--earlier-rows`` (2e7 by
+default) so that the whole script stays well inside its time limit; the
+kernel check and the arithmetic phase run at ``--rows``.  ``--phases`` picks
+the phases after the kernel check for a quick run; only a run of all four
+prints the result lines.  Then the card's name and power limit, one
+``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
 file, it exits non-zero and prints no result.
@@ -672,9 +692,220 @@ def phase_relational(rows: int, seed: int) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 7. the rest of asv TimeArithmetic, the pandas defaults, indexing
+# ---------------------------------------------------------------------- #
+
+# per-row pandas loops: the row-wise nunique/mode are held against pandas on
+# this many leading rows (and against numpy at full size)
+PANDAS_ROW_SLICE = 100_000
+# asv's Big unary shape (asv_bench/benchmarks/utils.py: UNARY_SHAPES)
+DEFAULTED_ROWS = 1_000_000
+NUMPY_CHUNK_ROWS = 5_000_000
+
+ARITHMETIC_QUERIES = {
+    # nunique and mode before median: a column with a sorted representation
+    # (median, quantile and describe build one) answers them from it, and
+    # the histogram path with the bincount kernel is for a fresh column
+    **{f"{op}_axis{a}": (lambda d, op=op, a=a: getattr(d, op)(axis=a))
+       for op in ("sum", "count", "nunique", "mode", "median", "mean") for a in (0, 1)},
+    **{f"{op}_axis{a}": (lambda d, op=op, a=a: getattr(d, op)(2, axis=a))
+       for op in ("add", "mul", "mod") for a in (0, 1)},
+    # abs and isin take no axis: asv's two axis params run the same query
+    "abs": lambda d: d.abs(),
+    "isin": lambda d: d.isin([0, 2]),
+    "quantile": lambda d: d.quantile([0.1, 0.5, 0.9]),
+    "describe": lambda d: d.describe(),
+}
+# pandas answers these with a Python loop over the rows (nunique and mode
+# apply a Series method per row; median(axis=1) goes through numpy's
+# nanmedian, which applies itself along the axis): numpy holds them at full
+# size, pandas on the first PANDAS_ROW_SLICE rows
+NUMPY_REFERENCED = ("nunique_axis1", "mode_axis1", "median_axis1")
+
+
+def row_reference(name: str, block: np.ndarray, ncols_out: int) -> np.ndarray:
+    """numpy's answer for one block of rows of an int frame: ``np.sort``
+    along the rows, then adjacent differences (nunique) or, for the mode,
+    how often each sorted value occurs in its row."""
+    if name == "median_axis1":
+        return np.median(block, axis=1)
+    xs = np.ascontiguousarray(np.sort(block, axis=1).T)  # (columns, rows)
+    k = len(xs)
+    new = [np.ones(xs.shape[1], dtype=bool)] + [xs[j] != xs[j - 1] for j in range(1, k)]
+    if name == "nunique_axis1":
+        return np.sum(new, axis=0)
+    count = []
+    for j in range(k):
+        c = np.zeros(xs.shape[1], dtype=np.int16)
+        for q in range(k):
+            c += xs[q] == xs[j]
+        count.append(c)
+    best = np.max(count, axis=0)
+    want = np.full((xs.shape[1], ncols_out), np.nan)
+    slot = np.zeros(xs.shape[1], dtype=np.int64)
+    for j in range(k):
+        # the modal values of each row, ascending, then NaN
+        rows = np.flatnonzero(new[j] & (count[j] == best))
+        want[rows, slot[rows]] = xs[j][rows]
+        slot[rows] += 1
+    return want
+
+
+def check_rows_numpy(name: str, got, values: np.ndarray) -> float:
+    """Hold a row-wise result of the port against numpy,
+    ``NUMPY_CHUNK_ROWS`` rows at a time; returns numpy's ms."""
+    if values.dtype.kind not in "iu":
+        raise AssertionError(f"{name}: the numpy reference takes int columns")
+    out = got.to_numpy()
+    numpy_s = 0.0
+    for start in range(0, len(values), NUMPY_CHUNK_ROWS):
+        block = values[start:start + NUMPY_CHUNK_ROWS]
+        t0 = time.perf_counter()
+        want = row_reference(name, block, out.shape[1] if out.ndim == 2 else 0)
+        numpy_s += time.perf_counter() - t0
+        assert_same_values(out[start:start + len(block)], want, f"{name} rows {start}+",
+                           exact=name != "median_axis1")
+    return numpy_s * 1e3
+
+
+def check_rows_pandas(name: str, got, p) -> None:
+    """The first ``PANDAS_ROW_SLICE`` rows against pandas' own loop."""
+    head = p.iloc[:PANDAS_ROW_SLICE]
+    if name != "mode_axis1":
+        want = getattr(head, name[: -len("_axis1")])(axis=1)
+        assert_same_pandas(got.iloc[:PANDAS_ROW_SLICE], want, name)
+        return
+    want = head.mode(axis=1)
+    part = got.iloc[:PANDAS_ROW_SLICE]
+    if part.iloc[:, want.shape[1]:].notna().to_numpy().any():
+        raise AssertionError(f"{name}: modes beyond pandas' on the first rows")
+    assert_same_values(part.iloc[:, : want.shape[1]].to_numpy(np.float64),
+                       want.to_numpy(np.float64), name, exact=True)
+
+
+def phase_arithmetic(rows: int, seed: int) -> int:
+    """asv TimeArithmetic at ``rows`` x 10 on the device against pandas (and
+    numpy for the row-wise loops), indexing reads, and the three queries
+    that default to pandas; returns the phase's bincount launches."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+
+    t_phase = time.perf_counter()
+    gk.LAUNCHES = 0
+    tqc.DEFAULTS_TO_PANDAS = 0
+    p = _pandas_frame(make_frame_data(rows, seed + 30))
+    t, from_ms = host_ms(lambda: tpd.from_pandas(p))
+    assert_on_cuda(t._query_compiler, "from_pandas")
+    emit({"phase": "arithmetic", "rows": rows, "query": "from_pandas", "port_ms": from_ms})
+    values = None
+    for name, fn in ARITHMETIC_QUERIES.items():
+        launches = gk.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        result, port_ms = host_ms(lambda: fn(t))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launched = gk.LAUNCHES - launches
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"{name}: the query defaulted to pandas")
+        assert_on_cuda(result._query_compiler, name)
+        if name in ("nunique_axis0", "mode_axis0") and launched < p.shape[1]:
+            raise AssertionError(f"{name}: {launched} bincount launches for {p.shape[1]} columns")
+        got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+        del result
+        free_device_memory()
+        rec = {"phase": "arithmetic", "query": name, "rows": rows, "out_shape": list(got.shape),
+               "port_ms": port_ms, "to_pandas_ms": to_pandas_ms,
+               "device_peak_gib": round(peak_gib, 3), "bincount_launches": launched}
+        if name in NUMPY_REFERENCED:
+            if values is None:
+                values = np.ascontiguousarray(p.to_numpy())
+            rec["numpy_ms"] = check_rows_numpy(name, got, values)
+            check_rows_pandas(name, got, p)
+            rec["pandas_ms"] = None
+            rec["pandas_rows_checked"] = PANDAS_ROW_SLICE
+        else:
+            t0 = time.perf_counter()
+            want = fn(p)
+            rec["pandas_ms"] = (time.perf_counter() - t0) * 1e3
+            assert_same_pandas(got, want, name)
+            del want
+        rec["match"] = True
+        emit(rec)
+        del got
+        gc.collect()
+    del values
+    launches = gk.LAUNCHES
+
+    # indexing reads at full size: positional and boolean, on the device
+    reads = {
+        "iloc_step_cols": lambda d: d.iloc[::7, [0, 3]],
+        "loc_mask_cols": lambda d: d.loc[d.col0 > 50, ["col1", "col2"]],
+        "head": lambda d: d.head(),
+    }
+    for name, fn in reads.items():
+        torch.cuda.reset_peak_memory_stats()
+        result, port_ms = host_ms(lambda: fn(t))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"{name}: the read defaulted to pandas")
+        assert_on_cuda(result._query_compiler, name)
+        got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+        del result
+        t0 = time.perf_counter()
+        want = fn(p)
+        pandas_ms = (time.perf_counter() - t0) * 1e3
+        assert_same_pandas(got, want, name, exact=True)
+        emit({"phase": "arithmetic", "query": name, "rows": rows, "out_shape": list(got.shape),
+              "port_ms": port_ms, "pandas_ms": pandas_ms, "to_pandas_ms": to_pandas_ms,
+              "device_peak_gib": round(peak_gib, 3), "match": True})
+        del got, want
+    del t, p
+    free_device_memory()
+
+    # the three queries that default to pandas, once each
+    small = make_frame_data(DEFAULTED_ROWS, seed + 31)
+    defaulted = {
+        "apply_axis0": (lambda d: d.apply(lambda c: c.sum(), axis=0), DEFAULTED_ROWS),
+        "aggregate_axis0": (lambda d: d.aggregate(lambda c: c.sum(), axis=0), DEFAULTED_ROWS),
+        "transpose": (lambda d: d.transpose(), DEFAULTED_ROWS),
+        "apply_axis1": (lambda d: d.apply(lambda c: c.sum(), axis=1), PANDAS_ROW_SLICE),
+        "aggregate_axis1": (lambda d: d.aggregate(lambda c: c.sum(), axis=1), PANDAS_ROW_SLICE),
+    }
+    for name, (fn, n) in defaulted.items():
+        p = pandas.DataFrame({k: v[:n] for k, v in small.items()})
+        t = tpd.from_pandas(p)
+        before = tqc.DEFAULTS_TO_PANDAS
+        result, port_ms = host_ms(lambda: fn(t))
+        counted = tqc.DEFAULTS_TO_PANDAS - before
+        if counted != 1:
+            raise AssertionError(f"{name}: {counted} defaults to pandas, not 1")
+        compiler = type(result._query_compiler).__name__
+        got = tpd.to_pandas(result)
+        t0 = time.perf_counter()
+        want = fn(p)
+        pandas_ms = (time.perf_counter() - t0) * 1e3
+        assert_same_pandas(got, want, name, exact=True)
+        emit({"phase": "arithmetic", "query": name, "rows": n, "out_shape": list(got.shape),
+              "compiler": compiler, "defaults_to_pandas": counted,
+              "port_ms": port_ms, "pandas_ms": pandas_ms, "match": True})
+        del t, p, result, got, want
+    free_device_memory()
+    emit({"phase": "arithmetic", "bincount_launches": launches,
+          "defaults_to_pandas_on_device_queries": 0,
+          "seconds": time.perf_counter() - t_phase})
+    if launches == 0:
+        raise AssertionError("the arithmetic path never launched the bincount kernel")
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
-    """``launches`` maps each path (``main``, ``relational``) to the bincount
-    launches of its run; ``launches`` of the line is the main path's."""
+    """``launches`` maps each path (``main``, ``relational``, ``arithmetic``)
+    to the bincount launches of its run; ``launches`` of the line is the main
+    path's."""
     by_width = kernel["by_width"]
     main = by_width[100]
     return {"kernels": [{
@@ -704,10 +935,16 @@ def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", type=int, default=10**8,
-                        help="rows of the main-path frames and kernel inputs")
+                        help="rows of the kernel inputs and of the arithmetic phase")
+    parser.add_argument("--earlier-rows", type=int, default=2 * 10**7,
+                        help="rows of the main-path and relational phases")
     parser.add_argument("--float-rows", type=int, default=10**7)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default="main,float,relational,arithmetic",
+                        help="comma-separated phases after the kernel check "
+                        "(the result lines need all four)")
     args = parser.parse_args(argv)
+    phases = set(args.phases.split(","))
 
     import torch
 
@@ -732,21 +969,32 @@ def main(argv=None) -> int:
     except ImportError:
         have_pandas = False
 
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    rows = args.rows
+    rows, earlier_rows = args.rows, args.earlier_rows
     if rows >= 10**8 and mem_available_gib() < 60:
         rows = 5 * 10**7
-        emit({"phase": "main", "note": f"host memory {mem_available_gib():.0f} GiB "
+        emit({"phase": "arithmetic", "note": f"host memory {mem_available_gib():.0f} GiB "
               f"cannot hold the 1e8-row frames: rows cut to {rows}"})
     kernel = phase_kernel(args.rows, args.seed)
-    launches = {"main": phase_main(rows, args.seed, have_pandas)["bincount"]}
-    phase_float(args.float_rows, args.seed, have_pandas)
+    launches = {}
+    if "main" in phases:
+        launches["main"] = phase_main(earlier_rows, args.seed, have_pandas)["bincount"]
+    if "float" in phases:
+        phase_float(args.float_rows, args.seed, have_pandas)
     if not have_pandas:
-        print("chip_smoke: the relational phase needs pandas, its reference",
-              file=sys.stderr)
+        print("chip_smoke: the relational and arithmetic phases need pandas, their "
+              "reference", file=sys.stderr)
         return 1
-    launches["relational"] = phase_relational(rows, args.seed)
+    if "relational" in phases:
+        launches["relational"] = phase_relational(earlier_rows, args.seed)
+    if "arithmetic" in phases:
+        launches["arithmetic"] = phase_arithmetic(rows, args.seed)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    if phases != {"main", "float", "relational", "arithmetic"}:
+        print("chip_smoke: a partial run prints no result", file=sys.stderr)
+        return 1
     print(smi, flush=True)
     emit(kernels_line(kernel, launches, args.rows))
     emit({"ok": True, "device": {

@@ -1,5 +1,10 @@
 """Settings of the torch port (see :mod:`modin_tpu_torch.config.envvars`)."""
 
-from modin_tpu_torch.config.envvars import Device, GroupbyRangeLimit, Parameter
+from modin_tpu_torch.config.envvars import (
+    Device,
+    GroupbyRangeLimit,
+    KernelRouterHistBound,
+    Parameter,
+)
 
-__all__ = ["Device", "GroupbyRangeLimit", "Parameter"]
+__all__ = ["Device", "GroupbyRangeLimit", "KernelRouterHistBound", "Parameter"]

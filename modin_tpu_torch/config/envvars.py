@@ -1,8 +1,9 @@
 """Configuration of the torch port, read from ``MODIN_TPU_TORCH_*`` variables.
 
 The port's counterpart of ``modin_tpu/config/envvars.py``, cut to what the
-port runs: the device that holds the columns, and the widest key range that
-groupby codes directly instead of sorting.
+port runs: the device that holds the columns, the widest key range that
+groupby codes directly instead of sorting, and the widest value range that
+``nunique``/``mode`` count with a histogram instead of sorting.
 """
 
 from __future__ import annotations
@@ -68,4 +69,20 @@ class GroupbyRangeLimit(Parameter):
         value = int(raw)
         if value < 1:
             raise ValueError(f"{cls.varname} must be >= 1, got {raw!r}")
+        return value
+
+
+class KernelRouterHistBound(Parameter):
+    """Largest value range (max - min + 1) for which an integer column takes
+    the O(n) histogram (the bincount kernel) for ``nunique``/``mode``
+    instead of the O(n log n) sort."""
+
+    varname = "MODIN_TPU_KERNEL_ROUTER_HIST_BOUND"
+    default = 1 << 20
+
+    @classmethod
+    def _parse(cls, raw: str) -> int:
+        value = int(raw)
+        if value <= 0:
+            raise ValueError(f"{cls.varname} must be > 0, got {raw!r}")
         return value

@@ -46,10 +46,12 @@ class DeviceColumn:
 
     ``host_cache`` keeps the original host numpy array of a column that came
     from the host unchanged: ``to_numpy`` answers from it without a device
-    fetch.  Any computed column has none.
+    fetch.  Any computed column has none.  ``_sorted_rep`` holds the
+    column's sorted representation once a sort-shaped reduction built it
+    (``ops/sorted_cache.py``); replacing ``data`` drops it.
     """
 
-    __slots__ = ("data", "pandas_dtype", "length", "host_cache")
+    __slots__ = ("_data", "pandas_dtype", "length", "host_cache", "_sorted_rep")
     is_device = True
 
     def __init__(
@@ -59,10 +61,21 @@ class DeviceColumn:
         length: Optional[int] = None,
         host_cache: Optional[np.ndarray] = None,
     ):
-        self.data = data
+        self._data = data
+        self._sorted_rep = None
         self.pandas_dtype = np.dtype(pandas_dtype)
         self.length = int(length) if length is not None else int(data.shape[0])
         self.host_cache = host_cache
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self._data
+
+    @data.setter
+    def data(self, value: torch.Tensor) -> None:
+        self._data = value
+        self._sorted_rep = None
+        self.host_cache = None
 
     @classmethod
     def from_numpy(cls, values: np.ndarray, device: Optional[torch.device] = None) -> "DeviceColumn":

@@ -35,6 +35,9 @@ class LazyIndex:
         self._length = length if length is not None else (
             len(value) if self._value is not None else None
         )
+        # whether the labels are a MultiIndex, where known without building
+        # them (a filter, sort or gather keeps its input's kind)
+        self._multi: Optional[bool] = False if value is None else None
 
     @classmethod
     def from_arrays(cls, arrays: Sequence[np.ndarray], names: Sequence[Any]) -> "LazyIndex":
@@ -50,13 +53,25 @@ class LazyIndex:
 
         index = cls(build, len(arrays[0]))
         index.arrays, index.names = arrays, names
+        index._multi = len(arrays) > 1
         return index
 
     def map_after(self, fn: Callable[[Any], Any], length: Optional[int] = None) -> "LazyIndex":
         """A new LazyIndex applying ``fn`` to this one when materialized
         (a filter's, sort's or gather's row labels stay a thunk until
         ``to_pandas`` asks for them)."""
-        return LazyIndex(lambda: fn(self.get()), length)
+        child = LazyIndex(lambda: fn(self.get()), length)
+        child._multi = self._multi
+        return child
+
+    def is_multi(self) -> bool:
+        """Whether the labels are a MultiIndex (builds them only when no
+        cheaper answer is known)."""
+        if self._multi is None:
+            import pandas
+
+            self._multi = isinstance(self.get(), pandas.MultiIndex)
+        return self._multi
 
     @property
     def is_materialized(self) -> bool:

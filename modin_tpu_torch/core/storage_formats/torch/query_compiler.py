@@ -6,23 +6,31 @@ query_compiler.py``, cut to the slices ported so far:
 - ``from_pandas``/``to_pandas``/``from_numpy_columns``;
 - elementwise binary ops incl. the logical ``&``/``|``/``^``
   (``_try_device_binary``), ``abs``/``negative``/``invert``;
-- column reductions (``_try_device_reduce``) and groupby aggregations on
-  key columns (``groupby_agg`` -> ``_try_device_groupby``);
+- column reductions sum/mean/count/min/max/prod/var/std/sem/any/all and
+  median, along either axis (``_try_device_reduce``); the sort-shaped
+  family over a shared sorted representation — ``nunique``, ``mode`` (both
+  axes), ``quantile``, ``describe`` — with the bincount kernel as the
+  histogram of bounded-range int columns;
+- groupby aggregations on key columns (``groupby_agg`` ->
+  ``_try_device_groupby``);
 - the relational paths: boolean-mask and positional row selection
   (``getitem_array``, ``getitem_row_array``, ``row_slice``,
   ``take_2d_positional``), ``setitem``/``insert``, ``rowwise_query``
   (``df.query``), ``concat``, ``isin``, ``merge`` (the device sort-merge
   join) and ``sort_rows_by_column_values``.
 
-Each device path gates on the dtypes and arguments it can honor exactly as
-the JAX compiler's gates do, and declines by returning None.  A declined
-operation defaults to pandas: the frame goes to pandas, pandas computes the
-result, and the result comes back through ``from_pandas``.  That is modin's
-correctness floor, not a device fallback; ``DEFAULTS_TO_PANDAS`` counts it.
-Where the JAX compiler has a device path the port does not have yet (string
-keys through dictionary codes, host-column payloads of sorts and joins,
-``axis=1`` reductions, ``as_index=False``, the planner, out-of-core and
-range-partition variants of sort and merge), the port defaults to pandas.
+It is a :class:`BaseQueryCompiler`: every other pandas method exists there
+and defaults to pandas.  Each device path gates on the dtypes and arguments
+it can honor exactly as the JAX compiler's gates do, and declines by
+returning None; a declined operation defaults to pandas too.  The frame
+goes to pandas, pandas computes the result, and the result comes back
+through ``from_pandas``.  That is modin's correctness floor, not a device
+fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
+made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
+device path the port does not have yet (string columns through dictionary
+codes, host-column payloads of sorts and joins, ``as_index=False``, the
+kernel router, the planner, out-of-core and range-partition variants of
+sort and merge), the port defaults to pandas.
 """
 
 from __future__ import annotations
@@ -38,7 +46,11 @@ from modin_tpu_torch.core.dataframe.torch.dataframe import (
     _is_device_dtype,
 )
 from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
-from modin_tpu_torch.ops import elementwise, reductions
+from modin_tpu_torch.core.storage_formats.base.query_compiler import (
+    BaseQueryCompiler,
+)
+from modin_tpu_torch.error_message import ErrorMessage
+from modin_tpu_torch.ops import elementwise, reductions, sorted_cache
 from modin_tpu_torch.ops import groupby as gb_ops
 from modin_tpu_torch.ops import join as join_ops
 from modin_tpu_torch.ops import sort as sort_ops
@@ -48,9 +60,11 @@ from modin_tpu_torch.utils import (
     hashable,
     numpy_dtype,
     torch_dtype,
+    try_cast_to_pandas,
 )
 
 # operations that went to pandas because no device path took them
+# (incremented only by ErrorMessage.default_to_pandas)
 DEFAULTS_TO_PANDAS = 0
 
 
@@ -69,7 +83,7 @@ def _insert_label(labels: Sequence[Any], loc: int, label: Any) -> Sequence[Any]:
     return labels.insert(loc, label)
 
 
-class TorchQueryCompiler:
+class TorchQueryCompiler(BaseQueryCompiler):
     """Query compiler over a :class:`TorchDataframe`.
 
     ``_shape_hint == "column"`` marks a compiler that stands for a Series.
@@ -109,27 +123,96 @@ class TorchQueryCompiler:
     def execute(self) -> None:
         self._modin_frame.finalize()
 
+    def finalize(self) -> None:
+        self._modin_frame.finalize()
+
+    def copy(self) -> "TorchQueryCompiler":
+        # frames are never written in place (every op builds a new one), so
+        # a copy shares the columns
+        return type(self)(self._modin_frame, self._shape_hint)
+
     # ------------------------------------------------------------------ #
     # Metadata
     # ------------------------------------------------------------------ #
 
-    def get_columns(self) -> Sequence[Any]:
-        return self._modin_frame.columns
+    def get_columns(self) -> Any:
+        from modin_tpu_torch.core.dataframe.torch.metadata import ensure_index
+
+        return ensure_index(self._modin_frame.columns)
 
     def get_index(self) -> Any:
         return self._modin_frame.index
 
+    def _set_columns(self, labels: Any) -> None:
+        from modin_tpu_torch.core.dataframe.torch.metadata import ensure_index
+
+        labels = ensure_index(labels)
+        frame = self._modin_frame
+        if len(labels) != frame.num_cols:
+            raise ValueError(
+                f"Length mismatch: Expected axis has {frame.num_cols} elements, "
+                f"new values have {len(labels)} elements"
+            )
+        self._modin_frame = frame.with_columns(list(frame._columns), labels)
+
+    def _set_index(self, labels: Any) -> None:
+        from modin_tpu_torch.core.dataframe.torch.metadata import ensure_index
+
+        labels = ensure_index(labels)
+        frame = self._modin_frame
+        if len(labels) != len(frame):
+            raise ValueError(
+                f"Length mismatch: Expected axis has {len(frame)} elements, "
+                f"new values have {len(labels)} elements"
+            )
+        self._modin_frame = frame.with_columns(
+            list(frame._columns), index=LazyIndex(labels, len(frame))
+        )
+
+    index = property(get_index, _set_index)
+    columns = property(get_columns, _set_columns)
+
+    @property
+    def dtypes(self) -> Any:
+        import pandas
+
+        frame = self._modin_frame
+        return pandas.Series(
+            [c.pandas_dtype for c in frame._columns], index=self.get_columns(), dtype=object
+        )
+
+    def get_axis_len(self, axis: int) -> int:
+        return len(self._modin_frame) if axis == 0 else self._modin_frame.num_cols
+
     def __len__(self) -> int:
         return len(self._modin_frame)
 
-    def getitem_column_array(self, labels: Sequence[Any]) -> "TorchQueryCompiler":
+    def has_multiindex(self, axis: int = 0) -> bool:
+        if axis == 0:
+            return self._modin_frame._index.is_multi()
+        return super().has_multiindex(axis)
+
+    def columnarize(self) -> "TorchQueryCompiler":
+        """Series normal form without building the row labels of a
+        one-column frame (the base class asks for them)."""
         frame = self._modin_frame
-        positions = []
-        for label in labels:
-            pos = frame.column_position(label)
-            if len(pos) != 1:
-                raise KeyError(label)
-            positions.append(pos[0])
+        if frame.num_cols == 1 and len(frame) != 1:
+            return type(self)(frame, "column")
+        return super().columnarize()
+
+    def getitem_column_array(
+        self, key: Any, numeric: bool = False, ignore_order: bool = False
+    ) -> "TorchQueryCompiler":
+        frame = self._modin_frame
+        if numeric:
+            positions = [int(i) for i in key]
+        else:
+            positions = []
+            for label in key:
+                pos = frame.column_position(label)
+                if not pos:
+                    raise KeyError(label)
+                positions.extend(pos)
         return type(self)(frame.select_columns_by_position(positions))
 
     def _device(self) -> torch.device:
@@ -157,14 +240,11 @@ class TorchQueryCompiler:
         return result
 
     def _default_to_pandas(self, fn: Callable, *args: Any, **kwargs: Any) -> Any:
-        """Run ``fn(pandas_obj, *args, **kwargs)`` in pandas; compilers
-        among the arguments go to pandas too."""
-        global DEFAULTS_TO_PANDAS
-        DEFAULTS_TO_PANDAS += 1
-        args = tuple(
-            a.to_pandas_object() if isinstance(a, TorchQueryCompiler) else a
-            for a in args
-        )
+        """Run ``fn(pandas_obj, *args, **kwargs)`` in pandas, counted;
+        compilers among the arguments go to pandas too (a column-shaped one
+        as a Series)."""
+        ErrorMessage.default_to_pandas(f"`{getattr(fn, '__name__', 'operation')}`")
+        args = try_cast_to_pandas(args)
         return self._from_pandas_result(fn(self.to_pandas_object(), *args, **kwargs))
 
     # ================================================================== #
@@ -311,16 +391,19 @@ class TorchQueryCompiler:
     def _try_device_reduce(
         self, op: str, axis: Any, skipna: bool, numeric_only: bool, kwargs: dict
     ) -> Optional["TorchQueryCompiler"]:
-        if op not in reductions.REDUCTIONS:
+        if op not in reductions.REDUCTIONS and op != "median":
             return None
         if kwargs.get("min_count", 0) not in (0, -1):
             return None
         if kwargs.get("bool_only"):
             return None
+        if set(kwargs) - {"min_count", "bool_only", "ddof"}:
+            return None
+        ddof = int(kwargs.get("ddof", 1))
         frame = self._modin_frame
         if len(frame) == 0 or frame.num_cols == 0:
             return None
-        if axis not in (0, None):
+        if axis not in (0, 1, None):
             return None
         positions = []
         for i, col in enumerate(frame._columns):
@@ -339,12 +422,33 @@ class TorchQueryCompiler:
         except TypeError:
             labels = [list(labels)[i] for i in positions]
         arrays = [frame._columns[i].data for i in positions]
-        values = reductions.reduce_columns(
-            op, arrays, len(frame), skipna=skipna, cast_bool=op in ("sum", "mean")
-        )
+        # bool columns: pandas computes these over ints
+        cast_bool = op in ("sum", "prod", "mean", "median", "var", "std", "sem")
+        if axis == 1:
+            kinds = {frame._columns[i].pandas_dtype.kind for i in positions}
+            if op not in reductions.AXIS1_REDUCTIONS or ("b" in kinds and len(kinds) > 1):
+                # pandas interleaves bool with numbers as object rows
+                return None
+            data = reductions.reduce_axis1(
+                op, arrays, skipna=skipna, ddof=ddof, cast_bool=cast_bool
+            )
+            result = DeviceColumn(data, numpy_dtype(data.dtype), length=len(frame))
+            return type(self)(
+                TorchDataframe([result], [MODIN_UNNAMED_SERIES_LABEL], frame._index),
+                "column",
+            )
+        if op == "median":
+            cols = [frame._columns[i] for i in positions]
+            values = reductions.median_columns(cols, len(frame), skipna=skipna)
+        else:
+            values = reductions.reduce_columns(
+                op, arrays, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool
+            )
         out_values = [v.item() for v in values]
         if op == "count":
             result = np.asarray(out_values, dtype=np.int64)
+        elif op in ("any", "all"):
+            result = np.asarray(out_values, dtype=bool)
         elif len({isinstance(v, bool) for v in out_values}) > 1:
             # pandas keeps bools mixed with numbers as object
             result = np.asarray(out_values, dtype=object)
@@ -356,34 +460,253 @@ class TorchQueryCompiler:
         qc._shape_hint = "column"
         return qc
 
-    def _reduce(self, op: str, axis: Any = 0, skipna: bool = True, numeric_only: bool = False, **kwargs: Any):
-        result = self._try_device_reduce(op, axis, skipna, numeric_only, kwargs)
-        if result is not None:
-            return result
-        if op == "count":
-            return self._default_to_pandas(
-                lambda o: o.count(axis=axis, numeric_only=numeric_only, **kwargs)
-            )
-        return self._default_to_pandas(
-            lambda o: getattr(o, op)(
-                axis=axis, skipna=skipna, numeric_only=numeric_only, **kwargs
-            )
+    # ---------------- sort-shaped reductions (axis 0 and 1) ------------- #
+
+    def _all_numeric_device(self) -> bool:
+        """Whether every column is a numeric device column (string columns
+        join the sort-shaped family through dictionary codes in the JAX
+        package, a later slice of the port)."""
+        frame = self._modin_frame
+        return bool(frame.num_cols) and all(
+            c.is_device and c.pandas_dtype.kind in "biuf" for c in frame._columns
         )
 
-    def sum(self, **kwargs: Any):
-        return self._reduce("sum", **kwargs)
+    def _sort_reduce_specs(self) -> Optional[list]:
+        """Specs for ``plan_sort_reduce``, or None unless every column is a
+        numeric device column."""
+        if not self._all_numeric_device():
+            return None
+        return [{"col": c} for c in self._modin_frame._columns]
 
-    def mean(self, **kwargs: Any):
-        return self._reduce("mean", **kwargs)
+    def _row_result(self, data: torch.Tensor) -> "TorchQueryCompiler":
+        """A Series-shaped compiler of one device column per row."""
+        frame = self._modin_frame
+        col = DeviceColumn(data, numpy_dtype(data.dtype), length=len(frame))
+        return type(self)(
+            TorchDataframe([col], [MODIN_UNNAMED_SERIES_LABEL], frame._index), "column"
+        )
 
-    def min(self, **kwargs: Any):
-        return self._reduce("min", **kwargs)
+    def _try_sort_reduce_nunique(self, dropna: bool) -> Optional["TorchQueryCompiler"]:
+        """Distinct count per column: bounded-range ints through one O(n)
+        histogram (the bincount kernel), the rest through the shared sorted
+        representation."""
+        specs = self._sort_reduce_specs()
+        if specs is None:
+            return None
+        frame = self._modin_frame
+        n = len(frame)
+        plans = reductions.plan_sort_reduce("nunique", specs, n)
+        counts = reductions.nunique_planned(plans, n, bool(dropna))
+        qc = type(self).from_numpy_columns(
+            {MODIN_UNNAMED_SERIES_LABEL: np.asarray(counts, dtype=np.int64)},
+            index=self.get_columns(), device=self._device(),
+        )
+        qc._shape_hint = "column"
+        return qc
 
-    def max(self, **kwargs: Any):
-        return self._reduce("max", **kwargs)
+    def nunique(self, axis: int = 0, dropna: bool = True, **kwargs: Any):
+        frame = self._modin_frame
+        if not kwargs and len(frame) and self._all_numeric_device():
+            if axis == 0:
+                result = self._try_sort_reduce_nunique(bool(dropna))
+                if result is not None:
+                    return result
+            elif axis == 1:
+                data = reductions.nunique_axis1(
+                    [c.data for c in frame._columns], len(frame), bool(dropna)
+                )
+                return self._row_result(data)
+        return super().nunique(axis=axis, dropna=dropna, **kwargs)
 
-    def count(self, **kwargs: Any):
-        return self._reduce("count", **kwargs)
+    def _try_sort_reduce_mode(self, dropna: bool) -> Optional["TorchQueryCompiler"]:
+        """Modal values per column: bounded-range ints through O(n)
+        histograms (no cap on the mode set: every modal value falls out of
+        the bin mask), the rest through the sorted representation's
+        run-length pass.  ``dropna=False`` (NaN competes for the max count)
+        only where every column plans "hist"."""
+        import pandas
+
+        specs = self._sort_reduce_specs()
+        if specs is None:
+            return None
+        frame = self._modin_frame
+        n = len(frame)
+        plans = reductions.plan_sort_reduce("mode", specs, n)
+        if not dropna and any(p.strategy != "hist" for p in plans):
+            return None
+        per_col = reductions.mode_planned(plans, n, bool(dropna))
+        if any(v is None for v in per_col):
+            return None
+        pieces = [
+            pandas.Series(np.asarray(values).astype(col.pandas_dtype, copy=False), name=i)
+            for i, ((values, _), col) in enumerate(zip(per_col, frame._columns))
+        ]
+        # positional names first: duplicate labels must survive the concat
+        result = pandas.concat(pieces, axis=1)
+        result.columns = self.get_columns()
+        return type(self).from_pandas(result, self._device())
+
+    def mode(self, axis: int = 0, numeric_only: bool = False, dropna: bool = True, **kwargs: Any):
+        frame = self._modin_frame
+        if axis == 0 and not kwargs and len(frame) and frame.num_cols:
+            # numeric_only changes nothing on an all-numeric frame
+            result = self._try_sort_reduce_mode(bool(dropna))
+            if result is not None:
+                return result
+        if axis == 1 and dropna and not kwargs and len(frame) and self._all_numeric_device():
+            cols, m_max, uniform = reductions.mode_axis1(
+                [c.data for c in frame._columns], len(frame)
+            )
+            if m_max > 0:
+                integral = all(c.pandas_dtype.kind in "biu" for c in frame._columns)
+                out_dtype = np.dtype(np.int64) if (uniform and integral) else np.dtype(np.float64)
+                new_cols = [
+                    DeviceColumn(
+                        d.to(torch_dtype(out_dtype)) if d.dtype != torch_dtype(out_dtype) else d,
+                        out_dtype, length=len(frame),
+                    )
+                    for d in cols
+                ]
+                import pandas
+
+                return type(self)(
+                    TorchDataframe(new_cols, pandas.RangeIndex(m_max), frame._index)
+                )
+        return super().mode(axis=axis, numeric_only=numeric_only, dropna=dropna, **kwargs)
+
+    def quantile(
+        self,
+        q: Any = 0.5,
+        axis: int = 0,
+        numeric_only: bool = False,
+        interpolation: str = "linear",
+        method: str = "single",
+        **kwargs: Any,
+    ):
+        from pandas.api.types import is_list_like
+
+        frame = self._modin_frame
+        qs = list(q) if is_list_like(q) else [q]
+        device_ok = (
+            axis in (0, "index")
+            and method == "single"
+            and not kwargs
+            and len(frame)
+            and interpolation in ("linear", "lower", "higher", "midpoint", "nearest")
+            and len(qs) > 0
+            and all(isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, bool) for v in qs)
+            and all(0 <= float(v) <= 1 for v in qs)
+        )
+        if device_ok:
+            result = self._try_sort_reduce_quantile(
+                q, [float(v) for v in qs], str(interpolation), bool(numeric_only),
+                bool(is_list_like(q)),
+            )
+            if result is not None:
+                return result
+        return super().quantile(
+            q=q, axis=axis, numeric_only=numeric_only, interpolation=interpolation,
+            method=method, **kwargs,
+        )
+
+    def _try_sort_reduce_quantile(
+        self, q: Any, qs: list, interpolation: str, numeric_only: bool, list_like: bool
+    ) -> Optional["TorchQueryCompiler"]:
+        """Quantiles over the shared sorted representation (one sort per
+        column for the whole sort-shaped family)."""
+        import pandas
+
+        frame = self._modin_frame
+        positions = []
+        for i, col in enumerate(frame._columns):
+            # bool columns: pandas' quantile raises on them
+            if col.is_device and col.pandas_dtype.kind in "iuf":
+                positions.append(i)
+            elif numeric_only and col.pandas_dtype.kind not in "biufc":
+                continue  # pandas drops it
+            else:
+                return None
+        if not positions:
+            return None
+        cols = [frame._columns[i] for i in positions]
+        vals = reductions.quantile_columns(cols, len(frame), qs, interpolation)
+        labels = self.get_columns()[positions]
+        if list_like:
+            # positional dict first: duplicate labels must survive
+            result = pandas.DataFrame(dict(enumerate(vals)), index=pandas.Index(qs))
+            result.columns = labels
+            return type(self).from_pandas(result, self._device())
+        result = pandas.Series([arr[0] for arr in vals], index=labels, name=q)
+        qc = type(self).from_pandas(result.to_frame(), self._device())
+        qc._shape_hint = "column"
+        return qc
+
+    def describe(self, percentiles: Any = None, include: Any = None, exclude: Any = None):
+        """Numeric describe = count/mean/std + quantiles + min/max, every
+        piece a device reduction, laid out in pandas' rows on the host.
+        Non-numeric columns and include/exclude keep the pandas default."""
+        import pandas
+
+        frame = self._modin_frame
+        if percentiles is None:
+            qs = [0.25, 0.5, 0.75]
+        else:
+            try:
+                # pandas uses the given percentiles as they are (no implicit
+                # median), sorted
+                qs = sorted(float(p) for p in percentiles)
+            except (TypeError, ValueError):
+                qs = None
+            if qs is not None and len(set(qs)) != len(qs):
+                qs = None  # pandas raises on duplicate percentiles
+        if (
+            qs is not None
+            and include is None
+            and exclude is None
+            and len(frame)
+            and frame.num_cols
+            and all(c.is_device and c.pandas_dtype.kind in "iuf" for c in frame._columns)
+            and all(0.0 <= q <= 1.0 for q in qs)
+        ):
+            arrays = [c.data for c in frame._columns]
+            n = len(frame)
+            stats = {}
+            for op in ("count", "mean", "std", "min", "max"):
+                vals = reductions.reduce_columns(op, arrays, n, skipna=True, ddof=1)
+                stats[op] = [float(np.asarray(v)) for v in vals]
+            # columns, not tensors: the quantiles consume (and seed) the
+            # shared sorted representation
+            qvals = reductions.quantile_columns(list(frame._columns), n, qs, "linear")
+            rows = ["count", "mean", "std", "min"]
+            data_rows = [stats["count"], stats["mean"], stats["std"], stats["min"]]
+            for j, q in enumerate(qs):
+                rows.append(f"{q * 100:g}%")
+                data_rows.append([float(v[j]) for v in qvals])
+            rows.append("max")
+            data_rows.append(stats["max"])
+            result = pandas.DataFrame(
+                np.asarray(data_rows, dtype=np.float64),
+                index=pandas.Index(rows),
+                columns=self.get_columns(),
+            )
+            return type(self).from_pandas(result, self._device())
+        return super().describe(percentiles=percentiles, include=include, exclude=exclude)
+
+    # Beyond this many rows a transpose leaves the columnar device store:
+    # the result would have as many columns, and one device tensor per
+    # column at 1e5 and more costs minutes and gigabytes of Python objects.
+    # The wide result rides a host (native) compiler instead.
+    _TRANSPOSE_WIDE_COLS = 4096
+
+    def transpose(self, *args: Any, **kwargs: Any):
+        if len(self._modin_frame) > self._TRANSPOSE_WIDE_COLS:
+            from modin_tpu_torch.core.storage_formats.native.query_compiler import (
+                NativeQueryCompiler,
+            )
+
+            ErrorMessage.default_to_pandas("`DataFrame.transpose`")
+            return NativeQueryCompiler(self.to_pandas().T)
+        return super().transpose(*args, **kwargs)
 
     # ------------------------------- groupby -------------------------- #
 
@@ -610,16 +933,18 @@ class TorchQueryCompiler:
         return None
 
     def setitem(self, axis: int, key: Any, value: Any) -> "TorchQueryCompiler":
-        """Set the column ``key`` (``axis=0``; setting a row is a later
-        slice of the port)."""
+        """Set the column ``key`` on the device (``axis=0``); a row
+        (``axis=1``) defaults to pandas."""
         if axis != 0:
-            raise NotImplementedError("setitem sets columns (axis=0) only")
+            return super().setitem(axis, key, value)
         frame = self._modin_frame
         col = self._column_from_value(value) if len(frame) > 0 else None
         positions = frame.column_position(key)
         if col is not None and len(positions) <= 1:
             new_cols = list(frame._columns)
             if positions:
+                # the replaced column's sorted representation goes with it
+                sorted_cache.invalidate(new_cols[positions[0]])
                 new_cols[positions[0]] = col
                 return type(self)(frame.with_columns(new_cols))
             new_cols.append(col)
@@ -1021,9 +1346,13 @@ class TorchQueryCompiler:
 
 def _make_binary_override(op: str):
     def method(self: TorchQueryCompiler, other: Any, **kwargs: Any):
+        kwargs.pop("squeeze_other", None)  # a column-shaped compiler squeezes itself
         result = self._try_device_binary(op, other, kwargs)
         if result is not None:
             return result
+        if op.startswith("__"):
+            # dunder ops take only `other` (a Series aligns by index)
+            kwargs = {k: v for k, v in kwargs.items() if k not in ("axis", "level", "fill_value")}
         return self._default_to_pandas(
             lambda obj, oth: getattr(obj, op)(oth, **kwargs), other
         )
@@ -1034,3 +1363,47 @@ def _make_binary_override(op: str):
 
 for _op in sorted(elementwise.BINARY_OPS):
     setattr(TorchQueryCompiler, _op, _make_binary_override(_op))
+
+
+def _make_reduce_override(op: str):
+    def method(
+        self: TorchQueryCompiler,
+        axis: Any = 0,
+        skipna: bool = True,
+        numeric_only: bool = False,
+        **kwargs: Any,
+    ):
+        result = self._try_device_reduce(op, axis, skipna, numeric_only, kwargs)
+        if result is not None:
+            return result
+        # the pandas default (looked up per call: without pandas the base
+        # compiler registers no defaults)
+        base_method = getattr(BaseQueryCompiler, op)
+        return base_method(self, axis=axis, skipna=skipna, numeric_only=numeric_only, **kwargs)
+
+    method.__name__ = op
+    return method
+
+
+for _op in ["sum", "prod", "mean", "median", "min", "max", "var", "std", "sem"]:
+    setattr(TorchQueryCompiler, _op, _make_reduce_override(_op))
+
+
+def _make_nonskipna_reduce_override(op: str):
+    def method(self: TorchQueryCompiler, axis: Any = 0, **kwargs: Any):
+        skipna = kwargs.pop("skipna", True)
+        numeric_only = kwargs.pop("numeric_only", False)
+        result = self._try_device_reduce(op, axis, skipna, numeric_only, kwargs)
+        if result is not None:
+            return result
+        base_method = getattr(BaseQueryCompiler, op)
+        if op == "count":
+            return base_method(self, axis=axis, numeric_only=numeric_only, **kwargs)
+        return base_method(self, axis=axis, skipna=skipna, **kwargs)
+
+    method.__name__ = op
+    return method
+
+
+for _op in ["count", "any", "all"]:
+    setattr(TorchQueryCompiler, _op, _make_nonskipna_reduce_override(_op))

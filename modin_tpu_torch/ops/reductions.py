@@ -1,23 +1,40 @@
-"""Column reductions with pandas NaN semantics.
+"""Column reductions with pandas NaN semantics, row-wise reductions, and the
+sort-shaped family (median, quantile, nunique, mode).
 
-The port's counterpart of ``modin_tpu/ops/reductions.py`` (``_reduce_one``,
-``reduce_columns``), cut to sum/mean/count/min/max.  Columns are unpadded on
-one device, so the validity mask of the JAX package is gone; NaN handling,
-result dtypes and the float64 accumulation of ``mean`` are the same.  Torch's
-full reductions on CUDA take a fixed order, so a result repeats bit for bit
-from run to run.
+The port's counterpart of ``modin_tpu/ops/reductions.py``: ``_reduce_one``
+and ``reduce_columns``; ``reduce_axis1``; ``ColumnPlan``/``plan_sort_reduce``
+with the histogram and sorted-representation executors behind
+``nunique_planned``, ``mode_planned``, ``quantile_columns`` and
+``median_columns``; ``nunique_axis1`` and ``mode_axis1``.  Columns are
+unpadded on one device, so the validity masks of the JAX package are gone;
+NaN handling, result dtypes and the float64 accumulation are the same.
+Torch's full reductions on CUDA take a fixed order, so a result repeats bit
+for bit from run to run.
+
+The O(n) histogram of ``nunique``/``mode`` on bounded-range int columns
+(the JAX package's XLA scatter-add ``_jit_hist``) is the hand-written
+bincount kernel here (``ops/cuda/groupby_kernels.bincount``): one launch per
+column.  The rest composes torch library operations, as the JAX package's
+XLA programs do.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from modin_tpu_torch.parallel.engine import materialize as _engine_materialize
 
-REDUCTIONS = frozenset(["sum", "mean", "count", "min", "max"])
+REDUCTIONS = frozenset(
+    ["sum", "mean", "count", "min", "max", "prod", "var", "std", "sem", "any", "all"]
+)
+AXIS1_REDUCTIONS = frozenset(["sum", "mean", "min", "max", "count", "var", "std", "median"])
+
+# rows of the (rows, columns) matrix that one step of a row-wise sort takes:
+# it bounds the device memory of median/nunique/mode along axis 1
+AXIS1_CHUNK_ROWS = 10_000_000
 
 
 def _extreme(c: torch.Tensor, op: str, skipna: bool, nan_mask, n: int) -> torch.Tensor:
@@ -35,29 +52,54 @@ def _extreme(c: torch.Tensor, op: str, skipna: bool, nan_mask, n: int) -> torch.
     return torch.where(n_use == 0, nan, r)
 
 
-def _reduce_one(op: str, c: torch.Tensor, n: int, skipna: bool) -> torch.Tensor:
+def _reduce_one(op: str, c: torch.Tensor, n: int, skipna: bool, ddof: int = 1) -> torch.Tensor:
     """Reduce one column of ``n`` rows to a 0-d tensor."""
     is_f = c.dtype.is_floating_point
     nan_mask = torch.isnan(c) if is_f else None
+    use = ~nan_mask if (skipna and is_f) else None
+    if use is not None:
+        n_use = use.sum()
+    else:
+        n_use = torch.tensor(n, dtype=torch.int64, device=c.device)
+
+    def sel(x: torch.Tensor, neutral: float) -> torch.Tensor:
+        return x if use is None else torch.where(use, x, torch.full((), neutral, dtype=x.dtype, device=x.device))
+
     if op == "count":
         if nan_mask is None:
             return torch.tensor(n, dtype=torch.int64, device=c.device)
         return (~nan_mask).sum()
     if op == "sum":
-        if skipna and is_f:
-            return torch.where(nan_mask, torch.zeros((), dtype=c.dtype, device=c.device), c).sum()
-        return c.sum()
+        return sel(c, 0).sum()
+    if op == "prod":
+        return sel(c, 1).prod()
     if op in ("min", "max"):
         return _extreme(c, op, skipna, nan_mask, n)
-    if op == "mean":
-        x = c.to(torch.float64)
-        if is_f and skipna:
-            x = torch.where(nan_mask, 0.0, x)
-            n_use = n - nan_mask.sum()
-        else:
-            n_use = torch.tensor(n, dtype=torch.int64, device=c.device)
+    if op in ("mean", "var", "std", "sem"):
+        x = sel(c.to(torch.float64), 0.0)
         mean = x.sum() / n_use
-        return torch.where(n_use == 0, torch.full_like(mean, float("nan")), mean)
+        nan = torch.full_like(mean, float("nan"))
+        if op == "mean":
+            if is_f and not skipna:
+                return torch.where(nan_mask.any(), nan, mean)
+            return torch.where(n_use == 0, nan, mean)
+        d = sel(x - mean, 0.0)
+        m2s = (d * d).sum()
+        var = m2s / torch.clamp(n_use - ddof, min=1)
+        var = torch.where(n_use - ddof > 0, var, nan)
+        if is_f and not skipna:
+            var = torch.where(nan_mask.any(), nan, var)
+        if op == "var":
+            return var
+        if op == "std":
+            return torch.sqrt(var)
+        return torch.sqrt(var / n_use)
+    if op == "any":
+        truthy = torch.where(nan_mask, not skipna, c != 0) if is_f else (c if c.dtype == torch.bool else c != 0)
+        return truthy.any()
+    if op == "all":
+        truthy = torch.where(nan_mask, True, c != 0) if is_f else (c if c.dtype == torch.bool else c != 0)
+        return truthy.all()
     raise ValueError(op)
 
 
@@ -66,19 +108,455 @@ def reduce_columns(
     cols: List[torch.Tensor],
     n: int,
     skipna: bool = True,
+    ddof: int = 1,
     cast_bool: bool = False,
 ) -> list:
-    """Reduce each column (``n`` rows) to a scalar; returns 0-d numpy arrays.
+    """Reduce each column (``n`` rows) to a scalar; returns 0-d numpy arrays
+    after one fetch.
 
     ``cast_bool`` applies the pandas bool->int promotion of the arithmetic
     aggregations.
     """
     if op_name not in REDUCTIONS:
         raise ValueError(f"reduction {op_name!r} is not ported")
-    n, skipna = int(n), bool(skipna)
+    n, skipna, ddof = int(n), bool(skipna), int(ddof)
     results = []
     for c in cols:
         if cast_bool and c.dtype == torch.bool:
             c = c.to(torch.int64)
-        results.append(_reduce_one(op_name, c, n, skipna))
+        results.append(_reduce_one(op_name, c, n, skipna, ddof))
     return [np.asarray(r) for r in _engine_materialize(results)]
+
+
+# --------------------------------------------------------------------- #
+# Row-wise reductions (axis=1)
+# --------------------------------------------------------------------- #
+
+
+def _common_dtype(cols: List[torch.Tensor]) -> torch.dtype:
+    common = cols[0].dtype
+    for c in cols[1:]:
+        common = torch.promote_types(common, c.dtype)
+    return common
+
+
+def _sorted_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row sorted ascending with NaN at its tail, and the non-NaN count
+    per row (int64)."""
+    xs = torch.sort(x, dim=1).values  # torch sorts NaN above every value
+    if xs.dtype.is_floating_point:
+        nv = (~torch.isnan(xs)).sum(dim=1)
+    else:
+        nv = torch.full((xs.shape[0],), xs.shape[1], dtype=torch.int64, device=xs.device)
+    return xs, nv
+
+
+def _median_rows(x: torch.Tensor, skipna: bool) -> torch.Tensor:
+    """Row medians in float64: the mean of the two middle values, as numpy's
+    (nan)median takes it."""
+    out = torch.empty(x.shape[0], dtype=torch.float64, device=x.device)
+    for start in range(0, x.shape[0], AXIS1_CHUNK_ROWS):
+        part = x[start:start + AXIS1_CHUNK_ROWS].to(torch.float64)
+        xs, nv = _sorted_rows(part)
+        lo = torch.clamp((nv - 1) // 2, min=0)
+        hi = torch.clamp(nv // 2, min=0)
+        vlo = torch.gather(xs, 1, lo[:, None])[:, 0]
+        vhi = torch.gather(xs, 1, hi[:, None])[:, 0]
+        med = (vlo + vhi) / 2.0
+        bad = nv == 0
+        if not skipna:
+            bad = bad | (nv < xs.shape[1])
+        out[start:start + part.shape[0]] = torch.where(bad, float("nan"), med)
+    return out
+
+
+def reduce_axis1(
+    op_name: str,
+    cols: List[torch.Tensor],
+    skipna: bool = True,
+    ddof: int = 1,
+    cast_bool: bool = False,
+) -> torch.Tensor:
+    """Row-wise reduction across columns -> one device column, in pandas'
+    result dtype (the columns' common dtype for sum/min/max, float64 for
+    mean/var/std/median, int64 for count)."""
+    if op_name not in AXIS1_REDUCTIONS:
+        raise ValueError(f"row-wise reduction {op_name!r} is not ported")
+    skipna, ddof = bool(skipna), int(ddof)
+    if cast_bool:
+        cols = [c.to(torch.int64) if c.dtype == torch.bool else c for c in cols]
+    common = _common_dtype(cols)
+    k = len(cols)
+    if op_name == "count" and not common.is_floating_point:
+        return torch.full((cols[0].shape[0],), k, dtype=torch.int64, device=cols[0].device)
+    x = torch.stack([c.to(common) for c in cols], dim=1)
+    is_f = x.dtype.is_floating_point
+    if op_name == "count":
+        return (~torch.isnan(x)).sum(dim=1)
+    if op_name == "median":
+        return _median_rows(x, skipna)
+    nan_mask = torch.isnan(x) if (is_f and skipna) else None
+    if op_name == "sum":
+        return (x if nan_mask is None else torch.where(nan_mask, 0.0, x)).sum(dim=1)
+    if op_name in ("min", "max"):
+        if nan_mask is None:
+            if x.dtype == torch.bool:
+                return (torch.amin if op_name == "min" else torch.amax)(x.to(torch.uint8), dim=1).to(torch.bool)
+            return (torch.amin if op_name == "min" else torch.amax)(x, dim=1)
+        neutral = float("inf") if op_name == "min" else float("-inf")
+        r = (torch.amin if op_name == "min" else torch.amax)(torch.where(nan_mask, neutral, x), dim=1)
+        return torch.where(nan_mask.all(dim=1), float("nan"), r)
+    xf = x.to(torch.float64)
+    if nan_mask is None:
+        n_use = torch.full((x.shape[0],), float(k), dtype=torch.float64, device=x.device)
+    else:
+        xf = torch.where(nan_mask, 0.0, xf)
+        n_use = (~nan_mask).sum(dim=1).to(torch.float64)
+    mean = xf.sum(dim=1) / n_use
+    if op_name == "mean":
+        return mean
+    d = xf - mean[:, None]
+    if nan_mask is not None:
+        d = torch.where(nan_mask, 0.0, d)
+    var = (d * d).sum(dim=1) / (n_use - ddof)
+    var = torch.where(n_use - ddof > 0, var, float("nan"))
+    return var if op_name == "var" else torch.sqrt(var)
+
+
+# --------------------------------------------------------------------- #
+# Sort-shaped reductions (median / quantile / nunique / mode) over the
+# shared sorted representation, and the O(n) histogram fast path
+# --------------------------------------------------------------------- #
+#
+# Two strategies per column, planned before any work:
+#
+# - "hist":   bounded-range ints count occurrences with one O(n) histogram
+#             (the bincount kernel) — no sort;
+# - "cached"/"sort": the (sorted, n_valid) prefix is built once per column
+#             through ops/sort.sorted_valid and cached on the DeviceColumn
+#             (ops/sorted_cache.py), so median + quantile + nunique + mode
+#             on one column pay ONE O(n log n) sort, not four.
+#
+# The JAX package also has a "dict" strategy for dictionary-coded string
+# columns and asks a calibrated kernel router whether the device plan beats
+# pandas; both are later slices of the port, which always takes the device.
+
+
+class ColumnPlan(NamedTuple):
+    col: Any  # DeviceColumn carrying the values
+    strategy: str  # "hist", "cached" or "sort"
+    span: int  # histogram value-bin count (hist strategy only)
+    base: int  # histogram base value: bin = value - base
+
+
+def plan_sort_reduce(op: str, specs: List[dict], n: int) -> List[ColumnPlan]:
+    """One :class:`ColumnPlan` per column spec (``{"col": DeviceColumn}``)
+    for a sort-shaped ``op``.  Int and bool columns of ``nunique``/``mode``
+    are probed (one min/max pass each, one fetch) for a value range within
+    ``KernelRouterHistBound``; columns with a live sorted representation
+    plan as "cached"."""
+    from modin_tpu_torch.config import KernelRouterHistBound
+    from modin_tpu_torch.ops import sorted_cache
+
+    hist_bound = int(KernelRouterHistBound.get())
+    hist_ok = op in ("nunique", "mode")
+    plans: List[Any] = [None] * len(specs)
+    probe: List[int] = []
+    for i, spec in enumerate(specs):
+        col = spec["col"]
+        if sorted_cache.peek(col):
+            plans[i] = ColumnPlan(col, "cached", 0, 0)
+        elif hist_ok and col.pandas_dtype.kind in "biu":
+            probe.append(i)
+        else:
+            plans[i] = ColumnPlan(col, "sort", 0, 0)
+    if probe:
+        ranges = []
+        for i in probe:
+            c = specs[i]["col"].data
+            if c.dtype == torch.bool:
+                c = c.to(torch.int8)
+            ranges.append(torch.stack([c.min().to(torch.int64), c.max().to(torch.int64)]))
+        for i, (cmin, cmax) in zip(probe, _engine_materialize(ranges)):
+            cmin, cmax = int(cmin), int(cmax)
+            span = cmax - cmin + 1
+            if 0 < span <= hist_bound:
+                plans[i] = ColumnPlan(specs[i]["col"], "hist", span, cmin)
+            else:
+                plans[i] = ColumnPlan(specs[i]["col"], "sort", 0, 0)
+    return plans
+
+
+def _sorted_inputs(plans: List[ColumnPlan], n: int) -> dict:
+    """{plan index: (sorted values, n_valid)} for every sorted-strategy
+    plan; missing representations are built and cached on their columns."""
+    from modin_tpu_torch.ops import sorted_cache
+    from modin_tpu_torch.ops.sort import sorted_valid_columns
+
+    reps: dict = {}
+    missing = []
+    for i, p in enumerate(plans):
+        if p.strategy not in ("cached", "sort"):
+            continue
+        got = sorted_cache.get(p.col)
+        if got is None:
+            missing.append(i)
+        else:
+            reps[i] = got
+    built = sorted_valid_columns([plans[i].col.data for i in missing], int(n))
+    for i, pair in zip(missing, built):
+        sorted_cache.attach(plans[i].col, *pair)
+        reps[i] = pair
+    return reps
+
+
+def _nunique_sorted(xs: torch.Tensor, n_valid: torch.Tensor, n: int, dropna: bool) -> torch.Tensor:
+    idx = torch.arange(xs.shape[0], device=xs.device)
+    firsts = torch.ones_like(xs, dtype=torch.bool)
+    firsts[1:] = xs[1:] != xs[:-1]
+    count = (firsts & (idx < n_valid)).sum()
+    if xs.dtype.is_floating_point and not dropna:
+        count = count + (n_valid < n).to(count.dtype)
+    return count
+
+
+def _quantile_from_sorted(xs: torch.Tensor, n_valid: torch.Tensor, qs: torch.Tensor, interpolation: str) -> torch.Tensor:
+    """Quantiles of one column's (sorted, n_valid) representation — the one
+    interpolation behind both the quantile and the median paths (the JAX
+    package's formula, so the two agree bit for bit)."""
+    is_f = xs.dtype.is_floating_point
+    # fractional position of each q over the valid prefix
+    pos = qs * torch.clamp(n_valid - 1, min=0).to(torch.float64)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    if interpolation in ("lower", "higher", "nearest"):
+        # pandas keeps the column's own dtype here (int64 stays int64)
+        if interpolation == "lower":
+            idx = lo
+        elif interpolation == "higher":
+            idx = hi
+        else:  # nearest: half to even, as numpy
+            idx = torch.round(pos).to(torch.int64)
+        v = xs[idx]
+        if is_f:
+            v = torch.where(n_valid > 0, v, float("nan"))
+        return v
+    xs64 = xs.to(torch.float64)
+    vlo = xs64[lo]
+    vhi = xs64[hi]
+    if interpolation == "linear":
+        v = vlo + (vhi - vlo) * (pos - lo)
+    else:  # midpoint
+        v = (vlo + vhi) / 2.0
+    return torch.where(n_valid > 0, v, float("nan"))
+
+
+def _mode_sorted(xs: torch.Tensor, n_valid: torch.Tensor, k_bound: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(modal values in ``k_bound`` slots, ascending; how many there are)
+    by one run-length pass over the sorted values."""
+    n_pad = xs.shape[0]
+    idx = torch.arange(n_pad, device=xs.device)
+    valid = idx < n_valid
+    firsts = torch.ones_like(xs, dtype=torch.bool)
+    firsts[1:] = xs[1:] != xs[:-1]
+    firsts = firsts & valid
+    # run id per element; run lengths by a scatter-add of the valid rows
+    rid = torch.cumsum(firsts, 0) - 1
+    rid = torch.clamp(rid, min=0)
+    run_counts = torch.zeros(n_pad, dtype=torch.int64, device=xs.device)
+    run_counts.index_add_(0, rid, valid.to(torch.int64))
+    count_of = run_counts[rid]
+    max_count = torch.where(valid, count_of, 0).max()
+    is_modal = firsts & (count_of == max_count)
+    m = is_modal.sum()
+    # the modal values (already ascending) into k_bound slots; the rest land
+    # in a spare slot that is cut off
+    slot = torch.where(is_modal, torch.cumsum(is_modal, 0) - 1, k_bound)
+    slot = torch.clamp(slot, max=k_bound)
+    vals = torch.zeros(k_bound + 1, dtype=xs.dtype, device=xs.device)
+    vals.scatter_(0, slot, xs)
+    return vals[:k_bound], m
+
+
+def _hist_counts(p: ColumnPlan) -> torch.Tensor:
+    """Value counts of one hist-planned column over its ``span`` bins: the
+    bincount kernel on the card, its plain version on the CPU."""
+    from modin_tpu_torch.ops.cuda.groupby_kernels import bincount
+
+    c = p.col.data
+    if c.dtype == torch.bool:
+        c = c.to(torch.int8)
+    codes = (c.to(torch.int64) - int(p.base)).contiguous()
+    return bincount(codes, int(p.span))
+
+
+def nunique_planned(plans: List[ColumnPlan], n: int, dropna: bool = True) -> List[int]:
+    """Distinct count per planned column: one O(n) histogram for
+    bounded-range ints, the sorted adjacent difference for the rest."""
+    n, dropna = int(n), bool(dropna)
+    out: List[Any] = []
+    reps = _sorted_inputs(plans, n)
+    for i, p in enumerate(plans):
+        if p.strategy == "hist":
+            out.append((_hist_counts(p) > 0).sum())
+        else:
+            out.append(_nunique_sorted(*reps[i], n, dropna))
+    return [int(v) for v in _engine_materialize(out)]
+
+
+def mode_planned(plans: List[ColumnPlan], n: int, dropna: bool = True, k_bound: int = 1024) -> List[Any]:
+    """Per-column modal values, ascending (pandas' order).
+
+    Returns per column ``(values, nan_modal)`` — a host array of the modal
+    values and whether NaN ties the max count (always False here: int
+    columns have no NaN, and NaN-counting modes take the histogram only) —
+    or ``None`` where the device cannot represent the answer (the sorted
+    path's empty or over-``k_bound`` mode set); the caller defaults.  The
+    histogram path has no cap: the modal values fall out of the bin mask.
+    """
+    n, dropna = int(n), bool(dropna)
+    reps = _sorted_inputs(plans, n)
+    pending = []
+    for i, p in enumerate(plans):
+        if p.strategy == "hist":
+            counts = _hist_counts(p)
+            max_val = counts.max()
+            pending.append(((counts == max_val) & (counts > 0), max_val))
+        else:
+            pending.append(_mode_sorted(*reps[i], int(k_bound)))
+    results: List[Any] = []
+    for p, (a, b) in zip(plans, _engine_materialize(pending)):
+        if p.strategy == "hist":
+            if int(b) <= 0:
+                results.append(None)  # no rows: pandas' empty mode
+                continue
+            values = np.nonzero(np.asarray(a))[0].astype(np.int64) + int(p.base)
+            results.append((values, False))
+        else:
+            m = int(b)
+            results.append((np.asarray(a[:m]), False) if 0 < m <= int(k_bound) else None)
+    return results
+
+
+def quantile_columns(cols: List[Any], n: int, qs: List[float], interpolation: str = "linear") -> list:
+    """Quantiles per device COLUMN (the sorted representation caches on the
+    column) -> one ``(len(qs),)`` host array per column, in pandas' result
+    dtype: float64 for 'linear'/'midpoint', the column's own dtype for the
+    element-selecting 'lower'/'higher'/'nearest'."""
+    plans = [ColumnPlan(c, "sort", 0, 0) for c in cols]
+    reps = _sorted_inputs(plans, int(n))
+    results = []
+    for i, c in enumerate(cols):
+        q_t = torch.as_tensor(np.asarray(qs, dtype=np.float64), device=c.data.device)
+        results.append(_quantile_from_sorted(*reps[i], q_t, str(interpolation)))
+    return [np.asarray(r) for r in _engine_materialize(results)]
+
+
+def median_columns(cols: List[Any], n: int, skipna: bool = True) -> list:
+    """Median per device column over the shared sorted representation, with
+    pandas' ``skipna=False`` (any NaN -> NaN)."""
+    n = int(n)
+    plans = [ColumnPlan(c, "sort", 0, 0) for c in cols]
+    reps = _sorted_inputs(plans, n)
+    results = []
+    for i, c in enumerate(cols):
+        xs, n_valid = reps[i]
+        q_t = torch.tensor([0.5], dtype=torch.float64, device=xs.device)
+        v = _quantile_from_sorted(xs, n_valid, q_t, "linear")[0].to(torch.float64)
+        if not skipna:
+            v = torch.where(n_valid < n, float("nan"), v)
+        results.append(v)
+    return [np.asarray(r) for r in _engine_materialize(results)]
+
+
+def _axis1_matrix(cols: List[torch.Tensor]) -> torch.Tensor:
+    """Columns stacked into a (rows, k) matrix in their numpy common dtype
+    (pandas' axis-1 upcast rule; bool counts as int8)."""
+    from modin_tpu_torch.utils import numpy_dtype, torch_dtype
+
+    common = np.result_type(*[numpy_dtype(c.dtype) for c in cols])
+    if common.kind == "b":
+        common = np.dtype(np.int8)
+    t = torch_dtype(common)
+    return torch.stack([c.to(t) for c in cols], dim=1)
+
+
+def nunique_axis1(cols: List[torch.Tensor], n: int, dropna: bool = True) -> torch.Tensor:
+    """Row-wise distinct count across columns -> device int64 column: the
+    rows sorted, then their adjacent differences, ``AXIS1_CHUNK_ROWS`` rows
+    at a time."""
+    n = int(n)
+    out = torch.empty(n, dtype=torch.int64, device=cols[0].device)
+    for start in range(0, n, AXIS1_CHUNK_ROWS):
+        x = _axis1_matrix([c[start:start + AXIS1_CHUNK_ROWS] for c in cols])
+        xs, nv = _sorted_rows(x)
+        k = xs.shape[1]
+        j = torch.arange(1, k, device=xs.device)
+        news = (xs[:, 1:] != xs[:, :-1]) & (j[None, :] < nv[:, None])
+        distinct = torch.where(nv > 0, 1 + news.sum(dim=1), 0)
+        if not dropna and xs.dtype.is_floating_point:
+            distinct = distinct + (nv < k).to(distinct.dtype)
+        out[start:start + x.shape[0]] = distinct
+    return out
+
+
+def _mode_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """For each row of ``x``: its modal values in ascending order in the
+    first slots (zeros after), which slots hold one, and how many."""
+    nrow, k = x.shape
+    xs, nv = _sorted_rows(x)
+    j = torch.arange(k, device=x.device)
+    valid = j[None, :] < nv[:, None]
+    firsts = torch.ones_like(xs, dtype=torch.bool)
+    firsts[:, 1:] = xs[:, 1:] != xs[:, :-1]
+    firsts = firsts & valid
+    rid = torch.cumsum(firsts, dim=1) - 1
+    # run lengths without a 2-D scatter: k equality folds
+    run_counts = torch.stack([((rid == q) & valid).sum(dim=1) for q in range(k)], dim=1)
+    count_of = torch.gather(run_counts, 1, torch.clamp(rid, min=0))
+    max_count = torch.where(valid, count_of, 0).max(dim=1).values
+    is_modal = firsts & (count_of == max_count[:, None])
+    m = is_modal.sum(dim=1)
+    slot = torch.where(is_modal, torch.cumsum(is_modal, dim=1) - 1, k)
+    vals = torch.zeros((nrow, k + 1), dtype=xs.dtype, device=x.device)
+    vals.scatter_(1, slot, xs)
+    placed = torch.zeros((nrow, k + 1), dtype=torch.bool, device=x.device)
+    placed.scatter_(1, slot, torch.ones_like(is_modal))
+    return vals[:, :k], placed[:, :k], m
+
+
+def mode_axis1(cols: List[torch.Tensor], n: int) -> Tuple[List[torch.Tensor], int, bool]:
+    """Row-wise modes (``dropna=True``), ``AXIS1_CHUNK_ROWS`` rows at a time
+    so that the device memory stays bounded.
+
+    Returns (the result columns, the most modes of any row, whether every
+    row has that many).  Uniform rows keep the columns' dtype (no padding);
+    ragged ones come as float64 padded with NaN, as pandas upcasts them.
+    """
+    n = int(n)
+    k = len(cols)
+    device = cols[0].device
+    vals_t = placed_t = None
+    m_all = torch.empty(n, dtype=torch.int64, device=device)
+    for start in range(0, n, AXIS1_CHUNK_ROWS):
+        x = _axis1_matrix([c[start:start + AXIS1_CHUNK_ROWS] for c in cols])
+        vals, placed, m = _mode_rows(x)
+        if vals_t is None:
+            # column-major: each result column is one contiguous row
+            vals_t = torch.empty((k, n), dtype=vals.dtype, device=device)
+            placed_t = torch.empty((k, n), dtype=torch.bool, device=device)
+        stop = start + x.shape[0]
+        vals_t[:, start:stop] = vals.T
+        placed_t[:, start:stop] = placed.T
+        m_all[start:stop] = m
+        del x, vals, placed, m
+    m_max, uniform = _engine_materialize([m_all.max(), (m_all == m_all.max()).all()])
+    m_max, uniform = int(m_max), bool(uniform)
+    if m_max == 0:
+        return [], 0, uniform
+    if uniform:
+        out = vals_t[:m_max]
+    else:
+        out = torch.where(placed_t[:m_max], vals_t[:m_max].to(torch.float64), float("nan"))
+    del vals_t, placed_t
+    return [out[j] for j in range(m_max)], m_max, uniform

@@ -1,6 +1,8 @@
-"""Device sort: the stable multi-key permutation behind ``sort_values``.
+"""Device sort: the stable multi-key permutation behind ``sort_values``, and
+the sorted representation behind the sort-shaped reductions.
 
-The port's counterpart of ``modin_tpu/ops/sort.py::lexsort_permutation``.
+The port's counterpart of ``modin_tpu/ops/sort.py::lexsort_permutation`` and
+``sorted_valid``/``sorted_valid_columns``.
 Keys are ordered from the least significant to the most, each by one stable
 ``torch.sort``; a stable pass keeps the order the earlier passes made among
 its ties, and the first pass keeps the original row order.  A descending
@@ -16,7 +18,7 @@ is gone.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -63,3 +65,32 @@ def lexsort_permutation(
     if perm is None:
         raise ValueError("no sort keys")
     return perm
+
+
+def sorted_valid(c: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sorted values, n_valid): NaN sorts to the tail as +inf, so the first
+    ``n_valid`` entries are exactly the non-NaN data, ascending.  ``n_valid``
+    is a 0-d int64 tensor on the column's device.
+
+    The shared prefix of every sort-shaped reduction (median, quantile,
+    nunique, mode): ``ops/sorted_cache.py`` keeps it per column so that
+    consecutive ops on one column pay one sort.
+    """
+    if c.shape[0] != n:
+        raise ValueError(f"column of {c.shape[0]} rows for {n} rows")
+    if c.dtype == torch.bool:
+        c = c.to(torch.int8)  # 0/1 round-trips every caller
+    if c.dtype.is_floating_point:
+        nanm = torch.isnan(c)
+        x = torch.where(nanm, float("inf"), c)
+        n_valid = n - nanm.sum()
+    else:
+        x = c
+        n_valid = torch.tensor(n, dtype=torch.int64, device=c.device)
+    return torch.sort(x).values, n_valid
+
+
+def sorted_valid_columns(arrays: List[torch.Tensor], n: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """One (sorted values, n_valid) pair per column; callers cache the
+    pairs on their columns through ``ops/sorted_cache.attach``."""
+    return [sorted_valid(c, int(n)) for c in arrays]

@@ -3,7 +3,8 @@
 The port's counterpart of ``modin_tpu/pandas/groupby.py``, cut to
 ``count``/``size``/``sum``/``mean``/``min``/``max``.  The object holds
 (frame, by, groupby kwargs) and hands each aggregation to
-``TorchQueryCompiler.groupby_agg``.
+``TorchQueryCompiler.groupby_agg``; the compiler runs what it can on the
+device and defaults the rest to pandas, counted.
 """
 
 from __future__ import annotations
@@ -75,7 +76,12 @@ class DataFrameGroupBy:
             agg_kwargs=dict(agg_kwargs or {}),
             drop=drop,
         )
-        return BasePandasDataset._wrap(result_qc)
+        from modin_tpu_torch.pandas.dataframe import DataFrame
+        from modin_tpu_torch.pandas.series import Series
+
+        if result_qc._shape_hint == "column":
+            return Series(query_compiler=result_qc)
+        return DataFrame(query_compiler=result_qc)
 
     def sum(self, numeric_only: bool = False, min_count: int = 0):
         return self._groupby_agg("sum", {"numeric_only": numeric_only, "min_count": min_count})

@@ -44,8 +44,24 @@ def _imported_modules(path: pathlib.Path):
             yield node.module
 
 
+# the modules of the third slice: the base compiler that defaults to
+# pandas, the host-only compiler, the default methods, the API surface
+SLICE3_MODULES = [
+    "core/dataframe/algebra/default2pandas/default.py",
+    "core/storage_formats/base/query_compiler.py",
+    "core/storage_formats/native/query_compiler.py",
+    "error_message.py",
+    "ops/sorted_cache.py",
+    "pandas/indexing.py",
+    "pandas/plotting.py",
+    "pandas/series_utils.py",
+]
+
+
 def test_package_has_modules_to_scan():
-    assert len(list(PACKAGE.rglob("*.py"))) >= 20
+    assert len(list(PACKAGE.rglob("*.py"))) >= 30
+    scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    assert set(SLICE3_MODULES) <= scanned
 
 
 @pytest.mark.parametrize(
@@ -71,6 +87,22 @@ def _run_python(code: str, env_extra=None) -> subprocess.CompletedProcess:
 def test_import_leaves_jax_and_modin_tpu_out():
     proc = _run_python(
         "import sys, modin_tpu_torch.pandas\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'modin_tpu') "
+        "or m.startswith(('jax.', 'modin_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice3_modules_import_without_jax_or_modin_tpu():
+    names = [
+        "modin_tpu_torch." + m[: -len(".py")].replace("/", ".") for m in SLICE3_MODULES
+    ]
+    proc = _run_python(
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'modin_tpu') "
         "or m.startswith(('jax.', 'modin_tpu.'))]\n"
         "print(bad)\n"
