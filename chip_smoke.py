@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of modin_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--rows N] [--earlier-rows N] [--float-rows N] [--seed S]
-                          [--phases main,float,relational,arithmetic]
+    python3 chip_smoke.py [--rows N] [--earlier-rows N] [--float-rows N] [--io-rows N]
+                          [--seed S] [--phases main,float,relational,arithmetic,io]
 
 Phases, one JSON object per line each:
 
@@ -49,11 +49,26 @@ Phases, one JSON object per line each:
              the device, and ``apply``, ``aggregate`` with a callable and
              ``transpose`` at asv's Big unary shape (1e6 x 10; 1e5 rows for
              ``axis=1``), each defaulting to pandas exactly once.
+8. io      - files in and strings on the card at ``--io-rows`` (1e7) rows of
+             asv's ``str_int`` CSV shape (10 columns, three of them the
+             strings alpha/beta/gamma-delta): ``to_csv`` of the uploaded
+             frame, byte for byte pandas' file (asv ``TimeToCsv``);
+             ``read_csv`` of it through the native splitter and the
+             parallel parse; the dictionary encoding of the string columns,
+             timed apart; the README pipeline, groupby on string keys
+             (``size`` of two keys, ``as_index=False``, a string ``max``),
+             ``value_counts``, ``nunique``, ``unique``, comparisons with a
+             string, ``.str.startswith``/``.str.len``, ``isin``, a sort by a
+             string and an int key and a left merge with a 3-row string-keyed
+             dimension; then ``to_parquet`` and ``read_parquet`` against
+             pandas' round trip.  Every result equals pandas' exactly (float
+             means to rtol 1e-12), str dtypes and index included, nothing
+             defaults to pandas, and the bincount kernel launches.
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
 default) so that the whole script stays well inside its time limit; the
 kernel check and the arithmetic phase run at ``--rows``.  ``--phases`` picks
-the phases after the kernel check for a quick run; only a run of all four
+the phases after the kernel check for a quick run; only a run of all five
 prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
@@ -68,6 +83,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -290,6 +306,12 @@ def assert_same_pandas(got, want, what: str, exact: bool = False) -> None:
         g, w = got.iloc[:, i], want.iloc[:, i]
         if g.dtype != w.dtype:
             raise AssertionError(f"{what}[{label}]: dtype {g.dtype} != {w.dtype}")
+        if not isinstance(w.dtype, np.dtype):
+            # extension arrays (strings) compare in their own storage,
+            # missing values equal at equal positions
+            if not g.array.equals(w.array):
+                raise AssertionError(f"{what}[{label}]: values differ")
+            continue
         assert_same_values(g.to_numpy(), w.to_numpy(), f"{what}[{label}]", exact)
 
 
@@ -902,10 +924,209 @@ def phase_arithmetic(rows: int, seed: int) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 8. files in and strings on the card
+# ---------------------------------------------------------------------- #
+
+STRINGS = ("alpha", "beta", "gamma-delta")
+
+
+def str_int_frame_data(rows: int, seed: int) -> dict:
+    """asv's ``str_int`` CSV recipe (asv_bench/benchmarks/utils.py::
+    prepare_csv): 10 columns, every third from the second a choice of three
+    strings, the rest int64 in [0, 100)."""
+    rng = np.random.default_rng(seed)
+    return {
+        f"col{i}": rng.choice(STRINGS, rows) if i % 3 == 2 else rng.integers(0, 100, rows)
+        for i in range(10)
+    }
+
+
+def _readme_pipeline(d):
+    d["total"] = d.col0 * d.col1
+    return d[d.total > 50].groupby("col2")[["col0", "col1", "total"]].sum().sort_values("total")
+
+
+IO_QUERIES = {
+    # the README's pipeline: a computed column, a filter, a string-key
+    # groupby and a sort
+    "readme_pipeline": _readme_pipeline,
+    "groupby_two_str_keys_size": lambda d, dim: d.groupby(["col2", "col5"]).size(),
+    "groupby_as_index_false_mean": lambda d, dim: d.groupby("col2", as_index=False)[["col0", "col3"]].mean(),
+    "groupby_str_value_max": lambda d, dim: d.groupby("col2")["col5"].max(),
+    "value_counts": lambda d, dim: d.col8.value_counts(),
+    "nunique": lambda d, dim: d[["col2", "col5", "col8"]].nunique(),
+    "unique": lambda d, dim: d.col2.unique(),
+    "filter_eq": lambda d, dim: d[d.col5 == "beta"],
+    "lt_sum": lambda d, dim: (d.col8 < "beta").sum(),
+    "str_startswith": lambda d, dim: d.col8.str.startswith("gamma"),
+    "str_len": lambda d, dim: d.col2.str.len(),
+    "isin": lambda d, dim: d.col2.isin(["alpha", "gamma-delta"]),
+    "sort_str_then_int": lambda d, dim: d.sort_values(["col2", "col0"]),
+    "merge_left_dim": lambda d, dim: d.merge(dim, on="col2", how="left"),
+}
+
+
+def _same_result(got, want, what: str) -> None:
+    """pandas objects as ``assert_same_pandas`` holds them (strings and
+    ints exactly, float means to ``FLOAT_RTOL``); arrays by type and
+    values; scalars by value."""
+    import pandas
+
+    if isinstance(want, (pandas.DataFrame, pandas.Series)):
+        assert_same_pandas(got, want, what)
+    elif hasattr(want, "__len__"):
+        if type(got) is not type(want) or got.dtype != want.dtype:
+            raise AssertionError(f"{what}: {type(got).__name__}[{got.dtype}] != "
+                                 f"{type(want).__name__}[{want.dtype}]")
+        if list(got) != list(want):
+            raise AssertionError(f"{what}: values differ")
+    elif got != want:
+        raise AssertionError(f"{what}: {got!r} != {want!r}")
+
+
+def _io_record(name: str, rows: int, port_ms, pandas_ms, to_pandas_ms, peak_gib, **extra) -> dict:
+    rec = {"phase": "io", "query": name, "rows": rows, "port_ms": port_ms,
+           "pandas_ms": pandas_ms, "to_pandas_ms": to_pandas_ms,
+           "device_peak_gib": round(peak_gib, 3), **extra, "match": True}
+    emit(rec)
+    return rec
+
+
+def phase_io(rows: int, seed: int, workdir: str) -> int:
+    """asv's CSV and Parquet IO and the string queries at ``rows`` rows
+    through ``modin_tpu_torch.pandas``, each equal to pandas' answer, no
+    query defaulting to pandas; returns the phase's bincount launches."""
+    import filecmp
+
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.io import chunker, file_dispatcher
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops import dictionary
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+
+    t_phase = time.perf_counter()
+    gk.LAUNCHES = 0
+    tqc.DEFAULTS_TO_PANDAS = 0
+    chunker.NATIVE_SPLITS = 0
+    file_dispatcher.PARALLEL_READS = 0
+
+    def port_call(fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = host_ms(fn)
+        return out, ms, torch.cuda.max_memory_allocated() / 2**30
+
+    # asv TimeToCsv: the uploaded frame to a CSV file, byte for byte pandas'
+    p0 = _pandas_frame(str_int_frame_data(rows, seed + 40))
+    t0, upload_ms = host_ms(lambda: tpd.from_pandas(p0))
+    emit({"phase": "io", "query": "from_pandas", "rows": rows, "port_ms": upload_ms})
+    port_csv, pandas_csv = os.path.join(workdir, "port.csv"), os.path.join(workdir, "pandas.csv")
+    _, port_ms, peak = port_call(lambda: t0.to_csv(port_csv, index=False))
+    t1 = time.perf_counter()
+    p0.to_csv(pandas_csv, index=False)
+    pandas_ms = (time.perf_counter() - t1) * 1e3
+    if not filecmp.cmp(port_csv, pandas_csv, shallow=False):
+        raise AssertionError("to_csv: the port's file differs from pandas'")
+    _io_record("to_csv", rows, port_ms, pandas_ms, None, peak,
+               file_bytes=os.path.getsize(pandas_csv))
+    os.unlink(port_csv)
+    del t0, p0
+    free_device_memory()
+
+    # pd.read_csv of that file: the native splitter and the parallel parse
+    t, port_ms, peak = port_call(lambda: tpd.read_csv(pandas_csv))
+    t1 = time.perf_counter()
+    p = pandas.read_csv(pandas_csv)
+    pandas_ms = (time.perf_counter() - t1) * 1e3
+    got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(t))
+    assert_same_pandas(got, p, "read_csv", exact=True)
+    del got
+    if chunker.NATIVE_SPLITS == 0 or file_dispatcher.PARALLEL_READS == 0:
+        raise AssertionError(f"read_csv: native splits {chunker.NATIVE_SPLITS}, "
+                             f"parallel reads {file_dispatcher.PARALLEL_READS}")
+    numeric = [c for c in t._query_compiler._modin_frame._columns if c.pandas_dtype.kind in "iuf"]
+    if not all(c.is_device and c.data.device.type == "cuda" for c in numeric):
+        raise AssertionError("read_csv: a numeric column is not on cuda")
+    _io_record("read_csv", rows, port_ms, pandas_ms, to_pandas_ms, peak,
+               native_splits=chunker.NATIVE_SPLITS, parallel_reads=file_dispatcher.PARALLEL_READS)
+    os.unlink(pandas_csv)
+
+    # the dictionary encoding of each string column (pandas' factorize on
+    # the host, the codes to the device), timed apart from the queries
+    frame = t._query_compiler._modin_frame
+    encode_ms = {}
+    for label in ("col2", "col5", "col8"):
+        col = frame.get_column(frame.column_position(label)[0])
+        _, encode_ms[label] = host_ms(lambda: dictionary.encode_host_column(col))
+    emit({"phase": "io", "query": "dictionary_encode", "rows": rows, "port_ms": encode_ms})
+
+    dim_data = {"col2": list(STRINGS), "w": [1.5, 2.5, 3.5], "tag": ["a", "bb", "ccc"]}
+    tdim, pdim = tpd.DataFrame(dim_data), pandas.DataFrame(dim_data)
+    for name, fn in IO_QUERIES.items():
+        if name == "readme_pipeline":
+            run = {tpd: lambda: fn(t), pandas: lambda: fn(p)}
+        else:
+            run = {tpd: lambda: fn(t, tdim), pandas: lambda: fn(p, pdim)}
+        result, port_ms, peak = port_call(run[tpd])
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"{name}: the query defaulted to pandas")
+        if hasattr(result, "_query_compiler"):
+            got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+        else:
+            got, to_pandas_ms = result, None
+        del result
+        t1 = time.perf_counter()
+        want = run[pandas]()
+        pandas_ms = (time.perf_counter() - t1) * 1e3
+        _same_result(got, want, name)
+        _io_record(name, rows, port_ms, pandas_ms, to_pandas_ms, peak,
+                   out_shape=list(getattr(want, "shape", ())))
+        if name == "readme_pipeline":
+            del t["total"], p["total"]
+        del got, want
+        free_device_memory()
+
+    # asv TimeToParquet and TimeReadParquet: each package's round trip
+    try:
+        import pyarrow
+    except ImportError:
+        emit({"phase": "io", "note": "pyarrow does not import here: Parquet unverified"})
+    else:
+        port_pq, pandas_pq = os.path.join(workdir, "port.parquet"), os.path.join(workdir, "pandas.parquet")
+        _, port_ms, peak = port_call(lambda: t.to_parquet(port_pq))
+        t1 = time.perf_counter()
+        p.to_parquet(pandas_pq)
+        pandas_ms = (time.perf_counter() - t1) * 1e3
+        _io_record("to_parquet", rows, port_ms, pandas_ms, None, peak, pyarrow=pyarrow.__version__)
+        del t, p
+        free_device_memory()
+        back, port_ms, peak = port_call(lambda: tpd.read_parquet(port_pq))
+        t1 = time.perf_counter()
+        want = pandas.read_parquet(pandas_pq)
+        pandas_ms = (time.perf_counter() - t1) * 1e3
+        got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(back))
+        assert_same_pandas(got, want, "parquet round trip", exact=True)
+        _io_record("read_parquet", rows, port_ms, pandas_ms, to_pandas_ms, peak)
+        del back, got, want
+    if tqc.DEFAULTS_TO_PANDAS != 0:
+        raise AssertionError(f"{tqc.DEFAULTS_TO_PANDAS} IO calls defaulted to pandas")
+    free_device_memory()
+    launches = gk.LAUNCHES
+    emit({"phase": "io", "bincount_launches": launches, "defaults_to_pandas": 0,
+          "native_splits": chunker.NATIVE_SPLITS, "parallel_reads": file_dispatcher.PARALLEL_READS,
+          "seconds": time.perf_counter() - t_phase})
+    if launches == 0:
+        raise AssertionError("the io path never launched the bincount kernel")
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
-    """``launches`` maps each path (``main``, ``relational``, ``arithmetic``)
-    to the bincount launches of its run; ``launches`` of the line is the main
-    path's."""
+    """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
+    ``io``) to the bincount launches of its run; ``launches`` of the line is
+    the main path's."""
     by_width = kernel["by_width"]
     main = by_width[100]
     return {"kernels": [{
@@ -939,10 +1160,14 @@ def main(argv=None) -> int:
     parser.add_argument("--earlier-rows", type=int, default=2 * 10**7,
                         help="rows of the main-path and relational phases")
     parser.add_argument("--float-rows", type=int, default=10**7)
+    # 1e7: at 2e7 rows the phase took 328 s on an H100 host (to_csv alone
+    # 90 s in pandas and as long in the port), past its 250 s share
+    parser.add_argument("--io-rows", type=int, default=10**7,
+                        help="rows of the io phase's CSV and Parquet files")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--phases", default="main,float,relational,arithmetic",
+    parser.add_argument("--phases", default="main,float,relational,arithmetic,io",
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all four)")
+                        "(the result lines need all five)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -991,8 +1216,11 @@ def main(argv=None) -> int:
         launches["relational"] = phase_relational(earlier_rows, args.seed)
     if "arithmetic" in phases:
         launches["arithmetic"] = phase_arithmetic(rows, args.seed)
+    if "io" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as workdir:
+            launches["io"] = phase_io(args.io_rows, args.seed, workdir)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    if phases != {"main", "float", "relational", "arithmetic"}:
+    if phases != {"main", "float", "relational", "arithmetic", "io"}:
         print("chip_smoke: a partial run prints no result", file=sys.stderr)
         return 1
     print(smi, flush=True)

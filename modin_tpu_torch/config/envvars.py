@@ -2,8 +2,9 @@
 
 The port's counterpart of ``modin_tpu/config/envvars.py``, cut to what the
 port runs: the device that holds the columns, the widest key range that
-groupby codes directly instead of sorting, and the widest value range that
-``nunique``/``mode`` count with a histogram instead of sorting.
+groupby codes directly instead of sorting, the widest value range that
+``nunique``/``mode`` count with a histogram instead of sorting, and the
+threads that parse a file in parallel.
 """
 
 from __future__ import annotations
@@ -86,3 +87,23 @@ class KernelRouterHistBound(Parameter):
         if value <= 0:
             raise ValueError(f"{cls.varname} must be > 0, got {raw!r}")
         return value
+
+
+class CpuCount(Parameter):
+    """How many host threads parse the byte ranges of a file (the IO
+    dispatchers' thread pool); the machine's CPU count by default."""
+
+    varname = "MODIN_TPU_TORCH_CPUS"
+    default = None
+
+    @classmethod
+    def _parse(cls, raw: str) -> int:
+        value = int(raw)
+        if value < 1:
+            raise ValueError(f"{cls.varname} must be >= 1, got {raw!r}")
+        return value
+
+    @classmethod
+    def get(cls) -> int:
+        value = super().get()
+        return value if value is not None else (os.cpu_count() or 1)

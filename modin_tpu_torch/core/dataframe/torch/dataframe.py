@@ -27,7 +27,7 @@ import torch
 
 from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
 from modin_tpu_torch.parallel.engine import TorchWrapper
-from modin_tpu_torch.utils import has_torch_dtype
+from modin_tpu_torch.utils import has_torch_dtype, numpy_dtype
 
 
 def _is_device_dtype(dtype: Any) -> bool:
@@ -90,7 +90,10 @@ class DeviceColumn:
     def to_numpy(self) -> np.ndarray:
         if self.host_cache is not None:
             return self.host_cache
-        values = TorchWrapper.materialize(self.data)[: self.length]
+        return self.host_values(TorchWrapper.materialize(self.data)[: self.length])
+
+    def host_values(self, values: np.ndarray) -> np.ndarray:
+        """Fetched device values in the column's pandas dtype."""
         if self.pandas_dtype.kind in "mM":
             return values.view(self.pandas_dtype)
         if values.dtype != self.pandas_dtype:
@@ -100,14 +103,21 @@ class DeviceColumn:
 
 class HostColumn:
     """One column kept on the host (object/string/categorical/extension
-    dtypes and numeric dtypes without a tensor form)."""
+    dtypes and numeric dtypes without a tensor form).
 
-    __slots__ = ("data",)
+    ``_dict_cache``/``_cat_cache`` hold the column's dictionary encoding once
+    a device path built it (``ops/dictionary.py``): the codes on the device,
+    the categories here.  A new column (a filter's, a sort's) encodes anew.
+    """
+
+    __slots__ = ("data", "_dict_cache", "_cat_cache")
     is_device = False
 
     def __init__(self, data: Any):
         # data: 1-D numpy array or pandas ExtensionArray
         self.data = data
+        self._dict_cache = None
+        self._cat_cache = None
 
     @property
     def pandas_dtype(self) -> Any:
@@ -189,15 +199,49 @@ class TorchDataframe:
         return cls(cols, list(columns), index, nrows=nrows)
 
     def to_pandas(self) -> Any:
+        return self._assemble_pandas(
+            {i: c.to_numpy() for i, c in enumerate(self._columns) if c.is_device},
+            slice(None),
+            self.index,
+        )
+
+    def window_to_pandas(self, start: int, stop: int) -> Any:
+        """Rows ``[start, stop)`` as a pandas DataFrame.  The device columns
+        without a host copy come over together, in one device-to-host copy
+        of their bytes; the others are sliced on the host."""
+        fetch = [
+            i for i, c in enumerate(self._columns) if c.is_device and c.host_cache is None
+        ]
+        values = {
+            i: c.host_cache[start:stop]
+            for i, c in enumerate(self._columns)
+            if c.is_device and c.host_cache is not None
+        }
+        if fetch:
+            parts = [
+                self._columns[i].data[start:stop].contiguous().view(torch.uint8)
+                for i in fetch
+            ]
+            host = TorchWrapper.materialize(torch.cat(parts))
+            offset = 0
+            for i, part in zip(fetch, parts):
+                col = self._columns[i]
+                raw = host[offset: offset + part.numel()]
+                offset += part.numel()
+                values[i] = col.host_values(raw.view(numpy_dtype(col.data.dtype)))
+        return self._assemble_pandas(values, slice(start, stop), self.index[start:stop])
+
+    def _assemble_pandas(self, device_values: Dict[int, np.ndarray], rows: slice, idx: Any) -> Any:
+        """A pandas DataFrame of the host values of the device columns and
+        the ``rows`` of the host columns, with row labels ``idx``."""
         import pandas
 
-        idx = self.index
         data = {}
         for i, col in enumerate(self._columns):
             if col.is_device:
-                data[i] = col.to_numpy()
+                data[i] = device_values[i]
             else:
-                arr = col.data
+                arr = col.data[rows]
                 if isinstance(arr, np.ndarray) and arr.dtype == object:
                     # an explicit-dtype Series is the only construction that
                     # round-trips object EXACTLY (pandas 3 infers str)

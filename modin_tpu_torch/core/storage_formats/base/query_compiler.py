@@ -1021,7 +1021,12 @@ class BaseQueryCompiler(abc.ABC):
         )
 
     def write_csv(self, **kwargs: Any) -> Any:
-        return DataFrameDefault.register(pandas.DataFrame.to_csv)(self, **kwargs)
+        """``to_csv`` through the CSV dispatcher's chunked writer."""
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        return FactoryDispatcher.to_csv(self, **kwargs)
 
     # free any deferred results; used by tests
     def __repr__(self) -> str:  # pragma: no cover - debug aid

@@ -11,13 +11,19 @@ query_compiler.py``, cut to the slices ported so far:
   family over a shared sorted representation — ``nunique``, ``mode`` (both
   axes), ``quantile``, ``describe`` — with the bincount kernel as the
   histogram of bounded-range int columns;
-- groupby aggregations on key columns (``groupby_agg`` ->
-  ``_try_device_groupby``);
+- groupby aggregations on key columns or an external Series key
+  (``groupby_agg`` -> ``_try_device_groupby``), ``as_index=False`` through
+  ``reset_index``;
 - the relational paths: boolean-mask and positional row selection
   (``getitem_array``, ``getitem_row_array``, ``row_slice``,
-  ``take_2d_positional``), ``setitem``/``insert``, ``rowwise_query``
-  (``df.query``), ``concat``, ``isin``, ``merge`` (the device sort-merge
-  join) and ``sort_rows_by_column_values``.
+  ``take_2d_positional``), ``setitem``/``insert``, column ``drop``,
+  ``rowwise_query`` (``df.query``), ``concat``, ``isin``, ``merge`` (the
+  device sort-merge join) and ``sort_rows_by_column_values``;
+- string and object columns through their dictionary encoding
+  (``ops/dictionary.py``): groupby, sort and merge keys, comparisons with a
+  string, ``isin``, ``nunique``/``mode``, ``min``/``max``/``count``,
+  ``unique``, ``series_value_counts`` and the ``.str`` predicates and
+  measures (``_try_str_lut``); their payloads travel on the host.
 
 It is a :class:`BaseQueryCompiler`: every other pandas method exists there
 and defaults to pandas.  Each device path gates on the dtypes and arguments
@@ -27,10 +33,9 @@ goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
 made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
-device path the port does not have yet (string columns through dictionary
-codes, host-column payloads of sorts and joins, ``as_index=False``, the
-kernel router, the planner, out-of-core and range-partition variants of
-sort and merge), the port defaults to pandas.
+device path the port does not have yet (the order aggregates of groupby,
+``duplicated``, the kernel router, the planner, out-of-core and
+range-partition variants of sort and merge), the port defaults to pandas.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 
 from modin_tpu_torch.core.dataframe.torch.dataframe import (
     DeviceColumn,
+    HostColumn,
     TorchDataframe,
     _is_device_dtype,
 )
@@ -50,11 +56,12 @@ from modin_tpu_torch.core.storage_formats.base.query_compiler import (
     BaseQueryCompiler,
 )
 from modin_tpu_torch.error_message import ErrorMessage
-from modin_tpu_torch.ops import elementwise, reductions, sorted_cache
+from modin_tpu_torch.ops import dictionary, elementwise, reductions, sorted_cache
 from modin_tpu_torch.ops import groupby as gb_ops
 from modin_tpu_torch.ops import join as join_ops
 from modin_tpu_torch.ops import sort as sort_ops
 from modin_tpu_torch.ops.structural import gather_columns_device
+from modin_tpu_torch.parallel.engine import TorchWrapper
 from modin_tpu_torch.utils import (
     MODIN_UNNAMED_SERIES_LABEL,
     hashable,
@@ -66,6 +73,11 @@ from modin_tpu_torch.utils import (
 # operations that went to pandas because no device path took them
 # (incremented only by ErrorMessage.default_to_pandas)
 DEFAULTS_TO_PANDAS = 0
+
+
+def _is_categorical(col: Any) -> bool:
+    """Whether ``col`` is a host column of a pandas categorical dtype."""
+    return not col.is_device and getattr(col.pandas_dtype, "name", None) == "category"
 
 
 def _is_numeric_dtype(dtype: Any) -> bool:
@@ -261,6 +273,14 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return [c.data for c in cols]
         return None
 
+    @staticmethod
+    def _encoded(col: Any) -> Optional[Any]:
+        """A host string/object column's dictionary encoding (categorical
+        and device columns have none here)."""
+        if col.is_device or _is_categorical(col):
+            return None
+        return dictionary.encode_host_column(col)
+
     def _fast_index_match(self, other: "TorchQueryCompiler") -> bool:
         return self._modin_frame._index.equals(other._modin_frame._index)
 
@@ -280,6 +300,40 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ------------------------------- binary --------------------------- #
 
+    def _try_dict_compare(self, op: str, other: str) -> Optional["TorchQueryCompiler"]:
+        """A comparison of string columns with a string scalar: sorted
+        categories turn it into a code threshold (one searchsorted of the
+        categories on the host, one device compare).  Missing rows are
+        False, and True for ``ne``, as in pandas."""
+        import pandas
+
+        datas = []
+        for c in self._modin_frame._columns:
+            if isinstance(c.pandas_dtype, pandas.StringDtype) and c.pandas_dtype.na_value is pandas.NA:
+                # the NA-backed 'string' dtype compares to a boolean
+                # extension array with NA: pandas keeps it
+                return None
+            enc = self._encoded(c)
+            if enc is None:
+                return None
+            try:
+                pos = int(np.searchsorted(enc.categories, other))
+            except TypeError:
+                return None
+            exact = bool(pos < len(enc.categories) and enc.categories[pos] == other)
+            codes = enc.codes.data
+            if op in ("eq", "ne"):
+                eq = codes == float(pos) if exact else torch.zeros_like(codes, dtype=torch.bool)
+                # NaN codes compare unequal: ne is True there, as in pandas
+                datas.append(eq if op == "eq" else ~eq)
+            elif op in ("lt", "ge"):
+                below = codes < float(pos)
+                datas.append(below if op == "lt" else codes >= float(pos))
+            else:  # le, gt
+                bound = float(pos + (1 if exact else 0))
+                datas.append(codes < bound if op == "le" else codes >= bound)
+        return self._wrap_device_result(datas)
+
     def _try_device_binary(self, op: str, other: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         if op not in elementwise.BINARY_OPS:
             return None
@@ -288,6 +342,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
         frame = self._modin_frame
         if frame.num_cols == 0 or len(frame) == 0:
             return None
+        if op in self._CMP_OPS and isinstance(other, str):
+            return self._try_dict_compare(op, other)
         cols = self._device_raw()
         if cols is None:
             return None
@@ -405,10 +461,21 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
         if axis not in (0, 1, None):
             return None
+        # string columns join min/max/count through their dictionary codes
+        # (sorted categories: the code min/max IS the lexicographic one)
+        dict_ok = op in ("min", "max", "count") and axis in (0, None) and not numeric_only
         positions = []
+        decoders: dict = {}
         for i, col in enumerate(frame._columns):
             ok = col.is_device and col.pandas_dtype.kind in "biuf"
             if ok:
+                positions.append(i)
+                continue
+            enc = self._encoded(col) if dict_ok else None
+            # no categories = an all-missing column: pandas' None-vs-NaN
+            # answers there stay with pandas
+            if enc is not None and len(enc.categories):
+                decoders[i] = enc
                 positions.append(i)
             elif not numeric_only or _is_numeric_dtype(col.pandas_dtype):
                 # a numeric column we can't run on device, or (without
@@ -421,7 +488,10 @@ class TorchQueryCompiler(BaseQueryCompiler):
             labels = labels[positions]  # pandas Index
         except TypeError:
             labels = [list(labels)[i] for i in positions]
-        arrays = [frame._columns[i].data for i in positions]
+        arrays = [
+            decoders[i].codes.data if i in decoders else frame._columns[i].data
+            for i in positions
+        ]
         # bool columns: pandas computes these over ints
         cast_bool = op in ("sum", "prod", "mean", "median", "var", "std", "sem")
         if axis == 1:
@@ -445,6 +515,24 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 op, arrays, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool
             )
         out_values = [v.item() for v in values]
+        if decoders and op in ("min", "max"):
+            import pandas
+
+            for j, i in enumerate(positions):
+                if i in decoders:
+                    out_values[j] = dictionary.decode_codes(
+                        np.asarray([out_values[j]], np.float64), decoders[i].categories
+                    )[0]
+            # pandas: a frame of string columns of one dtype keeps it (even
+            # when every result is NaN); any mix is object
+            dtypes = {str(frame._columns[i].pandas_dtype) for i in positions}
+            dtype = (
+                frame._columns[positions[0]].pandas_dtype
+                if len(decoders) == len(positions) and len(dtypes) == 1
+                else object
+            )
+            result = pandas.Series(out_values, index=labels, dtype=dtype)
+            return self._from_pandas_result(result.rename(MODIN_UNNAMED_SERIES_LABEL))
         if op == "count":
             result = np.asarray(out_values, dtype=np.int64)
         elif op in ("any", "all"):
@@ -471,12 +559,24 @@ class TorchQueryCompiler(BaseQueryCompiler):
             c.is_device and c.pandas_dtype.kind in "biuf" for c in frame._columns
         )
 
-    def _sort_reduce_specs(self) -> Optional[list]:
-        """Specs for ``plan_sort_reduce``, or None unless every column is a
-        numeric device column."""
-        if not self._all_numeric_device():
-            return None
-        return [{"col": c} for c in self._modin_frame._columns]
+    def _sort_reduce_specs(self, numeric_only: bool = False) -> Optional[tuple]:
+        """(specs for ``plan_sort_reduce``, {position: DictEncoding}), or None
+        when a column joins neither as a numeric device column nor through
+        its dictionary encoding."""
+        specs: list = []
+        decoders: dict = {}
+        for i, c in enumerate(self._modin_frame._columns):
+            if c.is_device and c.pandas_dtype.kind in "biuf":
+                specs.append({"col": c})
+                continue
+            enc = None if numeric_only else self._encoded(c)
+            if enc is None:
+                return None
+            decoders[i] = enc
+            specs.append(
+                {"col": enc.codes, "n_categories": len(enc.categories), "has_nan": enc.has_nan}
+            )
+        return specs, decoders
 
     def _row_result(self, data: torch.Tensor) -> "TorchQueryCompiler":
         """A Series-shaped compiler of one device column per row."""
@@ -487,12 +587,13 @@ class TorchQueryCompiler(BaseQueryCompiler):
         )
 
     def _try_sort_reduce_nunique(self, dropna: bool) -> Optional["TorchQueryCompiler"]:
-        """Distinct count per column: bounded-range ints through one O(n)
-        histogram (the bincount kernel), the rest through the shared sorted
-        representation."""
-        specs = self._sort_reduce_specs()
-        if specs is None:
+        """Distinct count per column: string columns from their categories,
+        bounded-range ints through one O(n) histogram (the bincount
+        kernel), the rest through the shared sorted representation."""
+        got = self._sort_reduce_specs()
+        if got is None:
             return None
+        specs, _ = got
         frame = self._modin_frame
         n = len(frame)
         plans = reductions.plan_sort_reduce("nunique", specs, n)
@@ -506,29 +607,30 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     def nunique(self, axis: int = 0, dropna: bool = True, **kwargs: Any):
         frame = self._modin_frame
-        if not kwargs and len(frame) and self._all_numeric_device():
+        if not kwargs and len(frame) and frame.num_cols:
             if axis == 0:
                 result = self._try_sort_reduce_nunique(bool(dropna))
                 if result is not None:
                     return result
-            elif axis == 1:
+            elif axis == 1 and self._all_numeric_device():
                 data = reductions.nunique_axis1(
                     [c.data for c in frame._columns], len(frame), bool(dropna)
                 )
                 return self._row_result(data)
         return super().nunique(axis=axis, dropna=dropna, **kwargs)
 
-    def _try_sort_reduce_mode(self, dropna: bool) -> Optional["TorchQueryCompiler"]:
-        """Modal values per column: bounded-range ints through O(n)
-        histograms (no cap on the mode set: every modal value falls out of
-        the bin mask), the rest through the sorted representation's
-        run-length pass.  ``dropna=False`` (NaN competes for the max count)
-        only where every column plans "hist"."""
+    def _try_sort_reduce_mode(self, numeric_only: bool, dropna: bool) -> Optional["TorchQueryCompiler"]:
+        """Modal values per column: bounded-range ints and dictionary codes
+        through O(n) histograms (no cap on the mode set: every modal value
+        falls out of the bin mask), the rest through the sorted
+        representation's run-length pass.  ``dropna=False`` (NaN competes
+        for the max count) only where every column plans "hist"."""
         import pandas
 
-        specs = self._sort_reduce_specs()
-        if specs is None:
+        got = self._sort_reduce_specs(numeric_only)
+        if got is None:
             return None
+        specs, decoders = got
         frame = self._modin_frame
         n = len(frame)
         plans = reductions.plan_sort_reduce("mode", specs, n)
@@ -537,10 +639,21 @@ class TorchQueryCompiler(BaseQueryCompiler):
         per_col = reductions.mode_planned(plans, n, bool(dropna))
         if any(v is None for v in per_col):
             return None
-        pieces = [
-            pandas.Series(np.asarray(values).astype(col.pandas_dtype, copy=False), name=i)
-            for i, ((values, _), col) in enumerate(zip(per_col, frame._columns))
-        ]
+        pieces = []
+        for i, ((values, nan_modal), col) in enumerate(zip(per_col, frame._columns)):
+            if i not in decoders:
+                pieces.append(
+                    pandas.Series(np.asarray(values).astype(col.pandas_dtype, copy=False), name=i)
+                )
+                continue
+            decoded = list(decoders[i].categories[np.asarray(values).astype(np.int64)])
+            if nan_modal:
+                # pandas keeps the column's own first missing object (None
+                # stays None, NaN stays NaN), sorted last
+                host = np.asarray(col.data, dtype=object)
+                na_pos = np.flatnonzero(pandas.isna(host))
+                decoded.append(host[na_pos[0]] if len(na_pos) else np.nan)
+            pieces.append(pandas.Series(decoded, dtype=col.pandas_dtype, name=i))
         # positional names first: duplicate labels must survive the concat
         result = pandas.concat(pieces, axis=1)
         result.columns = self.get_columns()
@@ -549,8 +662,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
     def mode(self, axis: int = 0, numeric_only: bool = False, dropna: bool = True, **kwargs: Any):
         frame = self._modin_frame
         if axis == 0 and not kwargs and len(frame) and frame.num_cols:
-            # numeric_only changes nothing on an all-numeric frame
-            result = self._try_sort_reduce_mode(bool(dropna))
+            result = self._try_sort_reduce_mode(bool(numeric_only), bool(dropna))
             if result is not None:
                 return result
         if axis == 1 and dropna and not kwargs and len(frame) and self._all_numeric_device():
@@ -754,8 +866,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
         if not groupby_kwargs.get("sort", True):
             return None
-        if not groupby_kwargs.get("as_index", True):
-            return None  # key-column reinsertion is not ported
+        as_index = groupby_kwargs.get("as_index", True)
+        if not as_index and agg_func == "size":
+            return None
         dropna = groupby_kwargs.get("dropna", True)
         numeric_only = bool(agg_kwargs.get("numeric_only", False))
         if agg_kwargs.get("min_count", 0) not in (0, -1):
@@ -772,23 +885,52 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
 
         frame = self._modin_frame
-        # resolve key columns: labels of this frame's own columns
-        if not (isinstance(by, list) and drop and all(not hasattr(b, "to_pandas") for b in by)):
-            return None
-        key_positions: List[int] = []
-        for label in by:
-            pos = frame.column_position(label)
-            if len(pos) != 1:
-                return None
-            key_positions.append(pos[0])
-        key_labels = list(by)
-        key_cols = [frame._columns[p] for p in key_positions]
-        if not all(c.is_device and c.pandas_dtype.kind in "biuf" for c in key_cols):
-            return None
         if len(frame) == 0:
             return None
+        # resolve the key columns: labels of this frame's own columns, or one
+        # external Series-shaped compiler aligned with this frame
+        key_positions: List[int] = []
+        if isinstance(by, list) and drop and all(not hasattr(b, "to_pandas") for b in by):
+            for label in by:
+                pos = frame.column_position(label)
+                if len(pos) != 1:
+                    return None
+                key_positions.append(pos[0])
+            key_labels = list(by)
+            key_cols = [frame._columns[p] for p in key_positions]
+        else:
+            ext = by[0] if isinstance(by, list) and len(by) == 1 else by
+            if not isinstance(ext, TorchQueryCompiler) or not as_index:
+                return None
+            eframe = ext._modin_frame
+            if eframe.num_cols != 1 or len(eframe) != len(frame) or not self._fast_index_match(ext):
+                return None
+            label = list(eframe.columns)[0]
+            key_labels = [None if label == MODIN_UNNAMED_SERIES_LABEL else label]
+            key_cols = [eframe.get_column(0)]
+        # numeric device keys as they are; host string/object keys through
+        # their dictionary codes, categorical keys through pandas' own codes
+        key_datas = []
+        key_decoders: List[Any] = []  # None, categories, or the categorical dtype
+        for c in key_cols:
+            if c.is_device and c.pandas_dtype.kind in "biuf":
+                key_datas.append(c.data)
+                key_decoders.append(None)
+            elif _is_categorical(c):
+                enc = dictionary.encode_categorical_column(c)
+                if enc is None or (not groupby_kwargs.get("observed", True) and len(key_cols) > 1):
+                    return None
+                key_datas.append(enc.codes.data)
+                key_decoders.append(c.pandas_dtype)
+            else:
+                enc = self._encoded(c)
+                if enc is None:
+                    return None
+                key_datas.append(enc.codes.data)
+                key_decoders.append(enc.categories)
+        categorical = [d is not None and not isinstance(d, np.ndarray) for d in key_decoders]
 
-        # resolve value columns
+        # resolve the value columns
         if selection is not None:
             sel_list = [selection] if not isinstance(selection, list) else list(selection)
             value_positions = []
@@ -798,17 +940,20 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     return None
                 value_positions.append(pos[0])
         else:
-            value_positions = [
-                i for i in range(frame.num_cols) if i not in key_positions
-            ]
+            value_positions = [i for i in range(frame.num_cols) if i not in key_positions]
         labels = list(frame.columns)
-        value_cols = []
+        value_datas = []
         value_labels = []
+        value_decoders: List[Any] = []  # (categories, source dtype) of string values
         for i in value_positions:
             col = frame._columns[i]
             if col.is_device and col.pandas_dtype.kind in "biuf":
-                value_cols.append(col)
+                data = col.data
+                if data.dtype == torch.bool and agg_func in ("sum", "mean"):
+                    data = data.to(torch.int64)  # bools add as ints, as in pandas
+                value_datas.append(data)
                 value_labels.append(labels[i])
+                value_decoders.append(None)
                 continue
             if numeric_only:
                 if _is_numeric_dtype(col.pandas_dtype):
@@ -816,41 +961,73 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 continue  # genuinely non-numeric: pandas drops it too
             if agg_func == "size":
                 continue
-            return None
-        if agg_func != "size" and not value_cols:
+            # string values join min/max/count through their codes (sorted
+            # categories: the code min/max is the lexicographic one)
+            enc = self._encoded(col) if agg_func in ("min", "max", "count") else None
+            # no categories = an all-missing column: pandas' answers stay
+            if enc is None or not len(enc.categories):
+                return None
+            value_datas.append(enc.codes.data)
+            value_labels.append(labels[i])
+            value_decoders.append((enc.categories, col.pandas_dtype))
+        if agg_func != "size" and not value_datas:
             return None
 
         try:
             codes, n_groups, group_keys, sizes = gb_ops.factorize_keys(
-                [c.data for c in key_cols], len(frame), dropna=dropna
+                key_datas, len(frame), dropna=dropna
             )
         except gb_ops._TooManyGroups:
             return None
         if n_groups == 0:
             return None
+        if not groupby_kwargs.get("observed", True) and categorical[0]:
+            # observed=False keeps the unobserved categories, which the codes
+            # never see: the device answers only when there are none
+            nan_group = 1 if (not dropna and np.isnan(group_keys[0]).any()) else 0
+            if n_groups - nan_group < len(key_decoders[0].categories):
+                return None
 
-        # bool value columns aggregate as ints for sum/mean like pandas
-        arrays = []
-        for c in value_cols:
-            a = c.data
-            if a.dtype == torch.bool and agg_func in ("sum", "mean"):
-                a = a.to(torch.int64)
-            arrays.append(a)
         datas = gb_ops.groupby_reduce(
-            agg_func, arrays, codes, n_groups, len(frame), sizes=sizes
+            agg_func, value_datas, codes, n_groups, len(frame), sizes=sizes
         )
         if agg_func == "size":
             value_labels = [MODIN_UNNAMED_SERIES_LABEL]
-        new_cols = [
-            DeviceColumn(d, numpy_dtype(d.dtype), length=n_groups) for d in datas
-        ]
-        result_frame = TorchDataframe(
-            new_cols,
-            value_labels,
-            LazyIndex.from_arrays(group_keys, key_labels),
-            nrows=n_groups,
-        )
-        qc = type(self)(result_frame)
+            value_decoders = [None]
+        new_cols: list = []
+        for d, dec in zip(datas, value_decoders):
+            if dec is not None and agg_func in ("min", "max"):
+                # a string value column: the per-group result is a code
+                import pandas
+
+                cats, src_dtype = dec
+                decoded = dictionary.decode_codes(TorchWrapper.materialize(d), cats)
+                if isinstance(src_dtype, pandas.StringDtype):
+                    decoded = pandas.array(decoded, dtype=src_dtype)
+                new_cols.append(HostColumn(decoded))
+            else:
+                new_cols.append(DeviceColumn(d, numpy_dtype(d.dtype), length=n_groups))
+        # the group keys, string levels decoded and categorical levels in
+        # their dtype (pandas gives a CategoricalIndex)
+        keys = []
+        for vals, dec, is_cat in zip(group_keys, key_decoders, categorical):
+            if dec is None:
+                keys.append(vals)
+            elif is_cat:
+                import pandas
+
+                vals = np.asarray(vals, dtype=np.float64)
+                keys.append(pandas.Categorical.from_codes(
+                    np.where(np.isnan(vals), -1, vals).astype(np.int64), dtype=dec
+                ))
+            else:
+                keys.append(dictionary.decode_codes(vals, dec))
+        qc = type(self)(TorchDataframe(
+            new_cols, value_labels, LazyIndex.from_arrays(keys, key_labels), nrows=n_groups,
+        ))
+        if not as_index:
+            # the keys become columns before the values, under a RangeIndex
+            qc = qc.reset_index(drop=False)
         if series_groupby or agg_func == "size":
             qc._shape_hint = "column"
         return qc
@@ -974,6 +1151,199 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
         return self._default_to_pandas(inserter, value)
 
+    def drop(self, index: Any = None, columns: Any = None, errors: str = "raise") -> "TorchQueryCompiler":
+        """Dropping a list of present column labels keeps the other columns
+        as they are (no data moves); any other drop defaults to pandas."""
+        frame = self._modin_frame
+        if index is None and isinstance(columns, list):
+            dropped: set = set()
+            for label in columns:
+                pos = frame.column_position(label)
+                if not pos:
+                    break  # a missing label: pandas raises or ignores it
+                dropped.update(pos)
+            else:
+                keep = [i for i in range(frame.num_cols) if i not in dropped]
+                return type(self)(frame.select_columns_by_position(keep), self._shape_hint)
+        return super().drop(index=index, columns=columns, errors=errors)
+
+    # --------------------------- reset_index --------------------------- #
+
+    def reset_index(self, **kwargs: Any) -> "TorchQueryCompiler":
+        """``drop=True`` swaps in a RangeIndex (no device work);
+        ``drop=False`` puts the index levels before the columns: numeric
+        levels on the device, the others (strings, categoricals) on the
+        host.  Other arguments, and labels that collide, default to pandas."""
+        import pandas
+
+        drop = kwargs.get("drop", False)
+        unsupported = any(
+            (k == "level" and v is not None)
+            or (k == "names" and v is not None)
+            or (k == "col_level" and v != 0)
+            or (k == "col_fill" and v != "")
+            or (k == "allow_duplicates" and v is not False and v is not pandas.api.extensions.no_default)
+            for k, v in kwargs.items()
+        )
+        frame = self._modin_frame
+        n = len(frame)
+        if unsupported or isinstance(frame.columns, pandas.MultiIndex):
+            return super().reset_index(**kwargs)
+        if drop:
+            return type(self)(frame.with_columns(list(frame._columns), index=LazyIndex(None, n)))
+        idx = frame.index
+        if isinstance(idx, pandas.MultiIndex):
+            levels = [idx.get_level_values(i) for i in range(idx.nlevels)]
+            names = [nm if nm is not None else f"level_{i}" for i, nm in enumerate(idx.names)]
+        else:
+            levels = [idx]
+            taken = set(frame.columns)
+            names = [idx.name if idx.name is not None else ("index" if "index" not in taken else "level_0")]
+        if any(nm in set(frame.columns) for nm in names):
+            return super().reset_index(**kwargs)  # pandas raises or renames
+        new_cols: list = []
+        for lv in levels:
+            # by the LEVEL's dtype: a categorical of ints is no device column
+            if isinstance(lv.dtype, np.dtype) and _is_device_dtype(lv.dtype):
+                new_cols.append(DeviceColumn.from_numpy(lv.to_numpy(), self._device()))
+            else:
+                arr = lv.array.copy()
+                if isinstance(arr, pandas.arrays.NumpyExtensionArray):
+                    arr = np.asarray(arr)
+                new_cols.append(HostColumn(arr))
+        labels = pandas.Index(names + list(frame.columns))
+        return type(self)(
+            TorchDataframe(new_cols + list(frame._columns), labels, LazyIndex(None, n), nrows=n)
+        )
+
+    # ------------------------ unique, value_counts --------------------- #
+
+    def unique(self, **kwargs: Any) -> "TorchQueryCompiler":
+        """The distinct values of a string Series in order of appearance:
+        the dictionary codes factorize on the device, and each group's first
+        row position orders them."""
+        import pandas
+
+        frame = self._modin_frame
+        col = frame.get_column(0) if frame.num_cols == 1 else None
+        enc = self._encoded(col) if col is not None and len(frame) and not kwargs else None
+        if enc is None:
+            return super().unique(**kwargs)
+        codes, n_groups, group_keys, _ = gb_ops.factorize_keys(
+            [enc.codes.data], len(frame), dropna=False
+        )
+        first = TorchWrapper.materialize(gb_ops.groupby_first_position(codes, n_groups))
+        order = np.argsort(first, kind="stable")
+        values = dictionary.decode_codes(np.asarray(group_keys[0])[order], enc.categories)
+        if isinstance(col.pandas_dtype, pandas.StringDtype):
+            result = pandas.Series(pandas.array(values, dtype=col.pandas_dtype))
+        else:
+            result = pandas.Series(values, dtype=object)
+        return type(self).from_pandas(result.to_frame(MODIN_UNNAMED_SERIES_LABEL), self._device())
+
+    def series_value_counts(self, **kwargs: Any) -> "TorchQueryCompiler":
+        """Counts of a numeric or string Series: the values (a string
+        column's codes) factorize on the device and the group sizes count
+        through the bincount kernel; ties keep pandas' order of first
+        appearance."""
+        import pandas
+
+        frame = self._modin_frame
+        col = frame.get_column(0) if frame.num_cols == 1 else None
+        data = decoder = None
+        if col is not None and len(frame) and kwargs.get("bins") is None:
+            if col.is_device and col.pandas_dtype.kind in "biuf":
+                data = col.data
+            else:
+                enc = self._encoded(col)
+                if enc is not None:
+                    data, decoder = enc.codes.data, enc.categories
+        if data is None or set(kwargs) - {"normalize", "sort", "ascending", "bins", "dropna"}:
+            return super().series_value_counts(**kwargs)
+        try:
+            codes, n_groups, group_keys, sizes = gb_ops.factorize_keys(
+                [data], len(frame), dropna=kwargs.get("dropna", True)
+            )
+        except gb_ops._TooManyGroups:
+            return super().series_value_counts(**kwargs)
+        if n_groups == 0:
+            return super().series_value_counts(**kwargs)
+        counts_dev = gb_ops.groupby_reduce("size", [], codes, n_groups, len(frame), sizes=sizes)[0]
+        first_dev = gb_ops.groupby_first_position(codes, n_groups)
+        counts, first_pos = TorchWrapper.materialize([counts_dev, first_dev])
+        keys = group_keys[0] if decoder is None else dictionary.decode_codes(group_keys[0], decoder)
+        normalize = kwargs.get("normalize", False)
+        name = list(frame.columns)[0]
+        result = pandas.Series(
+            counts / counts.sum() if normalize else counts,
+            index=pandas.Index(keys, name=None if name == MODIN_UNNAMED_SERIES_LABEL else name),
+        )
+        if kwargs.get("sort", True):
+            # by count, ties in order of first appearance
+            order = np.lexsort((first_pos, counts if kwargs.get("ascending", False) else -counts))
+        else:
+            order = np.argsort(first_pos, kind="stable")
+        result = result.iloc[order]
+        result.name = "proportion" if normalize else "count"
+        return self._from_pandas_result(result)
+
+    # ------------------------------- .str ------------------------------ #
+
+    def _try_str_lut(self, name: str, args: tuple, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        """A string predicate or measure through the dictionary encoding:
+        the pandas method runs once per category on the host, and its
+        results gather by code on the device.  Missing rows take what
+        pandas gives for a missing value of the column's dtype."""
+        import re
+
+        import pandas
+
+        frame = self._modin_frame
+        col = frame.get_column(0) if frame.num_cols == 1 else None
+        if col is None or col.is_device or not len(frame):
+            return None
+        if isinstance(col.pandas_dtype, pandas.StringDtype) and col.pandas_dtype.na_value is pandas.NA:
+            # the NA-backed 'string' dtype answers in Int64/boolean
+            # extension arrays: pandas keeps it
+            return None
+        enc = self._encoded(col)
+        if enc is None:
+            return None
+        try:
+            lut_ser = getattr(pandas.Series(enc.categories, dtype=col.pandas_dtype).str, name)(*args, **kwargs)
+            na_probe = None
+            if enc.has_nan:
+                na_probe = getattr(
+                    pandas.Series([np.nan], dtype=col.pandas_dtype).str, name
+                )(*args, **kwargs).iloc[0]
+        except (TypeError, ValueError, AttributeError, NotImplementedError, KeyError, re.error):
+            return None  # pandas refuses this method or these arguments
+        if not isinstance(lut_ser, pandas.Series) or len(lut_ser) != len(enc.categories):
+            return None
+        kind = getattr(lut_ser.dtype, "kind", "")
+        if kind == "b":
+            if enc.has_nan and not isinstance(na_probe, (bool, np.bool_)):
+                return None  # NaN-mixed object output
+            lut = np.append(lut_ser.to_numpy().astype(bool), bool(na_probe) if enc.has_nan else False)
+            out_dtype = np.dtype(bool)
+        elif kind in "iuf":
+            fill = np.nan if enc.has_nan else 0.0  # no NaN code: never gathered
+            if enc.has_nan and not (
+                na_probe is None or (isinstance(na_probe, (float, np.floating)) and np.isnan(na_probe))
+            ):
+                if not isinstance(na_probe, (int, float, np.integer, np.floating)):
+                    return None
+                fill = float(na_probe)
+            lut = np.append(lut_ser.to_numpy().astype(np.float64), fill)
+            if kind in "iu" and not np.isnan(lut).any():
+                lut = lut.astype(np.int64)
+            out_dtype = lut.dtype
+        else:
+            return None  # string and object results stay with pandas
+        data = dictionary.gather_lut(enc.codes.data, lut)
+        result_col = DeviceColumn(data, out_dtype, length=len(frame))
+        return type(self)(TorchDataframe([result_col], frame._col_labels, frame._index), "column")
+
     # ------------------------------- query ---------------------------- #
 
     def rowwise_query(self, expr: str, **kwargs: Any) -> "TorchQueryCompiler":
@@ -1057,45 +1427,64 @@ class TorchQueryCompiler(BaseQueryCompiler):
         return self._default_to_pandas(lambda obj, v: obj.isin(v), values)
 
     def _try_device_isin(self, values: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
-        """Membership of numeric device columns in a literal value list."""
+        """Membership in a literal value list: numeric device columns
+        compare values, string columns compare the dictionary codes of the
+        values present in their categories."""
         if kwargs or not isinstance(values, (list, tuple, set, frozenset, np.ndarray)):
             return None
         vals = list(values)
         if not 0 < len(vals) <= 1024 or not all(
-            isinstance(v, (int, float, bool, np.integer, np.floating, np.bool_)) for v in vals
+            isinstance(v, (int, float, bool, str, np.integer, np.floating, np.bool_)) for v in vals
         ):
             return None
         frame = self._modin_frame
-        cols = self._device_raw()
-        if len(frame) == 0 or cols is None or not all(
-            c.pandas_dtype.kind in "biuf" for c in frame._columns
-        ):
+        if len(frame) == 0 or frame.num_cols == 0:
             return None
         is_nan = [isinstance(v, (float, np.floating)) and np.isnan(v) for v in vals]
-        clean = np.asarray([v for v, nan in zip(vals, is_nan) if not nan])
-        if clean.size == 0:
-            clean = np.empty(0, np.float64)
+        # plans: (device values, categories or None)
+        plans = []
+        for c in frame._columns:
+            if c.is_device and c.pandas_dtype.kind in "biuf":
+                plans.append((c.data, None))
+                continue
+            enc = self._encoded(c)
+            if enc is None:
+                return None
+            if any(is_nan) and enc.has_nan and c.pandas_dtype == np.dtype(object):
+                # object dtype keeps None and NaN apart in isin, and both
+                # encode to a NaN code; the str dtype unifies them
+                return None
+            plans.append((enc.codes.data, enc.categories))
+        numeric = [
+            v for v, nan in zip(vals, is_nan)
+            if not nan and not isinstance(v, str)
+        ]
+        clean = np.asarray(numeric) if numeric else np.empty(0, np.float64)
         all_int_values = clean.dtype.kind in "biu"
         device = self._device()
         datas = []
-        for col, data in zip(frame._columns, cols):
+        for col, (data, cats) in zip(frame._columns, plans):
             dtype = col.pandas_dtype
-            if dtype.kind in "iu" and all_int_values:
+            if cats is not None:
+                codes = dictionary.lookup_values(vals, cats)
+                test = torch.as_tensor(codes[~np.isnan(codes)], device=device)
+                hit = torch.isin(data, test)
+                if any(is_nan):
+                    hit = hit | torch.isnan(data)
+            elif dtype.kind in "iu" and all_int_values:
                 # an all-integer value list compares with integer columns
                 # EXACTLY (no float64 rounding past 2^53); values outside
                 # the column's range cannot match
                 info = np.iinfo(dtype)
                 ints = [int(v) for v in clean if info.min <= int(v) <= info.max]
-                test = torch.as_tensor(np.asarray(ints, dtype=dtype), device=device)
-                x = data
+                hit = torch.isin(data, torch.as_tensor(np.asarray(ints, dtype=dtype), device=device))
             else:
                 # any float in the list promotes the comparison to float64,
                 # column included: lossy, as pandas is
                 test = torch.as_tensor(clean.astype(np.float64), device=device)
-                x = data.to(torch.float64)
-            hit = torch.isin(x, test)
-            if any(is_nan) and dtype.kind == "f":
-                hit = hit | torch.isnan(data)
+                hit = torch.isin(data.to(torch.float64), test)
+                if any(is_nan) and dtype.kind == "f":
+                    hit = hit | torch.isnan(data)
             datas.append(hit)
         return self._wrap_device_result(datas)
 
@@ -1110,10 +1499,12 @@ class TorchQueryCompiler(BaseQueryCompiler):
         )
 
     def _try_device_sort(self, columns: Any, ascending: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
-        """Stable multi-key sort by numeric device key columns; host
-        payload columns follow the permutation on the host.  ``kind`` is not
-        read: the sort is always stable, which is a valid answer for every
-        kind (pandas sorts several keys stably whatever the kind)."""
+        """Stable multi-key sort by numeric device key columns and string
+        columns' dictionary codes (sorted categories make the codes
+        order-isomorphic to the strings, and NaN codes take na_position);
+        host payload columns follow the permutation on the host.  ``kind``
+        is not read: the sort is always stable, which is a valid answer for
+        every kind (pandas sorts several keys stably whatever the kind)."""
         if kwargs.get("key") is not None:
             return None
         na_position = kwargs.get("na_position", "last")
@@ -1132,9 +1523,15 @@ class TorchQueryCompiler(BaseQueryCompiler):
             if len(pos) != 1:
                 return None
             col = frame._columns[pos[0]]
+            if not col.is_device:
+                enc = self._encoded(col)
+                if enc is None:
+                    return None
+                keys.append(enc.codes.data)
+                continue
             # bool and datetime keys are declined: no sort of bool tensors,
             # and NaT (int64 min) would sort first whatever na_position says
-            if not col.is_device or col.pandas_dtype.kind not in "iuf":
+            if col.pandas_dtype.kind not in "iuf":
                 return None
             keys.append(col.data)
         perm = sort_ops.lexsort_permutation(
@@ -1152,8 +1549,11 @@ class TorchQueryCompiler(BaseQueryCompiler):
         return self._default_to_pandas(lambda left, r: left.merge(r, **kwargs), right)
 
     def _try_device_merge(self, right: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
-        """The device sort-merge join for numeric keys (one or several key
-        columns, every ``how``), all columns of both frames on the device."""
+        """The device sort-merge join (one or several key columns, every
+        ``how``): numeric key pairs as they are, string key pairs through
+        their dictionary codes remapped to the union dictionary.  String and
+        object payload columns gather on the host by the join positions,
+        fetched once."""
         how = kwargs.get("how", "inner")
         if how not in ("inner", "left", "right", "outer"):
             return None
@@ -1192,18 +1592,36 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
         if len(lframe) == 0 or len(rframe) == 0:
             return None
-        if not all(c.is_device for c in lframe._columns + rframe._columns):
-            return None  # host payloads (strings) are a later slice
+        for c in lframe._columns + rframe._columns:
+            # host payloads: object and string columns (other extension
+            # dtypes have join rules of their own in pandas)
+            if not c.is_device:
+                import pandas
+
+                if not (
+                    pandas.api.types.is_object_dtype(c.pandas_dtype)
+                    or isinstance(c.pandas_dtype, pandas.StringDtype)
+                ):
+                    return None
         lkey_positions, rkey_positions = [], []
-        for ll, rl in zip(l_keys, r_keys):
+        dict_pairs: dict = {}  # key index -> (left encoding, right encoding)
+        for ki, (ll, rl) in enumerate(zip(l_keys, r_keys)):
             lp, rp = lframe.column_position(ll), rframe.column_position(rl)
             if len(lp) != 1 or len(rp) != 1:
                 return None
             lc, rc = lframe.get_column(lp[0]), rframe.get_column(rp[0])
-            # exact dtype match: pandas promotes int32 vs int64 keys; bool
-            # keys are declined (no sort of bool tensors)
-            if lc.pandas_dtype.kind not in "iuf" or lc.pandas_dtype != rc.pandas_dtype:
+            if lc.is_device and rc.is_device:
+                # exact dtype match: pandas promotes int32 vs int64 keys;
+                # bool keys are declined (no sort of bool tensors)
+                if lc.pandas_dtype.kind not in "iuf" or lc.pandas_dtype != rc.pandas_dtype:
+                    return None
+            elif lc.is_device or rc.is_device:
                 return None
+            else:
+                l_enc, r_enc = self._encoded(lc), self._encoded(rc)
+                if l_enc is None or r_enc is None:
+                    return None
+                dict_pairs[ki] = (l_enc, r_enc)
             lkey_positions.append(lp[0])
             rkey_positions.append(rp[0])
         suffixes = kwargs.get("suffixes") or ("_x", "_y")
@@ -1237,8 +1655,16 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
 
         # ---- key codes and match positions ------------------------------ #
-        lkey_datas = [lframe.get_column(p).data for p in lkey_positions]
-        rkey_datas = [rframe.get_column(p).data for p in rkey_positions]
+        lkey_datas, rkey_datas = [], []
+        for ki, (lp, rp) in enumerate(zip(lkey_positions, rkey_positions)):
+            if ki in dict_pairs:
+                l_enc, r_enc = dict_pairs[ki]
+                _, l_map, r_map = dictionary.union_categories(l_enc.categories, r_enc.categories)
+                lkey_datas.append(dictionary.remap_codes_device(l_enc.codes.data, l_map))
+                rkey_datas.append(dictionary.remap_codes_device(r_enc.codes.data, r_map))
+            else:
+                lkey_datas.append(lframe.get_column(lp).data)
+                rkey_datas.append(rframe.get_column(rp).data)
         if len(lkey_datas) == 1:
             lkey, rkey = lkey_datas[0], rkey_datas[0]
         else:
@@ -1265,12 +1691,24 @@ class TorchQueryCompiler(BaseQueryCompiler):
         right_has_nulls = how in ("left", "outer") and has_miss
         n_total = n_out + n_appendix
 
+        # host positions, each fetched once when a host column needs it
+        fetched: dict = {}
+
+        def host_pos(name: str) -> np.ndarray:
+            if name not in fetched:
+                t = {"left": left_pos, "right": right_pos, "appendix": appendix_positions}[name]
+                fetched[name] = TorchWrapper.materialize(t)
+            return fetched[name]
+
         # ---- gather + assemble: (data, dtype, source position, side) ---- #
-        l_datas = [c.data for c in lframe._columns]
+        # device data is a tensor; host data a callable giving the values
+        # at a positions array (-1 -> missing)
+        l_dev = [i for i, c in enumerate(lframe._columns) if c.is_device]
+        l_datas = [lframe._columns[i].data for i in l_dev]
         if how == "right":
-            l_gathered = join_ops.gather_right_columns(l_datas, left_pos)
+            l_gathered = dict(zip(l_dev, join_ops.gather_right_columns(l_datas, left_pos)))
         else:
-            l_gathered = gather_columns_device(l_datas, left_pos)
+            l_gathered = dict(zip(l_dev, gather_columns_device(l_datas, left_pos)))
         suffix_l, suffix_r = suffixes
         right_value_labels = {r_labels[i] for i in right_value_positions}
         new_cols: list = []
@@ -1279,7 +1717,17 @@ class TorchQueryCompiler(BaseQueryCompiler):
             label = l_labels[i]
             if label in right_value_labels and i not in coalesced_lkeys:
                 label = f"{label}{suffix_l}"
-            data, dtype = l_gathered[i], col.pandas_dtype
+            new_labels.append(label)
+            dtype = col.pandas_dtype
+            if not col.is_device:
+                if how == "right" and i in lkey_to_rkey:
+                    # coalesced key: every output row is a right row
+                    data = _host_take(rframe.get_column(lkey_to_rkey[i]).data, host_pos("right"))
+                else:
+                    data = _host_take(col.data, host_pos("left"))
+                new_cols.append((data, dtype, i, "left"))
+                continue
+            data = l_gathered[i]
             if how == "right" and i in lkey_to_rkey:
                 # coalesced key: every output row is a right row, so the key
                 # value comes from the (always valid) right side
@@ -1291,52 +1739,94 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     data = torch.where(left_pos < 0, float("nan"), data)
                 dtype = np.dtype(np.float64)
             new_cols.append((data, dtype, i, "left"))
-            new_labels.append(label)
-        right_datas = join_ops.gather_right_columns(
-            [rframe.get_column(i).data for i in right_value_positions], right_pos
-        )
+        r_dev = [i for i in right_value_positions if rframe.get_column(i).is_device]
+        r_gathered = dict(zip(r_dev, join_ops.gather_right_columns(
+            [rframe.get_column(i).data for i in r_dev], right_pos
+        )))
         coalesced_labels = {l_labels[lp] for lp in coalesced_lkeys}
-        for i, data in zip(right_value_positions, right_datas):
+        for i in right_value_positions:
+            col = rframe.get_column(i)
             label = r_labels[i]
             if label in l_labels and label not in coalesced_labels:
                 label = f"{label}{suffix_r}"
-            dtype = rframe.get_column(i).pandas_dtype
+            new_labels.append(label)
+            dtype = col.pandas_dtype
+            if not col.is_device:
+                new_cols.append((_host_take(col.data, host_pos("right")), dtype, i, "right"))
+                continue
+            data = r_gathered[i]
             if right_has_nulls and dtype.kind in "iu":
                 data = torch.where(right_pos < 0, float("nan"), data.to(torch.float64))
                 dtype = np.dtype(np.float64)
             new_cols.append((data, dtype, i, "right"))
-            new_labels.append(label)
         if len(set(new_labels)) != len(new_labels):
             return None  # colliding suffixed labels: pandas raises MergeError
 
         # ---- outer appendix: right-only rows ----------------------------- #
         if n_appendix > 0:
             key_appendix = {
-                lp: rframe.get_column(rp).data
+                lp: rframe.get_column(rp)
                 for lp, rp, co in zip(lkey_positions, rkey_positions, coalesce) if co
             }
             merged = []
             for data, dtype, src, side in new_cols:
-                if side == "right":
-                    app = gather_columns_device([rframe.get_column(src).data], appendix_positions)[0]
-                elif src in key_appendix:
-                    app = gather_columns_device([key_appendix[src]], appendix_positions)[0]
+                source = rframe.get_column(src) if side == "right" else key_appendix.get(src)
+                if isinstance(data, torch.Tensor):
+                    if source is not None:
+                        app = gather_columns_device([source.data], appendix_positions)[0]
+                    else:
+                        null = float("nan") if dtype.kind == "f" else join_ops._null_sentinel(data.dtype)
+                        app = torch.full((n_appendix,), null, dtype=data.dtype, device=data.device)
+                    data = torch.cat([data, app.to(data.dtype)])
                 else:
-                    null = float("nan") if dtype.kind == "f" else join_ops._null_sentinel(data.dtype)
-                    app = torch.full((n_appendix,), null, dtype=data.dtype, device=data.device)
-                merged.append((torch.cat([data, app.to(data.dtype)]), dtype, src, side))
+                    app_pos = host_pos("appendix")
+                    if source is None:
+                        source, app_pos = data, np.full(n_appendix, -1, dtype=np.int64)
+                    else:
+                        source = source.data
+                    data = _host_concat([data, _host_take(source, app_pos)])
+                merged.append((data, dtype, src, side))
             new_cols = merged
-        final_cols = [DeviceColumn(d, dt, length=n_total) for d, dt, _, _ in new_cols]
+        final_cols = [
+            DeviceColumn(d, dt, length=n_total) if isinstance(d, torch.Tensor) else HostColumn(d)
+            for d, dt, _, _ in new_cols
+        ]
         result = TorchDataframe(final_cols, new_labels, LazyIndex(None, n_total), nrows=n_total)
         if how == "outer" and n_total > 0:
             # pandas sorts an outer merge by the join keys (stable, so equal
-            # keys keep the left-join expansion order)
-            perm = sort_ops.lexsort_permutation(
-                [final_cols[lp].data for lp in lkey_positions], n_total,
-                [True] * len(lkey_positions),
-            )
+            # keys keep the left-join expansion order); string keys sort by
+            # their union codes, gathered as the columns were
+            key_arrays = []
+            for ki, lp in enumerate(lkey_positions):
+                if ki in dict_pairs:
+                    main = gather_columns_device([lkey_datas[ki]], left_pos)[0]
+                    if n_appendix > 0:
+                        app = gather_columns_device([rkey_datas[ki]], appendix_positions)[0]
+                        main = torch.cat([main, app])
+                    key_arrays.append(main)
+                else:
+                    key_arrays.append(final_cols[lp].data)
+            perm = sort_ops.lexsort_permutation(key_arrays, n_total, [True] * len(key_arrays))
             result = result.take_rows_device(perm, LazyIndex(None, n_total))
         return type(self)(result)
+
+
+def _host_take(values: Any, positions: np.ndarray) -> Any:
+    """``values`` (numpy or extension array) at ``positions``; -1 gives the
+    dtype's missing value, as pandas' merge fills it."""
+    from pandas.api.extensions import take
+
+    return take(values, positions, allow_fill=True)
+
+
+def _host_concat(parts: List[Any]) -> Any:
+    """Host arrays one after another, in their common dtype (object when
+    they differ)."""
+    if all(isinstance(p, np.ndarray) for p in parts):
+        return np.concatenate(parts)
+    if len({str(p.dtype) for p in parts}) == 1:
+        return type(parts[0])._concat_same_type(parts)
+    return np.concatenate([np.asarray(p, dtype=object) for p in parts])
 
 
 # ---------------------------------------------------------------------- #
@@ -1407,3 +1897,28 @@ def _make_nonskipna_reduce_override(op: str):
 
 for _op in ["count", "any", "all"]:
     setattr(TorchQueryCompiler, _op, _make_nonskipna_reduce_override(_op))
+
+
+# string predicates and measures whose per-category results gather by code
+# on the device (_try_str_lut); string-valued methods (lower, strip,
+# replace, ...) stay with pandas
+_STR_LUT_METHODS = [
+    "len", "count", "contains", "startswith", "endswith", "match",
+    "fullmatch", "find", "rfind", "isalnum", "isalpha", "isdigit",
+    "isspace", "islower", "isupper", "istitle", "isnumeric", "isdecimal",
+]
+
+
+def _make_str_lut_override(name: str):
+    def method(self: TorchQueryCompiler, *args: Any, **kwargs: Any):
+        result = self._try_str_lut(name, args, kwargs)
+        if result is not None:
+            return result
+        return getattr(BaseQueryCompiler, f"str_{name}")(self, *args, **kwargs)
+
+    method.__name__ = f"str_{name}"
+    return method
+
+
+for _op in _STR_LUT_METHODS:
+    setattr(TorchQueryCompiler, f"str_{_op}", _make_str_lut_override(_op))

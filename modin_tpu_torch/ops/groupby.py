@@ -242,3 +242,13 @@ def groupby_reduce(
                 r = s[:num_groups].to(torch.float64) / seg.sizes().to(torch.float64)
         out.append(r[:num_groups])
     return out
+
+
+def groupby_first_position(codes: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The first row position of each group (pandas' order of first
+    appearance); rows with the overflow code ``num_groups`` are dropped."""
+    n = codes.shape[0]
+    first = torch.full((num_groups + 1,), n, dtype=torch.int64, device=codes.device)
+    rows = torch.arange(n, dtype=torch.int64, device=codes.device)
+    first.scatter_reduce_(0, codes, rows, "amin", include_self=True)
+    return first[:num_groups]

@@ -228,33 +228,38 @@ def reduce_axis1(
 # shared sorted representation, and the O(n) histogram fast path
 # --------------------------------------------------------------------- #
 #
-# Two strategies per column, planned before any work:
+# Three strategies per column, planned before any work:
 #
-# - "hist":   bounded-range ints count occurrences with one O(n) histogram
-#             (the bincount kernel) — no sort;
+# - "dict":   the answer is on the host already: a dictionary-coded string
+#             column's categories are its distinct values (ops/dictionary.py);
+# - "hist":   bounded-range ints and dictionary codes count occurrences with
+#             one O(n) histogram (the bincount kernel) — no sort;
 # - "cached"/"sort": the (sorted, n_valid) prefix is built once per column
 #             through ops/sort.sorted_valid and cached on the DeviceColumn
 #             (ops/sorted_cache.py), so median + quantile + nunique + mode
 #             on one column pay ONE O(n log n) sort, not four.
 #
-# The JAX package also has a "dict" strategy for dictionary-coded string
-# columns and asks a calibrated kernel router whether the device plan beats
-# pandas; both are later slices of the port, which always takes the device.
+# The JAX package also asks a calibrated kernel router whether the device
+# plan beats pandas; that is a later slice of the port, which always takes
+# the device.
 
 
 class ColumnPlan(NamedTuple):
-    col: Any  # DeviceColumn carrying the values
-    strategy: str  # "hist", "cached" or "sort"
+    col: Any  # DeviceColumn carrying the values (dictionary codes included)
+    strategy: str  # "dict", "hist", "cached" or "sort"
     span: int  # histogram value-bin count (hist strategy only)
-    base: int  # histogram base value: bin = value - base
+    base: int  # histogram base value: bin = value - base (0 for codes)
+    n_categories: int = 0  # dictionary columns: distinct non-missing values
+    has_nan: bool = False  # dictionary columns: whether a row is missing
 
 
 def plan_sort_reduce(op: str, specs: List[dict], n: int) -> List[ColumnPlan]:
-    """One :class:`ColumnPlan` per column spec (``{"col": DeviceColumn}``)
-    for a sort-shaped ``op``.  Int and bool columns of ``nunique``/``mode``
-    are probed (one min/max pass each, one fetch) for a value range within
-    ``KernelRouterHistBound``; columns with a live sorted representation
-    plan as "cached"."""
+    """One :class:`ColumnPlan` per column spec for a sort-shaped ``op``:
+    ``{"col": DeviceColumn}`` for a numeric column, ``{"col": codes,
+    "n_categories": k, "has_nan": b}`` for a dictionary-coded one.  Int and
+    bool columns of ``nunique``/``mode`` are probed (one min/max pass each,
+    one fetch) for a value range within ``KernelRouterHistBound``; columns
+    with a live sorted representation plan as "cached"."""
     from modin_tpu_torch.config import KernelRouterHistBound
     from modin_tpu_torch.ops import sorted_cache
 
@@ -264,7 +269,17 @@ def plan_sort_reduce(op: str, specs: List[dict], n: int) -> List[ColumnPlan]:
     probe: List[int] = []
     for i, spec in enumerate(specs):
         col = spec["col"]
-        if sorted_cache.peek(col):
+        if "n_categories" in spec:
+            k, has_nan = int(spec["n_categories"]), bool(spec["has_nan"])
+            if op == "nunique":
+                strategy, span = "dict", 0
+            elif hist_ok and k + 2 <= hist_bound:
+                # span floor 1: an all-missing column has no categories
+                strategy, span = "hist", max(k, 1)
+            else:
+                strategy, span = ("cached" if sorted_cache.peek(col) else "sort"), 0
+            plans[i] = ColumnPlan(col, strategy, span, 0, k, has_nan)
+        elif sorted_cache.peek(col):
             plans[i] = ColumnPlan(col, "cached", 0, 0)
         elif hist_ok and col.pandas_dtype.kind in "biu":
             probe.append(i)
@@ -378,27 +393,39 @@ def _mode_sorted(xs: torch.Tensor, n_valid: torch.Tensor, k_bound: int) -> Tuple
     return vals[:k_bound], m
 
 
-def _hist_counts(p: ColumnPlan) -> torch.Tensor:
-    """Value counts of one hist-planned column over its ``span`` bins: the
-    bincount kernel on the card, its plain version on the CPU."""
+def _hist_counts(p: ColumnPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(value counts over the ``span`` bins, count of NaN rows) of one
+    hist-planned column: the bincount kernel on the card, its plain version
+    on the CPU.  Dictionary codes (float64, NaN for a missing value) count
+    their NaN rows in one slot past the value bins."""
     from modin_tpu_torch.ops.cuda.groupby_kernels import bincount
 
     c = p.col.data
+    span = int(p.span)
+    if c.dtype.is_floating_point:
+        ids = torch.where(torch.isnan(c), float(span), c).to(torch.int64).contiguous()
+        counts = bincount(ids, span + 1)
+        return counts[:span], counts[span]
     if c.dtype == torch.bool:
         c = c.to(torch.int8)
-    codes = (c.to(torch.int64) - int(p.base)).contiguous()
-    return bincount(codes, int(p.span))
+    counts = bincount((c.to(torch.int64) - int(p.base)).contiguous(), span)
+    return counts, torch.zeros((), dtype=counts.dtype, device=counts.device)
 
 
 def nunique_planned(plans: List[ColumnPlan], n: int, dropna: bool = True) -> List[int]:
-    """Distinct count per planned column: one O(n) histogram for
-    bounded-range ints, the sorted adjacent difference for the rest."""
+    """Distinct count per planned column: the category count for dictionary
+    columns, one O(n) histogram for bounded-range ints, the sorted adjacent
+    difference for the rest."""
     n, dropna = int(n), bool(dropna)
     out: List[Any] = []
     reps = _sorted_inputs(plans, n)
     for i, p in enumerate(plans):
-        if p.strategy == "hist":
-            out.append((_hist_counts(p) > 0).sum())
+        if p.strategy == "dict":
+            out.append(torch.tensor(p.n_categories + (0 if dropna else int(p.has_nan))))
+        elif p.strategy == "hist":
+            counts, nan_count = _hist_counts(p)
+            cnt = (counts > 0).sum()
+            out.append(cnt if dropna else cnt + (nan_count > 0).to(cnt.dtype))
         else:
             out.append(_nunique_sorted(*reps[i], n, dropna))
     return [int(v) for v in _engine_materialize(out)]
@@ -408,9 +435,9 @@ def mode_planned(plans: List[ColumnPlan], n: int, dropna: bool = True, k_bound: 
     """Per-column modal values, ascending (pandas' order).
 
     Returns per column ``(values, nan_modal)`` — a host array of the modal
-    values and whether NaN ties the max count (always False here: int
-    columns have no NaN, and NaN-counting modes take the histogram only) —
-    or ``None`` where the device cannot represent the answer (the sorted
+    values (code indices for dictionary columns; the caller decodes) and
+    whether NaN ties the max count (``dropna=False`` histograms only) — or
+    ``None`` where the device cannot represent the answer (the sorted
     path's empty or over-``k_bound`` mode set); the caller defaults.  The
     histogram path has no cap: the modal values fall out of the bin mask.
     """
@@ -419,19 +446,22 @@ def mode_planned(plans: List[ColumnPlan], n: int, dropna: bool = True, k_bound: 
     pending = []
     for i, p in enumerate(plans):
         if p.strategy == "hist":
-            counts = _hist_counts(p)
-            max_val = counts.max()
-            pending.append(((counts == max_val) & (counts > 0), max_val))
+            counts, nan_count = _hist_counts(p)
+            max_all = counts.max()
+            if not dropna:
+                max_all = torch.maximum(max_all, nan_count)
+            nan_modal = (nan_count == max_all) & (nan_count > 0) & (not dropna)
+            pending.append(((counts == max_all) & (counts > 0), torch.stack([max_all, nan_modal.to(max_all.dtype)])))
         else:
             pending.append(_mode_sorted(*reps[i], int(k_bound)))
     results: List[Any] = []
     for p, (a, b) in zip(plans, _engine_materialize(pending)):
         if p.strategy == "hist":
-            if int(b) <= 0:
+            if int(b[0]) <= 0:
                 results.append(None)  # no rows: pandas' empty mode
                 continue
             values = np.nonzero(np.asarray(a))[0].astype(np.int64) + int(p.base)
-            results.append((values, False))
+            results.append((values, bool(b[1])))
         else:
             m = int(b)
             results.append((np.asarray(a[:m]), False) if 0 < m <= int(k_bound) else None)

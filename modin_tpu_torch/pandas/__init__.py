@@ -7,9 +7,9 @@ and other utilities pass through to pandas.  Every method of ``DataFrame``
 and ``Series`` exists; what the device does not run defaults to pandas,
 counted in ``query_compiler.DEFAULTS_TO_PANDAS``.
 
-The IO functions (``read_csv``, ``read_parquet``, ..., ``to_pickle``) are a
-later slice of the port and are absent: asking for one raises
-AttributeError instead of handing back a pandas frame.
+The IO functions come from ``io.py``: ``read_csv``, ``read_table``,
+``read_parquet`` and ``read_feather`` parse in parallel and put the numeric
+columns on the device; the other readers default to pandas, counted.
 """
 
 from __future__ import annotations
@@ -106,22 +106,35 @@ from modin_tpu_torch.pandas.general import (  # noqa: E402,F401
     value_counts,
     wide_to_long,
 )
+from modin_tpu_torch.pandas.io import (  # noqa: E402,F401
+    ExcelFile,
+    HDFStore,
+    read_clipboard,
+    read_csv,
+    read_excel,
+    read_feather,
+    read_fwf,
+    read_hdf,
+    read_html,
+    read_json,
+    read_orc,
+    read_parquet,
+    read_pickle,
+    read_sas,
+    read_spss,
+    read_sql,
+    read_sql_query,
+    read_sql_table,
+    read_stata,
+    read_table,
+    read_xml,
+    to_pickle,
+)
 from modin_tpu_torch.pandas.plotting import Plotting as plotting  # noqa: E402,F401
 from modin_tpu_torch.pandas.series import Series  # noqa: E402,F401
 from modin_tpu_torch.pandas.utils import from_pandas, to_pandas  # noqa: E402,F401
 
 __version__ = pandas.__version__
-
-# the IO slice of the port is still to come (ROADMAP Queue 1 item 8)
-IO_FUNCTIONS = frozenset(
-    [
-        "ExcelFile", "HDFStore", "read_clipboard", "read_csv", "read_excel",
-        "read_feather", "read_fwf", "read_hdf", "read_html", "read_json",
-        "read_orc", "read_parquet", "read_pickle", "read_sas", "read_spss",
-        "read_sql", "read_sql_query", "read_sql_table", "read_stata",
-        "read_table", "read_xml", "to_pickle",
-    ]
-)
 
 __all__ = [
     "DataFrame", "Series", "concat", "eval", "unique", "value_counts", "cut",
@@ -140,17 +153,16 @@ __all__ = [
     "interval_range", "describe_option", "notnull", "notna", "pivot", "test",
     "lreshape", "wide_to_long", "merge_asof", "merge_ordered",
     "json_normalize", "NamedAgg", "from_dummies", "from_pandas", "to_pandas",
+    "read_csv", "read_parquet", "read_json", "read_html", "read_clipboard",
+    "read_excel", "read_hdf", "read_feather", "read_stata", "read_sas",
+    "read_pickle", "read_sql", "read_fwf", "read_table", "read_sql_query",
+    "read_sql_table", "read_spss", "read_orc", "read_xml", "to_pickle",
+    "ExcelFile", "HDFStore",
 ]
 
 
 def __getattr__(name: str):
-    """Anything else pandas has passes through, apart from the IO
-    functions, which the port does not have yet."""
-    if name in IO_FUNCTIONS:
-        raise AttributeError(
-            f"modin_tpu_torch.pandas has no {name!r}: the IO functions are a "
-            "later slice of the port"
-        )
+    """Anything else pandas has passes through."""
     try:
         return getattr(pandas, name)
     except AttributeError:

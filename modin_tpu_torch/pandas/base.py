@@ -6,10 +6,11 @@ operations, and generated default-to-pandas fallbacks
 (``_install_fallbacks``) for the long tail, so that every pandas method
 exists.  What the device does not run goes to pandas through the compiler's
 one counted default (``query_compiler.DEFAULTS_TO_PANDAS``).  Left out, as
-later slices of the port: the backend switching between compilers, the
+later slices of the port: the backend switching between compilers and the
 window/resample wrappers (``rolling``, ``expanding``, ``ewm``, ``resample``
-default to pandas and hand back pandas' own objects) and the IO dispatcher
-(writers such as ``to_csv`` default to pandas).
+default to pandas and hand back pandas' own objects).  ``to_csv`` (and the
+DataFrame's ``to_parquet``/``to_feather``) go through the IO dispatchers
+(``FactoryDispatcher``); the other writers default to pandas.
 """
 
 from __future__ import annotations
@@ -1159,6 +1160,13 @@ class BasePandasDataset:
     # ------------------------------------------------------------------ #
     # IO / export
     # ------------------------------------------------------------------ #
+
+    def to_csv(self, path_or_buf: Any = None, **kwargs: Any):
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        return FactoryDispatcher.to_csv(self._query_compiler, path_or_buf=path_or_buf, **kwargs)
 
     def to_dict(self, *args: Any, **kwargs: Any):
         return self._default_to_pandas("to_dict", *args, **kwargs)

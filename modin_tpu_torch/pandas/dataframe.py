@@ -866,6 +866,20 @@ class DataFrame(BasePandasDataset):
             memory_usage=memory_usage, show_counts=show_counts,
         )
 
+    def to_parquet(self, path: Any = None, **kwargs: Any):
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        return FactoryDispatcher.to_parquet(self._query_compiler, path=path, **kwargs)
+
+    def to_feather(self, path: Any, **kwargs: Any):
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        return FactoryDispatcher.to_feather(self._query_compiler, path=path, **kwargs)
+
     def to_records(self, *args: Any, **kwargs: Any):
         return self._default_to_pandas("to_records", *args, **kwargs)
 

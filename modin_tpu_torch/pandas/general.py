@@ -5,7 +5,7 @@ The port's counterpart of ``modin_tpu/pandas/general.py``.  ``concat`` of
 frames and ``merge`` reach the device paths of the query compiler; the rest
 run in pandas, and every such call counts one default in
 ``query_compiler.DEFAULTS_TO_PANDAS`` (``_wrap``).  The IO functions
-(``read_csv``, ...) are a later slice of the port and are absent.
+(``read_csv``, ...) are in ``io.py``.
 """
 
 from __future__ import annotations

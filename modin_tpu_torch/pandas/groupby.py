@@ -1,10 +1,14 @@
-"""``DataFrameGroupBy`` of the torch port — a lazy groupby object.
+"""``DataFrameGroupBy``/``SeriesGroupBy`` of the torch port — lazy groupby
+objects.
 
 The port's counterpart of ``modin_tpu/pandas/groupby.py``, cut to
-``count``/``size``/``sum``/``mean``/``min``/``max``.  The object holds
-(frame, by, groupby kwargs) and hands each aggregation to
+``count``/``size``/``sum``/``mean``/``min``/``max`` and column selection
+(``gb["col"]``, ``gb[["a", "b"]]``).  The object holds (frame, by, groupby
+kwargs, selection) and hands each aggregation to
 ``TorchQueryCompiler.groupby_agg``; the compiler runs what it can on the
-device and defaults the rest to pandas, counted.
+device and defaults the rest to pandas, counted.  Any other method of
+pandas' groupby objects goes the same way by name, so that its call counts
+one default and its frame or Series comes back as the port's.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import numpy as np
+import pandas
 from pandas.api.types import is_list_like
 
 from modin_tpu_torch.pandas.base import BasePandasDataset
@@ -29,9 +34,11 @@ class DataFrameGroupBy:
         group_keys: bool = True,
         observed: Any = True,
         dropna: bool = True,
+        selection: Any = None,
     ) -> None:
         self._df = df
         self._by = by
+        self._selection = selection
         self._kwargs = {
             "level": level,
             "as_index": as_index,
@@ -45,9 +52,9 @@ class DataFrameGroupBy:
         """(by for the compiler, drop): column labels stay labels (drop=True),
         a Series becomes its query compiler."""
         by = self._by
-        columns = self._df.columns
         if isinstance(by, BasePandasDataset):
             return by._query_compiler, False
+        columns = self._df.columns if self._df.ndim == 2 else ()
         if hashable(by) and not isinstance(by, tuple):
             if by in columns:
                 return [by], True
@@ -65,20 +72,27 @@ class DataFrameGroupBy:
             ], False
         return by, False
 
-    def _groupby_agg(self, agg_func: str, agg_kwargs: Optional[dict] = None):
+    _series_groupby = False
+
+    def _groupby_agg(self, agg_func: str, agg_kwargs: Optional[dict] = None, agg_args: tuple = ()):
         by, drop = self._resolve_by()
         result_qc = self._df._query_compiler.groupby_agg(
             by=by,
             agg_func=agg_func,
             axis=0,
             groupby_kwargs=dict(self._kwargs),
-            agg_args=(),
+            agg_args=agg_args,
             agg_kwargs=dict(agg_kwargs or {}),
             drop=drop,
+            series_groupby=self._series_groupby,
+            selection=self._selection,
         )
+        from modin_tpu_torch.core.storage_formats.base.query_compiler import BaseQueryCompiler
         from modin_tpu_torch.pandas.dataframe import DataFrame
         from modin_tpu_torch.pandas.series import Series
 
+        if not isinstance(result_qc, BaseQueryCompiler):
+            return result_qc  # a scalar or dict of pandas' method
         if result_qc._shape_hint == "column":
             return Series(query_compiler=result_qc)
         return DataFrame(query_compiler=result_qc)
@@ -108,3 +122,55 @@ class DataFrameGroupBy:
             qc._shape_hint = "column"
             return Series(query_compiler=qc)
         return result
+
+    def __getitem__(self, key: Any):
+        kwargs = {k: v for k, v in self._kwargs.items() if k != "level"}
+        if is_list_like(key) and not isinstance(key, str):
+            return DataFrameGroupBy(
+                self._df, by=self._by, level=self._kwargs["level"], selection=list(key), **kwargs
+            )
+        return SeriesGroupBy(
+            self._df, by=self._by, level=self._kwargs["level"], selection=key, **kwargs
+        )
+
+    def _to_pandas_groupby(self):
+        from modin_tpu_torch.utils import try_cast_to_pandas
+
+        grp = self._df._to_pandas().groupby(
+            by=try_cast_to_pandas(self._by, squeeze=True), **self._kwargs
+        )
+        return grp if self._selection is None else grp[self._selection]
+
+    def __getattr__(self, name: str):
+        """A column (``gb.col``), or any other member of pandas' groupby
+        object: a method runs through the compiler's ``groupby_agg`` when
+        called (one counted default), a property on pandas' object."""
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if self._df.ndim == 2 and self._selection is None and name in self._df.columns:
+            return self[name]
+        pandas_cls = (
+            pandas.core.groupby.SeriesGroupBy
+            if self._series_groupby
+            else pandas.core.groupby.DataFrameGroupBy
+        )
+        member = getattr(pandas_cls, name, None)
+        if member is None:
+            raise AttributeError(name)
+        if callable(member):
+            def method(*args: Any, **kwargs: Any):
+                return self._groupby_agg(name, kwargs, args)
+
+            method.__name__ = name
+            return method
+        from modin_tpu_torch.error_message import ErrorMessage
+
+        ErrorMessage.default_to_pandas(f"`GroupBy.{name}`")
+        return getattr(self._to_pandas_groupby(), name)
+
+
+class SeriesGroupBy(DataFrameGroupBy):
+    """A groupby whose values are one column: ``df.groupby(k)["col"]`` or
+    ``series.groupby(key)``; its aggregations are Series."""
+
+    _series_groupby = True

@@ -3,8 +3,8 @@
 The port's counterpart of ``modin_tpu/pandas/series.py``.  Internally a
 Series is a one-column query compiler (column label ``__reduced__`` when
 unnamed) with ``_shape_hint == "column"``; the API squeezes on
-materialization.  ``groupby`` and the window methods default to pandas (the
-port's Series groupby is a later slice).
+materialization.  ``groupby`` gives the port's ``SeriesGroupBy``; the
+window methods default to pandas.
 """
 
 from __future__ import annotations
@@ -247,8 +247,29 @@ class Series(BasePandasDataset):
             return int(result.to_pandas().iloc[0, 0])
         return int(result)
 
-    def unique(self) -> np.ndarray:
-        return self._query_compiler.unique().to_numpy().flatten()
+    def unique(self):
+        # pandas' own unique of the distinct values (in order of appearance)
+        # gives pandas' result type: an ndarray, or an extension array
+        return self._query_compiler.unique().to_pandas().iloc[:, 0].unique()
+
+    def groupby(
+        self,
+        by: Any = None,
+        level: Any = None,
+        as_index: bool = True,
+        sort: bool = True,
+        group_keys: bool = True,
+        observed: Any = True,
+        dropna: bool = True,
+    ):
+        from modin_tpu_torch.pandas.groupby import SeriesGroupBy
+
+        if by is None and level is None:
+            raise TypeError("You have to supply one of 'by' and 'level'")
+        return SeriesGroupBy(
+            self, by=by, level=level, as_index=as_index, sort=sort,
+            group_keys=group_keys, observed=observed, dropna=dropna,
+        )
 
     def value_counts(self, normalize: bool = False, sort: bool = True, ascending: bool = False, bins: Any = None, dropna: bool = True):
         qc = self._query_compiler.series_value_counts(

@@ -271,16 +271,27 @@ def test_class_surface_matches_the_jax_package(cls):
     assert not missing, f"{cls} lacks {missing}"
 
 
+# the IO functions: each one the port's own, not pandas' passed through
+IO_FUNCTIONS = [
+    "ExcelFile", "HDFStore", "read_clipboard", "read_csv", "read_excel",
+    "read_feather", "read_fwf", "read_hdf", "read_html", "read_json",
+    "read_orc", "read_parquet", "read_pickle", "read_sas", "read_spss",
+    "read_sql", "read_sql_query", "read_sql_table", "read_stata",
+    "read_table", "read_xml", "to_pickle",
+]
+
+
 def test_module_surface_matches_the_jax_package():
     missing = sorted(
-        n for n in _public(mpd) - MODULE_NOT_API - tpd.IO_FUNCTIONS
+        n for n in _public(mpd) - MODULE_NOT_API
         if not isinstance(getattr(mpd, n), types.ModuleType) and not hasattr(tpd, n)
     )
     assert not missing, f"modin_tpu_torch.pandas lacks {missing}"
-    for name in sorted(tpd.IO_FUNCTIONS):
+    for name in IO_FUNCTIONS:
         assert hasattr(mpd, name)
-        with pytest.raises(AttributeError, match="later slice"):
-            getattr(tpd, name)
+        port = getattr(tpd, name)
+        assert callable(port) and port is not getattr(pandas, name), name
+        assert port.__module__ == "modin_tpu_torch.pandas.io", name
 
 
 def test_every_pandas_method_is_callable_on_the_port():
@@ -337,3 +348,60 @@ def test_indexing_writes_default_and_match():
         df.loc[df["col0"] > 90, "col2"] = 0
         df.loc[7] = 5
     _assert_equal(tpd.to_pandas(tdf), pdf)
+
+
+# ---------------------------------------------------------------------- #
+# column drop and reset_index on the device; the groupby object's pandas
+# fallback
+# ---------------------------------------------------------------------- #
+
+METADATA_QUERIES = {
+    "drop_columns": lambda df: df.drop(columns=["col1", "col3"]),
+    "reset_index": lambda df: df.set_axis(list(range(100, 400)), axis=0).reset_index(),
+    "reset_index_drop": lambda df: df[df.col0 > 50].reset_index(drop=True),
+}
+
+
+@pytest.mark.parametrize("query", sorted(METADATA_QUERIES))
+def test_metadata_ops_stay_on_the_device(query):
+    fn = METADATA_QUERIES[query]
+    want, from_jax, from_torch, counted = _run_three(fn, make_data((300, 4), seed=8))
+    assert counted == 0
+    _assert_equal(from_torch, want)
+    _assert_equal(from_jax, want)
+
+
+def test_delitem_keeps_the_other_columns():
+    d = make_data((50, 3), seed=9)
+    tdf, pdf = tpd.DataFrame(d), pandas.DataFrame(d)
+    kept = tdf._query_compiler._modin_frame.get_column(2)
+    defaults = tqc.DEFAULTS_TO_PANDAS
+    del tdf["col1"], pdf["col1"]
+    assert tqc.DEFAULTS_TO_PANDAS == defaults
+    assert tdf._query_compiler._modin_frame.get_column(1) is kept  # no data moved
+    _assert_equal(tpd.to_pandas(tdf), pdf)
+
+
+def test_groupby_methods_without_a_device_path_use_pandas_once():
+    d = make_data((200, 3), seed=10)
+    tdf, pdf = tpd.DataFrame(d), pandas.DataFrame(d)
+    defaults = tqc.DEFAULTS_TO_PANDAS
+    gb = tdf.groupby("col0")
+    assert hasattr(gb, "median") and hasattr(gb["col1"], "cumsum")
+    assert tqc.DEFAULTS_TO_PANDAS == defaults  # looking a method up runs nothing
+    got = gb["col1"].cumsum()
+    assert tqc.DEFAULTS_TO_PANDAS == defaults + 1
+    assert isinstance(got, tpd.Series)
+    _assert_equal(tpd.to_pandas(got), pdf.groupby("col0")["col1"].cumsum())
+    got = gb.median()
+    assert tqc.DEFAULTS_TO_PANDAS == defaults + 2
+    assert isinstance(got, tpd.DataFrame)
+    _assert_equal(tpd.to_pandas(got), pdf.groupby("col0").median())
+    got = gb.agg({"col1": "sum", "col2": "median"})
+    assert tqc.DEFAULTS_TO_PANDAS == defaults + 3
+    assert isinstance(got, tpd.DataFrame)
+    _assert_equal(tpd.to_pandas(got), pdf.groupby("col0").agg({"col1": "sum", "col2": "median"}))
+    assert gb.ngroups == pdf.groupby("col0").ngroups
+    assert tqc.DEFAULTS_TO_PANDAS == defaults + 4
+    with pytest.raises(AttributeError):
+        gb.no_such_method
