@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of modin_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
-    python3 chip_smoke.py [--rows N] [--earlier-rows N] [--float-rows N] [--io-rows N]
-                          [--seed S] [--phases main,float,relational,arithmetic,io]
+    python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
+                          [--float-rows N] [--io-rows N] [--window-rows N] [--seed S]
+                          [--phases main,float,relational,arithmetic,io,window]
 
 Phases, one JSON object per line each:
 
@@ -13,7 +14,12 @@ Phases, one JSON object per line each:
              to 2^22 across the shared-memory cap, codes that include the
              overflow value, and all codes in one slot; times of the
              kernel, the plain version and ``torch.bincount`` (medians of 5
-             runs after a warm-up, CUDA events) beside the bound.
+             runs after a warm-up, CUDA events) beside the bound.  Then
+             ``scan`` against ``scan_plain`` at 1e8 rows: the linear mode
+             over float64, seg_add and seg_max over int64 (exactly) and
+             float64 (within a bound from the scans' depths) with sorted
+             codes of 100 and 10 000 groups, two launches bit for bit, and
+             ``torch.cumsum``'s time beside the segmented modes.
 4. main    - the asv main path (``make_frame((N, 10), ngroups=g)`` for
              g in 100 and 10 000, plus a key of range 1e6) through
              ``modin_tpu_torch.pandas``: from_pandas, add/mul/mod/abs,
@@ -35,8 +41,8 @@ Phases, one JSON object per line each:
              equals pandas exactly, index included, no query defaults to
              pandas, and every value column stays on ``cuda``.  Needs
              pandas, the reference it is held against.
-7. arithmetic - asv ``TimeArithmetic`` on ``make_frame((rows, 10))`` (1e8
-             rows by default): sum, count, median, nunique, mean, mode,
+7. arithmetic - asv ``TimeArithmetic`` on ``make_frame((rows, 10))``
+             (``--arithmetic-rows``, 5e7 by default): sum, count, median, nunique, mean, mode,
              add/mul/mod(2) at ``axis=0`` and ``axis=1``, abs and isin
              (which take no axis), ``quantile([0.1, 0.5, 0.9])`` and
              ``describe()`` on the device, each against pandas (ints
@@ -64,12 +70,24 @@ Phases, one JSON object per line each:
              pandas' round trip.  Every result equals pandas' exactly (float
              means to rtol 1e-12), str dtypes and index included, nothing
              defaults to pandas, and the bincount kernel launches.
+9. window  - windows, cumulative ops and the rest of groupby on
+             ``make_frame((rows, 10), ngroups=100)`` at ``--window-rows``
+             (5e6 by default) and on phase 5's NaN float
+             frame (with +/-inf rows): cumsum/cummax/shift/diff/pow,
+             skew/kurt, ``rolling(10)``/``rolling(1000)``
+             sum/mean/std/min/max/count, ``expanding`` mean/std, ``ewm``
+             mean/std/adjust=False/corr, groupby median/quantile/nunique/
+             first/last/var/prod/cumsum/cummax/cumcount/transform/agg list
+             and dict/describe, each against pandas within the tolerance its
+             line states; no query defaults to pandas, the scan and the
+             bincount kernels launch, and an ewm mean and a rolling std
+             repeat bit for bit.
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
-default) so that the whole script stays well inside its time limit; the
-kernel check and the arithmetic phase run at ``--rows``.  ``--phases`` picks
-the phases after the kernel check for a quick run; only a run of all five
-prints the result lines.  Then the card's name and power limit, one
+default), the arithmetic phase at ``--arithmetic-rows`` (5e7) and the window
+phase at ``--window-rows`` (5e6) so that the whole script stays well inside
+its time limit; the kernel checks run at ``--rows``.  ``--phases`` picks the phases after the kernel check for a
+quick run; only a run of all six prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
@@ -89,6 +107,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -247,7 +266,108 @@ def phase_kernel(rows: int, seed: int) -> dict:
         check_and_time(codes, width, "one_slot")
         del codes
     free_device_memory()
-    return {"cap": cap, "by_width": by_width, "max_abs_err": max_err}
+    return {"cap": cap, "by_width": by_width, "max_abs_err": max_err, "scan": scan_check(rows, seed)}
+
+
+# ---------------------------------------------------------------------- #
+# 3b. the scan kernel against its plain version
+# ---------------------------------------------------------------------- #
+
+# unit roundoff of float64
+U64 = 2.0 ** -53
+
+
+def scan_tolerance_factor(n: int) -> float:
+    """Relative bound (to the same scan of absolute values) between the
+    kernel and the plain doubling scan on float64: each output passes
+    through at most ceil(log2 n) combines in the plain scan and 2 log2(256)
+    + 2*16 + ceil(tiles/4096) + 2 in the kernel (lane and warp shuffles,
+    the 16 rows of a tile, the same again for the carries); a combine
+    rounds twice in the linear mode.  4 ceil(log2 n) + 64 steps cover both
+    with room, times 2 roundings, times the unit roundoff."""
+    return 2 * (4 * int(np.ceil(np.log2(max(n, 2)))) + 64) * U64
+
+
+def scan_check(rows: int, seed: int) -> dict:
+    """``scan`` against ``scan_plain`` on the card at ``rows`` rows: linear
+    over float64 (a in (0, 1], b normal), seg_add and seg_max over int64
+    and float64 with sorted codes of 100 and 10 000 groups.  Ints exactly,
+    floats within ``scan_tolerance_factor`` times the scan of absolute
+    values (max exactly); two launches bitwise equal; times of the kernel,
+    the plain version and, beside the segmented modes, ``torch.cumsum`` of
+    the values (no single torch call computes a linear or a segmented
+    scan)."""
+    import torch
+
+    from modin_tpu_torch.ops.cuda import scan_kernels as sk
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    factor = scan_tolerance_factor(rows)
+    by_case = {}
+    max_err = 0.0
+
+    def check(case: str, mode: str, x, aux, groups):
+        nonlocal max_err
+        got = sk.scan(mode, x, aux)
+        again = sk.scan(mode, x, aux)
+        want = sk.scan_plain(mode, x, aux)
+        torch.cuda.synchronize()
+        if got.dtype.is_floating_point:
+            bitwise = torch.equal(got.view(torch.int64), again.view(torch.int64))
+        else:
+            bitwise = torch.equal(got, again)
+        if not bitwise:
+            raise AssertionError(f"scan {case}: two launches differ")
+        err = float((got - want).abs().max()) if got.dtype.is_floating_point else float((got != want).sum())
+        if mode == "seg_max" or not got.dtype.is_floating_point:
+            if not torch.equal(got, want):
+                raise AssertionError(f"scan {case}: != scan_plain")
+            tol = "exact"
+        else:
+            if mode == "linear":
+                z = sk.scan_plain("linear", x.abs(), aux.abs())
+            else:
+                z = sk.scan_plain(mode, x.abs(), aux)
+            bad = int(((got - want).abs() > factor * z).sum())
+            del z
+            if bad:
+                raise AssertionError(f"scan {case}: {bad} values beyond {factor:.3g} x the scan of |x|")
+            tol = f"|kernel - plain| <= {factor:.3g} * scan(|x|)"
+        max_err = max(max_err, err)
+        del got, again, want
+        n = x.shape[0]
+        rec = {
+            "phase": "kernel", "kernel": "scan", "case": case, "mode": mode, "n": n,
+            "groups": groups, "dtype": str(x.dtype).replace("torch.", ""), "tolerance": tol,
+            "max_abs_err": err, "bitwise_repeat": True,
+            "kernel_ms": cuda_ms(lambda: sk.scan(mode, x, aux)),
+            "plain_ms": cuda_ms(lambda: sk.scan_plain(mode, x, aux)),
+            "library_ms": None if mode == "linear" else cuda_ms(lambda: torch.cumsum(x, 0)),
+            "library": None if mode == "linear" else "torch.cumsum (unsegmented; no torch call computes this scan)",
+            "bound_ms": 24 * n / HBM_BYTES_PER_S * 1e3,
+        }
+        emit(rec)
+        by_case[case] = rec
+
+    a = 1.0 - torch.rand(rows, dtype=torch.float64, device=dev, generator=gen)
+    b = torch.randn(rows, dtype=torch.float64, device=dev, generator=gen)
+    check("linear_f64", "linear", a, b, None)
+    del a, b
+    free_device_memory()
+    xi = torch.randint(-(2**40), 2**40, (rows,), device=dev, generator=gen)
+    xf = torch.randn(rows, dtype=torch.float64, device=dev, generator=gen)
+    for groups in (100, 10_000):
+        codes = torch.sort(torch.randint(0, groups, (rows,), device=dev, generator=gen)).values
+        for mode in ("seg_add", "seg_max"):
+            check(f"{mode}_i64_g{groups}", mode, xi, codes, groups)
+            check(f"{mode}_f64_g{groups}", mode, xf, codes, groups)
+        del codes
+        free_device_memory()
+    del xi, xf
+    free_device_memory()
+    return {"by_case": by_case, "max_abs_err": max_err}
 
 
 # ---------------------------------------------------------------------- #
@@ -1123,19 +1243,283 @@ def phase_io(rows: int, seed: int, workdir: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 9. windows, cumulative ops and the rest of groupby
+# ---------------------------------------------------------------------- #
+
+# float64 machine epsilon
+EPS64 = 2.0 ** -52
+
+
+class Tol:
+    """How one query's floats are held to pandas: ``kind`` names the rule,
+    ``atol``/``rtol`` give |port - pandas| <= atol + rtol |pandas| per
+    column (``atol`` may be an array per row), ``squared`` compares squares
+    (std against the variance's bound)."""
+
+    def __init__(self, kind: str, rtol: float = 0.0, atol=None, squared: bool = False, why: str = ""):
+        self.kind, self.rtol, self.atol, self.squared, self.why = kind, rtol, atol, squared, why
+
+    def describe(self) -> str:
+        return f"{self.kind}: {self.why}" if self.why else self.kind
+
+
+EXACT = Tol("exact", why="equal values (ints, moved or exactly rounded floats)")
+RTOL = Tol("rtol", rtol=FLOAT_RTOL, why=f"rtol {FLOAT_RTOL}: sums taken in another order")
+# the JAX package's grid tolerance for ewm against pandas; the recurrences
+# decay (|a| <= 1), so their error does not grow with the length
+EWM_TOL = Tol("ewm", rtol=1e-9, atol=1e-12, why="rtol 1e-9 + atol 1e-12: decaying recurrences, another order")
+
+
+def centred_square_prefix(p) -> dict:
+    """Per column, P_i: the prefix sums of squared globally centred values
+    (the sums the port's rolling variance differences)."""
+    out = {}
+    for label in p.columns:
+        x = p[label].to_numpy(np.float64)
+        xc = x - x.mean()
+        out[label] = np.cumsum(xc * xc)
+    return out
+
+
+def window_var_tol(prefix: dict, window, ddof: int = 1) -> dict:
+    """Per-row bound of a rolling (``window``) or expanding (None) variance:
+    the prefix sums P_i carry a few ulps of P_i each, and the window's
+    difference divides that by its degrees of freedom: 4096 eps P_i /
+    (rows - ddof).  pandas' running update drifts by less (at most 271 eps
+    P_i / (rows - ddof) against the port at 2e6 rows on the CPU)."""
+    out = {}
+    for label, pre in prefix.items():
+        rows = np.arange(1, len(pre) + 1)
+        if window is not None:
+            rows = np.minimum(rows, window)
+        out[label] = 4096 * EPS64 * pre / np.maximum(rows - ddof, 1)
+    return out
+
+
+def finite_abs(x: np.ndarray) -> np.ndarray:
+    """|x| where x is finite, else 0 (NaN and +/-inf: missing or absorbing)."""
+    return np.where(np.isfinite(x), np.abs(x), 0.0)
+
+
+def moment_tol(p, k: int) -> float:
+    """Bound of a standardized k-th moment of n values summed in another
+    order: 2 n eps sum|d|^k / n / m2^(k/2)."""
+    worst = 0.0
+    for label in p.columns:
+        x = p[label].to_numpy(np.float64)
+        x = x[~np.isnan(x)]
+        d = x - x.mean()
+        m2 = np.mean(d * d)
+        if m2 > 0:
+            worst = max(worst, 2 * len(x) * EPS64 * np.mean(np.abs(d) ** k) / m2 ** (k / 2))
+    return worst
+
+
+def assert_close_pandas(got, want, what: str, tol: Tol) -> None:
+    """Same type, index, labels, dtypes and NaN positions; values within
+    ``tol``."""
+    import pandas
+
+    if tol.kind == "exact":
+        assert_same_pandas(got, want, what, exact=True)
+        return
+    if tol.kind == "rtol":
+        assert_same_pandas(got, want, what)
+        return
+    if type(got) is not type(want):
+        raise AssertionError(f"{what}: {type(got).__name__} != {type(want).__name__}")
+    if not got.index.equals(want.index):
+        raise AssertionError(f"{what}: index differs")
+    if isinstance(want, pandas.Series):
+        got, want = got.to_frame(), want.to_frame()
+    if list(got.columns) != list(want.columns):
+        raise AssertionError(f"{what}: columns differ")
+    for i, label in enumerate(want.columns):
+        g, w = got.iloc[:, i], want.iloc[:, i]
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{what}[{label}]: dtype {g.dtype} != {w.dtype}")
+        g, w = g.to_numpy(np.float64), w.to_numpy(np.float64)
+        if not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError(f"{what}[{label}]: NaN positions differ")
+        if not np.array_equal(np.isinf(g), np.isinf(w)) or not np.array_equal(g[np.isinf(g)], w[np.isinf(w)]):
+            raise AssertionError(f"{what}[{label}]: infinities differ")
+        atol = tol.atol.get(label, 0.0) if isinstance(tol.atol, dict) else (tol.atol or 0.0)
+        finite = np.isfinite(w)
+        g, w = g[finite], w[finite]
+        if isinstance(atol, np.ndarray):
+            atol = atol[finite]
+        if tol.squared:
+            g, w = g * g, w * w
+        bad = np.abs(g - w) > atol + tol.rtol * np.abs(w)
+        if bad.any():
+            raise AssertionError(f"{what}[{label}]: {int(bad.sum())} values beyond {tol.describe()}")
+
+
+def window_queries(p, f) -> dict:
+    """name -> (query over (frame, float frame), tolerance).  ``p`` and ``f``
+    are the pandas frames (the tolerances read their values)."""
+    nf = len(f)
+    groups = int(p["groupby_col"].value_counts().max())
+    grp_tol = Tol("group", rtol=max(FLOAT_RTOL, 4 * groups * EPS64),
+                  why=f"rtol 4 m eps with m = {groups} rows in the largest group: pandas updates a running variance")
+    prefix = centred_square_prefix(p)
+    std_tol = {
+        w: Tol("window var", atol=window_var_tol(prefix, w), squared=True,
+               why="4096 eps P_i / (rows - 1) on the squares, P_i the prefix sum of squared centred values")
+        for w in (10, 1000, None)
+    }
+    del prefix
+    fsum = {label: np.cumsum(finite_abs(f[label].to_numpy(np.float64))) for label in f.columns}
+    cum_f = Tol("cumsum", atol={k: 2 * nf * EPS64 * v for k, v in fsum.items()},
+                why="2 n eps sum|x|: two orders of n additions")
+    roll_f = Tol("window sum", rtol=FLOAT_RTOL, atol={k: 4096 * EPS64 * v / 10 for k, v in fsum.items()},
+                 why="4096 eps sum|x| / 10 of the prefix sums")
+    gcum_f = Tol("cumsum", atol=2 * nf * EPS64 * float(fsum["val"][-1]), why="2 n eps sum|x|")
+    del fsum
+    return {
+        # the asv frame: cumulative ops, shift/diff, pow and the moments
+        "cumsum": (lambda d, e: d.cumsum(), EXACT),
+        "cummax": (lambda d, e: d.cummax(), EXACT),
+        "shift_1": (lambda d, e: d.shift(1), EXACT),
+        "diff": (lambda d, e: d.diff(), EXACT),
+        "pow_half": (lambda d, e: d ** 0.5, RTOL),
+        "skew": (lambda d, e: d.skew(), Tol("moment", atol=moment_tol(p, 3), why="2 n eps E|d|^3 / m2^1.5")),
+        "kurt": (lambda d, e: d.kurt(), Tol("moment", atol=4 * moment_tol(p, 4), why="4 x 2 n eps E|d|^4 / m2^2")),
+        # rolling windows of 10 and 1000 rows (asv rolling.Methods), expanding
+        **{f"rolling_{w}_{op}": ((lambda d, e, w=w, op=op: getattr(d.rolling(w), op)()),
+                                 std_tol[w] if op == "std" else RTOL)
+           for w in (10, 1000) for op in ("sum", "mean", "std", "min", "max", "count")},
+        "expanding_mean": (lambda d, e: d.expanding().mean(), RTOL),
+        "expanding_std": (lambda d, e: d.expanding().std(), std_tol[None]),
+        # exponentially weighted (asv rolling.EWMMethods)
+        "ewm_halflife10_mean": (lambda d, e: d.ewm(halflife=10).mean(), EWM_TOL),
+        "ewm_halflife10_std": (lambda d, e: d.ewm(halflife=10).std(), EWM_TOL),
+        "ewm_alpha01_noadjust_mean": (lambda d, e: d.ewm(alpha=0.1, adjust=False).mean(), EWM_TOL),
+        "ewm_span20_corr": (lambda d, e: d["col0"].ewm(span=20).corr(d["col1"]), EWM_TOL),
+        # the rest of groupby (asv groupby.GroupByMethods, Cumulative, Transform)
+        "groupby_median": (lambda d, e: d.groupby("groupby_col").median(), RTOL),
+        "groupby_quantile_09": (lambda d, e: d.groupby("groupby_col").quantile(0.9), RTOL),
+        "groupby_nunique": (lambda d, e: d.groupby("groupby_col").nunique(), EXACT),
+        "groupby_first": (lambda d, e: d.groupby("groupby_col").first(), EXACT),
+        "groupby_last": (lambda d, e: d.groupby("groupby_col").last(), EXACT),
+        "groupby_var": (lambda d, e: d.groupby("groupby_col").var(), grp_tol),
+        # values of +/-1: a product over 2e5 rows that does not overflow
+        "groupby_prod": (lambda d, e: (1 - 2 * (d[["col0", "col1"]] % 2)).groupby(d["groupby_col"]).prod(), EXACT),
+        "groupby_cumsum": (lambda d, e: d.groupby("groupby_col").cumsum(), EXACT),
+        "groupby_cummax": (lambda d, e: d.groupby("groupby_col").cummax(), EXACT),
+        "groupby_cumcount": (lambda d, e: d.groupby("groupby_col").cumcount(), EXACT),
+        "groupby_transform_mean": (lambda d, e: d.groupby("groupby_col").transform("mean"), RTOL),
+        "groupby_agg_list": (lambda d, e: d.groupby("groupby_col").agg(["sum", "mean", "max"]), RTOL),
+        "groupby_agg_dict": (lambda d, e: d.groupby("groupby_col").agg(
+            {"col0": "sum", "col1": "median", "col2": "nunique", "col3": "std"}), grp_tol),
+        "groupby_describe": (lambda d, e: d.groupby("groupby_col").describe(), grp_tol),
+        # the NaN float frame of phase 5: NaN skipped, +/-inf missing in windows
+        "float_cumsum": (lambda d, e: e.cumsum(), cum_f),
+        "float_cumprod": (lambda d, e: (1 + e[["val"]] * 1e-7).cumprod(),
+                          Tol("cumprod", rtol=2 * nf * EPS64, why="2 n eps: two orders of n products")),
+        "float_pow_2": (lambda d, e: e ** 2, RTOL),
+        "float_diff": (lambda d, e: e.diff(), EXACT),
+        "float_rolling_10_mean": (lambda d, e: e.rolling(10).mean(), roll_f),
+        "float_ewm_mean": (lambda d, e: e.ewm(halflife=10).mean(), EWM_TOL),
+        "float_groupby_median": (lambda d, e: e.groupby("key").median(), RTOL),
+        "float_groupby_first": (lambda d, e: e.groupby("key").first(), EXACT),
+        "float_groupby_cumsum": (lambda d, e: e.groupby("ival")["val"].cumsum(), gcum_f),
+    }
+
+
+def phase_window(rows: int, float_rows: int, seed: int) -> dict:
+    """Windows, cumulative ops, shift/diff, pow, skew/kurt and the rest of
+    groupby through ``modin_tpu_torch.pandas`` on ``make_frame((rows, 10),
+    ngroups=100)`` and the NaN float frame, each against pandas within its
+    stated tolerance; no query defaults to pandas, and the scan and
+    bincount kernels both launch.  Returns the phase's launches."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+    from modin_tpu_torch.ops.cuda import scan_kernels as sk
+    from modin_tpu_torch.ops.groupby import clear_factorize_cache
+
+    t_phase = time.perf_counter()
+    p = _pandas_frame(make_frame_data(rows, seed + 40, ngroups=100))
+    f = pandas.DataFrame(float_frame(float_rows, seed + 41))
+    # +/-inf rows: missing in every window aggregation (pandas' rule)
+    f.loc[f.index[5::100_003], "val"] = np.inf
+    f.loc[f.index[7::100_019], "val"] = -np.inf
+    t, tf = tpd.from_pandas(p), tpd.from_pandas(f)
+    queries = window_queries(p, f)
+    clear_factorize_cache()
+    gk.LAUNCHES = 0
+    sk.LAUNCHES = 0
+    tqc.DEFAULTS_TO_PANDAS = 0
+    for name, (fn, tol) in queries.items():
+        frame_rows = float_rows if name.startswith("float_") else rows
+        scans, bins = sk.LAUNCHES, gk.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        result, port_ms = host_ms(lambda: fn(t, tf))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"{name}: the query defaulted to pandas")
+        assert_on_cuda(result._query_compiler, name)
+        got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+        del result
+        t0 = time.perf_counter()
+        want = fn(p, f)
+        pandas_ms = (time.perf_counter() - t0) * 1e3
+        assert_close_pandas(got, want, name, tol)
+        emit({"phase": "window", "query": name, "rows": frame_rows, "out_shape": list(got.shape),
+              "port_ms": port_ms, "pandas_ms": pandas_ms, "to_pandas_ms": to_pandas_ms,
+              "device_peak_gib": round(peak_gib, 3), "tolerance": tol.describe(),
+              "scan_launches": sk.LAUNCHES - scans, "bincount_launches": gk.LAUNCHES - bins,
+              "match": True})
+        del got, want
+        gc.collect()
+    launches = {"scan": sk.LAUNCHES, "bincount": gk.LAUNCHES}
+    # bit-for-bit repeats of two scan-kernel queries
+    repeats = {}
+    for name, fn in {"ewm_halflife10_mean": lambda d: d.ewm(halflife=10).mean(),
+                     "rolling_10_std": lambda d: d.rolling(10).std()}.items():
+        first, second = fn(t), fn(t)
+        same = all(
+            torch.equal(a.data.view(torch.int64), b.data.view(torch.int64))
+            for a, b in zip(first._query_compiler._modin_frame._columns,
+                            second._query_compiler._modin_frame._columns)
+        )
+        repeats[name] = same
+        del first, second
+        if not same:
+            raise AssertionError(f"{name}: two runs differ")
+    del t, tf, p, f
+    free_device_memory()
+    emit({"phase": "window", "scan_launches": launches["scan"], "bincount_launches": launches["bincount"],
+          "defaults_to_pandas": 0, "bitwise_repeat": repeats, "seconds": time.perf_counter() - t_phase})
+    if launches["scan"] == 0:
+        raise AssertionError("the window path never launched the scan kernel")
+    if launches["bincount"] == 0:
+        raise AssertionError("the window path never launched the bincount kernel")
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
-    ``io``) to the bincount launches of its run; ``launches`` of the line is
-    the main path's."""
+    ``io``, ``window``) to its kernels' launches; the ``launches`` of a
+    kernel's entry is its own path's: bincount's the main path's, scan's
+    the window path's (the only path that runs it)."""
     by_width = kernel["by_width"]
     main = by_width[100]
+    scan = kernel["scan"]["by_case"]
+    head = scan["seg_add_f64_g100"]
+    bincount_paths = {k: v["bincount"] if isinstance(v, dict) else v for k, v in launches.items()}
     return {"kernels": [{
         "name": "bincount",
         "route": "cuda",
         "source": "modin_tpu_torch/ops/cuda/csrc/bincount.cu",
         "replaces": "modin_tpu/ops/pallas/groupby_kernels.py:29",
         "launches": launches["main"],
-        "launches_by_path": launches,
+        "launches_by_path": bincount_paths,
         "exact": True,
         "max_abs_err": kernel["max_abs_err"],
         "n": rows,
@@ -1150,13 +1534,38 @@ def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
             str(w): {k: by_width[w][k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "mode")}
             for w in (100, 10_000)
         },
+    }, {
+        "name": "scan",
+        "route": "cuda",
+        "source": "modin_tpu_torch/ops/cuda/csrc/scan.cu",
+        "replaces": "modin_tpu/ops/window.py:209 (_linear_scan) and modin_tpu/ops/groupby.py:1178 "
+                    "(_jit_grouped_cum): XLA programs, not Pallas kernels",
+        "launches": launches["window"]["scan"],
+        "max_abs_err": kernel["scan"]["max_abs_err"],
+        "n": rows,
+        "case": "seg_add_f64_g100",
+        "ms": head["kernel_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": head["library_ms"],
+        "library": "torch.cumsum of the values (unsegmented); no torch call computes the "
+                   "segmented or the linear scan",
+        "by_case": {
+            k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "tolerance")}
+            for k, v in scan.items()
+        },
     }]}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", type=int, default=10**8,
-                        help="rows of the kernel inputs and of the arithmetic phase")
+                        help="rows of the kernel inputs")
+    # 5e7 (from 1e8) so that the whole run, phase 9 included, stays well
+    # inside its 1200 s limit: phase 7 took 595 s of 948 at 1e8 rows
+    parser.add_argument("--arithmetic-rows", type=int, default=5 * 10**7,
+                        help="rows of the arithmetic phase")
     parser.add_argument("--earlier-rows", type=int, default=2 * 10**7,
                         help="rows of the main-path and relational phases")
     parser.add_argument("--float-rows", type=int, default=10**7)
@@ -1164,10 +1573,14 @@ def main(argv=None) -> int:
     # 90 s in pandas and as long in the port), past its 250 s share
     parser.add_argument("--io-rows", type=int, default=10**7,
                         help="rows of the io phase's CSV and Parquet files")
+    # 5e6: at 2e7 rows the phase took 503 s on an H100 host (pandas 264 s of
+    # it, the rolling windows 10-16 s each), past its ~150 s share
+    parser.add_argument("--window-rows", type=int, default=5 * 10**6,
+                        help="rows of the window phase's asv frame")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--phases", default="main,float,relational,arithmetic,io",
+    parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all five)")
+                        "(the result lines need all six)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1197,7 +1610,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    rows, earlier_rows = args.rows, args.earlier_rows
+    rows, earlier_rows = args.arithmetic_rows, args.earlier_rows
     if rows >= 10**8 and mem_available_gib() < 60:
         rows = 5 * 10**7
         emit({"phase": "arithmetic", "note": f"host memory {mem_available_gib():.0f} GiB "
@@ -1219,8 +1632,10 @@ def main(argv=None) -> int:
     if "io" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as workdir:
             launches["io"] = phase_io(args.io_rows, args.seed, workdir)
+    if "window" in phases:
+        launches["window"] = phase_window(args.window_rows, args.float_rows, args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    if phases != {"main", "float", "relational", "arithmetic", "io"}:
+    if phases != set(ALL_PHASES):
         print("chip_smoke: a partial run prints no result", file=sys.stderr)
         return 1
     print(smi, flush=True)

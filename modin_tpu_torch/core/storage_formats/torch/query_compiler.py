@@ -4,16 +4,25 @@ The port's counterpart of ``modin_tpu/core/storage_formats/tpu/
 query_compiler.py``, cut to the slices ported so far:
 
 - ``from_pandas``/``to_pandas``/``from_numpy_columns``;
-- elementwise binary ops incl. the logical ``&``/``|``/``^``
-  (``_try_device_binary``), ``abs``/``negative``/``invert``;
-- column reductions sum/mean/count/min/max/prod/var/std/sem/any/all and
-  median, along either axis (``_try_device_reduce``); the sort-shaped
+- elementwise binary ops incl. the logical ``&``/``|``/``^`` and ``**``
+  (``_try_device_binary``), ``abs``/``negative``/``invert``, the
+  cumulative ops (``_cum_op``) and ``shift``/``diff``
+  (``_try_shift_like``);
+- column reductions sum/mean/count/min/max/prod/var/std/sem/skew/kurt/
+  any/all and median, along either axis (``_try_device_reduce``); the sort-shaped
   family over a shared sorted representation — ``nunique``, ``mode`` (both
   axes), ``quantile``, ``describe`` — with the bincount kernel as the
   histogram of bounded-range int columns;
 - groupby aggregations on key columns or an external Series key
-  (``groupby_agg`` -> ``_try_device_groupby``), ``as_index=False`` through
-  ``reset_index``;
+  (``groupby_agg`` -> ``_try_device_groupby``: the segment and order
+  aggregations), ``as_index=False`` through ``reset_index``; ``agg`` with
+  a list or a dict of names (``_try_device_groupby_multi``), ``describe``,
+  the grouped cumulatives, ``cumcount``/``ngroup`` and ``transform`` of a
+  reduction (the row-shaped ops gate through
+  ``_resolve_rowwise_groupby``);
+- rolling and expanding sum/mean/count/min/max/var/std/sem and ewm
+  mean/sum/var/std/cov/corr (``_try_device_rolling``,
+  ``_try_device_expanding``, ``_try_device_ewm``, ``_try_device_ewm_pair``);
 - the relational paths: boolean-mask and positional row selection
   (``getitem_array``, ``getitem_row_array``, ``row_slice``,
   ``take_2d_positional``), ``setitem``/``insert``, column ``drop``,
@@ -33,8 +42,8 @@ goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
 made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
-device path the port does not have yet (the order aggregates of groupby,
-``duplicated``, the kernel router, the planner, out-of-core and
+device path the port does not have yet (``resample``, ``idxmin``/
+``idxmax``, ``duplicated``, the kernel router, the planner, out-of-core and
 range-partition variants of sort and merge), the port defaults to pandas.
 """
 
@@ -60,6 +69,7 @@ from modin_tpu_torch.ops import dictionary, elementwise, reductions, sorted_cach
 from modin_tpu_torch.ops import groupby as gb_ops
 from modin_tpu_torch.ops import join as join_ops
 from modin_tpu_torch.ops import sort as sort_ops
+from modin_tpu_torch.ops import window as window_ops
 from modin_tpu_torch.ops.structural import gather_columns_device
 from modin_tpu_torch.parallel.engine import TorchWrapper
 from modin_tpu_torch.utils import (
@@ -362,6 +372,14 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if isinstance(other, (int, float, np.integer, np.floating)) and not isinstance(other, bool):
             if logical:
                 return None  # bool & int: pandas' result dtype is not bool's
+            if (
+                op in ("pow", "rpow")
+                and all(k in "iu" for k in kinds)
+                and isinstance(other, (int, np.integer))
+            ):
+                # int ** negative int raises in pandas, and rpow's exponent
+                # sign is the data's: the int/int pow family goes to pandas
+                return None
             if all(k in "iub" for k in kinds) and isinstance(other, (int, np.integer)):
                 # pandas 3 promotes int floordiv/mod to float64 (inf/nan)
                 # when any divisor is zero — data-dependent result dtype
@@ -387,6 +405,12 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     return None
             elif not all(k in "biuf" for k in okinds):
                 return None
+            if (
+                op in ("pow", "rpow")
+                and all(k in "iu" for k in kinds)
+                and all(k in "iu" for k in okinds)
+            ):
+                return None  # the exponent's sign is the data's; pandas may raise
             if (
                 op in ("floordiv", "rfloordiv", "mod", "rmod")
                 and all(k in "iub" for k in kinds)
@@ -493,7 +517,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             for i in positions
         ]
         # bool columns: pandas computes these over ints
-        cast_bool = op in ("sum", "prod", "mean", "median", "var", "std", "sem")
+        cast_bool = op in ("sum", "prod", "mean", "median", "var", "std", "sem", "skew", "kurt")
         if axis == 1:
             kinds = {frame._columns[i].pandas_dtype.kind for i in positions}
             if op not in reductions.AXIS1_REDUCTIONS or ("b" in kinds and len(kinds) > 1):
@@ -820,6 +844,253 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return NativeQueryCompiler(self.to_pandas().T)
         return super().transpose(*args, **kwargs)
 
+    # --------------------------- cumulative ops ------------------------ #
+
+    def _cum_op(self, name: str, axis: Any, skipna: bool) -> Optional["TorchQueryCompiler"]:
+        """cumsum/cumprod/cummax/cummin down the columns on the device:
+        floats skip NaN (``skipna=True`` only), ints are exact."""
+        cols = self._numeric_device_columns()
+        if axis not in (0, "index", None) or cols is None:
+            return None
+        kinds = {c.pandas_dtype.kind for c in self._modin_frame._columns}
+        if "u" in kinds:
+            return None  # the scan runs in int64; pandas sums unsigned ints in uint64
+        if not skipna and "f" in kinds:
+            return None  # the NaN-propagating form is not on the device
+        return self._wrap_device_result(elementwise.unary_op_columns(name, cols))
+
+    # ----------------------------- shift/diff -------------------------- #
+
+    def _try_shift_like(self, kernel: Callable, kwargs: dict, as_diff: bool) -> Optional["TorchQueryCompiler"]:
+        periods = kwargs.get("periods", 1)
+        if (
+            kwargs.get("axis", 0) not in (0, "index", None)
+            or kwargs.get("freq") is not None
+            or kwargs.get("suffix") is not None
+            or "fill_value" in kwargs
+            or isinstance(periods, bool)
+            or not isinstance(periods, (int, np.integer))
+        ):
+            return None
+        cols = self._numeric_device_columns()
+        if cols is None:
+            return None
+        frame = self._modin_frame
+        if as_diff and any(
+            c.pandas_dtype.kind in "iu" and c.pandas_dtype.itemsize < 4 for c in frame._columns
+        ):
+            return None  # pandas diffs int8/int16 into float32
+        return self._wrap_device_result(kernel(cols, len(frame), int(periods)))
+
+    def shift(self, **kwargs: Any) -> "TorchQueryCompiler":
+        result = self._try_shift_like(elementwise.shift_columns, kwargs, False)
+        return result if result is not None else super().shift(**kwargs)
+
+    def diff(self, **kwargs: Any) -> "TorchQueryCompiler":
+        result = self._try_shift_like(elementwise.diff_columns, kwargs, True)
+        return result if result is not None else super().diff(**kwargs)
+
+    # ------------------------------- windows --------------------------- #
+
+    def _numeric_device_columns(self) -> Optional[List[torch.Tensor]]:
+        """The columns of a non-empty frame whose every column is a numeric
+        (int, uint, float) device column, or None."""
+        frame = self._modin_frame
+        if len(frame) == 0 or not frame.num_cols:
+            return None
+        cols = self._device_raw()
+        if cols is None or not all(c.pandas_dtype.kind in "iuf" for c in frame._columns):
+            return None
+        return cols
+
+    @staticmethod
+    def _window_ddof(kwargs: dict, takes_ddof: bool) -> Optional[int]:
+        """The ddof of a window aggregation (1 where it takes none), or None
+        for a kwarg only pandas can honor (or reject properly)."""
+        extra = dict(kwargs)
+        ddof = extra.pop("ddof", 1) if takes_ddof else 1
+        if extra.pop("numeric_only", False):
+            return None  # changes the column selection
+        for k in ("engine", "engine_kwargs"):
+            if k in extra and extra[k] is None:
+                extra.pop(k)
+        if extra or isinstance(ddof, bool) or not isinstance(ddof, (int, np.integer)):
+            return None
+        return int(ddof)
+
+    def _try_device_rolling(self, op: str, rolling_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        window = rolling_kwargs.get("window")
+        if isinstance(window, bool) or not isinstance(window, (int, np.integer)) or window <= 0:
+            return None
+        for key in ("center", "win_type", "on", "closed", "step"):
+            if rolling_kwargs.get(key) not in (None, False):
+                return None
+        if rolling_kwargs.get("method", "single") != "single":
+            return None
+        ddof = self._window_ddof(kwargs, op in ("var", "std", "sem"))
+        if ddof is None:
+            return None
+        min_periods = rolling_kwargs.get("min_periods")
+        if min_periods is None:
+            min_periods = int(window)
+        elif isinstance(min_periods, bool) or not isinstance(min_periods, (int, np.integer)) or not (
+            0 <= min_periods <= window
+        ):
+            return None  # pandas raises its ValueError on the default
+        cols = self._numeric_device_columns()
+        if cols is None:
+            return None
+        return self._wrap_device_result(
+            window_ops.rolling_reduce(op, cols, len(self._modin_frame), int(window), int(min_periods), ddof)
+        )
+
+    def _try_device_expanding(self, op: str, expanding_args: list, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        min_periods = expanding_args[0] if expanding_args else 1
+        method = expanding_args[1] if len(expanding_args) > 1 else "single"
+        if method != "single":
+            return None
+        if isinstance(min_periods, bool) or not isinstance(min_periods, (int, np.integer)) or min_periods < 0:
+            return None
+        ddof = self._window_ddof(kwargs, op in ("var", "std", "sem"))
+        if ddof is None:
+            return None
+        cols = self._numeric_device_columns()
+        if cols is None:
+            return None
+        return self._wrap_device_result(
+            window_ops.expanding_reduce(op, cols, len(self._modin_frame), int(min_periods), ddof)
+        )
+
+    @staticmethod
+    def _parse_ewm_kwargs(ewm_kwargs: dict) -> Optional[tuple]:
+        """ewm's construction kwargs as (alpha, adjust, ignore_na,
+        min_periods), or None where only pandas can honor (or properly
+        reject) them: ``times``, ``method="table"``, no or several decay
+        parameters, a timedelta halflife, out-of-range values."""
+        ek = dict(ewm_kwargs)
+        if ek.pop("times", None) is not None:
+            return None
+        if ek.pop("method", "single") != "single":
+            return None
+        com = ek.pop("com", None)
+        span = ek.pop("span", None)
+        halflife = ek.pop("halflife", None)
+        alpha = ek.pop("alpha", None)
+        adjust = ek.pop("adjust", True)
+        ignore_na = ek.pop("ignore_na", False)
+        min_periods = ek.pop("min_periods", 0)
+        if ek:
+            return None
+        if min_periods is None:
+            min_periods = 0
+        if isinstance(min_periods, bool) or not isinstance(min_periods, (int, np.integer)) or min_periods < 0:
+            return None
+        if not isinstance(adjust, (bool, np.bool_)) or not isinstance(ignore_na, (bool, np.bool_)):
+            return None
+        decay = [v for v in (com, span, halflife, alpha) if v is not None]
+        if len(decay) != 1 or isinstance(decay[0], bool) or not isinstance(
+            decay[0], (int, float, np.integer, np.floating)
+        ):
+            return None
+        if com is not None:
+            if com < 0:
+                return None
+            a = 1.0 / (1.0 + float(com))
+        elif span is not None:
+            if span < 1:
+                return None
+            a = 2.0 / (float(span) + 1.0)
+        elif halflife is not None:
+            if halflife <= 0:
+                return None
+            a = 1.0 - float(np.exp(-np.log(2.0) / float(halflife)))
+        else:
+            if not 0 < alpha <= 1:
+                return None
+            a = float(alpha)
+        return a, bool(adjust), bool(ignore_na), int(min_periods)
+
+    def _try_device_ewm(self, op: str, ewm_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        parsed = self._parse_ewm_kwargs(ewm_kwargs)
+        if parsed is None:
+            return None
+        a, adjust, ignore_na, min_periods = parsed
+        extra = dict(kwargs)
+        bias = extra.pop("bias", False) if op in ("var", "std") else False
+        if not isinstance(bias, (bool, np.bool_)):
+            return None
+        if self._window_ddof(extra, False) is None:
+            return None  # numeric_only or an unknown kwarg
+        if op == "sum" and not adjust:
+            return None  # pandas raises NotImplementedError on the default
+        cols = self._numeric_device_columns()
+        if cols is None:
+            return None
+        return self._wrap_device_result(
+            window_ops.ewm_reduce(op, cols, len(self._modin_frame), a, adjust, ignore_na, min_periods, bool(bias))
+        )
+
+    def _try_device_ewm_pair(self, op: str, ewm_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        """ewm cov/corr of a Series with itself or with a label-matched
+        Series, or of two frames with the same columns, under joint
+        validity.  ``pairwise=True`` and a frame against itself (pandas'
+        pairwise MultiIndex blocks) stay with pandas."""
+        parsed = self._parse_ewm_kwargs(ewm_kwargs)
+        if parsed is None:
+            return None
+        a, adjust, ignore_na, min_periods = parsed
+        extra = dict(kwargs)
+        other = extra.pop("other", None)
+        if extra.pop("pairwise", None) not in (None, False):
+            return None
+        bias = extra.pop("bias", False) if op == "cov" else False
+        if not isinstance(bias, (bool, np.bool_)):
+            return None
+        if extra.pop("numeric_only", False) or extra:
+            return None
+        cols = self._numeric_device_columns()
+        if cols is None:
+            return None
+        frame = self._modin_frame
+        both_series = self._shape_hint == "column" and (
+            other is None or getattr(other, "_shape_hint", None) == "column"
+        )
+        if other is None:
+            if self._shape_hint != "column":
+                return None
+            ocols, oframe = cols, frame
+        else:
+            if not isinstance(other, TorchQueryCompiler):
+                return None
+            oframe = other._modin_frame
+            ocols = other._numeric_device_columns()
+            if ocols is None or len(oframe) != len(frame) or frame.num_cols != oframe.num_cols:
+                return None
+            if not both_series and list(frame.columns) != list(oframe.columns):
+                return None
+            if not self._fast_index_match(other):
+                return None  # pandas aligns on labels first
+        datas = window_ops.ewm_pair_reduce(
+            op, cols, ocols, len(frame), a, adjust, ignore_na, min_periods, bool(bias)
+        )
+        col_labels = None
+        if other is not None and both_series and list(frame.columns)[0] != list(oframe.columns)[0]:
+            # the binary-op naming rule: differing names give an unnamed result
+            col_labels = [MODIN_UNNAMED_SERIES_LABEL]
+        return self._wrap_device_result(datas, col_labels=col_labels)
+
+    def ewm_cov(self, ewm_kwargs: dict, *args: Any, **kwargs: Any):
+        result = None if args else self._try_device_ewm_pair("cov", ewm_kwargs, dict(kwargs))
+        if result is not None:
+            return result
+        return super().ewm_cov(ewm_kwargs, *args, **kwargs)
+
+    def ewm_corr(self, ewm_kwargs: dict, *args: Any, **kwargs: Any):
+        result = None if args else self._try_device_ewm_pair("corr", ewm_kwargs, dict(kwargs))
+        if result is not None:
+            return result
+        return super().ewm_corr(ewm_kwargs, *args, **kwargs)
+
     # ------------------------------- groupby -------------------------- #
 
     def groupby_agg(
@@ -841,6 +1112,26 @@ class TorchQueryCompiler(BaseQueryCompiler):
             by, agg_func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
             series_groupby, selection,
         )
+        if result is None:
+            result = self._try_device_groupby_multi(
+                by, agg_func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
+                series_groupby, selection,
+            )
+        if result is None and axis == 0 and not agg_args and isinstance(agg_func, str):
+            if agg_func in gb_ops.CUM_AGGS and not {
+                k: v for k, v in agg_kwargs.items() if not (k == "numeric_only" and v is False)
+            }:
+                result = self._try_device_groupby_cum(
+                    agg_func, by, groupby_kwargs, drop, series_groupby, selection
+                )
+            elif agg_func in ("cumcount", "ngroup") and set(agg_kwargs) <= {"ascending"}:
+                result = self._try_device_groupby_number(
+                    agg_func, by, groupby_kwargs, drop, bool(agg_kwargs.get("ascending", True))
+                )
+            elif agg_func == "describe" and not series_groupby:
+                result = self._try_device_groupby_describe(
+                    by, groupby_kwargs, agg_kwargs, drop, selection
+                )
         if result is not None:
             return result
 
@@ -850,6 +1141,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 gb = gb[selection]
             if isinstance(agg_func, str):
                 return getattr(gb, agg_func)(*agg_args, **agg_kwargs)
+            if callable(agg_func):
+                return agg_func(gb, *agg_args, **agg_kwargs)
             return gb.agg(agg_func, *agg_args, **agg_kwargs)
 
         return self._default_to_pandas(pandas_groupby, by)
@@ -860,7 +1153,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
     ) -> Optional["TorchQueryCompiler"]:
         if axis != 0 or agg_args:
             return None
-        if not isinstance(agg_func, str) or agg_func not in gb_ops.SEGMENT_AGGS:
+        if not isinstance(agg_func, str) or agg_func not in (gb_ops.SEGMENT_AGGS | gb_ops.ORDER_AGGS):
             return None
         if groupby_kwargs.get("level") is not None:
             return None
@@ -877,12 +1170,34 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
         extra = set(agg_kwargs) - {
             "numeric_only", "min_count", "ddof", "skipna", "engine",
-            "engine_kwargs",
+            "engine_kwargs", "q", "interpolation", "dropna",
         }
         if extra:
             return None
         if agg_kwargs.get("engine") not in (None, "cython"):
             return None
+        ddof = agg_kwargs.get("ddof", 1)
+        if isinstance(ddof, bool) or not isinstance(ddof, (int, np.integer)):
+            return None
+        if agg_func == "quantile":
+            qval = agg_kwargs.get("q", 0.5)
+            if isinstance(qval, bool) or not isinstance(qval, (int, float, np.integer, np.floating)):
+                return None  # a list of q makes a MultiIndex result
+            if not 0 <= float(qval) <= 1:
+                return None  # pandas raises its ValueError
+            interp = agg_kwargs.get("interpolation", "linear")
+            if interp not in ("linear", "lower", "higher", "midpoint", "nearest"):
+                return None
+        elif "q" in agg_kwargs or "interpolation" in agg_kwargs:
+            return None
+        else:
+            qval, interp = 0.5, "linear"
+        if agg_func == "nunique":
+            values_dropna = bool(agg_kwargs.get("dropna", True))
+        elif "dropna" in agg_kwargs:
+            return None
+        else:
+            values_dropna = True
 
         frame = self._modin_frame
         if len(frame) == 0:
@@ -949,8 +1264,11 @@ class TorchQueryCompiler(BaseQueryCompiler):
             col = frame._columns[i]
             if col.is_device and col.pandas_dtype.kind in "biuf":
                 data = col.data
-                if data.dtype == torch.bool and agg_func in ("sum", "mean"):
-                    data = data.to(torch.int64)  # bools add as ints, as in pandas
+                if data.dtype == torch.bool:
+                    if agg_func == "quantile":
+                        return None  # pandas: "Cannot use quantile with bool dtype"
+                    if agg_func in ("sum", "prod", "mean", "var", "std", "sem", "median"):
+                        data = data.to(torch.int64)  # bools count as ints, as in pandas
                 value_datas.append(data)
                 value_labels.append(labels[i])
                 value_decoders.append(None)
@@ -961,9 +1279,14 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 continue  # genuinely non-numeric: pandas drops it too
             if agg_func == "size":
                 continue
-            # string values join min/max/count through their codes (sorted
-            # categories: the code min/max is the lexicographic one)
-            enc = self._encoded(col) if agg_func in ("min", "max", "count") else None
+            # string values join min/max/count/first/last/nunique through
+            # their codes (sorted categories: the code min/max is the
+            # lexicographic one; the rest do not look at the values)
+            enc = (
+                self._encoded(col)
+                if agg_func in ("min", "max", "count", "first", "last", "nunique")
+                else None
+            )
             # no categories = an all-missing column: pandas' answers stay
             if enc is None or not len(enc.categories):
                 return None
@@ -974,7 +1297,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
 
         try:
-            codes, n_groups, group_keys, sizes = gb_ops.factorize_keys(
+            codes, n_groups, group_keys, sizes = gb_ops.factorize_keys_cached(
                 key_datas, len(frame), dropna=dropna
             )
         except gb_ops._TooManyGroups:
@@ -988,15 +1311,26 @@ class TorchQueryCompiler(BaseQueryCompiler):
             if n_groups - nan_group < len(key_decoders[0].categories):
                 return None
 
-        datas = gb_ops.groupby_reduce(
-            agg_func, value_datas, codes, n_groups, len(frame), sizes=sizes
-        )
+        n = len(frame)
+        if agg_func in ("median", "quantile"):
+            datas = gb_ops.groupby_quantile(
+                value_datas, codes, n_groups, n, q=float(qval), interpolation=interp,
+                preserve_float_dtype=agg_func == "median",
+            )
+        elif agg_func == "nunique":
+            datas = gb_ops.groupby_nunique(value_datas, codes, n_groups, n, dropna=values_dropna)
+        elif agg_func in ("first", "last"):
+            datas = gb_ops.groupby_first_last(agg_func, value_datas, codes, n_groups, n)
+        else:
+            datas = gb_ops.groupby_reduce(
+                agg_func, value_datas, codes, n_groups, n, sizes=sizes, ddof=int(ddof)
+            )
         if agg_func == "size":
             value_labels = [MODIN_UNNAMED_SERIES_LABEL]
             value_decoders = [None]
         new_cols: list = []
         for d, dec in zip(datas, value_decoders):
-            if dec is not None and agg_func in ("min", "max"):
+            if dec is not None and agg_func in ("min", "max", "first", "last"):
                 # a string value column: the per-group result is a code
                 import pandas
 
@@ -1031,6 +1365,255 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if series_groupby or agg_func == "size":
             qc._shape_hint = "column"
         return qc
+
+    def _try_device_groupby_multi(
+        self, by, agg_func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
+        series_groupby, selection,
+    ) -> Optional["TorchQueryCompiler"]:
+        """``agg([...])`` and ``agg({col: name})`` of strings: one device
+        aggregation each over the kept factorization, put together as
+        pandas does (a ``(column, aggregation)`` MultiIndex for a list, flat
+        aggregation names for a Series groupby, flat columns for a dict)."""
+        if not groupby_kwargs.get("as_index", True):
+            return None  # the key columns go back in per layout
+
+        def run_one(func, sel):
+            return self._try_device_groupby(
+                by, func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
+                series_groupby, sel,
+            )
+
+        import pandas
+
+        if isinstance(agg_func, list) and agg_func and all(isinstance(f, str) for f in agg_func):
+            if not series_groupby and len(set(agg_func)) != len(agg_func):
+                return None  # pandas raises SpecificationError on duplicates
+            parts = []
+            for f in agg_func:
+                part = run_one(f, selection)
+                if part is None:
+                    return None
+                parts.append(part)
+            frames = [p._modin_frame for p in parts]
+            base_labels = list(frames[0].columns)
+            if any(isinstance(lab, tuple) for lab in base_labels):
+                return None  # pandas nests a deeper MultiIndex
+            if not all(list(f.columns) == base_labels for f in frames[1:]):
+                return None
+            new_cols, labels = [], []
+            if series_groupby:
+                for f, fname in zip(frames, agg_func):
+                    new_cols.append(f._columns[0])
+                    labels.append(fname)
+                new_labels = pandas.Index(labels)
+            else:
+                for pos, label in enumerate(base_labels):
+                    for f, fname in zip(frames, agg_func):
+                        new_cols.append(f._columns[pos])
+                        labels.append((label, fname))
+                new_labels = pandas.MultiIndex.from_tuples(labels)
+            return type(self)(TorchDataframe(new_cols, new_labels, frames[0]._index, nrows=len(frames[0])))
+
+        if (
+            isinstance(agg_func, dict)
+            and agg_func
+            and not series_groupby
+            and selection is None
+            and all(isinstance(f, str) for f in agg_func.values())
+        ):
+            parts = []
+            for col, f in agg_func.items():
+                part = run_one(f, [col])
+                if part is None:
+                    return None
+                parts.append(part)
+            frames = [p._modin_frame for p in parts]
+            if not all(f.num_cols == 1 for f in frames):
+                return None
+            return type(self)(TorchDataframe(
+                [f._columns[0] for f in frames], pandas.Index(list(agg_func)),
+                frames[0]._index, nrows=len(frames[0]),
+            ))
+        return None
+
+    def _try_device_groupby_describe(
+        self, by, groupby_kwargs, agg_kwargs, drop, selection=None
+    ) -> Optional["TorchQueryCompiler"]:
+        """``groupby.describe()`` as eight device aggregations (count, mean,
+        std, min, the three quartiles, max) over the one kept
+        factorization, in pandas' float64 ``(column, statistic)`` layout."""
+        if any(agg_kwargs.get(k) is not None for k in ("include", "exclude", "percentiles")):
+            return None
+        if not groupby_kwargs.get("as_index", True):
+            return None
+        plan = [
+            ("count", {}), ("mean", {}), ("std", {}), ("min", {}),
+            ("quantile", {"q": 0.25}), ("quantile", {"q": 0.5}),
+            ("quantile", {"q": 0.75}), ("max", {}),
+        ]
+        parts = []
+        for func, kw in plan:
+            r = self._try_device_groupby(
+                by, func, 0, groupby_kwargs, (), {"numeric_only": True, **kw}, drop, False, selection,
+            )
+            if r is None:
+                return None
+            parts.append(r._modin_frame)
+        vcols = list(parts[0].columns)
+        if not vcols or any(list(f.columns) != vcols for f in parts):
+            return None
+        import pandas
+
+        stats = ["count", "mean", "std", "min", "25%", "50%", "75%", "max"]
+        f64 = np.dtype(np.float64)
+        new_cols, tuples = [], []
+        for vi, vc in enumerate(vcols):
+            for f, st in zip(parts, stats):
+                col = f.get_column(vi)
+                if not col.is_device:
+                    return None
+                if col.pandas_dtype != f64:
+                    # pandas' describe is float64 throughout
+                    col = DeviceColumn(col.data.to(torch.float64), f64, length=col.length)
+                new_cols.append(col)
+                tuples.append((vc, st))
+        return type(self)(TorchDataframe(
+            new_cols, pandas.MultiIndex.from_tuples(tuples), parts[0]._index, nrows=len(parts[0]),
+        ))
+
+    def groupby_transform(
+        self,
+        by: Any,
+        agg_func: Any,
+        groupby_kwargs: Optional[dict] = None,
+        drop: bool = False,
+        series_groupby: bool = False,
+        selection: Any = None,
+    ) -> "TorchQueryCompiler":
+        result = self._try_device_groupby_transform(
+            by, agg_func, dict(groupby_kwargs or {}), drop, series_groupby, selection
+        )
+        if result is not None:
+            return result
+        return super().groupby_transform(
+            by, agg_func, groupby_kwargs=groupby_kwargs, drop=drop,
+            series_groupby=series_groupby, selection=selection,
+        )
+
+    def _rowwise_result(self, datas: List[torch.Tensor], labels: Sequence[Any], series: bool) -> "TorchQueryCompiler":
+        """A row-shaped groupby result: this frame's index, new columns."""
+        frame = self._modin_frame
+        cols = [DeviceColumn(d, numpy_dtype(d.dtype), length=len(frame)) for d in datas]
+        qc = type(self)(TorchDataframe(cols, labels, frame._index, nrows=len(frame)))
+        if series:
+            qc._shape_hint = "column"
+        return qc
+
+    def _try_device_groupby_transform(
+        self, by, agg_func, groupby_kwargs, drop, series_groupby, selection
+    ) -> Optional["TorchQueryCompiler"]:
+        """``transform("sum"/"mean"/...)``: a segment aggregation over the
+        kept factorization, gathered back to the rows (the frame's shape and
+        index)."""
+        if not isinstance(agg_func, str) or agg_func not in (gb_ops.SEGMENT_AGGS - {"size"}):
+            return None
+        resolved = self._resolve_rowwise_groupby(by, groupby_kwargs, drop, selection, "biuf")
+        if resolved is None:
+            return None
+        value_positions, codes, n_groups, sizes = resolved
+        frame = self._modin_frame
+        arrays = []
+        for i in value_positions:
+            a = frame._columns[i].data
+            if a.dtype == torch.bool and agg_func in ("sum", "prod", "mean", "var", "std", "sem"):
+                a = a.to(torch.int64)
+            arrays.append(a)
+        aggs = gb_ops.groupby_reduce(agg_func, arrays, codes, n_groups, len(frame), sizes=sizes)
+        labels = [list(frame.columns)[i] for i in value_positions]
+        return self._rowwise_result(gb_ops.groupby_broadcast(aggs, codes), labels, series_groupby)
+
+    def _resolve_rowwise_groupby(
+        self, by, groupby_kwargs, drop, selection, value_kinds: str, need_values: bool = True
+    ):
+        """The shared gate of the row-shaped groupby ops (transform,
+        cumulatives, cumcount/ngroup): (value positions, codes, group count,
+        sizes) or None.  Keys are int/bool device columns of this frame:
+        NaN keys would make the result's dtype and NaN rows data-dependent."""
+        if groupby_kwargs.get("level") is not None or groupby_kwargs.get("dropna", True) is not True:
+            return None
+        frame = self._modin_frame
+        if len(frame) == 0:
+            return None
+        if not (isinstance(by, list) and drop and all(not hasattr(b, "to_pandas") for b in by)):
+            return None
+        key_positions = []
+        for label in by:
+            pos = frame.column_position(label)
+            if len(pos) != 1:
+                return None
+            key_positions.append(pos[0])
+        key_cols = [frame._columns[p] for p in key_positions]
+        if not all(c.is_device and c.pandas_dtype.kind in "biu" for c in key_cols):
+            return None
+        if selection is not None:
+            value_positions = []
+            for label in [selection] if not isinstance(selection, list) else list(selection):
+                pos = frame.column_position(label)
+                if len(pos) != 1:
+                    return None
+                value_positions.append(pos[0])
+        else:
+            value_positions = [i for i in range(frame.num_cols) if i not in key_positions]
+        value_cols = [frame._columns[i] for i in value_positions]
+        if need_values and not value_cols:
+            return None
+        if not all(c.is_device and c.pandas_dtype.kind in value_kinds for c in value_cols):
+            return None
+        try:
+            codes, n_groups, _keys, sizes = gb_ops.factorize_keys_cached(
+                [c.data for c in key_cols], len(frame)
+            )
+        except gb_ops._TooManyGroups:
+            return None
+        if n_groups == 0:
+            return None
+        return value_positions, codes, n_groups, sizes
+
+    def _try_device_groupby_cum(
+        self, op, by, groupby_kwargs, drop, series_groupby, selection
+    ) -> Optional["TorchQueryCompiler"]:
+        """Grouped cumulatives: one segmented scan over the rows sorted by
+        code, scattered back to row order (the scan kernel)."""
+        # bools change dtype per op in pandas, and uint64 does not fit the
+        # kernel's int64: both stay with pandas
+        resolved = self._resolve_rowwise_groupby(by, groupby_kwargs, drop, selection, "iuf")
+        if resolved is None:
+            return None
+        value_positions, codes, _n_groups, _sizes = resolved
+        frame = self._modin_frame
+        if any(frame._columns[i].data.dtype == torch.uint64 for i in value_positions):
+            return None
+        arrays = [frame._columns[i].data for i in value_positions]
+        labels = [list(frame.columns)[i] for i in value_positions]
+        return self._rowwise_result(gb_ops.groupby_cumulative(op, arrays, codes), labels, series_groupby)
+
+    def _try_device_groupby_number(
+        self, op, by, groupby_kwargs, drop, ascending: bool
+    ) -> Optional["TorchQueryCompiler"]:
+        """``cumcount`` (each row's place in its group) and ``ngroup`` (its
+        group's number, in sorted key order): int64 Series over the frame's
+        rows."""
+        resolved = self._resolve_rowwise_groupby(
+            by, groupby_kwargs, drop, None, "biuf", need_values=False
+        )
+        if resolved is None or (op == "ngroup" and not groupby_kwargs.get("sort", True)):
+            return None  # unsorted groups number by first appearance
+        _positions, codes, n_groups, sizes = resolved
+        if op == "cumcount":
+            data = gb_ops.groupby_cumcount(codes, n_groups, sizes, ascending)
+        else:
+            data = codes if ascending else (n_groups - 1) - codes
+        return self._rowwise_result([data], [MODIN_UNNAMED_SERIES_LABEL], True)
 
     # ---------------------------- row selection ----------------------- #
 
@@ -1875,7 +2458,7 @@ def _make_reduce_override(op: str):
     return method
 
 
-for _op in ["sum", "prod", "mean", "median", "min", "max", "var", "std", "sem"]:
+for _op in ["sum", "prod", "mean", "median", "min", "max", "var", "std", "sem", "skew", "kurt"]:
     setattr(TorchQueryCompiler, _op, _make_reduce_override(_op))
 
 
@@ -1922,3 +2505,46 @@ def _make_str_lut_override(name: str):
 
 for _op in _STR_LUT_METHODS:
     setattr(TorchQueryCompiler, f"str_{_op}", _make_str_lut_override(_op))
+
+
+def _make_cum_override(op: str):
+    def method(self: TorchQueryCompiler, axis: Any = 0, skipna: bool = True, **kwargs: Any):
+        result = self._cum_op(op, axis, skipna)
+        if result is not None:
+            return result
+        return getattr(BaseQueryCompiler, op)(self, axis=axis, skipna=skipna, **kwargs)
+
+    method.__name__ = op
+    return method
+
+
+for _op in sorted(elementwise.CUM_OPS):
+    setattr(TorchQueryCompiler, _op, _make_cum_override(_op))
+
+
+def _make_window_override(kind: str, op: str):
+    """``rolling_<op>``/``expanding_<op>``/``ewm_<op>``: the device path,
+    else the pandas default of the base compiler."""
+    def method(self: TorchQueryCompiler, window_args: Any, *args: Any, **kwargs: Any):
+        result = None
+        if not args:
+            if kind == "rolling":
+                result = self._try_device_rolling(op, window_args, dict(kwargs))
+            elif kind == "expanding":
+                result = self._try_device_expanding(op, list(window_args), dict(kwargs))
+            else:
+                result = self._try_device_ewm(op, window_args, dict(kwargs))
+        if result is not None:
+            return result
+        return getattr(BaseQueryCompiler, f"{kind}_{op}")(self, window_args, *args, **kwargs)
+
+    method.__name__ = f"{kind}_{op}"
+    return method
+
+
+for _op in window_ops.ROLLING_DEVICE_OPS:
+    setattr(TorchQueryCompiler, f"rolling_{_op}", _make_window_override("rolling", _op))
+for _op in window_ops.EXPANDING_DEVICE_OPS:
+    setattr(TorchQueryCompiler, f"expanding_{_op}", _make_window_override("expanding", _op))
+for _op in window_ops.EWM_DEVICE_OPS:
+    setattr(TorchQueryCompiler, f"ewm_{_op}", _make_window_override("ewm", _op))

@@ -18,9 +18,21 @@ padded here (one device, one shard), so the overflow bucket holds NaN keys
 only.
 
 Determinism: integer aggregations add with integer atomics (exact, so
-independent of order); float sums and means sort the codes once (stable)
-and reduce each contiguous segment, so the result repeats bit for bit; min
-and max do not depend on order.
+independent of order); float sums, means, variances and products sort the
+codes once (stable) and reduce each contiguous segment, so the result
+repeats bit for bit; min, max, any, all, first and last do not depend on
+order.
+
+Beyond the segment aggregations (``SEGMENT_AGGS``): the order aggregations
+(``ORDER_AGGS``: median/quantile, nunique, first/last) sort each value
+column within its groups (``lexsort_permutation`` by code, then value); the
+row-shaped ones gather a group's aggregate back to its rows
+(``groupby_broadcast``, for ``transform``), number the rows within their
+group (``groupby_cumcount``) or run a segmented scan over the rows sorted by
+code (``groupby_cumulative``: the scan kernel's ``seg_*`` modes, which
+restart where the code changes).  ``factorize_keys_cached`` keeps the last
+factorizations, so ``agg([...])``, ``describe`` and ``transform`` factorize
+once.
 """
 
 from __future__ import annotations
@@ -32,16 +44,52 @@ import torch
 
 from modin_tpu_torch.config import GroupbyRangeLimit
 from modin_tpu_torch.ops.cuda.groupby_kernels import bincount
+from modin_tpu_torch.ops.cuda.scan_kernels import scan
+from modin_tpu_torch.ops.elementwise import CUM_NEUTRAL, CUM_SCAN_MODE
+from modin_tpu_torch.ops.sort import lexsort_permutation
 from modin_tpu_torch.parallel.engine import materialize as _engine_materialize
 from modin_tpu_torch.utils import numpy_dtype
 
-# aggregations this module computes (a subset of the JAX package's
-# SEGMENT_AGGS)
-SEGMENT_AGGS = frozenset(["sum", "count", "mean", "min", "max", "size"])
+# aggregations expressible as segment reductions
+SEGMENT_AGGS = frozenset(
+    ["sum", "count", "mean", "min", "max", "prod", "size", "var", "std", "any", "all", "sem"]
+)
+
+# order-statistic aggregations: a sort within each group
+ORDER_AGGS = frozenset(["median", "quantile", "nunique", "first", "last"])
+
+# row-shaped cumulative aggregations (a segmented scan)
+CUM_AGGS = frozenset(["cumsum", "cumprod", "cummax", "cummin"])
 
 
 class _TooManyGroups(Exception):
     pass
+
+
+_FACTORIZE_CACHE: List[Tuple[tuple, List[torch.Tensor], tuple]] = []
+_FACTORIZE_CACHE_MAX = 8
+
+
+def clear_factorize_cache() -> None:
+    """Drop every kept factorization (timings of the cold path, tests)."""
+    _FACTORIZE_CACHE.clear()
+
+
+def factorize_keys_cached(
+    key_cols: List[torch.Tensor], n: int, dropna: bool = True
+) -> Tuple[torch.Tensor, int, List[np.ndarray], Optional[np.ndarray]]:
+    """:func:`factorize_keys`, kept for the last few key sets: key tensors
+    of the same identity (the entry holds them, so an identity cannot be
+    reused while it is kept) hit."""
+    cache_key = (tuple(id(k) for k in key_cols), int(n), bool(dropna))
+    for entry_key, _refs, result in _FACTORIZE_CACHE:
+        if entry_key == cache_key:
+            return result
+    result = factorize_keys(key_cols, n, dropna)
+    _FACTORIZE_CACHE.append((cache_key, list(key_cols), result))
+    if len(_FACTORIZE_CACHE) > _FACTORIZE_CACHE_MAX:
+        _FACTORIZE_CACHE.pop(0)
+    return result
 
 
 def factorize_keys(
@@ -162,16 +210,31 @@ class _Segments:
                 self._lengths = bincount(self.codes, self.num_groups + 1)
         return self._lengths
 
+    def order(self) -> torch.Tensor:
+        """The stable permutation that sorts the rows by code."""
+        if self._order is None:
+            self._order = torch.argsort(self.codes, stable=True)
+        return self._order
+
     def segment_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Per-code sum of ``x`` over [num_groups + 1] codes."""
         ns = self.num_groups + 1
         if not x.dtype.is_floating_point:
             out = torch.zeros(ns, dtype=x.dtype, device=x.device)
             return out.index_add_(0, self.codes, x)
-        if self._order is None:
-            self._order = torch.argsort(self.codes, stable=True)
         return torch.segment_reduce(
-            x[self._order], "sum", lengths=self.lengths(), unsafe=True
+            x[self.order()], "sum", lengths=self.lengths(), unsafe=True
+        )
+
+    def segment_prod(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-code product of ``x``: int products wrap and are exact in any
+        order; float products reduce the code-sorted segments in order."""
+        ns = self.num_groups + 1
+        if not x.dtype.is_floating_point:
+            out = torch.ones(ns, dtype=x.dtype, device=x.device)
+            return out.scatter_reduce_(0, self.codes, x, "prod", include_self=True)
+        return torch.segment_reduce(
+            x[self.order()], "prod", lengths=self.lengths(), unsafe=True
         )
 
     def valid_count(self, c: torch.Tensor) -> torch.Tensor:
@@ -200,6 +263,18 @@ def _segment_extreme(agg: str, c: torch.Tensor, codes: torch.Tensor, ns: int) ->
     return out.to(torch.bool) if is_bool else out
 
 
+def _segment_truth(agg: str, c: torch.Tensor, codes: torch.Tensor, ns: int) -> torch.Tensor:
+    """Per-code any/all: NaN counts as False for any and True for all."""
+    if c.dtype.is_floating_point:
+        truthy = torch.where(torch.isnan(c), agg == "all", c != 0)
+    else:
+        truthy = c if c.dtype == torch.bool else c != 0
+    init = 1 if agg == "all" else 0
+    out = torch.full((ns,), init, dtype=torch.int32, device=c.device)
+    out.scatter_reduce_(0, codes, truthy.to(torch.int32), "amin" if agg == "all" else "amax", include_self=True)
+    return out.to(torch.bool)
+
+
 def groupby_reduce(
     agg: str,
     value_cols: List[torch.Tensor],
@@ -207,13 +282,16 @@ def groupby_reduce(
     num_groups: int,
     n: int,
     sizes: Optional[np.ndarray] = None,
+    ddof: int = 1,
 ) -> List[torch.Tensor]:
     """Aggregate value columns by group codes; returns device tensors of
     length ``num_groups`` (the overflow bucket is sliced off).
 
     ``sizes`` (host int64 per-group row counts, a factorization by-product)
     lets ``size`` skip the histogram kernel and gives int ``count``/``mean``
-    their denominators for free.
+    their denominators for free.  var/std/sem are the two-pass centred
+    form: the group mean gathered back to each row, then the segment sum
+    of squared deviations (no E[x^2] - E[x]^2 cancellation).
     """
     if agg not in SEGMENT_AGGS:
         raise ValueError(f"groupby aggregation {agg!r} is not ported")
@@ -230,6 +308,12 @@ def groupby_reduce(
             r = _segment_extreme(agg, c, codes, ns)
         elif agg == "count":
             r = seg.valid_count(c) if is_f else seg.sizes()
+        elif agg in ("any", "all"):
+            r = _segment_truth(agg, c, codes, ns)
+        elif agg == "prod":
+            r = seg.segment_prod(torch.where(torch.isnan(c), 1, c) if is_f else c)
+        elif agg in ("var", "std", "sem"):
+            r = _segment_var(agg, c, seg, ddof)
         else:
             x = torch.where(torch.isnan(c), 0, c) if is_f else c
             s = seg.segment_sum(x)
@@ -252,3 +336,211 @@ def groupby_first_position(codes: torch.Tensor, num_groups: int) -> torch.Tensor
     rows = torch.arange(n, dtype=torch.int64, device=codes.device)
     first.scatter_reduce_(0, codes, rows, "amin", include_self=True)
     return first[:num_groups]
+
+
+def _segment_var(agg: str, c: torch.Tensor, seg: _Segments, ddof: int) -> torch.Tensor:
+    """Per-code var/std/sem over [num_groups + 1] codes: float64, float32
+    for float32 values (pandas' dtypes)."""
+    is_f = c.dtype.is_floating_point
+    x = (torch.where(torch.isnan(c), 0, c) if is_f else c).to(torch.float64)
+    if is_f:
+        valid = ~torch.isnan(c)
+        ncnt = seg.valid_count(c)
+    else:
+        valid = None
+        ncnt = seg.lengths()
+    mean = seg.segment_sum(x) / ncnt.to(torch.float64)
+    d = x - mean[seg.codes]
+    if valid is not None:
+        d = torch.where(valid, d, 0.0)
+    s2 = seg.segment_sum(d * d)
+    var = s2 / torch.clamp(ncnt - ddof, min=1)
+    var = torch.where(ncnt - ddof > 0, var, float("nan"))
+    if agg == "std":
+        var = torch.sqrt(var)
+    elif agg == "sem":
+        var = torch.sqrt(var / ncnt)
+    return var.to(c.dtype) if c.dtype == torch.float32 else var
+
+
+def _sorted_within_groups(c: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts rows by code, then by value (NaN last)."""
+    return lexsort_permutation([codes, c], codes.shape[0], [True, True])
+
+
+def groupby_quantile(
+    value_cols: List[torch.Tensor],
+    codes: torch.Tensor,
+    num_groups: int,
+    n: int,
+    q: float = 0.5,
+    interpolation: str = "linear",
+    preserve_float_dtype: bool = False,
+) -> List[torch.Tensor]:
+    """Per-group quantile of each column: sort within the groups and gather
+    at the quantile ranks.  lower/higher/nearest keep an int column's
+    dtype; ``preserve_float_dtype`` (median) keeps float32."""
+    ns = num_groups + 1
+    total = bincount(codes, ns)
+    g_start = (torch.cumsum(total, 0) - total)[:num_groups]
+    max_pos = max(n - 1, 0)
+    out = []
+    for c in value_cols:
+        keep_int = interpolation in ("lower", "higher", "nearest") and not c.dtype.is_floating_point
+        x = c if keep_int else c.to(torch.float64)
+        xs = x[_sorted_within_groups(x, codes)]
+        if x.dtype.is_floating_point:
+            vcnt = torch.zeros(ns, dtype=torch.int64, device=c.device)
+            vcnt.index_add_(0, codes, (~torch.isnan(x)).to(torch.int64))
+        else:
+            vcnt = total
+        vcnt = vcnt[:num_groups]
+        target = q * (vcnt.to(torch.float64) - 1.0)
+        lo = torch.floor(target).to(torch.int64)
+        hi = torch.ceil(target).to(torch.int64)
+        v_lo = xs[torch.clamp(g_start + lo, 0, max_pos)]
+        v_hi = xs[torch.clamp(g_start + hi, 0, max_pos)]
+        if interpolation == "linear":
+            r = v_lo + (v_hi - v_lo) * (target - lo.to(torch.float64))
+        elif interpolation == "lower":
+            r = v_lo
+        elif interpolation == "higher":
+            r = v_hi
+        elif interpolation == "midpoint":
+            r = (v_lo + v_hi) * 0.5
+        else:  # nearest: numpy rounds the virtual rank half to even
+            r = xs[torch.clamp(g_start + torch.round(target).to(torch.int64), 0, max_pos)]
+        if not keep_int:
+            r = torch.where(vcnt == 0, float("nan"), r)
+            if preserve_float_dtype and c.dtype.is_floating_point:
+                # pandas' groupby median keeps float32; quantile widens
+                r = r.to(c.dtype)
+        out.append(r)
+    return out
+
+
+def groupby_nunique(
+    value_cols: List[torch.Tensor], codes: torch.Tensor, num_groups: int, n: int, dropna: bool = True
+) -> List[torch.Tensor]:
+    """Per-group count of distinct values: sort within the groups and count
+    the heads of runs (NaN counted once when not ``dropna``)."""
+    ns = num_groups + 1
+    out = []
+    for c in value_cols:
+        order = _sorted_within_groups(c, codes)
+        xs, cs = c[order], codes[order]
+        new = torch.ones(xs.shape[0], dtype=torch.bool, device=c.device)
+        if xs.shape[0] > 1:
+            new[1:] = (cs[1:] != cs[:-1]) | (xs[1:] != xs[:-1])
+        if c.dtype.is_floating_point:
+            new = new & ~torch.isnan(xs)
+        cnt = torch.zeros(ns, dtype=torch.int64, device=c.device)
+        cnt.index_add_(0, cs, new.to(torch.int64))
+        if not dropna and c.dtype.is_floating_point:
+            has_nan = torch.zeros(ns, dtype=torch.int64, device=c.device)
+            has_nan.scatter_reduce_(0, codes, torch.isnan(c).to(torch.int64), "amax", include_self=True)
+            cnt = cnt + has_nan
+        out.append(cnt[:num_groups])
+    return out
+
+
+def groupby_first_last(
+    agg: str, value_cols: List[torch.Tensor], codes: torch.Tensor, num_groups: int, n: int
+) -> List[torch.Tensor]:
+    """Per-group first or last non-NaN value in row order, read through the
+    stable sort by code (shared by every column; no atomics): an int
+    column's group starts or ends there, a float column's first or last
+    valid row is a segment min or max of the sorted positions."""
+    seg = _Segments(codes, num_groups, None)
+    order = seg.order()
+    lengths = seg.lengths()
+    starts = (torch.cumsum(lengths, 0) - lengths)[:num_groups]
+    sizes = lengths[:num_groups]
+    rank = None
+    out = []
+    for c in value_cols:
+        if not c.dtype.is_floating_point:
+            # every group of the factorization has rows
+            pos = starts if agg == "first" else starts + sizes - 1
+            out.append(c[order[pos]])
+            continue
+        if rank is None:
+            rank = torch.arange(n, dtype=torch.float64, device=codes.device)
+        valid = ~torch.isnan(c)[order]
+        missing = float("inf") if agg == "first" else float("-inf")
+        key = torch.where(valid, rank, missing)
+        r = torch.segment_reduce(key, "min" if agg == "first" else "max", lengths=lengths, unsafe=True)
+        r = r[:num_groups]
+        has = torch.isfinite(r)
+        idx = order[torch.where(has, r, 0.0).to(torch.int64)]
+        out.append(torch.where(has, c[idx], float("nan")))
+    return out
+
+
+def groupby_broadcast(agg_cols: List[torch.Tensor], codes: torch.Tensor) -> List[torch.Tensor]:
+    """Row-shaped tensors where row i holds its group's aggregate."""
+    return [a[torch.clamp(codes, max=a.shape[0] - 1)] for a in agg_cols]
+
+
+
+
+def groupby_cumulative(op: str, value_cols: List[torch.Tensor], codes: torch.Tensor) -> List[torch.Tensor]:
+    """Row-shaped grouped cumsum/cumprod/cummax/cummin: the rows sorted by
+    code (stable), one segmented scan that restarts at each group, the
+    result scattered back to row order.  A NaN keeps its place and does
+    not poison later rows (pandas' skipna); each column keeps its dtype.
+    Ints scan as int64 (a narrower int wraps back on the cast, as it does
+    in pandas); floats as float64."""
+    if op not in CUM_AGGS:
+        raise ValueError(f"grouped cumulative {op!r} is not ported")
+    order = torch.argsort(codes, stable=True)
+    cs = codes[order]
+    out = []
+    for c in value_cols:
+        x = c[order]
+        if c.dtype.is_floating_point:
+            nan = torch.isnan(x)
+            filled = torch.where(nan, CUM_NEUTRAL[op], x).to(torch.float64)
+            y = scan(CUM_SCAN_MODE[op], filled, cs)
+            if op == "cumsum":
+                y = _poison_after_inf(y, x, cs)
+            y = torch.where(nan, float("nan"), y).to(c.dtype)
+        else:
+            y = scan(CUM_SCAN_MODE[op], x.to(torch.int64), cs).to(c.dtype)
+        r = torch.empty_like(y)
+        r[order] = y
+        out.append(r)
+    return out
+
+
+def _poison_after_inf(y: torch.Tensor, x: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
+    """pandas' grouped cumsum is a compensated (Kahan) sum: after a +/-inf
+    its compensation is NaN, so every later row of the group is NaN (the
+    inf's own row keeps the inf).  ``x`` and the sorted codes ``cs`` are in
+    the scan's order."""
+    inf = torch.isinf(x)
+    if not bool(inf.any()):
+        return y
+    seen = scan("seg_max", inf.to(torch.int64), cs)
+    before = torch.zeros_like(seen)
+    before[1:] = torch.where(cs[1:] == cs[:-1], seen[:-1], 0)
+    return torch.where(before > 0, float("nan"), y)
+
+
+def groupby_cumcount(
+    codes: torch.Tensor, num_groups: int, sizes: Optional[np.ndarray] = None, ascending: bool = True
+) -> torch.Tensor:
+    """Each row's position within its group (int64), counted from the
+    group's first row, or from its last when not ``ascending``."""
+    n = codes.shape[0]
+    seg = _Segments(codes, num_groups, sizes)
+    lengths = seg.lengths()
+    starts = torch.cumsum(lengths, 0) - lengths
+    order = seg.order()
+    cs = codes[order]
+    pos = torch.arange(n, dtype=torch.int64, device=codes.device) - starts[cs]
+    if not ascending:
+        pos = lengths[cs] - 1 - pos
+    r = torch.empty_like(pos)
+    r[order] = pos
+    return r

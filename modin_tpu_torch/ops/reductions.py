@@ -28,7 +28,8 @@ import torch
 from modin_tpu_torch.parallel.engine import materialize as _engine_materialize
 
 REDUCTIONS = frozenset(
-    ["sum", "mean", "count", "min", "max", "prod", "var", "std", "sem", "any", "all"]
+    ["sum", "mean", "count", "min", "max", "prod", "var", "std", "sem", "skew",
+     "kurt", "any", "all"]
 )
 AXIS1_REDUCTIONS = frozenset(["sum", "mean", "min", "max", "count", "var", "std", "median"])
 
@@ -75,7 +76,7 @@ def _reduce_one(op: str, c: torch.Tensor, n: int, skipna: bool, ddof: int = 1) -
         return sel(c, 1).prod()
     if op in ("min", "max"):
         return _extreme(c, op, skipna, nan_mask, n)
-    if op in ("mean", "var", "std", "sem"):
+    if op in ("mean", "var", "std", "sem", "skew", "kurt"):
         x = sel(c.to(torch.float64), 0.0)
         mean = x.sum() / n_use
         nan = torch.full_like(mean, float("nan"))
@@ -85,15 +86,41 @@ def _reduce_one(op: str, c: torch.Tensor, n: int, skipna: bool, ddof: int = 1) -
             return torch.where(n_use == 0, nan, mean)
         d = sel(x - mean, 0.0)
         m2s = (d * d).sum()
-        var = m2s / torch.clamp(n_use - ddof, min=1)
-        var = torch.where(n_use - ddof > 0, var, nan)
+        if op in ("var", "std", "sem"):
+            var = m2s / torch.clamp(n_use - ddof, min=1)
+            var = torch.where(n_use - ddof > 0, var, nan)
+            if is_f and not skipna:
+                var = torch.where(nan_mask.any(), nan, var)
+            if op == "var":
+                return var
+            if op == "std":
+                return torch.sqrt(var)
+            return torch.sqrt(var / n_use)
+        # pandas' nanskew (sample skewness G1) and nankurt (sample excess
+        # kurtosis G2), with its rules: sums below 1e-14 are rounding and
+        # count as 0, a zero variance gives 0, fewer than 3 (4) values NaN
+        nf = n_use.to(torch.float64)
+        zero = torch.zeros((), dtype=torch.float64, device=c.device)
+
+        def zero_out(v: torch.Tensor) -> torch.Tensor:
+            return torch.where(v.abs() < 1e-14, zero, v)
+
+        m2s = zero_out(m2s)
+        if op == "skew":
+            m3s = zero_out((d * d * d).sum())
+            res = nf * torch.sqrt(nf - 1.0) / (nf - 2.0) * (m3s / m2s**1.5)
+            res = torch.where(m2s == 0, zero, res)
+            res = torch.where(nf < 3, nan, res)
+        else:
+            m4s = (d * d * d * d).sum()
+            numer = zero_out(nf * (nf + 1.0) * (nf - 1.0) * m4s)
+            denom = zero_out((nf - 2.0) * (nf - 3.0) * m2s * m2s)
+            adj = 3.0 * (nf - 1.0) ** 2 / ((nf - 2.0) * (nf - 3.0))
+            res = torch.where(denom == 0, zero, numer / denom - adj)
+            res = torch.where(nf < 4, nan, res)
         if is_f and not skipna:
-            var = torch.where(nan_mask.any(), nan, var)
-        if op == "var":
-            return var
-        if op == "std":
-            return torch.sqrt(var)
-        return torch.sqrt(var / n_use)
+            res = torch.where(nan_mask.any(), nan, res)
+        return res
     if op == "any":
         truthy = torch.where(nan_mask, not skipna, c != 0) if is_f else (c if c.dtype == torch.bool else c != 0)
         return truthy.any()

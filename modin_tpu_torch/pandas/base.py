@@ -5,10 +5,11 @@ implementations routed through the query compiler for the hot and structural
 operations, and generated default-to-pandas fallbacks
 (``_install_fallbacks``) for the long tail, so that every pandas method
 exists.  What the device does not run goes to pandas through the compiler's
-one counted default (``query_compiler.DEFAULTS_TO_PANDAS``).  Left out, as
-later slices of the port: the backend switching between compilers and the
-window/resample wrappers (``rolling``, ``expanding``, ``ewm``, ``resample``
-default to pandas and hand back pandas' own objects).  ``to_csv`` (and the
+one counted default (``query_compiler.DEFAULTS_TO_PANDAS``).  ``rolling``,
+``expanding`` and ``ewm`` return the port's window objects
+(``pandas/window.py``).  Left out, as later slices of the port: the backend
+switching between compilers and ``resample`` (it defaults to pandas and
+hands back pandas' own object).  ``to_csv`` (and the
 DataFrame's ``to_parquet``/``to_feather``) go through the IO dispatchers
 (``FactoryDispatcher``); the other writers default to pandas.
 """
@@ -786,6 +787,31 @@ class BasePandasDataset:
         if self.ndim == 2:
             kwargs["axis"] = self._get_axis_number(axis)
         return self._create_or_update_from_compiler(self._query_compiler.shift(**kwargs))
+
+    def rolling(self, window: Any, min_periods: Any = None, center: bool = False, win_type: Any = None,
+                on: Any = None, closed: Any = None, step: Any = None, method: str = "single"):
+        from modin_tpu_torch.pandas.window import Rolling
+
+        return Rolling(
+            self, window=window, min_periods=min_periods, center=center, win_type=win_type,
+            on=on, closed=closed, step=step, method=method,
+        )
+
+    def expanding(self, min_periods: int = 1, method: str = "single"):
+        from modin_tpu_torch.pandas.window import Expanding
+
+        return Expanding(self, min_periods=min_periods, method=method)
+
+    def ewm(self, com: Any = None, span: Any = None, halflife: Any = None, alpha: Any = None,
+            min_periods: Any = 0, adjust: bool = True, ignore_na: bool = False, times: Any = None,
+            method: str = "single"):
+        from modin_tpu_torch.pandas.window import Ewm
+
+        return Ewm(
+            self, com=com, span=span, halflife=halflife, alpha=alpha, min_periods=min_periods,
+            adjust=adjust, ignore_na=ignore_na, times=try_cast_to_pandas(times, squeeze=True),
+            method=method,
+        )
 
     def rank(
         self,
