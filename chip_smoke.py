@@ -18,8 +18,11 @@ Phases, one JSON object per line each:
              ``scan`` against ``scan_plain`` at 1e8 rows: the linear mode
              over float64, seg_add and seg_max over int64 (exactly) and
              float64 (within a bound from the scans' depths) with sorted
-             codes of 100 and 10 000 groups, two launches bit for bit, and
-             ``torch.cumsum``'s time beside the segmented modes.
+             codes of 100 and 10 000 groups, seg_add without codes (beside
+             ``torch.cumsum``, the same function), block widths forward and
+             in reverse; ten launches bit for bit; each case's bound from
+             its own bytes (16 or 24 a row); then ragged and misaligned
+             shapes in every mode.
 4. main    - the asv main path (``make_frame((N, 10), ngroups=g)`` for
              g in 100 and 10 000, plus a key of range 1e6) through
              ``modin_tpu_torch.pandas``: from_pandas, add/mul/mod/abs,
@@ -79,9 +82,12 @@ Phases, one JSON object per line each:
              mean/std/adjust=False/corr, groupby median/quantile/nunique/
              first/last/var/prod/cumsum/cummax/cumcount/transform/agg list
              and dict/describe, each against pandas within the tolerance its
-             line states; no query defaults to pandas, the scan and the
-             bincount kernels launch, and an ewm mean and a rolling std
-             repeat bit for bit.
+             line states; then rolling(10) sum/mean/var/std of a spike
+             series (ten values of 1e15, then N(0, 1)) and a trend series
+             (t * 1e3 + N(0, 1)), each within pandas' own error against an
+             exact long-double window plus the block-partial bound; no query
+             defaults to pandas, the scan and the bincount kernels launch,
+             and an ewm mean and a rolling std repeat bit for bit.
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
 default), the arithmetic phase at ``--arithmetic-rows`` (5e7) and the window
@@ -98,6 +104,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -209,9 +216,32 @@ def phase_build() -> None:
         "phase": "build",
         "seconds": round(time.perf_counter() - t0, 3),
         "libraries": {k: os.path.relpath(v, HERE) for k, v in paths.items()},
-        "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-                  for k, v in build.BUILD_LOGS.items()},
+        "ptxas": {k: ptxas_by_kernel(v) for k, v in build.BUILD_LOGS.items()},
     })
+
+
+def kernel_label(mangled: str) -> str:
+    """A scan kernel's instantiation as mode, dtype and codes (the
+    bincount kernels keep their own names)."""
+    m = re.search(r"SegOpI([ld])\w*?(Add|Mul|Max|Min)[IF]ELb([01])", mangled)
+    if m:
+        dtype = "i64" if m.group(1) == "l" else "f64"
+        return f"seg_{m.group(2).lower()}_{dtype}" + ("_codes" if m.group(3) == "1" else "")
+    return "linear" if "LinearOp" in mangled else mangled
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """``nvcc -Xptxas -v``'s registers, shared memory, stack and spills of
+    each kernel of one build."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            out[name] = []
+        elif name is not None and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.split("ptxas info    :")[-1].strip())
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -279,24 +309,38 @@ U64 = 2.0 ** -53
 
 def scan_tolerance_factor(n: int) -> float:
     """Relative bound (to the same scan of absolute values) between the
-    kernel and the plain doubling scan on float64: each output passes
-    through at most ceil(log2 n) combines in the plain scan and 2 log2(256)
-    + 2*16 + ceil(tiles/4096) + 2 in the kernel (lane and warp shuffles,
-    the 16 rows of a tile, the same again for the carries); a combine
-    rounds twice in the linear mode.  4 ceil(log2 n) + 64 steps cover both
-    with room, times 2 roundings, times the unit roundoff."""
+    kernel and the plain doubling scan on float64.  An output passes
+    through at most ceil(log2 n) combines in the plain scan, and in the
+    kernel at most ceil(log2 tiles) + 56 (csrc/scan.cu's note: 16 + 5 + 11
+    to a tile's total, ceil(log2 tiles) + 5 into the carry, 2 + 17 into the
+    row), tiles <= n; a combine rounds twice in the linear mode.
+    4 ceil(log2 n) + 64 steps cover both with room, times 2 roundings,
+    times the unit roundoff."""
     return 2 * (4 * int(np.ceil(np.log2(max(n, 2)))) + 64) * U64
+
+
+# launches of each scan case compared bit for bit with the first
+SCAN_REPEATS = 10
+
+
+def scan_bytes_per_row(mode: str, aux) -> int:
+    """Bytes the scan must move a row: each input read once, y written once
+    (linear: a, b, y; segmented: values[, codes], y)."""
+    return 24 if (mode == "linear" or aux is not None) else 16
 
 
 def scan_check(rows: int, seed: int) -> dict:
     """``scan`` against ``scan_plain`` on the card at ``rows`` rows: linear
     over float64 (a in (0, 1], b normal), seg_add and seg_max over int64
-    and float64 with sorted codes of 100 and 10 000 groups.  Ints exactly,
-    floats within ``scan_tolerance_factor`` times the scan of absolute
-    values (max exactly); two launches bitwise equal; times of the kernel,
-    the plain version and, beside the segmented modes, ``torch.cumsum`` of
-    the values (no single torch call computes a linear or a segmented
-    scan)."""
+    and float64 with sorted codes of 100 and 10 000 groups, seg_add without
+    codes (the function of ``torch.cumsum``), and block-width scans forward
+    and in reverse (the van Herk blocks of the rolling windows).  Ints
+    exactly, floats within ``scan_tolerance_factor`` times the scan of
+    absolute values (max exactly); ``SCAN_REPEATS`` launches bitwise equal;
+    times of the kernel, the plain version and ``torch.cumsum`` (the same
+    function only for seg_add without codes; elsewhere an unsegmented
+    yardstick, ``cumsum_ms``); the bound from each case's own bytes.  Then
+    ragged and misaligned shapes (not timed)."""
     import torch
 
     from modin_tpu_torch.ops.cuda import scan_kernels as sk
@@ -308,45 +352,65 @@ def scan_check(rows: int, seed: int) -> dict:
     by_case = {}
     max_err = 0.0
 
-    def check(case: str, mode: str, x, aux, groups):
-        nonlocal max_err
-        got = sk.scan(mode, x, aux)
-        again = sk.scan(mode, x, aux)
-        want = sk.scan_plain(mode, x, aux)
-        torch.cuda.synchronize()
-        if got.dtype.is_floating_point:
-            bitwise = torch.equal(got.view(torch.int64), again.view(torch.int64))
-        else:
-            bitwise = torch.equal(got, again)
-        if not bitwise:
-            raise AssertionError(f"scan {case}: two launches differ")
+    def compare(case: str, mode: str, x, aux, got, **kw):
+        want = sk.scan_plain(mode, x, aux, **kw)
         err = float((got - want).abs().max()) if got.dtype.is_floating_point else float((got != want).sum())
-        if mode == "seg_max" or not got.dtype.is_floating_point:
+        if mode in ("seg_max", "seg_min") or not got.dtype.is_floating_point:
             if not torch.equal(got, want):
                 raise AssertionError(f"scan {case}: != scan_plain")
-            tol = "exact"
+            return err, "exact"
+        # a product of m factors rounds m - 1 times in any association:
+        # 2 n u of the product of |x| bounds the two versions' difference
+        f = 2 * x.shape[0] * U64 if mode == "seg_mul" else factor
+        if mode == "linear":
+            z = sk.scan_plain("linear", x.abs(), aux.abs(), **kw)
         else:
-            if mode == "linear":
-                z = sk.scan_plain("linear", x.abs(), aux.abs())
+            z = sk.scan_plain(mode, x.abs(), aux, **kw)
+        bad = int(((got - want).abs() > f * z).sum())
+        if bad:
+            raise AssertionError(f"scan {case}: {bad} values beyond {f:.3g} x the scan of |x|")
+        return err, f"|kernel - plain| <= {f:.3g} * scan(|x|)"
+
+    def check(case: str, mode: str, x, aux, groups, **kw):
+        nonlocal max_err
+        got = sk.scan(mode, x, aux, **kw)
+        for _ in range(SCAN_REPEATS - 1):
+            again = sk.scan(mode, x, aux, **kw)
+            if got.dtype.is_floating_point:
+                same = torch.equal(got.view(torch.int64), again.view(torch.int64))
             else:
-                z = sk.scan_plain(mode, x.abs(), aux)
-            bad = int(((got - want).abs() > factor * z).sum())
-            del z
-            if bad:
-                raise AssertionError(f"scan {case}: {bad} values beyond {factor:.3g} x the scan of |x|")
-            tol = f"|kernel - plain| <= {factor:.3g} * scan(|x|)"
+                same = torch.equal(got, again)
+            if not same:
+                raise AssertionError(f"scan {case}: {SCAN_REPEATS} launches differ")
+            del again
+        torch.cuda.synchronize()
+        err, tol = compare(case, mode, x, aux, got, **kw)
         max_err = max(max_err, err)
-        del got, again, want
+        del got
         n = x.shape[0]
+        cumsum_ms = None if mode == "linear" else cuda_ms(lambda: torch.cumsum(x, 0))
+        # one torch call computes the same function: cumsum without codes,
+        # and forward blocks of w rows as the rows of an [n / w, w] view
+        w = kw.get("width", 0)
+        library_ms = library = None
+        if mode == "seg_add" and aux is None and not kw.get("reverse", False):
+            if w == 0:
+                library_ms, library = cumsum_ms, "torch.cumsum (the same function)"
+            elif n % w == 0:
+                library_ms = cuda_ms(lambda: torch.cumsum(x.view(-1, w), 1))
+                library = f"torch.cumsum over [n / {w}, {w}] along dim 1 (the same function)"
         rec = {
             "phase": "kernel", "kernel": "scan", "case": case, "mode": mode, "n": n,
             "groups": groups, "dtype": str(x.dtype).replace("torch.", ""), "tolerance": tol,
-            "max_abs_err": err, "bitwise_repeat": True,
-            "kernel_ms": cuda_ms(lambda: sk.scan(mode, x, aux)),
-            "plain_ms": cuda_ms(lambda: sk.scan_plain(mode, x, aux)),
-            "library_ms": None if mode == "linear" else cuda_ms(lambda: torch.cumsum(x, 0)),
-            "library": None if mode == "linear" else "torch.cumsum (unsegmented; no torch call computes this scan)",
-            "bound_ms": 24 * n / HBM_BYTES_PER_S * 1e3,
+            "width": w, "reverse": kw.get("reverse", False),
+            "max_abs_err": err, "bitwise_repeat": SCAN_REPEATS,
+            "kernel_ms": cuda_ms(lambda: sk.scan(mode, x, aux, **kw)),
+            "plain_ms": cuda_ms(lambda: sk.scan_plain(mode, x, aux, **kw)),
+            "library_ms": library_ms,
+            "library": library,
+            "cumsum_ms": cumsum_ms,
+            "bytes_per_row": scan_bytes_per_row(mode, aux),
+            "bound_ms": scan_bytes_per_row(mode, aux) * n / HBM_BYTES_PER_S * 1e3,
         }
         emit(rec)
         by_case[case] = rec
@@ -365,9 +429,51 @@ def scan_check(rows: int, seed: int) -> dict:
             check(f"{mode}_f64_g{groups}", mode, xf, codes, groups)
         del codes
         free_device_memory()
+    check("seg_add_f64_nocodes", "seg_add", xf, None, 1)
+    check("seg_add_i64_nocodes", "seg_add", xi, None, 1)
+    for w in (10, 1000):
+        check(f"seg_add_f64_w{w}", "seg_add", xf, None, None, width=w)
+        check(f"seg_add_f64_w{w}_rev", "seg_add", xf, None, None, width=w, reverse=True)
+    check("seg_max_f64_w1000_rev", "seg_max", xf, None, None, width=1000, reverse=True)
     del xi, xf
     free_device_memory()
-    return {"by_case": by_case, "max_abs_err": max_err}
+    edges = scan_edge_check(seed, compare)
+    return {"by_case": by_case, "max_abs_err": max(max_err, edges), "edges": True}
+
+
+def scan_edge_check(seed: int, compare) -> float:
+    """Ragged lengths around the kernel's tile (``scan_tile_rows()``) and inputs that
+    start 8 bytes past a 16-byte boundary (the bulk copy's edge rows), in
+    every mode, forward and reverse, with codes and block widths."""
+    import torch
+
+    from modin_tpu_torch.ops.cuda import scan_kernels as sk
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    worst, cases = 0.0, 0
+    tile = int(sk._lib().scan_tile_rows())
+    for n in (1, 2, 3, tile - 1, tile, tile + 1, 2 * tile + 1, 1_000_003):
+        for offset in (0, 1):
+            m = n + offset
+            xf = torch.randn(m, dtype=torch.float64, device=dev, generator=gen)[offset:]
+            xi = torch.randint(-(2**40), 2**40, (m,), device=dev, generator=gen)[offset:]
+            a = (1.0 - torch.rand(m, dtype=torch.float64, device=dev, generator=gen))[offset:]
+            codes = torch.sort(torch.randint(0, 7, (m + 1,), device=dev, generator=gen)).values[1:][offset:]
+            runs = [("linear", a, xf, {}), ("linear", a, xf, {"reverse": True})]
+            for mode in sk.MODES[1:]:
+                for x in (xi, xf if mode != "seg_mul" else 1.0 + 1e-3 * xf):
+                    runs += [(mode, x, codes, {}), (mode, x, None, {"reverse": True}),
+                             (mode, x, codes, {"width": 5, "reverse": True}), (mode, x, None, {"width": tile})]
+            for mode, x, aux, kw in runs:
+                case = f"edge {mode} n={n} offset={offset} {kw}"
+                got = sk.scan(mode, x, aux, **kw)
+                torch.cuda.synchronize()
+                worst = max(worst, compare(case, mode, x, aux, got, **kw)[0])
+                cases += 1
+    emit({"phase": "kernel", "kernel": "scan", "case": "edges", "checked": cases, "max_abs_err": worst})
+    return worst
 
 
 # ---------------------------------------------------------------------- #
@@ -1273,7 +1379,7 @@ EWM_TOL = Tol("ewm", rtol=1e-9, atol=1e-12, why="rtol 1e-9 + atol 1e-12: decayin
 
 def centred_square_prefix(p) -> dict:
     """Per column, P_i: the prefix sums of squared globally centred values
-    (the sums the port's rolling variance differences)."""
+    (the scale of pandas' running-update drift)."""
     out = {}
     for label in p.columns:
         x = p[label].to_numpy(np.float64)
@@ -1282,19 +1388,106 @@ def centred_square_prefix(p) -> dict:
     return out
 
 
-def window_var_tol(prefix: dict, window, ddof: int = 1) -> dict:
-    """Per-row bound of a rolling (``window``) or expanding (None) variance:
-    the prefix sums P_i carry a few ulps of P_i each, and the window's
-    difference divides that by its degrees of freedom: 4096 eps P_i /
-    (rows - ddof).  pandas' running update drifts by less (at most 271 eps
-    P_i / (rows - ddof) against the port at 2e6 rows on the CPU)."""
+def window_own_squares(p, window) -> dict:
+    """Per column of ints, each window's own centred sum of squares,
+    (k sum x^2 - (sum x)^2) / k, from exact int64 window sums (``window``
+    None: expanding)."""
+    out = {}
+    for label in p.columns:
+        x = p[label].to_numpy(np.int64)
+        c1 = np.concatenate([[0], np.cumsum(x)])
+        c2 = np.concatenate([[0], np.cumsum(x * x)])
+        i = np.arange(len(x))
+        lo = np.zeros_like(i) if window is None else np.maximum(i - window + 1, 0)
+        k = i - lo + 1
+        s1, s2 = c1[i + 1] - c1[lo], c2[i + 1] - c2[lo]
+        out[label] = (k * s2 - s1 * s1).astype(np.float64) / k
+    return out
+
+
+def window_var_tol(prefix: dict, own: dict, window, ddof: int = 1) -> dict:
+    """Per-row bound of a rolling (``window``) or expanding (None) variance
+    against pandas: the port's partials are block-local sums shifted by a
+    value of the window, so its error scales with the window's own sum of
+    squares Q_i (1024 eps Q_i); pandas' running update drifts with the
+    prefix P_i of squared centred values (2048 eps P_i; at most 484 eps P_i
+    measured on 5e6 int rows on the CPU), each over (rows - ddof).  Q_i <=
+    P_i, so this is tighter on every row than the earlier bound, 4096 eps
+    P_i / (rows - ddof), which the prefix-sum windows needed."""
     out = {}
     for label, pre in prefix.items():
         rows = np.arange(1, len(pre) + 1)
         if window is not None:
             rows = np.minimum(rows, window)
-        out[label] = 4096 * EPS64 * pre / np.maximum(rows - ddof, 1)
+        out[label] = (1024 * own[label] + 2048 * pre) * EPS64 / np.maximum(rows - ddof, 1)
     return out
+
+
+def precision_frame(rows: int, seed: int) -> dict:
+    """Series whose values differ in scale along the column: ``spike``, ten
+    values of 1e15 then N(0, 1); ``trend``, t * 1e3 + N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    spike = np.concatenate([np.full(10, 1e15), rng.normal(0, 1, rows - 10)])
+    trend = np.arange(rows, dtype=np.float64) * 1e3 + rng.normal(0, 1, rows)
+    return {"spike": spike, "trend": trend}
+
+
+def exact_rolling(x: np.ndarray, w: int) -> dict:
+    """Per full window of w rows (row i >= w-1; 0 before): the sum, mean and
+    M2 in long double (two-pass about the window's mean), and the window's
+    k, S = sum|x|, R = max - min, M = max|x|."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    n = len(x)
+    out = {key: np.zeros(n) for key in ("sum", "mean", "m2", "S", "R", "M")}
+    win = sliding_window_view(x.astype(np.longdouble), w)
+    step = 1 << 20
+    for lo in range(0, len(win), step):
+        v = win[lo:lo + step]
+        total = v.sum(axis=1)
+        mean = total / w
+        d = v - mean[:, None]
+        rows = slice(lo + w - 1, lo + w - 1 + len(v))
+        out["sum"][rows] = total
+        out["mean"][rows] = mean
+        out["m2"][rows] = (d * d).sum(axis=1) - d.sum(axis=1) ** 2 / w
+        out["S"][rows] = np.abs(v).sum(axis=1)
+        out["R"][rows] = v.max(axis=1) - v.min(axis=1)
+        out["M"][rows] = np.abs(v).max(axis=1)
+    out["k"] = np.full(n, float(w))
+    return out
+
+
+def precision_queries(pp, w: int = 10) -> dict:
+    """name -> (query over one frame, tolerance) for the spike and trend
+    series: the port's error against the exact window may exceed pandas'
+    own by the block-partial bound, g = (ceil(log2 n) + 58) eps the scan
+    kernel's depth and one merge: sum g S, mean g S / k, var 4 k (g R^2 +
+    eps R M) / (k - 1), each plus 8 eps of the exact variance for the
+    rounding of the division and the square root."""
+    n = len(pp)
+    g = (int(np.ceil(np.log2(max(n, 2)))) + 58) * EPS64
+    ops = ("sum", "mean", "var", "std")
+    atol = {op: {} for op in ops}
+    for label in pp.columns:
+        x = pp[label].to_numpy(np.float64)
+        ex = exact_rolling(x, w)
+        want = {op: getattr(pp[label].rolling(w), op)().to_numpy() for op in ops}
+        k = ex["k"]
+        exact = {"sum": ex["sum"], "mean": ex["mean"], "var": ex["m2"] / (k - 1)}
+        var_bound = 4 * k * (g * ex["R"] ** 2 + EPS64 * ex["R"] * ex["M"]) / (k - 1) + 8 * EPS64 * exact["var"]
+        pandas_err = lambda got, e: np.nan_to_num(np.abs(got - e), nan=0.0)  # noqa: E731
+        atol["sum"][label] = (pandas_err(want["sum"], exact["sum"]) + g * ex["S"]).astype(np.float64)
+        atol["mean"][label] = (pandas_err(want["mean"], exact["mean"]) + g * ex["S"] / k
+                               + EPS64 * np.abs(exact["mean"])).astype(np.float64)
+        atol["var"][label] = (pandas_err(want["var"], exact["var"]) + var_bound).astype(np.float64)
+        atol["std"][label] = (pandas_err(want["std"] ** 2, exact["var"]) + var_bound).astype(np.float64)
+    why = "|pandas - exact| + the block-partial bound (g S, g S / k, 4 k (g R^2 + eps R M) / (k - 1))"
+    return {
+        f"precision_rolling_{w}_{op}": ((lambda d, op=op: getattr(d.rolling(w), op)()),
+                                        Tol("exact window", atol=atol[op], squared=op == "std", why=why))
+        for op in ops
+    }
 
 
 def finite_abs(x: np.ndarray) -> np.ndarray:
@@ -1365,8 +1558,9 @@ def window_queries(p, f) -> dict:
                   why=f"rtol 4 m eps with m = {groups} rows in the largest group: pandas updates a running variance")
     prefix = centred_square_prefix(p)
     std_tol = {
-        w: Tol("window var", atol=window_var_tol(prefix, w), squared=True,
-               why="4096 eps P_i / (rows - 1) on the squares, P_i the prefix sum of squared centred values")
+        w: Tol("window var", atol=window_var_tol(prefix, window_own_squares(p, w), w), squared=True,
+               why="(1024 eps Q_i + 2048 eps P_i) / (rows - 1) on the squares, Q_i the window's own "
+                   "centred sum of squares, P_i the prefix sum of squared centred values")
         for w in (10, 1000, None)
     }
     del prefix
@@ -1449,17 +1643,21 @@ def phase_window(rows: int, float_rows: int, seed: int) -> dict:
     # +/-inf rows: missing in every window aggregation (pandas' rule)
     f.loc[f.index[5::100_003], "val"] = np.inf
     f.loc[f.index[7::100_019], "val"] = -np.inf
-    t, tf = tpd.from_pandas(p), tpd.from_pandas(f)
-    queries = window_queries(p, f)
+    pp = pandas.DataFrame(precision_frame(rows, seed + 42))
+    t, tf, tp = tpd.from_pandas(p), tpd.from_pandas(f), tpd.from_pandas(pp)
+    runs = [(name, (lambda fn=fn: fn(t, tf)), (lambda fn=fn: fn(p, f)), tol,
+             float_rows if name.startswith("float_") else rows)
+            for name, (fn, tol) in window_queries(p, f).items()]
+    runs += [(name, (lambda fn=fn: fn(tp)), (lambda fn=fn: fn(pp)), tol, rows)
+             for name, (fn, tol) in precision_queries(pp).items()]
     clear_factorize_cache()
     gk.LAUNCHES = 0
     sk.LAUNCHES = 0
     tqc.DEFAULTS_TO_PANDAS = 0
-    for name, (fn, tol) in queries.items():
-        frame_rows = float_rows if name.startswith("float_") else rows
+    for name, port_fn, pandas_fn, tol, frame_rows in runs:
         scans, bins = sk.LAUNCHES, gk.LAUNCHES
         torch.cuda.reset_peak_memory_stats()
-        result, port_ms = host_ms(lambda: fn(t, tf))
+        result, port_ms = host_ms(port_fn)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if tqc.DEFAULTS_TO_PANDAS != 0:
             raise AssertionError(f"{name}: the query defaulted to pandas")
@@ -1467,7 +1665,7 @@ def phase_window(rows: int, float_rows: int, seed: int) -> dict:
         got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
         del result
         t0 = time.perf_counter()
-        want = fn(p, f)
+        want = pandas_fn()
         pandas_ms = (time.perf_counter() - t0) * 1e3
         assert_close_pandas(got, want, name, tol)
         emit({"phase": "window", "query": name, "rows": frame_rows, "out_shape": list(got.shape),
@@ -1492,7 +1690,7 @@ def phase_window(rows: int, float_rows: int, seed: int) -> dict:
         del first, second
         if not same:
             raise AssertionError(f"{name}: two runs differ")
-    del t, tf, p, f
+    del t, tf, tp, p, f, pp, runs
     free_device_memory()
     emit({"phase": "window", "scan_launches": launches["scan"], "bincount_launches": launches["bincount"],
           "defaults_to_pandas": 0, "bitwise_repeat": repeats, "seconds": time.perf_counter() - t_phase})
@@ -1503,6 +1701,42 @@ def phase_window(rows: int, float_rows: int, seed: int) -> dict:
     return launches
 
 
+def phase_window_times(rows: int, seed: int, repeats: int) -> None:
+    """Host times of phase 9's rolling, expanding and ewm queries on its asv
+    frame and of the spike and trend queries: one warm-up call, then the
+    median and the least of ``repeats`` calls.  Public API only and no
+    reference, so that it times an earlier checkout of the port as well."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+
+    p = _pandas_frame(make_frame_data(rows, seed + 40, ngroups=100))
+    pp = pandas.DataFrame(precision_frame(rows, seed + 42))
+    t, tp = tpd.from_pandas(p), tpd.from_pandas(pp)
+    queries = {f"rolling_{w}_{op}": (lambda w=w, op=op: getattr(t.rolling(w), op)())
+               for w in (10, 1000) for op in ("sum", "mean", "std", "min", "max", "count")}
+    queries.update({
+        "expanding_mean": lambda: t.expanding().mean(),
+        "expanding_std": lambda: t.expanding().std(),
+        "ewm_halflife10_mean": lambda: t.ewm(halflife=10).mean(),
+        "ewm_halflife10_std": lambda: t.ewm(halflife=10).std(),
+        **{f"precision_rolling_10_{op}": (lambda op=op: getattr(tp.rolling(10), op)())
+           for op in ("sum", "mean", "var", "std")},
+    })
+    for name, fn in queries.items():
+        times = []
+        for _ in range(repeats + 1):
+            result, ms = host_ms(fn)
+            del result
+            times.append(ms)
+        emit({"phase": "window_times", "query": name, "rows": rows, "repeats": repeats,
+              "first_ms": times[0], "median_ms": statistics.median(times[1:]), "min_ms": min(times[1:])})
+    del t, tp
+    free_device_memory()
+    torch.cuda.synchronize()
+
+
 def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
     ``io``, ``window``) to its kernels' launches; the ``launches`` of a
@@ -1511,7 +1745,7 @@ def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
     by_width = kernel["by_width"]
     main = by_width[100]
     scan = kernel["scan"]["by_case"]
-    head = scan["seg_add_f64_g100"]
+    head = scan["seg_add_f64_nocodes"]
     bincount_paths = {k: v["bincount"] if isinstance(v, dict) else v for k, v in launches.items()}
     return {"kernels": [{
         "name": "bincount",
@@ -1543,16 +1777,18 @@ def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
         "launches": launches["window"]["scan"],
         "max_abs_err": kernel["scan"]["max_abs_err"],
         "n": rows,
-        "case": "seg_add_f64_g100",
+        "case": "seg_add_f64_nocodes",
         "ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": "bytes",
         "library_ms": head["library_ms"],
-        "library": "torch.cumsum of the values (unsegmented); no torch call computes the "
-                   "segmented or the linear scan",
+        "library": "torch.cumsum, the same function as seg_add without codes (and, over an [n / w, w] "
+                   "view, as the forward blocks of w rows); no torch call computes the segmented, "
+                   "reverse or linear scans (their cumsum_ms is an unsegmented yardstick)",
         "by_case": {
-            k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "tolerance")}
+            k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "library", "cumsum_ms", "bound_ms",
+                                  "bytes_per_row", "max_abs_err", "tolerance")}
             for k, v in scan.items()
         },
     }]}
@@ -1578,6 +1814,9 @@ def main(argv=None) -> int:
     parser.add_argument("--window-rows", type=int, default=5 * 10**6,
                         help="rows of the window phase's asv frame")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--time-windows", type=int, default=0, metavar="R",
+                        help="only time phase 9's window queries at --window-rows, R calls "
+                        "each after a warm-up (no checks, no result lines)")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
                         "(the result lines need all six)")
@@ -1609,6 +1848,10 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = phase_device()
+    if args.time_windows:
+        phase_window_times(args.window_rows, args.seed, args.time_windows)
+        print("chip_smoke: a timing run prints no result", file=sys.stderr)
+        return 1
     phase_build()
     rows, earlier_rows = args.arithmetic_rows, args.earlier_rows
     if rows >= 10**8 and mem_available_gib() < 60:

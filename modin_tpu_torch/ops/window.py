@@ -3,14 +3,17 @@
 The port's counterpart of ``modin_tpu/ops/window.py``.  Every windowed
 aggregation is O(n) work:
 
-- sum/mean/count/var/std/sem: prefix sums and shifted differences (var
-  uses windowed sums of x and x^2 over a globally centred column, which
-  removes the E[x^2] - E[x]^2 cancellation);
-- min/max: the van Herk/Gil-Werman two-pass, block prefix and suffix
-  extrema (the scan kernel's segmented max/min over blocks of w rows, and
-  over the flipped column) give any window's extremum as
-  max(suffix[i-w+1], prefix[i]), whatever the window;
-- expanding_*: the same formulas with the whole prefix as the window;
+- the van Herk/Gil-Werman split: over blocks of w rows, the scan kernel's
+  block-segmented scans forward (prefix) and in reverse (suffix) give any
+  window [s, i] as suffix[s] combined with prefix[i] (a leading or a
+  block-aligned window is prefix[i] alone).  min/max take the extremum of
+  the two; sum/mean their sum, so a window's rounding scales with its own
+  values and not with the column's prefix; var/std/sem sum (x-c) and
+  (x-c)^2 over both partials with one shift c inside the window, or, where
+  the column has missing values, carry (count, sum(x-c), sum((x-c)^2)) per
+  partial with a shift of its own and merge the two by Chan's formula;
+- count: exact int prefix counts and shifted differences;
+- expanding_*: the same formulas with one block of the whole length;
 - ewm mean/sum/var/std and the pair cov/corr: first-order linear
   recurrences y_t = a_t*y_{t-1} + b_t, each one launch of the scan kernel's
   ``linear`` mode (``ops/cuda/scan_kernels.py``; the JAX package runs them
@@ -30,7 +33,7 @@ validity masks are gone.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple
 
 import torch
 
@@ -51,29 +54,106 @@ def _windowed(arr: torch.Tensor, window: int) -> torch.Tensor:
     return arr - shifted
 
 
-def _van_herk(x: torch.Tensor, window: int, op: str) -> torch.Tensor:
-    """Windowed min/max in O(n) from block prefix and suffix extrema.
+class _Blocks(NamedTuple):
+    """The van Herk geometry of one query, shared by its columns: blocks of
+    w rows; the window [s, i] ending at row i spans blocks b-1 and b when
+    ``split`` (then suffix[start] covers [s, end of b-1] and prefix[i] covers
+    [start of b, i]); a leading window (i < w-1) or a block-aligned one is
+    prefix[i] alone (suffix[0] would reach into later rows)."""
 
-    For the window [s, i] (s = i-w+1) spanning blocks b-1 and b of width w,
-    suffix[s] covers [s, end of b-1] and prefix[i] covers [start of b, i];
-    their extremum is the window's.  Leading windows (i < w-1) are prefix[i]
-    alone: suffix[0] would reach into later rows.
-    """
-    n = x.shape[0]
-    w = min(window, n)
-    nb = -(-n // w)
-    pad = nb * w - n
-    neutral = float("inf") if op == "min" else float("-inf")
-    xp = torch.cat([x, torch.full((pad,), neutral, dtype=x.dtype, device=x.device)]) if pad else x
-    # one segment per block of w rows (flipped, the blocks run backwards)
-    block = torch.arange(nb * w, device=x.device) // w
+    w: int
+    idx: torch.Tensor     # row index
+    wrows: torch.Tensor   # rows in the window ending at each row
+    split: torch.Tensor
+    start: torch.Tensor   # the window's first row
+    bstart: torch.Tensor  # the first row of each row's block
+    any_split: bool
+
+
+def _blocks(n: int, window: int, device) -> _Blocks:
+    w = max(min(window, n), 1)
+    idx = torch.arange(n, device=device)
+    s = idx - w + 1
+    return _Blocks(w, idx, torch.clamp(idx + 1, max=window), (s > 0) & (s % w != 0),
+                   torch.clamp(s, min=0), idx - idx % w, w >= 2 and n >= w + 1)
+
+
+def _van_herk(x: torch.Tensor, g: _Blocks, op: str) -> torch.Tensor:
+    """Windowed min/max in O(n): the extremum of the block suffix and prefix
+    extrema."""
     pick = torch.minimum if op == "min" else torch.maximum
-    prefix = scan(f"seg_{op}", xp, block)[:n]
-    suffix = scan(f"seg_{op}", xp.flip(0), block.flip(0)).flip(0)[:n]
-    idx = torch.arange(n, device=x.device)
-    start = torch.clamp(idx - w + 1, min=0)
-    out = pick(suffix[start], prefix)
-    return torch.where(idx < w - 1, prefix, out)
+    prefix = scan(f"seg_{op}", x, width=g.w)
+    if not g.any_split:
+        return prefix
+    suffix = scan(f"seg_{op}", x, width=g.w, reverse=True)
+    return torch.where(g.split, pick(suffix[g.start], prefix), prefix)
+
+
+def _windowed_sum(d: torch.Tensor, g: _Blocks) -> torch.Tensor:
+    """Sum over each window from block-local partial sums, so that its
+    rounding scales with the window's own values."""
+    pre = scan("seg_add", d, width=g.w)
+    if not g.any_split:
+        return pre
+    suf = scan("seg_add", d, width=g.w, reverse=True)
+    return torch.where(g.split, suf[g.start] + pre, pre)
+
+
+def _windowed_m2(x: torch.Tensor, g: _Blocks, wcnt: torch.Tensor) -> torch.Tensor:
+    """Sum of squared deviations from the mean over each window of a column
+    with no missing values.
+
+    Both partials of the window ending at i are shifted by one value c, the
+    first row of i's block, which every window that uses either partial
+    holds (the suffix partials of a block are shifted by the next block's
+    first row).  Then S1 = sum(x-c) and S2 = sum((x-c)^2) are window sums
+    and M2 = S2 - S1^2 / k rounds with the window's own spread."""
+    d = x - x[g.bstart]
+    s1, s2 = scan("seg_add", d, width=g.w), scan("seg_add", d * d, width=g.w)
+    if g.any_split:
+        e = x - x[torch.clamp(g.bstart + g.w, max=x.shape[0] - 1)]
+        t1 = scan("seg_add", e, width=g.w, reverse=True)
+        t2 = scan("seg_add", e * e, width=g.w, reverse=True)
+        s1 = torch.where(g.split, t1[g.start] + s1, s1)
+        s2 = torch.where(g.split, t2[g.start] + s2, s2)
+    return torch.clamp(s2 - s1 * s1 / wcnt.to(_F64), min=0.0)
+
+
+def _windowed_m2_missing(x: torch.Tensor, valid: torch.Tensor, g: _Blocks, wcnt: torch.Tensor,
+                         cum: torch.Tensor) -> torch.Tensor:
+    """:func:`_windowed_m2` of a column with missing values (zeros in
+    ``x``).  A window's two partials may then need shifts of their own:
+    each carries (count, sum(x-c), sum((x-c)^2)) with c the first valid
+    value of the prefix partial's block, or the last valid value of the
+    suffix partial's block, and the two merge by Chan's formula,
+    M2 = M2p + M2s + d^2 np ns / n."""
+    n = x.shape[0]
+
+    def partial(pos: torch.Tensor, reverse: bool):
+        c = x[torch.clamp(pos, 0, n - 1)]
+        d = torch.where(valid, x - c, 0.0)
+        return c, scan("seg_add", d, width=g.w, reverse=reverse), scan("seg_add", d * d, width=g.w,
+                                                                      reverse=reverse)
+
+    def m2_and_mean(cnt, c, s1, s2):
+        k = torch.clamp(cnt, min=1).to(_F64)
+        return torch.clamp(s2 - s1 * s1 / k, min=0.0), c + s1 / k
+
+    cp, s1p, s2p = partial(scan("seg_min", torch.where(valid, g.idx, n), width=g.w), False)
+    if not g.any_split:
+        return m2_and_mean(wcnt, cp, s1p, s2p)[0]
+    # rows of the prefix partial: those since the block's start
+    cum_ex = torch.cat([torch.zeros(1, dtype=cum.dtype, device=x.device), cum])
+    n_p = torch.where(g.split, cum - cum_ex[g.bstart], wcnt)
+    n_s = wcnt - n_p
+    cs, s1s, s2s = partial(scan("seg_max", torch.where(valid, g.idx, -1), width=g.w, reverse=True), True)
+    m2p, mp = m2_and_mean(n_p, cp, s1p, s2p)
+    m2s, ms = m2_and_mean(n_s, cs[g.start], s1s[g.start], s2s[g.start])
+    npf, nsf = n_p.to(_F64), n_s.to(_F64)
+    delta = ms - mp
+    both = g.split & (n_p > 0) & (n_s > 0)
+    merged = m2p + m2s + delta * delta * (npf * nsf / torch.clamp(npf + nsf, min=1.0))
+    return torch.where(both, merged, torch.where(g.split & (n_p == 0), m2s, m2p))
 
 
 def _missing(c: torch.Tensor):
@@ -92,16 +172,14 @@ def _windowed_count(valid: torch.Tensor, window: int) -> torch.Tensor:
     return _windowed(_cumcount(valid), window)
 
 
-def _one_windowed(op: str, c: torch.Tensor, n: int, window: int, min_periods: int, ddof: int) -> torch.Tensor:
+def _one_windowed(op: str, c: torch.Tensor, g: _Blocks, window: int, min_periods: int,
+                  ddof: int) -> torch.Tensor:
     nanm = _missing(c)
-    idx = torch.arange(n, device=c.device)
-    wrows = torch.clamp(idx + 1, max=window)
     if nanm is None:
-        wcnt = wrows
-        total_cnt = max(n, 1)
+        wcnt = g.wrows
     else:
-        wcnt = _windowed_count(~nanm, window)
-        total_cnt = torch.clamp((~nanm).sum(), min=1)
+        cum = _cumcount(~nanm)
+        wcnt = _windowed(cum, window)
     nan = torch.tensor(float("nan"), dtype=_F64, device=c.device)
     # pandas' count (and the count that divides sem) takes +/-inf as a value:
     # only NaN is missing there
@@ -112,36 +190,29 @@ def _one_windowed(op: str, c: torch.Tensor, n: int, window: int, min_periods: in
 
     if op == "count":
         # pandas gates count on the ROWS in the window (NaN included)
-        return torch.where(wrows >= min_periods, wnotnan.to(_F64), nan)
+        return torch.where(g.wrows >= min_periods, wnotnan.to(_F64), nan)
 
     if op in ("min", "max"):
         x = c.to(_F64)
         if nanm is not None:
             x = torch.where(nanm, float("inf") if op == "min" else float("-inf"), x)
-        r = _van_herk(x, window, op)
+        r = _van_herk(x, g, op)
         return torch.where(wcnt >= max(min_periods, 1), r, nan)
 
     x = c.to(_F64)
     if nanm is not None:
         x = torch.where(nanm, 0.0, x)
-    if op in ("var", "std", "sem"):
-        # centre globally first: a window's variance is shift-invariant, and
-        # sum(x^2) - sum(x)^2/n over centred values avoids the cancellation
-        gmean = x.sum() / total_cnt
-        x = x - gmean
-        if nanm is not None:
-            x = torch.where(nanm, 0.0, x)
-    wsum = _windowed(scan("seg_add", x), window)
-
-    if op == "sum":
-        return torch.where(wcnt >= min_periods, wsum, nan)
-    if op == "mean":
+    if op in ("sum", "mean"):
+        wsum = _windowed_sum(x, g)
+        if op == "sum":
+            return torch.where(wcnt >= min_periods, wsum, nan)
         res = wsum / torch.clamp(wcnt, min=1)
         return torch.where((wcnt >= min_periods) & (wcnt > 0), res, nan)
-    wsum2 = _windowed(scan("seg_add", x * x), window)
-    cntf = torch.clamp(wcnt, min=1).to(_F64)
-    var = (wsum2 - wsum * wsum / cntf) / torch.clamp(wcnt - ddof, min=1)
-    var = torch.clamp(var, min=0.0)  # tiny negative rounding
+    if nanm is None or not bool(nanm.any()):
+        m2 = _windowed_m2(x, g, wcnt)
+    else:
+        m2 = _windowed_m2_missing(x, ~nanm, g, wcnt, cum)
+    var = m2 / torch.clamp(wcnt - ddof, min=1)
     var = torch.where((wcnt >= max(min_periods, 1)) & (wcnt - ddof > 0), var, nan)
     if op == "var":
         return var
@@ -156,7 +227,10 @@ def rolling_reduce(
     """Rolling aggregation of each column (``n`` rows); float64 results."""
     if op not in ROLLING_DEVICE_OPS:
         raise ValueError(f"rolling aggregation {op!r} is not ported")
-    return [_one_windowed(op, c, int(n), int(window), int(min_periods), int(ddof)) for c in cols]
+    if not cols:
+        return []
+    g = _blocks(int(n), int(window), cols[0].device)
+    return [_one_windowed(op, c, g, int(window), int(min_periods), int(ddof)) for c in cols]
 
 
 def expanding_reduce(

@@ -99,6 +99,68 @@ def test_segmented_plain_matches_loop(mode, groups, dtype):
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def _loop_blocked(mode: str, x: np.ndarray, codes, width: int, reverse: bool) -> np.ndarray:
+    """The segmented scan as a loop over rows in scan order: a segment
+    starts at the first row scanned, where the code differs from the row
+    scanned before, and where the block of ``width`` rows changes."""
+    out = np.empty_like(x)
+    fn = _NP_OPS[mode]
+    order = range(len(x) - 1, -1, -1) if reverse else range(len(x))
+    prev = None
+    with np.errstate(over="ignore"):
+        for j in order:
+            start = prev is None
+            if not start and codes is not None:
+                start = codes[j] != codes[prev]
+            if not start and width:
+                start = j // width != prev // width
+            out[j] = x[j] if start else fn(out[prev], x[j])
+            prev = j
+    return out
+
+
+@pytest.mark.parametrize("mode", ["seg_add", "seg_mul", "seg_max", "seg_min"])
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("width", [1, 2, 3, 7, 53, 58])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("groups", [None, 5])
+def test_blocked_and_reverse_plain_matches_loop(mode, dtype, width, reverse, groups):
+    n = 53  # a multiple of none of the widths but 1 and 53
+    rng = np.random.default_rng(width * 7 + reverse)
+    if dtype == "int64":
+        x = rng.integers(-(2**62), 2**62, n)
+    elif mode == "seg_mul":
+        x = rng.uniform(0.5, 1.5, n)
+    else:
+        x = rng.normal(0, 100, n)
+    codes = None if groups is None else _sorted_codes(rng, n, groups)
+    got = sk.scan_plain(mode, torch.as_tensor(x), None if codes is None else torch.as_tensor(codes),
+                        width=width, reverse=reverse).numpy()
+    want = _loop_blocked(mode, x, codes, width, reverse)
+    if dtype == "int64" or mode in ("seg_max", "seg_min"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    # the wrapper on a CPU tensor is the plain version
+    again = sk.scan(mode, torch.as_tensor(x), None if codes is None else torch.as_tensor(codes),
+                    width=width, reverse=reverse).numpy()
+    np.testing.assert_array_equal(again, got)
+
+
+@pytest.mark.parametrize("n", [1, 2, 17, 1000])
+def test_linear_reverse_matches_loop(n):
+    rng = np.random.default_rng(n + 1)
+    a = rng.uniform(0.0, 1.0, n)
+    b = rng.normal(0, 10, n)
+    got = sk.scan_plain("linear", torch.as_tensor(a), torch.as_tensor(b), reverse=True).numpy()
+    want = _loop_linear(a[::-1], b[::-1])[::-1]
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError):
+        sk.scan("linear", torch.as_tensor(a), torch.as_tensor(b), width=3)
+    with pytest.raises(ValueError):
+        sk.scan("seg_add", torch.as_tensor(b), width=-1)
+
+
 def test_int_wraparound_is_numpys():
     x = np.array([2**62, 2**62, 2**62, -5, 3], dtype=np.int64)
     got = sk.scan_plain("seg_add", torch.as_tensor(x)).numpy()

@@ -202,10 +202,129 @@ def test_ewm_pair_matches_jax_and_pandas(op, adjust, ignore_na, bias):
 def test_van_herk_blocks_for_every_window():
     c = _column("clean", n=97, seed=8)
     for window in range(1, 100, 7):
-        for op in ("min", "max"):
+        for op in ("min", "max", "sum", "mean", "var", "std"):
             got = tw.rolling_reduce(op, [torch.as_tensor(c)], 97, window, 1)[0].numpy()
             want = getattr(pandas.Series(c).rolling(window, min_periods=1), op)().to_numpy()
-            np.testing.assert_array_equal(got, want)
+            if op in ("min", "max"):
+                np.testing.assert_array_equal(got, want)
+            else:
+                _close(got, want, f"rolling({window}) {op}")
+
+
+# ---------------------------------------------------------------------- #
+# precision: windows whose values differ in scale along the column
+# ---------------------------------------------------------------------- #
+#
+# The port's sums and variances come from block-local partials (van Herk
+# over blocks of w rows) shifted by a value inside the window, so their
+# rounding scales with the window's own values.  Each case holds the port
+# to an exact per-window computation (math.fsum): its error may exceed
+# pandas' own error by at most
+#   sum:  g * S            mean: g * S / k
+#   var:  4 k (g R^2 + eps R M) / (k - ddof)
+# for a window of k valid values with S = sum|x|, R = max - min, M = max|x|,
+# and g = (ceil(log2 n) + 2) eps: each partial is a scan of depth at most
+# ceil(log2 n) over the window's values, then one merge.
+
+
+def _precision_series(case: str) -> np.ndarray:
+    rng = np.random.default_rng(21)
+    if case == "spike":
+        return np.concatenate([np.full(10, 1e15), rng.normal(0, 1, 2990)])
+    if case == "trend":
+        t = np.arange(3000, dtype=np.float64)
+        return t * 1e3 + rng.normal(0, 1, 3000)
+    if case == "const_1e15":
+        return np.concatenate([np.full(1200, 1e15), rng.normal(0, 1, 1800)])
+    if case == "int":
+        return rng.integers(-(10**6), 10**6, 3000)
+    if case == "leading_nan":
+        x = rng.normal(50, 5, 3000)
+        x[:1100] = np.nan
+        x[rng.random(3000) < 0.05] = np.nan
+        return x
+    raise ValueError(case)
+
+
+def _exact_windows(x: np.ndarray, window) -> dict:
+    """Per window: fsum-exact sum, mean and M2 (corrected two-pass about
+    the fsum mean), and k, S, R, M of its valid values."""
+    import math
+
+    x = np.asarray(x, np.float64)
+    out = {key: np.zeros(len(x)) for key in ("sum", "mean", "m2", "k", "S", "R", "M")}
+    for i in range(len(x)):
+        lo = 0 if window is None else max(0, i - window + 1)
+        v = x[lo:i + 1]
+        v = v[np.isfinite(v)].tolist()
+        k = len(v)
+        if k == 0:
+            continue
+        total = math.fsum(v)
+        mean = total / k
+        d = [t - mean for t in v]
+        m2 = math.fsum(t * t for t in d) - math.fsum(d) ** 2 / k
+        out["sum"][i], out["mean"][i], out["m2"][i], out["k"][i] = total, mean, m2, k
+        out["S"][i] = math.fsum(abs(t) for t in v)
+        out["R"][i] = max(v) - min(v)
+        out["M"][i] = max(abs(t) for t in v)
+    return out
+
+
+@pytest.mark.parametrize("window", [10, 1000, None], ids=["rolling10", "rolling1000", "expanding"])
+@pytest.mark.parametrize("case", ["spike", "trend", "const_1e15", "int", "leading_nan"])
+def test_window_sums_and_variances_keep_their_precision(case, window):
+    x = _precision_series(case)
+    n = len(x)
+    ex = _exact_windows(x, window)
+    k = ex["k"]
+    eps = np.finfo(np.float64).eps
+    g = (int(np.ceil(np.log2(n))) + 2) * eps
+    var_bound = 4 * k * (g * ex["R"] ** 2 + eps * ex["R"] * ex["M"])
+    ps = pandas.Series(x)
+    for op in ("sum", "mean", "var", "std", "sem"):
+        if window is None:
+            got = tw.expanding_reduce(op, [torch.as_tensor(x)], n, 1)[0].numpy()
+            want = getattr(ps.expanding(min_periods=1), op)().to_numpy()
+        else:
+            got = tw.rolling_reduce(op, [torch.as_tensor(x)], n, window, 1)[0].numpy()
+            want = getattr(ps.rolling(window, min_periods=1), op)().to_numpy()
+        what = f"{case} {window} {op}"
+        assert np.array_equal(np.isnan(got), np.isnan(want)), f"{what}: NaN positions differ"
+        m = ~np.isnan(want)
+        dof = np.maximum(k - 1, 1)
+        if op == "sum":
+            exact, bound = ex["sum"], g * ex["S"]
+            g_err, p_err = np.abs(got - exact), np.abs(want - exact)
+        elif op == "mean":
+            exact, bound = ex["mean"], g * ex["S"] / np.maximum(k, 1)
+            g_err, p_err = np.abs(got - exact), np.abs(want - exact)
+        else:
+            # var, and std/sem through their squares (sqrt and the division
+            # by the count round a few times more: 8 eps of the variance)
+            scale = 1.0 / np.maximum(k, 1) if op == "sem" else 1.0
+            exact = ex["m2"] / dof * scale
+            bound = (var_bound / dof + 8 * eps * ex["m2"] / dof) * scale
+            if op == "var":
+                g_err, p_err = np.abs(got - exact), np.abs(want - exact)
+            else:
+                g_err, p_err = np.abs(got * got - exact), np.abs(want * want - exact)
+        bad = m & (g_err > p_err + bound)
+        assert not bad.any(), (
+            f"{what}: {int(bad.sum())} windows beyond pandas' error + bound, worst excess "
+            f"{float(np.max((g_err - p_err - bound)[bad]))}")
+        if case == "const_1e15" and op in ("var", "std", "sem"):
+            # a window of equal values has variance 0 exactly, as in pandas
+            const = m & (np.arange(n) < 1200)
+            assert np.all(got[const] == 0) and np.all(want[const] == 0), what
+
+
+def test_spike_rolling_var_is_pandas_once_the_spike_has_left():
+    x = _precision_series("spike")
+    got = tw.rolling_reduce("var", [torch.as_tensor(x)], len(x), 10, 10)[0].numpy()
+    want = pandas.Series(x).rolling(10).var().to_numpy()
+    # windows of N(0, 1) values alone: pandas gives ~1, the port agrees
+    np.testing.assert_allclose(got[19:], want[19:], rtol=1e-9)
 
 
 # ---------------------------------------------------------------------- #
