@@ -2,8 +2,9 @@
 """Smoke run of modin_tpu_torch on one NVIDIA GPU: build, check, drive, time.
 
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
-                          [--float-rows N] [--io-rows N] [--window-rows N] [--seed S]
-                          [--phases main,float,relational,arithmetic,io,window]
+                          [--float-rows N] [--io-rows N] [--window-rows N]
+                          [--clean-rows N] [--seed S]
+                          [--phases main,float,relational,arithmetic,io,window,clean]
 
 Phases, one JSON object per line each:
 
@@ -88,12 +89,29 @@ Phases, one JSON object per line each:
              exact long-double window plus the block-partial bound; no query
              defaults to pandas, the scan and the bincount kernels launch,
              and an ewm mean and a rolling std repeat bit for bit.
+10. clean  - missing data, dtypes, masked assignment and the sort-shaped
+             breadth at ``--clean-rows`` (1e7) on ``make_frame((rows, 10),
+             ngroups=100)``, on phase 5's NaN float frame (with +/-inf rows)
+             and on that frame with a string column of three values:
+             ``isna``/``notna``, ``fillna`` (0, a dict, ``df.mean()``),
+             ``dropna`` (all columns; a subset with ``how="all"``),
+             ``astype`` int to float64/float32/int32, ``round(2)`` and
+             ``round(-1)`` of ints, ``clip`` (ints with fractional bounds
+             too), ``df.loc[mask, col] = v`` on int and float columns,
+             ``idxmin``/``idxmax`` and ``nlargest``/``nsmallest`` (frame and
+             Series, k past the valid count), ``rank`` in every method and
+             ``na_option`` with ``pct=True`` and with ``ascending=False``,
+             and ``duplicated``/``drop_duplicates`` with every ``keep`` on
+             one and two int keys and a string key.  Each equals pandas
+             exactly (floats bit for bit, dtypes, index and row order), no
+             query defaults to pandas, the value columns stay on ``cuda``,
+             and ``rank`` launches the scan kernel.
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
 default), the arithmetic phase at ``--arithmetic-rows`` (5e7) and the window
 phase at ``--window-rows`` (5e6) so that the whole script stays well inside
 its time limit; the kernel checks run at ``--rows``.  ``--phases`` picks the phases after the kernel check for a
-quick run; only a run of all six prints the result lines.  Then the card's name and power limit, one
+quick run; only a run of all seven prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
@@ -114,7 +132,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window")
+ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -333,7 +351,8 @@ def scan_check(rows: int, seed: int) -> dict:
     """``scan`` against ``scan_plain`` on the card at ``rows`` rows: linear
     over float64 (a in (0, 1], b normal), seg_add and seg_max over int64
     and float64 with sorted codes of 100 and 10 000 groups, seg_add without
-    codes (the function of ``torch.cumsum``), and block-width scans forward
+    codes (the function of ``torch.cumsum``), seg_max and reverse seg_min
+    over int64 without codes (``rank``'s passes), and block-width scans forward
     and in reverse (the van Herk blocks of the rolling windows).  Ints
     exactly, floats within ``scan_tolerance_factor`` times the scan of
     absolute values (max exactly); ``SCAN_REPEATS`` launches bitwise equal;
@@ -431,6 +450,9 @@ def scan_check(rows: int, seed: int) -> dict:
         free_device_memory()
     check("seg_add_f64_nocodes", "seg_add", xf, None, 1)
     check("seg_add_i64_nocodes", "seg_add", xi, None, 1)
+    # rank's first-of-tie and last-of-tie passes, without codes
+    check("seg_max_i64_nocodes", "seg_max", xi, None, 1)
+    check("seg_min_i64_nocodes_rev", "seg_min", xi, None, 1, reverse=True)
     for w in (10, 1000):
         check(f"seg_add_f64_w{w}", "seg_add", xf, None, None, width=w)
         check(f"seg_add_f64_w{w}_rev", "seg_add", xf, None, None, width=w, reverse=True)
@@ -1737,11 +1759,201 @@ def phase_window_times(rows: int, seed: int, repeats: int) -> None:
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------- #
+# 10. missing data, dtypes, masked assignment and the sort-shaped breadth
+# ---------------------------------------------------------------------- #
+
+
+def clean_frames(rows: int, seed: int):
+    """(the asv frame ``make_frame((rows, 10), ngroups=100)``, phase 5's
+    float frame with +/-inf rows, the same float frame with a string column
+    of three values and missing ones), as pandas frames."""
+    import pandas
+
+    p = _pandas_frame(make_frame_data(rows, seed + 50, ngroups=100))
+    f = pandas.DataFrame(float_frame(rows, seed + 51))
+    f.loc[f.index[5::100_003], "val"] = np.inf
+    f.loc[f.index[7::100_019], "val"] = -np.inf
+    rng = np.random.default_rng(seed + 52)
+    cat = rng.choice(np.array(STRINGS, dtype=object), rows)
+    cat[rng.random(rows) < 0.01] = None
+    fm = f.assign(cat=cat)
+    return p, f, fm
+
+
+def _loc_set(frame: int, col: str, mask_col: str, value):
+    """``df.loc[df[mask_col] > 50, col] = value`` on a copy of frame
+    ``frame`` of the three."""
+    def fn(*frames):
+        d = frames[frame].copy()
+        d.loc[d[mask_col] > 50, col] = value
+        return d
+
+    return fn
+
+
+def clean_queries(rows: int) -> dict:
+    """name -> fn(asv frame, float frame, mixed frame, pandas module)."""
+    k_past_valid = rows - rows // 200  # past the ~99 % valid rows of ``val``
+    q = {
+        "isna": lambda d, e, m: d.isna(),
+        "notna_float": lambda d, e, m: e.notna(),
+        "isna_mixed": lambda d, e, m: m.isna(),
+        "fillna_0": lambda d, e, m: e.fillna(0),
+        "fillna_dict": lambda d, e, m: e.fillna({"key": -1.0, "val": 0.5}),
+        "fillna_0_mixed": lambda d, e, m: m.fillna(0),
+        "dropna": lambda d, e, m: e.dropna(),
+        "dropna_subset_all": lambda d, e, m: e.dropna(subset=["key", "val"], how="all"),
+        "astype_float64": lambda d, e, m: d.astype("float64"),
+        "astype_float32": lambda d, e, m: d.astype("float32"),
+        "astype_int32": lambda d, e, m: d.astype("int32"),
+        "round_2": lambda d, e, m: e.round(2),
+        "round_-1_ints": lambda d, e, m: d.round(-1),
+        "round_2_mixed": lambda d, e, m: m.round(2),
+        "clip": lambda d, e, m: e.clip(-1, 1),
+        "clip_ints_float_bounds": lambda d, e, m: d.clip(10.5, 50.5),
+        "loc_set_int": _loc_set(0, "col1", "col0", 7),
+        "loc_set_float": _loc_set(1, "val", "ival", 0.0),
+        "loc_set_mixed": _loc_set(2, "val", "ival", -1.5),
+        "idxmin": lambda d, e, m: d.idxmin(),
+        "idxmax_float": lambda d, e, m: e.idxmax(),
+        "series_idxmin": lambda d, e, m: e["val"].idxmin(),
+        "series_idxmax": lambda d, e, m: d["col3"].idxmax(),
+        "nlargest": lambda d, e, m: d.nlargest(100, "col0"),
+        "nsmallest_past_valid": lambda d, e, m: e.nsmallest(k_past_valid, "val"),
+        "series_nlargest": lambda d, e, m: e["val"].nlargest(1000),
+        "series_nsmallest_past_valid": lambda d, e, m: e["key"].nsmallest(k_past_valid),
+    }
+    for method in ("average", "min", "max", "first", "dense"):
+        for na in ("keep", "top", "bottom"):
+            q[f"rank_{method}_{na}_pct"] = (
+                lambda d, e, m, method=method, na=na: e[["key"]].rank(method=method, na_option=na, pct=True))
+            q[f"rank_{method}_{na}_descending"] = (
+                lambda d, e, m, method=method, na=na: e[["key"]].rank(method=method, na_option=na, ascending=False))
+    for keep in ("first", "last", False):
+        for label, subset, frame in (("col0", ["col0"], 0), ("col0_col1", ["col0", "col1"], 0),
+                                     ("str", ["cat"], 2)):
+            q[f"duplicated_{label}_{keep}"] = (
+                lambda d, e, m, subset=subset, frame=frame, keep=keep:
+                (d, e, m)[frame].duplicated(subset, keep=keep))
+            q[f"drop_duplicates_{label}_{keep}"] = (
+                lambda d, e, m, subset=subset, frame=frame, keep=keep:
+                (d, e, m)[frame].drop_duplicates(subset, keep=keep))
+    q["drop_duplicates_ignore_index"] = lambda d, e, m: d.drop_duplicates(["col0", "col1"], ignore_index=True)
+    return q
+
+
+def assert_bitwise_pandas(got, want, what: str) -> None:
+    """``assert_same_pandas`` with exact values, and float values equal bit
+    for bit (-0.0 is not 0.0) where they are not NaN."""
+    import pandas
+
+    assert_same_pandas(got, want, what, exact=True)
+    if isinstance(want, pandas.Series):
+        got, want = got.to_frame(), want.to_frame()
+    for i, label in enumerate(want.columns):
+        w = want.iloc[:, i].to_numpy()
+        if w.dtype.kind != "f":
+            continue
+        g = got.iloc[:, i].to_numpy()
+        ok = ~np.isnan(w)
+        ints = f"i{w.dtype.itemsize}"
+        if not np.array_equal(g[ok].view(ints), w[ok].view(ints)):
+            raise AssertionError(f"{what}[{label}]: float values differ in their bits")
+
+
+def assert_device_values_on_cuda(qc, what: str) -> None:
+    """Every column of a dtype that can live on the card is on ``cuda``
+    (string columns stay on the host)."""
+    from modin_tpu_torch.core.dataframe.torch.dataframe import _is_device_dtype
+
+    for col in qc._modin_frame._columns:
+        if _is_device_dtype(col.pandas_dtype) and (not col.is_device or col.data.device.type != "cuda"):
+            raise AssertionError(f"{what}: a value column is not on cuda")
+
+
+def phase_clean(rows: int, seed: int) -> dict:
+    """isna/notna, fillna, dropna, astype, round, clip, masked ``loc``
+    assignment, idxmin/idxmax, nlargest/nsmallest, every rank method and
+    ``na_option`` and duplicated/drop_duplicates through
+    ``modin_tpu_torch.pandas`` on the asv frame, the NaN float frame and
+    the float frame with a string column at ``rows`` rows: each result equals
+    pandas' exactly (floats bit for bit), no query defaults to pandas,
+    every value column stays on ``cuda``, and ``rank`` launches the scan
+    kernel.  ``fillna(df.mean())`` fills the port's means (the means
+    themselves sum in another order, so they are held to rtol 1e-12) and
+    is held to pandas' fill of the same values.  Returns the launches."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+    from modin_tpu_torch.ops.cuda import scan_kernels as sk
+
+    t_phase = time.perf_counter()
+    p, f, fm = clean_frames(rows, seed)
+    t, tf, tm = tpd.from_pandas(p), tpd.from_pandas(f), tpd.from_pandas(fm)
+    runs = [(name, (lambda fn=fn: fn(t, tf, tm)), (lambda fn=fn: fn(p, f, fm)))
+            for name, fn in clean_queries(rows).items()]
+    gk.LAUNCHES = 0
+    sk.LAUNCHES = 0
+    tqc.DEFAULTS_TO_PANDAS = 0
+    rank_scans = 0
+
+    def run_one(name, port_fn, pandas_fn, reference=None):
+        nonlocal rank_scans
+        scans = sk.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        result, port_ms = host_ms(port_fn)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"{name}: the query defaulted to pandas")
+        if hasattr(result, "_query_compiler"):
+            assert_device_values_on_cuda(result._query_compiler, name)
+            got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+        else:
+            got, to_pandas_ms = result, 0.0
+        del result
+        t0 = time.perf_counter()
+        want = pandas_fn()
+        pandas_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(want, (pandas.DataFrame, pandas.Series)):
+            assert_bitwise_pandas(got, want, name)
+        elif got != want:
+            raise AssertionError(f"{name}: {got!r} != {want!r}")
+        if name.startswith("rank_"):
+            rank_scans += sk.LAUNCHES - scans
+        emit({"phase": "clean", "query": name, "rows": rows,
+              "out_shape": list(getattr(got, "shape", ())), "port_ms": port_ms,
+              "pandas_ms": pandas_ms, "to_pandas_ms": to_pandas_ms,
+              "device_peak_gib": round(peak_gib, 3), "scan_launches": sk.LAUNCHES - scans,
+              "match": True})
+        del got, want
+        gc.collect()
+
+    for name, port_fn, pandas_fn in runs:
+        run_one(name, port_fn, pandas_fn)
+    # fillna(df.mean()): the port's means, held to pandas' within rtol
+    means = tpd.to_pandas(tf.mean())
+    assert_same_values(means.to_numpy(), f.mean().to_numpy(), "mean")
+    run_one("fillna_mean", lambda: tf.fillna(tf.mean()), lambda: f.fillna(means))
+    launches = {"scan": sk.LAUNCHES, "bincount": gk.LAUNCHES, "rank_scan": rank_scans}
+    del t, tf, tm, p, f, fm, runs
+    free_device_memory()
+    emit({"phase": "clean", "scan_launches": launches["scan"], "rank_scan_launches": rank_scans,
+          "bincount_launches": launches["bincount"], "defaults_to_pandas": 0,
+          "seconds": time.perf_counter() - t_phase})
+    if rank_scans == 0:
+        raise AssertionError("rank never launched the scan kernel")
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
-    ``io``, ``window``) to its kernels' launches; the ``launches`` of a
-    kernel's entry is its own path's: bincount's the main path's, scan's
-    the window path's (the only path that runs it)."""
+    ``io``, ``window``, ``clean``) to its kernels' launches; the ``launches``
+    of a kernel's entry is its own path's: bincount's the main path's,
+    scan's the window path's (the clean path's ``rank`` runs it too)."""
     by_width = kernel["by_width"]
     main = by_width[100]
     scan = kernel["scan"]["by_case"]
@@ -1775,6 +1987,8 @@ def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
         "replaces": "modin_tpu/ops/window.py:209 (_linear_scan) and modin_tpu/ops/groupby.py:1178 "
                     "(_jit_grouped_cum): XLA programs, not Pallas kernels",
         "launches": launches["window"]["scan"],
+        "launches_by_path": {"window": launches["window"]["scan"], "clean": launches["clean"]["scan"],
+                             "clean_rank": launches["clean"]["rank_scan"]},
         "max_abs_err": kernel["scan"]["max_abs_err"],
         "n": rows,
         "case": "seg_add_f64_nocodes",
@@ -1813,13 +2027,15 @@ def main(argv=None) -> int:
     # it, the rolling windows 10-16 s each), past its ~150 s share
     parser.add_argument("--window-rows", type=int, default=5 * 10**6,
                         help="rows of the window phase's asv frame")
+    parser.add_argument("--clean-rows", type=int, default=10**7,
+                        help="rows of the clean phase's frames")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
                         "each after a warm-up (no checks, no result lines)")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all six)")
+                        "(the result lines need all seven)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1877,6 +2093,8 @@ def main(argv=None) -> int:
             launches["io"] = phase_io(args.io_rows, args.seed, workdir)
     if "window" in phases:
         launches["window"] = phase_window(args.window_rows, args.float_rows, args.seed)
+    if "clean" in phases:
+        launches["clean"] = phase_clean(args.clean_rows, args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if phases != set(ALL_PHASES):
         print("chip_smoke: a partial run prints no result", file=sys.stderr)

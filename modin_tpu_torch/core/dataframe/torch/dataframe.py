@@ -13,8 +13,8 @@ One device holds every column whole: no sharding, no row padding.
 Datetimes/timedeltas live on the device as int64 with a logical-dtype tag;
 NaT is the int64 min sentinel, pandas' own representation.
 
-pandas is imported only inside :meth:`TorchDataframe.from_pandas` and
-:meth:`TorchDataframe.to_pandas`; :meth:`TorchDataframe.from_numpy_columns`
+pandas is imported only inside :func:`column_of_series` (and so
+:meth:`TorchDataframe.from_pandas`) and :meth:`TorchDataframe.to_pandas`; :meth:`TorchDataframe.from_numpy_columns`
 builds a frame from numpy arrays without it.
 """
 
@@ -134,6 +134,21 @@ class HostColumn:
 Column = Union[DeviceColumn, HostColumn]
 
 
+def column_of_series(series: Any, device: Optional[torch.device] = None) -> Column:
+    """A frame column of a copy of a pandas Series: on the device where its
+    dtype can live, else on the host."""
+    import pandas
+
+    if _is_device_dtype(series.dtype):
+        return DeviceColumn.from_numpy(series.to_numpy(), device)
+    arr = series.array.copy()
+    if isinstance(arr, pandas.arrays.NumpyExtensionArray):
+        # store the raw ndarray: NumpyEADtype('object') fails == against
+        # np.dtype(object)
+        arr = np.asarray(arr)
+    return HostColumn(arr)
+
+
 class TorchDataframe:
     """Columnar frame: host metadata + device/host column store."""
 
@@ -160,18 +175,7 @@ class TorchDataframe:
     def from_pandas(cls, df: Any, device: Optional[torch.device] = None) -> "TorchDataframe":
         import pandas
 
-        columns: List[Column] = []
-        for i in range(df.shape[1]):
-            series = df.iloc[:, i]
-            if _is_device_dtype(series.dtype):
-                columns.append(DeviceColumn.from_numpy(series.to_numpy(), device))
-            else:
-                arr = series.array.copy()
-                if isinstance(arr, pandas.arrays.NumpyExtensionArray):
-                    # store the raw ndarray: NumpyEADtype('object') fails ==
-                    # against np.dtype(object)
-                    arr = np.asarray(arr)
-                columns.append(HostColumn(arr))
+        columns = [column_of_series(df.iloc[:, i], device) for i in range(df.shape[1])]
         return cls(columns, df.columns, df.index, nrows=len(df))
 
     @classmethod

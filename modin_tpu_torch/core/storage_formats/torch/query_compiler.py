@@ -5,14 +5,22 @@ query_compiler.py``, cut to the slices ported so far:
 
 - ``from_pandas``/``to_pandas``/``from_numpy_columns``;
 - elementwise binary ops incl. the logical ``&``/``|``/``^`` and ``**``
-  (``_try_device_binary``), ``abs``/``negative``/``invert``, the
-  cumulative ops (``_cum_op``) and ``shift``/``diff``
-  (``_try_shift_like``);
+  (``_try_device_binary``), the cumulative ops (``_cum_op``) and
+  ``shift``/``diff`` (``_try_shift_like``);
+- the maps ``abs``/``negative``/``invert``, ``isna``/``notna``, ``round``,
+  ``fillna`` (a scalar, a dict, ``fillna(df.mean())``) and ``clip`` over
+  the device columns, with pandas' own function over the host (string)
+  columns in their places (``_map_device_host``); ``astype`` to one
+  numeric dtype; ``df.loc[mask, col] = scalar`` (``setitem_bool``) and
+  ``dropna``;
 - column reductions sum/mean/count/min/max/prod/var/std/sem/skew/kurt/
   any/all and median, along either axis (``_try_device_reduce``); the sort-shaped
   family over a shared sorted representation — ``nunique``, ``mode`` (both
   axes), ``quantile``, ``describe`` — with the bincount kernel as the
-  histogram of bounded-range int columns;
+  histogram of bounded-range int columns; ``idxmin``/``idxmax``,
+  ``nlargest``/``nsmallest`` (frame and Series), ``rank`` (its tie groups
+  through the scan kernel) and ``duplicated``/``drop_duplicates`` (string
+  keys by their dictionary codes);
 - groupby aggregations on key columns or an external Series key
   (``groupby_agg`` -> ``_try_device_groupby``: the segment and order
   aggregations), ``as_index=False`` through ``reset_index``; ``agg`` with
@@ -42,8 +50,9 @@ goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
 made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
-device path the port does not have yet (``resample``, ``idxmin``/
-``idxmax``, ``duplicated``, the kernel router, the planner, out-of-core and
+device path the port does not have yet (the ``.dt`` components,
+``resample``, ``corr``/``cov``, ``get_dummies``, ``Series.map``, the math
+maps of ``unary_math``, the kernel router, the planner, out-of-core and
 range-partition variants of sort and merge), the port defaults to pandas.
 """
 
@@ -59,6 +68,7 @@ from modin_tpu_torch.core.dataframe.torch.dataframe import (
     HostColumn,
     TorchDataframe,
     _is_device_dtype,
+    column_of_series,
 )
 from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
 from modin_tpu_torch.core.storage_formats.base.query_compiler import (
@@ -74,6 +84,7 @@ from modin_tpu_torch.ops.structural import gather_columns_device
 from modin_tpu_torch.parallel.engine import TorchWrapper
 from modin_tpu_torch.utils import (
     MODIN_UNNAMED_SERIES_LABEL,
+    has_torch_dtype,
     hashable,
     numpy_dtype,
     torch_dtype,
@@ -103,6 +114,17 @@ def _insert_label(labels: Sequence[Any], loc: int, label: Any) -> Sequence[Any]:
         labels = list(labels)
         return labels[:loc] + [label] + labels[loc:]
     return labels.insert(loc, label)
+
+
+def _is_number(v: Any) -> bool:
+    """A numeric scalar that is not a bool."""
+    return isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, (bool, np.bool_))
+
+
+def _fractional(v: Any) -> bool:
+    """Whether an int column cannot hold the numeric scalar ``v``: pandas'
+    ``can_hold_element`` for values within the column's range."""
+    return v is not None and not float(v).is_integer()
 
 
 class TorchQueryCompiler(BaseQueryCompiler):
@@ -442,29 +464,230 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ------------------------------- maps ----------------------------- #
 
-    def _try_device_unary(self, op: str, kinds: str = "iuf") -> Optional["TorchQueryCompiler"]:
+    def _map_device_host(
+        self,
+        device_fn: Callable[[List[torch.Tensor]], List[torch.Tensor]],
+        host_fn: Callable[[Any], Any],
+        require_kinds: Optional[str] = None,
+    ) -> Optional["TorchQueryCompiler"]:
+        """``device_fn`` over the device columns and pandas' own ``host_fn``
+        over each host column (a pandas Series), in their positions; None
+        (decline) for an empty frame or a device column whose kind is not
+        in ``require_kinds``.  A host result of a device dtype (``isna`` of
+        a string column) goes to the device."""
+        import pandas
+
         frame = self._modin_frame
         if len(frame) == 0:
             return None
-        cols = self._device_raw()
-        if cols is None or not all(
-            c.pandas_dtype.kind in kinds for c in frame._columns
+        device_positions = [i for i, c in enumerate(frame._columns) if c.is_device]
+        if require_kinds is not None and any(
+            frame._columns[i].pandas_dtype.kind not in require_kinds for i in device_positions
         ):
             return None
-        return self._wrap_device_result(elementwise.unary_op_columns(op, cols))
+        new_device = device_fn([frame._columns[i].data for i in device_positions]) if device_positions else []
+        new_columns: list = list(frame._columns)
+        for pos, data in zip(device_positions, new_device):
+            old = frame._columns[pos]
+            dtype = old.pandas_dtype if data.dtype == old.data.dtype else numpy_dtype(data.dtype)
+            new_columns[pos] = DeviceColumn(data, dtype, length=len(frame))
+        for i, col in enumerate(frame._columns):
+            if not col.is_device:
+                series = pandas.Series(col.data, dtype=col.pandas_dtype, copy=False)
+                new_columns[i] = column_of_series(host_fn(series), self._device())
+        return type(self)(frame.with_columns(new_columns), self._shape_hint)
 
     def abs(self) -> "TorchQueryCompiler":
-        result = self._try_device_unary("abs")
+        result = self._map_device_host(
+            lambda cols: elementwise.unary_op_columns("abs", cols), lambda s: s.abs(), "iuf"
+        )
         return result if result is not None else self._default_to_pandas(lambda o: o.abs())
 
     def negative(self) -> "TorchQueryCompiler":
-        result = self._try_device_unary("negative")
+        result = self._map_device_host(
+            lambda cols: elementwise.unary_op_columns("negative", cols), lambda s: -s, "iuf"
+        )
         return result if result is not None else self._default_to_pandas(lambda o: -o)
 
     def invert(self) -> "TorchQueryCompiler":
         """``~``: logical not of bool columns, bitwise not of int ones."""
-        result = self._try_device_unary("invert", kinds="biu")
+        result = self._map_device_host(
+            lambda cols: elementwise.unary_op_columns("invert", cols), lambda s: ~s, "biu"
+        )
         return result if result is not None else self._default_to_pandas(lambda o: ~o)
+
+    # ---------------------- missing data and dtypes --------------------- #
+
+    def _mM_flags(self) -> List[bool]:
+        """Per device column: whether it holds datetimes/timedeltas (int64
+        ticks with the NaT sentinel)."""
+        return [c.pandas_dtype.kind in "mM" for c in self._modin_frame._columns if c.is_device]
+
+    def _isna_like(self, negate: bool) -> Optional["TorchQueryCompiler"]:
+        flags = self._mM_flags()
+        return self._map_device_host(
+            lambda cols: elementwise.isna_columns(cols, flags, negate),
+            (lambda s: s.notna()) if negate else (lambda s: s.isna()),
+        )
+
+    def isna(self) -> "TorchQueryCompiler":
+        result = self._isna_like(negate=False)
+        return result if result is not None else super().isna()
+
+    def notna(self) -> "TorchQueryCompiler":
+        result = self._isna_like(negate=True)
+        return result if result is not None else super().notna()
+
+    def round(self, decimals: Any = 0, **kwargs: Any) -> "TorchQueryCompiler":
+        result = None
+        if isinstance(decimals, (int, np.integer)) and not isinstance(decimals, bool) and not kwargs:
+            d = int(decimals)
+            # past -18 the unit 10**-d leaves int64 (pandas' float path
+            # overflows there): pandas answers for int columns
+            if d >= -18 or not any(
+                c.is_device and c.pandas_dtype.kind in "iu" for c in self._modin_frame._columns
+            ):
+                flags = self._mM_flags()
+                result = self._map_device_host(
+                    lambda cols: elementwise.round_columns(cols, d, flags),
+                    lambda s: s.round(d) if s.dtype.kind in "iuf" else s,
+                )
+        return result if result is not None else super().round(decimals=decimals, **kwargs)
+
+    def fillna(self, **kwargs: Any) -> "TorchQueryCompiler":
+        """A numeric scalar into every float column, or a dict (or a
+        Series, ``fillna(df.mean())``) of numeric scalars into the columns
+        it names; int and bool columns hold no NaN and pass through.
+        Datetime columns decline: pandas turns them to object there."""
+        value = kwargs.get("value")
+        plain = kwargs.get("limit") is None and kwargs.get("axis") in (0, None)
+        if plain and _is_number(value):
+            result = self._map_device_host(
+                lambda cols: elementwise.fillna_columns(cols, value),
+                lambda s: s.fillna(value),
+                require_kinds="biuf",
+            )
+            if result is not None:
+                return result
+        mapping = None
+        if isinstance(value, dict):
+            mapping = value
+        elif isinstance(value, TorchQueryCompiler) and kwargs.get("squeeze_value"):
+            ser = value.to_pandas()
+            if ser.shape[1] == 1 and ser.index.is_unique:
+                mapping = ser.iloc[:, 0].to_dict()
+        frame = self._modin_frame
+        if (
+            mapping is not None
+            and plain
+            and not kwargs.get("squeeze_self")
+            and len(frame) > 0
+            and all(_is_number(v) for v in mapping.values())
+        ):
+            targets = [
+                (i, mapping[label]) for i, label in enumerate(frame.columns)
+                if hashable(label) and label in mapping
+            ]
+            if all(
+                frame._columns[i].is_device and frame._columns[i].pandas_dtype.kind in "biuf"
+                for i, _ in targets
+            ):
+                new_cols = list(frame._columns)
+                for i, v in targets:
+                    c = frame._columns[i]
+                    new_cols[i] = DeviceColumn(
+                        elementwise.fillna_columns([c.data], v)[0], c.pandas_dtype, length=len(frame)
+                    )
+                return type(self)(frame.with_columns(new_cols), self._shape_hint)
+        return super().fillna(**kwargs)
+
+    def clip(self, lower: Any, upper: Any, **kwargs: Any) -> "TorchQueryCompiler":
+        result = None
+        if kwargs.get("axis") in (None, 0) and not kwargs.get("inplace") and not (
+            set(kwargs) - {"axis", "inplace"}
+        ):
+            result = self._try_device_clip(lower, upper)
+        return result if result is not None else super().clip(lower, upper, **kwargs)
+
+    def _try_device_clip(self, lower: Any, upper: Any) -> Optional["TorchQueryCompiler"]:
+        """pandas' scalar clip: a NaN bound is no bound, crossed bounds
+        swap, NaN stays.  Result dtypes follow pandas' ``where``: a float
+        column keeps its dtype; an int column keeps it unless a bound it
+        cannot hold (a fractional float) replaces a value, which makes it
+        float64 (one fetch of those flags for every column)."""
+        def as_bound(v):
+            if v is None or (_is_number(v) and np.isnan(v)):
+                return None
+            return v if _is_number(v) else False
+
+        lower, upper = as_bound(lower), as_bound(upper)
+        if lower is False or upper is False:
+            return None
+        if lower is not None and upper is not None and lower > upper:
+            lower, upper = upper, lower
+        # per device column: a 0-d device flag of "a fractional bound
+        # replaces a value" (int columns with such a bound), else None
+        hit_flags = []
+        for c in (c for c in self._modin_frame._columns if c.is_device):
+            kind = c.pandas_dtype.kind
+            if kind not in "iuf":
+                return None
+            hits = []
+            if kind != "f":
+                info = np.iinfo(c.pandas_dtype)
+                for b in (lower, upper):
+                    if b is not None and not _fractional(b) and not info.min <= b <= info.max:
+                        return None  # pandas widens to another int dtype there
+                if _fractional(lower):
+                    hits.append((c.data < lower).any())
+                if _fractional(upper):
+                    hits.append((c.data > upper).any())
+            hit_flags.append(torch.stack(hits).any() if hits else None)
+        fetched = [f for f in hit_flags if f is not None]
+        host = iter(TorchWrapper.materialize(torch.stack(fetched)).tolist() if fetched else ())
+        to_float = [f is not None and bool(next(host)) for f in hit_flags]
+
+        def device_fn(datas):
+            out = []
+            for d, widen in zip(datas, to_float):
+                if widen:
+                    d = d.to(torch.float64)
+                if d.dtype.is_floating_point:
+                    out.append(elementwise.clip_columns([d], lower, upper)[0])
+                else:
+                    # the int column keeps its dtype: a fractional bound
+                    # replaced nothing, an integral one is cast
+                    lo, hi = (None if b is None or _fractional(b) else int(b) for b in (lower, upper))
+                    out.append(elementwise.clip_columns([d], lo, hi)[0])
+            return out
+
+        return self._map_device_host(device_fn, lambda s: s.clip(lower, upper), require_kinds="iuf")
+
+    def astype(self, col_dtypes: Any, errors: str = "raise") -> "TorchQueryCompiler":
+        """One numeric target for a frame of numeric device columns; a float
+        column into an int target declines (pandas raises on NaN)."""
+        frame = self._modin_frame
+        if not isinstance(col_dtypes, dict) and len(frame) > 0:
+            try:
+                target = np.dtype(col_dtypes)
+            except TypeError:
+                target = None
+            if (
+                target is not None
+                and target.kind in "iuf"
+                and has_torch_dtype(target)
+                and all(c.is_device and c.pandas_dtype.kind in "biuf" for c in frame._columns)
+                and not (
+                    target.kind in "iu"
+                    and any(c.pandas_dtype.kind == "f" for c in frame._columns)
+                )
+            ):
+                new_cols = [
+                    DeviceColumn(elementwise.astype_column(c.data, target), target, length=len(frame))
+                    for c in frame._columns
+                ]
+                return type(self)(frame.with_columns(new_cols), self._shape_hint)
+        return super().astype(col_dtypes, errors=errors)
 
     # ----------------------------- reductions ------------------------- #
 
@@ -1734,6 +1957,48 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
         return self._default_to_pandas(inserter, value)
 
+    def setitem_bool(self, row_loc: Any, col_loc: Any, item: Any) -> "TorchQueryCompiler":
+        """``df.loc[mask, col] = scalar`` as one ``torch.where``.  pandas 3
+        never upcasts in a loc assignment (an incompatible scalar raises),
+        so the device takes the dtype-keeping scalars only: a bool into a
+        bool column, an int within range into an int column, an int or
+        float into a float column (cast to its dtype, as pandas casts it);
+        the rest defaults to pandas, which gives its result or its error."""
+        frame = self._modin_frame
+        pos = []
+        if (
+            isinstance(row_loc, TorchQueryCompiler)
+            and row_loc._modin_frame.num_cols == 1
+            and len(row_loc._modin_frame) == len(frame)
+            and len(frame) > 0
+            and self._fast_index_match(row_loc)
+            and hashable(col_loc)
+        ):
+            mcol = row_loc._modin_frame.get_column(0)
+            if mcol.is_device and mcol.pandas_dtype == np.dtype(bool):
+                pos = frame.column_position(col_loc)
+        col = frame._columns[pos[0]] if len(pos) == 1 else None
+        kind = col.pandas_dtype.kind if col is not None and col.is_device else ""
+        is_bool = isinstance(item, (bool, np.bool_))
+        if kind == "b":
+            ok = is_bool
+        elif kind and kind in "iu":
+            info = np.iinfo(col.pandas_dtype)
+            # out of range would wrap on the device; pandas 3 raises
+            ok = isinstance(item, (int, np.integer)) and not is_bool and info.min <= int(item) <= info.max
+        else:
+            ok = kind == "f" and _is_number(item)
+        if not ok:
+            return super().setitem_bool(row_loc, col_loc, item)
+        value = torch.tensor(
+            elementwise.cast_scalar(item, col.data.dtype), dtype=col.data.dtype, device=col.data.device
+        )
+        new_cols = list(frame._columns)
+        new_cols[pos[0]] = DeviceColumn(
+            torch.where(mcol.data, value, col.data), col.pandas_dtype, length=len(frame)
+        )
+        return type(self)(frame.with_columns(new_cols), self._shape_hint)
+
     def drop(self, index: Any = None, columns: Any = None, errors: str = "raise") -> "TorchQueryCompiler":
         """Dropping a list of present column labels keeps the other columns
         as they are (no data moves); any other drop defaults to pandas."""
@@ -1784,16 +2049,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
             names = [idx.name if idx.name is not None else ("index" if "index" not in taken else "level_0")]
         if any(nm in set(frame.columns) for nm in names):
             return super().reset_index(**kwargs)  # pandas raises or renames
-        new_cols: list = []
-        for lv in levels:
-            # by the LEVEL's dtype: a categorical of ints is no device column
-            if isinstance(lv.dtype, np.dtype) and _is_device_dtype(lv.dtype):
-                new_cols.append(DeviceColumn.from_numpy(lv.to_numpy(), self._device()))
-            else:
-                arr = lv.array.copy()
-                if isinstance(arr, pandas.arrays.NumpyExtensionArray):
-                    arr = np.asarray(arr)
-                new_cols.append(HostColumn(arr))
+        # by the LEVEL's dtype: a categorical of ints is no device column
+        new_cols = [column_of_series(lv, self._device()) for lv in levels]
         labels = pandas.Index(names + list(frame.columns))
         return type(self)(
             TorchDataframe(new_cols + list(frame._columns), labels, LazyIndex(None, n), nrows=n)
@@ -2070,6 +2327,243 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     hit = hit | torch.isnan(data)
             datas.append(hit)
         return self._wrap_device_result(datas)
+
+    # ------------------------------ dropna ---------------------------- #
+
+    def dropna(self, **kwargs: Any) -> "TorchQueryCompiler":
+        """Rows without a missing value (``how="any"``) or not all missing
+        (``"all"``) over ``subset``, when every column is on the device."""
+        from pandas.api.types import is_list_like
+
+        frame = self._modin_frame
+        subset = kwargs.get("subset")
+        if (
+            kwargs.get("axis", 0) == 0
+            and kwargs.get("how", "any") in ("any", "all")
+            and kwargs.get("thresh") is None
+            and not kwargs.get("ignore_index", False)
+            and len(frame) > 0
+            and all(c.is_device for c in frame._columns)
+        ):
+            positions = list(range(frame.num_cols))
+            if subset is not None:
+                positions = []
+                for label in list(subset) if is_list_like(subset) else [subset]:
+                    pos = frame.column_position(label)
+                    if len(pos) != 1:
+                        return super().dropna(**kwargs)
+                    positions.append(pos[0])
+            cols = [frame._columns[i] for i in positions]
+            if not cols:
+                return super().dropna(**kwargs)
+            nas = torch.stack(elementwise.isna_columns(
+                [c.data for c in cols], [c.pandas_dtype.kind in "mM" for c in cols], negate=False
+            ))
+            keep = ~(nas.any(0) if kwargs.get("how", "any") == "any" else nas.all(0))
+            return type(self)(frame.filter_rows_mask_device(keep), self._shape_hint)
+        return super().dropna(**kwargs)
+
+    # ------------------- idxmin/idxmax, nlargest/nsmallest -------------- #
+
+    def _device_idx_minmax(self, op: str, axis: Any, skipna: bool, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        import pandas
+
+        frame = self._modin_frame
+        if not (
+            axis in (0, "index")
+            and skipna
+            and not kwargs
+            and len(frame) > 0
+            and frame.num_cols > 0
+            and all(c.is_device and c.pandas_dtype.kind in "iuf" for c in frame._columns)
+        ):
+            return None
+        positions, valid_counts = reductions.idx_minmax(
+            op, [c.data for c in frame._columns], len(frame)
+        )
+        if not all(valid_counts):
+            return None  # an all-NaN column: pandas raises
+        result = pandas.Series(frame.index.take(positions), index=self.get_columns())
+        return self._from_pandas_result(result.rename(MODIN_UNNAMED_SERIES_LABEL))
+
+    def idxmin(self, axis: Any = 0, skipna: bool = True, numeric_only: bool = False, **kwargs: Any):
+        result = self._device_idx_minmax("idxmin", axis, skipna, kwargs)
+        if result is not None:
+            return result
+        return super().idxmin(axis=axis, skipna=skipna, numeric_only=numeric_only, **kwargs)
+
+    def idxmax(self, axis: Any = 0, skipna: bool = True, numeric_only: bool = False, **kwargs: Any):
+        result = self._device_idx_minmax("idxmax", axis, skipna, kwargs)
+        if result is not None:
+            return result
+        return super().idxmax(axis=axis, skipna=skipna, numeric_only=numeric_only, **kwargs)
+
+    def _try_device_top_k(self, n: int, column_pos: int, largest: bool, keep: str) -> Optional["TorchQueryCompiler"]:
+        frame = self._modin_frame
+        if keep != "first" or len(frame) == 0:
+            return None
+        col = frame._columns[column_pos]
+        if not col.is_device or col.pandas_dtype.kind not in "biuf":
+            return None
+        positions = sort_ops.top_k_positions(col.data, len(frame), int(n), bool(largest))
+        return type(self)(frame.take_rows_device(positions), self._shape_hint)
+
+    def _top_k_dispatch(self, n: Any, columns: Any, keep: Any, kwargs: dict, largest: bool) -> Optional["TorchQueryCompiler"]:
+        if kwargs or not isinstance(n, (int, np.integer)) or isinstance(n, bool) or n < 0:
+            return None
+        frame = self._modin_frame
+        if columns is None:
+            # the Series form: its one column orders itself
+            if frame.num_cols != 1:
+                return None
+            pos = 0
+        else:
+            col_list = columns if isinstance(columns, list) else [columns]
+            if len(col_list) != 1:
+                return None  # a tie-break chain of columns stays with pandas
+            matches = frame.column_position(col_list[0])
+            if len(matches) != 1:
+                return None
+            pos = matches[0]
+        return self._try_device_top_k(int(n), pos, largest, keep)
+
+    def nlargest(self, n: int = 5, columns: Any = None, keep: str = "first", **kwargs: Any):
+        result = self._top_k_dispatch(n, columns, keep, kwargs, largest=True)
+        if result is not None:
+            return result
+        return super().nlargest(n=n, columns=columns, keep=keep, **kwargs)
+
+    def nsmallest(self, n: int = 5, columns: Any = None, keep: str = "first", **kwargs: Any):
+        result = self._top_k_dispatch(n, columns, keep, kwargs, largest=False)
+        if result is not None:
+            return result
+        return super().nsmallest(n=n, columns=columns, keep=keep, **kwargs)
+
+    def series_nlargest(self, n: int = 5, keep: str = "first", **kwargs: Any):
+        result = self._top_k_dispatch(n, None, keep, kwargs, largest=True)
+        if result is not None:
+            result._shape_hint = "column"
+            return result
+        return super().series_nlargest(n=n, keep=keep, **kwargs)
+
+    def series_nsmallest(self, n: int = 5, keep: str = "first", **kwargs: Any):
+        result = self._top_k_dispatch(n, None, keep, kwargs, largest=False)
+        if result is not None:
+            result._shape_hint = "column"
+            return result
+        return super().series_nsmallest(n=n, keep=keep, **kwargs)
+
+    # both take pandas' own arguments, so the API's fallback of
+    # ``Series.nlargest``/``nsmallest`` may route into them
+    # (``BasePandasDataset._try_qc_dispatch`` checks this marker)
+    series_nlargest._pandas_signature_default = True
+    series_nsmallest._pandas_signature_default = True
+
+    # -------------------------------- rank ---------------------------- #
+
+    def rank(
+        self,
+        axis: Any = 0,
+        method: str = "average",
+        numeric_only: bool = False,
+        na_option: str = "keep",
+        ascending: bool = True,
+        pct: bool = False,
+        **kwargs: Any,
+    ):
+        """Column ranks on the device (``ops/sort.rank_columns``, through
+        the scan kernel) for numeric device columns; with ``numeric_only``
+        the other columns drop out, as in pandas."""
+        frame = self._modin_frame
+        positions: Optional[List[int]] = None
+        if (
+            axis in (0, "index", None)
+            and not kwargs
+            and method in sort_ops.RANK_METHODS
+            and na_option in sort_ops.NA_OPTIONS
+            and isinstance(ascending, (bool, np.bool_))
+            and isinstance(pct, (bool, np.bool_))
+            and len(frame) > 0
+        ):
+            positions = []
+            for i, col in enumerate(frame._columns):
+                if col.is_device and col.pandas_dtype.kind in "biuf":
+                    positions.append(i)
+                elif not (numeric_only and not _is_numeric_dtype(col.pandas_dtype)):
+                    positions = None
+                    break
+        if positions:
+            datas = sort_ops.rank_columns(
+                [frame._columns[i].data for i in positions], len(frame),
+                method, bool(ascending), na_option, bool(pct),
+            )
+            labels = self.get_columns()[positions]
+            return self._wrap_device_result(datas, col_labels=labels)
+        return super().rank(
+            axis=axis, method=method, numeric_only=numeric_only,
+            na_option=na_option, ascending=ascending, pct=pct, **kwargs,
+        )
+
+    # ---------------------- duplicated, drop_duplicates ------------------ #
+
+    def _duplicated_device_mask(self, subset: Any, keep: Any) -> Optional[torch.Tensor]:
+        """The duplicate-row mask over the subset columns on the device, or
+        None: a key that is neither a numeric device column nor a string
+        column (its dictionary codes), a missing or repeated label, or a
+        ``keep`` pandas rejects."""
+        import pandas
+
+        frame = self._modin_frame
+        if keep not in ("first", "last", False) or len(frame) == 0:
+            return None
+        if subset is None:
+            positions = list(range(frame.num_cols))
+        else:
+            # any list-like subset; a tuple stays one label
+            if isinstance(subset, (list, np.ndarray, pandas.Index, pandas.Series)):
+                labels = list(subset)
+            else:
+                labels = [subset]
+            positions = []
+            for label in labels:
+                matches = frame.column_position(label)
+                if len(matches) != 1:
+                    return None  # pandas raises on a missing label
+                positions.append(matches[0])
+        if not positions:
+            return None
+        keys = []
+        for i in positions:
+            c = frame._columns[i]
+            if c.is_device and c.pandas_dtype.kind in "biuf":
+                keys.append(c.data)
+                continue
+            # string and object keys compare by dictionary code: NaN codes
+            # are equal, as pandas' missing values are in duplicated
+            enc = self._encoded(c)
+            if enc is None:
+                return None
+            keys.append(enc.codes.data)
+        return join_ops.duplicated_mask(keys, len(frame), keep)
+
+    def duplicated(self, subset: Any = None, keep: Any = "first", **kwargs: Any):
+        mask = self._duplicated_device_mask(subset, keep) if not kwargs else None
+        if mask is not None:
+            return self._wrap_device_result([mask], col_labels=[MODIN_UNNAMED_SERIES_LABEL])
+        return super().duplicated(subset=subset, keep=keep, **kwargs)
+
+    def drop_duplicates(self, subset: Any = None, keep: Any = "first", ignore_index: bool = False, **kwargs: Any):
+        mask = self._duplicated_device_mask(subset, keep) if not kwargs else None
+        if mask is not None:
+            new_frame = self._modin_frame.filter_rows_mask_device(~mask)
+            if ignore_index:
+                new_frame = new_frame.with_columns(
+                    list(new_frame._columns), index=LazyIndex(None, len(new_frame))
+                )
+            return type(self)(new_frame, self._shape_hint)
+        return super().drop_duplicates(
+            subset=subset, keep=keep, ignore_index=ignore_index, **kwargs
+        )
 
     # -------------------------------- sort ---------------------------- #
 

@@ -227,3 +227,106 @@ def shift_columns(cols: List[torch.Tensor], n: int, periods: int) -> List[torch.
 def diff_columns(cols: List[torch.Tensor], n: int, periods: int) -> List[torch.Tensor]:
     """pandas diff: x - x.shift(periods)."""
     return [_shift_one(c, int(n), int(periods), True) for c in cols]
+
+
+# ---------------------------------------------------------------------- #
+# Missing data and dtypes: the maps behind isna/notna, round, fillna, clip
+# and astype (the JAX package's op bodies ``isna``/``isna_nat``, ``round``,
+# ``fillna``, ``clip_lower``/``clip_upper``, ``astype``)
+# ---------------------------------------------------------------------- #
+
+# NaT of a datetime/timedelta column stored as int64 (pandas' own sentinel)
+NAT_SENTINEL = np.iinfo(np.int64).min
+
+
+def _isna_one(x: torch.Tensor, is_dt: bool) -> torch.Tensor:
+    if is_dt:
+        return x == NAT_SENTINEL
+    if x.dtype.is_floating_point:
+        return torch.isnan(x)
+    return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+
+
+def isna_columns(cols: List[torch.Tensor], mM_flags, negate: bool) -> List[torch.Tensor]:
+    """isna (or notna, ``negate``) per column: NaN of floats, the NaT
+    sentinel of the columns flagged datetime/timedelta, nothing of the rest."""
+    out = [_isna_one(c, bool(is_dt)) for c, is_dt in zip(cols, mM_flags)]
+    return [~m for m in out] if negate else out
+
+
+def _round_int(x: torch.Tensor, decimals: int) -> torch.Tensor:
+    """pandas' round of an int column to ``decimals`` < 0: to the nearest
+    multiple of 10**-decimals, half to even, in the column's dtype (a
+    result past its range wraps as numpy's cast does).  Computed in int64,
+    so it equals numpy's float64 path wherever that is exact (|x| < 2**53)
+    and stays exact beyond it."""
+    unit = 10 ** (-decimals)
+    v = x.to(torch.int64)
+    q = torch.div(v, unit, rounding_mode="floor")
+    twice_r = 2 * (v - q * unit)  # in [0, 2 * unit): no overflow for unit <= 1e18
+    up = (twice_r > unit) | ((twice_r == unit) & (q % 2 == 1))
+    return ((q + up.to(torch.int64)) * unit).to(x.dtype)
+
+
+def round_columns(cols: List[torch.Tensor], decimals: int, mM_flags=None) -> List[torch.Tensor]:
+    """pandas ``round``: floats as numpy's ``round`` (scale, round half to
+    even, unscale; ``torch.round(decimals=)`` computes the same), ints
+    with ``decimals`` < 0 by :func:`_round_int` (the caller declines
+    ``decimals`` < -18, past int64); other ints, bools and the columns
+    flagged datetime/timedelta are unchanged."""
+    decimals = int(decimals)
+    flags = mM_flags if mM_flags is not None else [False] * len(cols)
+    out = []
+    for c, is_dt in zip(cols, flags):
+        if c.dtype.is_floating_point:
+            out.append(torch.round(c, decimals=decimals))
+        elif decimals < 0 and not is_dt and c.dtype != torch.bool:
+            out.append(_round_int(c, decimals))
+        else:
+            out.append(c)
+    return out
+
+
+def cast_scalar(value: Any, dtype: torch.dtype) -> Any:
+    """``value`` cast by numpy to ``dtype`` (rounded to nearest; past a
+    float32 range it is inf, as numpy and pandas make it), as a Python
+    scalar that torch takes without a range check."""
+    if value is None:
+        return None
+    with np.errstate(over="ignore"):
+        return numpy_dtype(dtype).type(value).item()
+
+
+def fillna_columns(cols: List[torch.Tensor], value: Any) -> List[torch.Tensor]:
+    """A numeric scalar into the NaN rows of float columns (cast to the
+    column's dtype, as pandas casts it); int and bool columns hold no NaN
+    and pass through."""
+    return [
+        torch.where(torch.isnan(c), cast_scalar(value, c.dtype), c) if c.dtype.is_floating_point else c
+        for c in cols
+    ]
+
+
+def clip_columns(cols: List[torch.Tensor], lower: Any, upper: Any) -> List[torch.Tensor]:
+    """Elementwise clip to [lower, upper] (either may be None); NaN stays
+    NaN.  Each bound is cast to the column's dtype first, as numpy compares
+    a float32 array with a Python float.  The caller picks the result dtype
+    (pandas': an int column becomes float64 once a bound it cannot hold
+    replaces a value), passes the columns already cast to it, and passes
+    an int column only bounds it holds."""
+    out = []
+    for c in cols:
+        lo, hi = cast_scalar(lower, c.dtype), cast_scalar(upper, c.dtype)
+        r = c
+        if lo is not None:
+            r = torch.where(r < lo, lo, r)
+        if hi is not None:
+            r = torch.where(r > hi, hi, r)
+        out.append(r)
+    return out
+
+
+def astype_column(col: torch.Tensor, target: np.dtype) -> torch.Tensor:
+    """numpy's ``astype`` to a numeric ``target`` (ints wrap, floats round
+    to nearest)."""
+    return col.to(torch_dtype(target))

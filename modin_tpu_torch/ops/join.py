@@ -20,6 +20,9 @@ int64 throughout: an expansion past 2^31 output rows stays exact.
 The JAX package's ``merge_positions`` picks between this local sort-merge
 and a shuffle across devices; the port has one device and calls
 :func:`sort_merge_positions` directly.
+
+:func:`duplicated_mask` (``DataFrame.duplicated``/``drop_duplicates``) folds
+one frame's key columns into a row code by the same ranks.
 """
 
 from __future__ import annotations
@@ -28,16 +31,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from modin_tpu_torch.ops.structural import float_total_order
+from modin_tpu_torch.ops.structural import int64_key
 from modin_tpu_torch.parallel.engine import materialize as _engine_materialize
-
-
-def _as_int64_key(key: torch.Tensor) -> torch.Tensor:
-    """An int64 key with the same equalities and order: total-order bits
-    for floats, a widening cast for ints."""
-    if key.dtype.is_floating_point:
-        return float_total_order(key)
-    return key.to(torch.int64)
 
 
 def _rank_pair(lv: torch.Tensor, rv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,7 +58,7 @@ def composite_key_codes(
     total = left_keys[0].shape[0] + right_keys[0].shape[0]
     lc = rc = None
     for lv, rv in zip(left_keys, right_keys):
-        l_i, r_i = _rank_pair(_as_int64_key(lv), _as_int64_key(rv))
+        l_i, r_i = _rank_pair(int64_key(lv), int64_key(rv))
         if lc is None:
             lc, rc = l_i, r_i
         else:
@@ -74,7 +69,7 @@ def composite_key_codes(
 def _match_bounds(left_key: torch.Tensor, right_key: torch.Tensor):
     """(perm, lo, counts, total_inner, total_left) of every left key against
     the stably sorted right keys; the totals stay on the device."""
-    left_key, right_key = _as_int64_key(left_key), _as_int64_key(right_key)
+    left_key, right_key = int64_key(left_key), int64_key(right_key)
     rs, perm = torch.sort(right_key, stable=True)
     lo = torch.searchsorted(rs, left_key, side="left")
     hi = torch.searchsorted(rs, left_key, side="right")
@@ -163,4 +158,53 @@ def gather_right_columns(cols: Sequence[torch.Tensor], positions: torch.Tensor) 
         vals = torch.index_select(c, 0, safe)
         null = float("nan") if c.dtype.is_floating_point else _null_sentinel(c.dtype)
         out.append(torch.where(found, vals, null))
+    return out
+
+
+def _dense_rank(v: torch.Tensor) -> torch.Tensor:
+    """Each value's position among the sorted values (equal values share
+    it): an int64 code below ``len(v)`` with the same equalities."""
+    return torch.searchsorted(torch.sort(v).values, v, side="left")
+
+
+def duplicated_mask(cols: Sequence[torch.Tensor], n: int, keep) -> torch.Tensor:
+    """pandas' ``duplicated`` over the key columns ``cols`` (``n`` rows): a
+    bool tensor that marks every row equal to an earlier one
+    (``keep="first"``), to a later one (``"last"``) or to any other
+    (``False``).  Floats compare through ``float_total_order``: NaN equals
+    NaN and -0.0 equals 0.0, as in pandas.
+
+    Several columns fold into one int64 row code, re-ranked after each
+    fold so that ``code * n + rank`` stays below n**2; a stable sort of the
+    codes groups equal rows in row order, and the first and last row of
+    each group give every ``keep``.
+    """
+    if keep not in ("first", "last", False):
+        raise ValueError(f"keep must be 'first', 'last' or False, got {keep!r}")
+    if not cols:
+        raise ValueError("duplicated_mask needs key columns")
+    for c in cols:
+        if c.shape[0] != n:
+            raise ValueError(f"key column of {c.shape[0]} rows for {n} rows")
+    keys = [int64_key(c) for c in cols]
+    code = keys[0]
+    if len(keys) > 1:
+        code = _dense_rank(code)
+        for i, key in enumerate(keys[1:], start=2):
+            code = code * n + _dense_rank(key)
+            if i < len(keys):
+                code = _dense_rank(code)
+    sc, order = torch.sort(code, stable=True)
+    change = sc[1:] != sc[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=code.device)
+    first = torch.cat([one, change])
+    last = torch.cat([change, one])
+    if keep == "first":
+        dup_sorted = ~first
+    elif keep == "last":
+        dup_sorted = ~last
+    else:
+        dup_sorted = ~(first & last)
+    out = torch.empty_like(dup_sorted)
+    out[order] = dup_sorted  # a permutation: every row written once
     return out

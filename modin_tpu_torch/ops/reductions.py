@@ -155,6 +155,30 @@ def reduce_columns(
     return [np.asarray(r) for r in _engine_materialize(results)]
 
 
+def idx_minmax(op_name: str, cols: List[torch.Tensor], n: int) -> Tuple[List[int], List[int]]:
+    """(positions, valid counts) of each column's skipna ``idxmin`` or
+    ``idxmax``, after one fetch.  NaN reads as +inf for idxmin and -inf for
+    idxmax, as pandas' ``nanargmin``/``nanargmax`` fill it
+    (``torch.argmax`` would take NaN as the extreme); ties take the first
+    row, as ``torch.argmin``/``argmax`` promise.  A column with no valid
+    value (count 0) has no answer: pandas raises there."""
+    if op_name not in ("idxmin", "idxmax"):
+        raise ValueError(f"idx_minmax computes idxmin or idxmax, not {op_name!r}")
+    arg = torch.argmin if op_name == "idxmin" else torch.argmax
+    fill = float("inf") if op_name == "idxmin" else float("-inf")
+    out = []
+    for c in cols:
+        if c.shape[0] != n:
+            raise ValueError(f"column of {c.shape[0]} rows for {n} rows")
+        if c.dtype.is_floating_point:
+            nan = torch.isnan(c)
+            out += [arg(torch.where(nan, fill, c)), n - nan.sum()]
+        else:
+            out += [arg(c), torch.tensor(n, dtype=torch.int64, device=c.device)]
+    fetched = _engine_materialize(torch.stack(out)) if out else []
+    return [int(v) for v in fetched[0::2]], [int(v) for v in fetched[1::2]]
+
+
 # --------------------------------------------------------------------- #
 # Row-wise reductions (axis=1)
 # --------------------------------------------------------------------- #

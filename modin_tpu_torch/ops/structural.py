@@ -42,6 +42,15 @@ def float_total_order(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 0, bits, bits ^ _INT64_MAX)
 
 
+def int64_key(key: torch.Tensor) -> torch.Tensor:
+    """An int64 key with the same equalities and order: total-order bits
+    for floats, a widening cast for ints and bools.  Shared by the sort and
+    join ops."""
+    if key.dtype.is_floating_point:
+        return float_total_order(key)
+    return key.to(torch.int64)
+
+
 def compact_rows(
     cols: Sequence[torch.Tensor], mask: torch.Tensor, n: int
 ) -> Tuple[List[torch.Tensor], int, torch.Tensor]:

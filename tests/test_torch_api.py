@@ -194,16 +194,18 @@ def test_series_sort_shaped_reductions():
     [
         lambda df: df.skew(axis=1),
         lambda df: df.cumsum(axis=1),
-        lambda df: df.rank(),
-        lambda df: df.round(1),
+        # rank, round, nlargest and clip run on the device in their plain
+        # forms; these forms of them still default
+        lambda df: df.rank(axis=1),
+        lambda df: df.round({"col0": 1}),
         lambda df: df.agg(["sum", "max"]),
         lambda df: df.shift(2, fill_value=0),
         lambda df: df.diff(axis=1),
         lambda df: df.pct_change(),
-        lambda df: df.nlargest(3, "col0"),
+        lambda df: df.nlargest(3, ["col0", "col1"]),
         lambda df: df.melt(),
         lambda df: df.set_index("col0"),
-        lambda df: df.clip(10, 20),
+        lambda df: df.clip(df["col0"] // 2, 20, axis=0),
     ],
     ids=[
         "skew", "cumsum", "rank", "round", "agg_list", "shift", "diff",
