@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
                           [--float-rows N] [--io-rows N] [--window-rows N]
-                          [--clean-rows N] [--seed S]
-                          [--phases main,float,relational,arithmetic,io,window,clean]
+                          [--clean-rows N] [--dates-rows N] [--seed S]
+                          [--phases main,float,relational,arithmetic,io,window,clean,dates]
 
 Phases, one JSON object per line each:
 
@@ -106,12 +106,34 @@ Phases, one JSON object per line each:
              exactly (floats bit for bit, dtypes, index and row order), no
              query defaults to pandas, the value columns stay on ``cuda``,
              and ``rank`` launches the scan kernel.
+11. dates  - datetimes, bool keys, statistics and encodings at
+             ``--dates-rows`` (5e6): all 23 ``.dt`` fields of a
+             datetime64[us] column from 1900 to 2100 with 1 % NaT and of the
+             same instants as datetime64[ns], the 5 timedelta fields of their
+             difference from 2000-01-01, groupby sum/mean/count by
+             ``s.dt.year`` and by ``[s.dt.year, s.dt.month]``, ``resample``
+             of a one-minute frame (4 float columns with NaN, an int and a
+             bool column) by h/D/W/ME/QE and by h with
+             ``closed="right", label="right"`` in every device op, sort and
+             merge on a bool key, corr/cov with and without NaN and at an
+             offset of 1e8, ``get_dummies`` of a string and a categorical
+             column, dict ``Series.map`` of a string and an int column,
+             ``np.sqrt``/``np.log``/``np.floor`` of the float frame, and a
+             1e6-row ``read_csv(parse_dates=...)`` whose column lands on
+             ``cuda``.  Each equals pandas (ints, bools, dtypes, labels and
+             index names exactly, floats to rtol 1e-12, corr/cov to rtol
+             1e-10; ``corr`` without missing values against the
+             correlations of pandas' two-pass ``cov``, pandas' own Welford
+             ``corr`` being off in its smallest entries and at the
+             offset), no query defaults to pandas, and the groupby by two
+             ``.dt`` keys launches the bincount kernel.
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
 default), the arithmetic phase at ``--arithmetic-rows`` (5e7) and the window
-phase at ``--window-rows`` (5e6) so that the whole script stays well inside
+and dates phases at ``--window-rows`` and ``--dates-rows`` (5e6 each) so
+that the whole script stays well inside
 its time limit; the kernel checks run at ``--rows``.  ``--phases`` picks the phases after the kernel check for a
-quick run; only a run of all seven prints the result lines.  Then the card's name and power limit, one
+quick run; only a run of all eight prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
@@ -132,7 +154,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean")
+ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -525,13 +547,17 @@ def assert_same_values(got: np.ndarray, want: np.ndarray, what: str, exact: bool
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
     if exact:
-        if not np.array_equal(got, want, equal_nan=got.dtype.kind == "f"):
+        # NaN and NaT at equal positions are equal values
+        if not np.array_equal(got, want, equal_nan=got.dtype.kind in "fmM"):
             raise AssertionError(f"{what}: values differ")
     elif got.dtype.kind == "f" or want.dtype.kind == "f":
         g, w = got.astype(np.float64), want.astype(np.float64)
         if not np.array_equal(np.isnan(g), np.isnan(w)):
             raise AssertionError(f"{what}: NaN positions differ")
-        ok = ~np.isnan(w)
+        inf = np.isinf(w)
+        if not np.array_equal(g[inf], w[inf]):
+            raise AssertionError(f"{what}: infinities differ")
+        ok = ~np.isnan(w) & ~inf
         bad = np.abs(g[ok] - w[ok]) > FLOAT_RTOL * np.abs(w[ok])
         if bad.any():
             raise AssertionError(f"{what}: {int(bad.sum())} values beyond rtol {FLOAT_RTOL}")
@@ -1949,9 +1975,243 @@ def phase_clean(rows: int, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 11. datetimes, bool keys, statistics and encodings
+# ---------------------------------------------------------------------- #
+
+DATES_CSV_ROWS = 10**6
+# (label, rule, keyword arguments) of the resample queries
+RESAMPLE_RULES = (("h", "h", {}), ("D", "D", {}), ("W", "W", {}), ("ME", "ME", {}), ("QE", "QE", {}),
+                  ("h_right", "h", {"closed": "right", "label": "right"}))
+# corr/cov sum n products of each pair in another order than pandas; at the
+# phase's 1e7 rows the port and pandas' two-pass cov agree to ~1e-12
+CORR_RTOL = 1e-10
+DT_FIELDS = ("year", "month", "day", "hour", "minute", "second", "microsecond", "nanosecond", "dayofweek",
+             "weekday", "day_of_week", "dayofyear", "day_of_year", "quarter", "daysinmonth", "days_in_month",
+             "is_leap_year", "is_month_start", "is_month_end", "is_quarter_start", "is_quarter_end",
+             "is_year_start", "is_year_end")
+TD_FIELDS = ("days", "seconds", "microseconds", "nanoseconds", "total_seconds")
+
+
+def dates_frames(rows: int, seed: int) -> dict:
+    """The pandas inputs of the dates phase, by name: ``dated`` (a
+    datetime64[us] column from 1900 to 2100 with 1 % NaT, the same instants
+    as datetime64[ns], their difference from 2000-01-01 as timedelta64, a
+    float and an int value column), ``timed`` (a sorted one-minute
+    DatetimeIndex with 4 float columns with 1 % NaN, an int and a bool
+    column), ``strings`` (phase 10's 3-value string column with 1 % missing,
+    as str and as a categorical with an unobserved category), ``asv`` (a
+    ``make_frame`` block with an offset column 1e8 + N(0, 1)) and ``dim`` (a
+    bool-keyed 2-row dimension)."""
+    import pandas
+
+    rng = np.random.default_rng(seed + 60)
+    lo, hi = (np.datetime64(d, "us").astype(np.int64) for d in ("1900-01-01", "2100-01-01"))
+    ticks = rng.integers(lo, hi, rows)
+    ticks[rng.random(rows) < 0.01] = np.iinfo(np.int64).min
+    ts = ticks.view("datetime64[us]")
+    dated = pandas.DataFrame({
+        "ts": ts, "ts_ns": ts.astype("datetime64[ns]"), "td": ts - np.datetime64("2000-01-01", "us"),
+        "v": rng.uniform(0, 100, rows), "q": rng.integers(0, 100, rows),
+    })
+    # positive values: no cancellation in the group and bucket sums, so rtol
+    # 1e-12 measures the summation order and nothing else
+    timed = pandas.DataFrame(
+        {f"f{i}": np.where(rng.random(rows) < 0.01, np.nan, rng.uniform(0, 100, rows)) for i in range(4)},
+        index=pandas.date_range("2000-01-01", periods=rows, freq="min"),
+    )
+    timed["i"] = rng.integers(0, 1000, rows)
+    timed["b"] = rng.random(rows) < 0.3
+    codes = np.where(rng.random(rows) < 0.01, -1, rng.integers(0, len(STRINGS), rows))
+    cat = np.array([*STRINGS, None], dtype=object)[codes]
+    strings = pandas.DataFrame({"s": cat})
+    strings["c"] = pandas.Categorical.from_codes(np.where(codes < 0, -1, codes + 1),
+                                                 categories=["unobserved", *STRINGS])
+    asv = _pandas_frame(make_frame_data(rows, seed + 61))
+    asv["off"] = 1e8 + rng.normal(size=rows)
+    dim = pandas.DataFrame({"b": [False, True], "w": [0.25, 1.75]})
+    return {"dated": dated, "timed": timed, "strings": strings, "asv": asv, "dim": dim}
+
+
+def block_frame(frames: dict):
+    """The ``make_frame`` block without the offset column."""
+    return frames["asv"][[f"col{i}" for i in range(10)]]
+
+
+def offset_frame(frames: dict):
+    """Two asv columns and the offset column."""
+    return frames["asv"][["col0", "col1", "off"]]
+
+
+# the corr queries without missing values, held to the correlations of
+# pandas' two-pass cov (np.cov) of the same frame: pandas' own corr (a
+# Welford loop) drifts in its entries near 0 and at the offset, and the
+# phase prints how far (pandas_rel_diff_to_reference)
+TWO_PASS_CORR = {"corr": block_frame, "corr_offset": offset_frame}
+
+
+def dates_queries() -> dict:
+    """name -> (fn(frames by name, pandas module), check): ``exact``,
+    ``rtol`` (FLOAT_RTOL) or ``corr`` (CORR_RTOL; against the correlations
+    of pandas' two-pass ``cov`` for the queries of ``TWO_PASS_CORR``)."""
+    q = {}
+    for col in ("ts", "ts_ns"):
+        for name in DT_FIELDS:
+            q[f"dt_{name}_{col}"] = (lambda f, pd, col=col, name=name: getattr(f["dated"][col].dt, name), "exact")
+    for name in TD_FIELDS[:-1]:
+        q[f"td_{name}"] = (lambda f, pd, name=name: getattr(f["dated"]["td"].dt, name), "exact")
+    q["td_total_seconds"] = (lambda f, pd: f["dated"]["td"].dt.total_seconds(), "exact")
+    for agg in ("sum", "mean", "count"):
+        q[f"groupby_year_{agg}"] = (
+            lambda f, pd, agg=agg: getattr(f["dated"][["v", "q"]].groupby(f["dated"]["ts"].dt.year), agg)(), "rtol")
+        q[f"groupby_year_month_{agg}"] = (
+            lambda f, pd, agg=agg: getattr(f["dated"][["v", "q"]].groupby(
+                [f["dated"]["ts"].dt.year, f["dated"]["ts"].dt.month]), agg)(), "rtol")
+    for label, rule, kwargs in RESAMPLE_RULES:
+        for op in ("sum", "mean", "count", "min", "max", "var", "std", "size"):
+            q[f"resample_{label}_{op}"] = (
+                lambda f, pd, rule=rule, kwargs=kwargs, op=op: getattr(f["timed"].resample(rule, **kwargs), op)(),
+                "rtol")
+    q["sort_bool"] = (lambda f, pd: f["timed"].sort_values("b", kind="stable"), "exact")
+    q["sort_bool_desc_int"] = (lambda f, pd: f["timed"].sort_values(["b", "i"], ascending=[False, True]), "exact")
+    q["merge_bool"] = (lambda f, pd: f["timed"].merge(f["dim"], on="b"), "exact")
+    q["corr"] = (lambda f, pd: block_frame(f).corr(), "corr")
+    q["cov"] = (lambda f, pd: block_frame(f).cov(), "corr")
+    q["corr_nan"] = (lambda f, pd: f["timed"].corr(), "corr")
+    q["cov_nan"] = (lambda f, pd: f["timed"].cov(), "corr")
+    q["corr_offset"] = (lambda f, pd: offset_frame(f).corr(), "corr")
+    q["cov_offset"] = (lambda f, pd: offset_frame(f).cov(), "corr")
+    q["get_dummies_str"] = (lambda f, pd: pd.get_dummies(f["strings"]["s"]), "exact")
+    q["get_dummies_categorical"] = (lambda f, pd: pd.get_dummies(f["strings"]["c"], dummy_na=True), "exact")
+    q["map_str"] = (lambda f, pd: f["strings"]["s"].map({"alpha": 1, "beta": 2, "gamma-delta": 3}), "exact")
+    q["map_int"] = (lambda f, pd: f["timed"]["i"].map({k: k / 4 for k in range(0, 1000, 3)}), "exact")
+    for name in ("sqrt", "log", "floor"):
+        q[f"np_{name}"] = (lambda f, pd, name=name: getattr(np, name)(f["timed"][["f0", "f1", "f2", "f3", "i"]]),
+                           "exact" if name == "floor" else "rtol")
+    return q
+
+
+def assert_dates_pandas(got, want, what: str, check: str) -> dict:
+    """``assert_same_pandas`` (exact or FLOAT_RTOL) with the index and
+    Series names, or for corr/cov labels exactly and values to CORR_RTOL;
+    returns the largest relative difference to pandas' result found."""
+    import pandas
+
+    if check in ("exact", "rtol"):
+        assert_same_pandas(got, want, what, exact=check == "exact")
+        if list(got.index.names) != list(want.index.names) or (
+                isinstance(want, pandas.Series) and got.name != want.name):
+            raise AssertionError(f"{what}: names differ")
+        return {}
+    g, w = got.to_numpy(), want.to_numpy()
+    if not (got.index.equals(want.index) and got.columns.equals(want.columns)):
+        raise AssertionError(f"{what}: labels differ")
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError(f"{what}: NaN positions differ")
+    ok = ~np.isnan(w)
+    rel = float(np.max(np.abs(g[ok] - w[ok]) / np.abs(w[ok]), initial=0.0))
+    if rel > CORR_RTOL:
+        raise AssertionError(f"{what}: relative difference {rel} beyond {CORR_RTOL}")
+    return {"max_rel_diff": rel}
+
+
+def phase_dates(rows: int, seed: int, workdir: str) -> dict:
+    """``.dt`` fields (both units) and timedelta fields, groupby on ``.dt``
+    keys, resample in every device op, bool sort and merge keys, corr/cov
+    (with and without NaN, and at a large offset), get_dummies, dict
+    ``Series.map`` and ``np.sqrt``/``np.log``/``np.floor`` through
+    ``modin_tpu_torch.pandas`` at ``rows`` rows, then a 1e6-row
+    ``read_csv(parse_dates=...)``: each result equals pandas' (floats to
+    FLOAT_RTOL, corr/cov to CORR_RTOL), no query defaults to pandas, the
+    value columns stay on ``cuda``, and the path launches the bincount
+    kernel.  ``corr`` and ``corr_offset`` are held to the correlations of
+    pandas' two-pass ``cov`` (``TWO_PASS_CORR``), and pandas' own ``corr``'s
+    distance from them is printed.  Returns the launches."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+    from modin_tpu_torch.ops.cuda import scan_kernels as sk
+
+    t_phase = time.perf_counter()
+    frames = dates_frames(rows, seed)
+    port_frames = {k: tpd.from_pandas(v) for k, v in frames.items()}
+    emit({"phase": "dates", "setup_seconds": time.perf_counter() - t_phase, "rows": rows})
+    gk.LAUNCHES = 0
+    sk.LAUNCHES = 0
+    tqc.DEFAULTS_TO_PANDAS = 0
+    totals = {"port_s": 0.0, "pandas_s": 0.0, "to_pandas_s": 0.0}
+
+    def run_one(name, port_fn, pandas_fn, check, reference=None):
+        """Run, time and check one query; ``reference`` replaces pandas'
+        result as the value the port is held to."""
+        launches = gk.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        result, port_ms = host_ms(port_fn)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"{name}: the query defaulted to pandas")
+        assert_device_values_on_cuda(result._query_compiler, name)
+        got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+        del result
+        t0 = time.perf_counter()
+        want = pandas_fn()
+        pandas_ms = (time.perf_counter() - t0) * 1e3
+        extra = assert_dates_pandas(got, want if reference is None else reference, name, check)
+        if reference is not None:
+            ok = ~np.isnan(reference.to_numpy())
+            extra["pandas_rel_diff_to_reference"] = float(np.max(
+                np.abs(want.to_numpy() - reference.to_numpy())[ok] / np.abs(reference.to_numpy()[ok])))
+        for key, ms in (("port_s", port_ms), ("pandas_s", pandas_ms), ("to_pandas_s", to_pandas_ms)):
+            totals[key] += ms / 1e3
+        emit({"phase": "dates", "query": name, "rows": rows, "out_shape": list(got.shape),
+              "port_ms": port_ms, "pandas_ms": pandas_ms, "to_pandas_ms": to_pandas_ms,
+              "device_peak_gib": round(peak_gib, 3), "bincount_launches": gk.LAUNCHES - launches,
+              "check": check, **extra, "match": True})
+
+    for name, (fn, check) in dates_queries().items():
+        reference = None
+        if name in TWO_PASS_CORR:
+            # pandas' two-pass cov (np.cov) normalised by its diagonal
+            cov = TWO_PASS_CORR[name](frames).cov()
+            sd = np.sqrt(np.diag(cov.to_numpy()))
+            reference = cov / np.outer(sd, sd)
+        run_one(name, lambda fn=fn: fn(port_frames, tpd), lambda fn=fn: fn(frames, pandas), check, reference)
+
+    # read_csv(parse_dates=...): the parsed column lands on the card as ticks
+    path = os.path.join(workdir, "dated.csv")
+    n_csv = min(DATES_CSV_ROWS, rows)
+    frames["dated"].iloc[:n_csv][["ts", "v", "q"]].to_csv(path, index=False)
+    result, port_ms = host_ms(lambda: tpd.read_csv(path, parse_dates=["ts"]))
+    col = result._query_compiler._modin_frame.get_column(0)
+    if not (col.is_device and col.data.device.type == "cuda" and col.data.dtype == torch.int64):
+        raise AssertionError("read_csv(parse_dates): the datetime column is not int64 ticks on cuda")
+    got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+    t0 = time.perf_counter()
+    want = pandas.read_csv(path, parse_dates=["ts"])
+    pandas_ms = (time.perf_counter() - t0) * 1e3
+    assert_dates_pandas(got, want, "read_csv_parse_dates", "exact")
+    if tqc.DEFAULTS_TO_PANDAS != 0:
+        raise AssertionError("read_csv_parse_dates: defaulted to pandas")
+    emit({"phase": "dates", "query": "read_csv_parse_dates", "rows": n_csv, "port_ms": port_ms,
+          "pandas_ms": pandas_ms, "to_pandas_ms": to_pandas_ms, "dtype": str(col.pandas_dtype),
+          "device": str(col.data.device), "match": True})
+    os.unlink(path)
+    launches = {"bincount": gk.LAUNCHES, "scan": sk.LAUNCHES}
+    del result, got, want, col, port_frames, frames
+    free_device_memory()
+    emit({"phase": "dates", "bincount_launches": launches["bincount"], "scan_launches": launches["scan"],
+          "defaults_to_pandas": 0, **totals, "seconds": time.perf_counter() - t_phase})
+    if launches["bincount"] == 0:
+        raise AssertionError("the dates path never launched the bincount kernel")
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
-    ``io``, ``window``, ``clean``) to its kernels' launches; the ``launches``
+    ``io``, ``window``, ``clean``, ``dates``) to its kernels' launches; the ``launches``
     of a kernel's entry is its own path's: bincount's the main path's,
     scan's the window path's (the clean path's ``rank`` runs it too)."""
     by_width = kernel["by_width"]
@@ -2029,13 +2289,17 @@ def main(argv=None) -> int:
                         help="rows of the window phase's asv frame")
     parser.add_argument("--clean-rows", type=int, default=10**7,
                         help="rows of the clean phase's frames")
+    # 5e6: at 1e7 rows the phase took 105.8 and 100.9 s on an H100 host
+    # (pandas' references 64-71 s of it), past its 100 s share
+    parser.add_argument("--dates-rows", type=int, default=5 * 10**6,
+                        help="rows of the dates phase's frames")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
                         "each after a warm-up (no checks, no result lines)")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all seven)")
+                        "(the result lines need all eight)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2095,6 +2359,9 @@ def main(argv=None) -> int:
         launches["window"] = phase_window(args.window_rows, args.float_rows, args.seed)
     if "clean" in phases:
         launches["clean"] = phase_clean(args.clean_rows, args.seed)
+    if "dates" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dates_") as workdir:
+            launches["dates"] = phase_dates(args.dates_rows, args.seed, workdir)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if phases != set(ALL_PHASES):
         print("chip_smoke: a partial run prints no result", file=sys.stderr)

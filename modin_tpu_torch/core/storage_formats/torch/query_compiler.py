@@ -40,7 +40,13 @@ query_compiler.py``, cut to the slices ported so far:
   (``ops/dictionary.py``): groupby, sort and merge keys, comparisons with a
   string, ``isin``, ``nunique``/``mode``, ``min``/``max``/``count``,
   ``unique``, ``series_value_counts`` and the ``.str`` predicates and
-  measures (``_try_str_lut``); their payloads travel on the host.
+  measures (``_try_str_lut``); their payloads travel on the host;
+- the ``.dt`` fields of naive datetime and timedelta columns
+  (``_try_dt_component``, ``ops/datetime_parts.py``), ``resample`` of a
+  sorted ``DatetimeIndex`` (``_try_device_resample``,
+  ``RESAMPLE_DEVICE_OPS``), bool sort and merge keys, ``corr``/``cov``
+  (``_try_device_corr_cov``, ``ops/stats.py``), ``series_get_dummies``,
+  dict ``series_map`` and numpy's math ufuncs (``unary_math``).
 
 It is a :class:`BaseQueryCompiler`: every other pandas method exists there
 and defaults to pandas.  Each device path gates on the dtypes and arguments
@@ -50,10 +56,9 @@ goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
 made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
-device path the port does not have yet (the ``.dt`` components,
-``resample``, ``corr``/``cov``, ``get_dummies``, ``Series.map``, the math
-maps of ``unary_math``, the kernel router, the planner, out-of-core and
-range-partition variants of sort and merge), the port defaults to pandas.
+device path the port does not have yet (the kernel router, the planner,
+out-of-core and range-partition variants of sort and merge), the port
+defaults to pandas.
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ from modin_tpu_torch.core.storage_formats.base.query_compiler import (
     BaseQueryCompiler,
 )
 from modin_tpu_torch.error_message import ErrorMessage
-from modin_tpu_torch.ops import dictionary, elementwise, reductions, sorted_cache
+from modin_tpu_torch.ops import datetime_parts, dictionary, elementwise, reductions, sorted_cache, stats
 from modin_tpu_torch.ops import groupby as gb_ops
 from modin_tpu_torch.ops import join as join_ops
 from modin_tpu_torch.ops import sort as sort_ops
@@ -515,6 +520,21 @@ class TorchQueryCompiler(BaseQueryCompiler):
             lambda cols: elementwise.unary_op_columns("invert", cols), lambda s: ~s, "biu"
         )
         return result if result is not None else self._default_to_pandas(lambda o: ~o)
+
+    MATH_UNARY = elementwise.MATH_UNARY
+
+    def unary_math(self, op_name: str) -> "TorchQueryCompiler":
+        """numpy's math ufunc ``op_name`` (``np.sqrt(df)``): its torch
+        counterpart over the numeric device columns, numpy's own over the
+        host columns; otherwise pandas applies the ufunc."""
+        ufunc = getattr(np, op_name)
+        if op_name in self.MATH_UNARY:
+            result = self._map_device_host(
+                lambda cols: elementwise.math_unary_columns(op_name, cols), ufunc, "iuf"
+            )
+            if result is not None:
+                return result
+        return self._default_to_pandas(ufunc)
 
     # ---------------------- missing data and dtypes --------------------- #
 
@@ -1314,6 +1334,86 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return result
         return super().ewm_corr(ewm_kwargs, *args, **kwargs)
 
+    # ------------------------------ resample -------------------------- #
+
+    def _try_device_resample(self, op: str, resample_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        """A resample of a sorted ``DatetimeIndex`` as time-bucket codes and
+        the groupby segment aggregations.  pandas' own binner
+        (``Grouper._get_time_bins``) gives each bucket's row count, for every
+        rule family and closed/label/origin/offset; the codes repeat each
+        bucket number that many times, and the counts go to
+        ``groupby_reduce`` as ``sizes`` (no histogram kernel).  Empty
+        buckets come out as pandas has them: sum 0, count 0, mean/min/max
+        NaN.  An unsorted or NaT-bearing index declines."""
+        import pandas
+
+        defaults = {"convention": "start", "on": None, "level": None, "group_keys": False, "axis": 0}
+        if any(resample_kwargs.get(k, v) != v for k, v in defaults.items()):
+            return None
+        extra = dict(kwargs)
+        ddof = extra.pop("ddof", 1) if op in ("var", "std") else 1
+        if extra.pop("numeric_only", False) or extra or not isinstance(ddof, (int, np.integer)):
+            return None
+        frame = self._modin_frame
+        n = len(frame)
+        if n == 0:
+            return None
+        index = frame.index
+        if not isinstance(index, pandas.DatetimeIndex) or index.hasnans or not index.is_monotonic_increasing:
+            return None  # pandas drops NaT rows before binning; the buckets need sorted rows
+        try:
+            grouper = pandas.Grouper(
+                freq=resample_kwargs.get("rule"),
+                closed=resample_kwargs.get("closed"),
+                label=resample_kwargs.get("label"),
+                origin=resample_kwargs.get("origin", "start_day"),
+                offset=resample_kwargs.get("offset"),
+            )
+            _binner, bins, bin_labels = grouper._get_time_bins(index)
+        except (TypeError, ValueError):
+            return None  # a rule or arguments pandas' binner refuses
+        n_groups = len(bin_labels)
+        if n_groups == 0 or n_groups > (1 << 24):
+            return None  # a rule far finer than the span: a huge empty range
+        sizes = np.diff(np.r_[0, np.asarray(bins, dtype=np.int64)])
+        if int(sizes.sum()) != n:
+            return None
+        value_positions = [
+            i for i, c in enumerate(frame._columns) if c.is_device and c.pandas_dtype.kind in "biuf"
+        ]
+        if op != "size" and (not value_positions or len(value_positions) != frame.num_cols):
+            return None
+        device = self._device()
+        codes = torch.repeat_interleave(
+            torch.arange(n_groups, device=device), torch.as_tensor(sizes, device=device), output_size=n
+        )
+        if op == "size":
+            datas = gb_ops.groupby_reduce("size", [], codes, n_groups, n, sizes=sizes)
+            # a Series keeps its name on the size result
+            labels = self.get_columns()[:1] if self._shape_hint == "column" else [MODIN_UNNAMED_SERIES_LABEL]
+        else:
+            has_empty = bool((sizes == 0).any())
+            arrays = []
+            for i in value_positions:
+                a = frame._columns[i].data
+                if a.dtype == torch.bool:
+                    if op in ("min", "max") and has_empty:
+                        return None  # pandas gives object here
+                    if op in ("sum", "mean", "var", "std"):
+                        a = a.to(torch.int64)
+                if op in ("min", "max") and has_empty and not a.dtype.is_floating_point:
+                    # empty buckets put NaN in the result: pandas promotes
+                    # int min/max to float64 exactly then
+                    a = a.to(torch.float64)
+                arrays.append(a)
+            datas = gb_ops.groupby_reduce(op, arrays, codes, n_groups, n, sizes=sizes, ddof=int(ddof))
+            labels = self.get_columns()[value_positions]
+        cols = [DeviceColumn(d, numpy_dtype(d.dtype), length=n_groups) for d in datas]
+        qc = type(self)(TorchDataframe(cols, labels, bin_labels, nrows=n_groups))
+        if op == "size":
+            qc._shape_hint = "column"
+        return qc
+
     # ------------------------------- groupby -------------------------- #
 
     def groupby_agg(
@@ -1425,8 +1525,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
         frame = self._modin_frame
         if len(frame) == 0:
             return None
-        # resolve the key columns: labels of this frame's own columns, or one
-        # external Series-shaped compiler aligned with this frame
+        # resolve the key columns: labels of this frame's own columns, or
+        # external Series-shaped compilers aligned with this frame
         key_positions: List[int] = []
         if isinstance(by, list) and drop and all(not hasattr(b, "to_pandas") for b in by):
             for label in by:
@@ -1437,15 +1537,18 @@ class TorchQueryCompiler(BaseQueryCompiler):
             key_labels = list(by)
             key_cols = [frame._columns[p] for p in key_positions]
         else:
-            ext = by[0] if isinstance(by, list) and len(by) == 1 else by
-            if not isinstance(ext, TorchQueryCompiler) or not as_index:
+            key_labels, key_cols = [], []
+            for ext in by if isinstance(by, list) else [by]:
+                if not isinstance(ext, TorchQueryCompiler) or not as_index:
+                    return None
+                eframe = ext._modin_frame
+                if eframe.num_cols != 1 or len(eframe) != len(frame) or not self._fast_index_match(ext):
+                    return None
+                label = list(eframe.columns)[0]
+                key_labels.append(None if label == MODIN_UNNAMED_SERIES_LABEL else label)
+                key_cols.append(eframe.get_column(0))
+            if not key_cols:
                 return None
-            eframe = ext._modin_frame
-            if eframe.num_cols != 1 or len(eframe) != len(frame) or not self._fast_index_match(ext):
-                return None
-            label = list(eframe.columns)[0]
-            key_labels = [None if label == MODIN_UNNAMED_SERIES_LABEL else label]
-            key_cols = [eframe.get_column(0)]
         # numeric device keys as they are; host string/object keys through
         # their dictionary codes, categorical keys through pandas' own codes
         key_datas = []
@@ -2184,6 +2287,142 @@ class TorchQueryCompiler(BaseQueryCompiler):
         result_col = DeviceColumn(data, out_dtype, length=len(frame))
         return type(self)(TorchDataframe([result_col], frame._col_labels, frame._index), "column")
 
+    # ------------------------------- .dt ------------------------------- #
+
+    def _try_dt_component(self, name: str, args: tuple, kwargs: dict, timedelta: bool) -> Optional["TorchQueryCompiler"]:
+        """A calendar field of a naive datetime64 Series (or a field of a
+        timedelta64 one) over its int64 ticks (``ops/datetime_parts.py``).
+        tz-aware columns are host columns and stay with pandas."""
+        frame = self._modin_frame
+        col = frame.get_column(0) if frame.num_cols == 1 else None
+        if (
+            args
+            or kwargs
+            or col is None
+            or not col.is_device
+            or col.pandas_dtype.kind != ("m" if timedelta else "M")
+            or not len(frame)
+        ):
+            return None
+        names = datetime_parts.TIMEDELTA_COMPONENT_NAMES if timedelta else datetime_parts.COMPONENT_NAMES
+        unit = np.datetime_data(col.pandas_dtype)[0]
+        if name not in names or unit not in datetime_parts.UNITS:
+            return None
+        fn = datetime_parts.td_component if timedelta else datetime_parts.dt_component
+        data, dtype = fn(name, col.data, unit)
+        return type(self)(frame.with_columns([DeviceColumn(data, dtype, length=len(frame))]), "column")
+
+    # --------------------------- encodings ----------------------------- #
+
+    def series_get_dummies(
+        self,
+        prefix: Any = None,
+        prefix_sep: str = "_",
+        dummy_na: bool = False,
+        drop_first: bool = False,
+        dtype: Any = None,
+    ) -> Optional["TorchQueryCompiler"]:
+        """One-hot columns of a string or categorical Series, one ``codes ==
+        k`` compare per category (at most 256), in pandas' order: the sorted
+        values of a string column, the category order of a categorical
+        (unobserved categories included).  None where it does not apply:
+        the caller goes to pandas."""
+        import pandas
+
+        frame = self._modin_frame
+        col = frame.get_column(0) if frame.num_cols == 1 else None
+        if col is None or col.is_device or not len(frame):
+            return None
+        categorical = _is_categorical(col)
+        enc = dictionary.encode_categorical_column(col) if categorical else self._encoded(col)
+        if enc is None or not 0 < len(enc.categories) <= 256:
+            return None
+        try:
+            out_dtype = np.dtype(bool if dtype is None else dtype)
+        except TypeError:
+            return None
+        if out_dtype.kind not in "biuf" or not has_torch_dtype(out_dtype):
+            return None
+        codes = enc.codes.data
+        masks = [codes == float(k) for k in range(1 if drop_first else 0, len(enc.categories))]
+        labels = [f"{prefix}{prefix_sep}{cat}" if prefix is not None else cat
+                  for cat in enc.categories[1 if drop_first else 0:]]
+        if dummy_na:
+            masks.append(torch.isnan(codes))
+            labels.append(f"{prefix}{prefix_sep}nan" if prefix is not None else np.nan)
+        if not masks:
+            return None
+        cols = [DeviceColumn(m.to(torch_dtype(out_dtype)), out_dtype, length=len(frame)) for m in masks]
+        if categorical and prefix is None:
+            # pandas labels a categorical's dummies with a CategoricalIndex
+            # (the dummy_na column's NaN label is its -1 code)
+            label_index = pandas.CategoricalIndex(labels, dtype=col.pandas_dtype)
+        else:
+            label_index = pandas.Index(labels)
+        return type(self)(TorchDataframe(cols, label_index, frame._index, nrows=len(frame)))
+
+    def series_map(self, arg: Any, na_action: Any = None) -> "TorchQueryCompiler":
+        """``Series.map`` with a dict of numeric values on the device.  A
+        string or object column maps its categories on the host and gathers
+        the table by code; a numeric column looks its values up in the
+        sorted keys (one ``searchsorted``).  Object results (bools with
+        misses), NaN keys and other arguments go to pandas."""
+        import pandas
+
+        frame = self._modin_frame
+        col = frame.get_column(0) if frame.num_cols == 1 else None
+        if isinstance(arg, pandas.Series) and arg.index.is_unique:
+            arg = arg.to_dict()
+        data = None
+        numeric = (int, float, bool, np.integer, np.floating, np.bool_)
+        if (
+            col is not None
+            and type(arg) is dict  # a subclass may define __missing__
+            and len(frame)
+            and not any(isinstance(k, (float, np.floating)) and np.isnan(k) for k in arg)
+            and all(v is None or isinstance(v, numeric) for v in arg.values())
+            and any(v is not None for v in arg.values())  # only None values: pandas gives object
+        ):
+            values = [v for v in arg.values() if v is not None]
+            all_bool = all(isinstance(v, (bool, np.bool_)) for v in values)
+            all_int = all(isinstance(v, (int, np.integer, np.bool_)) for v in values)
+            if not col.is_device:
+                enc = self._encoded(col)
+                if enc is not None:
+                    lut = np.full(len(enc.categories) + 1, np.nan)
+                    matched = np.zeros(len(enc.categories), bool)
+                    for i, c in enumerate(enc.categories):
+                        v = arg.get(c)
+                        if v is not None:
+                            lut[i], matched[i] = float(v), True
+                    data = dictionary.gather_lut(enc.codes.data, lut)
+                    fully = bool(matched.all()) and not enc.has_nan
+            elif col.pandas_dtype.kind in "biuf":
+                try:
+                    keys = np.asarray(sorted(arg))
+                except TypeError:
+                    keys = None  # unorderable keys
+                if keys is not None and len(keys) and keys.dtype.kind in "biuf":
+                    device = col.data.device
+                    ks = torch.as_tensor(keys.astype(np.float64), device=device)
+                    vs = torch.as_tensor(
+                        [np.nan if arg[k] is None else float(arg[k]) for k in keys.tolist()],
+                        dtype=torch.float64, device=device,
+                    )
+                    x = col.data.to(torch.float64)
+                    pos = torch.searchsorted(ks, x).clamp_(max=len(keys) - 1)
+                    hit = ks[pos] == x
+                    data = torch.where(hit, vs[pos], float("nan"))
+                    fully = all_int and bool(hit.all())
+        if data is None:
+            return super().series_map(arg, na_action=na_action)
+        if all_bool and not fully:
+            return super().series_map(arg, na_action=na_action)  # pandas gives object
+        if all_bool or (all_int and fully):
+            data = data.to(torch.bool if all_bool else torch.int64)
+        result_col = DeviceColumn(data, numpy_dtype(data.dtype), length=len(frame))
+        return type(self)(frame.with_columns([result_col]), "column")
+
     # ------------------------------- query ---------------------------- #
 
     def rowwise_query(self, expr: str, **kwargs: Any) -> "TorchQueryCompiler":
@@ -2364,6 +2603,54 @@ class TorchQueryCompiler(BaseQueryCompiler):
         return super().dropna(**kwargs)
 
     # ------------------- idxmin/idxmax, nlargest/nsmallest -------------- #
+
+    # ---------------------------- corr / cov -------------------------- #
+
+    def _try_device_corr_cov(
+        self, method: str, min_periods: int, ddof: int, numeric_only: bool
+    ) -> Optional["TorchQueryCompiler"]:
+        """Pairwise ``corr``/``cov`` of the numeric device columns as one
+        Gram product (``ops/stats.py``); a column of another kind declines,
+        or is left out under ``numeric_only`` where pandas leaves it out."""
+        frame = self._modin_frame
+        if len(frame) == 0 or frame.num_cols == 0:
+            return None
+        if method == "cov" and any(getattr(c.pandas_dtype, "kind", "O") in "mM" for c in frame._columns):
+            return None  # pandas refuses datetimes in cov, numeric_only or not
+        positions = []
+        for i, col in enumerate(frame._columns):
+            kind = getattr(col.pandas_dtype, "kind", "O")
+            if col.is_device and kind in "biuf":
+                positions.append(i)
+            elif not (numeric_only and kind not in "biufc"):
+                return None
+        if not positions:
+            return None
+        mat, _ = stats.corr_cov_matrix(
+            [frame._columns[i].data for i in positions], method, ddof=ddof, min_periods=min_periods
+        )
+        labels = self.get_columns()[positions]
+        import pandas
+
+        return type(self).from_pandas(pandas.DataFrame(mat, index=labels, columns=labels), self._device())
+
+    def corr(self, method: Any = "pearson", min_periods: Any = 1, numeric_only: bool = False, **kwargs: Any):
+        if method == "pearson" and not kwargs:
+            result = self._try_device_corr_cov(
+                "corr", int(min_periods) if min_periods is not None else 1, 1, bool(numeric_only)
+            )
+            if result is not None:
+                return result
+        return super().corr(method=method, min_periods=min_periods, numeric_only=numeric_only, **kwargs)
+
+    def cov(self, min_periods: Any = None, ddof: Any = 1, numeric_only: bool = False, **kwargs: Any):
+        if not kwargs and isinstance(ddof, (int, np.integer)):
+            result = self._try_device_corr_cov(
+                "cov", int(min_periods) if min_periods is not None else 1, int(ddof), bool(numeric_only)
+            )
+            if result is not None:
+                return result
+        return super().cov(min_periods=min_periods, ddof=ddof, numeric_only=numeric_only, **kwargs)
 
     def _device_idx_minmax(self, op: str, axis: Any, skipna: bool, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         import pandas
@@ -2606,9 +2893,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     return None
                 keys.append(enc.codes.data)
                 continue
-            # bool and datetime keys are declined: no sort of bool tensors,
-            # and NaT (int64 min) would sort first whatever na_position says
-            if col.pandas_dtype.kind not in "iuf":
+            # datetime keys are declined, as in the JAX package: NaT (int64
+            # min) would sort first whatever na_position says
+            if col.pandas_dtype.kind not in "biuf":
                 return None
             keys.append(col.data)
         perm = sort_ops.lexsort_permutation(
@@ -2689,8 +2976,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
             lc, rc = lframe.get_column(lp[0]), rframe.get_column(rp[0])
             if lc.is_device and rc.is_device:
                 # exact dtype match: pandas promotes int32 vs int64 keys;
-                # bool keys are declined (no sort of bool tensors)
-                if lc.pandas_dtype.kind not in "iuf" or lc.pandas_dtype != rc.pandas_dtype:
+                # datetime keys are declined, as in the JAX package
+                if lc.pandas_dtype.kind not in "biuf" or lc.pandas_dtype != rc.pandas_dtype:
                     return None
             elif lc.is_device or rc.is_device:
                 return None
@@ -3042,3 +3329,39 @@ for _op in window_ops.EXPANDING_DEVICE_OPS:
     setattr(TorchQueryCompiler, f"expanding_{_op}", _make_window_override("expanding", _op))
 for _op in window_ops.EWM_DEVICE_OPS:
     setattr(TorchQueryCompiler, f"ewm_{_op}", _make_window_override("ewm", _op))
+
+
+def _make_dt_override(name: str, timedelta: bool):
+    """``dt_<name>``: the device field, else the pandas default."""
+    def method(self: TorchQueryCompiler, *args: Any, **kwargs: Any):
+        result = self._try_dt_component(name, args, kwargs, timedelta)
+        if result is not None:
+            return result
+        return getattr(BaseQueryCompiler, f"dt_{name}")(self, *args, **kwargs)
+
+    method.__name__ = f"dt_{name}"
+    return method
+
+
+for _op in datetime_parts.COMPONENT_NAMES:
+    setattr(TorchQueryCompiler, f"dt_{_op}", _make_dt_override(_op, False))
+for _op in datetime_parts.TIMEDELTA_COMPONENT_NAMES:
+    setattr(TorchQueryCompiler, f"dt_{_op}", _make_dt_override(_op, True))
+
+RESAMPLE_DEVICE_OPS = ("sum", "mean", "count", "min", "max", "var", "std", "size")
+
+
+def _make_resample_override(op: str):
+    """``resample_<op>``: the device path, else the pandas default."""
+    def method(self: TorchQueryCompiler, resample_kwargs: dict, *args: Any, **kwargs: Any):
+        result = None if args else self._try_device_resample(op, resample_kwargs, dict(kwargs))
+        if result is not None:
+            return result
+        return getattr(BaseQueryCompiler, f"resample_{op}")(self, resample_kwargs, *args, **kwargs)
+
+    method.__name__ = f"resample_{op}"
+    return method
+
+
+for _op in RESAMPLE_DEVICE_OPS:
+    setattr(TorchQueryCompiler, f"resample_{_op}", _make_resample_override(_op))

@@ -199,6 +199,34 @@ def unary_op_columns(op_name: str, cols: List[torch.Tensor]) -> List[torch.Tenso
     return [fn(c) for c in cols]
 
 
+# numpy's math ufuncs of one argument (``np.sqrt(df)``; the JAX package's
+# ``_MATH_UNARY``); torch's sign is 0 at NaN where numpy's is NaN
+MATH_UNARY = frozenset(
+    ["sqrt", "exp", "log", "log2", "log10", "sin", "cos", "tan", "tanh", "floor", "ceil", "sign"]
+)
+_MATH_FN: Dict[str, Callable] = {
+    **{name: getattr(torch, name) for name in MATH_UNARY},
+    "sign": lambda x: torch.where(torch.isnan(x), x, torch.sign(x)) if x.is_floating_point() else torch.sign(x),
+}
+
+
+def math_unary_columns(op_name: str, cols: List[torch.Tensor]) -> List[torch.Tensor]:
+    """numpy's ufunc ``op_name`` over device columns, in numpy's result
+    dtype: ints become float64 (int8 float16, int16 float32), floats keep
+    theirs; an int result (``sign``; ``floor``/``ceil`` where numpy keeps
+    ints) stays int.  numpy's float16 loops compute in float32 and round,
+    as this does."""
+    out = []
+    for c in cols:
+        dtype = getattr(np, op_name)(np.empty(0, numpy_dtype(c.dtype))).dtype
+        if dtype.kind in "iu":
+            out.append(_MATH_FN[op_name](c) if op_name == "sign" else c)
+            continue
+        work = torch.float32 if dtype == np.float16 else torch_dtype(dtype)
+        out.append(_MATH_FN[op_name](c.to(work)).to(torch_dtype(dtype)))
+    return out
+
+
 def _shift_one(c: torch.Tensor, n: int, periods: int, as_diff: bool) -> torch.Tensor:
     k = abs(periods)
     if k == 0:

@@ -42,6 +42,8 @@ def _order_one(key: torch.Tensor, ascending: bool, na_last: bool) -> torch.Tenso
         if ascending != na_last:
             t = torch.where(nan, _NAN_LOW, t)
         key = t
+    elif key.dtype == torch.bool:
+        key = key.view(torch.uint8)  # torch sorts no bool tensor
     return torch.sort(key, stable=True, descending=not ascending).indices
 
 

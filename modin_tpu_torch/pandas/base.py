@@ -7,9 +7,11 @@ operations, and generated default-to-pandas fallbacks
 exists.  What the device does not run goes to pandas through the compiler's
 one counted default (``query_compiler.DEFAULTS_TO_PANDAS``).  ``rolling``,
 ``expanding`` and ``ewm`` return the port's window objects
-(``pandas/window.py``).  Left out, as later slices of the port: the backend
-switching between compilers and ``resample`` (it defaults to pandas and
-hands back pandas' own object).  ``to_csv`` (and the
+(``pandas/window.py``), and ``resample`` its ``Resampler``
+(``pandas/resample.py``).  The numpy math ufuncs of one argument
+(``np.sqrt(df)`` and the others of the compiler's ``unary_math``) go through
+the compiler; other ufuncs apply to the pandas object.  Left out, as a
+later slice of the port: the backend switching between compilers.  ``to_csv`` (and the
 DataFrame's ``to_parquet``/``to_feather``) go through the IO dispatchers
 (``FactoryDispatcher``); the other writers default to pandas.
 """
@@ -362,7 +364,17 @@ class BasePandasDataset:
         return arr
 
     def __array_ufunc__(self, ufunc: np.ufunc, method: str, *inputs: Any, **kwargs: Any) -> Any:
-        """Numpy universal-function protocol: materialize, apply, wrap back."""
+        """Numpy universal-function protocol: a math ufunc of this object
+        alone through the compiler's ``unary_math``; any other call
+        materializes, applies and wraps back."""
+        if (
+            method == "__call__"
+            and not kwargs
+            and len(inputs) == 1
+            and inputs[0] is self
+            and ufunc.__name__ in getattr(self._query_compiler, "MATH_UNARY", ())
+        ):
+            return self._create_or_update_from_compiler(self._query_compiler.unary_math(ufunc.__name__))
         pandas_inputs = [
             obj._to_pandas() if isinstance(obj, BasePandasDataset) else obj
             for obj in inputs
@@ -811,6 +823,16 @@ class BasePandasDataset:
             self, com=com, span=span, halflife=halflife, alpha=alpha, min_periods=min_periods,
             adjust=adjust, ignore_na=ignore_na, times=try_cast_to_pandas(times, squeeze=True),
             method=method,
+        )
+
+    def resample(self, rule: Any, axis: Any = no_default, closed: Any = None, label: Any = None,
+                 convention: Any = no_default, on: Any = None, level: Any = None,
+                 origin: Any = "start_day", offset: Any = None, group_keys: bool = False):
+        from modin_tpu_torch.pandas.resample import Resampler
+
+        return Resampler(
+            self, rule=rule, closed=closed, label=label, on=on, level=level,
+            origin=origin, offset=offset, group_keys=group_keys,
         )
 
     def rank(

@@ -7,6 +7,8 @@ integers: equality is exact.  The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` holds it against ``bincount_plain`` there).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,16 @@ from modin_tpu.ops.pallas.groupby_kernels import pallas_bincount
 import modin_tpu_torch
 from modin_tpu_torch.ops.cuda import build
 from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)

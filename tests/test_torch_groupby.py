@@ -10,6 +10,8 @@ and counts exactly, float sums and means to ``rtol=1e-12`` because the two
 packages add in different orders; min/max exactly.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,16 @@ from modin_tpu_torch.config import GroupbyRangeLimit
 from modin_tpu_torch.ops import groupby as gb
 
 N = 3_000
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)

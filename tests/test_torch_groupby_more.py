@@ -17,6 +17,8 @@ grouped cumsum after +/-inf, an int32 grouped cumsum's dtype) the port
 follows pandas and is held to pandas there.
 """
 
+import threading
+
 import numpy as np
 import pandas
 import pytest
@@ -36,6 +38,16 @@ from modin_tpu_torch.ops import groupby as gb
 N = 3_000
 RTOL = 1e-12
 ATOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)

@@ -13,6 +13,7 @@ import ast
 import pathlib
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pandas
@@ -28,6 +29,16 @@ from modin_tpu_torch.core.storage_formats.torch.query_compiler import (
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO_ROOT / "modin_tpu_torch"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 def _forbidden(module: str) -> bool:

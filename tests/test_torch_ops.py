@@ -14,6 +14,8 @@ libraries sum in different orders, and float32 keeps ~7 digits over 1000
 terms.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,16 @@ import modin_tpu_torch
 from modin_tpu_torch.ops import elementwise, reductions
 
 N = 1_000
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)

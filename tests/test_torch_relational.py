@@ -11,6 +11,8 @@ value: its gathers across the sharded CPU mesh turn -0.0 into 0.0 (a
 cross-shard sum), which ``assert_array_equal`` treats as equal.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,16 @@ from modin_tpu.parallel.engine import JaxWrapper
 
 import modin_tpu_torch
 from modin_tpu_torch.ops import join, sort, structural
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)

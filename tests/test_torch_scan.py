@@ -13,6 +13,8 @@ zero.  The CUDA kernel itself runs only on the card (``chip_smoke.py``
 holds it against ``scan_plain`` there at 1e8 rows).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,16 @@ from modin_tpu_torch.ops.cuda import scan_kernels as sk
 
 RTOL = 1e-12
 ATOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)

@@ -10,6 +10,8 @@ move), and a frame built with ``from_numpy_columns`` from the JAX frame's
 own columns must answer the same.
 """
 
+import threading
+
 import numpy as np
 import pandas
 import pytest
@@ -23,6 +25,16 @@ from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
 from modin_tpu_torch.core.storage_formats.torch.query_compiler import (
     TorchQueryCompiler,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,7 @@ package's rounding leaves ~1e-13: those cases are held to pandas.
 """
 
 import itertools
+import threading
 
 import numpy as np
 import pandas
@@ -44,6 +45,16 @@ from modin_tpu_torch.pandas.window import Ewm, Expanding, Rolling
 RTOL = 1e-9
 ATOL = 1e-12
 N = 400
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's per-fetch watchdog threads end before the next
+    test file runs in this worker (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture(autouse=True)
