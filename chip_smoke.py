@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
                           [--float-rows N] [--io-rows N] [--window-rows N]
-                          [--clean-rows N] [--dates-rows N] [--seed S]
-                          [--phases main,float,relational,arithmetic,io,window,clean,dates]
+                          [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--seed S]
+                          [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion]
 
 Phases, one JSON object per line each:
 
@@ -23,7 +23,15 @@ Phases, one JSON object per line each:
              ``torch.cumsum``, the same function), block widths forward and
              in reverse; ten launches bit for bit; each case's bound from
              its own bytes (16 or 24 a row); then ragged and misaligned
-             shapes in every mode.
+             shapes in every mode.  Then the fused expression kernel
+             (``fused.cu``) against ``run_program_plain`` at 1e8 rows, bit
+             for bit and ten launches repeating: ``a * b + c`` over float64
+             kept (beside ``torch.addcmul``), with a sum tail and with a
+             var tail (two launches), an int64 chain with floor division,
+             modulo and wrapping, and a 150-node program over 8 leaves;
+             and one node of every op over every dtype (NaN, +/-inf,
+             +/-0.0, int extremes) against a column of every dtype or a
+             scalar, bit for bit (``fused_grid_check``).
 4. main    - the asv main path (``make_frame((N, 10), ngroups=g)`` for
              g in 100 and 10 000, plus a key of range 1e6) through
              ``modin_tpu_torch.pandas``: from_pandas, add/mul/mod/abs,
@@ -127,13 +135,29 @@ Phases, one JSON object per line each:
              ``corr`` being off in its smallest entries and at the
              offset), no query defaults to pandas, and the groupby by two
              ``.dt`` keys launches the bincount kernel.
+12. fusion - deferred chains at ``--fusion-rows`` (2e7): ``df * 2 + 1``,
+             ``(df - df.mean()) / df.std()``, ``df1 + df2 * df1``, ``a * b +
+             c`` with each reduction tail with and without ``skipna``,
+             ``.sum(axis=1)`` of a chain, a filter on a lazy mask,
+             ``np.sqrt(df.abs()) + 1``, ``fillna(0).clip(-1, 1).round(2)``,
+             float32 and int8/uint8 wrapping, int and float floor division
+             and modulo, a diamond, a bool chain, a 161-node chain (past the
+             depth cap) and ``df * 2`` then ``df * 3`` (one program).  Each
+             equals pandas (bit for bit; rtol 1e-12 where sums reorder; 2 n
+             eps for the product; the moment bound for skew/kurt) and the
+             same programs through ``run_program_plain`` on the card bit for
+             bit, no query defaults to pandas, and each launches the fused
+             kernel as often as predicted.  Every earlier phase runs its
+             elementwise queries through the fused kernel too; the kernels
+             line gives its launches on every path.
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
-default), the arithmetic phase at ``--arithmetic-rows`` (5e7) and the window
-and dates phases at ``--window-rows`` and ``--dates-rows`` (5e6 each) so
-that the whole script stays well inside
-its time limit; the kernel checks run at ``--rows``.  ``--phases`` picks the phases after the kernel check for a
-quick run; only a run of all eight prints the result lines.  Then the card's name and power limit, one
+default), the arithmetic phase at ``--arithmetic-rows`` (5e7), the window
+and dates phases at ``--window-rows`` and ``--dates-rows`` (5e6 each) and
+the fusion phase at ``--fusion-rows`` (2e7) so that the whole script stays
+well inside its time limit; the kernel checks run at ``--rows``.  ``--phases``
+picks the phases after the kernel check for a quick run; only a run of all
+nine prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
@@ -154,7 +178,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates")
+ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -336,7 +360,8 @@ def phase_kernel(rows: int, seed: int) -> dict:
         check_and_time(codes, width, "one_slot")
         del codes
     free_device_memory()
-    return {"cap": cap, "by_width": by_width, "max_abs_err": max_err, "scan": scan_check(rows, seed)}
+    return {"cap": cap, "by_width": by_width, "max_abs_err": max_err, "scan": scan_check(rows, seed),
+            "fused": fused_check(rows, seed)}
 
 
 # ---------------------------------------------------------------------- #
@@ -521,6 +546,225 @@ def scan_edge_check(seed: int, compare) -> float:
 
 
 # ---------------------------------------------------------------------- #
+# 3c. the fused elementwise kernel against its plain version
+# ---------------------------------------------------------------------- #
+
+# H100 SXM float64 rate outside the tensor cores (NVIDIA data sheet), for
+# the operations bound of a float64 program
+F64_FLOPS = 34e12
+FUSED_REPEATS = 10
+
+
+def fused_program_150(leaves):
+    """A 150-node float64 chain over 8 leaf columns (120 column ops, 30 by
+    a scalar): one program of 151 instructions, near the kernel's caps."""
+    from modin_tpu_torch.ops import elementwise as ew
+
+    e = ew.binary_op_columns("mul", [leaves[0]], [leaves[1]])[0]
+    ops = ("add", "sub", "mul", "add")
+    for k in range(1, 150):
+        if k % 5 == 0:
+            e = ew.binary_op_columns("mul", [e], 0.5)[0]
+        else:
+            e = ew.binary_op_columns(ops[k % 4], [e], [leaves[k % 8]])[0]
+    return e
+
+
+GRID_ROWS = 4099
+GRID_DTYPES = ("bool", "int8", "int16", "int32", "int64", "uint8", "float32", "float64")
+GRID_BINARY = ("add", "sub", "mul", "truediv", "floordiv", "mod", "pow", "eq", "ne", "lt", "le", "gt", "ge",
+               "__and__", "__or__", "__xor__", "radd", "rsub", "rtruediv", "rfloordiv", "rmod", "rpow")
+GRID_SCALARS = (2, -3, 2.5, 0.1, 0.5, -1, 3, -0.5, -2, True, np.float32(1.5), np.int8(3))
+
+
+def fused_grid_check(seed: int) -> dict:
+    """One node of every op the fused kernel takes, over columns of every
+    dtype (NaN, +/-inf, +/-0.0 and the int extremes among them) against a
+    column of every dtype or a scalar: the kernel against
+    ``run_program_plain`` on the card, bit for bit.  Pairs the eager op
+    refuses (``bool - bool``, bitwise ops of floats) are skipped, as the
+    deferred op refuses them too."""
+    import torch
+
+    from modin_tpu_torch.ops import elementwise as ew
+    from modin_tpu_torch.ops import lazy
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(seed + 11)
+
+    def column(dt):
+        if dt == "bool":
+            return rng.random(GRID_ROWS) < 0.5
+        if dt.startswith("float"):
+            x = rng.normal(0, 10, GRID_ROWS)
+            x[rng.random(GRID_ROWS) < 0.1] = np.nan
+            x[:8] = [np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 0.5, 2.0]
+            return x.astype(dt)
+        info = np.iinfo(dt)
+        x = rng.integers(max(info.min, -100), min(info.max, 100), GRID_ROWS).astype(dt)
+        x[:4] = [info.min, info.max, 0, 1 if info.min == 0 else -1]
+        return x
+
+    cols = {dt: torch.as_tensor(column(dt)).to(dev) for dt in GRID_DTYPES}
+    cases = 0
+
+    def check(op, *args, static=()):
+        nonlocal cases
+        try:
+            expr = lazy.lazy_op(op, *args, static=static)
+        except (RuntimeError, TypeError, OverflowError):
+            return
+        if not isinstance(expr, lazy.LazyExpr):
+            return  # a barrier: the eager op itself
+        lin, plan = lazy._plan([expr], None)
+        leaves = lazy._leaf_args(lin, plan[0])
+        got = fk.run_program(plan[0], leaves, lin.scalars, GRID_ROWS)[0][0]
+        want = fk.run_program_plain(plan[0], leaves, lin.scalars, GRID_ROWS)[0][0]
+        g, w = (t.view(torch.int64 if t.element_size() == 8 else torch.int32) if t.is_floating_point() else t
+                for t in (got, want))
+        if got.dtype != want.dtype or not torch.equal(g, w):
+            raise AssertionError(f"fused grid: {op} {[getattr(a, 'dtype', a) for a in args]} {static}: "
+                                 "the kernel differs from run_program_plain")
+        cases += 1
+
+    for op in GRID_BINARY:
+        for dx in GRID_DTYPES:
+            for dy in GRID_DTYPES:
+                check(op, cols[dx], cols[dy])
+            for sc in GRID_SCALARS:
+                check(op, cols[dx], sc)
+    for dx in GRID_DTYPES:
+        x = cols[dx]
+        for op in ("abs", "negative", "invert", "isna", "notna", *sorted(ew.MATH_UNARY)):
+            check(op, x)
+        for d in (-2, -1, 0, 1, 2, 3):
+            check("round", x, static=(("decimals", d),))
+        for target in GRID_DTYPES:
+            check("astype", x, static=(("dtype", target),))
+        for v in (0, 1.5, -2):
+            try:
+                v = ew.cast_scalar(v, x.dtype)
+            except OverflowError:
+                continue
+            for op in ("fillna", "clip_lower", "clip_upper"):
+                check(op, x, v)
+    nat = cols["int64"].clone()
+    nat[::7] = np.iinfo(np.int64).min
+    check("isna_nat", nat)
+    check("notna_nat", nat)
+    rec = {"phase": "kernel", "kernel": "fused", "case": "op_grid", "n": GRID_ROWS, "cases": cases,
+           "exact": True, "max_abs_err": 0.0}
+    emit(rec)
+    return rec
+
+
+def fused_check(rows: int, seed: int) -> dict:
+    """``fused.cu`` against ``run_program_plain`` on the card at ``rows``
+    rows, bit for bit (the plain version takes the kernel's reduction
+    order, so a tail's accumulators match too), ten launches repeating bit
+    for bit; the times of the kernel, the plain version and, where one
+    torch call computes the same function, that call (``torch.addcmul``
+    for ``a * b + c``), beside the bound: each input read and each output
+    written once at 3.35 TB/s, or the float64 operations at 34 TFLOP/s,
+    whichever is larger."""
+    import torch
+
+    from modin_tpu_torch.ops import elementwise as ew
+    from modin_tpu_torch.ops import lazy
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+
+    def f64():
+        return torch.randn(rows, dtype=torch.float64, device=dev, generator=gen)
+
+    def bits(t):
+        return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+    by_case, worst = {}, 0.0
+
+    def case(name, expr, tail, bytes_per_row, flops_per_row, library=None, library_name=None):
+        nonlocal worst
+        lin, plan = lazy._plan([expr], tail)
+        if len(plan) != 1:
+            raise AssertionError(f"fused {name}: {len(plan)} programs, expected one")
+        program = plan[0]
+        leaves = lazy._leaf_args(lin, program)
+        second = tail is not None and tail[1] in ("var", "std")
+
+        def run():
+            outs, acc = fk.run_program(program, leaves, lin.scalars, rows)
+            if second:
+                return fk.run_program(program, leaves, lin.scalars, rows, second_pass=True, first=acc)[1]
+            return outs[0] if outs else acc
+
+        def plain():
+            outs, acc = fk.run_program_plain(program, leaves, lin.scalars, rows)
+            if second:
+                return fk.run_program_plain(program, leaves, lin.scalars, rows, second_pass=True, first=acc)[1]
+            return outs[0] if outs else acc
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"fused {name}: {got.dtype}{tuple(got.shape)} != {want.dtype}{tuple(want.shape)}")
+        if tail is None and got.dtype.is_floating_point:
+            err = float(torch.nan_to_num((got - want).abs(), nan=0.0).max())
+        else:
+            gv = got[:, 0].contiguous().view(torch.float64) if tail is not None else got.double()
+            wv = want[:, 0].contiguous().view(torch.float64) if tail is not None else want.double()
+            err = float((gv - wv).abs().max())
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"fused {name}: the kernel differs from run_program_plain (max abs err {err})")
+        for _ in range(FUSED_REPEATS):
+            if not torch.equal(bits(run()), bits(got)):
+                raise AssertionError(f"fused {name}: a launch did not repeat bit for bit")
+        worst = max(worst, err)
+        bound = max(bytes_per_row * rows / HBM_BYTES_PER_S, flops_per_row * rows / F64_FLOPS) * 1e3
+        rec = {
+            "phase": "kernel", "kernel": "fused", "case": name, "n": rows,
+            "instructions": len(program.instrs), "registers": program.n_regs, "leaves": len(leaves),
+            "exact": True, "max_abs_err": err,
+            "kernel_ms": cuda_ms(run),
+            "plain_ms": cuda_ms(plain, reps=3),
+            "library_ms": cuda_ms(library) if library is not None else None, "library": library_name,
+            "bound_ms": bound, "bytes_per_row": bytes_per_row,
+            "bound_by": "bytes" if bytes_per_row / HBM_BYTES_PER_S >= flops_per_row / F64_FLOPS else "operations",
+        }
+        emit(rec)
+        by_case[name] = rec
+
+    a, b, c = f64(), f64(), f64()
+
+    def chain():
+        return ew.binary_op_columns("add", ew.binary_op_columns("mul", [a], [b]), [c])[0]
+
+    case("axpb_f64", chain(), None, 32, 2, lambda: torch.addcmul(c, a, b), "torch.addcmul(c, a, b)")
+    case("axpb_f64_sum", chain(), ("reduce", "sum", True, 1, False), 24, 3)
+    # two launches read the inputs twice; the function itself needs them once
+    case("axpb_f64_var", chain(), ("reduce", "var", True, 1, False), 24, 8)
+    del a, b, c
+    free_device_memory()
+    x = torch.randint(-2**62, 2**62, (rows,), dtype=torch.int64, device=dev, generator=gen)
+    y = torch.randint(1, 1000, (rows,), dtype=torch.int64, device=dev, generator=gen)
+    mixed = ew.binary_op_columns("add", ew.binary_op_columns("mul", [x], 6364136223846793005), [y])[0]
+    wrapped = ew.binary_op_columns("mod", ew.binary_op_columns("floordiv", [mixed], -97), 1000)[0]
+    case("int64_floordiv_mod_wrap", ew.binary_op_columns("sub", [wrapped], ew.binary_op_columns("mul", [x], 3))[0],
+         None, 24, 0)
+    del x, y, mixed, wrapped
+    free_device_memory()
+    leaves = [f64() for _ in range(8)]
+    case("program_150", fused_program_150(leaves), None, 72, 150)
+    del leaves
+    free_device_memory()
+    grid = fused_grid_check(seed)
+    return {"by_case": by_case, "max_abs_err": worst, "grid_cases": grid["cases"]}
+
+
+# ---------------------------------------------------------------------- #
 # 4-5. the main path and the float path
 # ---------------------------------------------------------------------- #
 
@@ -591,7 +835,8 @@ def assert_same_pandas(got, want, what: str, exact: bool = False) -> None:
 
 def assert_on_cuda(qc, what: str) -> None:
     for col in qc._modin_frame._columns:
-        if not col.is_device or col.data.device.type != "cuda":
+        # the column's device, a deferred one's without computing it
+        if not col.is_device or col.device.type != "cuda":
             raise AssertionError(f"{what}: a value column is not on cuda")
 
 
@@ -1894,7 +2139,7 @@ def assert_device_values_on_cuda(qc, what: str) -> None:
     from modin_tpu_torch.core.dataframe.torch.dataframe import _is_device_dtype
 
     for col in qc._modin_frame._columns:
-        if _is_device_dtype(col.pandas_dtype) and (not col.is_device or col.data.device.type != "cuda"):
+        if _is_device_dtype(col.pandas_dtype) and (not col.is_device or col.device.type != "cuda"):
             raise AssertionError(f"{what}: a value column is not on cuda")
 
 
@@ -2209,15 +2454,247 @@ def phase_dates(rows: int, seed: int, workdir: str) -> dict:
     return launches
 
 
-def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
+# ---------------------------------------------------------------------- #
+# 12. lazy fusion: deferred chains, one fused launch per consumer
+# ---------------------------------------------------------------------- #
+
+FUSION_TAILS = ("sum", "mean", "count", "min", "max", "prod", "var", "std", "sem", "skew", "kurt", "any", "all")
+# fused launches of the 161-node chain: past lazy._MAX_NODES it materializes,
+# and its 160 scalars need five programs of at most 32 scalar slots (the
+# planner is deterministic: the count is the same on the CPU and the card)
+CHAIN_161_LAUNCHES = 6
+
+
+def fusion_frames(rows: int, seed: int) -> dict:
+    """The fusion phase's pandas frames: two asv int frames (``p``,
+    ``p2``), phase 5's NaN float frame with +/-inf rows plus a float32, an
+    int8, a uint8 and a bool column (``f``), and three float columns with
+    1 % NaN whose ``a * b + c`` is 1 +/- ~3e-3: its product stays finite at
+    2e7 rows (about exp(-n * 3.6e-6)), and its second to fourth moments lie
+    far above pandas' 1e-14 round-off thresholds (``m``)."""
+    import pandas
+
+    p = _pandas_frame(make_frame_data(rows, seed + 90))
+    p2 = _pandas_frame(make_frame_data(rows, seed + 91))
+    f = pandas.DataFrame(float_frame(rows, seed + 92))
+    f.loc[f.index[5::100_003], "val"] = np.inf
+    f.loc[f.index[7::100_019], "val"] = -np.inf
+    rng = np.random.default_rng(seed + 93)
+    f32 = rng.normal(0, 10, rows).astype(np.float32)
+    f32[rng.random(rows) < 0.01] = np.nan
+    f["f32"] = f32
+    f["i8"] = rng.integers(-128, 128, rows).astype(np.int8)
+    f["u8"] = rng.integers(0, 256, rows).astype(np.uint8)
+    f["flag"] = rng.random(rows) < 0.5
+    m = {}
+    for name, loc, scale in (("a", 0.0, 0.05), ("b", 0.0, 0.05), ("c", 1.0, 1e-3)):
+        v = rng.normal(loc, scale, rows)
+        v[rng.random(rows) < 0.01] = np.nan
+        m[name] = v
+    return {"p": p, "p2": p2, "f": f, "m": pandas.DataFrame(m)}
+
+
+def _chain_161(d):
+    s = d["f"]["i8"]  # int8 wraps as numpy does (and pandas' 161 adds stay cheap)
+    for i in range(161):
+        s = s + (i % 3)
+    return s
+
+
+def fusion_queries(pandas_frames: dict) -> dict:
+    """name -> (query over a dict of frames, tolerance, predicted fused
+    launches): one per materialized chain, one per reduction tail (two for
+    var/std/sem/skew/kurt, whose second pass sums powers about the first
+    pass's means), CHAIN_161_LAUNCHES for the chain past the depth cap."""
+    floats = ["key", "val", "f32"]
+    queries = {
+        "mul2_add1": (lambda d: d["p"] * 2 + 1, EXACT, 1),
+        "standardize": (lambda d: (d["m"] - d["m"].mean()) / d["m"].std(), RTOL, 1),
+        "df1_plus_df2_times_df1": (lambda d: d["p"] + d["p2"] * d["p"], EXACT, 1),
+        "sum_axis1": (lambda d: (d["p"] * 2 + 1).sum(axis=1), EXACT, 1),
+        "filter_and": (lambda d: d["p"][(d["p"]["col0"] > 50) & (d["p"]["col1"] < 5)], EXACT, 1),
+        "sqrt_abs_plus1": (lambda d: np.sqrt(d["f"][floats].abs()) + 1, EXACT, 1),
+        "fillna_clip_round": (lambda d: d["f"][floats].fillna(0).clip(-1, 1).round(2), EXACT, 1),
+        "f32_chain": (lambda d: d["f"]["f32"] * 0.1 + 2, EXACT, 1),
+        "i8_wrap": (lambda d: d["f"]["i8"] * 3 + 100, EXACT, 1),
+        "u8_wrap": (lambda d: d["f"]["u8"] - 200, EXACT, 1),
+        "i8_plus_u8": (lambda d: d["f"]["i8"] + d["f"]["u8"], EXACT, 1),
+        "int_floordiv_mod": (lambda d: d["p"] // 7 + (d["p"] % -5) * 1000, EXACT, 1),
+        "float_floordiv": (lambda d: d["f"]["val"] // 0.1, EXACT, 1),
+        "float_mod": (lambda d: d["f"]["val"] % 0.3, EXACT, 1),
+        "diamond": (lambda d: (lambda x: x * x - x)(d["m"]["a"] + d["m"]["b"]), EXACT, 1),
+        "bool_chain": (lambda d: (d["f"]["flag"] & (d["f"]["key"] > 50)) | (d["f"]["i8"] < 0), EXACT, 1),
+        "chain_161": (_chain_161, EXACT, CHAIN_161_LAUNCHES),
+        "mul2": (lambda d: d["p"] * 2, EXACT, 1),
+        "mul3": (lambda d: d["p"] * 3, EXACT, 1),
+    }
+    m = pandas_frames["m"]
+    axpb = (m["a"] * m["b"] + m["c"]).to_frame()
+    for op in FUSION_TAILS:
+        for skipna in ((True,) if op == "count" else (True, False)):
+            if op in ("skew", "kurt"):
+                k = 3 if op == "skew" else 4
+                tol = Tol(op, rtol=FLOAT_RTOL, atol=moment_tol(axpb, k),
+                          why=f"rtol {FLOAT_RTOL} + the bound of a standardized {k}-th moment summed in another order")
+            elif op in ("min", "max", "count", "any", "all"):
+                tol = EXACT
+            elif op == "prod":
+                n = len(axpb)
+                tol = Tol("prod", rtol=2 * n * EPS64, why=f"rtol 2 n eps = {2 * n * EPS64:.3g}: a product of "
+                          f"n factors in another order")
+            else:
+                tol = RTOL
+            kw = {} if op == "count" else {"skipna": skipna}
+            queries[f"axpb_{op}" + ("" if skipna else "_noskip")] = (
+                lambda d, op=op, kw=kw: getattr(d["m"]["a"] * d["m"]["b"] + d["m"]["c"], op)(**kw),
+                tol, 2 if op in ("var", "std", "sem", "skew", "kurt") else 1)
+    return queries
+
+
+def _same_device_values(got, want, what: str) -> None:
+    """Two port results with equal columns on the device, bit for bit."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int64 if t.element_size() == 8 else torch.int32) if t.is_floating_point() else t
+
+    if hasattr(want, "_query_compiler"):
+        gcols, wcols = got._query_compiler._modin_frame._columns, want._query_compiler._modin_frame._columns
+        if len(gcols) != len(wcols):
+            raise AssertionError(f"{what}: {len(gcols)} columns != {len(wcols)}")
+        for g, w in zip(gcols, wcols):
+            if g.dtype != w.dtype or not torch.equal(bits(g.data), bits(w.data)):
+                raise AssertionError(f"{what}: a column differs")
+    else:
+        _scalar_close(got, want, what, EXACT)
+
+
+def _scalar_close(got, want, what: str, tol) -> None:
+    g, w = np.asarray(got), np.asarray(want)
+    if g.dtype != w.dtype:
+        raise AssertionError(f"{what}: dtype {g.dtype} != {w.dtype}")
+    if w.dtype.kind != "f" or tol.kind == "exact":
+        if not np.array_equal(g, w, equal_nan=w.dtype.kind == "f"):
+            raise AssertionError(f"{what}: {got!r} != {want!r}")
+        return
+    atol = tol.atol or 0.0
+    if np.isnan(w) != np.isnan(g) or (np.isfinite(w) and abs(float(g) - float(w)) > atol + tol.rtol * abs(float(w))):
+        raise AssertionError(f"{what}: {got!r} != {want!r} within {tol.describe()}")
+
+
+class _PlainRoute:
+    """Within the block, a fused program runs through ``run_program_plain``
+    on the card (the eager torch ops the fused launch replaces)."""
+
+    def __enter__(self):
+        from modin_tpu_torch.ops.cuda import fused_kernels as fk
+
+        self.fk, self.launch = fk, fk.run_program
+
+        def plain(program, leaves, scalars, n, *, second_pass=False, first=None, device=None):
+            return fk.run_program_plain(program, leaves, scalars, n, second_pass=second_pass, first=first)
+
+        fk.run_program = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.fk.run_program = self.launch
+
+
+def phase_fusion(rows: int, seed: int) -> int:
+    """Deferred chains through ``modin_tpu_torch.pandas`` at ``rows`` rows
+    (``--fusion-rows``): elementwise chains, a chain with each reduction
+    tail, a row-wise sum, a filter on a lazy mask, the maps, float32 and
+    int8/uint8 wrapping, int and float floor division and modulo, a
+    diamond, a chain past the depth cap and one program run with two
+    scalars.  Each result equals pandas' (bit for bit, rtol 1e-12 where
+    sums reorder, the moment bound for skew/kurt) and the same programs
+    through ``run_program_plain`` on the card bit for bit; no query
+    defaults to pandas; each query launches the fused kernel as often as
+    predicted.  Returns the fused launches."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops import lazy
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+
+    t_phase = time.perf_counter()
+    frames = fusion_frames(rows, seed)
+    port = {k: tpd.from_pandas(v) for k, v in frames.items()}
+    queries = fusion_queries(frames)
+    fk.LAUNCHES = 0
+    tqc.DEFAULTS_TO_PANDAS = 0
+    totals = {"port_ms": 0.0, "pandas_ms": 0.0, "plain_ms": 0.0}
+
+    def materialized(x):
+        if hasattr(x, "_query_compiler"):
+            x._query_compiler.execute()
+        return x
+
+    def fetch(x):
+        return tpd.to_pandas(x) if hasattr(x, "_query_compiler") else x
+
+    for name, (fn, tol, predicted) in queries.items():
+        cached = lazy.fused_cache_len()
+        launches = fk.LAUNCHES
+        result, port_ms = host_ms(lambda: materialized(fn(port)))
+        launches = fk.LAUNCHES - launches
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"fusion {name}: the query defaulted to pandas")
+        if launches != predicted:
+            raise AssertionError(f"fusion {name}: {launches} fused launches, predicted {predicted}")
+        if name == "mul3" and lazy.fused_cache_len() != cached:
+            raise AssertionError("fusion mul3: df * 3 compiled a program where df * 2's serves")
+        if hasattr(result, "_query_compiler"):
+            assert_on_cuda(result._query_compiler, name)
+        with _PlainRoute():
+            plain, plain_ms = host_ms(lambda: materialized(fn(port)))
+        _same_device_values(result, plain, f"fusion {name} (kernel against plain)")
+        del plain
+        got, to_pandas_ms = host_ms(lambda: fetch(result))
+        del result
+        t0 = time.perf_counter()
+        want = fn(frames)
+        pandas_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(want, (pandas.DataFrame, pandas.Series)):
+            if tol.kind == "exact":
+                assert_bitwise_pandas(got, want, f"fusion {name}")
+            else:
+                assert_close_pandas(got, want, f"fusion {name}", tol)
+        else:
+            _scalar_close(got, want, f"fusion {name}", tol)
+        totals["port_ms"] += port_ms
+        totals["pandas_ms"] += pandas_ms
+        totals["plain_ms"] += plain_ms
+        emit({"phase": "fusion", "query": name, "rows": rows, "out_shape": list(getattr(got, "shape", ())),
+              "port_ms": port_ms, "plain_ms": plain_ms, "pandas_ms": pandas_ms, "to_pandas_ms": to_pandas_ms,
+              "fused_launches": launches, "predicted_launches": predicted, "tolerance": tol.describe(),
+              "match": True})
+        if isinstance(want, (pandas.DataFrame, pandas.Series)):
+            del got, want
+            gc.collect()
+    launched = fk.LAUNCHES
+    del port, frames
+    free_device_memory()
+    emit({"phase": "fusion", "fused_launches": launched, "barriers": lazy.BARRIERS, "defaults_to_pandas": 0,
+          **totals, "seconds": time.perf_counter() - t_phase})
+    return launched
+
+
+def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
     ``io``, ``window``, ``clean``, ``dates``) to its kernels' launches; the ``launches``
     of a kernel's entry is its own path's: bincount's the main path's,
-    scan's the window path's (the clean path's ``rank`` runs it too)."""
+    scan's the window path's (the clean path's ``rank`` runs it too), the
+    fused kernel's the fusion path's (``fused_by_path``: its launches on
+    every path, each counted from 0 just before that path ran)."""
     by_width = kernel["by_width"]
     main = by_width[100]
     scan = kernel["scan"]["by_case"]
     head = scan["seg_add_f64_nocodes"]
+    fused = kernel["fused"]["by_case"]
+    fhead = fused["axpb_f64"]
     bincount_paths = {k: v["bincount"] if isinstance(v, dict) else v for k, v in launches.items()}
     return {"kernels": [{
         "name": "bincount",
@@ -2265,6 +2742,30 @@ def kernels_line(kernel: dict, launches: dict, rows: int) -> dict:
                                   "bytes_per_row", "max_abs_err", "tolerance")}
             for k, v in scan.items()
         },
+    }, {
+        "name": "fused",
+        "route": "cuda",
+        "source": "modin_tpu_torch/ops/cuda/csrc/fused.cu",
+        "replaces": "modin_tpu/ops/lazy.py:288 (run_fused) over modin_tpu/ops/elementwise.py:63 (_build_ops): "
+                    "XLA programs, not Pallas kernels",
+        "launches": fused_by_path["fusion"],
+        "launches_by_path": fused_by_path,
+        "max_abs_err": kernel["fused"]["max_abs_err"],
+        "grid_cases_bitwise": kernel["fused"]["grid_cases"],
+        "n": rows,
+        "case": "axpb_f64",
+        "ms": fhead["kernel_ms"],
+        "plain_ms": fhead["plain_ms"],
+        "bound_ms": fhead["bound_ms"],
+        "bound_by": fhead["bound_by"],
+        "library_ms": fhead["library_ms"],
+        "library": "torch.addcmul(c, a, b) for a * b + c; no torch call computes a chain with a tail or "
+                   "the 150-node program",
+        "by_case": {
+            k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                  "bytes_per_row", "instructions", "registers", "max_abs_err")}
+            for k, v in fused.items()
+        },
     }]}
 
 
@@ -2293,13 +2794,15 @@ def main(argv=None) -> int:
     # (pandas' references 64-71 s of it), past its 100 s share
     parser.add_argument("--dates-rows", type=int, default=5 * 10**6,
                         help="rows of the dates phase's frames")
+    parser.add_argument("--fusion-rows", type=int, default=2 * 10**7,
+                        help="rows of the fusion phase's frames")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
                         "each after a warm-up (no checks, no result lines)")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all eight)")
+                        "(the result lines need all nine)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2339,35 +2842,50 @@ def main(argv=None) -> int:
         emit({"phase": "arithmetic", "note": f"host memory {mem_available_gib():.0f} GiB "
               f"cannot hold the 1e8-row frames: rows cut to {rows}"})
     kernel = phase_kernel(args.rows, args.seed)
-    launches = {}
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+
+    launches, fused_by_path = {}, {}
+
+    def run(name, fn, *fn_args):
+        """One path, its fused launches counted from 0 just before it."""
+        fk.LAUNCHES = 0
+        out = fn(*fn_args)
+        fused_by_path[name] = fk.LAUNCHES
+        return out
+
     if "main" in phases:
-        launches["main"] = phase_main(earlier_rows, args.seed, have_pandas)["bincount"]
+        launches["main"] = run("main", phase_main, earlier_rows, args.seed, have_pandas)["bincount"]
     if "float" in phases:
-        phase_float(args.float_rows, args.seed, have_pandas)
+        run("float", phase_float, args.float_rows, args.seed, have_pandas)
     if not have_pandas:
         print("chip_smoke: the relational and arithmetic phases need pandas, their "
               "reference", file=sys.stderr)
         return 1
     if "relational" in phases:
-        launches["relational"] = phase_relational(earlier_rows, args.seed)
+        launches["relational"] = run("relational", phase_relational, earlier_rows, args.seed)
     if "arithmetic" in phases:
-        launches["arithmetic"] = phase_arithmetic(rows, args.seed)
+        launches["arithmetic"] = run("arithmetic", phase_arithmetic, rows, args.seed)
     if "io" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as workdir:
-            launches["io"] = phase_io(args.io_rows, args.seed, workdir)
+            launches["io"] = run("io", phase_io, args.io_rows, args.seed, workdir)
     if "window" in phases:
-        launches["window"] = phase_window(args.window_rows, args.float_rows, args.seed)
+        launches["window"] = run("window", phase_window, args.window_rows, args.float_rows, args.seed)
     if "clean" in phases:
-        launches["clean"] = phase_clean(args.clean_rows, args.seed)
+        launches["clean"] = run("clean", phase_clean, args.clean_rows, args.seed)
     if "dates" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_dates_") as workdir:
-            launches["dates"] = phase_dates(args.dates_rows, args.seed, workdir)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+            launches["dates"] = run("dates", phase_dates, args.dates_rows, args.seed, workdir)
+    if "fusion" in phases:
+        run("fusion", phase_fusion, args.fusion_rows, args.seed)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path})
+    for name in ("main", "arithmetic", "clean", "fusion"):
+        if name in fused_by_path and fused_by_path[name] == 0:
+            raise AssertionError(f"the {name} path never launched the fused kernel")
     if phases != set(ALL_PHASES):
         print("chip_smoke: a partial run prints no result", file=sys.stderr)
         return 1
     print(smi, flush=True)
-    emit(kernels_line(kernel, launches, args.rows))
+    emit(kernels_line(kernel, launches, fused_by_path, args.rows))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

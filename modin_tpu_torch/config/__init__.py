@@ -3,9 +3,10 @@
 from modin_tpu_torch.config.envvars import (
     CpuCount,
     Device,
+    FusedCacheSize,
     GroupbyRangeLimit,
     KernelRouterHistBound,
     Parameter,
 )
 
-__all__ = ["CpuCount", "Device", "GroupbyRangeLimit", "KernelRouterHistBound", "Parameter"]
+__all__ = ["CpuCount", "Device", "FusedCacheSize", "GroupbyRangeLimit", "KernelRouterHistBound", "Parameter"]

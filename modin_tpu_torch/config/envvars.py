@@ -3,8 +3,9 @@
 The port's counterpart of ``modin_tpu/config/envvars.py``, cut to what the
 port runs: the device that holds the columns, the widest key range that
 groupby codes directly instead of sorting, the widest value range that
-``nunique``/``mode`` count with a histogram instead of sorting, and the
-threads that parse a file in parallel.
+``nunique``/``mode`` count with a histogram instead of sorting, the
+threads that parse a file in parallel, and the bound on the cache of fused
+programs.
 """
 
 from __future__ import annotations
@@ -107,3 +108,24 @@ class CpuCount(Parameter):
     def get(cls) -> int:
         value = super().get()
         return value if value is not None else (os.cpu_count() or 1)
+
+
+class FusedCacheSize(Parameter):
+    """Bound on the cache of compiled fused programs in ``ops/lazy.py``
+    (entries, least recently used first out); 0 leaves it unbounded."""
+
+    varname = "MODIN_TPU_TORCH_FUSED_CACHE_SIZE"
+    default = 256
+
+    @classmethod
+    def _parse(cls, raw: str) -> int:
+        value = int(raw)
+        if value < 0:
+            raise ValueError(f"{cls.varname} must be >= 0, got {raw!r}")
+        return value
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        if not isinstance(value, str) and int(value) < 0:
+            raise ValueError(f"{cls.varname} must be >= 0, got {value!r}")
+        super().put(value)

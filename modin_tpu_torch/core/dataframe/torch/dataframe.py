@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
+from modin_tpu_torch.ops.lazy import LazyExpr, is_lazy, materialize, materialize_exprs
 from modin_tpu_torch.parallel.engine import TorchWrapper
 from modin_tpu_torch.utils import has_torch_dtype, numpy_dtype
 
@@ -42,7 +43,11 @@ def _is_device_dtype(dtype: Any) -> bool:
 
 
 class DeviceColumn:
-    """One column as a 1-D tensor on the frame's device.
+    """One column as a 1-D tensor on the frame's device, or as a deferred
+    expression over such tensors (:class:`~modin_tpu_torch.ops.lazy.
+    LazyExpr`) until a consumer needs its values: ``data`` materializes
+    it, ``raw`` hands it over as it is, so a chain can grow or fold into a
+    reduction.
 
     ``host_cache`` keeps the original host numpy array of a column that came
     from the host unchanged: ``to_numpy`` answers from it without a device
@@ -69,7 +74,27 @@ class DeviceColumn:
 
     @property
     def data(self) -> torch.Tensor:
+        if isinstance(self._data, LazyExpr):
+            self._data = materialize(self._data)
         return self._data
+
+    @property
+    def raw(self) -> Any:
+        """The tensor or the deferred expression, unmaterialized."""
+        return self._data
+
+    @property
+    def is_lazy(self) -> bool:
+        return is_lazy(self._data)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The torch dtype of the values (a lazy column's without computing)."""
+        return self._data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._data.device
 
     @data.setter
     def data(self, value: torch.Tensor) -> None:
@@ -202,7 +227,27 @@ class TorchDataframe:
         nrows = lengths.pop() if lengths else (0 if index is None else len(index))
         return cls(cols, list(columns), index, nrows=nrows)
 
+    def materialize_device(self, positions: Optional[Sequence[int]] = None) -> None:
+        """Materialize the deferred device columns (those at ``positions``,
+        or all) in one fused run: a multi-column consumer calls this before
+        touching ``data``, so N lazy columns cost one launch, not N."""
+        cols = self._columns if positions is None else [self._columns[i] for i in positions]
+        lazy_cols = [c for c in cols if c.is_device and c.is_lazy]
+        if not lazy_cols:
+            return
+        for col, value in zip(lazy_cols, materialize_exprs([c.raw for c in lazy_cols])):
+            col._data = value
+
+    def device_datas(self, positions: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+        """The values of the device columns at ``positions`` (or all), the
+        deferred ones materialized together in one fused run: what a
+        consumer of several columns' values takes."""
+        positions = list(range(len(self._columns))) if positions is None else list(positions)
+        self.materialize_device(positions)
+        return [self._columns[i].data for i in positions]
+
     def to_pandas(self) -> Any:
+        self.materialize_device()
         return self._assemble_pandas(
             {i: c.to_numpy() for i, c in enumerate(self._columns) if c.is_device},
             slice(None),
@@ -213,6 +258,7 @@ class TorchDataframe:
         """Rows ``[start, stop)`` as a pandas DataFrame.  The device columns
         without a host copy come over together, in one device-to-host copy
         of their bytes; the others are sliced on the host."""
+        self.materialize_device()
         fetch = [
             i for i, c in enumerate(self._columns) if c.is_device and c.host_cache is None
         ]
@@ -326,6 +372,7 @@ class TorchDataframe:
     def _take_host_positions(self, pos_arr: np.ndarray) -> "TorchDataframe":
         from modin_tpu_torch.ops.structural import gather_columns
 
+        self.materialize_device()
         device_idx = [i for i, c in enumerate(self._columns) if c.is_device]
         datas, n_out = gather_columns(
             [self._columns[i].data for i in device_idx], pos_arr
@@ -353,9 +400,11 @@ class TorchDataframe:
         from modin_tpu_torch.ops.structural import compact_rows
 
         device_idx = [i for i, c in enumerate(self._columns) if c.is_device]
-        datas, _, positions = compact_rows(
-            [self._columns[i].data for i in device_idx], mask, len(self)
-        )
+        # a lazy mask and the lazy columns materialize in one fused run
+        mask, *values = materialize_exprs([mask] + [self._columns[i].raw for i in device_idx])
+        for i, value in zip(device_idx, values):
+            self._columns[i]._data = value
+        datas, _, positions = compact_rows(values, mask, len(self))
         return self._with_gathered(device_idx, datas, positions)
 
     def take_rows_device(self, positions: torch.Tensor, index: Optional[LazyIndex] = None) -> "TorchDataframe":
@@ -364,6 +413,7 @@ class TorchDataframe:
         taken lazily."""
         from modin_tpu_torch.ops.structural import gather_columns_device
 
+        self.materialize_device()
         device_idx = [i for i, c in enumerate(self._columns) if c.is_device]
         datas = gather_columns_device([self._columns[i].data for i in device_idx], positions)
         return self._with_gathered(device_idx, datas, positions, index)
@@ -403,6 +453,8 @@ class TorchDataframe:
         from modin_tpu_torch.ops.structural import concat_columns
 
         frames = [self, *others]
+        for f in frames:
+            f.materialize_device()
         for ci in range(self.num_cols):
             cols = [f._columns[ci] for f in frames]
             if not all(c.is_device for c in cols) or len({c.data.dtype for c in cols}) != 1:
@@ -431,7 +483,9 @@ class TorchDataframe:
         return [i for i, lab in enumerate(self._col_labels) if _label_eq(lab, label)]
 
     def finalize(self) -> None:
-        """Block until device work for this frame completes."""
+        """Materialize the deferred columns and block until device work for
+        this frame completes."""
+        self.materialize_device()
         TorchWrapper.wait()
 
 

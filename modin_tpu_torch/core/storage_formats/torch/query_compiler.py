@@ -5,8 +5,14 @@ query_compiler.py``, cut to the slices ported so far:
 
 - ``from_pandas``/``to_pandas``/``from_numpy_columns``;
 - elementwise binary ops incl. the logical ``&``/``|``/``^`` and ``**``
-  (``_try_device_binary``), the cumulative ops (``_cum_op``) and
-  ``shift``/``diff`` (``_try_shift_like``);
+  (``_try_device_binary``; a frame against a Series along its columns,
+  ``df - df.mean()``, through ``_try_device_binary_along_columns``), the
+  cumulative ops (``_cum_op``) and ``shift``/``diff`` (``_try_shift_like``).
+  The elementwise ops and maps defer (``ops/lazy.py``): a result column
+  holds an expression (``DeviceColumn.raw``) until a consumer needs values,
+  and reductions, filters and ``to_pandas`` run a chain as one fused
+  launch; a consumer of several columns' values takes them through
+  ``_device_cols`` (one launch for the frame's deferred columns);
 - the maps ``abs``/``negative``/``invert``, ``isna``/``notna``, ``round``,
   ``fillna`` (a scalar, a dict, ``fillna(df.mean())``) and ``clip`` over
   the device columns, with pandas' own function over the host (string)
@@ -85,6 +91,7 @@ from modin_tpu_torch.ops import groupby as gb_ops
 from modin_tpu_torch.ops import join as join_ops
 from modin_tpu_torch.ops import sort as sort_ops
 from modin_tpu_torch.ops import window as window_ops
+from modin_tpu_torch.ops.lazy import materialize_exprs
 from modin_tpu_torch.ops.structural import gather_columns_device
 from modin_tpu_torch.parallel.engine import TorchWrapper
 from modin_tpu_torch.utils import (
@@ -267,7 +274,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
     def _device(self) -> torch.device:
         for col in self._modin_frame._columns:
             if col.is_device:
-                return col.data.device
+                return col.device
         from modin_tpu_torch.parallel.mesh import get_device
 
         return get_device()
@@ -303,11 +310,22 @@ class TorchQueryCompiler(BaseQueryCompiler):
     _ARITH_KINDS = frozenset("iuf")
     _CMP_OPS = frozenset(["eq", "ne", "lt", "le", "gt", "ge"])
 
-    def _device_raw(self) -> Optional[List[torch.Tensor]]:
-        """All columns as device tensors, or None if any column is host-only."""
+    def _device_cols(self) -> Optional[List[torch.Tensor]]:
+        """All columns as concrete device tensors (the deferred ones
+        materialized in one fused run), or None if any column is host-only:
+        what a multi-column consumer of the values takes."""
         cols = self._modin_frame._columns
         if all(c.is_device for c in cols):
-            return [c.data for c in cols]
+            return self._modin_frame.device_datas()
+        return None
+
+    def _device_raw(self) -> Optional[List[Any]]:
+        """All columns as device tensors or deferred expressions, or None if
+        any column is host-only: the elementwise and reduction paths extend
+        a chain instead of forcing it."""
+        cols = self._modin_frame._columns
+        if all(c.is_device for c in cols):
+            return [c.raw for c in cols]
         return None
 
     @staticmethod
@@ -423,6 +441,12 @@ class TorchQueryCompiler(BaseQueryCompiler):
         # frame/series other
         if isinstance(other, TorchQueryCompiler):
             oframe = other._modin_frame
+            if (
+                self._shape_hint != "column"
+                and other._shape_hint == "column"
+                and kwargs.get("axis", None) in (1, "columns")
+            ):
+                return self._try_device_binary_along_columns(op, other, kinds, logical)
             ocols = other._device_raw()
             if ocols is None or not self._fast_index_match(other):
                 return None
@@ -467,6 +491,37 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 )
         return None
 
+    def _try_device_binary_along_columns(
+        self, op: str, other: "TorchQueryCompiler", kinds: List[str], logical: bool
+    ) -> Optional["TorchQueryCompiler"]:
+        """``df <op> series`` whose labels are the frame's columns
+        (``df - df.mean()``): pandas broadcasts the Series' values across
+        the rows, so column j meets value j as a numpy scalar (strong in
+        numpy's promotion, as pandas' broadcast array is).  The values come
+        to the host once (a reduction's result already is there); each
+        column's op defers with its value as a runtime scalar.  The JAX
+        package sends this to pandas."""
+        import pandas
+
+        frame, oframe = self._modin_frame, other._modin_frame
+        if oframe.num_cols != 1 or len(oframe) != frame.num_cols or logical:
+            return None
+        col = oframe.get_column(0)
+        if not col.is_device or col.pandas_dtype.kind not in "biuf":
+            return None
+        if not oframe.index.equals(pandas.Index(list(frame.columns))):
+            return None  # pandas aligns (reorders, widens) the labels first
+        if op in ("floordiv", "rfloordiv", "mod", "rmod") and col.pandas_dtype.kind in "iub" and all(
+            k in "iub" for k in kinds
+        ):
+            return None  # a zero divisor makes pandas' int result float64
+        if op in ("pow", "rpow") and col.pandas_dtype.kind in "iu" and all(k in "iu" for k in kinds):
+            return None
+        values = col.to_numpy()
+        return self._wrap_device_result(
+            elementwise.binary_op_columns(op, self._device_raw(), [values[j] for j in range(len(values))])
+        )
+
     # ------------------------------- maps ----------------------------- #
 
     def _map_device_host(
@@ -490,11 +545,11 @@ class TorchQueryCompiler(BaseQueryCompiler):
             frame._columns[i].pandas_dtype.kind not in require_kinds for i in device_positions
         ):
             return None
-        new_device = device_fn([frame._columns[i].data for i in device_positions]) if device_positions else []
+        new_device = device_fn([frame._columns[i].raw for i in device_positions]) if device_positions else []
         new_columns: list = list(frame._columns)
         for pos, data in zip(device_positions, new_device):
             old = frame._columns[pos]
-            dtype = old.pandas_dtype if data.dtype == old.data.dtype else numpy_dtype(data.dtype)
+            dtype = old.pandas_dtype if data.dtype == old.dtype else numpy_dtype(data.dtype)
             new_columns[pos] = DeviceColumn(data, dtype, length=len(frame))
         for i, col in enumerate(frame._columns):
             if not col.is_device:
@@ -616,7 +671,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 for i, v in targets:
                     c = frame._columns[i]
                     new_cols[i] = DeviceColumn(
-                        elementwise.fillna_columns([c.data], v)[0], c.pandas_dtype, length=len(frame)
+                        elementwise.fillna_columns([c.raw], v)[0], c.pandas_dtype, length=len(frame)
                     )
                 return type(self)(frame.with_columns(new_cols), self._shape_hint)
         return super().fillna(**kwargs)
@@ -671,7 +726,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             out = []
             for d, widen in zip(datas, to_float):
                 if widen:
-                    d = d.to(torch.float64)
+                    d = elementwise.astype_column(d, np.dtype(np.float64))
                 if d.dtype.is_floating_point:
                     out.append(elementwise.clip_columns([d], lower, upper)[0])
                 else:
@@ -703,7 +758,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 )
             ):
                 new_cols = [
-                    DeviceColumn(elementwise.astype_column(c.data, target), target, length=len(frame))
+                    DeviceColumn(elementwise.astype_column(c.raw, target), target, length=len(frame))
                     for c in frame._columns
                 ]
                 return type(self)(frame.with_columns(new_cols), self._shape_hint)
@@ -755,8 +810,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
             labels = labels[positions]  # pandas Index
         except TypeError:
             labels = [list(labels)[i] for i in positions]
+        # deferred columns fold into the reductions (one fused run)
         arrays = [
-            decoders[i].codes.data if i in decoders else frame._columns[i].data
+            decoders[i].codes.data if i in decoders else frame._columns[i].raw
             for i in positions
         ]
         # bool columns: pandas computes these over ints
@@ -881,7 +937,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     return result
             elif axis == 1 and self._all_numeric_device():
                 data = reductions.nunique_axis1(
-                    [c.data for c in frame._columns], len(frame), bool(dropna)
+                    frame.device_datas(), len(frame), bool(dropna)
                 )
                 return self._row_result(data)
         return super().nunique(axis=axis, dropna=dropna, **kwargs)
@@ -934,7 +990,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 return result
         if axis == 1 and dropna and not kwargs and len(frame) and self._all_numeric_device():
             cols, m_max, uniform = reductions.mode_axis1(
-                [c.data for c in frame._columns], len(frame)
+                frame.device_datas(), len(frame)
             )
             if m_max > 0:
                 integral = all(c.pandas_dtype.kind in "biu" for c in frame._columns)
@@ -1047,7 +1103,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             and all(c.is_device and c.pandas_dtype.kind in "iuf" for c in frame._columns)
             and all(0.0 <= q <= 1.0 for q in qs)
         ):
-            arrays = [c.data for c in frame._columns]
+            arrays = frame.device_datas()
             n = len(frame)
             stats = {}
             for op in ("count", "mean", "std", "min", "max"):
@@ -1141,10 +1197,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
         frame = self._modin_frame
         if len(frame) == 0 or not frame.num_cols:
             return None
-        cols = self._device_raw()
-        if cols is None or not all(c.pandas_dtype.kind in "iuf" for c in frame._columns):
+        if not all(c.pandas_dtype.kind in "iuf" for c in frame._columns):
             return None
-        return cols
+        return self._device_cols()
 
     @staticmethod
     def _window_ddof(kwargs: dict, takes_ddof: bool) -> Optional[int]:
@@ -1919,7 +1974,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
         frame = self._modin_frame
         if any(frame._columns[i].data.dtype == torch.uint64 for i in value_positions):
             return None
-        arrays = [frame._columns[i].data for i in value_positions]
+        arrays = frame.device_datas(value_positions)
         labels = [list(frame.columns)[i] for i in value_positions]
         return self._rowwise_result(gb_ops.groupby_cumulative(op, arrays, codes), labels, series_groupby)
 
@@ -1985,8 +2040,10 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 # the positional path holds only when the indexes match
                 and self._fast_index_match(key)
             ):
+                # a deferred mask and the frame's deferred columns run in
+                # one fused launch before the compaction
                 return type(self)(
-                    frame.filter_rows_mask_device(mask_frame.get_column(0).data),
+                    frame.filter_rows_mask_device(mask_frame.get_column(0).raw),
                     self._shape_hint,
                 )
         else:
@@ -2595,9 +2652,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
             cols = [frame._columns[i] for i in positions]
             if not cols:
                 return super().dropna(**kwargs)
-            nas = torch.stack(elementwise.isna_columns(
-                [c.data for c in cols], [c.pandas_dtype.kind in "mM" for c in cols], negate=False
-            ))
+            nas = torch.stack(materialize_exprs(elementwise.isna_columns(
+                [c.raw for c in cols], [c.pandas_dtype.kind in "mM" for c in cols], negate=False
+            )))
             keep = ~(nas.any(0) if kwargs.get("how", "any") == "any" else nas.all(0))
             return type(self)(frame.filter_rows_mask_device(keep), self._shape_hint)
         return super().dropna(**kwargs)
@@ -2627,7 +2684,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if not positions:
             return None
         mat, _ = stats.corr_cov_matrix(
-            [frame._columns[i].data for i in positions], method, ddof=ddof, min_periods=min_periods
+            frame.device_datas(positions), method, ddof=ddof, min_periods=min_periods
         )
         labels = self.get_columns()[positions]
         import pandas
@@ -2666,7 +2723,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
         ):
             return None
         positions, valid_counts = reductions.idx_minmax(
-            op, [c.data for c in frame._columns], len(frame)
+            op, frame.device_datas(), len(frame)
         )
         if not all(valid_counts):
             return None  # an all-NaN column: pandas raises
@@ -2781,7 +2838,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     break
         if positions:
             datas = sort_ops.rank_columns(
-                [frame._columns[i].data for i in positions], len(frame),
+                frame.device_datas(positions), len(frame),
                 method, bool(ascending), na_option, bool(pct),
             )
             labels = self.get_columns()[positions]

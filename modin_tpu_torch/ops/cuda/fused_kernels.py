@@ -1,0 +1,401 @@
+"""CUDA kernel for fused elementwise chains: one launch runs a register program.
+
+:func:`run_program` runs a :class:`~modin_tpu_torch.ops.cuda.fused_program.
+Program` (the compiled form of a deferred chain, ``ops/lazy.py``) over ``n``
+rows: ``csrc/fused.cu`` interprets it, each thread evaluating the whole
+program for its rows.  It replaces the XLA programs that the JAX package's
+``modin_tpu/ops/lazy.py::run_fused`` compiles per expression over
+``modin_tpu/ops/elementwise.py::_build_ops``.  Without a tail it writes the
+program's outputs; with a reduction tail it gives each output's merged
+accumulators, ``[n_out, 3]`` int64 (the bits of ``(value, valid count, NaN
+count)``, or of the three power sums for ``TAIL_M2``), from deterministic
+block partials and one merge launch.
+
+On a CUDA tensor :func:`run_program` launches the kernel (building it on
+first use) and raises when it cannot; on CPU tensors it computes the plain
+version, :func:`run_program_plain`, which walks the same instructions with
+torch tensors as registers through the eager ops' own formulas, and takes
+the reductions in the kernel's order (rows by thread, a tree over each
+block's threads, the blocks in order, a tree over the merge's threads), so
+the two agree bit for bit.  ``LAUNCHES`` counts kernel launches (a
+reduction's merge included), ``PROGRAMS_RUN`` programs run on either route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+
+from modin_tpu_torch.ops.cuda import fused_program as fp
+
+LAUNCHES = 0
+PROGRAMS_RUN = 0
+
+# the kernel's launch shape (csrc/fused.cu: kThreads, kMaxBlocks)
+THREADS = 256
+MAX_BLOCKS = 1024
+
+_LIB_NAME = "fused"
+_bound = False
+
+
+class _Instr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_uint8), ("dt", ctypes.c_uint8), ("dst", ctypes.c_uint8),
+                ("a", ctypes.c_uint8), ("b", ctypes.c_uint8), ("c", ctypes.c_uint8),
+                ("aux", ctypes.c_uint16), ("imm", ctypes.c_int64)]
+
+
+class FusedParams(ctypes.Structure):
+    """csrc/fused.cu: struct FusedParams, passed to the kernel by value."""
+
+    _fields_ = [
+        ("n", ctypes.c_int64), ("n_instr", ctypes.c_int32), ("n_out", ctypes.c_int32),
+        ("tail", ctypes.c_int32), ("pad0", ctypes.c_int32),
+        ("mean_src", ctypes.c_void_p), ("partial", ctypes.c_void_p),
+        ("leaf", ctypes.c_void_p * fp.MAX_LEAVES), ("out", ctypes.c_void_p * fp.MAX_OUTPUTS),
+        ("scalar", ctypes.c_int64 * fp.MAX_SCALARS), ("code", _Instr * fp.MAX_INSTR),
+        ("leaf_dt", ctypes.c_uint8 * fp.MAX_LEAVES), ("out_dt", ctypes.c_uint8 * fp.MAX_OUTPUTS),
+    ]
+
+
+def _lib() -> ctypes.CDLL:
+    global _bound
+    from modin_tpu_torch.ops.cuda.build import load
+
+    lib = load(_LIB_NAME)
+    if not _bound:
+        lib.fused_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.fused_run.restype = ctypes.c_int
+        lib.fused_params_bytes.argtypes = []
+        lib.fused_params_bytes.restype = ctypes.c_int
+        lib.fused_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
+        lib.fused_scratch_bytes.restype = ctypes.c_int64
+        lib.fused_error_string.argtypes = [ctypes.c_int]
+        lib.fused_error_string.restype = ctypes.c_char_p
+        size = lib.fused_params_bytes()
+        if size != ctypes.sizeof(FusedParams):
+            raise RuntimeError(f"fused kernel: the C parameter block is {size} bytes, "
+                               f"the ctypes one {ctypes.sizeof(FusedParams)}")
+        _bound = True
+    return lib
+
+
+def blocks(n: int) -> int:
+    """The kernel's grid for ``n`` rows (it depends on n alone)."""
+    return int(min(max(math.ceil(n / THREADS), 1), MAX_BLOCKS))
+
+
+def _tail_mode(program: fp.Program, second_pass: bool) -> int:
+    tail = program.tail
+    if tail is None or tail[0] != "reduce":
+        return fp.TAIL_NONE
+    return fp.TAIL_M2 if second_pass else fp.REDUCE_MODES[tail[1]]
+
+
+def _outputs(program: fp.Program, n: int, device) -> List[torch.Tensor]:
+    if _tail_mode(program, False) != fp.TAIL_NONE:
+        return []
+    return [torch.empty(n, dtype=fp.CODE_DTYPES[c], device=device) for c in program.out_dtypes]
+
+
+def _check(leaves: Sequence[torch.Tensor], program: fp.Program, n: int) -> None:
+    for t, code in zip(leaves, program.leaf_dtypes):
+        if t.device.type != "cuda":
+            raise ValueError(f"fused kernel: a leaf is on {t.device}, not on a CUDA device")
+        if t.device != leaves[0].device:
+            raise ValueError("fused kernel: leaves lie on different devices")
+        if fp.DTYPE_CODES.get(t.dtype) != code:
+            raise ValueError(f"fused kernel: a leaf is {t.dtype}, the program reads "
+                             f"{fp.CODE_DTYPES[code]}")
+        if t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
+            raise ValueError(f"fused kernel: a leaf must be 1-D, contiguous and of {n} rows, "
+                             f"got {tuple(t.shape)}")
+
+
+def run_program(
+    program: fp.Program,
+    leaves: Sequence[torch.Tensor],
+    scalars: Sequence[Any],
+    n: int,
+    *,
+    second_pass: bool = False,
+    first: Optional[torch.Tensor] = None,
+    device: Optional[torch.device] = None,
+) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """(outputs, accumulators) of one run of ``program`` over ``n`` rows:
+    ``leaves`` are its leaf columns (in ``program.leaves`` order), ``scalars``
+    the forest's runtime scalars.  ``second_pass`` runs a moments tail's
+    power sums about the means of ``first`` (its first pass's
+    accumulators).  ``device`` places a program without leaves."""
+    global LAUNCHES, PROGRAMS_RUN
+    dev = leaves[0].device if leaves else (device or torch.device("cpu"))
+    PROGRAMS_RUN += 1
+    if dev.type == "cpu":
+        return run_program_plain(program, leaves, scalars, n, second_pass=second_pass, first=first)
+    if dev.type != "cuda":
+        raise ValueError(f"fused kernel: unsupported device {dev}")
+    _check(leaves, program, n)
+    tail = _tail_mode(program, second_pass)
+    outs = _outputs(program, n, dev)
+    lib = _lib()
+    p = FusedParams()
+    p.n, p.n_instr, p.n_out, p.tail = n, len(program.instrs), len(program.out_dtypes), tail
+    code = program.code
+    ctypes.memmove(ctypes.addressof(p.code), code, len(code))
+    for k, t in enumerate(leaves):
+        p.leaf[k] = t.data_ptr()
+        p.leaf_dt[k] = program.leaf_dtypes[k]
+    for k, t in enumerate(outs):
+        p.out[k] = t.data_ptr()
+    for k, code_ in enumerate(program.out_dtypes):
+        p.out_dt[k] = code_
+    for k, bits in enumerate(fp.slot_bits(program, scalars)):
+        p.scalar[k] = bits
+    acc = None
+    scratch = None
+    if tail != fp.TAIL_NONE:
+        acc = torch.empty((len(program.out_dtypes), 3), dtype=torch.int64, device=dev)
+        scratch = torch.empty(int(lib.fused_scratch_bytes(n, len(program.out_dtypes))),
+                              dtype=torch.uint8, device=dev)
+        p.partial = scratch.data_ptr()
+        if tail == fp.TAIL_M2:
+            if first is None or first.device != dev:
+                raise ValueError("fused kernel: the second pass needs the first pass's accumulators")
+            p.mean_src = first.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_run(ctypes.byref(p), ctypes.c_void_p(acc.data_ptr() if acc is not None else None),
+                            ctypes.c_void_p(stream))
+    if err != 0:
+        msg = lib.fused_error_string(int(err)).decode(errors="replace")
+        raise RuntimeError(f"fused kernel: launch failed with CUDA error {err}: {msg}")
+    LAUNCHES += 1
+    return outs, acc
+
+
+# ---------------------------------------------------------------------- #
+# The plain version
+# ---------------------------------------------------------------------- #
+
+
+def _plain_exec(op, dt, aux, imm, a, b, c, b_is_scalar):
+    from modin_tpu_torch.ops import elementwise as ew
+
+    if op == fp.CAST:
+        return a.to(fp.CODE_DTYPES[aux])
+    if op in (fp.ADD, fp.OR) and dt == fp.BOOL:
+        return a | b
+    if op == fp.MUL and dt == fp.BOOL:
+        return a & b
+    if op == fp.ADD:
+        return a + b
+    if op == fp.SUB:
+        return a - b
+    if op == fp.MUL:
+        return a * b
+    if op == fp.TDIV:
+        return ew._truediv(a, b)
+    if op == fp.FDIV:
+        return ew._floordiv(a, b)
+    if op == fp.MOD:
+        return ew._mod(a, b)
+    if op == fp.POW:
+        return a ** b
+    if op == fp.EQ:
+        return a == b
+    if op == fp.NE:
+        return a != b
+    if op == fp.LT:
+        return a < b
+    if op == fp.LE:
+        return a <= b
+    if op == fp.GT:
+        return a > b
+    if op == fp.GE:
+        return a >= b
+    if op == fp.AND:
+        return a & b
+    if op == fp.OR:
+        return a | b
+    if op == fp.XOR:
+        return a ^ b
+    if op == fp.NEG:
+        return torch.neg(a)
+    if op == fp.ABS:
+        return torch.abs(a)
+    if op == fp.INV:
+        return torch.bitwise_not(a)
+    if op == fp.ISNAN:
+        return ew._isna_one(a, False)
+    if op == fp.NOTNAN:
+        return ~ew._isna_one(a, False)
+    if op == fp.EQI:
+        return a == imm
+    if op == fp.NEI:
+        return a != imm
+    if op in _MATH_NAMES:
+        return ew._MATH_FN[_MATH_NAMES[op]](a)
+    if op == fp.ROUND:
+        return torch.round(a, decimals=_signed16(aux))
+    if op == fp.ROUNDI:
+        return ew._round_int(a, _signed16(aux))
+    if op == fp.FILLNA:
+        return torch.where(torch.isnan(a), b, a)
+    if op == fp.CLIPLO:
+        return torch.where(a < b, b, a)
+    if op == fp.CLIPHI:
+        return torch.where(a > b, b, a)
+    if op == fp.SEL:
+        return torch.where(a, b, c)
+    if op == fp.NANTO:
+        return torch.where(torch.isnan(a), fp.bits_double(imm), a)
+    if op in (fp.MIN, fp.MAX):
+        pick_b = (b < a) if op == fp.MIN else (a < b)
+        r = torch.where(pick_b, b, a)
+        if fp.is_float(dt):
+            r = torch.where(torch.isnan(b), b, r)
+            r = torch.where(torch.isnan(a), a, r)
+        return r
+    raise ValueError(f"fused program: unknown opcode {op}")
+
+
+_MATH_NAMES = {code: name for name, code in fp._MATH.items()}
+
+
+def _signed16(v: int) -> int:
+    return v - (1 << 16) if v >= 1 << 15 else v
+
+
+def _tree(x: torch.Tensor, combine, init, n_blocks: int) -> torch.Tensor:
+    """The kernel's reduction of one column of per-row contributions ``x``
+    (length n, ``init`` where a row adds nothing): each thread folds its
+    rows in row order, each block's threads fold in a tree, then the merge
+    folds the blocks by thread and in a tree.  Returns a 0-d tensor."""
+    g = n_blocks * THREADS
+    k = max(math.ceil(x.shape[0] / g), 1)
+    pad = torch.full((k * g,), init, dtype=x.dtype, device=x.device)
+    pad[: x.shape[0]] = x
+    rows = pad.view(k, n_blocks, THREADS)
+    acc = torch.full((n_blocks, THREADS), init, dtype=x.dtype, device=x.device)
+    for i in range(k):
+        acc = combine(acc, rows[i])
+    w = THREADS // 2
+    while w:
+        acc = combine(acc[:, :w], acc[:, w: 2 * w])
+        w //= 2
+    part = acc[:, 0]
+    km = math.ceil(n_blocks / THREADS)
+    padm = torch.full((km * THREADS,), init, dtype=x.dtype, device=x.device)
+    padm[:n_blocks] = part
+    m = torch.full((THREADS,), init, dtype=x.dtype, device=x.device)
+    for row in padm.view(km, THREADS):
+        m = combine(m, row)
+    w = THREADS // 2
+    while w:
+        m = combine(m[:w], m[w: 2 * w])
+        w //= 2
+    return m[0]
+
+
+def _i64_bits(x: torch.Tensor) -> torch.Tensor:
+    """A 0-d value as the int64 of its 8 bytes (a float as float64)."""
+    if x.dtype.is_floating_point:
+        return x.to(torch.float64).reshape(1).view(torch.int64)[0]
+    return x.to(torch.int64)
+
+
+def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, n_blocks: int,
+               mean: Optional[torch.Tensor]) -> torch.Tensor:
+    """One output's accumulators, ``[3]`` int64 bits, in the kernel's order."""
+    dev = x.device
+    if mode == fp.TAIL_M2:
+        ok = ~torch.isnan(x)
+        d = x - mean
+        d2 = d * d
+        d3 = d2 * d
+        d4 = d3 * d
+        return torch.stack([
+            _i64_bits(_tree(torch.where(ok, p, 0.0), torch.add, 0.0, n_blocks)) for p in (d2, d3, d4)
+        ])
+    fl = fp.is_float(code)
+    if fl:
+        xd = x.to(torch.float64)
+        nan = torch.isnan(xd)
+        cnt, n_nan = (~nan).sum(), nan.sum()
+    else:
+        xd = x.to(torch.int64)
+        nan = None
+        cnt, n_nan = torch.tensor(n, dtype=torch.int64, device=dev), torch.tensor(0, dtype=torch.int64, device=dev)
+    if mode == fp.TAIL_NZ:
+        nz = xd != 0
+        v = (nz if nan is None else nz & ~nan).sum()
+    elif mode in (fp.TAIL_MIN, fp.TAIL_MAX):
+        lo = mode == fp.TAIL_MIN
+        if fl:
+            init = math.inf if lo else -math.inf
+            filled = torch.where(nan, init, xd)
+        else:
+            init = torch.iinfo(torch.int64).max if lo else torch.iinfo(torch.int64).min
+            filled = xd
+        v = (torch.amin if lo else torch.amax)(filled) if n else torch.tensor(init, dtype=xd.dtype)
+    elif fl:
+        prod = mode == fp.TAIL_PROD
+        init = 1.0 if prod else 0.0
+        v = _tree(torch.where(nan, init, xd), torch.mul if prod else torch.add, init, n_blocks)
+    else:  # int sums and products wrap, so their order does not matter
+        v = xd.prod() if mode == fp.TAIL_PROD else xd.sum()
+    return torch.stack([_i64_bits(v.to(dev)), cnt.to(torch.int64), n_nan.to(torch.int64)])
+
+
+def run_program_plain(
+    program: fp.Program,
+    leaves: Sequence[torch.Tensor],
+    scalars: Sequence[Any],
+    n: Optional[int] = None,
+    *,
+    second_pass: bool = False,
+    first: Optional[torch.Tensor] = None,
+) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain torch version of :func:`run_program` on the leaves' device."""
+    if n is None:
+        n = leaves[0].shape[0] if leaves else 0
+    slots = fp.slot_values(program, scalars)
+    regs: List[Any] = [None] * fp.MAX_REGS
+    outs: List[Optional[torch.Tensor]] = [None] * len(program.out_dtypes)
+    folded: List[Optional[torch.Tensor]] = [None] * len(program.out_dtypes)
+    dev = leaves[0].device if leaves else (first.device if first is not None else torch.device("cpu"))
+
+    def get(o):
+        if o == fp.NO_OPERAND:
+            return None
+        if o >= fp.LEAF_BASE:
+            return leaves[o - fp.LEAF_BASE]
+        if o >= fp.SCALAR_BASE:
+            return slots[o - fp.SCALAR_BASE]
+        return regs[o]
+
+    for op, dt, dst, a, b, c, aux, imm in program.instrs:
+        if op == fp.STORE:
+            v = get(a)
+            outs[aux] = v.clone() if any(v is t for t in leaves) else v.contiguous()
+        elif op == fp.ACC:
+            folded[aux] = get(a)
+        else:
+            regs[dst] = _plain_exec(op, dt, aux, imm, get(a), get(b), get(c),
+                                    fp.SCALAR_BASE <= b < fp.LEAF_BASE)
+    mode = _tail_mode(program, second_pass)
+    if mode == fp.TAIL_NONE:
+        return [o if o.dtype == fp.CODE_DTYPES[c] else o.to(fp.CODE_DTYPES[c])
+                for o, c in zip(outs, program.out_dtypes)], None
+    nb = blocks(n)
+    means = None
+    if mode == fp.TAIL_M2:
+        means = first[:, 0].contiguous().view(torch.float64) / first[:, 1].to(torch.float64)
+    rows = []
+    for j, (x, code) in enumerate(zip(folded, program.out_dtypes)):
+        mean = means[j] if means is not None else None
+        rows.append(_plain_acc(mode, code, x.to(dev), n, nb, mean))
+    return [], torch.stack(rows) if rows else torch.empty((0, 3), dtype=torch.int64, device=dev)

@@ -1,12 +1,19 @@
-"""Elementwise ops over column sets, eagerly in torch.
+"""Elementwise ops over column sets: deferred chains and their eager bodies.
 
-The port's counterpart of ``modin_tpu/ops/elementwise.py``.  The JAX package
-defers each op into a fused jit (``ops/lazy.py``); here every op runs at once
-as torch kernels on the columns' device.  Result dtypes follow numpy's
-promotion rules (NEP 50: a Python scalar is weak), which is what the JAX
-package gets under x64 and what pandas does; torch's own rules would turn
-``int64 + 2.5`` into float32, so every operand is cast to the numpy result
-dtype first.
+The port's counterpart of ``modin_tpu/ops/elementwise.py``.  As in the JAX
+package, the builders (``binary_op_columns``, ``unary_op_columns``,
+``isna_columns``, ``round_columns``, ``fillna_columns``, ``clip_columns``,
+``math_unary_columns``, ``astype_column``) do not compute: each returns
+:class:`~modin_tpu_torch.ops.lazy.LazyExpr` nodes, and a consumer runs the
+whole accumulated chain as one launch of the fused kernel
+(``ops/lazy.py``, ``ops/cuda/fused_kernels.py``).  The eager torch bodies
+stay here as the op registry (:func:`get_op`): a node's dtype is the eager
+op's over 0-length tensors, the fused kernel computes what they compute, its
+plain version calls them, and an op the kernel does not take (a barrier)
+runs them.  Result dtypes follow numpy's promotion rules (NEP 50: a Python
+scalar is weak), which is what the JAX package gets under x64 and what
+pandas does; torch's own rules would turn ``int64 + 2.5`` into float32, so
+every operand is cast to the numpy result dtype first.
 
 Pandas semantic deltas, as in the JAX package:
 - int / int true-division promotes to float64 and yields +/-inf on zero
@@ -23,7 +30,8 @@ not poison later rows).  All four run on the scan kernel
 (``ops/cuda/scan_kernels.py``, one segment): float sums and products in a
 fixed order, so a result repeats bit for bit, and int sums and products
 wrapping as numpy's do.  ``torch.cummax`` took ~60 ms a column at 2e7
-rows on the H100, the kernel well under 1 ms.
+rows on the H100, the kernel well under 1 ms.  They are barriers of a
+deferred chain: their inputs materialize first.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from modin_tpu_torch.ops.cuda.scan_kernels import scan
+from modin_tpu_torch.ops.lazy import lazy_op
 from modin_tpu_torch.utils import numpy_dtype, torch_dtype
 
 
@@ -185,18 +194,22 @@ BINARY_OPS = frozenset(k for k in _OPS if k not in _UNARY)
 LOGICAL_OPS = frozenset(k for k in BINARY_OPS if k.startswith("__"))
 
 
-def binary_op_columns(op_name: str, cols: List[torch.Tensor], other: Any) -> List[torch.Tensor]:
-    """Binary op on device columns vs a scalar or matching columns."""
-    fn = _OPS[op_name]
+def binary_op_columns(op_name: str, cols: List[Any], other: Any) -> List[Any]:
+    """Deferred binary op on device columns (tensors or LazyExprs) vs a
+    scalar, matching columns, or one scalar per column."""
+    if op_name not in BINARY_OPS:
+        raise ValueError(f"binary op {op_name!r} is not ported")
     if isinstance(other, (list, tuple)):
-        return [fn(c, o) for c, o in zip(cols, other)]
-    return [fn(c, other) for c in cols]
+        return [lazy_op(op_name, c, o) for c, o in zip(cols, other)]
+    return [lazy_op(op_name, c, other) for c in cols]
 
 
-def unary_op_columns(op_name: str, cols: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Unary op on device columns."""
-    fn = _OPS[op_name]
-    return [fn(c) for c in cols]
+def unary_op_columns(op_name: str, cols: List[Any]) -> List[Any]:
+    """Deferred unary op on device columns (the cumulative ops are
+    barriers: they run at once on their materialized inputs)."""
+    if op_name not in _UNARY:
+        raise ValueError(f"unary op {op_name!r} is not ported")
+    return [lazy_op(op_name, c) for c in cols]
 
 
 # numpy's math ufuncs of one argument (``np.sqrt(df)``; the JAX package's
@@ -210,20 +223,31 @@ _MATH_FN: Dict[str, Callable] = {
 }
 
 
-def math_unary_columns(op_name: str, cols: List[torch.Tensor]) -> List[torch.Tensor]:
-    """numpy's ufunc ``op_name`` over device columns, in numpy's result
-    dtype: ints become float64 (int8 float16, int16 float32), floats keep
-    theirs; an int result (``sign``; ``floor``/``ceil`` where numpy keeps
-    ints) stays int.  numpy's float16 loops compute in float32 and round,
-    as this does."""
+def _math_dtype(op_name: str, dtype: torch.dtype) -> np.dtype:
+    return getattr(np, op_name)(np.empty(0, numpy_dtype(dtype))).dtype
+
+
+def _math_one(op_name: str, c: torch.Tensor) -> torch.Tensor:
+    """numpy's ufunc ``op_name`` of one column, in numpy's result dtype."""
+    dtype = _math_dtype(op_name, c.dtype)
+    if dtype.kind in "iu":
+        return _MATH_FN[op_name](c) if op_name == "sign" else c
+    work = torch.float32 if dtype == np.float16 else torch_dtype(dtype)
+    return _MATH_FN[op_name](c.to(work)).to(torch_dtype(dtype))
+
+
+def math_unary_columns(op_name: str, cols: List[Any]) -> List[Any]:
+    """numpy's ufunc ``op_name`` over device columns, deferred, in numpy's
+    result dtype: ints become float64 (int8 float16, int16 float32), floats
+    keep theirs; an int result (``sign``; ``floor``/``ceil`` where numpy
+    keeps ints) stays int.  numpy's float16 loops compute in float32 and
+    round, as this does (float16 results are barriers: they run at once)."""
     out = []
     for c in cols:
-        dtype = getattr(np, op_name)(np.empty(0, numpy_dtype(c.dtype))).dtype
-        if dtype.kind in "iu":
-            out.append(_MATH_FN[op_name](c) if op_name == "sign" else c)
-            continue
-        work = torch.float32 if dtype == np.float16 else torch_dtype(dtype)
-        out.append(_MATH_FN[op_name](c.to(work)).to(torch_dtype(dtype)))
+        if _math_dtype(op_name, c.dtype).kind in "iu" and op_name != "sign":
+            out.append(c)
+        else:
+            out.append(lazy_op(op_name, c))
     return out
 
 
@@ -275,11 +299,15 @@ def _isna_one(x: torch.Tensor, is_dt: bool) -> torch.Tensor:
     return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
 
 
-def isna_columns(cols: List[torch.Tensor], mM_flags, negate: bool) -> List[torch.Tensor]:
-    """isna (or notna, ``negate``) per column: NaN of floats, the NaT
-    sentinel of the columns flagged datetime/timedelta, nothing of the rest."""
-    out = [_isna_one(c, bool(is_dt)) for c, is_dt in zip(cols, mM_flags)]
-    return [~m for m in out] if negate else out
+def isna_columns(cols: List[Any], mM_flags, negate: bool) -> List[Any]:
+    """Deferred isna (or notna, ``negate``) per column: NaN of floats, the
+    NaT sentinel of the columns flagged datetime/timedelta, nothing of the
+    rest."""
+    out = []
+    for c, is_dt in zip(cols, mM_flags):
+        name = ("notna" if negate else "isna") + ("_nat" if is_dt else "")
+        out.append(lazy_op(name, c))
+    return out
 
 
 def _round_int(x: torch.Tensor, decimals: int) -> torch.Tensor:
@@ -296,20 +324,26 @@ def _round_int(x: torch.Tensor, decimals: int) -> torch.Tensor:
     return ((q + up.to(torch.int64)) * unit).to(x.dtype)
 
 
-def round_columns(cols: List[torch.Tensor], decimals: int, mM_flags=None) -> List[torch.Tensor]:
-    """pandas ``round``: floats as numpy's ``round`` (scale, round half to
-    even, unscale; ``torch.round(decimals=)`` computes the same), ints
-    with ``decimals`` < 0 by :func:`_round_int` (the caller declines
+def _round_one(x: torch.Tensor, decimals: int) -> torch.Tensor:
+    if x.dtype.is_floating_point:
+        return torch.round(x, decimals=decimals)
+    if decimals < 0 and x.dtype != torch.bool:
+        return _round_int(x, decimals)
+    return x
+
+
+def round_columns(cols: List[Any], decimals: int, mM_flags=None) -> List[Any]:
+    """Deferred pandas ``round``: floats as numpy's ``round`` (scale, round
+    half to even, unscale; ``torch.round(decimals=)`` computes the same),
+    ints with ``decimals`` < 0 by :func:`_round_int` (the caller declines
     ``decimals`` < -18, past int64); other ints, bools and the columns
     flagged datetime/timedelta are unchanged."""
     decimals = int(decimals)
     flags = mM_flags if mM_flags is not None else [False] * len(cols)
     out = []
     for c, is_dt in zip(cols, flags):
-        if c.dtype.is_floating_point:
-            out.append(torch.round(c, decimals=decimals))
-        elif decimals < 0 and not is_dt and c.dtype != torch.bool:
-            out.append(_round_int(c, decimals))
+        if c.dtype.is_floating_point or (decimals < 0 and not is_dt and c.dtype != torch.bool):
+            out.append(lazy_op("round", c, static=(("decimals", decimals),)))
         else:
             out.append(c)
     return out
@@ -325,12 +359,18 @@ def cast_scalar(value: Any, dtype: torch.dtype) -> Any:
         return numpy_dtype(dtype).type(value).item()
 
 
-def fillna_columns(cols: List[torch.Tensor], value: Any) -> List[torch.Tensor]:
-    """A numeric scalar into the NaN rows of float columns (cast to the
-    column's dtype, as pandas casts it); int and bool columns hold no NaN
-    and pass through."""
+def _fillna_one(x: torch.Tensor, value: Any) -> torch.Tensor:
+    if not x.dtype.is_floating_point:
+        return x
+    return torch.where(torch.isnan(x), cast_scalar(value, x.dtype), x)
+
+
+def fillna_columns(cols: List[Any], value: Any) -> List[Any]:
+    """Deferred: a numeric scalar into the NaN rows of float columns (cast
+    to the column's dtype, as pandas casts it); int and bool columns hold no
+    NaN and pass through."""
     return [
-        torch.where(torch.isnan(c), cast_scalar(value, c.dtype), c) if c.dtype.is_floating_point else c
+        lazy_op("fillna", c, cast_scalar(value, c.dtype)) if c.dtype.is_floating_point else c
         for c in cols
     ]
 
@@ -347,14 +387,39 @@ def clip_columns(cols: List[torch.Tensor], lower: Any, upper: Any) -> List[torch
         lo, hi = cast_scalar(lower, c.dtype), cast_scalar(upper, c.dtype)
         r = c
         if lo is not None:
-            r = torch.where(r < lo, lo, r)
+            r = lazy_op("clip_lower", r, lo)
         if hi is not None:
-            r = torch.where(r > hi, hi, r)
+            r = lazy_op("clip_upper", r, hi)
         out.append(r)
     return out
 
 
-def astype_column(col: torch.Tensor, target: np.dtype) -> torch.Tensor:
-    """numpy's ``astype`` to a numeric ``target`` (ints wrap, floats round
-    to nearest)."""
-    return col.to(torch_dtype(target))
+def astype_column(col: Any, target: np.dtype) -> Any:
+    """Deferred numpy ``astype`` to a numeric ``target`` (ints wrap, floats
+    round to nearest)."""
+    return lazy_op("astype", col, static=(("dtype", str(np.dtype(target))),))
+
+
+# ---------------------------------------------------------------------- #
+# The op registry: the eager body of every deferred op, by the JAX
+# package's names (``modin_tpu/ops/elementwise.py::_build_ops``)
+# ---------------------------------------------------------------------- #
+
+_REGISTRY: Dict[str, Callable] = {
+    **_OPS,
+    "isna": lambda x: _isna_one(x, False),
+    "notna": lambda x: ~_isna_one(x, False),
+    "isna_nat": lambda x: _isna_one(x, True),
+    "notna_nat": lambda x: ~_isna_one(x, True),
+    "round": _round_one,
+    "fillna": _fillna_one,
+    "clip_lower": lambda x, lo: torch.where(x < lo, lo, x),
+    "clip_upper": lambda x, hi: torch.where(x > hi, hi, x),
+    "astype": lambda x, dtype: x.to(torch_dtype(np.dtype(dtype))),
+    **{name: (lambda x, name=name: _math_one(name, x)) for name in MATH_UNARY},
+}
+
+
+def get_op(op_name: str) -> Callable:
+    """The eager body of a deferred op (the registry of ``ops/lazy.py``)."""
+    return _REGISTRY[op_name]

@@ -25,6 +25,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from modin_tpu_torch.ops.lazy import is_lazy, materialize, materialize_exprs, run_fused
 from modin_tpu_torch.parallel.engine import materialize as _engine_materialize
 
 REDUCTIONS = frozenset(
@@ -53,6 +54,50 @@ def _extreme(c: torch.Tensor, op: str, skipna: bool, nan_mask, n: int) -> torch.
     return torch.where(n_use == 0, nan, r)
 
 
+MOMENT_OPS = ("mean", "var", "std", "sem", "skew", "kurt")
+
+
+def moment_result(op: str, mean, n_use, m2s, m3s, m4s, poisoned, ddof: int) -> torch.Tensor:
+    """mean/var/std/sem/skew/kurt of a column from its mean, its valid count
+    ``n_use`` and its power sums about the mean (0-d tensors; ``m3s`` for
+    skew, ``m4s`` for kurt), NaN where ``poisoned`` (a NaN under
+    ``skipna=False``): pandas' rules, for the torch reductions and the fused
+    tails alike."""
+    nan = torch.full_like(mean, float("nan"))
+    if op == "mean":
+        return torch.where(poisoned | (n_use == 0), nan, mean)
+    if op in ("var", "std", "sem"):
+        var = m2s / torch.clamp(n_use - ddof, min=1)
+        var = torch.where((n_use - ddof > 0) & ~poisoned, var, nan)
+        if op == "var":
+            return var
+        if op == "std":
+            return torch.sqrt(var)
+        return torch.sqrt(var / n_use)
+    # pandas' nanskew (sample skewness G1) and nankurt (sample excess
+    # kurtosis G2), with its rules: sums below 1e-14 are rounding and
+    # count as 0, a zero variance gives 0, fewer than 3 (4) values NaN
+    nf = n_use.to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=mean.device)
+
+    def zero_out(v: torch.Tensor) -> torch.Tensor:
+        return torch.where(v.abs() < 1e-14, zero, v)
+
+    m2s = zero_out(m2s)
+    if op == "skew":
+        m3s = zero_out(m3s)
+        res = nf * torch.sqrt(nf - 1.0) / (nf - 2.0) * (m3s / m2s**1.5)
+        res = torch.where(m2s == 0, zero, res)
+        res = torch.where(nf < 3, nan, res)
+    else:
+        numer = zero_out(nf * (nf + 1.0) * (nf - 1.0) * m4s)
+        denom = zero_out((nf - 2.0) * (nf - 3.0) * m2s * m2s)
+        adj = 3.0 * (nf - 1.0) ** 2 / ((nf - 2.0) * (nf - 3.0))
+        res = torch.where(denom == 0, zero, numer / denom - adj)
+        res = torch.where(nf < 4, nan, res)
+    return torch.where(poisoned, nan, res)
+
+
 def _reduce_one(op: str, c: torch.Tensor, n: int, skipna: bool, ddof: int = 1) -> torch.Tensor:
     """Reduce one column of ``n`` rows to a 0-d tensor."""
     is_f = c.dtype.is_floating_point
@@ -76,51 +121,17 @@ def _reduce_one(op: str, c: torch.Tensor, n: int, skipna: bool, ddof: int = 1) -
         return sel(c, 1).prod()
     if op in ("min", "max"):
         return _extreme(c, op, skipna, nan_mask, n)
-    if op in ("mean", "var", "std", "sem", "skew", "kurt"):
+    if op in MOMENT_OPS:
         x = sel(c.to(torch.float64), 0.0)
         mean = x.sum() / n_use
-        nan = torch.full_like(mean, float("nan"))
+        poisoned = nan_mask.any() if (is_f and not skipna) else torch.zeros((), dtype=torch.bool, device=c.device)
         if op == "mean":
-            if is_f and not skipna:
-                return torch.where(nan_mask.any(), nan, mean)
-            return torch.where(n_use == 0, nan, mean)
+            return moment_result(op, mean, n_use, None, None, None, poisoned, ddof)
         d = sel(x - mean, 0.0)
         m2s = (d * d).sum()
-        if op in ("var", "std", "sem"):
-            var = m2s / torch.clamp(n_use - ddof, min=1)
-            var = torch.where(n_use - ddof > 0, var, nan)
-            if is_f and not skipna:
-                var = torch.where(nan_mask.any(), nan, var)
-            if op == "var":
-                return var
-            if op == "std":
-                return torch.sqrt(var)
-            return torch.sqrt(var / n_use)
-        # pandas' nanskew (sample skewness G1) and nankurt (sample excess
-        # kurtosis G2), with its rules: sums below 1e-14 are rounding and
-        # count as 0, a zero variance gives 0, fewer than 3 (4) values NaN
-        nf = n_use.to(torch.float64)
-        zero = torch.zeros((), dtype=torch.float64, device=c.device)
-
-        def zero_out(v: torch.Tensor) -> torch.Tensor:
-            return torch.where(v.abs() < 1e-14, zero, v)
-
-        m2s = zero_out(m2s)
-        if op == "skew":
-            m3s = zero_out((d * d * d).sum())
-            res = nf * torch.sqrt(nf - 1.0) / (nf - 2.0) * (m3s / m2s**1.5)
-            res = torch.where(m2s == 0, zero, res)
-            res = torch.where(nf < 3, nan, res)
-        else:
-            m4s = (d * d * d * d).sum()
-            numer = zero_out(nf * (nf + 1.0) * (nf - 1.0) * m4s)
-            denom = zero_out((nf - 2.0) * (nf - 3.0) * m2s * m2s)
-            adj = 3.0 * (nf - 1.0) ** 2 / ((nf - 2.0) * (nf - 3.0))
-            res = torch.where(denom == 0, zero, numer / denom - adj)
-            res = torch.where(nf < 4, nan, res)
-        if is_f and not skipna:
-            res = torch.where(nan_mask.any(), nan, res)
-        return res
+        m3s = (d * d * d).sum() if op == "skew" else None
+        m4s = (d * d * d * d).sum() if op == "kurt" else None
+        return moment_result(op, mean, n_use, m2s, m3s, m4s, poisoned, ddof)
     if op == "any":
         truthy = torch.where(nan_mask, not skipna, c != 0) if is_f else (c if c.dtype == torch.bool else c != 0)
         return truthy.any()
@@ -132,7 +143,7 @@ def _reduce_one(op: str, c: torch.Tensor, n: int, skipna: bool, ddof: int = 1) -
 
 def reduce_columns(
     op_name: str,
-    cols: List[torch.Tensor],
+    cols: List[Any],
     n: int,
     skipna: bool = True,
     ddof: int = 1,
@@ -141,18 +152,100 @@ def reduce_columns(
     """Reduce each column (``n`` rows) to a scalar; returns 0-d numpy arrays
     after one fetch.
 
-    ``cast_bool`` applies the pandas bool->int promotion of the arithmetic
-    aggregations.
+    ``cols`` may mix tensors and deferred LazyExprs: the lazy ones reduce as
+    the tail of one fused run (``ops/lazy.py``), so ``(a * b + c).sum()``
+    reads its columns once and writes none; the tensors take the torch
+    reductions below.  ``cast_bool`` applies the pandas bool->int promotion
+    of the arithmetic aggregations.
     """
     if op_name not in REDUCTIONS:
         raise ValueError(f"reduction {op_name!r} is not ported")
     n, skipna, ddof = int(n), bool(skipna), int(ddof)
+    lazy_pos = [i for i, c in enumerate(cols) if is_lazy(c)]
+    fused = {}
+    if lazy_pos:
+        exprs = [cols[i] for i in lazy_pos]
+        tail = ("reduce", op_name, skipna, ddof, bool(cast_bool))
+        values = run_fused(exprs, tail, lambda first, second: _finish_fused(
+            op_name, exprs, first, second, n, skipna, ddof, cast_bool))
+        fused = dict(zip(lazy_pos, values))
     results = []
-    for c in cols:
+    for i, c in enumerate(cols):
+        if i in fused:
+            continue
+        c = materialize(c)
         if cast_bool and c.dtype == torch.bool:
             c = c.to(torch.int64)
         results.append(_reduce_one(op_name, c, n, skipna, ddof))
-    return [np.asarray(r) for r in _engine_materialize(results)]
+    eager = iter(np.asarray(r) for r in _engine_materialize(results))
+    return [fused[i] if i in fused else next(eager) for i in range(len(cols))]
+
+
+_RESULT_DTYPES: dict = {}
+
+
+def _result_dtype(op: str, dtype: torch.dtype, skipna: bool, ddof: int) -> np.dtype:
+    """The numpy dtype of the eager reduction of a column of ``dtype``."""
+    key = (op, dtype, skipna, ddof)
+    if key not in _RESULT_DTYPES:
+        from modin_tpu_torch.utils import numpy_dtype
+
+        _RESULT_DTYPES[key] = numpy_dtype(_reduce_one(op, torch.zeros(1, dtype=dtype), 1, skipna, ddof).dtype)
+    return _RESULT_DTYPES[key]
+
+
+def _finish_fused(op: str, exprs, first: torch.Tensor, second, n: int, skipna: bool,
+                  ddof: int, cast_bool: bool) -> list:
+    """0-d numpy results of a fused reduction tail, from the kernel's merged
+    accumulators (one fetch): ``first`` is ``(value, valid, NaN)`` per column
+    (the value a sum, product, min, max or nonzero count), ``second`` the
+    power sums about the means of a moments op.  The scalar rules are
+    :func:`_reduce_one`'s."""
+    host = _engine_materialize(first if second is None else torch.cat([first, second], dim=1))
+    out = []
+    for k, e in enumerate(exprs):
+        dtype = torch.int64 if (cast_bool and e.dtype == torch.bool) else e.dtype
+        fl = dtype.is_floating_point
+        row = host[k]
+        bits = row[:3]
+        float_acc = op in MOMENT_OPS or (fl and op in ("sum", "prod", "min", "max"))
+        value = bits[0:1].view(np.float64)[0] if float_acc else bits[0]
+        cnt, nans = int(bits[1]), int(bits[2])
+        res_dtype = _result_dtype(op, dtype, skipna, ddof)
+        with np.errstate(all="ignore"):
+            r = _finish_one(op, value, cnt, nans, row[3:6].view(np.float64) if second is not None else None,
+                            n, fl, skipna, ddof, dtype)
+        out.append(np.asarray(r).astype(res_dtype))
+    return out
+
+
+def _finish_one(op, value, cnt, nans, powers, n, fl, skipna, ddof, dtype):
+    """One column's result from its accumulators, by ``_reduce_one``'s rules
+    (the moments through :func:`moment_result`)."""
+    nan = np.float64("nan")
+    poisoned = fl and not skipna and nans > 0
+    if op == "count":
+        return np.int64(cnt if fl else n)
+    if op in ("sum", "prod"):
+        if poisoned:
+            return nan
+        return np.float64(value) if fl else np.int64(value)
+    if op in ("min", "max"):
+        if dtype == torch.bool:
+            return np.bool_(value)
+        if not fl:
+            return np.int64(value)
+        if poisoned or cnt == 0:
+            return nan
+        return np.float64(value)
+    if op == "any":
+        return np.bool_(value > 0 or (fl and not skipna and nans > 0))
+    if op == "all":
+        return np.bool_(value == cnt)
+    n_use = torch.tensor(cnt if fl and skipna else n, dtype=torch.int64)
+    power = [None] * 3 if powers is None else [torch.tensor(float(v), dtype=torch.float64) for v in powers]
+    mean = torch.tensor(float(value), dtype=torch.float64) / n_use
+    return moment_result(op, mean, n_use, *power, torch.tensor(poisoned), ddof).numpy()
 
 
 def idx_minmax(op_name: str, cols: List[torch.Tensor], n: int) -> Tuple[List[int], List[int]]:
@@ -234,6 +327,11 @@ def reduce_axis1(
     if op_name not in AXIS1_REDUCTIONS:
         raise ValueError(f"row-wise reduction {op_name!r} is not ported")
     skipna, ddof = bool(skipna), int(ddof)
+    if any(is_lazy(c) for c in cols):
+        fused = _fused_axis1(op_name, cols, skipna, cast_bool)
+        if fused is not None:
+            return fused
+        cols = materialize_exprs(cols)
     if cast_bool:
         cols = [c.to(torch.int64) if c.dtype == torch.bool else c for c in cols]
     common = _common_dtype(cols)
@@ -272,6 +370,29 @@ def reduce_axis1(
     var = (d * d).sum(dim=1) / (n_use - ddof)
     var = torch.where(n_use - ddof > 0, var, float("nan"))
     return var if op_name == "var" else torch.sqrt(var)
+
+
+def _fused_axis1(op_name: str, cols: List[Any], skipna: bool, cast_bool: bool) -> Optional[torch.Tensor]:
+    """sum/mean/min/max/count across the columns of each row as the tail of
+    one fused run over the lazy and concrete columns; None where the fused
+    kernel does not take it (var/std/median, or a forest past one
+    program's caps): the caller materializes and takes the torch path."""
+    from modin_tpu_torch.ops.cuda import fused_program as fp
+
+    if op_name not in fp.ROW_OPS:
+        return None
+    dtypes = [torch.int64 if cast_bool and c.dtype == torch.bool else c.dtype for c in cols]
+    meta = [torch.empty(0, dtype=d) for d in dtypes]
+    if op_name == "count" and not _common_dtype(meta).is_floating_point:
+        n = cols[0].shape[0]
+        device = cols[0].device
+        return torch.full((n,), len(cols), dtype=torch.int64, device=device)
+    if any(d not in fp.DTYPE_CODES for d in dtypes):
+        return None
+    try:
+        return run_fused(list(cols), ("rows", op_name, skipna, bool(cast_bool)))
+    except OverflowError:
+        return None
 
 
 # --------------------------------------------------------------------- #

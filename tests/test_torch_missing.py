@@ -38,6 +38,7 @@ import modin_tpu_torch
 import modin_tpu_torch.pandas as tpd
 from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
 from modin_tpu_torch.ops import elementwise
+from modin_tpu_torch.ops.lazy import materialize_exprs as materialize
 
 N = 2003  # not a multiple of the JAX mesh: its columns carry pad rows
 
@@ -112,7 +113,7 @@ def test_isna_columns(negate):
     cols = [_column(k, seed=i) for i, k in enumerate(kinds)]
     flags = tuple(k == "datetime" for k in kinds)
     want = _jax_values(jax_elementwise.isna_columns([_jax(c) for c in cols], flags, negate))
-    got = elementwise.isna_columns([torch.as_tensor(c) for c in cols], flags, negate)
+    got = materialize(elementwise.isna_columns([torch.as_tensor(c) for c in cols], flags, negate))
     for g, w in zip(got, want):
         _assert_bitwise(g, w)
 
@@ -126,7 +127,7 @@ def test_round_floats(kind, decimals):
     held to one ulp there (the port follows pandas)."""
     x = _column(kind, seed=3)
     (want,) = _jax_values(jax_elementwise.round_columns([_jax(x)], decimals))
-    (got,) = elementwise.round_columns([torch.as_tensor(x)], decimals)
+    (got,) = materialize(elementwise.round_columns([torch.as_tensor(x)], decimals))
     _assert_bitwise(got, np.round(x, decimals))
     if decimals <= 0:
         _assert_bitwise(got, want)
@@ -145,7 +146,7 @@ def test_round_ints(kind, decimals):
     pandas."""
     x = _column(kind, seed=4)
     x[:6] = np.array([15, 25, -35, 7, 125, 5]).astype(kind)
-    (got,) = elementwise.round_columns([torch.as_tensor(x)], decimals)
+    (got,) = materialize(elementwise.round_columns([torch.as_tensor(x)], decimals))
     _assert_bitwise(got, pandas.Series(x).round(decimals).to_numpy())
     (jax_got,) = _jax_values(jax_elementwise.round_columns([_jax(x)], decimals))
     _assert_bitwise(jax_got, x)
@@ -155,7 +156,7 @@ def test_round_ints(kind, decimals):
 def test_fillna_columns(value):
     cols = [_column(k, seed=i) for i, k in enumerate(["float64", "float32", "int64", "bool"])]
     want = _jax_values(jax_elementwise.fillna_columns([_jax(c) for c in cols], value))
-    got = elementwise.fillna_columns([torch.as_tensor(c) for c in cols], value)
+    got = materialize(elementwise.fillna_columns([torch.as_tensor(c) for c in cols], value))
     for g, w, c in zip(got, want, cols):
         _assert_bitwise(g, w)
         _assert_bitwise(g, pandas.Series(c).fillna(value).to_numpy())
@@ -169,7 +170,7 @@ def test_clip_columns(kind, bounds):
     if kind.startswith("int") and any(b is not None and not float(b).is_integer() for b in bounds):
         x = x.astype(np.float64)  # the compiler casts first (pandas' result dtype)
     (want,) = _jax_values(jax_elementwise.clip_columns([_jax(x)], lower, upper))
-    (got,) = elementwise.clip_columns([torch.as_tensor(x)], lower, upper)
+    (got,) = materialize(elementwise.clip_columns([torch.as_tensor(x)], lower, upper))
     _assert_bitwise(got, want)
 
 
@@ -182,7 +183,7 @@ def test_clip_columns(kind, bounds):
 def test_astype_column(source, target):
     x = _column(source, seed=6)
     want = np.asarray(jax_elementwise.astype_column(_jax(x), np.dtype(target)))[:N]
-    got = elementwise.astype_column(torch.as_tensor(x), np.dtype(target))
+    (got,) = materialize([elementwise.astype_column(torch.as_tensor(x), np.dtype(target))])
     _assert_bitwise(got, want)
     _assert_bitwise(got, x.astype(target))
 

@@ -27,6 +27,7 @@ from modin_tpu.ops import reductions as jax_reductions
 
 import modin_tpu_torch
 from modin_tpu_torch.ops import elementwise, reductions
+from modin_tpu_torch.ops.lazy import materialize
 
 N = 1_000
 
@@ -95,7 +96,7 @@ CMP = ["eq", "ne", "lt", "le", "gt", "ge"]
 @pytest.mark.parametrize("scalar", [2, -3, 2.5])
 def test_binary_scalar(op, kind, scalar):
     x = _column(kind, 1)
-    got = elementwise.binary_op_columns(op, [torch.as_tensor(x)], scalar)[0]
+    got = materialize(elementwise.binary_op_columns(op, [torch.as_tensor(x)], scalar)[0])
     _assert_same(got, _jax_binary(op, jnp.asarray(x), scalar))
 
 
@@ -107,16 +108,16 @@ def test_binary_scalar(op, kind, scalar):
 )
 def test_binary_columns(op, kinds):
     x, y = _column(kinds[0], 2), _column(kinds[1], 3)
-    got = elementwise.binary_op_columns(
+    got = materialize(elementwise.binary_op_columns(
         op, [torch.as_tensor(x)], [torch.as_tensor(y)]
-    )[0]
+    )[0])
     _assert_same(got, _jax_binary(op, jnp.asarray(x), jnp.asarray(y)))
 
 
 @pytest.mark.parametrize("op", ["floordiv", "mod"])
 def test_int_division_by_zero_scalar_masks_like_jax(op):
     x = _column("int64", 4)
-    got = elementwise.binary_op_columns(op, [torch.as_tensor(x)], 0)[0]
+    got = materialize(elementwise.binary_op_columns(op, [torch.as_tensor(x)], 0)[0])
     _assert_same(got, _jax_binary(op, jnp.asarray(x), 0))
 
 
@@ -124,7 +125,7 @@ def test_int_division_by_zero_scalar_masks_like_jax(op):
 @pytest.mark.parametrize("kind", ["int64", "int32", "float64_nan", "float32"])
 def test_unary(op, kind):
     x = _column(kind, 5)
-    got = elementwise.unary_op_columns(op, [torch.as_tensor(x)])[0]
+    got = materialize(elementwise.unary_op_columns(op, [torch.as_tensor(x)])[0])
     want = np.asarray(jax_elementwise.get_op(op)(jnp.asarray(x)))
     _assert_same(got, want)
 

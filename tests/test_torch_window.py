@@ -40,6 +40,7 @@ import modin_tpu_torch.pandas as tpd
 from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
 from modin_tpu_torch.ops import elementwise, reductions
 from modin_tpu_torch.ops import window as tw
+from modin_tpu_torch.ops.lazy import materialize
 from modin_tpu_torch.pandas.window import Ewm, Expanding, Rolling
 
 RTOL = 1e-9
@@ -370,7 +371,7 @@ def test_shift_and_diff_match_jax(periods, kind):
 @pytest.mark.parametrize("op", ["pow", "rpow"])
 def test_pow_matches_jax(op, other):
     c = np.abs(_column("nan", seed=11)) + 0.5
-    got = elementwise.binary_op_columns(op, [torch.as_tensor(c)], other)[0].numpy()
+    got = materialize(elementwise.binary_op_columns(op, [torch.as_tensor(c)], other)[0]).numpy()
     from_jax = np.asarray(jax_elementwise.get_op(op)(jnp.asarray(c), other))
     _close(got, from_jax, f"{op} {other}")
 
