@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
                           [--float-rows N] [--io-rows N] [--window-rows N]
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--seed S]
+                          [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion]
 
 Phases, one JSON object per line each:
@@ -28,7 +29,13 @@ Phases, one JSON object per line each:
              for bit and ten launches repeating: ``a * b + c`` over float64
              kept (beside ``torch.addcmul``), with a sum tail and with a
              var tail (two launches), an int64 chain with floor division,
-             modulo and wrapping, and a 150-node program over 8 leaves;
+             modulo and wrapping, a 150-node program over 8 leaves, ``a * b
+             + c`` over float32 (beside ``torch.addcmul`` in float32) and an
+             int32 and a float32 leaf cast into a float64 result; the
+             ptxas report of the kernel's builds, each case's launch shape,
+             and ``a * b + c`` and the 150-node program at 1, 2 and 4 rows a
+             thread; with ``--parent-checkout DIR`` the fused kernel of an
+             earlier commit on the same cases before and after this one's;
              and one node of every op over every dtype (NaN, +/-inf,
              +/-0.0, int extremes) against a column of every dtype or a
              scalar, bit for bit (``fused_grid_check``).
@@ -287,6 +294,11 @@ def phase_build() -> None:
 def kernel_label(mangled: str) -> str:
     """A scan kernel's instantiation as mode, dtype and codes (the
     bincount kernels keep their own names)."""
+    m = re.search(r"fused_kernelILi(\d)ELi(\d+)E", mangled)
+    if m:
+        return f"fused_kernel_k{m.group(1)}_t{m.group(2)}"
+    if "fused_merge" in mangled:
+        return "fused_merge"
     m = re.search(r"SegOpI([ld])\w*?(Add|Mul|Max|Min)[IF]ELb([01])", mangled)
     if m:
         dtype = "i64" if m.group(1) == "l" else "f64"
@@ -313,7 +325,7 @@ def ptxas_by_kernel(log: str) -> dict:
 # ---------------------------------------------------------------------- #
 
 
-def phase_kernel(rows: int, seed: int) -> dict:
+def phase_kernel(rows: int, seed: int, parent: str = None) -> dict:
     import torch
 
     from modin_tpu_torch.ops.cuda import groupby_kernels as gk
@@ -361,7 +373,7 @@ def phase_kernel(rows: int, seed: int) -> dict:
         del codes
     free_device_memory()
     return {"cap": cap, "by_width": by_width, "max_abs_err": max_err, "scan": scan_check(rows, seed),
-            "fused": fused_check(rows, seed)}
+            "fused": fused_check(rows, seed, parent)}
 
 
 # ---------------------------------------------------------------------- #
@@ -659,20 +671,62 @@ def fused_grid_check(seed: int) -> dict:
     return rec
 
 
-def fused_check(rows: int, seed: int) -> dict:
+# the cases whose launch shape is timed at every rows-per-thread choice,
+# and with and without the prefetch
+FUSED_SWEEP = ("axpb_f64", "program_150")
+# rows of the cases forced onto the small blocks (32 outputs each: 32 input
+# columns, 8 GB at 1e8 rows, and a plain version of many passes)
+FUSED_SMALL_BLOCK_ROWS = 2**22 + 37
+
+
+def parent_fused_times(parent: str, rows: int, seed: int) -> dict:
+    """``kernel_ms`` of each case of ``fused_check`` run by the checkout at
+    ``parent`` (an earlier commit's ``git archive``) in a process of its
+    own, with its own package and kernel build: the same inputs, from the
+    same seed, through the parent's ``fused_check`` (its op grid left out)."""
+    code = ("import sys; sys.path.insert(0, {p!r}); import chip_smoke as c; "
+            "c.fused_grid_check = lambda seed: {{'cases': 0}}; "
+            "import modin_tpu_torch; modin_tpu_torch.set_device('cuda'); "
+            "c.fused_check({r}, {s})").format(p=parent, r=rows, s=seed)
+    free_device_memory()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the parent's fused check failed:\n{proc.stderr[-4000:]}")
+    times = {}
+    for ln in proc.stdout.splitlines():
+        rec = json.loads(ln) if ln.startswith("{") else {}
+        if rec.get("kernel") == "fused" and "kernel_ms" in rec:
+            times[rec["case"]] = rec["kernel_ms"]
+    return times
+
+
+def fused_check(rows: int, seed: int, parent: str = None) -> dict:
     """``fused.cu`` against ``run_program_plain`` on the card at ``rows``
     rows, bit for bit (the plain version takes the kernel's reduction
     order, so a tail's accumulators match too), ten launches repeating bit
     for bit; the times of the kernel, the plain version and, where one
     torch call computes the same function, that call (``torch.addcmul``
-    for ``a * b + c``), beside the bound: each input read and each output
-    written once at 3.35 TB/s, or the float64 operations at 34 TFLOP/s,
-    whichever is larger."""
+    for ``a * b + c`` over float64 and over float32), beside the bound:
+    each input read and each output written once at 3.35 TB/s, or the
+    float64 operations at 34 TFLOP/s, whichever is larger.  Each case's
+    launch shape (threads, rows a thread, shared memory) is printed; the
+    ``FUSED_SWEEP`` cases are also checked and timed at 1, 2 and 4 rows a
+    thread and with the prefetch on and off (``shape_ms``); the cases
+    ``tail32_t64`` and ``tail32_t32`` force a sum tail of 32 outputs onto
+    the 64- and 32-thread builds, whose block partials outnumber their
+    threads.  With ``parent`` (a checkout of an earlier commit), that
+    commit's kernel is timed on the same cases before and after this one's
+    (``parent_ms``), and the build's ptxas report of the kernel is
+    printed first."""
     import torch
+
+    from modin_tpu_torch.ops.cuda import build
 
     from modin_tpu_torch.ops import elementwise as ew
     from modin_tpu_torch.ops import lazy
     from modin_tpu_torch.ops.cuda import fused_kernels as fk
+    from modin_tpu_torch.ops.cuda import fused_program as fp
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
@@ -684,27 +738,35 @@ def fused_check(rows: int, seed: int) -> dict:
     def bits(t):
         return t.view(torch.int64) if t.dtype == torch.float64 else t
 
+    emit({"phase": "kernel", "kernel": "fused", "ptxas": ptxas_by_kernel(build.BUILD_LOGS.get("fused", "")),
+          "note": "registers, shared memory, stack and spills of each instantiation (empty when this "
+                  "process found the build already made)"})
+    parent_before = parent_fused_times(parent, rows, seed) if parent else {}
     by_case, worst = {}, 0.0
 
-    def case(name, expr, tail, bytes_per_row, flops_per_row, library=None, library_name=None):
+    def case(name, expr, tail, bytes_per_row, flops_per_row, library=None, library_name=None, n=None,
+             shape=None):
         nonlocal worst
-        lin, plan = lazy._plan([expr], tail)
+        rows_ = n or rows
+        lin, plan = lazy._plan(expr if isinstance(expr, list) else [expr], tail)
         if len(plan) != 1:
             raise AssertionError(f"fused {name}: {len(plan)} programs, expected one")
         program = plan[0]
         leaves = lazy._leaf_args(lin, program)
         second = tail is not None and tail[1] in ("var", "std")
 
-        def run():
-            outs, acc = fk.run_program(program, leaves, lin.scalars, rows)
+        def run(shape=shape):
+            outs, acc = fk.run_program(program, leaves, lin.scalars, rows_, _shape=shape)
             if second:
-                return fk.run_program(program, leaves, lin.scalars, rows, second_pass=True, first=acc)[1]
+                return fk.run_program(program, leaves, lin.scalars, rows_, second_pass=True, first=acc,
+                                      _shape=shape)[1]
             return outs[0] if outs else acc
 
         def plain():
-            outs, acc = fk.run_program_plain(program, leaves, lin.scalars, rows)
+            outs, acc = fk.run_program_plain(program, leaves, lin.scalars, rows_, _shape=shape)
             if second:
-                return fk.run_program_plain(program, leaves, lin.scalars, rows, second_pass=True, first=acc)[1]
+                return fk.run_program_plain(program, leaves, lin.scalars, rows_, second_pass=True, first=acc,
+                                            _shape=shape)[1]
             return outs[0] if outs else acc
 
         got, want = run(), plain()
@@ -723,10 +785,14 @@ def fused_check(rows: int, seed: int) -> dict:
             if not torch.equal(bits(run()), bits(got)):
                 raise AssertionError(f"fused {name}: a launch did not repeat bit for bit")
         worst = max(worst, err)
-        bound = max(bytes_per_row * rows / HBM_BYTES_PER_S, flops_per_row * rows / F64_FLOPS) * 1e3
+        bound = max(bytes_per_row * rows_ / HBM_BYTES_PER_S, flops_per_row * rows_ / F64_FLOPS) * 1e3
+        low = fp.relower(program, **(shape or {}))
         rec = {
-            "phase": "kernel", "kernel": "fused", "case": name, "n": rows,
+            "phase": "kernel", "kernel": "fused", "case": name, "n": rows_,
             "instructions": len(program.instrs), "registers": program.n_regs, "leaves": len(leaves),
+            "kernel_instructions": low.n_code, "slots": low.n_slots, "threads": low.threads,
+            "rows_per_thread": low.rows_per_thread, "smem_bytes": low.smem_bytes,
+            "prefetch": low.prefetch, "long_routines": low.slow,
             "exact": True, "max_abs_err": err,
             "kernel_ms": cuda_ms(run),
             "plain_ms": cuda_ms(plain, reps=3),
@@ -734,6 +800,20 @@ def fused_check(rows: int, seed: int) -> dict:
             "bound_ms": bound, "bytes_per_row": bytes_per_row,
             "bound_by": "bytes" if bytes_per_row / HBM_BYTES_PER_S >= flops_per_row / F64_FLOPS else "operations",
         }
+        if name in FUSED_SWEEP:
+            k0 = low.rows_per_thread
+            shapes = {f"rows_per_thread={k}": {"rows_per_thread": k} for k in fp.ROWS_PER_THREAD}
+            for pre in (True, False):
+                shapes[f"prefetch={pre}"] = {"rows_per_thread": k0, "prefetch": pre}
+            sweep = {}
+            for label, sh in shapes.items():
+                if not torch.equal(bits(run(sh)), bits(want)):
+                    raise AssertionError(f"fused {name}: the launch {sh} differs from run_program_plain")
+                s_low = fp.relower(program, **sh)
+                sweep[label] = {"kernel_ms": cuda_ms(lambda: run(sh)), "threads": s_low.threads,
+                                "rows_per_thread": s_low.rows_per_thread, "prefetch": s_low.prefetch,
+                                "smem_bytes": s_low.smem_bytes}
+            rec["shape_ms"] = sweep
         emit(rec)
         by_case[name] = rec
 
@@ -760,7 +840,39 @@ def fused_check(rows: int, seed: int) -> dict:
     case("program_150", fused_program_150(leaves), None, 72, 150)
     del leaves
     free_device_memory()
+    # float32: 16 B a row, beside torch.addcmul in float32
+    a32, b32, c32 = (f64().to(torch.float32) for _ in range(3))
+    case("axpb_f32", ew.binary_op_columns("add", ew.binary_op_columns("mul", [a32], [b32]), [c32])[0], None,
+         16, 2, lambda: torch.addcmul(c32, a32, b32), "torch.addcmul(c, a, b) in float32")
+    del a32, b32, c32
+    free_device_memory()
+    # int32 and float32 leaves cast into a float64 result: typed loads and casts
+    i32 = torch.randint(-10**6, 10**6, (rows,), dtype=torch.int32, device=dev, generator=gen)
+    g32 = f64().to(torch.float32)
+    mixed = ew.binary_op_columns("add", ew.binary_op_columns("mul", [i32], 0.5), [g32])[0]
+    case("mixed_i32_f32_to_f64", mixed, None, 16, 2)
+    del i32, g32, mixed
+    free_device_memory()
+    # a sum tail of 32 outputs, 3 * 32 block partials, on blocks of 64 and
+    # 32 threads (the launch a program past 227 KB of shared memory takes)
+    cols = [torch.randn(FUSED_SMALL_BLOCK_ROWS, dtype=torch.float64, device=dev, generator=gen)
+            for _ in range(32)]
+    roots = [ew.binary_op_columns("add", ew.binary_op_columns("mul", [cols[j]], 0.5),
+                                  [cols[(j + 1) % 32]])[0] for j in range(32)]
+    for t in (64, 32):
+        case(f"tail32_t{t}", roots, ("reduce", "sum", True, 1, False), 8 * 32, 2 * 32 + 32,
+             n=FUSED_SMALL_BLOCK_ROWS, shape={"threads": t})
+    del cols, roots
+    free_device_memory()
     grid = fused_grid_check(seed)
+    if parent:
+        after = parent_fused_times(parent, rows, seed)
+        for name, rec in by_case.items():
+            if name in parent_before:
+                rec["parent_ms"] = [parent_before[name], after.get(name)]
+        emit({"phase": "kernel", "kernel": "fused", "parent": parent,
+              "parent_ms": {k: v.get("parent_ms") for k, v in by_case.items()},
+              "kernel_ms": {k: v["kernel_ms"] for k, v in by_case.items()}})
     return {"by_case": by_case, "max_abs_err": worst, "grid_cases": grid["cases"]}
 
 
@@ -2762,8 +2874,9 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -
         "library": "torch.addcmul(c, a, b) for a * b + c; no torch call computes a chain with a tail or "
                    "the 150-node program",
         "by_case": {
-            k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                  "bytes_per_row", "instructions", "registers", "max_abs_err")}
+            k: {**{f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                     "bytes_per_row", "instructions", "registers", "max_abs_err", "threads",
+                                     "rows_per_thread")}, "parent_ms": v.get("parent_ms")}
             for k, v in fused.items()
         },
     }]}
@@ -2800,6 +2913,9 @@ def main(argv=None) -> int:
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
                         "each after a warm-up (no checks, no result lines)")
+    parser.add_argument("--parent-checkout", default=None, metavar="DIR",
+                        help="a checkout of an earlier commit (git archive) whose fused kernel the "
+                        "kernel check times on the same cases, before and after this one's")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
                         "(the result lines need all nine)")
@@ -2841,7 +2957,7 @@ def main(argv=None) -> int:
         rows = 5 * 10**7
         emit({"phase": "arithmetic", "note": f"host memory {mem_available_gib():.0f} GiB "
               f"cannot hold the 1e8-row frames: rows cut to {rows}"})
-    kernel = phase_kernel(args.rows, args.seed)
+    kernel = phase_kernel(args.rows, args.seed, args.parent_checkout and os.path.abspath(args.parent_checkout))
     from modin_tpu_torch.ops.cuda import fused_kernels as fk
 
     launches, fused_by_path = {}, {}

@@ -2,30 +2,33 @@
 
 :func:`run_program` runs a :class:`~modin_tpu_torch.ops.cuda.fused_program.
 Program` (the compiled form of a deferred chain, ``ops/lazy.py``) over ``n``
-rows: ``csrc/fused.cu`` interprets it, each thread evaluating the whole
-program for its rows.  It replaces the XLA programs that the JAX package's
-``modin_tpu/ops/lazy.py::run_fused`` compiles per expression over
-``modin_tpu/ops/elementwise.py::_build_ops``.  Without a tail it writes the
-program's outputs; with a reduction tail it gives each output's merged
-accumulators, ``[n_out, 3]`` int64 (the bits of ``(value, valid count, NaN
-count)``, or of the three power sums for ``TAIL_M2``), from deterministic
-block partials and one merge launch.
+rows: ``csrc/fused.cu`` interprets its kernel encoding (``Program.kernel``:
+typed opcodes, each leaf loaded once a row, every operand a slot of a
+register file in shared memory or a constant), each thread running the
+program for ``rows_per_thread`` rows at a time.  It replaces the XLA
+programs that the JAX package's ``modin_tpu/ops/lazy.py::run_fused``
+compiles per expression over ``modin_tpu/ops/elementwise.py::_build_ops``.
+Without a tail it writes the program's outputs; with a reduction tail it
+gives each output's merged accumulators, ``[n_out, 3]`` int64 (the bits of
+``(value, valid count, NaN count)``, or of the three power sums for
+``TAIL_M2``), from deterministic block partials and one merge launch.
 
 On a CUDA tensor :func:`run_program` launches the kernel (building it on
 first use) and raises when it cannot; on CPU tensors it computes the plain
-version, :func:`run_program_plain`, which walks the same instructions with
-torch tensors as registers through the eager ops' own formulas, and takes
-the reductions in the kernel's order (rows by thread, a tree over each
-block's threads, the blocks in order, a tree over the merge's threads), so
-the two agree bit for bit.  ``LAUNCHES`` counts kernel launches (a
-reduction's merge included), ``PROGRAMS_RUN`` programs run on either route.
+version, :func:`run_program_plain`, which walks the semantic instructions
+(``Program.instrs``) with torch tensors as registers through the eager ops'
+own formulas, and takes the reductions in the kernel's order (each thread
+its rows in order, a tree over each block's threads, the blocks in order, a
+tree over the merge's threads), so the two agree bit for bit.  ``LAUNCHES``
+counts kernel launches (a reduction's merge included), ``PROGRAMS_RUN``
+programs run on either route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,30 +37,21 @@ from modin_tpu_torch.ops.cuda import fused_program as fp
 LAUNCHES = 0
 PROGRAMS_RUN = 0
 
-# the kernel's launch shape (csrc/fused.cu: kThreads, kMaxBlocks)
-THREADS = 256
-MAX_BLOCKS = 1024
-
 _LIB_NAME = "fused"
 _bound = False
-
-
-class _Instr(ctypes.Structure):
-    _fields_ = [("op", ctypes.c_uint8), ("dt", ctypes.c_uint8), ("dst", ctypes.c_uint8),
-                ("a", ctypes.c_uint8), ("b", ctypes.c_uint8), ("c", ctypes.c_uint8),
-                ("aux", ctypes.c_uint16), ("imm", ctypes.c_int64)]
 
 
 class FusedParams(ctypes.Structure):
     """csrc/fused.cu: struct FusedParams, passed to the kernel by value."""
 
     _fields_ = [
-        ("n", ctypes.c_int64), ("n_instr", ctypes.c_int32), ("n_out", ctypes.c_int32),
-        ("tail", ctypes.c_int32), ("pad0", ctypes.c_int32),
+        ("n", ctypes.c_int64), ("n_code", ctypes.c_int32), ("n_out", ctypes.c_int32),
+        ("n_const", ctypes.c_int32), ("tail", ctypes.c_int32), ("n_slots", ctypes.c_int32),
+        ("n_load", ctypes.c_int32), ("prefetch", ctypes.c_int32), ("pad0", ctypes.c_int32),
         ("mean_src", ctypes.c_void_p), ("partial", ctypes.c_void_p),
         ("leaf", ctypes.c_void_p * fp.MAX_LEAVES), ("out", ctypes.c_void_p * fp.MAX_OUTPUTS),
-        ("scalar", ctypes.c_int64 * fp.MAX_SCALARS), ("code", _Instr * fp.MAX_INSTR),
-        ("leaf_dt", ctypes.c_uint8 * fp.MAX_LEAVES), ("out_dt", ctypes.c_uint8 * fp.MAX_OUTPUTS),
+        ("konst", ctypes.c_int64 * fp.MAX_CONSTS), ("code", ctypes.c_uint8 * (8 * fp.MAX_CODE)),
+        ("out_dt", ctypes.c_uint8 * fp.MAX_OUTPUTS),
     ]
 
 
@@ -67,12 +61,11 @@ def _lib() -> ctypes.CDLL:
 
     lib = load(_LIB_NAME)
     if not _bound:
-        lib.fused_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.fused_run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p]
         lib.fused_run.restype = ctypes.c_int
         lib.fused_params_bytes.argtypes = []
         lib.fused_params_bytes.restype = ctypes.c_int
-        lib.fused_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
-        lib.fused_scratch_bytes.restype = ctypes.c_int64
         lib.fused_error_string.argtypes = [ctypes.c_int]
         lib.fused_error_string.restype = ctypes.c_char_p
         size = lib.fused_params_bytes()
@@ -83,20 +76,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def blocks(n: int) -> int:
-    """The kernel's grid for ``n`` rows (it depends on n alone)."""
-    return int(min(max(math.ceil(n / THREADS), 1), MAX_BLOCKS))
-
-
-def _tail_mode(program: fp.Program, second_pass: bool) -> int:
-    tail = program.tail
-    if tail is None or tail[0] != "reduce":
-        return fp.TAIL_NONE
-    return fp.TAIL_M2 if second_pass else fp.REDUCE_MODES[tail[1]]
-
-
 def _outputs(program: fp.Program, n: int, device) -> List[torch.Tensor]:
-    if _tail_mode(program, False) != fp.TAIL_NONE:
+    if fp.tail_mode(program.tail) != fp.TAIL_NONE:
         return []
     return [torch.empty(n, dtype=fp.CODE_DTYPES[c], device=device) for c in program.out_dtypes]
 
@@ -124,50 +105,58 @@ def run_program(
     second_pass: bool = False,
     first: Optional[torch.Tensor] = None,
     device: Optional[torch.device] = None,
+    _shape: Optional[Dict[str, Any]] = None,
 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
     """(outputs, accumulators) of one run of ``program`` over ``n`` rows:
     ``leaves`` are its leaf columns (in ``program.leaves`` order), ``scalars``
     the forest's runtime scalars.  ``second_pass`` runs a moments tail's
     power sums about the means of ``first`` (its first pass's
-    accumulators).  ``device`` places a program without leaves."""
+    accumulators).  ``device`` places a program without leaves.
+    ``_shape`` is for measurement only: it overrides the launch shape or the
+    prefetch (``fused_program.relower``'s keywords; a tail's order follows it
+    on both routes)."""
     global LAUNCHES, PROGRAMS_RUN
     dev = leaves[0].device if leaves else (device or torch.device("cpu"))
     PROGRAMS_RUN += 1
     if dev.type == "cpu":
-        return run_program_plain(program, leaves, scalars, n, second_pass=second_pass, first=first)
+        return run_program_plain(program, leaves, scalars, n, second_pass=second_pass, first=first,
+                                 _shape=_shape)
     if dev.type != "cuda":
         raise ValueError(f"fused kernel: unsupported device {dev}")
     _check(leaves, program, n)
-    tail = _tail_mode(program, second_pass)
+    low = fp.relower(program, second_pass, **(_shape or {}))
     outs = _outputs(program, n, dev)
     lib = _lib()
+    n_out = len(program.out_dtypes)
     p = FusedParams()
-    p.n, p.n_instr, p.n_out, p.tail = n, len(program.instrs), len(program.out_dtypes), tail
-    code = program.code
-    ctypes.memmove(ctypes.addressof(p.code), code, len(code))
+    p.n, p.n_code, p.n_load, p.n_out, p.tail, p.n_slots = n, low.n_code, low.n_load, n_out, low.mode, low.n_slots
+    p.prefetch = low.prefetch
+    ctypes.memmove(ctypes.addressof(p.code), low.code, len(low.code))
     for k, t in enumerate(leaves):
         p.leaf[k] = t.data_ptr()
-        p.leaf_dt[k] = program.leaf_dtypes[k]
     for k, t in enumerate(outs):
         p.out[k] = t.data_ptr()
     for k, code_ in enumerate(program.out_dtypes):
         p.out_dt[k] = code_
-    for k, bits in enumerate(fp.slot_bits(program, scalars)):
-        p.scalar[k] = bits
+    konst = fp.slot_bits(program, scalars) + list(low.fixed)
+    p.n_const = len(konst)
+    for k, bits in enumerate(konst):
+        p.konst[k] = bits
+    n_blocks = fp.grid(n, low)
     acc = None
     scratch = None
-    if tail != fp.TAIL_NONE:
-        acc = torch.empty((len(program.out_dtypes), 3), dtype=torch.int64, device=dev)
-        scratch = torch.empty(int(lib.fused_scratch_bytes(n, len(program.out_dtypes))),
-                              dtype=torch.uint8, device=dev)
+    if low.mode != fp.TAIL_NONE:
+        acc = torch.empty((n_out, 3), dtype=torch.int64, device=dev)
+        scratch = torch.empty((n_blocks, n_out, 3), dtype=torch.int64, device=dev)
         p.partial = scratch.data_ptr()
-        if tail == fp.TAIL_M2:
+        if low.mode == fp.TAIL_M2:
             if first is None or first.device != dev:
                 raise ValueError("fused kernel: the second pass needs the first pass's accumulators")
             p.mean_src = first.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_run(ctypes.byref(p), ctypes.c_void_p(acc.data_ptr() if acc is not None else None),
+        err = lib.fused_run(ctypes.byref(p), n_blocks, low.threads, low.rows_per_thread, low.smem_bytes,
+                            ctypes.c_void_p(acc.data_ptr() if acc is not None else None),
                             ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.fused_error_string(int(err)).decode(errors="replace")
@@ -269,35 +258,40 @@ def _signed16(v: int) -> int:
     return v - (1 << 16) if v >= 1 << 15 else v
 
 
-def _tree(x: torch.Tensor, combine, init, n_blocks: int) -> torch.Tensor:
+def _tree(x: torch.Tensor, combine, init, low: fp.Lowered) -> torch.Tensor:
     """The kernel's reduction of one column of per-row contributions ``x``
-    (length n, ``init`` where a row adds nothing): each thread folds its
-    rows in row order, each block's threads fold in a tree, then the merge
-    folds the blocks by thread and in a tree.  Returns a 0-d tensor."""
-    g = n_blocks * THREADS
-    k = max(math.ceil(x.shape[0] / g), 1)
-    pad = torch.full((k * g,), init, dtype=x.dtype, device=x.device)
+    (length n, ``init`` where a row adds nothing): block b takes tiles b, b
+    + blocks, ... of ``threads * rows_per_thread`` rows, thread t of it rows
+    ``tile + t + k * threads`` for k in order, and folds them in that order;
+    each block's threads fold in a tree, then the merge folds the blocks by
+    its threads and in a tree.  Returns a 0-d tensor."""
+    threads, per = low.threads, low.rows_per_thread
+    n_blocks = fp.grid(x.shape[0], low)
+    g = n_blocks * threads * per
+    m = max(-(-x.shape[0] // g), 1)
+    pad = torch.full((m * g,), init, dtype=x.dtype, device=x.device)
     pad[: x.shape[0]] = x
-    rows = pad.view(k, n_blocks, THREADS)
-    acc = torch.full((n_blocks, THREADS), init, dtype=x.dtype, device=x.device)
-    for i in range(k):
-        acc = combine(acc, rows[i])
-    w = THREADS // 2
+    rows = pad.view(m, n_blocks, per, threads)
+    acc = torch.full((n_blocks, threads), init, dtype=x.dtype, device=x.device)
+    for i in range(m):
+        for k in range(per):
+            acc = combine(acc, rows[i, :, k])
+    w = threads // 2
     while w:
         acc = combine(acc[:, :w], acc[:, w: 2 * w])
         w //= 2
     part = acc[:, 0]
-    km = math.ceil(n_blocks / THREADS)
-    padm = torch.full((km * THREADS,), init, dtype=x.dtype, device=x.device)
+    km = -(-n_blocks // fp.MERGE_THREADS)
+    padm = torch.full((km * fp.MERGE_THREADS,), init, dtype=x.dtype, device=x.device)
     padm[:n_blocks] = part
-    m = torch.full((THREADS,), init, dtype=x.dtype, device=x.device)
-    for row in padm.view(km, THREADS):
-        m = combine(m, row)
-    w = THREADS // 2
+    mm = torch.full((fp.MERGE_THREADS,), init, dtype=x.dtype, device=x.device)
+    for row in padm.view(km, fp.MERGE_THREADS):
+        mm = combine(mm, row)
+    w = fp.MERGE_THREADS // 2
     while w:
-        m = combine(m[:w], m[w: 2 * w])
+        mm = combine(mm[:w], mm[w: 2 * w])
         w //= 2
-    return m[0]
+    return mm[0]
 
 
 def _i64_bits(x: torch.Tensor) -> torch.Tensor:
@@ -307,7 +301,7 @@ def _i64_bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64)
 
 
-def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, n_blocks: int,
+def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, low: fp.Lowered,
                mean: Optional[torch.Tensor]) -> torch.Tensor:
     """One output's accumulators, ``[3]`` int64 bits, in the kernel's order."""
     dev = x.device
@@ -318,7 +312,7 @@ def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, n_blocks: int,
         d3 = d2 * d
         d4 = d3 * d
         return torch.stack([
-            _i64_bits(_tree(torch.where(ok, p, 0.0), torch.add, 0.0, n_blocks)) for p in (d2, d3, d4)
+            _i64_bits(_tree(torch.where(ok, p, 0.0), torch.add, 0.0, low)) for p in (d2, d3, d4)
         ])
     fl = fp.is_float(code)
     if fl:
@@ -344,7 +338,7 @@ def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, n_blocks: int,
     elif fl:
         prod = mode == fp.TAIL_PROD
         init = 1.0 if prod else 0.0
-        v = _tree(torch.where(nan, init, xd), torch.mul if prod else torch.add, init, n_blocks)
+        v = _tree(torch.where(nan, init, xd), torch.mul if prod else torch.add, init, low)
     else:  # int sums and products wrap, so their order does not matter
         v = xd.prod() if mode == fp.TAIL_PROD else xd.sum()
     return torch.stack([_i64_bits(v.to(dev)), cnt.to(torch.int64), n_nan.to(torch.int64)])
@@ -358,8 +352,10 @@ def run_program_plain(
     *,
     second_pass: bool = False,
     first: Optional[torch.Tensor] = None,
+    _shape: Optional[Dict[str, Any]] = None,
 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
-    """Plain torch version of :func:`run_program` on the leaves' device."""
+    """Plain torch version of :func:`run_program` on the leaves' device
+    (its reductions in the order of the launch shape ``_shape`` gives)."""
     if n is None:
         n = leaves[0].shape[0] if leaves else 0
     slots = fp.slot_values(program, scalars)
@@ -386,16 +382,16 @@ def run_program_plain(
         else:
             regs[dst] = _plain_exec(op, dt, aux, imm, get(a), get(b), get(c),
                                     fp.SCALAR_BASE <= b < fp.LEAF_BASE)
-    mode = _tail_mode(program, second_pass)
+    low = fp.relower(program, second_pass, **(_shape or {}))
+    mode = low.mode
     if mode == fp.TAIL_NONE:
         return [o if o.dtype == fp.CODE_DTYPES[c] else o.to(fp.CODE_DTYPES[c])
                 for o, c in zip(outs, program.out_dtypes)], None
-    nb = blocks(n)
     means = None
     if mode == fp.TAIL_M2:
         means = first[:, 0].contiguous().view(torch.float64) / first[:, 1].to(torch.float64)
     rows = []
     for j, (x, code) in enumerate(zip(folded, program.out_dtypes)):
         mean = means[j] if means is not None else None
-        rows.append(_plain_acc(mode, code, x.to(dev), n, nb, mean))
+        rows.append(_plain_acc(mode, code, x.to(dev), n, low, mean))
     return [], torch.stack(rows) if rows else torch.empty((0, 3), dtype=torch.int64, device=dev)

@@ -2,9 +2,12 @@
 
 A deferred chain of elementwise ops (``ops/lazy.py``) is linearized into a
 postorder list of nodes; this module turns such a forest, plus an optional
-reduction tail, into a small register program that ``csrc/fused.cu``
-interprets (one launch per consumer) and that
-``fused_kernels.run_program_plain`` walks with torch tensors as registers.
+reduction tail, into a small register program (``Program.instrs``, the
+semantic program that ``fused_kernels.run_program_plain`` walks with torch
+tensors as registers), and lowers it into the encoding that
+``csrc/fused.cu`` interprets, one launch per consumer (:func:`lower`:
+typed opcodes, leaves loaded once, a register file in shared memory; the
+section at the end of this module).
 
 An instruction is ``(op, dt, dst, a, b, c, aux, imm)``: an opcode, the dtype
 code its operands are in (its operand class follows: ``i64`` for bool and
@@ -36,6 +39,7 @@ instructions (the row-wise sum/mean/min/max/count of ``reduce_axis1``).
 
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -151,16 +155,8 @@ class Program(NamedTuple):
     out_dtypes: Tuple[int, ...]  # STORE dtype, or the ACC class dtype
     n_regs: int
     tail: Optional[Tuple]
-
-    @property
-    def code(self) -> bytes:
-        return b"".join(pack_instr(i) for i in self.instrs)
-
-
-def pack_instr(ins: Tuple[int, ...]) -> bytes:
-    """The 16 bytes of one instruction (csrc/fused.cu: struct Instr)."""
-    op, dt, dst, a, b, c, aux, imm = ins
-    return struct.pack("<6BHq", op, dt, dst, a, b, c, aux, imm)
+    kernel: "Lowered"  # the kernel's encoding (its first pass for a moments tail)
+    kernel_m2: Optional["Lowered"]  # a moments tail's second pass
 
 
 def double_bits(x: float) -> int:
@@ -214,11 +210,12 @@ def _meta(code: int) -> torch.Tensor:
     return torch.empty(0, dtype=CODE_DTYPES[code])
 
 
-def _result_code(x: Any, y: Any) -> int:
+def _result_code(x: Any, y: Any, kop: int) -> int:
     from modin_tpu_torch.ops.elementwise import _result_dtype
     from modin_tpu_torch.utils import torch_dtype
 
-    return DTYPE_CODES[torch_dtype(_result_dtype(x, y))]
+    out_of_range = "widen" if kop in (EQ, NE, LT, LE, GT, GE) else "ignore" if kop == TDIV else "raise"
+    return DTYPE_CODES[torch_dtype(_result_dtype(x, y, out_of_range))]
 
 
 class _Overflow(Exception):
@@ -241,6 +238,7 @@ class _Builder:
         self.n_regs = 0
         self.roots: List[int] = []
         self.out_dtypes: List[int] = []
+        self.imm_consts: Dict[int, None] = {}  # the lowering's constants for static arguments
 
     # -- resources -------------------------------------------------- #
 
@@ -259,6 +257,11 @@ class _Builder:
     def emit(self, op, dt, dst, a=NO_OPERAND, b=NO_OPERAND, c=NO_OPERAND, aux=0, imm=0) -> None:
         if len(self.instrs) >= MAX_INSTR:
             raise _Overflow("instructions")
+        k = _imm_const(op, dt, aux, imm)
+        if k is not None and k not in self.imm_consts:
+            if len(self.imm_consts) >= MAX_CONSTS - MAX_SCALARS:
+                raise _Overflow("constants")
+            self.imm_consts[k] = None
         self.instrs.append((op, dt, dst, a, b, c, aux, imm))
 
     def leaf(self, i: int) -> int:
@@ -363,7 +366,7 @@ class _Builder:
         if op in _BINARY:
             kop, swap = _BINARY[op]
             x, y = (refs[1], refs[0]) if swap else (refs[0], refs[1])
-            dt = _result_code(self.meta_of(x), self.meta_of(y))
+            dt = _result_code(self.meta_of(x), self.meta_of(y), kop)
             if kop == TDIV and not is_float(dt):
                 dt = F64
             if dt == BOOL and kop in (ADD, MUL):
@@ -660,16 +663,34 @@ def _try_group(nodes, node_codes, leaf_codes, scalar_tags, out_refs, order_by_ro
     return b
 
 
+def tail_mode(tail: Optional[Tuple], second_pass: bool = False) -> int:
+    """The kernel's tail mode of a program's tail (``TAIL_M2`` for the
+    second pass of a moments tail)."""
+    if tail is None or tail[0] != "reduce":
+        return TAIL_NONE
+    return TAIL_M2 if second_pass else REDUCE_MODES[tail[1]]
+
+
 def _program(b: _Builder, tail) -> Program:
+    instrs = tuple(b.instrs)
+    leaf_dtypes = tuple(b.leaf_codes[i] for i in b.leaves)
+    out_dtypes = tuple(b.out_dtypes)
+    mode = tail_mode(tail)
+
+    def low(m):
+        return lower(instrs, leaf_dtypes, len(b.slots), len(out_dtypes), m)
+
     return Program(
-        instrs=tuple(b.instrs),
+        instrs=instrs,
         leaves=tuple(b.leaves),
-        leaf_dtypes=tuple(b.leaf_codes[i] for i in b.leaves),
+        leaf_dtypes=leaf_dtypes,
         slots=tuple(b.slots),
         roots=tuple(b.roots),
-        out_dtypes=tuple(b.out_dtypes),
+        out_dtypes=out_dtypes,
         n_regs=b.n_regs,
         tail=tail,
+        kernel=low(mode),
+        kernel_m2=low(TAIL_M2) if mode == TAIL_M1 and tail[1] in MOMENT_OPS else None,
     )
 
 
@@ -683,3 +704,439 @@ def slot_values(program: Program, scalars: Sequence[Any]) -> List[Any]:
 
 def slot_bits(program: Program, scalars: Sequence[Any]) -> List[int]:
     return [scalar_bits(scalars[v] if kind == "scalar" else v, code) for kind, v, code in program.slots]
+
+
+# ---------------------------------------------------------------------- #
+# The kernel's encoding: the last step of the compiler
+# ---------------------------------------------------------------------- #
+#
+# ``Program.instrs`` is the semantic program (the plain version walks it).
+# :func:`lower` turns it into the code that ``csrc/fused.cu`` runs:
+#
+# - typed opcodes: each op is specialised by its operand class (``_D``
+#   float64, ``_F`` float32, ``_I`` the ints and bool in an int64, wrapped
+#   after the op to the width of the instruction's dtype code), a cast by its
+#   source class and target, a load by the leaf's dtype, a store by the
+#   output's, an accumulation by the tail mode and the class: one switch
+#   dispatches and no case branches on a dtype again;
+# - each leaf loaded once a row, at the top of the code: one typed load for
+#   each run of leaves of one dtype (its ``dt`` is the count), into the
+#   first slots;
+# - the scalar slots, then the constants that stand for static arguments
+#   (``EQI``'s sentinel, ``ROUND``'s scale, ``NANTO``'s fill, ``ROUNDI``'s
+#   unit), in one constant area; every operand is a register-file slot
+#   (``0 <= o < 128``) or a constant (``0x80 | k``) and nothing else;
+# - the previous result in a hardware register: an operand that is the value
+#   the last result-producing instruction gave reads that register
+#   (``ACC_OPERAND``), and a value that no later instruction reads from the
+#   register file is never written there (its ``dst`` is ``ACC_OPERAND``),
+#   so a chain ``e = e <op> x`` moves one operand through shared memory, not
+#   three;
+# - register-file slots allocated by liveness over the typed code (a leaf's
+#   slot is freed after its last use like any value's).
+#
+# The kernel keeps its register file in shared memory, ``[slot][rows in
+# flight]`` of 8 bytes, and runs each decoded instruction over
+# ``rows_per_thread`` rows of its thread (rows ``tile + tid + k * threads``);
+# :func:`lower` picks the block size and ``rows_per_thread`` against the
+# shared memory the program needs.
+
+KOPS = (
+    "LD_U8", "LD_I8", "LD_I16", "LD_I32", "LD_I64", "LD_F32", "LD_F64",
+    "ST_B", "ST_I8", "ST_I16", "ST_I32", "ST_I64", "ST_U8", "ST_F32", "ST_F64",
+    "MOV", "CVT_D_F", "CVT_F_D", "CVT_I_D", "CVT_I_F", "CVT_D_B", "CVT_F_B", "CVT_I_B", "WRAP",
+    "CVT_D_I8", "CVT_D_I16", "CVT_D_I32", "CVT_D_I64", "CVT_D_U8",
+    "CVT_F_I8", "CVT_F_I16", "CVT_F_I32", "CVT_F_I64", "CVT_F_U8",
+    "ADD_D", "ADD_F", "ADD_I", "SUB_D", "SUB_F", "SUB_I", "MUL_D", "MUL_F", "MUL_I",
+    "DIV_D", "DIV_F", "FDIV_D", "FDIV_F", "FDIV_I", "MOD_D", "MOD_F", "MOD_I",
+    "POW_D", "POW_F", "POWS_D", "POWS_F",
+    "EQ_D", "EQ_F", "EQ_I", "NE_D", "NE_F", "NE_I", "LT_D", "LT_F", "LT_I",
+    "LE_D", "LE_F", "LE_I", "GT_D", "GT_F", "GT_I", "GE_D", "GE_F", "GE_I",
+    "AND", "OR", "XOR",
+    "NEG_D", "NEG_F", "NEG_I", "ABS_D", "ABS_F", "ABS_I", "NOT_B", "INV_I",
+    "ISNAN_D", "ISNAN_F", "ISNAN_I", "NOTNAN_D", "NOTNAN_F", "NOTNAN_I",
+    "SQRT_D", "SQRT_F", "EXP_D", "EXP_F", "LOG_D", "LOG_F", "LOG2_D", "LOG2_F",
+    "LOG10_D", "LOG10_F", "SIN_D", "SIN_F", "COS_D", "COS_F", "TAN_D", "TAN_F",
+    "TANH_D", "TANH_F", "FLOOR_D", "FLOOR_F", "CEIL_D", "CEIL_F",
+    "SIGN_D", "SIGN_F", "SIGN_I",
+    "RUP_D", "RUP_F", "RDN_D", "RDN_F", "RINT_D", "RINT_F", "ROUNDI",
+    "FILLNA_D", "FILLNA_F",
+    "CLIPLO_D", "CLIPLO_F", "CLIPLO_I", "CLIPHI_D", "CLIPHI_F", "CLIPHI_I",
+    "SEL", "MIN_D", "MIN_F", "MIN_I", "MAX_D", "MAX_F", "MAX_I",
+    "ACC_SUM_D", "ACC_SUM_F", "ACC_SUM_I", "ACC_PROD_D", "ACC_PROD_F", "ACC_PROD_I",
+    "ACC_MIN_D", "ACC_MIN_F", "ACC_MIN_I", "ACC_MAX_D", "ACC_MAX_F", "ACC_MAX_I",
+    "ACC_NZ_D", "ACC_NZ_F", "ACC_NZ_I", "ACC_M2_D",
+)
+KOP = {name: i + 1 for i, name in enumerate(KOPS)}
+_KOP_NAMES = {v: k for k, v in KOP.items()}
+
+# the kernel's caps and launch shape (csrc/fused.cu)
+MAX_CODE = MAX_INSTR + MAX_LEAVES  # the leaf loads come on top of a program
+MAX_CONSTS = 96  # scalar slots, then the constants of static arguments
+MAX_SLOTS = 128
+CONST_BIT = 0x80
+ACC_OPERAND = 0xFE  # the previous result (an operand), or a result kept there alone (a dst)
+NONE_OPERAND = 0xFF
+THREADS = 256
+MERGE_THREADS = 256
+MAX_BLOCKS = 8192
+ROWS_PER_THREAD = (4, 2, 1)
+# a launch takes the most rows a thread (two at most for a program with a
+# long routine) whose block stays within SMEM_TARGET bytes of shared memory;
+# past SMEM_MAX (an H100 block's opt-in shared memory) the block shrinks
+SMEM_TARGET = 96 * 1024
+SMEM_MAX = 232448
+# the long opcodes (csrc/fused.cu: slow_op's, and the int division that the
+# kernel runs inline), and the weight
+# of one against an inline instruction when a program's work is set against
+# its loads (a program prefetches the next tile's leaves where its work is
+# at most PREFETCH_WORK a leaf)
+SLOW_KOPS = frozenset(["FDIV_D", "FDIV_F", "FDIV_I", "MOD_D", "MOD_F", "MOD_I", "POW_D", "POW_F", "POWS_D",
+                       "POWS_F", "ROUNDI"] + [f"{m}_{c}" for m in ("EXP", "LOG", "LOG2", "LOG10", "SIN", "COS",
+                                                                "TAN", "TANH") for c in "DF"])
+SLOW_WEIGHT = 8
+PREFETCH_WORK = 4
+
+_NAME = {BOOL: "B", 1: "I8", 2: "I16", 3: "I32", I64: "I64", 5: "U8", F32: "F32", F64: "F64"}
+_TYPED = {
+    ADD: "ADD", SUB: "SUB", MUL: "MUL", TDIV: "DIV", FDIV: "FDIV", MOD: "MOD", EQ: "EQ", NE: "NE",
+    LT: "LT", LE: "LE", GT: "GT", GE: "GE", NEG: "NEG", ABS: "ABS", ISNAN: "ISNAN", NOTNAN: "NOTNAN",
+    SQRT: "SQRT", EXP: "EXP", LOG: "LOG", LOG2: "LOG2", LOG10: "LOG10", SIN: "SIN", COS: "COS",
+    TAN: "TAN", TANH: "TANH", FLOOR: "FLOOR", CEIL: "CEIL", SIGN: "SIGN", FILLNA: "FILLNA",
+    CLIPLO: "CLIPLO", CLIPHI: "CLIPHI", MIN: "MIN", MAX: "MAX",
+}
+_UNTYPED = {AND: "AND", OR: "OR", XOR: "XOR", SEL: "SEL", ROUNDI: "ROUNDI"}
+_ACC_MODE = {TAIL_SUM: "SUM", TAIL_M1: "SUM", TAIL_PROD: "PROD", TAIL_MIN: "MIN", TAIL_MAX: "MAX",
+             TAIL_NZ: "NZ", TAIL_M2: "M2"}
+
+
+def op_class(code: int) -> str:
+    """The operand class of a dtype code: D, F or I."""
+    return "D" if code == F64 else "F" if code == F32 else "I"
+
+
+def _cast_kop(frm: int, to: int) -> str:
+    cf, ct = op_class(frm), op_class(to)
+    if frm == to:
+        return "MOV"
+    if to == BOOL:
+        return f"CVT_{cf}_B"
+    if ct == "I":
+        return "WRAP" if cf == "I" else f"CVT_{cf}_{_NAME[to]}"
+    return f"CVT_{cf}_{ct}"
+
+
+def _imm_const(op: int, dt: int, aux: int, imm: int) -> Optional[int]:
+    """The 8 bytes (as an int64) of the constant that the kernel's code
+    reads for an instruction's static argument, or None."""
+    if op in (EQI, NEI, ROUNDI):
+        return imm
+    if (op == ROUND and aux != 0) or op == NANTO:
+        return scalar_bits(bits_double(imm), dt)
+    return None
+
+
+class Lowered(NamedTuple):
+    """A program in the kernel's encoding, with the launch shape."""
+
+    code: bytes  # 8 bytes an instruction: op, dt, dst, a, b, c, aux (u16)
+    n_code: int
+    n_load: int  # the leaf loads at the head of the code
+    slow: bool  # it has an opcode of SLOW_KOPS
+    prefetch: bool  # the next tile's wide leaves arrive while a tile runs
+    fixed: Tuple[int, ...]  # the constants after the program's scalar slots
+    n_slots: int  # register-file slots
+    mode: int  # the tail mode the accumulations are typed by
+    threads: int
+    rows_per_thread: int
+    smem_bytes: int
+
+
+def pack_kinstr(op: int, dt: int, dst: int, a: int, b: int, c: int, aux: int) -> bytes:
+    """The 8 bytes of one kernel instruction (csrc/fused.cu: struct KInstr)."""
+    return struct.pack("<6BH", op, dt, dst, a, b, c, aux)
+
+
+def launch_shape(n_slots: int, n_leaves: int, n_consts: int, n_out: int, mode: int,
+                 rows_per_thread: Optional[int] = None, prefetch: bool = False,
+                 slow: bool = True, threads: Optional[int] = None) -> Tuple[int, int, int]:
+    """(threads, rows a thread, shared bytes) of a block: 256 threads with
+    the most rows a thread (of :data:`ROWS_PER_THREAD`, at most two with a
+    long routine, or the one given) whose block stays within
+    :data:`SMEM_TARGET`; a program that needs more than :data:`SMEM_MAX` at
+    one row a thread takes blocks of 128, 64 or 32 threads (the shapes
+    ``csrc/fused.cu`` is built for), or of the ``threads`` given (one row a
+    thread below 256).  Shared memory holds the constants, a moments tail's
+    means, the accumulators (three a thread and output) and the register
+    file (a slot a row in flight, and with ``prefetch`` a second copy of the
+    leaves' slots that receives the next tile's leaves), 8 bytes each."""
+
+    def smem(threads, k):
+        acc = 3 * n_out * threads if mode != TAIL_NONE else 0
+        copy = n_leaves if prefetch else 0
+        return 8 * (n_consts + (n_out if mode == TAIL_M2 else 0) + acc + (n_slots + copy) * threads * k)
+
+    if threads is not None and threads != THREADS:
+        if threads not in (128, 64, 32) or rows_per_thread not in (None, 1) or smem(threads, 1) > SMEM_MAX:
+            raise ValueError(f"fused program: no build of {threads} threads and {rows_per_thread} rows a "
+                             f"thread within {SMEM_MAX} bytes of shared memory")
+        return threads, 1, smem(threads, 1)
+    choices = ROWS_PER_THREAD[1:] if slow else ROWS_PER_THREAD
+    for k in (rows_per_thread,) if rows_per_thread else choices:
+        if smem(THREADS, k) <= SMEM_TARGET:
+            break
+    if smem(THREADS, k) <= SMEM_MAX:
+        return THREADS, k, smem(THREADS, k)
+    if k != 1:
+        raise ValueError(f"fused program: {k} rows a thread need {smem(THREADS, k)} bytes of shared memory")
+    threads = THREADS
+    while threads > 32 and smem(threads, 1) > SMEM_MAX:
+        threads //= 2
+    return threads, 1, smem(threads, 1)
+
+
+def grid(n: int, low: Lowered) -> int:
+    """The kernel's blocks for ``n`` rows: one tile of ``threads *
+    rows_per_thread`` rows a block, at most :data:`MAX_BLOCKS` (it depends
+    on n and the program alone, never on the card)."""
+    tile = low.threads * low.rows_per_thread
+    return int(min(max(-(-n // tile), 1), MAX_BLOCKS))
+
+
+def lower(instrs: Sequence[Tuple[int, ...]], leaf_dtypes: Sequence[int], n_scalar_slots: int,
+          n_out: int, mode: int, rows_per_thread: Optional[int] = None, threads: Optional[int] = None,
+          prefetch: Optional[bool] = None) -> Lowered:
+    """The kernel's code for a semantic program (its ``instrs``, leaf dtypes,
+    number of scalar slots and outputs) run with tail ``mode``.  The launch
+    shape (``rows_per_thread``, ``threads``) and ``prefetch`` are chosen
+    unless given."""
+    fixed: Dict[int, int] = {}  # constant bits -> index in the constant area
+    code: List[List[Any]] = []  # [kop, dt, dst, a, b, c, aux]; operands ("v", id) / ("c", k) / None
+    n_values = 0
+
+    def new_value():
+        nonlocal n_values
+        n_values += 1
+        return ("v", n_values - 1)
+
+    def const(bits: int):
+        if bits not in fixed:
+            fixed[bits] = n_scalar_slots + len(fixed)
+        return ("c", fixed[bits])
+
+    leaf_value: Dict[int, Tuple] = {}
+    for ins in instrs:  # each leaf once (the program numbers them by first use)
+        for o in ins[3:6]:
+            if o != NO_OPERAND and o >= LEAF_BASE and o - LEAF_BASE not in leaf_value:
+                leaf_value[o - LEAF_BASE] = new_value()
+    loads: List[Tuple[str, int]] = []  # (load, first leaf) of each run of leaves of one dtype
+    for k in sorted(leaf_value):
+        ld = "LD_U8" if leaf_dtypes[k] == BOOL else "LD_" + _NAME[leaf_dtypes[k]]
+        if not loads or loads[-1][0] != ld:
+            loads.append((ld, k))
+    for j, (ld, k) in enumerate(loads):
+        end = loads[j + 1][1] if j + 1 < len(loads) else len(leaf_value)
+        # one load of leaves k..end-1 into consecutive slots: its dt is the count
+        code.append([KOP[ld], end - k, leaf_value[k], None, None, None, k])
+        code[-1].append([leaf_value[i] for i in range(k, end)])
+    reg_value: Dict[int, Tuple] = {}
+
+    def ref(o):
+        if o == NO_OPERAND:
+            return None
+        if o >= LEAF_BASE:
+            return leaf_value[o - LEAF_BASE]
+        if o >= SCALAR_BASE:
+            return ("c", o - SCALAR_BASE)
+        return reg_value[o]
+
+    for op, dt, dst, a, b, c, aux, imm in instrs:
+        cls = op_class(dt)
+        ra, rb, rc = ref(a), ref(b), ref(c)
+        if op == STORE:
+            code.append([KOP["ST_" + _NAME[dt]], dt, None, ra, None, None, aux])
+            continue
+        if op == ACC:
+            code.append([KOP[f"ACC_{_ACC_MODE[mode]}_{cls}"], dt, None, ra, None, None, aux])
+            continue
+        if op == CAST:
+            name = _cast_kop(dt, aux)
+        elif op in (EQI, NEI):
+            name, rb = ("EQ_I" if op == EQI else "NE_I"), const(imm)
+        elif op == INV:
+            name = "NOT_B" if dt == BOOL else "INV_I"
+        elif op == POW:
+            name = ("POWS_" if rb is not None and rb[0] == "c" else "POW_") + cls
+        elif op == ROUND:
+            d = aux - (1 << 16) if aux >= 1 << 15 else aux
+            name = ("RUP_" if d > 0 else "RDN_" if d < 0 else "RINT_") + cls
+            rb = const(_imm_const(op, dt, aux, imm)) if d else None
+        elif op == ROUNDI:
+            name, rb = "ROUNDI", const(imm)
+        elif op == NANTO:
+            name, rb = "FILLNA_" + cls, const(_imm_const(op, dt, aux, imm))
+        elif op in _UNTYPED:
+            name = _UNTYPED[op]
+        else:
+            name = f"{_TYPED[op]}_{cls}"
+        v = new_value()
+        code.append([KOP[name], dt, v, ra, rb, rc, aux])
+        reg_value[dst] = v
+
+    # an operand that is the previous result reads the kernel's register
+    # (a load writes the register file alone)
+    n_loads = len(loads)
+    prev = None
+    for ins in code[n_loads:]:
+        for j in (3, 4, 5):
+            if ins[j] is not None and ins[j] == prev:
+                ins[j] = ("acc", prev[1])
+        if ins[2] is not None:
+            prev = ins[2]
+
+    # slots by liveness over the typed code: an operand's slot is free for
+    # the value that the same instruction defines (each row of a thread reads
+    # its operands before it writes the result); a value read only from the
+    # register gets no slot
+    last = {}
+    for i, ins in enumerate(code):
+        for r in ins[3:6]:
+            if r is not None and r[0] == "v":
+                last[r[1]] = i
+    free: List[int] = []
+    slot_of: Dict[int, int] = {}
+    for ins in code[:n_loads]:  # the leaves take the first slots, in order
+        for v in ins.pop():
+            slot_of[v[1]] = len(slot_of)
+    n_slots = len(slot_of)
+    for i, ins in enumerate(code):
+        if i < n_loads:
+            continue
+        for r in ins[3:6]:
+            if r is not None and r[0] == "v" and last[r[1]] == i and r[1] in slot_of:
+                if slot_of[r[1]] not in free:
+                    free.append(slot_of[r[1]])
+        if ins[2] is not None and ins[2][1] in last:
+            vid = ins[2][1]
+            if free:
+                s = min(free)
+                free.remove(s)
+            else:
+                s, n_slots = n_slots, n_slots + 1
+            slot_of[vid] = s
+    if n_slots > MAX_SLOTS or len(code) > MAX_CODE or n_scalar_slots + len(fixed) > MAX_CONSTS:
+        raise ValueError(f"fused program: {n_slots} slots, {len(code)} instructions, "
+                         f"{n_scalar_slots + len(fixed)} constants exceed the kernel's caps")
+
+    def enc(r):
+        if r is None:
+            return NONE_OPERAND
+        if r[0] == "acc":
+            return ACC_OPERAND
+        return CONST_BIT | r[1] if r[0] == "c" else slot_of[r[1]]
+
+    def enc_dst(r):
+        return NONE_OPERAND if r is None else slot_of.get(r[1], ACC_OPERAND)
+
+    packed = b"".join(
+        pack_kinstr(kop, dt, enc_dst(dst), enc(a), enc(b), enc(c), aux) for kop, dt, dst, a, b, c, aux in code
+    )
+    # a program whose work is short against its loads prefetches the next
+    # tile's wide (float64, int64, float32, int32) leaves; a long one would only
+    # lose occupancy to the second copy of its leaf slots
+    slow = any(_KOP_NAMES[ins[0]] in SLOW_KOPS for ins in code)
+    if prefetch is None:
+        work = sum(SLOW_WEIGHT if _KOP_NAMES[ins[0]] in SLOW_KOPS else 1 for ins in code[n_loads:])
+        wide = any(_KOP_NAMES[ins[0]] in ("LD_F64", "LD_I64", "LD_F32", "LD_I32") for ins in code[:n_loads])
+        prefetch = wide and work <= PREFETCH_WORK * len(leaf_value)
+    threads, k, smem = launch_shape(n_slots, len(leaf_value), n_scalar_slots + len(fixed), n_out, mode,
+                                    rows_per_thread, prefetch, slow, threads)
+    return Lowered(packed, len(code), n_loads, slow, prefetch, tuple(fixed), n_slots, mode, threads, k, smem)
+
+
+def relower(program: Program, second_pass: bool = False, **shape: Any) -> Lowered:
+    """A program's kernel encoding, with the launch shape or the prefetch
+    given by ``shape`` (:func:`lower`'s ``rows_per_thread``, ``threads`` and
+    ``prefetch``) instead of chosen: for measurements and tests, which hold
+    each shape against the plain version (kept, so a timed launch does not
+    lower again)."""
+    if all(v is None for v in shape.values()):
+        return program.kernel_m2 if second_pass else program.kernel
+    return _relowered(program, second_pass, tuple(sorted(shape.items())))
+
+
+@functools.lru_cache(maxsize=64)
+def _relowered(program: Program, second_pass: bool, shape: Tuple[Tuple[str, Any], ...]) -> Lowered:
+    mode = (program.kernel_m2 if second_pass else program.kernel).mode
+    return lower(program.instrs, program.leaf_dtypes, len(program.slots), len(program.out_dtypes), mode,
+                 **dict(shape))
+
+
+_SEMANTIC = {**{v: k for k, v in _TYPED.items()}, **{v: k for k, v in _UNTYPED.items()},
+             "NOT_B": INV, "INV": INV, "POWS": POW, "POW": POW}
+
+
+def decode(low: Lowered, n_scalar_slots: int) -> List[Tuple]:
+    """The semantic instructions that a lowered program computes:
+    ``(op, dt, dst, a, b, c, aux, imm)`` with each operand as ``("r",
+    slot)``, ``("a", i)`` (the value of instruction i kept in the kernel's
+    register alone), ``("s", scalar slot)`` or ``("l", leaf)`` (a leaf
+    load's value reads as its leaf), the leaf loads themselves left out; the
+    inverse of :func:`lower` up to the naming of registers."""
+    out: List[Tuple] = []
+    slot_leaf: Dict[int, int] = {}
+    prev = None  # what the kernel's register holds
+
+    def opnd(o):
+        if o == NONE_OPERAND:
+            return None
+        if o == ACC_OPERAND:
+            return prev
+        if o & CONST_BIT:
+            return ("s", o & 0x7F)
+        return ("l", slot_leaf[o]) if o in slot_leaf else ("r", o)
+
+    def const_bits(o):
+        return low.fixed[(o & 0x7F) - n_scalar_slots]
+
+    def is_fixed(o):
+        return o not in (NONE_OPERAND, ACC_OPERAND) and o & CONST_BIT and (o & 0x7F) >= n_scalar_slots
+
+    for i in range(low.n_code):
+        kop, dt, dst, a, b, c, aux = struct.unpack_from("<6BH", low.code, 8 * i)
+        name = _KOP_NAMES[kop]
+        ra, rb, rc = opnd(a), opnd(b), opnd(c)
+        slot_leaf.pop(dst, None)
+        if name.startswith("LD_"):
+            for j in range(dt):  # dt leaves from leaf aux into slots from dst
+                slot_leaf[dst + j] = aux + j
+            continue
+        imm, d_ref = 0, ("r", dst) if dst != ACC_OPERAND else ("a", i)
+        if dst != NONE_OPERAND:
+            prev = d_ref
+        if name.startswith("ST_"):
+            out.append((STORE, dt, None, ra, None, None, aux, 0))
+            continue
+        if name.startswith("ACC_"):
+            out.append((ACC, dt, None, ra, None, None, aux, 0))
+            continue
+        base = name.rsplit("_", 1)[0] if name[-2:] in ("_D", "_F", "_I") else name
+        if name == "MOV" or name == "WRAP" or name.startswith("CVT_"):
+            op = CAST
+        elif base in ("RUP", "RDN", "RINT"):
+            op = ROUND
+            d = aux - (1 << 16) if aux >= 1 << 15 else aux
+            imm = double_bits(float(10.0 ** abs(d)))
+            rb = None
+        elif base in ("EQ", "NE") and is_fixed(b):
+            op, imm, rb = (EQI if base == "EQ" else NEI), const_bits(b), None
+        elif name == "ROUNDI":
+            op, imm, rb = ROUNDI, const_bits(b), None
+        elif base == "FILLNA" and is_fixed(b):
+            bits = const_bits(b)
+            fill = bits_double(bits) if dt == F64 else struct.unpack("<f", struct.pack("<I", bits & 0xFFFFFFFF))[0]
+            op, imm, rb = NANTO, double_bits(fill), None
+        else:
+            op = _SEMANTIC[base]
+        out.append((op, dt, d_ref, ra, rb, rc, aux, imm))
+    return out

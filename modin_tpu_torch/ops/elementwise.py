@@ -54,8 +54,24 @@ def _np_operand(x: Any) -> Any:
     return x
 
 
-def _result_dtype(x: Any, y: Any) -> np.dtype:
-    return np.result_type(_np_operand(x), _np_operand(y))
+def _is_py_int(v: Any) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _result_dtype(x: Any, y: Any, out_of_range: str = "raise") -> np.dtype:
+    """numpy's result dtype of ``x <op> y`` (NEP 50).  A weak Python int
+    that an int result cannot hold raises ``OverflowError`` (``"raise"``:
+    arithmetic and the logical ops, as numpy and pandas raise), widens the
+    comparison to int64 (``"widen"``: numpy compares it exactly), or is left
+    to the caller (``"ignore"``: a true division computes in float64)."""
+    dt = np.result_type(_np_operand(x), _np_operand(y))
+    if dt.kind in "iu" and out_of_range != "ignore":
+        for v in (x, y):
+            if _is_py_int(v) and not np.iinfo(dt).min <= v <= np.iinfo(dt).max:
+                if out_of_range == "widen" and np.iinfo(np.int64).min <= v <= np.iinfo(np.int64).max:
+                    return np.dtype(np.int64)
+                raise OverflowError(f"Python integer {v} out of bounds for {dt}")
+    return dt
 
 
 def _cast(x: Any, dtype: np.dtype) -> Any:
@@ -66,8 +82,8 @@ def _cast(x: Any, dtype: np.dtype) -> Any:
     return x
 
 
-def _promote(x: Any, y: Any):
-    dt = _result_dtype(x, y)
+def _promote(x: Any, y: Any, out_of_range: str = "raise"):
+    dt = _result_dtype(x, y, out_of_range)
     return _cast(x, dt), _cast(y, dt), dt
 
 
@@ -110,18 +126,18 @@ def _mod(x, y):
 
 
 def _truediv(x, y):
-    dt = _result_dtype(x, y)
+    dt = _result_dtype(x, y, "ignore")
     if dt.kind in "iub":
         dt = np.dtype(np.float64)
     x, y = _tensors(_cast(x, dt), _cast(y, dt))
     return x / y
 
 
-def _promoted(fn: Callable) -> Callable:
+def _promoted(fn: Callable, out_of_range: str = "raise") -> Callable:
     """``fn`` applied after casting both operands to their result dtype."""
 
     def op(x, y):
-        x, y, _ = _promote(x, y)
+        x, y, _ = _promote(x, y, out_of_range)
         return fn(x, y)
 
     return op
@@ -143,12 +159,12 @@ def _build_ops() -> Dict[str, Callable]:
         "rmod": lambda x, y: _mod(y, x),
         "pow": _promoted(lambda x, y: x ** y),
         "rpow": _promoted(lambda x, y: y ** x),
-        "eq": _promoted(lambda x, y: x == y),
-        "ne": _promoted(lambda x, y: x != y),
-        "lt": _promoted(lambda x, y: x < y),
-        "le": _promoted(lambda x, y: x <= y),
-        "gt": _promoted(lambda x, y: x > y),
-        "ge": _promoted(lambda x, y: x >= y),
+        "eq": _promoted(lambda x, y: x == y, "widen"),
+        "ne": _promoted(lambda x, y: x != y, "widen"),
+        "lt": _promoted(lambda x, y: x < y, "widen"),
+        "le": _promoted(lambda x, y: x <= y, "widen"),
+        "gt": _promoted(lambda x, y: x > y, "widen"),
+        "ge": _promoted(lambda x, y: x >= y, "widen"),
         "__and__": _promoted(lambda x, y: x & y),
         "__or__": _promoted(lambda x, y: x | y),
         "__xor__": _promoted(lambda x, y: x ^ y),
@@ -192,15 +208,28 @@ _OPS: Dict[str, Callable] = _build_ops()
 
 BINARY_OPS = frozenset(k for k in _OPS if k not in _UNARY)
 LOGICAL_OPS = frozenset(k for k in BINARY_OPS if k.startswith("__"))
+COMPARE_OPS = frozenset(["eq", "ne", "lt", "le", "gt", "ge"])
+ARITH_OPS = BINARY_OPS - LOGICAL_OPS - COMPARE_OPS
 
 
 def binary_op_columns(op_name: str, cols: List[Any], other: Any) -> List[Any]:
     """Deferred binary op on device columns (tensors or LazyExprs) vs a
-    scalar, matching columns, or one scalar per column."""
+    scalar, matching columns, or one scalar per column.
+
+    One numpy scalar ``other`` of an arithmetic op promotes as its Python
+    value (weak), as pandas promotes a scalar operand (``float32 +
+    np.float64(0.1)`` stays float32, ``int8 * np.int64(3)`` int8), and so
+    meets the range check of :func:`_result_dtype`: an int that the column's
+    dtype cannot hold raises ``OverflowError`` here, before anything
+    defers.  Comparisons and the logical ops keep numpy scalars strong, as
+    pandas does; one scalar per column (a broadcast Series' values) is
+    strong too."""
     if op_name not in BINARY_OPS:
         raise ValueError(f"binary op {op_name!r} is not ported")
     if isinstance(other, (list, tuple)):
         return [lazy_op(op_name, c, o) for c, o in zip(cols, other)]
+    if isinstance(other, np.generic) and op_name in ARITH_OPS:
+        other = other.item()
     return [lazy_op(op_name, c, other) for c in cols]
 
 

@@ -182,6 +182,21 @@ class Linearized(NamedTuple):
     fingerprint: Tuple
 
 
+# the int dtypes whose range decides a weak Python int's promotion
+_INT_RANGES = tuple(np.iinfo(t) for t in (np.int8, np.uint8, np.int16, np.int32, np.int64))
+
+
+def _scalar_tag(e: Any) -> str:
+    """A scalar's part of the fingerprint: its numpy dtype (strong), or its
+    Python type, and for an int the ranges that hold it (a comparison with
+    an int its column's dtype cannot hold computes in int64)."""
+    if isinstance(e, np.generic):
+        return str(np.dtype(type(e)))
+    if isinstance(e, int) and not isinstance(e, bool):
+        return "int:" + "".join("1" if r.min <= e <= r.max else "0" for r in _INT_RANGES)
+    return type(e).__name__
+
+
 def _linearize(roots: Sequence[Any]) -> Linearized:
     """Flatten an expression forest: nodes in postorder (a diamond's shared
     node once), leaves and scalars in first-visit order, and the structural
@@ -219,8 +234,7 @@ def _linearize(roots: Sequence[Any]) -> Linearized:
             return ("n", i)
         if isinstance(e, _SCALAR_TYPES):
             scalars.append(e)
-            tag = str(np.dtype(type(e))) if isinstance(e, np.generic) else type(e).__name__
-            scalar_tags.append((tag, e))
+            scalar_tags.append((_scalar_tag(e), e))
             return ("s", len(scalars) - 1)
         return visit_leaf(e)
 

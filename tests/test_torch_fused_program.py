@@ -25,6 +25,7 @@ instructions with torch tensors as registers.  Held here:
   to pandas (numpy).
 """
 
+import itertools
 import threading
 
 import numpy as np
@@ -214,8 +215,12 @@ def test_promotion_becomes_explicit_casts():
     _, plan = _compile([ew.binary_op_columns("mul", [f32], 0.1)[0]])
     assert [fp.OP_NAMES[i[0]] for i in plan[0].instrs] == ["MUL", "STORE"]
     assert plan[0].slots == (("scalar", 0, fp.F32),)
-    # a strong numpy float64 scalar promotes the float32 column
+    # a numpy float64 scalar operand is weak, as pandas takes it: no cast
     _, plan = _compile([ew.binary_op_columns("mul", [f32], np.float64(0.1))[0]])
+    assert [fp.OP_NAMES[i[0]] for i in plan[0].instrs] == ["MUL", "STORE"]
+    # one strong numpy float64 per column (a broadcast Series' values)
+    # promotes the float32 column
+    _, plan = _compile([ew.binary_op_columns("mul", [f32], [np.float64(0.1)])[0]])
     assert fp.OP_NAMES[plan[0].instrs[0][0]] == "CAST"
     # int / int divides in float64
     _, plan = _compile([ew.binary_op_columns("truediv", [i32], [i32])[0]])
@@ -282,7 +287,8 @@ def test_a_program_fits_the_kernel_parameters():
     import ctypes
 
     assert ctypes.sizeof(fk.FusedParams) <= 4096
-    assert len(fp.pack_instr((1, 2, 3, 4, 5, 6, 7, -8))) == 16
+    assert len(fp.pack_kinstr(1, 2, 3, 4, 5, 6, 7)) == 8
+    assert fk.FusedParams.code.size == 8 * fp.MAX_CODE == 8 * (fp.MAX_INSTR + fp.MAX_LEAVES)
 
 
 # ---------------------------------------------------------------------- #
@@ -336,18 +342,94 @@ def test_a_tail_is_one_program_and_moments_two():
     np.testing.assert_allclose(v, ref.var(ddof=1), rtol=1e-12)
 
 
-def test_plain_reduction_takes_the_kernel_order():
-    # the plain tail is the kernel's order: threads over rows, trees over
-    # each block and the merge; one block of 256 rows sums as that tree
-    x = torch.as_tensor(np.random.default_rng(8).normal(size=256) * 1e10)
+@pytest.mark.parametrize("rows_per_thread", [None, 1, 2, 4])
+def test_plain_reduction_takes_the_kernel_order(rows_per_thread):
+    # the plain tail is the kernel's order: thread t of a block folds its
+    # rows t, t + 256, ... of a tile (rows_per_thread of them) in order, then
+    # a tree over the block's threads; one block of 1024 rows sums so
+    x = torch.as_tensor(np.random.default_rng(8).normal(size=1024) * 1e10)
     e = ew.binary_op_columns("mul", [x], 1.0)[0]
-    first, _ = lazy.run_fused([e], ("reduce", "sum", True, 1, False))
-    v = x.clone()
+    lin, plan = lazy._plan([e], ("reduce", "sum", True, 1, False))
+    low = fp.relower(plan[0], rows_per_thread=rows_per_thread)
+    assert low.threads == fp.THREADS and low.rows_per_thread == (rows_per_thread or 4)
+    per = low.rows_per_thread
+    _, acc = fk.run_program(plan[0], lazy._leaf_args(lin, plan[0]), lin.scalars, 1024,
+                            _shape={"rows_per_thread": rows_per_thread})
+    blocks = 1024 // (256 * per)
+    assert fp.grid(1024, low) == blocks
+    parts = []
+    for b in range(blocks):
+        v = torch.zeros(256, dtype=torch.float64)
+        for k in range(per):
+            v = v + x[b * 256 * per + k * 256: b * 256 * per + (k + 1) * 256]
+        w = 128
+        while w:
+            v = v[:w] + v[w: 2 * w]
+            w //= 2
+        parts.append(v[0])
+    m = torch.zeros(256, dtype=torch.float64)
+    m[:blocks] = torch.stack(parts)
     w = 128
     while w:
-        v = v[:w] + v[w: 2 * w]
+        m = m[:w] + m[w: 2 * w]
         w //= 2
-    assert first[0, 0].reshape(1).view(torch.float64)[0].item() == v[0].item()
+    assert acc[0, 0].reshape(1).view(torch.float64)[0].item() == m[0].item()
+    if per > 1:  # the order is the kernel's own: K = 1 folds another way
+        one = fk.run_program(plan[0], lazy._leaf_args(lin, plan[0]), lin.scalars, 1024,
+                             _shape={"rows_per_thread": 1})[1]
+        assert not torch.equal(one, acc) or per == 1
+
+
+@pytest.mark.parametrize("threads", [64, 32])
+@pytest.mark.parametrize("op", ["sum", "var"])
+def test_small_block_tails_of_32_outputs(threads, op):
+    # 32 outputs give each block 3 * 32 partials, more than its 64 or 32
+    # threads: the tail in the order of those blocks, against numpy
+    rng = np.random.default_rng(40)
+    n = 5000
+    cols = [torch.as_tensor(rng.normal(size=n)) for _ in range(32)]
+    roots = [ew.binary_op_columns("add", ew.binary_op_columns("mul", [cols[j]], 0.5), [cols[(j + 1) % 32]])[0]
+             for j in range(32)]
+    lin, plan = lazy._plan(roots, ("reduce", op, True, 1, False))
+    assert len(plan) == 1 and len(plan[0].out_dtypes) == 32
+    shape = {"threads": threads}
+    low = fp.relower(plan[0], **shape)
+    assert low.threads == threads and low.rows_per_thread == 1 and 3 * 32 > threads
+    assert fp.grid(n, low) == -(-n // threads)
+    leaves = lazy._leaf_args(lin, plan[0])
+    _, acc = fk.run_program(plan[0], leaves, lin.scalars, n, _shape=shape)
+    ref = np.stack([c.numpy() * 0.5 + cols[(j + 1) % 32].numpy() for j, c in enumerate(cols)])
+    np.testing.assert_allclose(acc[:, 0].contiguous().view(torch.float64).numpy(), ref.sum(axis=1),
+                               rtol=0, atol=1e-9)
+    assert (acc[:, 1] == n).all() and (acc[:, 2] == 0).all()
+    if op == "var":
+        _, m2 = fk.run_program(plan[0], leaves, lin.scalars, n, second_pass=True, first=acc, _shape=shape)
+        dev = ref - ref.mean(axis=1, keepdims=True)
+        for j, p in enumerate((2, 3, 4)):
+            np.testing.assert_allclose(m2[:, j].contiguous().view(torch.float64).numpy(),
+                                       (dev ** p).sum(axis=1), rtol=1e-9, atol=1e-9)
+
+
+def test_forced_launch_shapes_and_builds():
+    # relower's overrides, which the card check's sweep times: a shape or a
+    # prefetch given is taken; a shape the kernel has no build for is refused
+    x, y = (torch.as_tensor(np.random.default_rng(k).normal(size=64)) for k in (41, 42))
+    _, plan = lazy._plan([ew.binary_op_columns("add", ew.binary_op_columns("mul", [x], [y]), [x])[0]], None)
+    own = plan[0].kernel
+    assert fp.relower(plan[0]) is own and fp.relower(plan[0], rows_per_thread=None) is own
+    assert own.prefetch and not own.slow and own.rows_per_thread == 4
+    off = fp.relower(plan[0], rows_per_thread=4, prefetch=False)
+    assert not off.prefetch and off.code == own.code and off.smem_bytes < own.smem_bytes
+    small = fp.relower(plan[0], threads=32)
+    assert (small.threads, small.rows_per_thread) == (32, 1)
+    for bad in ({"threads": 48}, {"threads": 64, "rows_per_thread": 2}):
+        with pytest.raises(ValueError):
+            fp.relower(plan[0], **bad)
+    _, plan = lazy._plan([lazy.lazy_op("exp", x)], None)
+    # a long routine holds the host's choice to two rows a thread; four run
+    # where asked
+    assert plan[0].kernel.slow and plan[0].kernel.rows_per_thread == 2
+    assert fp.relower(plan[0], rows_per_thread=4).rows_per_thread == 4
 
 
 @pytest.mark.parametrize("op", sorted(fp.ROW_OPS))
@@ -398,3 +480,220 @@ def test_against_the_jax_package(op, kinds):
             zero = np.broadcast_to(np.asarray(den) == 0, got.shape)
             want = np.where(zero, pandas_like, want)
         np.testing.assert_array_equal(got, want, err_msg=f"{op} {kinds} {type(other_np).__name__}")
+
+
+# ---------------------------------------------------------------------- #
+# The kernel encoding (fused_program.lower)
+# ---------------------------------------------------------------------- #
+
+
+def _programs_of(op, args_list, static=(), tail=None):
+    """The compiled programs of one node of ``op`` over each argument tuple
+    (the ones the eager op refuses are skipped, as the node refuses them)."""
+    out = []
+    for args in args_list:
+        try:
+            e = lazy.lazy_op(op, *args, static=static)
+        except (RuntimeError, TypeError, OverflowError):
+            continue
+        if isinstance(e, lazy.LazyExpr):
+            out.extend(lazy._plan([e], tail)[1])
+    return out
+
+
+def _grid_programs(op):
+    cols = {d: torch.as_tensor(_column(d, 20 + i)) for i, d in enumerate(DTYPES)}
+    if op in BINARY:
+        return _programs_of(op, [(cols[dx], cols[dy]) for dx in DTYPES for dy in DTYPES]
+                            + [(cols[dx], sc) for dx in DTYPES for sc in SCALARS])
+    if op == "round":
+        return [p for d in (-3, -1, 0, 2) for p in _programs_of(op, [(c,) for c in cols.values()],
+                                                                (("decimals", d),))]
+    if op == "astype":
+        return [p for t in DTYPES for p in _programs_of(op, [(c,) for c in cols.values()], (("dtype", t),))]
+    if op in ("fillna", "clip_lower", "clip_upper"):
+        return _programs_of(op, [(c, ew.cast_scalar(1.5, c.dtype)) for d, c in cols.items() if d != "bool"])
+    if op in ("isna_nat", "notna_nat"):
+        return _programs_of(op, [(cols["int64"],)])
+    if op == "tails":
+        progs = []
+        for red in sorted(reductions.REDUCTIONS):
+            for kind in ("float64", "float32", "int64", "int8", "bool"):
+                e = ew.binary_op_columns("mul", [cols[kind]], True if kind == "bool" else 2)[0]
+                for tail in (("reduce", red, True, 1, True),
+                             ("reduce", red, False, 1, False)):
+                    if red in fp.REDUCE_MODES:
+                        progs.extend(lazy._plan([e], tail)[1])
+        for red in sorted(fp.ROW_OPS):
+            exprs = [ew.binary_op_columns("mul", [cols[k]], 2)[0] for k in ("float64", "float32", "int64", "int8")]
+            for skipna in (True, False):
+                progs.extend(lazy._plan(exprs, ("rows", red, skipna, True))[1])
+        return progs
+    return _programs_of(op, [(c,) for c in cols.values()])
+
+
+LOWERED_OPS = [*BINARY, "abs", "negative", "invert", "isna", "notna", *sorted(ew.MATH_UNARY), "round",
+               "astype", "fillna", "clip_lower", "clip_upper", "isna_nat", "tails"]
+
+
+def _semantic_refs(program):
+    """``Program.instrs`` with operands as ("r", reg), ("s", slot), ("l", leaf)."""
+
+    def ref(o):
+        if o == fp.NO_OPERAND:
+            return None
+        if o >= fp.LEAF_BASE:
+            return ("l", o - fp.LEAF_BASE)
+        if o >= fp.SCALAR_BASE:
+            return ("s", o - fp.SCALAR_BASE)
+        return ("r", o)
+
+    return [(op, dt, None if op in (fp.STORE, fp.ACC) else ("r", dst), ref(a), ref(b), ref(c), aux, imm)
+            for op, dt, dst, a, b, c, aux, imm in program.instrs]
+
+
+def _ssa(instrs):
+    """Registers renamed to the value each use reads (the order of
+    definitions): two programs equal up to register names compare equal."""
+    current, out, n = {}, [], 0
+    for op, dt, dst, a, b, c, aux, imm in instrs:
+        srcs = tuple(("v", current[r]) if r is not None and r[0] in "ra" else r for r in (a, b, c))
+        if dst is not None:
+            current[dst] = n
+            dst = ("v", n)
+            n += 1
+        out.append((op, dt, dst, *srcs, aux, imm))
+    return out
+
+
+def _lowerings(program):
+    return [program.kernel] + ([program.kernel_m2] if program.kernel_m2 is not None else [])
+
+
+def _kcode(low):
+    import struct
+
+    return [struct.unpack_from("<6BH", low.code, 8 * i) for i in range(low.n_code)]
+
+
+@pytest.mark.parametrize("op", LOWERED_OPS)
+def test_lowering_round_trips_to_the_semantic_program(op):
+    programs = _grid_programs(op)
+    assert programs
+    for program in programs:
+        for low in _lowerings(program):
+            assert _ssa(fp.decode(low, len(program.slots))) == _ssa(_semantic_refs(program)), \
+                (op, program.instrs)
+
+
+@pytest.mark.parametrize("op", LOWERED_OPS)
+def test_each_leaf_is_loaded_once_before_its_first_use(op):
+    loads = {fp.KOP[n] for n in fp.KOPS if n.startswith("LD_")}
+    for program in _grid_programs(op):
+        for low in _lowerings(program):
+            code = _kcode(low)
+            n_ld = sum(1 for ins in code if ins[0] in loads)
+            # the loads are the code's head: each a run of leaves of one dtype
+            # (dt of them from leaf aux into the slots from dst), and together
+            # every leaf the program reads, once, each into its own slot
+            assert all(ins[0] in loads for ins in code[:n_ld])
+            assert not any(ins[0] in loads for ins in code[n_ld:])
+            loaded = [(ins[6] + j, ins[2] + j, ins[0]) for ins in code[:n_ld] for j in range(ins[1])]
+            assert [leaf for leaf, _, _ in loaded] == list(range(len(program.leaves)))
+            assert [slot for _, slot, _ in loaded] == list(range(len(program.leaves)))
+            for leaf, _, kop in loaded:
+                want = "LD_U8" if program.leaf_dtypes[leaf] == fp.BOOL else \
+                    "LD_" + fp._NAME[program.leaf_dtypes[leaf]]
+                assert kop == fp.KOP[want]
+            # no instruction writes a leaf's slot before the leaf's last read
+            decoded = fp.decode(low, len(program.slots))
+            assert _ssa(decoded) == _ssa(_semantic_refs(program))
+
+
+@pytest.mark.parametrize("op", LOWERED_OPS)
+def test_lowered_operands_are_slots_or_constants(op):
+    for program in _grid_programs(op):
+        for low in _lowerings(program):
+            n_const = len(program.slots) + len(low.fixed)
+            assert n_const <= fp.MAX_CONSTS and low.n_slots <= fp.MAX_SLOTS
+            for kop, dt, dst, a, b, c, aux in _kcode(low):
+                assert dst in (fp.NONE_OPERAND, fp.ACC_OPERAND) or dst < low.n_slots
+                for o in (a, b, c):
+                    if o in (fp.NONE_OPERAND, fp.ACC_OPERAND):
+                        continue
+                    # a register-file slot, or a constant: never a leaf
+                    assert (o & fp.CONST_BIT and (o & 0x7F) < n_const) or o < low.n_slots
+
+
+def test_kernel_opcodes_match_the_source():
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(fp.__file__), "csrc", "fused.cu")).read()
+    block = src[src.index("#define FUSED_KOPS(X)"):src.index("enum KOp")]
+    assert tuple(re.findall(r"X\((\w+)\)", block)) == fp.KOPS
+    cases = src[src.index("switch (op)"):]
+    for name in fp.KOPS:  # every opcode has its case, written out or by a macro
+        base, _, cls = name.rpartition("_")
+        assert (f"K_{name}:" in cases or f"CMP({base}," in cases or f"MATH({base}," in cases
+                or f"SLOW({base})" in cases or f"ACC_FLOAT({name[4:]}," in cases
+                or f"ACC_INT({name[4:]}," in cases), name
+
+
+def test_launch_shape_fits_shared_memory_at_every_size():
+    for n_slots in range(0, fp.MAX_SLOTS + 1):
+        for n_out in (1, 8, fp.MAX_OUTPUTS):
+            for n_consts in (0, fp.MAX_SCALARS, fp.MAX_CONSTS):
+                for mode in (fp.TAIL_NONE, fp.TAIL_SUM, fp.TAIL_M2):
+                    for forced, prefetch, slow in itertools.product((None, 1, 2, 4), (False, True),
+                                                                    (False, True)):
+                        n_leaves = min(n_slots, fp.MAX_LEAVES)
+                        try:
+                            threads, k, smem = fp.launch_shape(n_slots, n_leaves, n_consts, n_out, mode, forced,
+                                                               prefetch, slow)
+                        except ValueError:
+                            # only a forced K > 1 may not fit 256 threads
+                            assert forced and forced > 1
+                            continue
+                        assert forced or not slow or k <= 2
+                        need = n_consts + (n_out if mode == fp.TAIL_M2 else 0) + \
+                            (3 * n_out * threads if mode != fp.TAIL_NONE else 0) + \
+                            (n_slots + (n_leaves if prefetch else 0)) * threads * k
+                        assert smem == 8 * need <= fp.SMEM_MAX
+                        assert k in fp.ROWS_PER_THREAD and (forced is None or k == forced)
+                        assert threads == fp.THREADS or (k == 1 and threads in (128, 64, 32))
+
+
+def test_programs_at_the_caps_fit_the_kernel():
+    rng = np.random.default_rng(31)
+    leaves = [torch.as_tensor(rng.normal(size=64)) for _ in range(fp.MAX_LEAVES)]
+    roots = [ew.binary_op_columns("add", [leaves[2 * i]], [leaves[2 * i + 1]])[0] for i in range(32)]
+    checked = 0
+    for tail in (None, ("reduce", "sum", True, 1, False), ("reduce", "var", True, 1, False)):
+        lin, plan = lazy._plan(roots, tail)
+        assert len(plan) == 1 and len(plan[0].leaves) == fp.MAX_LEAVES
+        assert len(plan[0].out_dtypes) == fp.MAX_OUTPUTS
+        for low in _lowerings(plan[0]):
+            assert low.n_code <= fp.MAX_CODE and low.smem_bytes <= fp.SMEM_MAX
+            n_leaves = len(plan[0].leaves) if low.prefetch else 0
+            assert (low.n_slots + n_leaves) * low.threads * low.rows_per_thread * 8 <= low.smem_bytes
+            checked += 1
+        got = fk.run_program(plan[0], lazy._leaf_args(lin, plan[0]), lin.scalars, 64)
+        want = fk.run_program_plain(plan[0], lazy._leaf_args(lin, plan[0]), lin.scalars, 64)
+        assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+    # the 150-node program of the card's check: 151 instructions over 8 leaves
+    e = ew.binary_op_columns("mul", [leaves[0]], [leaves[1]])[0]
+    for k in range(1, 150):
+        e = ew.binary_op_columns(("add", "sub", "mul", "add")[k % 4] if k % 5 else "mul", [e],
+                                 0.5 if k % 5 == 0 else [leaves[k % 8]])[0]
+    _, plan = lazy._plan([e], None)
+    low = plan[0].kernel
+    assert len(plan) == 1 and low.n_code == len(plan[0].instrs) + 1 <= fp.MAX_CODE  # one load of 8 leaves
+    assert low.smem_bytes <= fp.SMEM_TARGET and checked == 4
+    # 151 instructions over 8 leaves: long against its loads, so no second
+    # copy of the leaf slots; a * b + c: short, so the next tile's leaves
+    # arrive while a tile runs
+    assert not low.prefetch and not low.slow and low.rows_per_thread == 4
+    _, plan = lazy._plan([ew.binary_op_columns("add", ew.binary_op_columns("mul", [leaves[0]], [leaves[1]]),
+                                               [leaves[2]])[0]], None)
+    assert plan[0].kernel.prefetch and plan[0].kernel.rows_per_thread == 4

@@ -261,7 +261,11 @@ def test_scalar_weak_typing_distinguishes_int_and_float(frames):
     (t["a"] * 2.5).to_numpy()
     assert lazy.fused_cache_len() == before + 1  # a float scalar does not
     (t["a"] * np.float32(2.5)).to_numpy()
-    assert lazy.fused_cache_len() == before + 2  # nor a numpy float32 (strong)
+    assert lazy.fused_cache_len() == before + 1  # a numpy float32 operand is weak, as in pandas
+    (t["a"] == 2.5).to_numpy()
+    assert lazy.fused_cache_len() == before + 2
+    (t["a"] == np.float32(2.5)).to_numpy()
+    assert lazy.fused_cache_len() == before + 3  # but strong in a comparison, as in pandas
 
 
 def test_bool_chain_through_fusion(frames):
