@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
                           [--float-rows N] [--io-rows N] [--window-rows N]
-                          [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--seed S]
-                          [--parent-checkout DIR]
-                          [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion]
+                          [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
+                          [--seed S] [--parent-checkout DIR]
+                          [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan]
 
 Phases, one JSON object per line each:
 
@@ -38,7 +38,23 @@ Phases, one JSON object per line each:
              earlier commit on the same cases before and after this one's;
              and one node of every op over every dtype (NaN, +/-inf,
              +/-0.0, int extremes) against a column of every dtype or a
-             scalar, bit for bit (``fused_grid_check``).
+             scalar, bit for bit (``fused_grid_check``).  Then the fused
+             kernel's masked mode at phase 13's shapes: sum, mean, var,
+             min, max and count of ``[b, c]`` under the deferred mask
+             ``a > 0``, the fused groupby's probe (``fused_probe_program``:
+             the key's min and max and the kept rows in one launch) and its
+             slot column (``fused_slot_expr``), each beside torch's
+             reduction of the compacted rows.  Then ``groupagg`` against
+             ``groupagg_plain`` at 1e8 rows, bit for bit and repeating: one
+             int8, int64, float32 or float64 column by slots of key ranges
+             of 8, 100, 10 000 and 65 536 (a tenth of the rows in the
+             overflow slot), half the aggregations a width so that each
+             table mode meets every aggregation over every dtype; then
+             phase 13's fused groupbys (the slot column of ``a > 0`` by the
+             1000-value key ``d``, every aggregation over its column set);
+             beside ``index_add_``/``scatter_reduce_``/``bincount`` and the
+             staged path's grouped sum at 100 and 10 000 groups.  The
+             masked cases and the groupagg check print their seconds.
 4. main    - the asv main path (``make_frame((N, 10), ngroups=g)`` for
              g in 100 and 10 000, plus a key of range 1e6) through
              ``modin_tpu_torch.pandas``: from_pandas, add/mul/mod/abs,
@@ -61,7 +77,7 @@ Phases, one JSON object per line each:
              pandas, and every value column stays on ``cuda``.  Needs
              pandas, the reference it is held against.
 7. arithmetic - asv ``TimeArithmetic`` on ``make_frame((rows, 10))``
-             (``--arithmetic-rows``, 5e7 by default): sum, count, median, nunique, mean, mode,
+             (``--arithmetic-rows``, 2.5e7 by default): sum, count, median, nunique, mean, mode,
              add/mul/mod(2) at ``axis=0`` and ``axis=1``, abs and isin
              (which take no axis), ``quantile([0.1, 0.5, 0.9])`` and
              ``describe()`` on the device, each against pandas (ints
@@ -157,14 +173,38 @@ Phases, one JSON object per line each:
              kernel as often as predicted.  Every earlier phase runs its
              elementwise queries through the fused kernel too; the kernels
              line gives its launches on every path.
+13. plan   - the whole-query planner at ``--plan-rows`` (5e6) rows of the
+             ``scripts/plan_smoke.py`` CSV shape (columns a-f): ``read_csv(p)
+             .query("a > 0")[["b", "c"]].agg(...)`` for sum/mean/var/min/
+             max/count, a map chain into a sum, stacked filters and
+             ``query(...).groupby("d")`` for sum/mean/count/min/max/prod;
+             then, on smaller files, a query on each side of each route
+             threshold: groupagg's tables in device memory (Auto declines,
+             Fused takes them), the key range at and one past
+             ``FUSED_MAX_GROUPS``, a key spanning 2^40, and the rows on
+             each side of ``FuseMinRows``.  Each under
+             ``MODIN_TPU_TORCH_PLAN=Auto`` (with its ``FuseMode``) and
+             ``Off`` against pandas (ints and order-free results exactly,
+             float reductions to rtol 1e-12, grouped float sums and means
+             to 1e-12 of each group's magnitude), the parse sees only the
+             surviving columns, EXPLAIN attributes the pushdown, each
+             query takes its predicted route (fused, declined or staged),
+             a fused one launches the fused kernel once (twice for var)
+             or, for a groupby, twice plus one ``groupagg`` launch, and
+             nothing defaults to pandas.  Before the queries: the
+             acceptance pipeline's breakdown (the parse of 6 and of 3
+             columns, the sniff, EXPLAIN ANALYZE per node) and the route
+             sweep (Fused against Staged by key range, value columns and
+             rows, on in-memory frames).
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
-default), the arithmetic phase at ``--arithmetic-rows`` (5e7), the window
-and dates phases at ``--window-rows`` and ``--dates-rows`` (5e6 each) and
+default), the arithmetic phase at ``--arithmetic-rows`` (2.5e7), the clean
+phase at ``--clean-rows`` (1e7), the window, dates and plan phases at
+``--window-rows``, ``--dates-rows`` and ``--plan-rows`` (5e6 each) and
 the fusion phase at ``--fusion-rows`` (2e7) so that the whole script stays
 well inside its time limit; the kernel checks run at ``--rows``.  ``--phases``
 picks the phases after the kernel check for a quick run; only a run of all
-nine prints the result lines.  Then the card's name and power limit, one
+ten prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
@@ -185,7 +225,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion")
+ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -373,7 +413,184 @@ def phase_kernel(rows: int, seed: int, parent: str = None) -> dict:
         del codes
     free_device_memory()
     return {"cap": cap, "by_width": by_width, "max_abs_err": max_err, "scan": scan_check(rows, seed),
-            "fused": fused_check(rows, seed, parent)}
+            "fused": fused_check(rows, seed, parent), "groupagg": groupagg_check(rows, seed)}
+
+
+# ---------------------------------------------------------------------- #
+# 3d. the fused groupby's groupagg kernel against its plain version
+# ---------------------------------------------------------------------- #
+
+GROUPAGG_WIDTHS = (8, 100, 10_000, 65_536)
+GROUPAGG_DTYPES = ("int8", "int64", "float32", "float64")
+# half the aggregations a width: each table mode (shared memory at widths 8
+# and 100, device memory at 10 000 and 65 536) meets every aggregation over
+# every dtype once
+GROUPAGG_AGGS = {8: ("mean", "max", "prod"), 100: ("sum", "min", "count"),
+                 10_000: ("sum", "min", "count"), 65_536: ("mean", "max", "prod")}
+GROUPAGG_REPEATS = 2
+# phase 13's fused groupbys by d: case -> (aggregation, value columns); two
+# columns keep the tables in shared memory, five put them in device memory
+PLAN_GROUPBY_CASES = {
+    **{f"plan13_{agg}": (agg, ("b", "f") if agg == "prod" else ("a", "c"))
+       for agg in ("sum", "mean", "count", "min", "max", "prod")},
+    "plan13_sum_five_columns": ("sum", ("a", "b", "c", "e", "f")),
+}
+
+
+def plan_columns(rows: int, seed: int, dev) -> dict:
+    """Phase 13's columns (``plan_csv``'s distributions) on the card:
+    ``a`` int64 in [-50, 50), ``b`` uniform [0, 1), ``c`` uniform [-1, 1),
+    ``d`` int64 in [0, 1000) (the groupby key), ``e`` uniform [0, 100),
+    ``f`` int64 0/1."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+
+    def uniform(lo, hi):
+        return torch.rand(rows, dtype=torch.float64, device=dev, generator=gen) * (hi - lo) + lo
+
+    return {
+        "a": torch.randint(-50, 50, (rows,), device=dev, generator=gen),
+        "b": uniform(0.0, 1.0),
+        "c": uniform(-1.0, 1.0),
+        "d": torch.randint(0, 1000, (rows,), device=dev, generator=gen),
+        "e": uniform(0.0, 100.0),
+        "f": torch.randint(0, 2, (rows,), device=dev, generator=gen),
+    }
+
+
+def groupagg_check(rows: int, seed: int) -> dict:
+    """``groupagg.cu`` against ``groupagg_plain`` at ``rows`` rows, bit for
+    bit and repeating.  First one column by the slots of key ranges of 8,
+    100, 10 000 and 65 536 values (``fused_groups_bucket`` slots, about a
+    tenth of the rows in the overflow slot, as a filter drops them): an
+    int8, an int64, a float32 and a float64 column (1 % NaN), half the
+    aggregations at each width (``GROUPAGG_AGGS``), so that each table mode
+    meets every aggregation over every dtype.  Then phase 13's fused
+    groupbys at this size: the slot column the fused kernel writes for
+    ``a > 0`` by the 1000-value key ``d`` (``fused_slot_expr``, 1025
+    slots), and every aggregation over the columns phase 13 passes
+    (``PLAN_GROUPBY_CASES``: an int64 and a float64 column, ``b`` and
+    ``f`` for prod, and all five for a sum whose tables sit in device
+    memory).
+    Times of the kernel, the plain version (one run) and one torch call
+    computing the same function (``index_add_`` for sum and mean's sum,
+    ``scatter_reduce_`` for min, max and prod, ``torch.bincount`` for
+    count; over the columns widened to one dtype), beside the bound: the
+    slot (4 B) and the values read once a row at 3.35 TB/s.  Then the
+    staged path's grouped float64 sum (``groupby_reduce`` over the
+    factorized codes) at 100 and 10 000 groups on the same rows, and the
+    seconds the check took."""
+    import torch
+
+    from modin_tpu_torch.ops import elementwise as ew
+    from modin_tpu_torch.ops import groupby as gb_ops
+    from modin_tpu_torch.ops import lazy
+    from modin_tpu_torch.ops.cuda import build
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+
+    t_check = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    emit({"phase": "kernel", "kernel": "groupagg", "ptxas": ptxas_by_kernel(build.BUILD_LOGS.get("groupagg", ""))})
+    by_case, staged = {}, {}
+
+    def check(name, agg, slot, cols, g1, width, **extra):
+        """One case, bit for bit, repeating and timed."""
+
+        def run():
+            return ga.groupagg(agg, slot, cols, g1)
+
+        def plain():
+            return ga.groupagg_plain(agg, slot, cols, g1)
+
+        got = run()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"groupagg {name}: {bad} table entries differ from groupagg_plain")
+        for _ in range(GROUPAGG_REPEATS):
+            if not torch.equal(run(), got):
+                raise AssertionError(f"groupagg {name}: a launch did not repeat")
+        idx = slot.to(torch.int64)
+        fl = any(c.dtype.is_floating_point for c in cols)
+        wide = torch.stack([torch.nan_to_num(c.to(torch.float64), nan=0.0) if fl else c.to(torch.int64)
+                            for c in cols], 1)
+        acc = torch.zeros((g1, len(cols)), dtype=wide.dtype, device=dev)
+        if agg in ("sum", "mean"):
+            library, library_name = (lambda: acc.index_add_(0, idx, wide)), "index_add_"
+        elif agg == "count":
+            library, library_name = (lambda: torch.bincount(idx, minlength=g1)), "torch.bincount"
+        else:
+            how = {"prod": "prod", "min": "amin", "max": "amax"}[agg]
+            idx2 = idx.unsqueeze(1).expand(-1, len(cols))
+            library, library_name = (lambda: acc.scatter_reduce_(0, idx2, wide, how)), f"scatter_reduce_({how!r})"
+        blocks, chunk, shared = ga.launch_geometry(slot.shape[0], g1, len(cols))
+        row_bytes = 4 + sum(c.element_size() for c in cols)
+        rec = {
+            "phase": "kernel", "kernel": "groupagg", "case": name, "n": slot.shape[0], "agg": agg,
+            "width": width, "slots": g1, "columns": len(cols), "blocks": blocks, "chunk": chunk,
+            "tables": "shared" if shared else "global", "exact": True, "max_abs_err": 0.0,
+            "kernel_ms": cuda_ms(run, reps=3), "plain_ms": plain_ms, "plain_runs": 1,
+            "library_ms": cuda_ms(library, reps=1), "library": library_name,
+            "bound_ms": row_bytes * slot.shape[0] / HBM_BYTES_PER_S * 1e3, "bytes_per_row": row_bytes,
+            "bound_by": "bytes", **extra,
+        }
+        emit(rec)
+        by_case[name] = rec
+        del got, want, wide, acc
+
+    for width in GROUPAGG_WIDTHS:
+        G = gb_ops.fused_groups_bucket(width)
+        slot = torch.randint(0, width, (rows,), dtype=torch.int32, device=dev, generator=gen)
+        dropped = torch.rand(rows, device=dev, generator=gen) < 0.1
+        slot[dropped] = G
+        for dtname in GROUPAGG_DTYPES:
+            dtype = getattr(torch, dtname)
+            if dtype.is_floating_point:
+                x = torch.randn(rows, dtype=torch.float64, device=dev, generator=gen).to(dtype)
+                x[torch.rand(rows, device=dev, generator=gen) < 0.01] = float("nan")
+            else:
+                lo, hi = (-100, 100) if dtname == "int8" else (-2**40, 2**40)
+                x = torch.randint(lo, hi, (rows,), dtype=dtype, device=dev, generator=gen)
+            for agg in GROUPAGG_AGGS[width]:
+                check(f"{agg}_{dtname}_w{width}", agg, slot, [x], G + 1, width)
+            del x
+            free_device_memory()
+        if width in (100, 10_000):
+            codes = torch.where(dropped, width, slot.to(torch.int64))
+            v = torch.randn(rows, dtype=torch.float64, device=dev, generator=gen)
+            staged[width] = cuda_ms(lambda: gb_ops.groupby_reduce("sum", [v], codes, width, rows), reps=3)
+            fused = cuda_ms(lambda: ga.groupagg("sum", slot, [v], G + 1), reps=3)
+            emit({"phase": "kernel", "kernel": "groupagg", "case": f"staged_sum_float64_w{width}", "n": rows,
+                  "staged_ms": staged[width], "groupagg_ms": fused,
+                  "note": "the staged path's grouped sum (groupby_reduce over codes) beside groupagg"})
+            del codes, v
+        del slot, dropped
+        free_device_memory()
+    one_column_s = time.perf_counter() - t_check
+    # phase 13's fused groupby, its slot column written as the path writes it
+    cols = plan_columns(rows, seed, dev)
+    keep = ew.binary_op_columns("gt", [cols["a"]], 0)[0]
+    kmin, kmax, kept = gb_ops.fused_group_probe(cols["d"], keep, rows)
+    G = gb_ops.fused_groups_bucket(kmax - kmin + 1)
+    slot = lazy.materialize_exprs([gb_ops.fused_slot_expr(cols["d"], keep, kmin, G)])[0]
+    for name, (agg, names) in PLAN_GROUPBY_CASES.items():
+        check(name, agg, slot, [cols[c] for c in names], G + 1, kmax - kmin + 1,
+              value_columns="".join(names), kept=kept)
+    del cols, keep, slot
+    free_device_memory()
+    seconds = time.perf_counter() - t_check
+    emit({"phase": "kernel", "kernel": "groupagg", "cases": len(by_case), "seconds": seconds,
+          "one_column_seconds": one_column_s, "plan13_seconds": seconds - one_column_s})
+    return {"by_case": by_case, "max_abs_err": 0.0, "staged_ms": staged, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------- #
@@ -781,6 +998,7 @@ def fused_check(rows: int, seed: int, parent: str = None) -> dict:
             err = float((gv - wv).abs().max())
         if not torch.equal(bits(got), bits(want)):
             raise AssertionError(f"fused {name}: the kernel differs from run_program_plain (max abs err {err})")
+        err = 0.0  # bit for bit (an int tail's bits read as float64 would give NaN)
         for _ in range(FUSED_REPEATS):
             if not torch.equal(bits(run()), bits(got)):
                 raise AssertionError(f"fused {name}: a launch did not repeat bit for bit")
@@ -864,6 +1082,41 @@ def fused_check(rows: int, seed: int, parent: str = None) -> dict:
              n=FUSED_SMALL_BLOCK_ROWS, shape={"threads": t})
     del cols, roots
     free_device_memory()
+    # the masked accumulator mode at phase 13's shapes: its filtered
+    # reduction ``[b, c]`` under the deferred mask ``a > 0`` (about half the
+    # rows; a, b, c read, 24 B a row), beside torch's reduction of the
+    # compacted rows; the kept-row count is one more output.  Then the
+    # fused groupby's probe and slot launches as ``fused_group_probe`` and
+    # ``fused_group_agg`` build them over the key ``d`` under that mask
+    t_masked = time.perf_counter()
+    from modin_tpu_torch.ops import groupby as gb_ops
+
+    cols = plan_columns(rows, seed, dev)
+    b, c, d = cols["b"], cols["c"], cols["d"]
+    keep = ew.binary_op_columns("gt", [cols["a"]], 0)[0]
+    m = cols["a"] > 0
+    bc = torch.stack([b, c], 1)
+    masked_library = {
+        "sum": (lambda: torch.sum(bc[m], 0), "torch.sum(bc[mask], 0)"),
+        "mean": (lambda: torch.mean(bc[m], 0), "torch.mean(bc[mask], 0)"),
+        "var": (lambda: torch.var(bc[m], 0), "torch.var(bc[mask], 0)"),
+        "min": (lambda: torch.amin(bc[m], 0), "torch.amin(bc[mask], 0)"),
+        "max": (lambda: torch.amax(bc[m], 0), "torch.amax(bc[mask], 0)"),
+        "count": (lambda: torch.count_nonzero(m), "torch.count_nonzero(mask)"),
+    }
+    for op, (library, library_name) in masked_library.items():
+        case(f"masked_{op}", [b, c, keep], ("reduce", op, True, 1, False, True), 24, 3, library, library_name)
+    del bc
+    roots, tail = gb_ops.fused_probe_program(d, keep)
+    case("masked_probe", roots, tail, 16, 4, lambda: torch.aminmax(d[m]), "torch.aminmax(key[mask])")
+    kmin, kmax, _ = gb_ops.fused_group_probe(d, keep, rows)
+    G = gb_ops.fused_groups_bucket(kmax - kmin + 1)
+    case("slot", gb_ops.fused_slot_expr(d, keep, kmin, G), None, 20, 3,
+         lambda: torch.where(m, d - kmin, G).to(torch.int32), "torch.where(mask, key - kmin, G).to(int32)")
+    del cols, b, c, d, keep, m, roots
+    free_device_memory()
+    emit({"phase": "kernel", "kernel": "fused", "note": "masked mode, probe and slot cases",
+          "seconds": time.perf_counter() - t_masked})
     grid = fused_grid_check(seed)
     if parent:
         after = parent_fused_times(parent, rows, seed)
@@ -1598,6 +1851,13 @@ IO_QUERIES = {
 }
 
 
+def _materialized_read(df):
+    """A read's frame parsed now (a read defers into a plan under the
+    default ``MODIN_TPU_TORCH_PLAN=Auto``)."""
+    df._query_compiler._modin_frame
+    return df
+
+
 def _same_result(got, want, what: str) -> None:
     """pandas objects as ``assert_same_pandas`` holds them (strings and
     ints exactly, float means to ``FLOAT_RTOL``); arrays by type and
@@ -1668,7 +1928,8 @@ def phase_io(rows: int, seed: int, workdir: str) -> int:
     free_device_memory()
 
     # pd.read_csv of that file: the native splitter and the parallel parse
-    t, port_ms, peak = port_call(lambda: tpd.read_csv(pandas_csv))
+    # (a deferred read: the parse runs at its first materialization, here)
+    t, port_ms, peak = port_call(lambda: _materialized_read(tpd.read_csv(pandas_csv)))
     t1 = time.perf_counter()
     p = pandas.read_csv(pandas_csv)
     pandas_ms = (time.perf_counter() - t1) * 1e3
@@ -2541,7 +2802,7 @@ def phase_dates(rows: int, seed: int, workdir: str) -> dict:
     path = os.path.join(workdir, "dated.csv")
     n_csv = min(DATES_CSV_ROWS, rows)
     frames["dated"].iloc[:n_csv][["ts", "v", "q"]].to_csv(path, index=False)
-    result, port_ms = host_ms(lambda: tpd.read_csv(path, parse_dates=["ts"]))
+    result, port_ms = host_ms(lambda: _materialized_read(tpd.read_csv(path, parse_dates=["ts"])))
     col = result._query_compiler._modin_frame.get_column(0)
     if not (col.is_device and col.data.device.type == "cuda" and col.data.dtype == torch.int64):
         raise AssertionError("read_csv(parse_dates): the datetime column is not int64 ticks on cuda")
@@ -2794,20 +3055,444 @@ def phase_fusion(rows: int, seed: int) -> int:
     return launched
 
 
+# ---------------------------------------------------------------------- #
+# 13. the whole-query planner
+# ---------------------------------------------------------------------- #
+
+PLAN_WIDE_ROWS = 10**6
+
+
+def write_csv(path: str, columns: dict) -> None:
+    """A CSV of numpy ``columns`` through pyarrow's threaded writer (pandas'
+    took 45 s for the plan phase's files on an H100 host; 4.6 s this way).
+    Both readers under test parse the same file."""
+    import pyarrow
+    import pyarrow.csv
+
+    pyarrow.csv.write_csv(pyarrow.table(columns), path)
+
+
+def plan_csv(path: str, rows: int, seed: int) -> None:
+    """``scripts/plan_smoke.py``'s CSV shape: ints, uniforms, a 0/1 column."""
+    rng = np.random.default_rng(seed + 70)
+    write_csv(path, {
+        "a": rng.integers(-50, 50, rows),
+        "b": rng.uniform(0.0, 1.0, rows),
+        "c": rng.uniform(-1.0, 1.0, rows),
+        "d": rng.integers(0, 1000, rows),
+        "e": rng.uniform(0.0, 100.0, rows),
+        "f": rng.integers(0, 2, rows),
+    })
+
+
+def _group_magnitude(agg: str, cols: list):
+    """The scale of a filtered groupby sum (or mean) of the plan CSV: per
+    group, the sum (mean) of the values' magnitudes.  No summation order
+    bounds a sum's error by its own size where it cancels (a group of 2500
+    values in [-1, 1] sums to 6e-3 beside a magnitude of ~1250); every order
+    bounds it by this magnitude."""
+
+    def scale(df):
+        kept = df[df["a"] > 0][cols]
+        mag = kept.abs().assign(d=kept["d"]).groupby("d").sum()
+        return mag if agg == "sum" else mag / kept.groupby("d").count()
+
+    return scale
+
+
+PLAN_SMALL_ROWS = 2 * 10**5
+
+
+def plan_files(workdir: str, rows: int, seed: int) -> dict:
+    """Phase 13's CSV files: ``main`` (``rows`` rows of the plan shape),
+    ``wide`` (a key spanning 2^40, past ``FUSED_MAX_GROUPS``), ``mid``
+    (the plan shape at ``PLAN_SMALL_ROWS``), ``cap`` (keys ``k`` spanning
+    exactly ``FUSED_MAX_GROUPS`` values and ``k1`` one more, the first rows
+    kept by ``v > 0.5``), and ``floor_below``/``floor_at`` (the plan shape
+    at ``FuseMinRows`` - 1 and ``FuseMinRows`` rows)."""
+    from modin_tpu_torch.config import FuseMinRows
+    from modin_tpu_torch.ops import groupby as gb_ops
+
+    paths = {name: os.path.join(workdir, f"{name}.csv")
+             for name in ("main", "wide", "mid", "cap", "floor_below", "floor_at")}
+    plan_csv(paths["main"], rows, seed)
+    rng = np.random.default_rng(seed + 71)
+    write_csv(paths["wide"], {"k": rng.integers(0, 2**40, PLAN_WIDE_ROWS),
+                              "v": rng.uniform(0.0, 1.0, PLAN_WIDE_ROWS)})
+    plan_csv(paths["mid"], PLAN_SMALL_ROWS, seed + 1)
+    cap = gb_ops.FUSED_MAX_GROUPS
+    k, k1 = rng.integers(0, cap, PLAN_SMALL_ROWS), rng.integers(0, cap + 1, PLAN_SMALL_ROWS)
+    v = rng.uniform(0.0, 1.0, PLAN_SMALL_ROWS)
+    k[:2], k1[:2], v[:2] = (0, cap - 1), (0, cap), 0.9
+    write_csv(paths["cap"], {"k": k, "k1": k1, "v": v})
+    floor = int(FuseMinRows.get())
+    plan_csv(paths["floor_below"], floor - 1, seed + 2)
+    plan_csv(paths["floor_at"], floor, seed + 3)
+    return paths
+
+
+def plan_queries(paths: dict) -> dict:
+    """name -> (pipeline(pd), file, FuseMode, route, fused-kernel launches,
+    groupagg launches, columns parsed, the scale of its float results or
+    None).  ``route`` is the fused leg's outcome: ``fused`` (one dispatch),
+    ``declined`` (one decline) or ``staged`` (the gate kept it staged:
+    neither).  A masked reduce is one launch (two for a moments op), a fused
+    groupby three: the probe and the slot launch of the fused kernel, then
+    groupagg; a declined or staged query's launches are the staged path's
+    (not predicted).  The groupbys by ``d`` (1000 keys, 1025 slots) keep
+    ``groupagg``'s tables in shared memory with two value columns and put
+    them in device memory with five, where Auto declines and Fused takes
+    them; ``cap`` puts the key range on each side of ``FUSED_MAX_GROUPS``
+    and ``floor_*`` the rows on each side of ``FuseMinRows``."""
+    main = paths["main"]
+    queries = {}
+    for agg, launches in (("sum", 1), ("mean", 1), ("var", 2), ("min", 1), ("max", 1), ("count", 1)):
+        queries[f"filter_project_{agg}"] = (
+            lambda pd, agg=agg: pd.read_csv(main).query("a > 0")[["b", "c"]].agg(agg), main, "Auto", "fused",
+            launches, 0, 3, None)
+
+    def map_chain(pd):
+        df = pd.read_csv(main)
+        kept = df[df["a"] > 0]
+        return ((kept["b"] * 2 + kept["c"]) * kept["e"]).sum()
+
+    def stacked(pd):
+        df = pd.read_csv(main)
+        kept = df[df["a"] > 0]
+        kept = kept[kept["b"] > 0.5]
+        return kept[kept["e"] < 60.0][["c", "e"]].agg("sum")
+
+    def groupby(path, cols, agg, by="d", where="a > 0"):
+        return lambda pd: pd.read_csv(path).query(where)[list(cols)].groupby(by).agg(agg)
+
+    queries["map_chain_sum"] = (map_chain, main, "Auto", "fused", 1, 0, 4, None)
+    queries["stacked_filters_sum"] = (stacked, main, "Auto", "fused", 1, 0, 4, None)
+    for agg in ("sum", "mean", "count", "min", "max", "prod"):
+        cols = ["d", "b", "f"] if agg == "prod" else ["a", "c", "d"]
+        queries[f"groupby_{agg}"] = (
+            groupby(main, cols, agg), main, "Auto", "fused", 2, 1, 4 if agg == "prod" else 3,
+            _group_magnitude(agg, cols) if agg in ("sum", "mean") else None)
+    five = ["a", "b", "c", "d", "e", "f"]
+    queries["groupby_sum_device_tables_declines"] = (
+        groupby(paths["mid"], five, "sum"), paths["mid"], "Auto", "declined", None, 0, 6,
+        _group_magnitude("sum", five))
+    queries["groupby_sum_device_tables_fused"] = (
+        groupby(paths["mid"], five, "sum"), paths["mid"], "Fused", "fused", 2, 1, 6,
+        _group_magnitude("sum", five))
+    queries["groupby_sum_key_range_at_cap_fused"] = (
+        groupby(paths["cap"], ["k", "v"], "sum", "k", "v > 0.5"), paths["cap"], "Fused", "fused", 2, 1, 2, None)
+    queries["groupby_sum_key_range_past_cap_declines"] = (
+        groupby(paths["cap"], ["k1", "v"], "sum", "k1", "v > 0.5"), paths["cap"], "Fused", "declined", None, 0, 2,
+        None)
+    queries["groupby_wide_key_declines"] = (
+        lambda pd: pd.read_csv(paths["wide"]).query("v > 0.5").groupby("k").agg("sum"), paths["wide"], "Auto",
+        "declined", None, 0, 2, None)
+    queries["filter_sum_below_min_rows_staged"] = (
+        lambda pd: pd.read_csv(paths["floor_below"]).query("a > 0")[["b", "c"]].agg("sum"), paths["floor_below"],
+        "Auto", "staged", None, 0, 3, None)
+    queries["filter_sum_at_min_rows_fused"] = (
+        lambda pd: pd.read_csv(paths["floor_at"]).query("a > 0")[["b", "c"]].agg("sum"), paths["floor_at"],
+        "Auto", "fused", 1, 0, 3, None)
+    return queries
+
+
+def _plan_same(got, want, what: str, agg: str, scale=None) -> None:
+    """Ints, counts and order-free results exactly; float sums, means and
+    variances to rtol 1e-12 (another summation order), a grouped sum or
+    mean to 1e-12 of its group's magnitude (``scale``)."""
+    import pandas
+
+    exact = agg in ("min", "max", "count")
+    if scale is None:
+        if isinstance(want, (pandas.DataFrame, pandas.Series)):
+            assert_same_pandas(got, want, what, exact=exact)
+        else:
+            _scalar_close(got, want, what, EXACT if exact else RTOL)
+        return
+    if type(got) is not type(want) or not got.index.equals(want.index) or list(got.columns) != list(want.columns):
+        raise AssertionError(f"{what}: type, index or columns differ")
+    for label in want.columns:
+        g, w = got[label], want[label]
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{what}[{label}]: dtype {g.dtype} != {w.dtype}")
+        if w.dtype.kind != "f":
+            assert_same_values(g.to_numpy(), w.to_numpy(), f"{what}[{label}]", exact=True)
+            continue
+        bound = FLOAT_RTOL * scale[label].to_numpy(np.float64)
+        if not (np.abs(g.to_numpy(np.float64) - w.to_numpy(np.float64)) <= bound).all():
+            raise AssertionError(f"{what}[{label}]: values beyond 1e-12 of their groups' magnitudes")
+
+
+def plan_breakdown(path: str) -> dict:
+    """Where the acceptance pipeline's port time goes: the eager parse of
+    all six columns and of the three that survive (``PlanMode=Off``), the
+    deferred read's header sniff, the whole pipeline under ``Auto``, and
+    EXPLAIN ANALYZE's per-node wall times of its plan, re-run with the scan
+    cache off so that the Scan parses again."""
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import PlanMode, PlanScanCacheBytes
+    from modin_tpu_torch.plan import explain, ir, runtime
+
+    with PlanMode.context("Off"):
+        _, parse_all_ms = host_ms(lambda: _materialized_read(tpd.read_csv(path)))
+        _, parse_abc_ms = host_ms(lambda: _materialized_read(tpd.read_csv(path, usecols=["a", "b", "c"])))
+    with PlanMode.context("Auto"), PlanScanCacheBytes.context(0):
+        df, sniff_ms = host_ms(lambda: tpd.read_csv(path))
+        pending = df.query("a > 0")[["b", "c"]]
+        _, run_ms = host_ms(lambda: pending.agg("sum"))
+        qc = pending._query_compiler
+        t0 = time.perf_counter()
+        actuals, (root, optimized, applied) = runtime.explain_analyze(qc)
+        analyze_ms = (time.perf_counter() - t0) * 1e3
+    nodes = [{"node": n.label(), "total_ms": actuals[id(n)]["total_s"] * 1e3,
+              "self_ms": actuals[id(n)]["self_s"] * 1e3, "launches": actuals[id(n)]["launches"]}
+             for n in ir.walk(optimized) if id(n) in actuals]
+    rec = {"phase": "plan", "query": "breakdown", "pipeline": 'read_csv(p).query("a > 0")[["b", "c"]].agg("sum")',
+           "off_parse_6_columns_ms": parse_all_ms, "off_parse_3_columns_ms": parse_abc_ms,
+           "auto_sniff_ms": sniff_ms, "auto_pipeline_ms": run_ms, "analyze_ms": analyze_ms, "nodes": nodes}
+    emit(rec)
+    emit({"phase": "plan", "query": "explain_analyze",
+          "text": explain.explain_plan(root, optimized, applied, actuals).splitlines()})
+    del df, pending, qc
+    return rec
+
+
+PLAN_SWEEP_WIDTHS = (100, 1000, 10_000, 65_536)
+PLAN_SWEEP_ROWS = (4096, 32_768, 262_144, 2_097_152)
+PLAN_SWEEP_REPEATS = 3
+
+
+def _fused_and_staged(fn, what: str, agg: str, scale=None) -> dict:
+    """Median wall ms of ``fn`` under ``FuseMode=Fused`` and ``Staged`` (one
+    warm-up each, then ``PLAN_SWEEP_REPEATS`` runs alternating), the Fused
+    runs dispatching the fused leg and the Staged runs not, and the two
+    results held to each other as phase 13 holds a query to pandas."""
+    from modin_tpu_torch.config import FuseMode
+    from modin_tpu_torch.plan import fuse
+
+    out, times = {}, {"Fused": [], "Staged": []}
+    for rep in range(PLAN_SWEEP_REPEATS + 1):
+        for mode in ("Fused", "Staged"):
+            d0 = fuse.DISPATCHES
+            with FuseMode.context(mode):
+                got, ms = host_ms(fn)
+            if (fuse.DISPATCHES - d0) != (mode == "Fused"):
+                raise AssertionError(f"{what}: {fuse.DISPATCHES - d0} fused legs under FuseMode={mode}")
+            if rep:
+                times[mode].append(ms)
+            else:
+                out[mode] = got
+    _plan_same(out["Fused"], out["Staged"], f"{what} (Fused against Staged)", agg, scale)
+    return {"fused_ms": statistics.median(times["Fused"]), "staged_ms": statistics.median(times["Staged"]),
+            "fused_runs_ms": times["Fused"], "staged_runs_ms": times["Staged"]}
+
+
+def plan_route_sweep(rows: int, seed: int) -> list:
+    """The two thresholds of the route between the fused and the staged leg,
+    measured: a filtered groupby sum (``a > 0``, by ``d``) of one and of
+    five value columns at ``rows`` rows by key ranges of
+    ``PLAN_SWEEP_WIDTHS`` (``groupagg``'s tables in shared or in device
+    memory), and a filtered sum of ``[b, c]`` and a one-column groupby of
+    100 keys at ``PLAN_SWEEP_ROWS`` rows (the row floor), each under
+    ``FuseMode=Fused`` and ``Staged`` on in-memory frames (no parse)."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.ops import groupby as gb_ops
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+    from modin_tpu_torch.plan import defer_frame
+
+    def groupby(df, cols):
+        def fn():
+            p = defer_frame(df)
+            return tpd.to_pandas(p[p["a"] > 0][list(cols)].groupby("d").agg("sum"))
+        return fn
+
+    def reduce(df):
+        def fn():
+            p = defer_frame(df)
+            return tpd.to_pandas(p[p["a"] > 0][["b", "c"]].agg("sum"))
+        return fn
+
+    records = []
+    for width in PLAN_SWEEP_WIDTHS:
+        rng = np.random.default_rng(seed + 72 + width)
+        pdf = pandas.DataFrame({"a": rng.integers(-50, 50, rows), "b": rng.uniform(0.0, 1.0, rows),
+                                "c": rng.uniform(-1.0, 1.0, rows), "d": rng.integers(0, width, rows),
+                                "e": rng.uniform(0.0, 100.0, rows), "f": rng.integers(0, 2, rows)})
+        df = tpd.from_pandas(pdf)
+        for cols in (("b", "d"), ("a", "b", "c", "d", "e", "f")):
+            n_values = len(cols) - 1
+            g1 = gb_ops.fused_groups_bucket(width) + 1
+            rec = {"phase": "plan", "sweep": "groupby_width", "rows": rows, "width": width,
+                   "value_columns": n_values, "slots": g1,
+                   "tables": "shared" if ga.launch_geometry(rows, g1, n_values)[2] else "global",
+                   **_fused_and_staged(groupby(df, cols), f"plan sweep groupby width {width} x{n_values}",
+                                       "sum", _group_magnitude("sum", list(cols))(pdf))}
+            emit(rec)
+            records.append(rec)
+        if width == 100:
+            for n in PLAN_SWEEP_ROWS:
+                small = tpd.from_pandas(pdf.iloc[:n].copy())
+                for name, fn, agg, scale in (
+                        ("reduce", reduce(small), "sum", None),
+                        ("groupby", groupby(small, ("b", "d")), "sum",
+                         _group_magnitude("sum", ["b", "d"])(pdf.iloc[:n]))):
+                    rec = {"phase": "plan", "sweep": "rows", "query": name, "rows": n,
+                           **_fused_and_staged(fn, f"plan sweep {name} at {n} rows", agg, scale)}
+                    emit(rec)
+                    records.append(rec)
+                del small
+        del df, pdf
+        gc.collect()
+        free_device_memory()
+    return records
+
+
+def phase_plan(rows: int, seed: int, workdir: str) -> dict:
+    """The whole-query planner through ``modin_tpu_torch.pandas``:
+    ``read_csv(p).query("a > 0")[["b", "c"]].agg(...)`` in six reductions,
+    a map chain into a sum, stacked filters and ``query(...).groupby("d")``
+    in six aggregations, on ``rows`` rows of the ``scripts/plan_smoke.py``
+    CSV shape; then, on smaller files (``plan_files``), a query on each
+    side of each threshold the route selects on: ``groupagg``'s tables in
+    device memory (Auto declines, Fused takes them), the key range at and
+    one past ``FUSED_MAX_GROUPS`` (Fused takes it, then declines), a key
+    spanning 2^40, and the rows on each side of ``FuseMinRows``.  Each runs
+    under ``MODIN_TPU_TORCH_PLAN=Auto`` with its ``FuseMode`` (Auto unless
+    the query pins Fused) and under ``Off``, and through pandas: results
+    equal (ints and order-free results exactly, a float reduction to rtol
+    1e-12, a grouped float sum or mean to 1e-12 of its group's magnitude,
+    the sum of the values' magnitudes: ``_group_magnitude``), the parse sees
+    only the surviving columns (``file_dispatcher.PARSED_COLUMNS``), EXPLAIN
+    attributes the pushdown, the fused leg takes its predicted route, each
+    fused query launches the fused and groupagg kernels as predicted, and
+    nothing defaults to pandas.  Before the queries, the acceptance
+    pipeline's time breakdown (``plan_breakdown``) and the route sweep
+    (``plan_route_sweep``).  Returns the launches of the Auto runs."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import FuseMode, PlanMode
+    from modin_tpu_torch.core.io import file_dispatcher
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+    from modin_tpu_torch.plan import fuse
+
+    t_phase = time.perf_counter()
+    paths = plan_files(workdir, rows, seed)
+    path = paths["main"]
+    emit({"phase": "plan", "note": "files written", "rows": rows, "wide_rows": PLAN_WIDE_ROWS,
+          "small_rows": PLAN_SMALL_ROWS, "seconds": time.perf_counter() - t_phase})
+    # pandas reads each file once (timed); a query's pandas_ms is that read
+    # plus the query on a copy of the frame
+    read_ms, frames = {}, {}
+    for p_ in paths.values():
+        t0 = time.perf_counter()
+        frames[p_] = pandas.read_csv(p_)
+        read_ms[p_] = (time.perf_counter() - t0) * 1e3
+
+    class _ReadOnce:
+        @staticmethod
+        def read_csv(p_):
+            return frames[p_].copy()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    fk.LAUNCHES = ga.LAUNCHES = 0
+
+    def value(x):
+        return tpd.to_pandas(x) if hasattr(x, "_query_compiler") else x
+
+    # EXPLAIN of the acceptance pipeline, before and after its run
+    with PlanMode.context("Auto"):
+        pending = tpd.read_csv(path).query("a > 0")[["b", "c"]]
+        before = pending._query_compiler.explain()
+        for needle in ("status: deferred", "pushdown-project-into-scan: 1 application(s)",
+                       "3/6 cols (pruned, usecols pushed into reader)"):
+            if needle not in before:
+                raise AssertionError(f"plan explain: {needle!r} missing from\n{before}")
+        pending._query_compiler.execute()
+        after = pending._query_compiler.explain()
+        if "status: materialized" not in after or "pushdown-project-into-scan" not in after:
+            raise AssertionError(f"plan explain after the run:\n{after}")
+        del pending
+    emit({"phase": "plan", "query": "explain", "before": before.splitlines(), "after": after.splitlines()})
+    t_sweep = time.perf_counter()
+    plan_breakdown(path)
+    plan_route_sweep(rows, seed)
+    emit({"phase": "plan", "note": "breakdown and route sweep", "seconds": time.perf_counter() - t_sweep})
+    totals = {"port_ms": 0.0, "port_off_ms": 0.0, "pandas_ms": 0.0}
+    fused_total = groupagg_total = 0
+    aggs = ("sum", "mean", "var", "min", "max", "count", "prod")
+    for name, (fn, qpath, fuse_mode, route, predicted, predicted_ga, parsed_cols, scale_of) in \
+            plan_queries(paths).items():
+        agg = next((t for t in name.split("_") if t in aggs), "sum")
+        d0, dec0 = fuse.DISPATCHES, fuse.DECLINES
+        f0, g0, c0 = fk.LAUNCHES, ga.LAUNCHES, file_dispatcher.PARSED_COLUMNS
+        with PlanMode.context("Auto"), FuseMode.context(fuse_mode):
+            got, port_ms = host_ms(lambda: value(fn(tpd)))
+        launches, ga_launches = fk.LAUNCHES - f0, ga.LAUNCHES - g0
+        parsed = file_dispatcher.PARSED_COLUMNS - c0
+        fused_total += launches
+        groupagg_total += ga_launches
+        taken = (fuse.DISPATCHES - d0, fuse.DECLINES - dec0)
+        if taken != {"fused": (1, 0), "declined": (0, 1), "staged": (0, 0)}[route]:
+            raise AssertionError(f"plan {name}: {taken[0]} fused legs and {taken[1]} declines, "
+                                 f"predicted the route {route!r}")
+        if ga_launches != predicted_ga or (predicted is not None and launches != predicted):
+            raise AssertionError(f"plan {name}: {launches} fused launches (predicted {predicted}), "
+                                 f"{ga_launches} groupagg launches (predicted {predicted_ga})")
+        if parsed != parsed_cols:
+            raise AssertionError(f"plan {name}: the parse saw {parsed} columns, {parsed_cols} survive")
+        with PlanMode.context("Off"):
+            off, port_off_ms = host_ms(lambda: value(fn(tpd)))
+        t0 = time.perf_counter()
+        want = fn(_ReadOnce)
+        pandas_ms = (time.perf_counter() - t0) * 1e3 + read_ms[qpath]
+        if tqc.DEFAULTS_TO_PANDAS != 0:
+            raise AssertionError(f"plan {name}: a query defaulted to pandas")
+        scale = scale_of(frames[qpath]) if scale_of is not None else None
+        _plan_same(got, want, f"plan {name} (Auto against pandas)", agg, scale)
+        _plan_same(off, want, f"plan {name} (Off against pandas)", agg, scale)
+        _plan_same(got, off, f"plan {name} (Auto against Off)", agg, scale)
+        totals["port_ms"] += port_ms
+        totals["port_off_ms"] += port_off_ms
+        totals["pandas_ms"] += pandas_ms
+        emit({"phase": "plan", "query": name, "rows": len(frames[qpath]), "fuse_mode": fuse_mode, "route": route,
+              "port_ms": port_ms, "port_off_ms": port_off_ms, "pandas_ms": pandas_ms,
+              "fused_launches": launches, "predicted_fused_launches": predicted,
+              "groupagg_launches": ga_launches, "predicted_groupagg_launches": predicted_ga,
+              "parsed_columns": parsed, "match": True,
+              "pandas_ms_is": "one timed pandas.read_csv of the file plus the query on a copy of its frame",
+              "tolerance": "exact" if agg in ("min", "max", "count") else
+              ("1e-12 of each group's magnitude" if scale is not None else f"rtol {FLOAT_RTOL}")})
+        del got, off, want
+        gc.collect()
+    del frames
+    free_device_memory()
+    emit({"phase": "plan", "fused_launches": fused_total, "groupagg_launches": groupagg_total,
+          "defaults_to_pandas": 0, **totals, "seconds": time.perf_counter() - t_phase})
+    return {"fused": fused_total, "groupagg": groupagg_total}
+
+
 def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
-    ``io``, ``window``, ``clean``, ``dates``) to its kernels' launches; the ``launches``
-    of a kernel's entry is its own path's: bincount's the main path's,
-    scan's the window path's (the clean path's ``rank`` runs it too), the
-    fused kernel's the fusion path's (``fused_by_path``: its launches on
-    every path, each counted from 0 just before that path ran)."""
+    ``io``, ``window``, ``clean``, ``dates``, ``plan``) to its kernels'
+    launches; the ``launches`` of a kernel's entry is its own path's:
+    bincount's the main path's, scan's the window path's (the clean path's
+    ``rank`` runs it too), the fused kernel's the fusion path's
+    (``fused_by_path``: its launches on every path, each counted from 0 just
+    before that path ran; its masked mode's the plan path's), groupagg's the
+    plan path's."""
     by_width = kernel["by_width"]
     main = by_width[100]
     scan = kernel["scan"]["by_case"]
     head = scan["seg_add_f64_nocodes"]
     fused = kernel["fused"]["by_case"]
     fhead = fused["axpb_f64"]
-    bincount_paths = {k: v["bincount"] if isinstance(v, dict) else v for k, v in launches.items()}
+    gahead = kernel["groupagg"]["by_case"]["sum_float64_w100"]
+    bincount_paths = {k: v["bincount"] if isinstance(v, dict) else v for k, v in launches.items()
+                      if k != "plan"}
     return {"kernels": [{
         "name": "bincount",
         "route": "cuda",
@@ -2879,6 +3564,36 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -
                                      "rows_per_thread")}, "parent_ms": v.get("parent_ms")}
             for k, v in fused.items()
         },
+        "masked": {
+            "note": "the masked accumulator mode at phase 13's shapes: [b, c] under the deferred mask a > 0 "
+                    "(masked_probe: the int64 key's min and max and the kept rows; slot: the fused groupby's "
+                    "slot column, no tail); launches on the plan path",
+            "launches": fused_by_path.get("plan"),
+            **{k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "library", "bound_ms",
+                                     "bytes_per_row", "max_abs_err")}
+               for k, v in fused.items() if k.startswith("masked_") or k == "slot"},
+        },
+    }, {
+        "name": "groupagg",
+        "route": "cuda",
+        "source": "modin_tpu_torch/ops/cuda/csrc/groupagg.cu",
+        "replaces": "modin_tpu/ops/groupby.py:1288 (fused_group_agg, its scatter body :1313-1385): an XLA "
+                    "program, not a Pallas kernel",
+        "launches": launches["plan"]["groupagg"],
+        "max_abs_err": kernel["groupagg"]["max_abs_err"],
+        "n": rows,
+        "case": "sum_float64_w100",
+        "ms": gahead["kernel_ms"],
+        "plain_ms": gahead["plain_ms"],
+        "bound_ms": gahead["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": gahead["library_ms"],
+        "library": "index_add_ for sum and mean, scatter_reduce_ for min, max and prod, torch.bincount for count",
+        "staged_sum_ms": kernel["groupagg"]["staged_ms"],
+        "by_case": {
+            k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "tables", "blocks")}
+            for k, v in kernel["groupagg"]["by_case"].items()
+        },
     }]}
 
 
@@ -2886,9 +3601,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", type=int, default=10**8,
                         help="rows of the kernel inputs")
-    # 5e7 (from 1e8) so that the whole run, phase 9 included, stays well
-    # inside its 1200 s limit: phase 7 took 595 s of 948 at 1e8 rows
-    parser.add_argument("--arithmetic-rows", type=int, default=5 * 10**7,
+    # 2.5e7 (from 5e7, and 1e8 before) so that the whole run, phase 13
+    # included, stays under 1050 s: phase 7 took 595 s of 948 at 1e8 rows,
+    # and 286-321 s at 5e7 (H100 hosts), most of it its pandas and numpy
+    # references (97 s and 59 s of the 321)
+    parser.add_argument("--arithmetic-rows", type=int, default=25 * 10**6,
                         help="rows of the arithmetic phase")
     parser.add_argument("--earlier-rows", type=int, default=2 * 10**7,
                         help="rows of the main-path and relational phases")
@@ -2909,6 +3626,8 @@ def main(argv=None) -> int:
                         help="rows of the dates phase's frames")
     parser.add_argument("--fusion-rows", type=int, default=2 * 10**7,
                         help="rows of the fusion phase's frames")
+    parser.add_argument("--plan-rows", type=int, default=5 * 10**6,
+                        help="rows of the plan phase's CSV file")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -2918,7 +3637,7 @@ def main(argv=None) -> int:
                         "kernel check times on the same cases, before and after this one's")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all nine)")
+                        "(the result lines need all ten)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2993,10 +3712,15 @@ def main(argv=None) -> int:
             launches["dates"] = run("dates", phase_dates, args.dates_rows, args.seed, workdir)
     if "fusion" in phases:
         run("fusion", phase_fusion, args.fusion_rows, args.seed)
+    if "plan" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as workdir:
+            launches["plan"] = run("plan", phase_plan, args.plan_rows, args.seed, workdir)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path})
-    for name in ("main", "arithmetic", "clean", "fusion"):
+    for name in ("main", "arithmetic", "clean", "fusion", "plan"):
         if name in fused_by_path and fused_by_path[name] == 0:
             raise AssertionError(f"the {name} path never launched the fused kernel")
+    if "plan" in launches and launches["plan"]["groupagg"] == 0:
+        raise AssertionError("the plan path never launched the groupagg kernel")
     if phases != set(ALL_PHASES):
         print("chip_smoke: a partial run prints no result", file=sys.stderr)
         return 1

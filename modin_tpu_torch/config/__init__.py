@@ -4,9 +4,17 @@ from modin_tpu_torch.config.envvars import (
     CpuCount,
     Device,
     FusedCacheSize,
+    FuseMinRows,
+    FuseMode,
     GroupbyRangeLimit,
     KernelRouterHistBound,
     Parameter,
+    PlanMaxPasses,
+    PlanMode,
+    PlanScanCacheBytes,
 )
 
-__all__ = ["CpuCount", "Device", "FusedCacheSize", "GroupbyRangeLimit", "KernelRouterHistBound", "Parameter"]
+__all__ = [
+    "CpuCount", "Device", "FusedCacheSize", "FuseMinRows", "FuseMode", "GroupbyRangeLimit",
+    "KernelRouterHistBound", "Parameter", "PlanMaxPasses", "PlanMode", "PlanScanCacheBytes",
+]

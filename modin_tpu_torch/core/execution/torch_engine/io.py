@@ -3,7 +3,9 @@
 The port's counterpart of ``modin_tpu/core/execution/jax_engine/io.py``:
 the format dispatchers bound to ``TorchQueryCompiler``.  ``read_csv``,
 ``read_table``, ``read_parquet`` and ``read_feather`` parse on the host in
-parallel and put the numeric columns on the device; ``to_csv``,
+parallel and put the numeric columns on the device (``read_csv`` and
+``read_table`` of a plain local file defer into a plan first, under the
+default ``MODIN_TPU_TORCH_PLAN=Auto``); ``to_csv``,
 ``to_parquet`` and ``to_feather`` write in row windows.  Every other reader
 and writer is ``BaseIO``'s, which defaults to pandas, counted.
 """
@@ -42,10 +44,23 @@ class CudaOnTorchIO(BaseIO):
 
     @classmethod
     def read_csv(cls, **kwargs: Any):
+        # a deferrable read becomes a Scan-rooted plan (plan/runtime.py): the
+        # file is parsed at the first materialization point, with the
+        # projection the rewrite rules pushed down in its usecols
+        from modin_tpu_torch.plan import runtime as plan_runtime
+
+        deferred = plan_runtime.defer_read(TorchCSVDispatcher, kwargs)
+        if deferred is not None:
+            return deferred
         return TorchCSVDispatcher.read(**kwargs)
 
     @classmethod
     def read_table(cls, **kwargs: Any):
+        from modin_tpu_torch.plan import runtime as plan_runtime
+
+        deferred = plan_runtime.defer_read(TorchTableDispatcher, kwargs)
+        if deferred is not None:
+            return deferred
         return TorchTableDispatcher.read(**kwargs)
 
     @classmethod

@@ -5,7 +5,9 @@ calls the format's ``_read``; the text formats share ``_read_gated``, which
 takes the parallel path (record-aligned byte ranges parsed on a thread pool)
 for a plain local file it can parse in parallel, and the serial pandas parse
 otherwise.  ``PARALLEL_READS`` counts the reads that took the parallel path,
-so a fall-back to the serial parse shows.
+so a fall-back to the serial parse shows; ``PARSED_COLUMNS`` adds up the
+columns that the text reads parsed (a projection pushed into ``usecols``
+shows as fewer).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ NOT_IMPLEMENTED_MESSAGE = "Implement in children classes!"
 
 # reads that the parallel path answered (incremented only in _read_gated)
 PARALLEL_READS = 0
+# columns that the text reads parsed, both paths (added in _read_gated)
+PARSED_COLUMNS = 0
 
 
 class FileDispatcher:
@@ -41,19 +45,23 @@ class FileDispatcher:
         """The parallel path where it applies, else the serial fallback; an
         error on the parallel path degrades to the fallback, which gives
         pandas' own result or error."""
-        global PARALLEL_READS
+        global PARALLEL_READS, PARSED_COLUMNS
         path = cls.get_path(raw_path) if isinstance(raw_path, str) else raw_path
         if (
             not cls.is_local_plain_file(path)
             or not cls._can_parallelize({**kwargs, path_key: path})
             or cls.file_size(path) < cls.MIN_PARALLEL_BYTES
         ):
-            return cls._read_fallback(path, kwargs)
-        try:
-            result = cls._read_parallel(path, kwargs)
-        except Exception:  # any failure of the chunked parse: pandas decides
-            return cls._read_fallback(path, kwargs)
-        PARALLEL_READS += 1
+            result = cls._read_fallback(path, kwargs)
+        else:
+            try:
+                result = cls._read_parallel(path, kwargs)
+                PARALLEL_READS += 1
+            except Exception:  # any failure of the chunked parse: pandas decides
+                result = cls._read_fallback(path, kwargs)
+        frame = getattr(result, "_frame", None)
+        if frame is not None:
+            PARSED_COLUMNS += frame.num_cols
         return result
 
     @classmethod
@@ -68,6 +76,13 @@ class FileDispatcher:
             return [parse(ranges[0])]
         with ThreadPoolExecutor(max_workers=min(CpuCount.get(), len(ranges))) as pool:
             return list(pool.map(parse, ranges))
+
+    @classmethod
+    def normalize_read_kwargs(cls, kwargs: dict) -> dict:
+        """The reader kwargs in canonical form (a format's default
+        separator, ...), so that the eager read and the planner's deferred
+        Scan read with the same kwargs; the base changes nothing."""
+        return kwargs
 
     @classmethod
     def get_path(cls, file_path: str) -> str:

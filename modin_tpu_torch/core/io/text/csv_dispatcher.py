@@ -234,7 +234,11 @@ class TableDispatcher(CSVDispatcher):
     """``read_table``: CSV with a tab separator by default."""
 
     @classmethod
-    def _read(cls, filepath_or_buffer: Any = None, **kwargs: Any):
+    def normalize_read_kwargs(cls, kwargs: dict) -> dict:
         if kwargs.get("sep") in (None, pandas.api.extensions.no_default):
             kwargs = {**kwargs, "sep": "\t"}
-        return super()._read(filepath_or_buffer, **kwargs)
+        return kwargs
+
+    @classmethod
+    def _read(cls, filepath_or_buffer: Any = None, **kwargs: Any):
+        return super()._read(filepath_or_buffer, **cls.normalize_read_kwargs(kwargs))

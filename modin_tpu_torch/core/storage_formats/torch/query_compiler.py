@@ -85,6 +85,7 @@ from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
 from modin_tpu_torch.core.storage_formats.base.query_compiler import (
     BaseQueryCompiler,
 )
+from modin_tpu_torch.config import PlanMode
 from modin_tpu_torch.error_message import ErrorMessage
 from modin_tpu_torch.ops import datetime_parts, dictionary, elementwise, reductions, sorted_cache, stats
 from modin_tpu_torch.ops import groupby as gb_ops
@@ -143,11 +144,60 @@ class TorchQueryCompiler(BaseQueryCompiler):
     """Query compiler over a :class:`TorchDataframe`.
 
     ``_shape_hint == "column"`` marks a compiler that stands for a Series.
+
+    Deferred mode (``plan/``): a compiler built by :meth:`from_plan` holds a
+    pending logical plan (``_plan``) instead of a frame.  Plan-capable
+    methods carry a one-line guard that extends the plan; every other
+    method reaches ``_modin_frame``, whose getter materializes the plan
+    (optimize + lower through the eager seams) on first touch, so an op
+    with no plan node is a materialization point by construction, and
+    ``MODIN_TPU_TORCH_PLAN=Off`` (no plan is ever built) is the eager port.
     """
+
+    _plan = None
 
     def __init__(self, frame: TorchDataframe, shape_hint: Optional[str] = None):
         self._modin_frame = frame
         self._shape_hint = shape_hint
+
+    @classmethod
+    def from_plan(cls, plan: Any, shape_hint: Optional[str] = None) -> "TorchQueryCompiler":
+        """A deferred compiler over a pending plan node."""
+        self = cls.__new__(cls)
+        self._frame = None
+        self._plan = plan
+        self._shape_hint = shape_hint
+        return self
+
+    def _planning(self) -> bool:
+        """Whether a plan-capable call should try to defer: a plan is
+        pending, or ``MODIN_TPU_TORCH_PLAN=Force``."""
+        return self._plan is not None or PlanMode.get() == "Force"
+
+    @property
+    def _modin_frame(self) -> TorchDataframe:
+        frame = self._frame
+        if frame is None:
+            frame = _plan_runtime().force(self)
+        return frame
+
+    @_modin_frame.setter
+    def _modin_frame(self, frame: TorchDataframe) -> None:
+        self._frame = frame
+        self._plan = None
+
+    def eager_snapshot(self) -> "TorchQueryCompiler":
+        """An eager compiler over this one's (materialized) frame."""
+        return TorchQueryCompiler(self._modin_frame, self._shape_hint)
+
+    def explain(self, analyze: bool = False) -> str:
+        """EXPLAIN: the logical plan before and after the rewrite, with the
+        rules that fired; ``analyze`` executes it (a pending plan
+        materializes into this compiler) and annotates every node with its
+        wall time, rows, bytes and kernel launches."""
+        from modin_tpu_torch.plan.explain import explain_qc
+
+        return explain_qc(self, analyze=analyze)
 
     # ------------------------------------------------------------------ #
     # Data exchange
@@ -183,6 +233,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
         self._modin_frame.finalize()
 
     def copy(self) -> "TorchQueryCompiler":
+        if self._plan is not None:
+            # plans are immutable: a copy shares the pending plan
+            return type(self).from_plan(self._plan, self._shape_hint)
         # frames are never written in place (every op builds a new one), so
         # a copy shares the columns
         return type(self)(self._modin_frame, self._shape_hint)
@@ -194,6 +247,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
     def get_columns(self) -> Any:
         from modin_tpu_torch.core.dataframe.torch.metadata import ensure_index
 
+        if self._plan is not None:
+            return _plan_runtime().plan_columns(self)
         return ensure_index(self._modin_frame.columns)
 
     def get_index(self) -> Any:
@@ -232,12 +287,18 @@ class TorchQueryCompiler(BaseQueryCompiler):
     def dtypes(self) -> Any:
         import pandas
 
+        if self._plan is not None:
+            known = _plan_runtime().plan_dtypes(self)
+            if known is not None:
+                return known
         frame = self._modin_frame
         return pandas.Series(
             [c.pandas_dtype for c in frame._columns], index=self.get_columns(), dtype=object
         )
 
     def get_axis_len(self, axis: int) -> int:
+        if axis and self._plan is not None:
+            return len(_plan_runtime().plan_columns(self))
         return len(self._modin_frame) if axis == 0 else self._modin_frame.num_cols
 
     def __len__(self) -> int:
@@ -250,7 +311,12 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     def columnarize(self) -> "TorchQueryCompiler":
         """Series normal form without building the row labels of a
-        one-column frame (the base class asks for them)."""
+        one-column frame (the base class asks for them).  A pending plan of
+        one column only takes the Series tag."""
+        if self._plan is not None and len(self.get_columns()) == 1:
+            result = self.copy()
+            result._shape_hint = "column"
+            return result
         frame = self._modin_frame
         if frame.num_cols == 1 and len(frame) != 1:
             return type(self)(frame, "column")
@@ -259,6 +325,10 @@ class TorchQueryCompiler(BaseQueryCompiler):
     def getitem_column_array(
         self, key: Any, numeric: bool = False, ignore_order: bool = False
     ) -> "TorchQueryCompiler":
+        if self._planning():
+            planned = _plan_runtime().defer_project(self, key, numeric)
+            if planned is not None:
+                return planned
         frame = self._modin_frame
         if numeric:
             positions = [int(i) for i in key]
@@ -309,6 +379,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     _ARITH_KINDS = frozenset("iuf")
     _CMP_OPS = frozenset(["eq", "ne", "lt", "le", "gt", "ge"])
+    _LOGICAL_OPS = elementwise.LOGICAL_OPS
 
     def _device_cols(self) -> Optional[List[torch.Tensor]]:
         """All columns as concrete device tensors (the deferred ones
@@ -557,13 +628,25 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 new_columns[i] = column_of_series(host_fn(series), self._device())
         return type(self)(frame.with_columns(new_columns), self._shape_hint)
 
+    def _defer_unary(self, method: str, args: tuple = (), kwargs: Optional[dict] = None,
+                     bool_out: bool = False) -> Optional["TorchQueryCompiler"]:
+        if self._planning():
+            return _plan_runtime().defer_unary(self, method, args, kwargs, bool_out=bool_out)
+        return None
+
     def abs(self) -> "TorchQueryCompiler":
+        planned = self._defer_unary("abs")
+        if planned is not None:
+            return planned
         result = self._map_device_host(
             lambda cols: elementwise.unary_op_columns("abs", cols), lambda s: s.abs(), "iuf"
         )
         return result if result is not None else self._default_to_pandas(lambda o: o.abs())
 
     def negative(self) -> "TorchQueryCompiler":
+        planned = self._defer_unary("negative")
+        if planned is not None:
+            return planned
         result = self._map_device_host(
             lambda cols: elementwise.unary_op_columns("negative", cols), lambda s: -s, "iuf"
         )
@@ -571,6 +654,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     def invert(self) -> "TorchQueryCompiler":
         """``~``: logical not of bool columns, bitwise not of int ones."""
+        planned = self._defer_unary("invert")
+        if planned is not None:
+            return planned
         result = self._map_device_host(
             lambda cols: elementwise.unary_op_columns("invert", cols), lambda s: ~s, "biu"
         )
@@ -582,6 +668,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
         """numpy's math ufunc ``op_name`` (``np.sqrt(df)``): its torch
         counterpart over the numeric device columns, numpy's own over the
         host columns; otherwise pandas applies the ufunc."""
+        planned = self._defer_unary("unary_math", (op_name,))
+        if planned is not None:
+            return planned
         ufunc = getattr(np, op_name)
         if op_name in self.MATH_UNARY:
             result = self._map_device_host(
@@ -606,14 +695,24 @@ class TorchQueryCompiler(BaseQueryCompiler):
         )
 
     def isna(self) -> "TorchQueryCompiler":
+        planned = self._defer_unary("isna", bool_out=True)
+        if planned is not None:
+            return planned
         result = self._isna_like(negate=False)
         return result if result is not None else super().isna()
 
     def notna(self) -> "TorchQueryCompiler":
+        planned = self._defer_unary("notna", bool_out=True)
+        if planned is not None:
+            return planned
         result = self._isna_like(negate=True)
         return result if result is not None else super().notna()
 
     def round(self, decimals: Any = 0, **kwargs: Any) -> "TorchQueryCompiler":
+        if isinstance(decimals, int) and not isinstance(decimals, bool):
+            planned = self._defer_unary("round", (), dict(decimals=decimals, **kwargs))
+            if planned is not None:
+                return planned
         result = None
         if isinstance(decimals, (int, np.integer)) and not isinstance(decimals, bool) and not kwargs:
             d = int(decimals)
@@ -767,9 +866,17 @@ class TorchQueryCompiler(BaseQueryCompiler):
     # ----------------------------- reductions ------------------------- #
 
     def _try_device_reduce(
-        self, op: str, axis: Any, skipna: bool, numeric_only: bool, kwargs: dict
+        self, op: str, axis: Any, skipna: bool, numeric_only: bool, kwargs: dict, keep: Any = None
     ) -> Optional["TorchQueryCompiler"]:
+        """``keep`` is the whole-plan fused leg (``plan/fuse.py``): a
+        deferred bool mask over the uncompacted rows, folded into the
+        reduction's launch instead of a compaction.  It declines (None)
+        where the masked form is not the staged one exactly: axis 1,
+        median, dictionary-encoded host columns, and a filter that keeps no
+        row (pandas' empty-frame answers live with the staged path)."""
         if op not in reductions.REDUCTIONS and op != "median":
+            return None
+        if keep is not None and (op == "median" or axis not in (0, None)):
             return None
         if kwargs.get("min_count", 0) not in (0, -1):
             return None
@@ -803,7 +910,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 # a numeric column we can't run on device, or (without
                 # numeric_only) any host column
                 return None
-        if not positions:
+        if not positions or (keep is not None and decoders):
             return None
         labels = frame.columns
         try:
@@ -825,22 +932,36 @@ class TorchQueryCompiler(BaseQueryCompiler):
             data = reductions.reduce_axis1(
                 op, arrays, skipna=skipna, ddof=ddof, cast_bool=cast_bool
             )
-            result = DeviceColumn(data, numpy_dtype(data.dtype), length=len(frame))
+            # pandas: the columns' common dtype, then the op's rule for it
+            target = reductions.pandas_result_dtype(
+                op, np.result_type(*[frame._columns[i].pandas_dtype for i in positions])
+            )
+            if target.kind == "u" and target.itemsize == 8:
+                result = HostColumn(np.asarray(TorchWrapper.materialize(data)).astype(target))
+            else:
+                data = data.to(torch_dtype(target))
+                result = DeviceColumn(data, target, length=len(frame))
             return type(self)(
                 TorchDataframe([result], [MODIN_UNNAMED_SERIES_LABEL], frame._index),
                 "column",
             )
-        if op == "median":
+        if keep is not None:
+            values, kept = reductions.reduce_columns_masked(
+                op, arrays, keep, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool
+            )
+            if kept == 0:
+                return None
+        elif op == "median":
             cols = [frame._columns[i] for i in positions]
             values = reductions.median_columns(cols, len(frame), skipna=skipna)
         else:
             values = reductions.reduce_columns(
                 op, arrays, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool
             )
-        out_values = [v.item() for v in values]
         if decoders and op in ("min", "max"):
             import pandas
 
+            out_values = [v.item() for v in values]
             for j, i in enumerate(positions):
                 if i in decoders:
                     out_values[j] = dictionary.decode_codes(
@@ -856,15 +977,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
             )
             result = pandas.Series(out_values, index=labels, dtype=dtype)
             return self._from_pandas_result(result.rename(MODIN_UNNAMED_SERIES_LABEL))
-        if op == "count":
-            result = np.asarray(out_values, dtype=np.int64)
-        elif op in ("any", "all"):
-            result = np.asarray(out_values, dtype=bool)
-        elif len({isinstance(v, bool) for v in out_values}) > 1:
-            # pandas keeps bools mixed with numbers as object
-            result = np.asarray(out_values, dtype=object)
-        else:
-            result = np.asarray(out_values)
+        result = reductions.pandas_result_array(
+            op, values, [frame._columns[i].pandas_dtype for i in positions]
+        )
         qc = type(self).from_numpy_columns(
             {MODIN_UNNAMED_SERIES_LABEL: result}, index=labels, device=self._device()
         )
@@ -1463,7 +1578,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 arrays.append(a)
             datas = gb_ops.groupby_reduce(op, arrays, codes, n_groups, n, sizes=sizes, ddof=int(ddof))
             labels = self.get_columns()[value_positions]
-        cols = [DeviceColumn(d, numpy_dtype(d.dtype), length=n_groups) for d in datas]
+        cols = [_agg_column(d, n_groups) for d in datas]
         qc = type(self)(TorchDataframe(cols, labels, bin_labels, nrows=n_groups))
         if op == "size":
             qc._shape_hint = "column"
@@ -1484,6 +1599,14 @@ class TorchQueryCompiler(BaseQueryCompiler):
         series_groupby: bool = False,
         selection: Any = None,
     ) -> "TorchQueryCompiler":
+        if self._planning():
+            planned = _plan_runtime().run_groupby_agg(
+                self, by, agg_func,
+                dict(axis=axis, groupby_kwargs=groupby_kwargs, agg_args=agg_args, agg_kwargs=agg_kwargs,
+                     how=how, drop=drop, series_groupby=series_groupby, selection=selection),
+            )
+            if planned is not None:
+                return planned
         groupby_kwargs = dict(groupby_kwargs or {})
         agg_kwargs = dict(agg_kwargs or {})
         result = self._try_device_groupby(
@@ -1721,7 +1844,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     decoded = pandas.array(decoded, dtype=src_dtype)
                 new_cols.append(HostColumn(decoded))
             else:
-                new_cols.append(DeviceColumn(d, numpy_dtype(d.dtype), length=n_groups))
+                new_cols.append(_agg_column(d, n_groups))
         # the group keys, string levels decoded and categorical levels in
         # their dtype (pandas gives a CategoricalIndex)
         keys = []
@@ -1910,6 +2033,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 a = a.to(torch.int64)
             arrays.append(a)
         aggs = gb_ops.groupby_reduce(agg_func, arrays, codes, n_groups, len(frame), sizes=sizes)
+        if any(isinstance(a, np.ndarray) for a in aggs):
+            return None  # a uint64 result: the port keeps no uint64 device column
         labels = [list(frame.columns)[i] for i in value_positions]
         return self._rowwise_result(gb_ops.groupby_broadcast(aggs, codes), labels, series_groupby)
 
@@ -2028,6 +2153,10 @@ class TorchQueryCompiler(BaseQueryCompiler):
         """Rows where a boolean mask is True: a device mask (a compiler of
         one bool column) compacts on the device; a host mask gathers by its
         positions."""
+        if self._planning() and isinstance(key, TorchQueryCompiler):
+            planned = _plan_runtime().defer_filter(self, key)
+            if planned is not None:
+                return planned
         frame = self._modin_frame
         if isinstance(key, TorchQueryCompiler):
             mask_frame = key._modin_frame
@@ -2912,6 +3041,10 @@ class TorchQueryCompiler(BaseQueryCompiler):
     # -------------------------------- sort ---------------------------- #
 
     def sort_rows_by_column_values(self, columns: Any, ascending: Any = True, **kwargs: Any) -> "TorchQueryCompiler":
+        if self._planning():
+            planned = _plan_runtime().defer_sort(self, columns, ascending, kwargs)
+            if planned is not None:
+                return planned
         result = self._try_device_sort(columns, ascending, kwargs)
         if result is not None:
             return result
@@ -3232,6 +3365,22 @@ class TorchQueryCompiler(BaseQueryCompiler):
         return type(self)(result)
 
 
+def _plan_runtime():
+    """``plan/runtime.py``, imported at the first deferral (the planner
+    needs pandas; the eager compiler runs without it)."""
+    from modin_tpu_torch.plan import runtime
+
+    return runtime
+
+
+def _agg_column(d: Any, n_groups: int) -> Any:
+    """A grouped aggregation's column: a device tensor, or the host numpy
+    array of a uint64 result (``groupby.int_sum_result``)."""
+    if isinstance(d, np.ndarray):
+        return HostColumn(d)
+    return DeviceColumn(d, numpy_dtype(d.dtype), length=n_groups)
+
+
 def _host_take(values: Any, positions: np.ndarray) -> Any:
     """``values`` (numpy or extension array) at ``positions``; -1 gives the
     dtype's missing value, as pandas' merge fills it."""
@@ -3258,6 +3407,10 @@ def _host_concat(parts: List[Any]) -> Any:
 def _make_binary_override(op: str):
     def method(self: TorchQueryCompiler, other: Any, **kwargs: Any):
         kwargs.pop("squeeze_other", None)  # a column-shaped compiler squeezes itself
+        if self._planning():
+            planned = _plan_runtime().defer_binary(self, op, other, kwargs)
+            if planned is not None:
+                return planned
         result = self._try_device_binary(op, other, kwargs)
         if result is not None:
             return result
@@ -3284,6 +3437,12 @@ def _make_reduce_override(op: str):
         numeric_only: bool = False,
         **kwargs: Any,
     ):
+        if self._planning():
+            planned = _plan_runtime().run_reduce(
+                self, op, dict(axis=axis, skipna=skipna, numeric_only=numeric_only, **kwargs)
+            )
+            if planned is not None:
+                return planned
         result = self._try_device_reduce(op, axis, skipna, numeric_only, kwargs)
         if result is not None:
             return result
@@ -3304,6 +3463,12 @@ def _make_nonskipna_reduce_override(op: str):
     def method(self: TorchQueryCompiler, axis: Any = 0, **kwargs: Any):
         skipna = kwargs.pop("skipna", True)
         numeric_only = kwargs.pop("numeric_only", False)
+        if self._planning():
+            planned = _plan_runtime().run_reduce(
+                self, op, dict(axis=axis, skipna=skipna, numeric_only=numeric_only, **kwargs)
+            )
+            if planned is not None:
+                return planned
         result = self._try_device_reduce(op, axis, skipna, numeric_only, kwargs)
         if result is not None:
             return result

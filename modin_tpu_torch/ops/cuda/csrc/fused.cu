@@ -59,7 +59,11 @@
 // Tails: column reductions fold each root into per-thread accumulators in
 // shared memory (sum, product, min, max, nonzero count, or the three power
 // sums about a mean given by a first pass) with counts of valid and NaN
-// rows, each thread its rows in order; each block reduces all of them in one
+// rows, each thread its rows in order (a masked tail, the counterpart of
+// modin_tpu/ops/reductions.py::reduce_columns_masked (:546) and of
+// modin_tpu/ops/groupby.py::fused_group_probe (:1248), names a bool mask
+// as each accumulation's second operand: a row folds only where it is
+// true, so a filter and its reduction are one launch with no compaction); each block reduces all of them in one
 // fixed tree (log2(blockDim) barriers for every output together) into
 // partials, and a merge kernel reduces the partials in block order.  The grid
 // depends on n and the program alone, so a float result repeats bit for bit
@@ -503,8 +507,10 @@ __global__ void __launch_bounds__(B) fused_kernel(const __grid_constant__ FusedP
       // operands a and b (c, SEL's alone, in its case); the result goes
       // straight into prev
       Val xa[K], xb[K];
+      const int ob = (int)((w >> 32) & 0xff);
+      const bool masked = ob != kNone;  // an accumulation's mask
       fetch<K, B>((int)((w >> 24) & 0xff), xa, prev, konst, regs, n_leaf, shift);
-      fetch<K, B>((int)((w >> 32) & 0xff), xb, prev, konst, regs, n_leaf, shift);
+      fetch<K, B>(ob, xb, prev, konst, regs, n_leaf, shift);
 #define ROWS _Pragma("unroll") for (int k = 0; k < K; ++k)
 #define A xa[k]
 #define BB xb[k]
@@ -678,13 +684,15 @@ __global__ void __launch_bounds__(B) fused_kernel(const __grid_constant__ FusedP
       switch (op) {
 
         // accumulations: output aux's (value, valid count, NaN count)
-        // of this thread, its rows folded in order
+        // of this thread, its rows folded in order; operand b, where there
+        // is one, is a mask, and a row where it is false folds nothing
+#define KEEP (k * B < rem && (!masked || BB.i != 0))
 #define ACC_FLOAT(NAME, X, FOLD)                                             \
   case K_ACC_##NAME: {                                                       \
     Val* q = acc + 3 * aux * B + tid;                                     \
     double v = q[0].d;                                                       \
     long long cnt = q[B].i, nan = q[2 * B].i;                                \
-    ROWS if (k * B < rem) {                                                  \
+    ROWS if (KEEP) {                                                         \
       const double x = (X);                                                  \
       if (isnan(x)) {                                                        \
         ++nan;                                                               \
@@ -702,7 +710,7 @@ __global__ void __launch_bounds__(B) fused_kernel(const __grid_constant__ FusedP
   case K_ACC_##NAME: {                                                       \
     Val* q = acc + 3 * aux * B + tid;                                     \
     long long v = q[0].i, cnt = q[B].i;                                      \
-    ROWS if (k * B < rem) {                                                  \
+    ROWS if (KEEP) {                                                         \
       const long long x = A.i;                                               \
       ++cnt;                                                                 \
       v = (FOLD);                                                            \
@@ -727,7 +735,7 @@ __global__ void __launch_bounds__(B) fused_kernel(const __grid_constant__ FusedP
         case K_ACC_NZ_F: {
           Val* q = acc + 3 * aux * B + tid;
           long long v = q[0].i, cnt = q[B].i, nan = q[2 * B].i;
-          ROWS if (k * B < rem) {
+          ROWS if (KEEP) {
             const double x = op == K_ACC_NZ_D ? A.d : (double)A.f;
             if (isnan(x)) {
               ++nan;
@@ -746,7 +754,7 @@ __global__ void __launch_bounds__(B) fused_kernel(const __grid_constant__ FusedP
           Val* q = acc + 3 * aux * B + tid;
           const double mean = means[aux].d;
           double s2 = q[0].d, s3 = q[B].d, s4 = q[2 * B].d;
-          ROWS if (k * B < rem && !isnan(A.d)) {
+          ROWS if (KEEP && !isnan(A.d)) {
             const double e = __dsub_rn(A.d, mean);
             const double e2 = __dmul_rn(e, e);
             const double e3 = __dmul_rn(e2, e);
@@ -762,6 +770,7 @@ __global__ void __launch_bounds__(B) fused_kernel(const __grid_constant__ FusedP
         }
 #undef ACC_FLOAT
 #undef ACC_INT
+#undef KEEP
         default: continue;
       }
       }

@@ -302,11 +302,16 @@ def _i64_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, low: fp.Lowered,
-               mean: Optional[torch.Tensor]) -> torch.Tensor:
-    """One output's accumulators, ``[3]`` int64 bits, in the kernel's order."""
+               mean: Optional[torch.Tensor], m: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One output's accumulators, ``[3]`` int64 bits, in the kernel's order
+    (``m``: a masked tail's mask; a row where it is false adds nothing)."""
     dev = x.device
+    if m is not None:
+        m = m.to(dev).expand(x.shape[0]) if m.dim() == 0 else m.to(dev)
     if mode == fp.TAIL_M2:
         ok = ~torch.isnan(x)
+        if m is not None:
+            ok = ok & m
         d = x - mean
         d2 = d * d
         d3 = d2 * d
@@ -317,12 +322,15 @@ def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, low: fp.Lowered,
     fl = fp.is_float(code)
     if fl:
         xd = x.to(torch.float64)
-        nan = torch.isnan(xd)
-        cnt, n_nan = (~nan).sum(), nan.sum()
+        isn = torch.isnan(xd)
+        # nan: the rows that add nothing (NaN, or masked out)
+        nan = isn if m is None else isn | ~m
+        cnt, n_nan = (~nan).sum(), (isn if m is None else isn & m).sum()
     else:
         xd = x.to(torch.int64)
-        nan = None
-        cnt, n_nan = torch.tensor(n, dtype=torch.int64, device=dev), torch.tensor(0, dtype=torch.int64, device=dev)
+        nan = None if m is None else ~m
+        cnt = torch.tensor(n, dtype=torch.int64, device=dev) if m is None else m.sum()
+        n_nan = torch.tensor(0, dtype=torch.int64, device=dev)
     if mode == fp.TAIL_NZ:
         nz = xd != 0
         v = (nz if nan is None else nz & ~nan).sum()
@@ -330,17 +338,19 @@ def _plain_acc(mode: int, code: int, x: torch.Tensor, n: int, low: fp.Lowered,
         lo = mode == fp.TAIL_MIN
         if fl:
             init = math.inf if lo else -math.inf
-            filled = torch.where(nan, init, xd)
         else:
             init = torch.iinfo(torch.int64).max if lo else torch.iinfo(torch.int64).min
-            filled = xd
+        filled = xd if nan is None else torch.where(nan, init, xd)
         v = (torch.amin if lo else torch.amax)(filled) if n else torch.tensor(init, dtype=xd.dtype)
     elif fl:
         prod = mode == fp.TAIL_PROD
         init = 1.0 if prod else 0.0
         v = _tree(torch.where(nan, init, xd), torch.mul if prod else torch.add, init, low)
     else:  # int sums and products wrap, so their order does not matter
-        v = xd.prod() if mode == fp.TAIL_PROD else xd.sum()
+        prod = mode == fp.TAIL_PROD
+        if nan is not None:
+            xd = torch.where(nan, 1 if prod else 0, xd)
+        v = xd.prod() if prod else xd.sum()
     return torch.stack([_i64_bits(v.to(dev)), cnt.to(torch.int64), n_nan.to(torch.int64)])
 
 
@@ -378,7 +388,7 @@ def run_program_plain(
             v = get(a)
             outs[aux] = v.clone() if any(v is t for t in leaves) else v.contiguous()
         elif op == fp.ACC:
-            folded[aux] = get(a)
+            folded[aux] = (get(a), get(b))
         else:
             regs[dst] = _plain_exec(op, dt, aux, imm, get(a), get(b), get(c),
                                     fp.SCALAR_BASE <= b < fp.LEAF_BASE)
@@ -391,7 +401,7 @@ def run_program_plain(
     if mode == fp.TAIL_M2:
         means = first[:, 0].contiguous().view(torch.float64) / first[:, 1].to(torch.float64)
     rows = []
-    for j, (x, code) in enumerate(zip(folded, program.out_dtypes)):
+    for j, ((x, m), code) in enumerate(zip(folded, program.out_dtypes)):
         mean = means[j] if means is not None else None
-        rows.append(_plain_acc(mode, code, x.to(dev), n, low, mean))
+        rows.append(_plain_acc(mode, code, x.to(dev), n, low, mean, m))
     return [], torch.stack(rows) if rows else torch.empty((0, 3), dtype=torch.int64, device=dev)

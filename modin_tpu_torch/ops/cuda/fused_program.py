@@ -35,6 +35,12 @@ cast_bool)`` folds each root into per-column accumulators (the kernel's
 deterministic block partials and merge); ``("rows", op, skipna,
 cast_bool)`` folds the roots of each row into one output column with plain
 instructions (the row-wise sum/mean/min/max/count of ``reduce_axis1``).
+A masked reduction tail, ``("reduce", op, skipna, ddof, cast_bool,
+True)``, takes the forest's last root as a bool mask: every accumulation
+names the mask as its second operand and folds only the rows where it is
+true, and one more output, the mask folded under itself, carries the
+kept-row count in its count slot (the whole-plan fusion of ``plan/fuse.py``:
+a filter, its map chain and the reduction in one launch, no compaction).
 """
 
 from __future__ import annotations
@@ -106,7 +112,7 @@ def is_float(code: int) -> bool:
 
 
 _MAPS = frozenset(["isna", "notna", "isna_nat", "notna_nat", "round", "fillna",
-                   "clip_lower", "clip_upper", "astype"])
+                   "clip_lower", "clip_upper", "astype", "where"])
 
 
 def fusable(op: str, arg_dtypes: Sequence[torch.dtype], out_dtype: torch.dtype) -> bool:
@@ -410,6 +416,10 @@ class _Builder:
             src = self.code_of(refs[0])
             a = opnd(refs[0], src)
             finish(CAST, src, a, aux=out)
+        elif op == "where":
+            m = opnd(refs[0], BOOL)
+            a, b = opnd(refs[1], out), opnd(refs[2], out)
+            finish(SEL, out, m, a, b)
         else:
             raise NotImplementedError(f"fused programs do not take {op!r}")
 
@@ -456,9 +466,15 @@ def _uses(nodes, order: Sequence[int], root_refs) -> Dict[int, int]:
     return uses
 
 
-def _fold_reduce(b: _Builder, ref, tail) -> None:
-    """Fold one root into its column accumulator."""
-    _, op, _skipna, _ddof, cast_bool = tail
+def is_masked(tail: Optional[Tuple]) -> bool:
+    """Whether ``tail`` is a masked reduction tail."""
+    return tail is not None and tail[0] == "reduce" and len(tail) > 5 and bool(tail[5])
+
+
+def _fold_reduce(b: _Builder, ref, tail, mask=None) -> None:
+    """Fold one root into its column accumulator (``mask``: the operand and
+    ref of a masked tail's mask, its second operand)."""
+    op, cast_bool = tail[1], tail[4]
     operand, code, _ = b.value(ref)
     tmp = False
     if cast_bool and code == BOOL:
@@ -469,10 +485,10 @@ def _fold_reduce(b: _Builder, ref, tail) -> None:
         code = F64
     if len(b.roots) >= MAX_OUTPUTS:
         raise _Overflow("outputs")
-    b.emit(ACC, code, NO_OPERAND, operand, aux=len(b.roots))
+    b.emit(ACC, code, NO_OPERAND, operand, NO_OPERAND if mask is None else mask[0], aux=len(b.roots))
     if tmp:
         b.release(operand)
-    b.done_with([ref])
+    b.done_with([ref] if mask is None else [ref, mask[1]])
     b.out_dtypes.append(code)
 
 
@@ -602,6 +618,11 @@ def compile_forest(
             raise OverflowError(f"a row-wise reduction over {len(out_refs)} columns exceeds "
                                 f"the fused kernel's {err}") from None
         return [_program(b, tail)]
+    mask = None
+    if is_masked(tail):
+        # the mask (the last root) comes first in every program
+        mask = (out_refs[-1], order_by_root[-1])
+        out_refs, order_by_root = out_refs[:-1], order_by_root[:-1]
     programs: List[Program] = []
     start = 0
     while start < len(out_refs):
@@ -609,7 +630,7 @@ def compile_forest(
         end = start
         while end < len(out_refs):
             trial = _try_group(nodes, node_codes, leaf_codes, scalar_tags, out_refs,
-                               order_by_root, start, end + 1, tail)
+                               order_by_root, start, end + 1, tail, mask)
             if isinstance(trial, _Builder):
                 b, end = trial, end + 1
                 continue
@@ -617,26 +638,43 @@ def compile_forest(
                 return trial
             break
         for k in range(len(b.roots)):
-            b.roots[k] += start
+            if b.roots[k] >= 0:  # -1: a masked tail's kept-row count
+                b.roots[k] += start
         programs.append(_program(b, tail))
         start = end
     return programs
 
 
 def _try_group(nodes, node_codes, leaf_codes, scalar_tags, out_refs, order_by_root,
-               start, end, tail):
+               start, end, tail, mask=None):
     """A builder holding roots ``[start, end)``, or a :class:`Cut` when
-    root ``end - 1`` overflowed it alone (``start == end - 1``), or None."""
+    root ``end - 1`` overflowed it alone (``start == end - 1``), or None.
+    ``mask`` (a masked tail's (ref, postorder)) is computed first, read by
+    every accumulation, and folded last as the kept-row count."""
     flat: List[int] = []
     seen = set()
-    for order in order_by_root[start:end]:
+    orders = ([mask[1]] if mask is not None else []) + list(order_by_root[start:end])
+    for order in orders:
         for i in order:
             if i not in seen:
                 seen.add(i)
                 flat.append(i)
-    b = _Builder(nodes, node_codes, leaf_codes, scalar_tags, _uses(nodes, flat, out_refs[start:end]))
+    root_refs = tuple(out_refs[start:end])
+    if mask is not None:
+        # read by each accumulation and folded once more itself
+        root_refs += (mask[0],) * (end - start + 2)
+    b = _Builder(nodes, node_codes, leaf_codes, scalar_tags, _uses(nodes, flat, root_refs))
     emitted: List[int] = []
+    m = None
     try:
+        if mask is not None:
+            for i in mask[1]:
+                if i not in b.reg_of:
+                    b.node(i)
+                    emitted.append(i)
+            m = (b.value(mask[0])[0], mask[0])
+            if len(b.roots) + (end - start) >= MAX_OUTPUTS:
+                raise _Overflow("outputs")
         for ref, order in zip(out_refs[start:end], order_by_root[start:end]):
             for i in order:
                 if i not in b.reg_of:
@@ -650,8 +688,11 @@ def _try_group(nodes, node_codes, leaf_codes, scalar_tags, out_refs, order_by_ro
                 b.done_with([ref])
                 b.out_dtypes.append(code)
             else:
-                _fold_reduce(b, ref, tail)
+                _fold_reduce(b, ref, tail, m)
             b.roots.append(len(b.roots))
+        if m is not None:
+            _fold_reduce(b, mask[0], tail, m)  # the kept-row count
+            b.roots.append(-1)
     except _Overflow:
         if end - start > 1:
             return None
@@ -956,8 +997,8 @@ def lower(instrs: Sequence[Tuple[int, ...]], leaf_dtypes: Sequence[int], n_scala
         if op == STORE:
             code.append([KOP["ST_" + _NAME[dt]], dt, None, ra, None, None, aux])
             continue
-        if op == ACC:
-            code.append([KOP[f"ACC_{_ACC_MODE[mode]}_{cls}"], dt, None, ra, None, None, aux])
+        if op == ACC:  # b: a masked tail's mask
+            code.append([KOP[f"ACC_{_ACC_MODE[mode]}_{cls}"], dt, None, ra, rb, None, aux])
             continue
         if op == CAST:
             name = _cast_kop(dt, aux)
@@ -1118,7 +1159,7 @@ def decode(low: Lowered, n_scalar_slots: int) -> List[Tuple]:
             out.append((STORE, dt, None, ra, None, None, aux, 0))
             continue
         if name.startswith("ACC_"):
-            out.append((ACC, dt, None, ra, None, None, aux, 0))
+            out.append((ACC, dt, None, ra, rb, None, aux, 0))
             continue
         base = name.rsplit("_", 1)[0] if name[-2:] in ("_D", "_F", "_I") else name
         if name == "MOV" or name == "WRAP" or name.startswith("CVT_"):

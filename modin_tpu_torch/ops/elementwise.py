@@ -445,6 +445,9 @@ _REGISTRY: Dict[str, Callable] = {
     "clip_lower": lambda x, lo: torch.where(x < lo, lo, x),
     "clip_upper": lambda x, hi: torch.where(x > hi, hi, x),
     "astype": lambda x, dtype: x.to(torch_dtype(np.dtype(dtype))),
+    # torch.where(mask, x, y) with y a scalar in x's dtype (the fused
+    # groupby's slot column)
+    "where": lambda m, x, y: torch.where(m, x, torch.tensor(y, dtype=x.dtype)),
     **{name: (lambda x, name=name: _math_one(name, x)) for name in MATH_UNARY},
 }
 

@@ -37,7 +37,7 @@ once.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -333,11 +333,12 @@ def groupby_reduce(
         elif agg in ("any", "all"):
             r = _segment_truth(agg, c, codes, ns)
         elif agg == "prod":
-            r = seg.segment_prod(torch.where(torch.isnan(c), 1, c) if is_f else c)
+            r = seg.segment_prod(torch.where(torch.isnan(c), 1, c) if is_f else c.to(torch.int64))
         elif agg in ("var", "std", "sem"):
             r = _segment_var(agg, c, seg, ddof)
         else:
-            x = torch.where(torch.isnan(c), 0, c) if is_f else c
+            # ints add in int64 (an unsigned column's uint64 sum has the same bits)
+            x = torch.where(torch.isnan(c), 0, c) if is_f else c.to(torch.int64)
             s = seg.segment_sum(x)
             if agg == "sum":
                 r = s
@@ -346,8 +347,26 @@ def groupby_reduce(
                 r = s / seg.valid_count(c).to(s.dtype)
             else:
                 r = s[:num_groups].to(torch.float64) / seg.sizes().to(torch.float64)
-        out.append(r[:num_groups])
+        r = r[:num_groups]
+        if agg in ("sum", "prod") and not is_f and c.dtype != torch.bool:
+            r = int_sum_result(r, c.dtype)
+        out.append(r)
     return out
+
+
+def int_sum_result(r: torch.Tensor, dtype: torch.dtype) -> Any:
+    """pandas' dtype of a grouped int sum or product ``r`` (int64 bits)
+    of a column of ``dtype``: the column's own dtype where every group's
+    result fits it, else int64 (uint64 for an unsigned column, which comes
+    back as a host numpy array: the port keeps no uint64 device column)."""
+    if dtype in (torch.int64, torch.bool):
+        return r
+    info = torch.iinfo(dtype)
+    if r.numel() == 0 or bool(_engine_materialize(((r >= info.min) & (r <= info.max)).all())):
+        return r.to(dtype)
+    if info.min < 0:
+        return r
+    return np.asarray(_engine_materialize(r)).view(np.uint64)
 
 
 def groupby_first_position(codes: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -566,3 +585,125 @@ def groupby_cumcount(
     r = torch.empty_like(pos)
     r[order] = pos
     return r
+
+
+# ---------------------------------------------------------------------- #
+# Whole-plan fused groupby (bounded-range int/bool keys)
+# ---------------------------------------------------------------------- #
+
+# aggregations the fused groupby computes (pandas' rules: NaN values always
+# skipped; an all-NaN float group gives sum 0, count 0, min/max/mean NaN)
+FUSED_GROUPBY_AGGS = frozenset({"sum", "prod", "count", "mean", "min", "max"})
+
+# widest group table of a fused groupby (pow2-padded); wider key ranges
+# decline to the staged factorize path
+FUSED_MAX_GROUPS = 1 << 16
+
+
+def fused_groups_bucket(width: int) -> int:
+    """Pow2-padded group-table size for a key range of ``width`` values (at
+    least 8), as the reference pads it."""
+    return 1 << max(int(width - 1).bit_length(), 3)
+
+
+def _key_int64(key_expr: Any) -> Any:
+    """A fused groupby's key as a deferred int64 column."""
+    from modin_tpu_torch.ops.lazy import lazy_op
+
+    if key_expr.dtype == torch.int64:
+        return key_expr
+    return lazy_op("astype", key_expr, static=(("dtype", "int64"),))
+
+
+def fused_probe_program(key_expr: Any, keep: Optional[Any]) -> Tuple[List[Any], Tuple]:
+    """The roots and tail of the probe's one fused launch: the min of the
+    key (as int64) and of its bitwise complement (whose min is the
+    complement of the key's max, exactly, over all of int64), masked by
+    ``keep`` when there is one (the kept-row count is then one more
+    output)."""
+    from modin_tpu_torch.ops.lazy import lazy_op
+
+    k64 = _key_int64(key_expr)
+    roots = [k64, lazy_op("invert", k64)]
+    if keep is None:
+        return roots, ("reduce", "min", True, 1, False)
+    return roots + [keep], ("reduce", "min", True, 1, False, True)
+
+
+def fused_group_probe(key_expr: Any, keep: Optional[Any], n: int) -> Tuple[int, int, int]:
+    """(key min, key max, kept rows) of the key column over the rows where
+    ``keep`` (None: every row) is true, in one fused launch: the key's chain
+    and the filter's mask run as the masked tails of one program
+    (:func:`fused_probe_program`).  Keys are int, uint8 or bool (the caller
+    gates)."""
+    from modin_tpu_torch.ops.lazy import run_fused
+
+    first, _ = run_fused(*fused_probe_program(key_expr, keep))
+    host = _engine_materialize(first)
+    kept = n if keep is None else int(host[-1][1])
+    return int(host[0][0]), int(~host[1][0]), int(kept)
+
+
+def fused_slot_expr(key_expr: Any, keep: Optional[Any], kmin: int, n_buckets: int) -> Any:
+    """The deferred int32 slot column of a fused groupby: ``key - kmin``
+    where ``keep`` holds, the overflow slot ``n_buckets`` elsewhere."""
+    from modin_tpu_torch.ops.lazy import lazy_op
+
+    slot = lazy_op("sub", _key_int64(key_expr), int(kmin))
+    if keep is not None:
+        slot = lazy_op("where", keep, slot, int(n_buckets))
+    return lazy_op("astype", slot, static=(("dtype", "int32"),))
+
+
+def fused_group_agg(
+    agg: str,
+    key_expr: Any,
+    cols: List[Any],
+    keep: Optional[Any],
+    n: int,
+    kmin: int,
+    n_buckets: int,
+) -> Tuple[np.ndarray, List[np.ndarray], List[np.ndarray]]:
+    """The masked grouped aggregation of a fused groupby, in two launches:
+    one of the fused kernel that writes the slot column (``key - kmin``
+    where ``keep`` holds, the overflow slot ``n_buckets`` elsewhere, as
+    int32) and every value column that is still an expression, then one of
+    the ``groupagg`` kernel over all the columns.  Returns host arrays
+    ``(sizes[n_buckets + 1], per-column aggregates, per-column non-NaN
+    counts)`` (aggregates int64, or float64 for a float column and for a
+    mean): the caller keeps the slots with a size and applies pandas' dtype
+    rules (:func:`fused_groupby_dtype`)."""
+    from modin_tpu_torch.ops.cuda import groupagg_kernels
+    from modin_tpu_torch.ops.lazy import materialize_exprs
+
+    if agg not in FUSED_GROUPBY_AGGS:
+        raise ValueError(f"fused groupby aggregation {agg!r} is not ported")
+    G = int(n_buckets)
+    concrete = materialize_exprs([fused_slot_expr(key_expr, keep, kmin, G)] + list(cols))
+    table = groupagg_kernels.groupagg(agg, concrete[0], concrete[1:], G + 1)
+    sizes, values, counts = groupagg_kernels.finish(agg, table, [c.dtype for c in concrete[1:]])
+    host = _engine_materialize([sizes] + values + counts)
+    return host[0], host[1: 1 + len(cols)], host[1 + len(cols):]
+
+
+def fused_groupby_dtype(agg: str, dtype: np.dtype, values: np.ndarray) -> np.dtype:
+    """pandas' dtype of a grouped ``agg`` of a column of ``dtype`` given the
+    observed groups' ``values`` (int64 bits, or float64): count int64; mean
+    float64 (float32 for float32 values); min/max the column's dtype; sum
+    and prod the column's dtype where every value fits it, else int64
+    (uint64 for unsigned), bool as int64; floats keep their dtype."""
+    dtype = np.dtype(dtype)
+    if agg == "count":
+        return np.dtype(np.int64)
+    if agg == "mean":
+        return dtype if dtype == np.float32 else np.dtype(np.float64)
+    if agg in ("min", "max") or dtype.kind == "f":
+        return dtype
+    if dtype.kind == "b":
+        return np.dtype(np.int64)
+    info = np.iinfo(dtype)
+    wide = np.dtype(np.uint64 if dtype.kind == "u" else np.int64)
+    if dtype.itemsize == 8:
+        return wide
+    v = values.view(np.int64) if values.dtype != np.int64 else values
+    return dtype if ((v >= info.min) & (v <= info.max)).all() else wide

@@ -287,7 +287,10 @@ def run_fused(
     cast_bool)``), ``tail_builder`` receives what the kernel gave: for
     ``reduce`` the accumulators of every root, ``[len(roots), 3]`` int64,
     and for a moments op the second pass's too; for ``rows`` the output
-    column.  Its result is returned.
+    column.  Its result is returned.  A masked reduce tail (a sixth item,
+    True) takes the last root as the bool mask: ``first`` then holds the
+    other roots' accumulators and, last, the mask's, whose count slot is the
+    kept-row count.
     """
     if tail_key is None:
         lazy_roots = list({id(r): r for r in roots if is_lazy(r)}.values())
@@ -305,13 +308,19 @@ def run_fused(
         outs, _ = fused_kernels.run_program(plan[0], _leaf_args(lin, plan[0]), lin.scalars, n)
         return tail_builder(outs[0]) if tail_builder is not None else outs[0]
     firsts = [fused_kernels.run_program(p, _leaf_args(lin, p), lin.scalars, n)[1] for p in plan]
-    second = None
+    seconds = None
     if tail_key[1] in fp.MOMENT_OPS:
-        second = torch.cat([
+        seconds = [
             fused_kernels.run_program(p, _leaf_args(lin, p), lin.scalars, n, second_pass=True, first=f)[1]
             for p, f in zip(plan, firsts)
-        ])
+        ]
+    if fp.is_masked(tail_key):
+        # each program ends with its kept-row count: keep the first one, last
+        kept = firsts[0][-1:]
+        firsts = [f[:-1] for f in firsts] + [kept]
+        seconds = None if seconds is None else [s[:-1] for s in seconds]
     first = torch.cat(firsts)
+    second = None if seconds is None else torch.cat(seconds)
     return tail_builder(first, second) if tail_builder is not None else (first, second)
 
 

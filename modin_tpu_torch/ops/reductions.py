@@ -181,6 +181,49 @@ def reduce_columns(
     return [fused[i] if i in fused else next(eager) for i in range(len(cols))]
 
 
+def pandas_result_dtype(op: str, dtype: Any) -> np.dtype:
+    """pandas' dtype of column reduction ``op`` over a column of numpy
+    ``dtype``: count is int64 and any/all bool; a float column keeps its
+    float dtype; an int or bool column keeps it for min/max, sums and
+    products it in int64 (uint64 when unsigned) and takes every other op
+    in float64."""
+    if op == "count":
+        return np.dtype(np.int64)
+    if op in ("any", "all"):
+        return np.dtype(bool)
+    dtype = np.dtype(dtype)
+    if dtype.kind == "f":
+        return dtype
+    if op in ("min", "max"):
+        return dtype
+    if op in ("sum", "prod"):
+        return np.dtype(np.uint64 if dtype.kind == "u" else np.int64)
+    return np.dtype(np.float64)
+
+
+def pandas_result_array(op: str, values: List[Any], dtypes: List[Any]) -> np.ndarray:
+    """The values of a frame's column reductions (0-d arrays, one per
+    column of ``dtypes``) as pandas gives them: each in its column's result
+    dtype, then all in the common dtype (object where bools meet numbers)."""
+    out_dtypes = [pandas_result_dtype(op, d) for d in dtypes]
+    typed = []
+    with np.errstate(all="ignore"):
+        for v, dt in zip(values, out_dtypes):
+            v = np.asarray(v)
+            # an unsigned sum or product comes as its int64 bits
+            typed.append(v.view(dt) if dt.kind == "u" and v.dtype.itemsize == dt.itemsize else v.astype(dt))
+    # pandas' find_common_type over numpy dtypes: bool beside another
+    # dtype is object, else numpy's promotion
+    kinds = {dt.kind == "b" for dt in out_dtypes}
+    common = np.dtype(object) if len(kinds) > 1 else np.result_type(*out_dtypes)
+    if common == object:
+        out = np.empty(len(typed), dtype=object)
+        out[:] = [v[()] for v in typed]  # numpy scalars, as pandas keeps them
+        return out
+    with np.errstate(all="ignore"):
+        return np.asarray([v.astype(common) for v in typed], dtype=common)
+
+
 _RESULT_DTYPES: dict = {}
 
 
@@ -762,3 +805,39 @@ def mode_axis1(cols: List[torch.Tensor], n: int) -> Tuple[List[torch.Tensor], in
         out = torch.where(placed_t[:m_max], vals_t[:m_max].to(torch.float64), float("nan"))
     del vals_t, placed_t
     return [out[j] for j in range(m_max)], m_max, uniform
+
+
+# --------------------------------------------------------------------- #
+# Whole-plan fusion: a filter fused into its reduction
+# --------------------------------------------------------------------- #
+
+
+def reduce_columns_masked(
+    op_name: str,
+    cols: List[Any],
+    keep: Any,
+    n: int,
+    skipna: bool = True,
+    ddof: int = 1,
+    cast_bool: bool = False,
+) -> Tuple[list, int]:
+    """Reduce each column over the rows where ``keep`` is true: the masked
+    tail of the fused kernel (``modin_tpu/ops/reductions.py::
+    reduce_columns_masked``).  ``keep`` is a bool column or a deferred bool
+    expression over the same ``n`` uncompacted rows, so the filter, its map
+    chain and the reduction run as one launch (two for a moments op) with no
+    compaction.  Returns ``(values, kept_rows)``: 0-d numpy results by
+    :func:`reduce_columns`' rules over the kept rows, and the kept-row count
+    (the caller declines when it is 0: pandas' empty-frame answers stay with
+    the staged path)."""
+    if op_name not in REDUCTIONS:
+        raise ValueError(f"reduction {op_name!r} is not ported")
+    skipna, ddof = bool(skipna), int(ddof)
+    tail = ("reduce", op_name, skipna, ddof, bool(cast_bool), True)
+
+    def finish(first: torch.Tensor, second: Optional[torch.Tensor]):
+        kept = int(_engine_materialize(first[-1, 1]))
+        values = _finish_fused(op_name, cols, first[:-1], second, kept, skipna, ddof, cast_bool)
+        return values, kept
+
+    return run_fused(list(cols) + [keep], tail, finish)

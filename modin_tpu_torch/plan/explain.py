@@ -1,0 +1,122 @@
+"""Planner EXPLAIN: the plan before and after the rewrite, per-rule attribution.
+
+The port's counterpart of ``modin_tpu/plan/explain.py``.  ``qc.explain()``
+renders the logical plan before and after the rewrite pass and which rules
+fired on which pass; ``qc.explain(analyze=True)`` executes the plan and
+annotates every node with its measured wall time, rows, bytes and kernel
+launches.  The reference's cost suffix (estimated flops and bytes, padding,
+roofline share) reads a cost model the port does not have yet: the annotation
+says "no cost model" in its place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Tuple
+
+from modin_tpu_torch.plan.ir import PlanNode
+from modin_tpu_torch.plan.rules import optimize
+
+_EAGER = (
+    "status: eager (no deferred plan; set MODIN_TPU_TORCH_PLAN=Auto and start "
+    "from a deferrable read, or use modin_tpu_torch.plan.defer_frame)"
+)
+
+
+def _fmt_bytes(n: Optional[int]) -> str:
+    if n is None:
+        return "?"
+    if n >= 1 << 20:
+        return f"{n / (1 << 20):.1f}MiB"
+    if n >= 1 << 10:
+        return f"{n / (1 << 10):.1f}KiB"
+    return f"{n}B"
+
+
+def _actual_suffix(measured: Optional[dict]) -> str:
+    """``(actual: ...)`` annotation of one analyzed node."""
+    if measured is None:
+        return ""
+    rows = measured.get("rows")
+    return (
+        "  (actual: "
+        f"time={measured['total_s'] * 1e3:.3f}ms "
+        f"self={measured['self_s'] * 1e3:.3f}ms "
+        f"rows={'?' if rows is None else rows} "
+        f"bytes={_fmt_bytes(measured.get('bytes'))} "
+        f"launches={measured['launches']} cost=no cost model)"
+    )
+
+
+def render(root: PlanNode, actuals: Optional[dict] = None) -> str:
+    """ASCII tree of a plan; a shared (diamond) node renders once and is
+    referenced as ``^N`` afterwards."""
+    lines: List[str] = []
+    ids: dict = {}
+
+    def visit(node: PlanNode, depth: int) -> None:
+        indent = "  " * depth
+        seen = ids.get(id(node))
+        if seen is not None:
+            lines.append(f"{indent}^{seen} (shared {node.kind})")
+            return
+        ids[id(node)] = len(ids) + 1
+        suffix = _actual_suffix(actuals.get(id(node))) if actuals else ""
+        lines.append(f"{indent}#{ids[id(node)]} {node.label()}{suffix}")
+        for child in node.children:
+            visit(child, depth + 1)
+
+    visit(root, 0)
+    return "\n".join(lines)
+
+
+def render_attribution(applied: List[Tuple[str, int]]) -> str:
+    if not applied:
+        return "rewrites: none (plan already optimal)"
+    by_rule: dict = {}
+    for name, pass_index in applied:
+        by_rule.setdefault(name, []).append(pass_index)
+    lines = ["rewrites:"]
+    for name, passes in by_rule.items():
+        shown = ", ".join(str(p) for p in passes)
+        lines.append(f"  - {name}: {len(passes)} application(s) (pass {shown})")
+    return "\n".join(lines)
+
+
+def explain_plan(root: PlanNode, optimized: Optional[PlanNode] = None,
+                 applied: Optional[List[Tuple[str, int]]] = None, actuals: Optional[dict] = None) -> str:
+    if optimized is None:
+        optimized, applied = optimize(root)
+    after = "with actuals" if actuals else None
+    return "\n".join([
+        "== logical plan (before rewrite) ==",
+        render(root),
+        "",
+        f"== logical plan (after rewrite{', ' + after if after else ''}) ==",
+        render(optimized, actuals),
+        "",
+        render_attribution(applied or []),
+    ])
+
+
+def explain_qc(qc: Any, analyze: bool = False) -> str:
+    """EXPLAIN of a query compiler: its pending plan, its last materialized
+    plan, or a note that it is eager; ``analyze`` executes the plan (a
+    pending one materializes into ``qc``) and annotates the nodes."""
+    if analyze:
+        from modin_tpu_torch.plan import runtime
+
+        analyzed = runtime.explain_analyze(qc)
+        if analyzed is None:
+            return _EAGER.replace("no deferred plan", "nothing to analyze")
+        actuals, (root, optimized, applied) = analyzed
+        return "status: analyzed (plan executed with per-node measurement)\n" + explain_plan(
+            root, optimized, applied, actuals
+        )
+    plan = getattr(qc, "_plan", None)
+    if plan is not None:
+        return "status: deferred (not yet materialized)\n" + explain_plan(plan)
+    history = getattr(qc, "_plan_explain", None)
+    if history is not None:
+        root, optimized, applied = history
+        return "status: materialized\n" + explain_plan(root, optimized, applied)
+    return _EAGER

@@ -148,10 +148,12 @@ def test_read_csv_matches_jax_and_pandas(case, parallel, csv_files, request):
     reads = file_dispatcher.PARALLEL_READS
     before = tqc.DEFAULTS_TO_PANDAS
     got = getattr(tpd, reader)(path, **kwargs)
+    # a deferred read (MODIN_TPU_TORCH_PLAN=Auto) parses at its first
+    # materialization
+    frame = got._query_compiler._modin_frame
     assert tqc.DEFAULTS_TO_PANDAS == before
     assert file_dispatcher.PARALLEL_READS == reads + int(parallel)
     assert all(n >= 8 for n in ranges) and len(ranges) == int(parallel)
-    frame = got._query_compiler._modin_frame
     for label, col in zip(frame.columns, frame._columns):
         # numbers on the device, strings on the host
         assert col.is_device == (col.pandas_dtype.kind in "iuf"), label
@@ -165,6 +167,7 @@ def test_read_csv_quoted_newlines_parallel(tmp_path, parallel_ranges):
     path.write_bytes(_csv_bytes(rows=2000, seed=5))
     reads = file_dispatcher.PARALLEL_READS
     got = tpd.read_csv(str(path))
+    got._query_compiler._modin_frame  # a deferred read parses here
     assert file_dispatcher.PARALLEL_READS == reads + 1
     assert parallel_ranges[0] >= 8
     pandas.testing.assert_frame_equal(tpd.to_pandas(got), pandas.read_csv(path))
@@ -194,6 +197,7 @@ def test_read_csv_ranges_typed_apart(columns, tmp_path, parallel_ranges):
     want = pandas.read_csv(path)
     reads = file_dispatcher.PARALLEL_READS
     got = tpd.read_csv(str(path))
+    got._query_compiler._modin_frame  # a deferred read parses here
     assert parallel_ranges[0] >= 8
     if columns is None:
         # the ranges typed the text and bool columns apart, and pandas' own
@@ -211,6 +215,7 @@ def test_read_csv_ranges_typed_apart(columns, tmp_path, parallel_ranges):
 def test_unparallelizable_options_read_serially(csv_files, parallel_ranges):
     reads = file_dispatcher.PARALLEL_READS
     got = tpd.read_csv(csv_files[0], nrows=100, index_col="j")
+    got._query_compiler._modin_frame  # a deferred read parses here
     assert file_dispatcher.PARALLEL_READS == reads and parallel_ranges == []
     pandas.testing.assert_frame_equal(
         tpd.to_pandas(got), pandas.read_csv(csv_files[0], nrows=100, index_col="j")

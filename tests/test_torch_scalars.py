@@ -129,13 +129,7 @@ def test_scalar_operand_in_a_reduction_tail_follows_pandas(case, kind):
         return
     got = getattr(m, op)(scalar).sum()
     got = got._to_pandas() if kind == "frame" else got
-    # the port sums a float32 column to float64 and a uint8 column to int64
-    # (pandas: float32, uint64) with or without a scalar operand: an open
-    # difference of the reduction layer (ROADMAP Queue 3), not of the operand
-    chain = getattr(p, op)(scalar)
-    chain_dtype = chain.dtype if kind == "series" else chain.dtypes.iloc[0]
-    if chain_dtype not in (np.float32, np.uint8):
-        assert np.asarray(got).dtype == np.asarray(want).dtype, (got, want)
+    assert np.asarray(got).dtype == np.asarray(want).dtype, (got, want)
     np.testing.assert_allclose(np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64), rtol=1e-6)
 
 
