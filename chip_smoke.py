@@ -49,19 +49,29 @@ Phases, one JSON object per line each:
              int8, int64, float32 or float64 column by slots of key ranges
              of 8, 100, 10 000 and 65 536 (a tenth of the rows in the
              overflow slot), half the aggregations a width so that each
-             table mode meets every aggregation over every dtype; then
-             phase 13's fused groupbys (the slot column of ``a > 0`` by the
-             1000-value key ``d``, every aggregation over its column set);
-             beside ``index_add_``/``scatter_reduce_``/``bincount`` and the
-             staged path's grouped sum at 100 and 10 000 groups.  The
-             masked cases and the groupagg check print their seconds.
+             table shape (eight table copies, one, slot ranges) meets every
+             aggregation over every dtype; int64 codes as slots (the eager
+             groupby's), the main path's ten int64 columns by 101 codes in
+             sum and mean; then phase 13's fused groupbys (the slot column
+             of ``a > 0`` by the 1000-value key ``d``, every aggregation
+             over its column set); beside ``index_add_``/
+             ``scatter_reduce_``/``bincount``, the previous design's recorded
+             times, and
+             ``groupby_reduce``'s grouped sums on the staged path and on
+             ``groupagg`` at 100 and 10 000 groups and at the main path's
+             shape; with ``--parent-checkout`` the earlier commit's
+             ``groupagg`` on the same cases.  The masked cases and the
+             groupagg check print their seconds.
 4. main    - the asv main path (``make_frame((N, 10), ngroups=g)`` for
              g in 100 and 10 000, plus a key of range 1e6) through
              ``modin_tpu_torch.pandas``: from_pandas, add/mul/mod/abs,
              df1 + df2, gt, sum/mean/count, groupby count/size/sum/mean,
              to_pandas; every result against pandas (ints exactly, floats
              to rtol 1e-12).  Without pandas the same queries go through
-             ``TorchQueryCompiler.from_numpy_columns`` against numpy.
+             ``TorchQueryCompiler.from_numpy_columns`` against numpy.  The
+             grouped sums and means take ``groupagg`` where the route gate
+             says so: its launches are printed, and none where the gate
+             predicts one fails the phase.
 5. float   - float keys with NaN and float values with NaN (1e7 rows):
              groupby sum/mean/count under dropna True/False and the skipna
              reductions; the group mean twice, bit for bit.
@@ -179,8 +189,8 @@ Phases, one JSON object per line each:
              max/count, a map chain into a sum, stacked filters and
              ``query(...).groupby("d")`` for sum/mean/count/min/max/prod;
              then, on smaller files, a query on each side of each route
-             threshold: groupagg's tables in device memory (Auto declines,
-             Fused takes them), the key range at and one past
+             threshold: groupagg's table split into slot ranges (Auto
+             declines, Fused takes it), the key range at and one past
              ``FUSED_MAX_GROUPS``, a key spanning 2^40, and the rows on
              each side of ``FuseMinRows``.  Each under
              ``MODIN_TPU_TORCH_PLAN=Auto`` (with its ``FuseMode``) and
@@ -190,12 +200,14 @@ Phases, one JSON object per line each:
              surviving columns, EXPLAIN attributes the pushdown, each
              query takes its predicted route (fused, declined or staged),
              a fused one launches the fused kernel once (twice for var)
-             or, for a groupby, twice plus one ``groupagg`` launch, and
+             or, for a groupby, twice plus one ``groupagg`` launch (a
+             declined groupby's eager path as the gate predicts), and
              nothing defaults to pandas.  Before the queries: the
              acceptance pipeline's breakdown (the parse of 6 and of 3
              columns, the sniff, EXPLAIN ANALYZE per node) and the route
              sweep (Fused against Staged by key range, value columns and
-             rows, on in-memory frames).
+             rows, on in-memory frames, through the planner's fused leg and
+             through the eager groupby).
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
 default), the arithmetic phase at ``--arithmetic-rows`` (2.5e7), the clean
@@ -332,11 +344,18 @@ def phase_build() -> None:
 
 
 def kernel_label(mangled: str) -> str:
-    """A scan kernel's instantiation as mode, dtype and codes (the
+    """A kernel instantiation's readable name: a scan kernel's mode, dtype
+    and codes, a fused kernel's rows a thread and block size, a groupagg
+    kernel's aggregation and its stage's groups and column batch (the
     bincount kernels keep their own names)."""
     m = re.search(r"fused_kernelILi(\d)ELi(\d+)E", mangled)
     if m:
         return f"fused_kernel_k{m.group(1)}_t{m.group(2)}"
+    m = re.search(r"groupagg_(kernel|merge)ILi(\d)E(?:Li(\d)ELi(\d)E)?", mangled)
+    if m:
+        aggs = ("sum", "prod", "count", "mean", "min", "max")
+        tail = f"_k{m.group(3)}_b{m.group(4)}" if m.group(3) else ""
+        return f"groupagg_{m.group(1)}_{aggs[int(m.group(2))]}{tail}"
     if "fused_merge" in mangled:
         return "fused_merge"
     m = re.search(r"SegOpI([ld])\w*?(Add|Mul|Max|Min)[IF]ELb([01])", mangled)
@@ -413,7 +432,7 @@ def phase_kernel(rows: int, seed: int, parent: str = None) -> dict:
         del codes
     free_device_memory()
     return {"cap": cap, "by_width": by_width, "max_abs_err": max_err, "scan": scan_check(rows, seed),
-            "fused": fused_check(rows, seed, parent), "groupagg": groupagg_check(rows, seed)}
+            "fused": fused_check(rows, seed, parent), "groupagg": groupagg_check(rows, seed, parent)}
 
 
 # ---------------------------------------------------------------------- #
@@ -422,21 +441,20 @@ def phase_kernel(rows: int, seed: int, parent: str = None) -> dict:
 
 GROUPAGG_WIDTHS = (8, 100, 10_000, 65_536)
 GROUPAGG_DTYPES = ("int8", "int64", "float32", "float64")
-# half the aggregations a width: each table mode (shared memory at widths 8
-# and 100, device memory at 10 000 and 65 536) meets every aggregation over
-# every dtype once
+# half the aggregations a width: each table shape (eight copies at widths 8
+# and 100, one copy at 10 000, slot ranges at 65 536) meets every aggregation
+# over every dtype
 GROUPAGG_AGGS = {8: ("mean", "max", "prod"), 100: ("sum", "min", "count"),
                  10_000: ("sum", "min", "count"), 65_536: ("mean", "max", "prod")}
 GROUPAGG_REPEATS = 2
-# phase 13's fused groupbys by d: case -> (aggregation, value columns); two
-# columns keep the tables in shared memory, five put them in device memory
+# the eager route's widths: around ops/route.py's ATOMIC_MAX_SLOTS
+GROUPAGG_EAGER_WIDTHS = (100, 1000, 4000, 10_000)
+# phase 13's fused groupbys by d: case -> (aggregation, value columns)
 PLAN_GROUPBY_CASES = {
     **{f"plan13_{agg}": (agg, ("b", "f") if agg == "prod" else ("a", "c"))
        for agg in ("sum", "mean", "count", "min", "max", "prod")},
     "plan13_sum_five_columns": ("sum", ("a", "b", "c", "e", "f")),
 }
-
-
 def plan_columns(rows: int, seed: int, dev) -> dict:
     """Phase 13's columns (``plan_csv``'s distributions) on the card:
     ``a`` int64 in [-50, 50), ``b`` uniform [0, 1), ``c`` uniform [-1, 1),
@@ -460,42 +478,53 @@ def plan_columns(rows: int, seed: int, dev) -> dict:
     }
 
 
-def groupagg_check(rows: int, seed: int) -> dict:
+def groupagg_check(rows: int, seed: int, parent: str = None) -> dict:
     """``groupagg.cu`` against ``groupagg_plain`` at ``rows`` rows, bit for
     bit and repeating.  First one column by the slots of key ranges of 8,
     100, 10 000 and 65 536 values (``fused_groups_bucket`` slots, about a
     tenth of the rows in the overflow slot, as a filter drops them): an
     int8, an int64, a float32 and a float64 column (1 % NaN), half the
-    aggregations at each width (``GROUPAGG_AGGS``), so that each table mode
-    meets every aggregation over every dtype.  Then phase 13's fused
-    groupbys at this size: the slot column the fused kernel writes for
-    ``a > 0`` by the 1000-value key ``d`` (``fused_slot_expr``, 1025
-    slots), and every aggregation over the columns phase 13 passes
-    (``PLAN_GROUPBY_CASES``: an int64 and a float64 column, ``b`` and
-    ``f`` for prod, and all five for a sum whose tables sit in device
-    memory).
+    aggregations at each width (``GROUPAGG_AGGS``), so that each table
+    shape meets every aggregation over every dtype.  Then the eager path's
+    shapes, int64 codes as slots: a float64 sum by int64 codes (a tenth of
+    the rows on the overflow code), an int64 sum and min and a float64 sum
+    by codes of ``GROUPAGG_EAGER_WIDTHS`` groups with no overflow row (the
+    widths around the route gate's ``ATOMIC_MAX_SLOTS``), and the main
+    path's ten int64 columns by 101 codes in sum and mean.  Then phase 13's fused groupbys at this size: the slot
+    column the fused kernel writes for ``a > 0`` by the 1000-value key
+    ``d`` (``fused_slot_expr``, 1025 slots), and every aggregation over the
+    columns phase 13 passes (``PLAN_GROUPBY_CASES``: an int64 and a float64
+    column, ``b`` and ``f`` for prod, and all five for a sum).
     Times of the kernel, the plain version (one run) and one torch call
     computing the same function (``index_add_`` for sum and mean's sum,
-    ``scatter_reduce_`` for min, max and prod, ``torch.bincount`` for
-    count; over the columns widened to one dtype), beside the bound: the
-    slot (4 B) and the values read once a row at 3.35 TB/s.  Then the
-    staged path's grouped float64 sum (``groupby_reduce`` over the
-    factorized codes) at 100 and 10 000 groups on the same rows, and the
-    seconds the check took."""
+    ``scatter_reduce_`` for min, max and prod, one call a column over the
+    1-D column widened to one dtype; ``torch.bincount`` for count; and the
+    same call on the kept rows alone, ``library_kept_ms``, where rows lie in
+    the overflow slot, which the kernel skips and the call adds into one hot
+    slot), beside the bound: the slot and the values read once a row at
+    3.35 TB/s.  Then
+    the grouped float64 sum
+    of ``groupby_reduce`` over the factorized codes at 100 and 10 000
+    groups on the same rows, on the staged path (``FuseMode=Staged``) and
+    on ``groupagg`` (``Fused``), and the seconds the check took.  With
+    ``parent`` (an earlier commit's checkout) that commit's kernel times on
+    the same cases (``parent_ms``), from a process of its own run first."""
     import torch
 
+    from modin_tpu_torch.config import FuseMode
     from modin_tpu_torch.ops import elementwise as ew
     from modin_tpu_torch.ops import groupby as gb_ops
     from modin_tpu_torch.ops import lazy
     from modin_tpu_torch.ops.cuda import build
     from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
 
+    parent_ms = parent_groupagg_times(parent, rows, seed) if parent else {}
     t_check = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 11)
     emit({"phase": "kernel", "kernel": "groupagg", "ptxas": ptxas_by_kernel(build.BUILD_LOGS.get("groupagg", ""))})
-    by_case, staged = {}, {}
+    by_case, staged, eager = {}, {}, {}
 
     def check(name, agg, slot, cols, g1, width, **extra):
         """One case, bit for bit, repeating and timed."""
@@ -521,31 +550,57 @@ def groupagg_check(rows: int, seed: int) -> dict:
                 raise AssertionError(f"groupagg {name}: a launch did not repeat")
         idx = slot.to(torch.int64)
         fl = any(c.dtype.is_floating_point for c in cols)
-        wide = torch.stack([torch.nan_to_num(c.to(torch.float64), nan=0.0) if fl else c.to(torch.int64)
-                            for c in cols], 1)
-        acc = torch.zeros((g1, len(cols)), dtype=wide.dtype, device=dev)
-        if agg in ("sum", "mean"):
-            library, library_name = (lambda: acc.index_add_(0, idx, wide)), "index_add_"
-        elif agg == "count":
-            library, library_name = (lambda: torch.bincount(idx, minlength=g1)), "torch.bincount"
+        wide = [torch.nan_to_num(c.to(torch.float64), nan=0.0) if fl else c.to(torch.int64) for c in cols]
+        accs = [torch.zeros(g1, dtype=w.dtype, device=dev) for w in wide]
+        how = {"prod": "prod", "min": "amin", "max": "amax"}.get(agg)
+
+        def library_on(idx, wide):
+            if agg == "count":
+                return lambda: torch.bincount(idx, minlength=g1)
+
+            def library():
+                for a, w in zip(accs, wide):
+                    if how is None:
+                        a.index_add_(0, idx, w)
+                    else:
+                        a.scatter_reduce_(0, idx, w, how)
+            return library
+
+        library_name = "torch.bincount" if agg == "count" else \
+            ("index_add_" if how is None else f"scatter_reduce_({how!r})") + " over 1-D columns, one call a column"
+        library_ms = cuda_ms(library_on(idx, wide), reps=3)
+        kept = idx < g1 - 1
+        dropped_rows = int(slot.shape[0] - kept.sum())
+        if dropped_rows:
+            # the same call on the kept rows alone (compacted untimed): the
+            # overflow slot's rows are one hot slot for the atomics
+            idx_k, wide_k = idx[kept], [w[kept] for w in wide]
+            library_kept_ms = cuda_ms(library_on(idx_k, wide_k), reps=3)
+            del idx_k, wide_k
         else:
-            how = {"prod": "prod", "min": "amin", "max": "amax"}[agg]
-            idx2 = idx.unsqueeze(1).expand(-1, len(cols))
-            library, library_name = (lambda: acc.scatter_reduce_(0, idx2, wide, how)), f"scatter_reduce_({how!r})"
-        blocks, chunk, shared = ga.launch_geometry(slot.shape[0], g1, len(cols))
-        row_bytes = 4 + sum(c.element_size() for c in cols)
+            library_kept_ms = library_ms
+        geo = ga.launch_geometry(slot.shape[0], g1, len(cols))
+        row_bytes = slot.element_size() + sum(c.element_size() for c in cols)
         rec = {
             "phase": "kernel", "kernel": "groupagg", "case": name, "n": slot.shape[0], "agg": agg,
-            "width": width, "slots": g1, "columns": len(cols), "blocks": blocks, "chunk": chunk,
-            "tables": "shared" if shared else "global", "exact": True, "max_abs_err": 0.0,
-            "kernel_ms": cuda_ms(run, reps=3), "plain_ms": plain_ms, "plain_runs": 1,
-            "library_ms": cuda_ms(library, reps=1), "library": library_name,
+            "width": width, "slots": g1, "columns": len(cols), "slot_dtype": str(slot.dtype),
+            "blocks": geo.blocks, "chunk": geo.chunk, "copies": geo.copies, "ranges": geo.ranges,
+            "stages": geo.stages, "stage_groups": geo.stage_groups, "tables": "shared",
+            "exact": True, "max_abs_err": 0.0,
+            "kernel_ms": cuda_ms(run, reps=3), "parent_ms": parent_ms.get(name),
+            "plain_ms": plain_ms, "plain_runs": 1,
+            "library_ms": library_ms, "library": library_name, "library_kept_ms": library_kept_ms,
+            "overflow_rows": dropped_rows,
             "bound_ms": row_bytes * slot.shape[0] / HBM_BYTES_PER_S * 1e3, "bytes_per_row": row_bytes,
             "bound_by": "bytes", **extra,
         }
         emit(rec)
         by_case[name] = rec
-        del got, want, wide, acc
+        del got, want, wide, accs, kept
+
+    def reduce_ms(mode, codes, values, groups):
+        with FuseMode.context(mode):
+            return cuda_ms(lambda: gb_ops.groupby_reduce("sum", values, codes, groups, rows), reps=3)
 
     for width in GROUPAGG_WIDTHS:
         G = gb_ops.fused_groups_bucket(width)
@@ -565,16 +620,45 @@ def groupagg_check(rows: int, seed: int) -> dict:
             del x
             free_device_memory()
         if width in (100, 10_000):
+            # the eager path's codes: the overflow code is the group count
             codes = torch.where(dropped, width, slot.to(torch.int64))
             v = torch.randn(rows, dtype=torch.float64, device=dev, generator=gen)
-            staged[width] = cuda_ms(lambda: gb_ops.groupby_reduce("sum", [v], codes, width, rows), reps=3)
-            fused = cuda_ms(lambda: ga.groupagg("sum", slot, [v], G + 1), reps=3)
-            emit({"phase": "kernel", "kernel": "groupagg", "case": f"staged_sum_float64_w{width}", "n": rows,
-                  "staged_ms": staged[width], "groupagg_ms": fused,
-                  "note": "the staged path's grouped sum (groupby_reduce over codes) beside groupagg"})
+            check(f"sum_float64_int64_codes_w{width}", "sum", codes, [v], width + 1, width)
+            staged[width] = reduce_ms("Staged", codes, [v], width)
+            eager[width] = reduce_ms("Fused", codes, [v], width)
+            emit({"phase": "kernel", "kernel": "groupagg", "case": f"groupby_reduce_sum_float64_w{width}", "n": rows,
+                  "staged_ms": staged[width], "groupagg_route_ms": eager[width],
+                  "groupagg_ms": by_case[f"sum_float64_int64_codes_w{width}"]["kernel_ms"],
+                  "note": "groupby_reduce over the codes: the staged path's grouped sum (FuseMode=Staged) "
+                          "and the groupagg route (Fused: the launch, finish and the result's slice)"})
             del codes, v
         del slot, dropped
         free_device_memory()
+    # the eager route's gate: int64 codes with no overflow row (no NaN key),
+    # one int64 or float64 column, where the staged path's atomics stop
+    # contending (ops/route.py ATOMIC_MAX_SLOTS)
+    for width in GROUPAGG_EAGER_WIDTHS:
+        codes = torch.randint(0, width, (rows,), device=dev, generator=gen)
+        xi = torch.randint(-2**40, 2**40, (rows,), device=dev, generator=gen)
+        xf = torch.randn(rows, dtype=torch.float64, device=dev, generator=gen)
+        check(f"eager_sum_int64_w{width}", "sum", codes, [xi], width + 1, width)
+        check(f"eager_min_int64_w{width}", "min", codes, [xi], width + 1, width)
+        check(f"eager_sum_float64_w{width}", "sum", codes, [xf], width + 1, width)
+        del codes, xi, xf
+        free_device_memory()
+    # the main path's shape: ten int64 columns (asv make_frame's values) by
+    # 100 groups' codes, the overflow code last
+    codes = torch.randint(0, 100, (rows,), device=dev, generator=gen)
+    main_cols = [torch.randint(0, 100, (rows,), device=dev, generator=gen) for _ in range(10)]
+    for agg in ("sum", "mean"):
+        check(f"main_{agg}_int64x10_w100", agg, codes, main_cols, 101, 100)
+    staged["main_int64x10"] = reduce_ms("Staged", codes, main_cols, 100)
+    eager["main_int64x10"] = reduce_ms("Fused", codes, main_cols, 100)
+    emit({"phase": "kernel", "kernel": "groupagg", "case": "groupby_reduce_sum_int64x10_w100", "n": rows,
+          "staged_ms": staged["main_int64x10"], "groupagg_route_ms": eager["main_int64x10"],
+          "note": "groupby_reduce of the main path's shape: staged (one index_add_ a column) and groupagg"})
+    del codes, main_cols
+    free_device_memory()
     one_column_s = time.perf_counter() - t_check
     # phase 13's fused groupby, its slot column written as the path writes it
     cols = plan_columns(rows, seed, dev)
@@ -590,7 +674,8 @@ def groupagg_check(rows: int, seed: int) -> dict:
     seconds = time.perf_counter() - t_check
     emit({"phase": "kernel", "kernel": "groupagg", "cases": len(by_case), "seconds": seconds,
           "one_column_seconds": one_column_s, "plan13_seconds": seconds - one_column_s})
-    return {"by_case": by_case, "max_abs_err": 0.0, "staged_ms": staged, "seconds": seconds}
+    return {"by_case": by_case, "max_abs_err": 0.0, "staged_ms": staged, "groupagg_route_ms": eager,
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------- #
@@ -914,6 +999,26 @@ def parent_fused_times(parent: str, rows: int, seed: int) -> dict:
     for ln in proc.stdout.splitlines():
         rec = json.loads(ln) if ln.startswith("{") else {}
         if rec.get("kernel") == "fused" and "kernel_ms" in rec:
+            times[rec["case"]] = rec["kernel_ms"]
+    return times
+
+
+def parent_groupagg_times(parent: str, rows: int, seed: int) -> dict:
+    """``kernel_ms`` of each case of ``groupagg_check`` run by the checkout
+    at ``parent`` in a process of its own, with its own package and kernel
+    build, on inputs from the same seed (the cases both checkouts have)."""
+    code = ("import sys; sys.path.insert(0, {p!r}); import chip_smoke as c; "
+            "import modin_tpu_torch; modin_tpu_torch.set_device('cuda'); "
+            "c.groupagg_check({r}, {s})").format(p=parent, r=rows, s=seed)
+    free_device_memory()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the parent's groupagg check failed:\n{proc.stderr[-4000:]}")
+    times = {}
+    for ln in proc.stdout.splitlines():
+        rec = json.loads(ln) if ln.startswith("{") else {}
+        if rec.get("kernel") == "groupagg" and "kernel_ms" in rec:
             times[rec["case"]] = rec["kernel_ms"]
     return times
 
@@ -1330,11 +1435,24 @@ def run_main_numpy(rows: int, seed: int) -> None:
         free_device_memory()
 
 
+def main_groupagg_predicted(rows: int) -> bool:
+    """Whether the route gate sends one of phase 4's grouped sums or means
+    (ten int64 columns by 100 or 10 000 groups of ``rows`` rows) to
+    ``groupagg`` (``ops/groupby.takes_groupagg``)."""
+    import torch
+
+    from modin_tpu_torch.ops import groupby as gb_ops
+
+    return any(gb_ops.takes_groupagg(agg, [torch.int64] * 10, g, rows)
+               for agg in ("sum", "mean") for g in (100, 10_000))
+
+
 def phase_main(rows: int, seed: int, have_pandas: bool) -> dict:
     from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
     from modin_tpu_torch.ops.cuda import groupby_kernels as gk
 
-    gk.LAUNCHES = 0
+    gk.LAUNCHES = ga.LAUNCHES = 0
     tqc.DEFAULTS_TO_PANDAS = 0
     if have_pandas:
         run_main_pandas(rows, seed)
@@ -1342,13 +1460,18 @@ def phase_main(rows: int, seed: int, have_pandas: bool) -> dict:
         emit({"phase": "main", "note": "pandas is not importable: the queries run "
               "through TorchQueryCompiler.from_numpy_columns against numpy"})
         run_main_numpy(rows, seed)
-    launches, defaults = gk.LAUNCHES, tqc.DEFAULTS_TO_PANDAS
-    emit({"phase": "main", "bincount_launches": launches, "defaults_to_pandas": defaults})
+    launches, ga_launches, defaults = gk.LAUNCHES, ga.LAUNCHES, tqc.DEFAULTS_TO_PANDAS
+    predicted = main_groupagg_predicted(rows)
+    emit({"phase": "main", "bincount_launches": launches, "groupagg_launches": ga_launches,
+          "groupagg_predicted": predicted, "defaults_to_pandas": defaults})
     if launches == 0:
         raise AssertionError("the main path never launched the bincount kernel")
+    if predicted and ga_launches == 0:
+        raise AssertionError("the route gate sends the main path's grouped sums to groupagg, "
+                             "but the main path never launched it")
     if defaults != 0:
         raise AssertionError(f"{defaults} main-path queries defaulted to pandas")
-    return {"bincount": launches}
+    return {"bincount": launches, "groupagg": ga_launches}
 
 
 def float_frame(rows: int, seed: int) -> dict:
@@ -3131,6 +3254,25 @@ def plan_files(workdir: str, rows: int, seed: int) -> dict:
     return paths
 
 
+def _eager_groupagg_launches(agg: str, cols: list, by: str, where: str):
+    """The groupagg launches predicted for the eager groupby that the staged
+    lowering runs for ``query(where)[cols].groupby(by).agg(agg)`` of a
+    frame: one where the route gate (``ops/groupby.takes_groupagg``, under
+    the query's ``FuseMode``) takes the kernel for the kept rows, their
+    group count and the value columns' dtypes, else none."""
+
+    def predict(df) -> int:
+        import torch
+
+        from modin_tpu_torch.ops import groupby as gb_ops
+
+        kept = df.query(where)
+        dtypes = [torch.from_numpy(np.zeros(0, kept[c].dtype)).dtype for c in cols if c != by]
+        return int(gb_ops.takes_groupagg(agg, dtypes, int(kept[by].nunique()), len(kept)))
+
+    return predict
+
+
 def plan_queries(paths: dict) -> dict:
     """name -> (pipeline(pd), file, FuseMode, route, fused-kernel launches,
     groupagg launches, columns parsed, the scale of its float results or
@@ -3138,12 +3280,15 @@ def plan_queries(paths: dict) -> dict:
     ``declined`` (one decline) or ``staged`` (the gate kept it staged:
     neither).  A masked reduce is one launch (two for a moments op), a fused
     groupby three: the probe and the slot launch of the fused kernel, then
-    groupagg; a declined or staged query's launches are the staged path's
-    (not predicted).  The groupbys by ``d`` (1000 keys, 1025 slots) keep
-    ``groupagg``'s tables in shared memory with two value columns and put
-    them in device memory with five, where Auto declines and Fused takes
-    them; ``cap`` puts the key range on each side of ``FUSED_MAX_GROUPS``
-    and ``floor_*`` the rows on each side of ``FuseMinRows``."""
+    groupagg; a declined or staged query's fused launches are the staged
+    path's (not predicted), and its groupagg launches are the eager
+    groupby's, where the route gate takes the kernel
+    (``_eager_groupagg_launches``).  The groupbys by ``d`` (1000 keys, 1025
+    slots) keep ``groupagg``'s whole table in one block's shared memory with
+    two and with five value columns; ``cap``'s key ``k`` (65 537 slots)
+    splits it into slot ranges, where Auto declines and Fused takes them;
+    ``cap`` puts the key range on each side of ``FUSED_MAX_GROUPS`` and
+    ``floor_*`` the rows on each side of ``FuseMinRows``."""
     main = paths["main"]
     queries = {}
     for agg, launches in (("sum", 1), ("mean", 1), ("var", 2), ("min", 1), ("max", 1), ("count", 1)):
@@ -3173,20 +3318,20 @@ def plan_queries(paths: dict) -> dict:
             groupby(main, cols, agg), main, "Auto", "fused", 2, 1, 4 if agg == "prod" else 3,
             _group_magnitude(agg, cols) if agg in ("sum", "mean") else None)
     five = ["a", "b", "c", "d", "e", "f"]
-    queries["groupby_sum_device_tables_declines"] = (
-        groupby(paths["mid"], five, "sum"), paths["mid"], "Auto", "declined", None, 0, 6,
+    queries["groupby_sum_five_columns_fused"] = (
+        groupby(paths["mid"], five, "sum"), paths["mid"], "Auto", "fused", 2, 1, 6,
         _group_magnitude("sum", five))
-    queries["groupby_sum_device_tables_fused"] = (
-        groupby(paths["mid"], five, "sum"), paths["mid"], "Fused", "fused", 2, 1, 6,
-        _group_magnitude("sum", five))
+    queries["groupby_sum_slot_ranges_declines"] = (
+        groupby(paths["cap"], ["k", "v"], "sum", "k", "v > 0.5"), paths["cap"], "Auto", "declined", None,
+        _eager_groupagg_launches("sum", ["k", "v"], "k", "v > 0.5"), 2, None)
     queries["groupby_sum_key_range_at_cap_fused"] = (
         groupby(paths["cap"], ["k", "v"], "sum", "k", "v > 0.5"), paths["cap"], "Fused", "fused", 2, 1, 2, None)
     queries["groupby_sum_key_range_past_cap_declines"] = (
-        groupby(paths["cap"], ["k1", "v"], "sum", "k1", "v > 0.5"), paths["cap"], "Fused", "declined", None, 0, 2,
-        None)
+        groupby(paths["cap"], ["k1", "v"], "sum", "k1", "v > 0.5"), paths["cap"], "Fused", "declined", None,
+        _eager_groupagg_launches("sum", ["k1", "v"], "k1", "v > 0.5"), 2, None)
     queries["groupby_wide_key_declines"] = (
         lambda pd: pd.read_csv(paths["wide"]).query("v > 0.5").groupby("k").agg("sum"), paths["wide"], "Auto",
-        "declined", None, 0, 2, None)
+        "declined", None, _eager_groupagg_launches("sum", ["k", "v"], "k", "v > 0.5"), 2, None)
     queries["filter_sum_below_min_rows_staged"] = (
         lambda pd: pd.read_csv(paths["floor_below"]).query("a > 0")[["b", "c"]].agg("sum"), paths["floor_below"],
         "Auto", "staged", None, 0, 3, None)
@@ -3257,27 +3402,39 @@ def plan_breakdown(path: str) -> dict:
     return rec
 
 
-PLAN_SWEEP_WIDTHS = (100, 1000, 10_000, 65_536)
+PLAN_SWEEP_WIDTHS = (100, 1000, 4000, 10_000, 65_536)
+# the eager groupby's cases of the route sweep: case -> (aggregation, value
+# columns), the staged path's two kinds (atomics: int sums, min and max;
+# code-sorted segments: float sums, every mean) over one, two and five columns
+EAGER_SWEEP_CASES = {
+    "sum_int64": ("sum", ("a",)), "sum_int64x2": ("sum", ("a", "f")), "min_int64": ("min", ("a",)),
+    "max_float64": ("max", ("b",)), "sum_float64": ("sum", ("b",)), "mean_int64": ("mean", ("a",)),
+    "sum_five_columns": ("sum", ("a", "b", "c", "e", "f")),
+}
 PLAN_SWEEP_ROWS = (4096, 32_768, 262_144, 2_097_152)
 PLAN_SWEEP_REPEATS = 3
 
 
-def _fused_and_staged(fn, what: str, agg: str, scale=None) -> dict:
+def _fused_and_staged(fn, what: str, agg: str, scale=None, eager: bool = False) -> dict:
     """Median wall ms of ``fn`` under ``FuseMode=Fused`` and ``Staged`` (one
     warm-up each, then ``PLAN_SWEEP_REPEATS`` runs alternating), the Fused
-    runs dispatching the fused leg and the Staged runs not, and the two
-    results held to each other as phase 13 holds a query to pandas."""
+    runs taking the fused leg (``eager``: the eager groupby's ``groupagg``
+    launch) and the Staged runs not, and the two results held to each other
+    as phase 13 holds a query to pandas."""
     from modin_tpu_torch.config import FuseMode
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
     from modin_tpu_torch.plan import fuse
 
     out, times = {}, {"Fused": [], "Staged": []}
     for rep in range(PLAN_SWEEP_REPEATS + 1):
         for mode in ("Fused", "Staged"):
-            d0 = fuse.DISPATCHES
+            d0, g0 = fuse.DISPATCHES, ga.LAUNCHES
             with FuseMode.context(mode):
                 got, ms = host_ms(fn)
-            if (fuse.DISPATCHES - d0) != (mode == "Fused"):
-                raise AssertionError(f"{what}: {fuse.DISPATCHES - d0} fused legs under FuseMode={mode}")
+            taken = (ga.LAUNCHES - g0) > 0 if eager else (fuse.DISPATCHES - d0) == 1
+            if taken != (mode == "Fused") or (eager and fuse.DISPATCHES != d0):
+                raise AssertionError(f"{what}: {fuse.DISPATCHES - d0} fused legs and {ga.LAUNCHES - g0} "
+                                     f"groupagg launches under FuseMode={mode}")
             if rep:
                 times[mode].append(ms)
             else:
@@ -3288,24 +3445,30 @@ def _fused_and_staged(fn, what: str, agg: str, scale=None) -> dict:
 
 
 def plan_route_sweep(rows: int, seed: int) -> list:
-    """The two thresholds of the route between the fused and the staged leg,
-    measured: a filtered groupby sum (``a > 0``, by ``d``) of one and of
-    five value columns at ``rows`` rows by key ranges of
-    ``PLAN_SWEEP_WIDTHS`` (``groupagg``'s tables in shared or in device
-    memory), and a filtered sum of ``[b, c]`` and a one-column groupby of
-    100 keys at ``PLAN_SWEEP_ROWS`` rows (the row floor), each under
-    ``FuseMode=Fused`` and ``Staged`` on in-memory frames (no parse)."""
+    """The thresholds of the route between ``groupagg`` and the staged
+    leg, measured: a filtered groupby (``a > 0``, by ``d``) at ``rows`` rows
+    by key ranges of ``PLAN_SWEEP_WIDTHS``, the sum of one and of five value
+    columns through the planner's fused leg (``groupby_width``) and each
+    case of ``EAGER_SWEEP_CASES`` through the eager groupby
+    (``eager_groupby_width``: the same query on the frame itself,
+    ``groupby_reduce`` taking ``groupagg`` or not), and a filtered sum of
+    ``[b, c]`` and a one-column groupby of 100 keys at ``PLAN_SWEEP_ROWS``
+    rows (the row floor), each under ``FuseMode=Fused`` and ``Staged`` on
+    in-memory frames (no parse).  Each record carries ``groupagg``'s launch
+    geometry (table copies and slot ranges) and the route ``Auto`` takes,
+    which ``decide_groupby`` rules on."""
     import pandas
 
     import modin_tpu_torch.pandas as tpd
     from modin_tpu_torch.ops import groupby as gb_ops
     from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+    from modin_tpu_torch.ops.route import decide_groupby
     from modin_tpu_torch.plan import defer_frame
 
-    def groupby(df, cols):
+    def groupby(df, cols, deferred=True, agg="sum"):
         def fn():
-            p = defer_frame(df)
-            return tpd.to_pandas(p[p["a"] > 0][list(cols)].groupby("d").agg("sum"))
+            p = defer_frame(df) if deferred else df
+            return tpd.to_pandas(p[p["a"] > 0][[*cols, "d"]].groupby("d").agg(agg))
         return fn
 
     def reduce(df):
@@ -3314,29 +3477,37 @@ def plan_route_sweep(rows: int, seed: int) -> list:
             return tpd.to_pandas(p[p["a"] > 0][["b", "c"]].agg("sum"))
         return fn
 
+    def sweep(what, sweep_name, df, pdf, width, agg, cols, deferred, slots, n):
+        geo = ga.launch_geometry(n, slots, len(cols))
+        scale = _group_magnitude(agg, [*cols, "d"])(pdf) if agg in ("sum", "mean") else None
+        any_float = any(pdf[c].dtype.kind == "f" for c in cols)
+        rec = {"phase": "plan", "sweep": sweep_name, "case": what, "agg": agg, "rows": rows, "width": width,
+               "value_columns": len(cols), "slots": slots, "copies": geo.copies, "ranges": geo.ranges,
+               "auto_takes_groupagg": decide_groupby(n, slots, agg, len(cols), any_float),
+               **_fused_and_staged(groupby(df, cols, deferred, agg), f"plan sweep {sweep_name} {what} {width}",
+                                   agg, scale, eager=not deferred)}
+        emit(rec)
+        return rec
+
     records = []
     for width in PLAN_SWEEP_WIDTHS:
         rng = np.random.default_rng(seed + 72 + width)
         pdf = pandas.DataFrame({"a": rng.integers(-50, 50, rows), "b": rng.uniform(0.0, 1.0, rows),
                                 "c": rng.uniform(-1.0, 1.0, rows), "d": rng.integers(0, width, rows),
                                 "e": rng.uniform(0.0, 100.0, rows), "f": rng.integers(0, 2, rows)})
+        kept = int((pdf["a"] > 0).sum())
         df = tpd.from_pandas(pdf)
-        for cols in (("b", "d"), ("a", "b", "c", "d", "e", "f")):
-            n_values = len(cols) - 1
-            g1 = gb_ops.fused_groups_bucket(width) + 1
-            rec = {"phase": "plan", "sweep": "groupby_width", "rows": rows, "width": width,
-                   "value_columns": n_values, "slots": g1,
-                   "tables": "shared" if ga.launch_geometry(rows, g1, n_values)[2] else "global",
-                   **_fused_and_staged(groupby(df, cols), f"plan sweep groupby width {width} x{n_values}",
-                                       "sum", _group_magnitude("sum", list(cols))(pdf))}
-            emit(rec)
-            records.append(rec)
+        for cols in (("b",), ("a", "b", "c", "e", "f")):
+            records.append(sweep(f"sum_x{len(cols)}", "groupby_width", df, pdf, width, "sum", cols, True,
+                                 gb_ops.fused_groups_bucket(width) + 1, rows))
+        for case, (agg, cols) in EAGER_SWEEP_CASES.items():
+            records.append(sweep(case, "eager_groupby_width", df, pdf, width, agg, cols, False, width + 1, kept))
         if width == 100:
             for n in PLAN_SWEEP_ROWS:
                 small = tpd.from_pandas(pdf.iloc[:n].copy())
                 for name, fn, agg, scale in (
                         ("reduce", reduce(small), "sum", None),
-                        ("groupby", groupby(small, ("b", "d")), "sum",
+                        ("groupby", groupby(small, ("b",)), "sum",
                          _group_magnitude("sum", ["b", "d"])(pdf.iloc[:n]))):
                     rec = {"phase": "plan", "sweep": "rows", "query": name, "rows": n,
                            **_fused_and_staged(fn, f"plan sweep {name} at {n} rows", agg, scale)}
@@ -3430,6 +3601,8 @@ def phase_plan(rows: int, seed: int, workdir: str) -> dict:
         d0, dec0 = fuse.DISPATCHES, fuse.DECLINES
         f0, g0, c0 = fk.LAUNCHES, ga.LAUNCHES, file_dispatcher.PARSED_COLUMNS
         with PlanMode.context("Auto"), FuseMode.context(fuse_mode):
+            if callable(predicted_ga):
+                predicted_ga = predicted_ga(frames[qpath])
             got, port_ms = host_ms(lambda: value(fn(tpd)))
         launches, ga_launches = fk.LAUNCHES - f0, ga.LAUNCHES - g0
         parsed = file_dispatcher.PARSED_COLUMNS - c0
@@ -3475,7 +3648,7 @@ def phase_plan(rows: int, seed: int, workdir: str) -> dict:
     return {"fused": fused_total, "groupagg": groupagg_total}
 
 
-def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -> dict:
+def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_path: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
     ``io``, ``window``, ``clean``, ``dates``, ``plan``) to its kernels'
     launches; the ``launches`` of a kernel's entry is its own path's:
@@ -3483,7 +3656,10 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -
     ``rank`` runs it too), the fused kernel's the fusion path's
     (``fused_by_path``: its launches on every path, each counted from 0 just
     before that path ran; its masked mode's the plan path's), groupagg's the
-    plan path's."""
+    main path's (phase 4's grouped sums and means), and its launches on
+    every path beside (``groupagg_by_path``, counted as ``fused_by_path``
+    is: each path's eager groupbys, resample included, and the plan path's
+    fused groupbys)."""
     by_width = kernel["by_width"]
     main = by_width[100]
     scan = kernel["scan"]["by_case"]
@@ -3498,7 +3674,7 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -
         "route": "cuda",
         "source": "modin_tpu_torch/ops/cuda/csrc/bincount.cu",
         "replaces": "modin_tpu/ops/pallas/groupby_kernels.py:29",
-        "launches": launches["main"],
+        "launches": launches["main"]["bincount"],
         "launches_by_path": bincount_paths,
         "exact": True,
         "max_abs_err": kernel["max_abs_err"],
@@ -3578,8 +3754,9 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -
         "route": "cuda",
         "source": "modin_tpu_torch/ops/cuda/csrc/groupagg.cu",
         "replaces": "modin_tpu/ops/groupby.py:1288 (fused_group_agg, its scatter body :1313-1385): an XLA "
-                    "program, not a Pallas kernel",
-        "launches": launches["plan"]["groupagg"],
+                    "program, not a Pallas kernel; it also carries the eager int-key groupby",
+        "launches": launches["main"]["groupagg"],
+        "launches_by_path": groupagg_by_path,
         "max_abs_err": kernel["groupagg"]["max_abs_err"],
         "n": rows,
         "case": "sum_float64_w100",
@@ -3588,10 +3765,13 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, rows: int) -
         "bound_ms": gahead["bound_ms"],
         "bound_by": "bytes",
         "library_ms": gahead["library_ms"],
-        "library": "index_add_ for sum and mean, scatter_reduce_ for min, max and prod, torch.bincount for count",
+        "library": "index_add_ for sum and mean, scatter_reduce_ for min, max and prod (one call a 1-D column), "
+                   "torch.bincount for count",
         "staged_sum_ms": kernel["groupagg"]["staged_ms"],
+        "groupagg_route_sum_ms": kernel["groupagg"]["groupagg_route_ms"],
         "by_case": {
-            k: {f: v[f] for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "tables", "blocks")}
+            k: {f: v[f] for f in ("kernel_ms", "parent_ms", "plain_ms", "library_ms", "library_kept_ms", "bound_ms",
+                                  "copies", "ranges", "stage_groups", "blocks")}
             for k, v in kernel["groupagg"]["by_case"].items()
         },
     }]}
@@ -3678,18 +3858,20 @@ def main(argv=None) -> int:
               f"cannot hold the 1e8-row frames: rows cut to {rows}"})
     kernel = phase_kernel(args.rows, args.seed, args.parent_checkout and os.path.abspath(args.parent_checkout))
     from modin_tpu_torch.ops.cuda import fused_kernels as fk
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
 
-    launches, fused_by_path = {}, {}
+    launches, fused_by_path, groupagg_by_path = {}, {}, {}
 
     def run(name, fn, *fn_args):
-        """One path, its fused launches counted from 0 just before it."""
-        fk.LAUNCHES = 0
+        """One path, its fused and groupagg launches counted from 0 just
+        before it."""
+        fk.LAUNCHES = ga.LAUNCHES = 0
         out = fn(*fn_args)
-        fused_by_path[name] = fk.LAUNCHES
+        fused_by_path[name], groupagg_by_path[name] = fk.LAUNCHES, ga.LAUNCHES
         return out
 
     if "main" in phases:
-        launches["main"] = run("main", phase_main, earlier_rows, args.seed, have_pandas)["bincount"]
+        launches["main"] = run("main", phase_main, earlier_rows, args.seed, have_pandas)
     if "float" in phases:
         run("float", phase_float, args.float_rows, args.seed, have_pandas)
     if not have_pandas:
@@ -3715,7 +3897,8 @@ def main(argv=None) -> int:
     if "plan" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as workdir:
             launches["plan"] = run("plan", phase_plan, args.plan_rows, args.seed, workdir)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,
+          "groupagg_launches_by_path": groupagg_by_path})
     for name in ("main", "arithmetic", "clean", "fusion", "plan"):
         if name in fused_by_path and fused_by_path[name] == 0:
             raise AssertionError(f"the {name} path never launched the fused kernel")
@@ -3725,7 +3908,7 @@ def main(argv=None) -> int:
         print("chip_smoke: a partial run prints no result", file=sys.stderr)
         return 1
     print(smi, flush=True)
-    emit(kernels_line(kernel, launches, fused_by_path, args.rows))
+    emit(kernels_line(kernel, launches, fused_by_path, groupagg_by_path, args.rows))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

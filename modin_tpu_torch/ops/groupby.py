@@ -21,7 +21,11 @@ Determinism: integer aggregations add with integer atomics (exact, so
 independent of order); float sums, means, variances and products sort the
 codes once (stable) and reduce each contiguous segment, so the result
 repeats bit for bit; min, max, any, all, first and last do not depend on
-order.
+order.  An int or bool column's mean adds in float64, as pandas does (an
+int64 sum would wrap).  Where the route gate says so
+(:func:`takes_groupagg`), sum, mean, prod, min, max and a float column's
+count run instead as one launch of the ``groupagg`` kernel over all the
+value columns (the codes as its slots), which folds in a fixed order too.
 
 Beyond the segment aggregations (``SEGMENT_AGGS``): the order aggregations
 (``ORDER_AGGS``: median/quantile, nunique, first/last) sort each value
@@ -322,9 +326,13 @@ def groupby_reduce(
         if sizes is not None:
             return [seg.sizes()]
         return [bincount(codes, num_groups)]
+    launched = _groupagg_columns(agg, value_cols, codes, num_groups, n)
     ns = num_groups + 1
     out = []
-    for c in value_cols:
+    for c, r in zip(value_cols, launched):
+        if r is not None:
+            out.append(r)
+            continue
         is_f = c.dtype.is_floating_point
         if agg in ("min", "max"):
             r = _segment_extreme(agg, c, codes, ns)
@@ -337,20 +345,83 @@ def groupby_reduce(
         elif agg in ("var", "std", "sem"):
             r = _segment_var(agg, c, seg, ddof)
         else:
-            # ints add in int64 (an unsigned column's uint64 sum has the same bits)
-            x = torch.where(torch.isnan(c), 0, c) if is_f else c.to(torch.int64)
-            s = seg.segment_sum(x)
-            if agg == "sum":
-                r = s
-            elif is_f:
+            if is_f:
+                s = seg.segment_sum(torch.where(torch.isnan(c), 0, c))
                 # divide in the sum's dtype: float32 means stay float32 (pandas)
-                r = s / seg.valid_count(c).to(s.dtype)
+                r = s if agg == "sum" else s / seg.valid_count(c).to(s.dtype)
+            elif agg == "sum":
+                # ints add in int64 (an unsigned column's uint64 sum has the same bits)
+                r = seg.segment_sum(c.to(torch.int64))
             else:
-                r = s[:num_groups].to(torch.float64) / seg.sizes().to(torch.float64)
+                # an int mean adds in float64, as pandas does: an int64 sum
+                # would wrap where a group's sum passes 2^63
+                s = seg.segment_sum(c.to(torch.float64))
+                r = s[:num_groups] / seg.sizes().to(torch.float64)
         r = r[:num_groups]
         if agg in ("sum", "prod") and not is_f and c.dtype != torch.bool:
             r = int_sum_result(r, c.dtype)
         out.append(r)
+    return out
+
+
+def takes_groupagg(agg: str, dtypes: List[torch.dtype], num_groups: int, n: int) -> bool:
+    """Whether ``groupby_reduce`` runs ``agg`` of columns of ``dtypes`` over
+    ``num_groups`` groups of ``n`` rows as ``groupagg`` launches (32
+    columns a launch): a segment aggregation the kernel computes
+    (``FUSED_GROUPBY_AGGS``; ``count`` only of float columns, an int
+    column's count being its group's size), dtypes it takes, at most
+    ``FUSED_MAX_GROUPS`` groups, and the route gate's yes
+    (``ops/route.py``: ``decide_compile`` and ``decide_groupby``, the gate
+    of the fused groupby too)."""
+    from modin_tpu_torch.ops.cuda.fused_program import DTYPE_CODES
+    from modin_tpu_torch.ops.route import decide_compile, decide_groupby
+
+    if agg not in FUSED_GROUPBY_AGGS or not dtypes or not 0 < num_groups <= FUSED_MAX_GROUPS:
+        return False
+    if any(d not in DTYPE_CODES for d in dtypes):
+        return False
+    if agg == "count":
+        dtypes = [d for d in dtypes if d.is_floating_point]
+        if not dtypes:
+            return False
+    any_float = any(d.is_floating_point for d in dtypes)
+    return decide_compile(n) == "fused" and decide_groupby(n, num_groups + 1, agg, len(dtypes), any_float)
+
+
+def _groupagg_columns(
+    agg: str, value_cols: List[torch.Tensor], codes: torch.Tensor, num_groups: int, n: int
+) -> List[Optional[Any]]:
+    """Each value column's ``groupby_reduce`` result from ``groupagg``
+    launches over the codes (the overflow code ``num_groups`` dropped), or
+    None for a column the staged segment path computes (all of them where
+    :func:`takes_groupagg` says no; an int column's ``count``).  The
+    results take the staged path's dtypes: a float sum, prod or mean in the
+    column's dtype, an int sum or prod as :func:`int_sum_result` gives it
+    (a bool's as int64), min/max in the column's dtype, counts int64."""
+    from modin_tpu_torch.ops.cuda import groupagg_kernels
+
+    out: List[Optional[Any]] = [None] * len(value_cols)
+    if not takes_groupagg(agg, [c.dtype for c in value_cols], num_groups, n):
+        return out
+    todo = [i for i, c in enumerate(value_cols) if agg != "count" or c.dtype.is_floating_point]
+    for at in range(0, len(todo), groupagg_kernels.MAX_COLS):
+        part = todo[at: at + groupagg_kernels.MAX_COLS]
+        cols = [value_cols[i] for i in part]
+        table = groupagg_kernels.groupagg(agg, codes, cols, num_groups + 1)
+        _sizes, values, counts = groupagg_kernels.finish(agg, table, [c.dtype for c in cols])
+        for i, c, v, nn in zip(part, cols, values, counts):
+            v, is_f = v[:num_groups], c.dtype.is_floating_point
+            if agg == "count":
+                r = nn[:num_groups]
+            elif agg in ("min", "max") or (is_f and agg != "mean"):
+                r = v.to(c.dtype)
+            elif agg == "mean":
+                r = v.to(torch.float32) if c.dtype == torch.float32 else v
+            elif c.dtype == torch.bool:
+                r = v
+            else:
+                r = int_sum_result(v, c.dtype)
+            out[i] = r
     return out
 
 

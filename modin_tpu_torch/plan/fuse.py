@@ -20,8 +20,8 @@ groupby tail, runs on the uncompacted rows:
 - the route gate stands in for the reference's ``router.decide_compile``:
   ``MODIN_TPU_TORCH_FUSE`` pins a side, and below
   ``MODIN_TPU_TORCH_FUSE_MIN_ROWS`` rows a query stays staged.  Under Auto
-  a groupby fuses only where ``groupagg``'s tables sit in shared memory
-  (:func:`decide_groupby`).
+  a groupby fuses only where :func:`decide_groupby` says so, the gate the
+  eager ``groupby_reduce`` takes ``groupagg`` by too.
 
 A decline (a key range wider than ``FUSED_MAX_GROUPS``, tables Auto leaves
 to the staged path, no kept row, an aggregation or a dtype the fused leg
@@ -42,6 +42,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import pandas
 
+from modin_tpu_torch.ops.route import decide_compile, decide_groupby  # noqa: F401  (the gate of both legs)
 from modin_tpu_torch.plan.ir import Filter, GroupbyAgg, Map, PlanNode, Project, Reduce, Ref, Scan, Source, walk
 
 #: fused legs taken (one per materialized segment) and declined
@@ -68,34 +69,6 @@ _SUPPORTED_MAP_METHODS = frozenset(
 
 class _Decline(Exception):
     """This segment cannot fuse; the staged lowering proceeds."""
-
-
-def decide_compile(n: int) -> str:
-    """``"fused"`` or ``"staged"`` for a segment over ``n`` rows (the
-    counterpart of ``modin_tpu/ops/router.py::decide_compile``)."""
-    from modin_tpu_torch.config import FuseMinRows, FuseMode
-
-    mode = FuseMode.get()
-    if mode == "Fused":
-        return "fused"
-    if mode == "Staged" or n < int(FuseMinRows.get()):
-        return "staged"
-    return "fused"
-
-
-def decide_groupby(n: int, slots: int, n_cols: int) -> bool:
-    """Whether a fused groupby of ``n`` rows takes its ``groupagg`` launch
-    over ``slots`` table slots and ``n_cols`` value columns: always under
-    ``FuseMode=Fused``; under Auto only where the kernel's tables sit in
-    shared memory.  Measured on an H100 at 5e6 rows (``chip_smoke.py``
-    phase 13's route sweep, two runs), a filtered groupby sum took 4.6-6.9
-    ms fused against 4.5-11.9 staged with shared-memory tables (faster in
-    5 of 6 pairs, 0.07 ms slower in the sixth), and 6.1-47.1 ms against
-    4.8-8.4 with device-memory tables (slower in all 10 pairs)."""
-    from modin_tpu_torch.config import FuseMode
-    from modin_tpu_torch.ops.cuda.groupagg_kernels import launch_geometry
-
-    return FuseMode.get() == "Fused" or launch_geometry(n, slots, n_cols)[2]
 
 
 def _segment_leaf(root: PlanNode) -> Optional[PlanNode]:
@@ -281,7 +254,8 @@ def _fused_groupby(node: GroupbyAgg, qc_top: Any, mask: Any, n: int) -> Optional
     if width > gb.FUSED_MAX_GROUPS:
         return None
     buckets = gb.fused_groups_bucket(width)
-    if not decide_groupby(n, buckets + 1, len(value_pos)):
+    any_float = any(frame._columns[i].pandas_dtype.kind == "f" for i in value_pos)
+    if not decide_groupby(n, buckets + 1, agg, len(value_pos), any_float):
         return None
     sizes, tables, _counts = gb.fused_group_agg(
         agg, key_col.raw, [frame._columns[i].raw for i in value_pos], mask, n, kmin, buckets

@@ -30,6 +30,7 @@ import modin_tpu_torch.pandas as tpd
 from modin_tpu_torch.config import FuseMinRows, FuseMode
 from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
 from modin_tpu_torch.ops import groupby as gb
+from modin_tpu_torch.ops import route
 from modin_tpu_torch.ops.cuda import fused_kernels, groupagg_kernels
 from modin_tpu_torch.plan import fuse
 
@@ -58,7 +59,7 @@ def _write_csv(tmp_path, n, name="fuse.csv", nan_frac=0.0, seed=23):
             "b": b,
             "c": rng.uniform(-1, 1, n),
             "k": rng.integers(0, 5, n),
-            "g": rng.integers(0, 2000, n),
+            "g": rng.integers(0, 8000, n),
             "t": rng.integers(0, 2, n).astype(bool),
         }
     ).to_csv(tmp_path / name, index=False)
@@ -318,20 +319,47 @@ def test_auto_keeps_tiny_frames_staged(tmp_path):
     [(9, 1), (1025, 1), (2049, 1), (129, 5), (257, 5), (513, 5), (1025, 2), (1025, 3), (65537, 1)],
 )
 def test_decide_groupby_follows_the_table_mode(slots, n_cols):
-    shared = groupagg_kernels.launch_geometry(10**6, slots, n_cols)[2]
-    assert shared == ((1 + 2 * n_cols) * slots * 8 <= groupagg_kernels.SMEM_TABLES)
+    """Auto takes ``groupagg`` for a float sum (which the staged path
+    sorts for) where one block's shared memory holds the whole table; past
+    that the slots split into ranges and Auto stays staged.  Fused takes
+    it at every width."""
+    geo = groupagg_kernels.launch_geometry(10**6, slots, n_cols)
+    stage = groupagg_kernels._stage_bytes(n_cols)
+    fits = groupagg_kernels.table_bytes(slots, n_cols) + stage <= groupagg_kernels.SMEM_MAX
+    assert (geo.ranges == 1) == fits
+    shared = geo.ranges == 1
     with FuseMode.context("Auto"):
-        assert fuse.decide_groupby(10**6, slots, n_cols) == shared
+        assert fuse.decide_groupby(10**6, slots, "sum", n_cols, True) == shared
     with FuseMode.context("Fused"):
-        assert fuse.decide_groupby(10**6, slots, n_cols)
+        assert fuse.decide_groupby(10**6, slots, "sum", n_cols, True)
+
+
+@pytest.mark.parametrize("slots", [9, 101, 1001, 1025, 1026, 4001, 10001, 65537])
+@pytest.mark.parametrize(
+    "agg, any_float, sorts",
+    [("sum", False, False), ("min", True, False), ("max", False, False), ("count", True, False),
+     ("prod", False, False), ("sum", True, True), ("mean", False, True), ("prod", True, True)],
+)
+def test_decide_groupby_keeps_atomic_aggregations_staged_past_their_contention(slots, agg, any_float, sorts):
+    """Where the staged path folds by atomics (an int sum or product, min,
+    max, a count) Auto takes ``groupagg`` only up to ``ATOMIC_MAX_SLOTS``
+    slots; where it sorts (a float sum or product, every mean) at every
+    width one block's table holds.  Fused takes it at every width."""
+    assert route.staged_sorts(agg, any_float) == sorts
+    one_range = groupagg_kernels.launch_geometry(10**6, slots, 1).ranges == 1
+    want = one_range and (sorts or slots <= route.ATOMIC_MAX_SLOTS)
+    with FuseMode.context("Auto"):
+        assert route.decide_groupby(10**6, slots, agg, 1, any_float) == want
+    with FuseMode.context("Fused"):
+        assert route.decide_groupby(10**6, slots, agg, 1, any_float)
 
 
 @pytest.mark.parametrize("key, dispatched", [("k", True), ("g", False)])
 def test_auto_groupby_fuses_only_with_shared_tables(tmp_path, key, dispatched):
-    """Auto above the row floor: 5 keys and 3 value columns keep the
-    tables in shared memory (fused); 2000 keys (2048 slots) put them in
-    device memory, and the groupby declines to the staged path.  Both equal
-    pandas to rtol 1e-12."""
+    """Auto above the row floor: 5 keys and 3 value columns fit one block's
+    shared memory (fused); a key range of about 8000 (8193 slots) splits
+    the table into slot ranges, and the groupby declines to the staged
+    path.  Both equal pandas to rtol 1e-12."""
     n = int(FuseMinRows.get()) + 100
     path = _write_csv(tmp_path, n)
     cols = ["a", "b", "c", key]
