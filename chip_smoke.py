@@ -5,7 +5,7 @@
                           [--float-rows N] [--io-rows N] [--window-rows N]
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
                           [--seed S] [--parent-checkout DIR]
-                          [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan]
+                          [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats]
 
 Phases, one JSON object per line each:
 
@@ -87,7 +87,7 @@ Phases, one JSON object per line each:
              pandas, and every value column stays on ``cuda``.  Needs
              pandas, the reference it is held against.
 7. arithmetic - asv ``TimeArithmetic`` on ``make_frame((rows, 10))``
-             (``--arithmetic-rows``, 2.5e7 by default): sum, count, median, nunique, mean, mode,
+             (``--arithmetic-rows``, 2e7 by default): sum, count, median, nunique, mean, mode,
              add/mul/mod(2) at ``axis=0`` and ``axis=1``, abs and isin
              (which take no axis), ``quantile([0.1, 0.5, 0.9])`` and
              ``describe()`` on the device, each against pandas (ints
@@ -208,15 +208,36 @@ Phases, one JSON object per line each:
              sweep (Fused against Staged by key range, value columns and
              rows, on in-memory frames, through the planner's fused leg and
              through the eager groupby).
+14. formats - the remaining IO at the sizes users hold such files, on
+             the card: ``read_json(lines=True)`` of 1e6 records (2 int64, 2
+             float64, a str and a bool column) and the streamed
+             ``to_json(orient="records", lines=True)`` byte for byte
+             pandas' file; ``read_fwf`` of 5e5 rows x 5 columns (written
+             with printf formats) with inferred and explicit spans; a 1e6
+             x 5 sqlite3 file through ``read_sql`` with a plain connection
+             and a ``ModinDatabaseConnection``, and ``to_sql`` read back; ``to_excel`` and
+             ``read_excel`` of 1e5 x 4 through the port's xlsx codec (no
+             Excel engine there), held to the original frame; an HDF round
+             trip where PyTables imports, else pandas' ``ImportError`` and a
+             note that HDF is unverified; pandas' ``from_dataframe`` over the
+             port's interchange producer of ``make_frame((1e7, 10)) + 1``
+             against pandas' producer (10 column fetches; a selection of 2
+             fetching 2), and ``to_numpy`` in one device-to-host copy
+             against pandas'.  Each read equals pandas' exactly (records,
+             dtypes, values); on each read's frame ``groupby("k")`` sum and
+             mean (ints exactly, floats to 1e-12 of each group's
+             magnitude), ``(b * c + 1).sum()`` (rtol 1e-12) and
+             ``k.nunique()`` equal pandas' and launch ``groupagg``, the
+             fused kernel and ``bincount``; nothing defaults to pandas.
 
 The main-path and relational phases run at ``--earlier-rows`` (2e7 by
-default), the arithmetic phase at ``--arithmetic-rows`` (2.5e7), the clean
+default), the arithmetic phase at ``--arithmetic-rows`` (2e7), the clean
 phase at ``--clean-rows`` (1e7), the window, dates and plan phases at
 ``--window-rows``, ``--dates-rows`` and ``--plan-rows`` (5e6 each) and
 the fusion phase at ``--fusion-rows`` (2e7) so that the whole script stays
 well inside its time limit; the kernel checks run at ``--rows``.  ``--phases``
 picks the phases after the kernel check for a quick run; only a run of all
-ten prints the result lines.  Then the card's name and power limit, one
+eleven prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
@@ -237,7 +258,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan")
+ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
+              "formats")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -3648,10 +3670,400 @@ def phase_plan(rows: int, seed: int, workdir: str) -> dict:
     return {"fused": fused_total, "groupagg": groupagg_total}
 
 
+# ---------------------------------------------------------------------- #
+# 14. the remaining IO formats and the interchange producer
+# ---------------------------------------------------------------------- #
+
+FORMATS_JSON_ROWS = 10**6
+FORMATS_FWF_ROWS = 5 * 10**5
+FORMATS_SQL_ROWS = 10**6
+FORMATS_EXCEL_ROWS = 10**5
+FORMATS_XCHG_ROWS = 10**7
+FORMATS_KEYS = 100
+FORMATS_WORDS = ("alpha", "beta", "gamma-delta", "epsilon", "zeta")
+# the fixed-width file's fields: name, printf format, width
+FWF_FIELDS = (("k", "%-6d", 6), ("a", "%-14d", 14), ("b", "%-16.6f", 16), ("c", "%-16.6f", 16), ("s", "%-12s", 12))
+
+
+def formats_columns(rows: int, seed: int, names: str) -> dict:
+    """Columns named by the letters of ``names`` from a seed: ``k`` an int64
+    key of ``FORMATS_KEYS`` values, ``a`` a wide int64, ``b`` a normal and
+    ``c`` a uniform float64, ``s`` a word, ``t`` a bool."""
+    rng = np.random.default_rng(seed)
+    make = {
+        "k": lambda: rng.integers(0, FORMATS_KEYS, rows),
+        "a": lambda: rng.integers(-10**9, 10**9, rows),
+        "b": lambda: rng.normal(size=rows) * 1e3,
+        "c": lambda: rng.uniform(0, 1, rows),
+        "s": lambda: np.array(FORMATS_WORDS)[rng.integers(0, len(FORMATS_WORDS), rows)],
+        "t": lambda: rng.random(rows) < 0.5,
+    }
+    return {name: make[name]() for name in names}
+
+
+def write_fwf(path: str, cols: dict) -> None:
+    """A fixed-width file of ``cols`` in ``FWF_FIELDS``' formats, one
+    printf a row (``DataFrame.to_string`` took 5.7 s for 2e5 rows)."""
+    row_fmt = "".join(f for _, f, _ in FWF_FIELDS) + "\n"
+    header = "".join(f"%-{w}s" % name for name, _, w in FWF_FIELDS) + "\n"
+    values = zip(*(cols[name].tolist() for name, _, _ in FWF_FIELDS))
+    with open(path, "w") as f:
+        f.write(header)
+        f.writelines(row_fmt % v for v in values)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class _Formats:
+    """The phase's counters, timers and records."""
+
+    def __init__(self):
+        from modin_tpu_torch.ops.cuda import fused_kernels as fk
+        from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+        from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+        from modin_tpu_torch.ops.cuda import scan_kernels as sk
+
+        self.kernels = {"groupagg": ga, "fused": fk, "bincount": gk, "scan": sk}
+        self.records = []
+
+    def launches(self) -> dict:
+        return {name: mod.LAUNCHES for name, mod in self.kernels.items()}
+
+    @staticmethod
+    def port_call(fn):
+        """(result, ms, device peak GiB) of a port call ended by a device
+        synchronise."""
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = host_ms(fn)
+        return out, ms, torch.cuda.max_memory_allocated() / 2**30
+
+    def record(self, name: str, rows: int, port_ms, pandas_ms, to_pandas_ms, peak_gib, **extra) -> None:
+        rec = {"phase": "formats", "query": name, "rows": rows, "port_ms": port_ms, "pandas_ms": pandas_ms,
+               "to_pandas_ms": to_pandas_ms, "device_peak_gib": round(peak_gib, 3), **extra, "match": True}
+        self.records.append(rec)
+        emit(rec)
+
+    def after_read(self, what: str, t, p) -> None:
+        """The frame a read produced (``t``, and pandas' read ``p``):
+        ``groupby("k")`` sum and mean of its value columns (``groupagg``),
+        ``(b * c + 1).sum()`` (the fused kernel) and ``k.nunique()``
+        (``bincount``), each against pandas, each launching its kernel."""
+        import modin_tpu_torch.pandas as tpd
+
+        cols = [c for c in ("a", "b", "c") if c in p.columns]
+        kept = p[cols]
+        magnitude = kept.abs().groupby(p["k"]).sum()
+        queries = {
+            "groupby_sum": ("groupagg", lambda d: d.groupby("k")[cols].sum(), magnitude, "sum"),
+            "groupby_mean": ("groupagg", lambda d: d.groupby("k")[cols].mean(),
+                             magnitude.div(kept.groupby(p["k"]).count()), "mean"),
+            "fused_sum": ("fused", lambda d: (d.b * d.c + 1).sum(), None, "sum"),
+            "nunique": ("bincount", lambda d: d.k.nunique(), None, "count"),
+        }
+        for name, (kernel, fn, scale, agg) in queries.items():
+            before = self.launches()[kernel]
+            result, port_ms, peak = self.port_call(lambda: fn(t))
+            launched = self.launches()[kernel] - before
+            if hasattr(result, "_query_compiler"):
+                got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(result))
+            else:
+                got, to_pandas_ms = result, None
+            want, pandas_ms = _timed(lambda: fn(p))
+            _plan_same(got, want, f"formats {what} {name}", agg, scale)
+            if launched == 0:
+                raise AssertionError(f"formats {what} {name}: the {kernel} kernel never launched")
+            self.record(f"{what}_{name}", len(p), port_ms, pandas_ms, to_pandas_ms, peak,
+                        kernel=kernel, launches=launched)
+
+
+def _same_read(got, want, what: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} records != pandas' {len(want)}")
+    assert_same_pandas(got, want, what, exact=True)
+
+
+def _numeric_on_cuda(t, what: str) -> None:
+    numeric = [c for c in t._query_compiler._modin_frame._columns if c.pandas_dtype.kind in "biuf"]
+    if not numeric or not all(c.is_device and c.device.type == "cuda" for c in numeric):
+        raise AssertionError(f"{what}: a numeric column is not on cuda")
+
+
+def formats_text(fm: _Formats, seed: int, workdir: str) -> None:
+    """JSON lines and fixed width: each read (one parse) against pandas',
+    the streamed ``to_json``."""
+    import filecmp
+
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+
+    # JSON lines: 1e6 records of 2 int64, 2 float64, a str and a bool
+    rows = FORMATS_JSON_ROWS
+    path = os.path.join(workdir, "data.jsonl")
+    p0 = pandas.DataFrame(formats_columns(rows, seed + 60, "kabcst"))
+    _, write_ms = _timed(lambda: p0.to_json(path, orient="records", lines=True))
+    del p0
+    t, port_ms, peak = fm.port_call(lambda: tpd.read_json(path, lines=True))
+    p, pandas_ms = _timed(lambda: pandas.read_json(path, lines=True))
+    got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(t))
+    _same_read(got, p, "read_json")
+    _numeric_on_cuda(t, "read_json")
+    del got
+    fm.record("read_json", rows, port_ms, pandas_ms, to_pandas_ms, peak,
+              file_bytes=os.path.getsize(path), pandas_write_ms=write_ms)
+    fm.after_read("json", t, p)
+    port_out, pandas_out = os.path.join(workdir, "port.jsonl"), os.path.join(workdir, "pandas.jsonl")
+    _, port_ms, peak = fm.port_call(lambda: t.to_json(port_out, orient="records", lines=True))
+    _, pandas_ms = _timed(lambda: p.to_json(pandas_out, orient="records", lines=True))
+    if not filecmp.cmp(port_out, pandas_out, shallow=False):
+        raise AssertionError("to_json: the port's file differs from pandas'")
+    fm.record("to_json", rows, port_ms, pandas_ms, None, peak, file_bytes=os.path.getsize(pandas_out))
+    for f in (path, port_out, pandas_out):
+        os.unlink(f)
+    del t, p
+    free_device_memory()
+
+    # fixed width: 5e5 rows of 5 columns, the spans inferred and explicit
+    rows = FORMATS_FWF_ROWS
+    path = os.path.join(workdir, "data.txt")
+    _, write_ms = _timed(lambda: write_fwf(path, formats_columns(rows, seed + 61, "kabcs")))
+    starts = np.cumsum([0] + [w for _, _, w in FWF_FIELDS])
+    for spans, kwargs in (("inferred", {}), ("explicit", {"colspecs": list(zip(starts[:-1].tolist(),
+                                                                               starts[1:].tolist()))})):
+        t, port_ms, peak = fm.port_call(lambda: tpd.read_fwf(path, **kwargs))
+        p, pandas_ms = _timed(lambda: pandas.read_fwf(path, **kwargs))
+        got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(t))
+        _same_read(got, p, f"read_fwf {spans}")
+        _numeric_on_cuda(t, f"read_fwf {spans}")
+        del got
+        fm.record(f"read_fwf_{spans}", rows, port_ms, pandas_ms, to_pandas_ms, peak,
+                  file_bytes=os.path.getsize(path), numpy_write_ms=write_ms)
+        fm.after_read(f"fwf_{spans}", t, p)
+        del t, p
+        free_device_memory()
+    os.unlink(path)
+
+
+def formats_sql(fm: _Formats, seed: int, workdir: str) -> None:
+    """A sqlite3 file of 1e6 rows: ``read_sql`` through a plain connection
+    and through a ``ModinDatabaseConnection``, and the ``to_sql`` round
+    trip."""
+    import sqlite3
+
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.db_conn import ModinDatabaseConnection
+
+    rows = FORMATS_SQL_ROWS
+    path = os.path.join(workdir, "data.db")
+    query = "SELECT * FROM items"
+    conn = sqlite3.connect(path)
+    try:
+        p0 = pandas.DataFrame(formats_columns(rows, seed + 62, "kabcs"))
+        _, pandas_write_ms = _timed(lambda: p0.to_sql("items", conn, index=False))
+        del p0
+        p, pandas_ms = _timed(lambda: pandas.read_sql(query, conn))
+        for how, con in (("plain", conn), ("descriptor", ModinDatabaseConnection("sqlite3", path))):
+            t, port_ms, peak = fm.port_call(lambda: tpd.read_sql(query, con))
+            got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(t))
+            _same_read(got, p, f"read_sql {how}")
+            _numeric_on_cuda(t, f"read_sql {how}")
+            del got
+            fm.record(f"read_sql_{how}", rows, port_ms, pandas_ms, to_pandas_ms, peak)
+            fm.after_read(f"sql_{how}", t, p)
+        _, port_ms, peak = fm.port_call(lambda: t.to_sql("port_items", conn, index=False))
+        back = pandas.read_sql("SELECT * FROM port_items", conn)
+        _same_read(back, p, "to_sql round trip")
+        fm.record("to_sql", rows, port_ms, pandas_write_ms, None, peak,
+                  pandas_ms_is="pandas' to_sql of the same frame into the same file")
+        del t, p, back
+    finally:
+        conn.close()
+    os.unlink(path)
+    free_device_memory()
+
+
+def formats_excel(fm: _Formats, seed: int, workdir: str) -> int:
+    """1e5 rows of int64, float64, float64 and str: ``to_excel`` then
+    ``read_excel``, through the port's xlsx codec where no Excel engine is
+    installed (pandas' own otherwise).  The reference is the original frame,
+    and pandas' read of the port's file where an engine imports.  Returns
+    the defaults an engine's pandas path counted."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.io.io import _no_excel_engine_installed
+
+    rows = FORMATS_EXCEL_ROWS
+    native = _no_excel_engine_installed()
+    path = os.path.join(workdir, "port.xlsx")
+    p = pandas.DataFrame(formats_columns(rows, seed + 63, "kbcs"))
+    t0 = tpd.from_pandas(p)
+    _, port_ms, peak = fm.port_call(lambda: t0.to_excel(path, index=False))
+    fm.record("to_excel", rows, port_ms, None, None, peak, codec="native" if native else "engine",
+              pandas_ms_is="not measured: no Excel engine here" if native else None,
+              file_bytes=os.path.getsize(path))
+    del t0
+    t, port_ms, peak = fm.port_call(lambda: tpd.read_excel(path))
+    got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(t))
+    if [str(d) for d in got.dtypes] != ["int64", "float64", "float64", "str"]:
+        raise AssertionError(f"read_excel: dtypes {list(got.dtypes)}")
+    _same_read(got, p, "read_excel against the original frame")
+    pandas_ms = None
+    if not native:
+        want, pandas_ms = _timed(lambda: pandas.read_excel(path))
+        _same_read(got, want, "read_excel against pandas' read")
+    _numeric_on_cuda(t, "read_excel")
+    del got
+    fm.record("read_excel", rows, port_ms, pandas_ms, to_pandas_ms, peak, codec="native" if native else "engine")
+    fm.after_read("excel", t, p)
+    os.unlink(path)
+    return 0 if native else 2
+
+
+def formats_hdf(fm: _Formats, seed: int, workdir: str) -> None:
+    """An HDF5 round trip where PyTables imports; else the port raises
+    pandas' own ``ImportError`` and the phase says HDF is unverified."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.io.column_stores.hdf_dispatcher import _pytables_available
+
+    p = pandas.DataFrame(formats_columns(FORMATS_SQL_ROWS, seed + 64, "kabc"))
+    t0 = tpd.from_pandas(p)
+    path = os.path.join(workdir, "port.h5")
+    if not _pytables_available():
+        try:
+            p.to_hdf(os.path.join(workdir, "pandas.h5"), key="k")
+        except ImportError as err:
+            want = str(err)
+        try:
+            t0.to_hdf(path, key="k")
+        except ImportError as err:
+            if str(err) != want:
+                raise AssertionError(f"to_hdf: {err} != pandas' {want}") from err
+        else:
+            raise AssertionError("to_hdf without PyTables did not raise")
+        emit({"phase": "formats", "note": "PyTables does not import here: HDF unverified on the card "
+              "(the port raised pandas' own ImportError)"})
+        return
+    _, port_ms, peak = fm.port_call(lambda: t0.to_hdf(path, key="k", format="table", mode="w"))
+    _, pandas_ms = _timed(lambda: p.to_hdf(os.path.join(workdir, "pandas.h5"), key="k", format="table", mode="w"))
+    fm.record("to_hdf", len(p), port_ms, pandas_ms, None, peak)
+    t, port_ms, peak = fm.port_call(lambda: tpd.read_hdf(path, key="k"))
+    want, pandas_ms = _timed(lambda: pandas.read_hdf(path, key="k"))
+    got, to_pandas_ms = host_ms(lambda: tpd.to_pandas(t))
+    _same_read(got, want, "read_hdf")
+    _same_read(got, p, "HDF round trip")
+    fm.record("read_hdf", len(p), port_ms, pandas_ms, to_pandas_ms, peak)
+    fm.after_read("hdf", t, want)
+
+
+def formats_interchange(fm: _Formats, seed: int) -> None:
+    """``make_frame((1e7, 10))`` plus one, deferred: pandas' consumer over
+    the port's producer against pandas' own producer, a selection of 2 of
+    the 10 columns fetching 2, and ``to_numpy`` in one device-to-host copy
+    against pandas'."""
+    import warnings
+
+    import pandas
+    from pandas.api.interchange import from_dataframe
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.dataframe.torch.interchange import dataframe as xchg
+    from modin_tpu_torch.parallel.engine import TorchWrapper
+
+    rows = FORMATS_XCHG_ROWS
+    p = pandas.DataFrame(make_frame_data(rows, seed + 65)) + 1
+    t = tpd.from_pandas(pandas.DataFrame(make_frame_data(rows, seed + 65))) + 1
+    with warnings.catch_warnings():
+        # pandas 3 deprecates the protocol; the deprecation is not under test
+        warnings.simplefilter("ignore")
+        for name, cols in (("from_dataframe", None), ("select_2_of_10", [2, 7])):
+            xchg.COLUMN_FETCHES = 0
+
+            def port():
+                producer = t.__dataframe__()
+                return from_dataframe(producer if cols is None else producer.select_columns(cols))
+
+            got, port_ms, peak = fm.port_call(port)
+            want, pandas_ms = _timed(lambda: from_dataframe(
+                p.__dataframe__() if cols is None else p.__dataframe__().select_columns(cols)))
+            assert_same_pandas(got, want, f"interchange {name}", exact=True)
+            expect = 10 if cols is None else len(cols)
+            if xchg.COLUMN_FETCHES != expect:
+                raise AssertionError(f"interchange {name}: {xchg.COLUMN_FETCHES} column fetches, not {expect}")
+            fm.record(f"interchange_{name}", rows, port_ms, pandas_ms, None, peak,
+                      column_fetches=xchg.COLUMN_FETCHES)
+            del got, want
+    copies = []
+    materialize = TorchWrapper.__dict__["materialize"]
+
+    def counting(cls, obj):
+        copies.append(tuple(getattr(obj, "shape", ())))
+        return materialize.__func__(cls, obj)
+
+    TorchWrapper.materialize = classmethod(counting)
+    try:
+        got, port_ms, peak = fm.port_call(lambda: t.to_numpy())
+    finally:
+        TorchWrapper.materialize = materialize
+    want, pandas_ms = _timed(lambda: p.to_numpy())
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError(f"to_numpy: {got.dtype} {got.shape} != pandas' {want.dtype} {want.shape}")
+    if copies != [(rows, 10)]:
+        raise AssertionError(f"to_numpy: device-to-host copies {copies}")
+    fm.record("to_numpy", rows, port_ms, pandas_ms, None, peak, device_to_host_copies=len(copies),
+              bytes=got.nbytes)
+    del t, p, got, want
+    free_device_memory()
+
+
+def phase_formats(seed: int, workdir: str) -> dict:
+    """The remaining IO through ``modin_tpu_torch.pandas`` at the sizes
+    users hold such files: JSON lines (1e6 records) and fixed width (5e5
+    rows), the streamed ``to_json``; SQL (1e6 rows, through a plain
+    connection and a ``ModinDatabaseConnection``, ``to_sql``); Excel
+    (1e5 rows, the port's codec); HDF (a round trip where PyTables
+    imports); the interchange producer and ``to_numpy`` at 1e7 x 10.  Each
+    read equals pandas' (records, dtypes, values exactly), and on its frame
+    ``groupby("k")`` sum/mean, ``(b * c + 1).sum()`` and ``k.nunique()``
+    equal pandas' and launch ``groupagg``, the fused kernel and
+    ``bincount``; nothing defaults to pandas.  Returns the launches."""
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    t_phase = time.perf_counter()
+    fm = _Formats()
+    start = fm.launches()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    formats_text(fm, seed, workdir)
+    formats_sql(fm, seed, workdir)
+    engine_defaults = formats_excel(fm, seed, workdir)
+    formats_hdf(fm, seed, workdir)
+    formats_interchange(fm, seed)
+    if tqc.DEFAULTS_TO_PANDAS != engine_defaults:
+        raise AssertionError(f"{tqc.DEFAULTS_TO_PANDAS} formats calls defaulted to pandas")
+    launches = {k: v - start[k] for k, v in fm.launches().items()}
+    never = [k for k in ("groupagg", "fused", "bincount") if launches[k] == 0]
+    if never:
+        raise AssertionError(f"the formats path never launched {never}")
+    emit({"phase": "formats", "launches": launches, "defaults_to_pandas": tqc.DEFAULTS_TO_PANDAS,
+          "excel_engine_defaults": engine_defaults, "queries": len(fm.records),
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_path: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
-    ``io``, ``window``, ``clean``, ``dates``, ``plan``) to its kernels'
-    launches; the ``launches`` of a kernel's entry is its own path's:
+    ``io``, ``window``, ``clean``, ``dates``, ``plan``, ``formats``) to its
+    kernels' launches; the ``launches`` of a kernel's entry is its own path's:
     bincount's the main path's, scan's the window path's (the clean path's
     ``rank`` runs it too), the fused kernel's the fusion path's
     (``fused_by_path``: its launches on every path, each counted from 0 just
@@ -3698,7 +4110,8 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_
                     "(_jit_grouped_cum): XLA programs, not Pallas kernels",
         "launches": launches["window"]["scan"],
         "launches_by_path": {"window": launches["window"]["scan"], "clean": launches["clean"]["scan"],
-                             "clean_rank": launches["clean"]["rank_scan"]},
+                             "clean_rank": launches["clean"]["rank_scan"],
+                             "formats": launches["formats"]["scan"]},
         "max_abs_err": kernel["scan"]["max_abs_err"],
         "n": rows,
         "case": "seg_add_f64_nocodes",
@@ -3781,11 +4194,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", type=int, default=10**8,
                         help="rows of the kernel inputs")
-    # 2.5e7 (from 5e7, and 1e8 before) so that the whole run, phase 13
-    # included, stays under 1050 s: phase 7 took 595 s of 948 at 1e8 rows,
-    # and 286-321 s at 5e7 (H100 hosts), most of it its pandas and numpy
-    # references (97 s and 59 s of the 321)
-    parser.add_argument("--arithmetic-rows", type=int, default=25 * 10**6,
+    # 2e7 (from 2.5e7, 5e7 and 1e8 before) so that the whole run, phase 14
+    # included, stays under 1050 s: it took 1064.0 s with phase 7 at 2.5e7
+    # rows (230.9 s of it) and phase 14 77.5 s; phase 7 took 595 s of 948 at
+    # 1e8 rows and 286-321 s at 5e7 (H100 hosts), most of it its pandas and
+    # numpy references (97 s and 59 s of the 321)
+    parser.add_argument("--arithmetic-rows", type=int, default=2 * 10**7,
                         help="rows of the arithmetic phase")
     parser.add_argument("--earlier-rows", type=int, default=2 * 10**7,
                         help="rows of the main-path and relational phases")
@@ -3817,7 +4231,7 @@ def main(argv=None) -> int:
                         "kernel check times on the same cases, before and after this one's")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all ten)")
+                        "(the result lines need all eleven)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3897,9 +4311,12 @@ def main(argv=None) -> int:
     if "plan" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as workdir:
             launches["plan"] = run("plan", phase_plan, args.plan_rows, args.seed, workdir)
+    if "formats" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as workdir:
+            launches["formats"] = run("formats", phase_formats, args.seed, workdir)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,
           "groupagg_launches_by_path": groupagg_by_path})
-    for name in ("main", "arithmetic", "clean", "fusion", "plan"):
+    for name in ("main", "arithmetic", "clean", "fusion", "plan", "formats"):
         if name in fused_by_path and fused_by_path[name] == 0:
             raise AssertionError(f"the {name} path never launched the fused kernel")
     if "plan" in launches and launches["plan"]["groupagg"] == 0:

@@ -14,7 +14,8 @@ Datetimes/timedeltas live on the device as int64 with a logical-dtype tag;
 NaT is the int64 min sentinel, pandas' own representation.
 
 pandas is imported only inside :func:`column_of_series` (and so
-:meth:`TorchDataframe.from_pandas`) and :meth:`TorchDataframe.to_pandas`; :meth:`TorchDataframe.from_numpy_columns`
+:meth:`TorchDataframe.from_pandas`), :meth:`TorchDataframe.to_pandas` and
+:meth:`TorchDataframe.to_numpy_stacked`; :meth:`TorchDataframe.from_numpy_columns`
 builds a frame from numpy arrays without it.
 """
 
@@ -28,7 +29,7 @@ import torch
 from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
 from modin_tpu_torch.ops.lazy import LazyExpr, is_lazy, materialize, materialize_exprs
 from modin_tpu_torch.parallel.engine import TorchWrapper
-from modin_tpu_torch.utils import has_torch_dtype, numpy_dtype
+from modin_tpu_torch.utils import has_torch_dtype, numpy_dtype, torch_dtype
 
 
 def _is_device_dtype(dtype: Any) -> bool:
@@ -253,6 +254,30 @@ class TorchDataframe:
             slice(None),
             self.index,
         )
+
+    def to_numpy_stacked(self) -> Optional[np.ndarray]:
+        """The frame as ``pandas.DataFrame.to_numpy()`` gives it, stacked on
+        the device in pandas' common dtype and fetched in one
+        device-to-host copy; None where the device cannot give pandas'
+        array (a host or datetime column, a common dtype without a tensor
+        form: object for bools beside numbers, uint64)."""
+        from pandas.core.dtypes.cast import find_common_type
+
+        cols = self._columns
+        if not cols or not all(c.is_device and c.pandas_dtype.kind in "biuf" for c in cols):
+            return None
+        common = find_common_type([c.pandas_dtype for c in cols])
+        if not isinstance(common, np.dtype) or not has_torch_dtype(common):
+            return None
+        datas = self.device_datas()
+        stacked = torch.empty(
+            (len(self), len(cols)), dtype=torch_dtype(common), device=datas[0].device
+        )
+        for i, data in enumerate(datas):
+            stacked[:, i] = data  # casts as numpy's astype does
+        host = TorchWrapper.materialize(stacked)
+        del stacked, datas
+        return host
 
     def window_to_pandas(self, start: int, stop: int) -> Any:
         """Rows ``[start, stop)`` as a pandas DataFrame.  The device columns

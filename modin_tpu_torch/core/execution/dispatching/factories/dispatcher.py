@@ -36,5 +36,5 @@ def _make_dispatch(name: str):
     return dispatch
 
 
-for _name in READERS + WRITERS:
+for _name in READERS + WRITERS + ("from_interchange_dataframe",):
     setattr(FactoryDispatcher, _name, _make_dispatch(_name))

@@ -3,8 +3,8 @@
 The port's counterpart of ``modin_tpu/core/execution/dispatching/factories/
 factories.py``.  The port has one execution, ``CudaOnTorch``: torch tensors
 on one device (``CudaOnTorchFactory``, beside the JAX package's
-``TpuOnJaxFactory``).  Every ``_read_*``/``_to_*`` forwards to the bound IO
-class.
+``TpuOnJaxFactory``).  Every ``_read_*``/``_to_*`` (and
+``_from_interchange_dataframe``) forwards to the bound IO class.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def _make_io_forwarder(name: str):
     return forwarder
 
 
-for _name in READERS + WRITERS:
+for _name in READERS + WRITERS + ("from_interchange_dataframe",):
     setattr(BaseFactory, f"_{_name}", _make_io_forwarder(_name))
 
 

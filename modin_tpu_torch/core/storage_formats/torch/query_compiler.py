@@ -226,6 +226,34 @@ class TorchQueryCompiler(BaseQueryCompiler):
             s.name = None
         return s
 
+    def to_numpy(self, **kwargs: Any) -> np.ndarray:
+        """``DataFrame.to_numpy``: a frame of numeric device columns asked
+        with no ``dtype``, ``copy`` or ``na_value`` is stacked on the device
+        in pandas' common dtype and comes over in one device-to-host copy;
+        every other form goes through pandas."""
+        from pandas.api.extensions import no_default
+
+        if (
+            kwargs.get("dtype") is None
+            and kwargs.get("copy", False) is False
+            and kwargs.get("na_value", no_default) is no_default
+            and set(kwargs) <= {"dtype", "copy", "na_value"}
+        ):
+            stacked = self._modin_frame.to_numpy_stacked()
+            if stacked is not None:
+                return stacked
+        return self.to_pandas().to_numpy(**kwargs)
+
+    def to_interchange_dataframe(self, nan_as_null: bool = False, allow_copy: bool = True):
+        """The port's protocol producer over this frame's columns: no
+        pandas frame of the whole, zero copy over host caches, one fetch a
+        requested computed column."""
+        from modin_tpu_torch.core.dataframe.torch.interchange.dataframe import (
+            TorchDataFrameXchg,
+        )
+
+        return TorchDataFrameXchg(self._modin_frame, nan_as_null=nan_as_null, allow_copy=allow_copy)
+
     def execute(self) -> None:
         self._modin_frame.finalize()
 

@@ -8,8 +8,11 @@ and ``Series`` exists; what the device does not run defaults to pandas,
 counted in ``query_compiler.DEFAULTS_TO_PANDAS``.
 
 The IO functions come from ``io.py``: ``read_csv``, ``read_table``,
-``read_parquet`` and ``read_feather`` parse in parallel and put the numeric
-columns on the device; the other readers default to pandas, counted.
+``read_json(lines=True)``, ``read_fwf``, ``read_sql``, ``read_hdf``,
+``read_parquet`` and ``read_feather`` read in parallel and put the numeric
+columns on the device, ``read_excel`` reads with an engine or the port's
+xlsx codec; the other readers default to pandas, counted.  ``api`` holds
+the interchange consumer (``api.interchange.from_dataframe``).
 """
 
 from __future__ import annotations
@@ -133,6 +136,7 @@ from modin_tpu_torch.pandas.io import (  # noqa: E402,F401
 from modin_tpu_torch.pandas.plotting import Plotting as plotting  # noqa: E402,F401
 from modin_tpu_torch.pandas.series import Series  # noqa: E402,F401
 from modin_tpu_torch.pandas.utils import from_pandas, to_pandas  # noqa: E402,F401
+from modin_tpu_torch.pandas import api  # noqa: E402,F401
 
 __version__ = pandas.__version__
 

@@ -11,8 +11,9 @@ one counted default (``query_compiler.DEFAULTS_TO_PANDAS``).  ``rolling``,
 (``pandas/resample.py``).  The numpy math ufuncs of one argument
 (``np.sqrt(df)`` and the others of the compiler's ``unary_math``) go through
 the compiler; other ufuncs apply to the pandas object.  Left out, as a
-later slice of the port: the backend switching between compilers.  ``to_csv`` (and the
-DataFrame's ``to_parquet``/``to_feather``) go through the IO dispatchers
+later slice of the port: the backend switching between compilers.  ``to_csv``,
+``to_json``, ``to_sql``, ``to_hdf`` and ``to_excel`` (and the DataFrame's
+``to_parquet``/``to_feather``) go through the IO dispatchers
 (``FactoryDispatcher``); the other writers default to pandas.
 """
 
@@ -1215,6 +1216,38 @@ class BasePandasDataset:
         )
 
         return FactoryDispatcher.to_csv(self._query_compiler, path_or_buf=path_or_buf, **kwargs)
+
+    def to_json(self, path_or_buf: Any = None, **kwargs: Any):
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        return FactoryDispatcher.to_json(self._query_compiler, path_or_buf=path_or_buf, **kwargs)
+
+    def to_sql(self, name: str, con: Any, **kwargs: Any):
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        return FactoryDispatcher.to_sql(self._query_compiler, name=name, con=con, **kwargs)
+
+    def to_hdf(self, path_or_buf: Any, *, key: str, **kwargs: Any):
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        return FactoryDispatcher.to_hdf(self._query_compiler, path_or_buf=path_or_buf, key=key, **kwargs)
+
+    def to_excel(self, excel_writer: Any, *args: Any, **kwargs: Any):
+        from modin_tpu_torch.core.execution.dispatching.factories.dispatcher import (
+            FactoryDispatcher,
+        )
+
+        if args:
+            # positionals (sheet_name, na_rep, ...) bound onto their names
+            bound = inspect.signature(pandas.DataFrame.to_excel).bind(self, excel_writer, *args, **kwargs)
+            kwargs = {k: v for k, v in bound.arguments.items() if k not in ("self", "excel_writer")}
+        return FactoryDispatcher.to_excel(self._query_compiler, excel_writer=excel_writer, **kwargs)
 
     def to_dict(self, *args: Any, **kwargs: Any):
         return self._default_to_pandas("to_dict", *args, **kwargs)

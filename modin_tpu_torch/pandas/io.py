@@ -3,9 +3,11 @@
 The port's counterpart of ``modin_tpu/pandas/io.py``.  A reader binds its
 arguments to pandas' own signature (defaults included) and hands them by
 name to ``FactoryDispatcher``: ``read_csv``, ``read_table``,
-``read_parquet`` and ``read_feather`` parse in parallel and put the numeric
-columns on the device; the others read with pandas, counted as one default
-each.
+``read_json``, ``read_fwf``, ``read_sql``, ``read_hdf``, ``read_parquet``
+and ``read_feather`` read through their dispatchers and put the numeric
+columns on the device; ``read_excel`` (and ``ExcelFile``) reads with pandas
+where an Excel engine is installed and with the port's xlsx codec where
+none is; the others read with pandas, counted as one default each.
 """
 
 from __future__ import annotations
@@ -96,12 +98,49 @@ def to_pickle(obj: Any, filepath_or_buffer: Any, **kwargs: Any) -> None:
     pandas.to_pickle(obj, filepath_or_buffer, **kwargs)
 
 
+class _NativeWorkbook:
+    """What ``ExcelFile`` asks of its reader, over the port's xlsx codec."""
+
+    def __init__(self, path: Any):
+        from modin_tpu_torch.core.io.excel import sheet_names
+
+        self.sheet_names = sheet_names(path)
+
+    def close(self) -> None:
+        pass
+
+
 class ExcelFile(pandas.ExcelFile):
-    """pandas' ExcelFile whose ``parse`` returns the port's frames."""
+    """pandas' ExcelFile whose ``parse`` returns the port's frames.  Where
+    no Excel engine is installed, the workbook opens over the port's xlsx
+    codec and ``parse`` reads by ``read_excel``'s rule: the codec's forms,
+    else ``ImportError``."""
+
+    _native = False
+
+    def __init__(self, path_or_buffer: Any, engine: Any = None, storage_options: Any = None,
+                 engine_kwargs: Any = None):
+        try:
+            super().__init__(path_or_buffer, engine=engine, storage_options=storage_options,
+                             engine_kwargs=engine_kwargs)
+        except ImportError:
+            from modin_tpu_torch.core.io.io import _no_excel_engine_installed
+
+            if engine is not None or not _no_excel_engine_installed():
+                raise
+            self._native = True
+            self.engine = None
+            self.storage_options = storage_options
+            self._reader = _NativeWorkbook(self._io)
 
     def parse(self, *args: Any, **kwargs: Any):
         from modin_tpu_torch.pandas.dataframe import DataFrame
 
+        if self._native:
+            bound = inspect.signature(pandas.ExcelFile.parse).bind(self, *args, **kwargs)
+            params = {k: v for k, v in bound.arguments.items() if k != "self"}
+            params.update(params.pop("kwds", {}))
+            return read_excel(self._io, **params)
         result = super().parse(*args, **kwargs)
         if isinstance(result, dict):
             return {k: DataFrame(v) for k, v in result.items()}

@@ -69,10 +69,31 @@ SLICE3_MODULES = [
 ]
 
 
+# the modules of the remaining IO and the interchange producer: the JSON,
+# fixed-width, SQL and HDF dispatchers, the connection descriptor, the xlsx
+# codec (the port's copies of pure-Python JAX-package modules), the
+# producer and the consumer's namespace
+SLICE13_MODULES = [
+    "core/dataframe/torch/interchange/__init__.py",
+    "core/dataframe/torch/interchange/dataframe.py",
+    "core/io/column_stores/hdf_dispatcher.py",
+    "core/io/excel/__init__.py",
+    "core/io/excel/xlsx.py",
+    "core/io/sql/__init__.py",
+    "core/io/sql/sql_dispatcher.py",
+    "core/io/text/fwf_dispatcher.py",
+    "core/io/text/json_dispatcher.py",
+    "db_conn.py",
+    "pandas/api/__init__.py",
+    "pandas/api/interchange/__init__.py",
+]
+
+
 def test_package_has_modules_to_scan():
     assert len(list(PACKAGE.rglob("*.py"))) >= 30
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
     assert set(SLICE3_MODULES) <= scanned
+    assert set(SLICE13_MODULES) <= scanned
 
 
 @pytest.mark.parametrize(
@@ -106,11 +127,12 @@ def test_import_leaves_jax_and_modin_tpu_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_slice3_modules_import_without_jax_or_modin_tpu():
+def _import_without_jax_or_modin_tpu(modules) -> subprocess.CompletedProcess:
     names = [
-        "modin_tpu_torch." + m[: -len(".py")].replace("/", ".") for m in SLICE3_MODULES
+        "modin_tpu_torch." + m[: -len(".py")].replace("/__init__", "").replace("/", ".")
+        for m in modules
     ]
-    proc = _run_python(
+    return _run_python(
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
@@ -119,6 +141,15 @@ def test_slice3_modules_import_without_jax_or_modin_tpu():
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
+
+
+def test_slice13_modules_import_without_jax_or_modin_tpu():
+    proc = _import_without_jax_or_modin_tpu(SLICE13_MODULES)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice3_modules_import_without_jax_or_modin_tpu():
+    proc = _import_without_jax_or_modin_tpu(SLICE3_MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

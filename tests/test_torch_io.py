@@ -309,13 +309,15 @@ def test_parquet_read_options_match_pandas(tmp_path):
 
 
 def test_defaulted_reader_counts_once(tmp_path):
-    df = pandas.DataFrame(_frame_data(rows=50))
-    df.to_json(tmp_path / "d.json")
+    # read_stata has no dispatcher (read_json has one since the JSON
+    # dispatcher was ported)
+    df = pandas.DataFrame(_frame_data(rows=50)).drop(columns=["s", "t"])
+    df.to_stata(tmp_path / "d.dta", write_index=False)
     before = tqc.DEFAULTS_TO_PANDAS
-    got = tpd.read_json(str(tmp_path / "d.json"))
+    got = tpd.read_stata(str(tmp_path / "d.dta"))
     assert tqc.DEFAULTS_TO_PANDAS == before + 1
     assert isinstance(got, tpd.DataFrame)
-    pandas.testing.assert_frame_equal(tpd.to_pandas(got), pandas.read_json(tmp_path / "d.json"))
+    pandas.testing.assert_frame_equal(tpd.to_pandas(got), pandas.read_stata(tmp_path / "d.dta"))
 
 
 def test_readers_bind_pandas_signatures(tmp_path):
