@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
                           [--float-rows N] [--io-rows N] [--window-rows N]
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
-                          [--seed S] [--parent-checkout DIR]
-                          [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats]
+                          [--memory-rows N] [--seed S] [--parent-checkout DIR]
+                          [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
+                                    memory]
 
 Phases, one JSON object per line each:
 
@@ -72,7 +73,7 @@ Phases, one JSON object per line each:
              grouped sums and means take ``groupagg`` where the route gate
              says so: its launches are printed, and none where the gate
              predicts one fails the phase.
-5. float   - float keys with NaN and float values with NaN (1e7 rows):
+5. float   - float keys with NaN and float values with NaN (5e6 rows):
              groupby sum/mean/count under dropna True/False and the skipna
              reductions; the group mean twice, bit for bit.
 6. relational - the asv relational suite at ``--earlier-rows`` rows through
@@ -87,7 +88,7 @@ Phases, one JSON object per line each:
              pandas, and every value column stays on ``cuda``.  Needs
              pandas, the reference it is held against.
 7. arithmetic - asv ``TimeArithmetic`` on ``make_frame((rows, 10))``
-             (``--arithmetic-rows``, 2e7 by default): sum, count, median, nunique, mean, mode,
+             (``--arithmetic-rows``, 7.5e6 by default): sum, count, median, nunique, mean, mode,
              add/mul/mod(2) at ``axis=0`` and ``axis=1``, abs and isin
              (which take no axis), ``quantile([0.1, 0.5, 0.9])`` and
              ``describe()`` on the device, each against pandas (ints
@@ -100,7 +101,7 @@ Phases, one JSON object per line each:
              the device, and ``apply``, ``aggregate`` with a callable and
              ``transpose`` at asv's Big unary shape (1e6 x 10; 1e5 rows for
              ``axis=1``), each defaulting to pandas exactly once.
-8. io      - files in and strings on the card at ``--io-rows`` (1e7) rows of
+8. io      - files in and strings on the card at ``--io-rows`` (2.5e6) rows of
              asv's ``str_int`` CSV shape (10 columns, three of them the
              strings alpha/beta/gamma-delta): ``to_csv`` of the uploaded
              frame, byte for byte pandas' file (asv ``TimeToCsv``);
@@ -117,7 +118,7 @@ Phases, one JSON object per line each:
              defaults to pandas, and the bincount kernel launches.
 9. window  - windows, cumulative ops and the rest of groupby on
              ``make_frame((rows, 10), ngroups=100)`` at ``--window-rows``
-             (5e6 by default) and on phase 5's NaN float
+             (2.5e6 by default) and on phase 5's NaN float
              frame (with +/-inf rows): cumsum/cummax/shift/diff/pow,
              skew/kurt, ``rolling(10)``/``rolling(1000)``
              sum/mean/std/min/max/count, ``expanding`` mean/std, ``ewm``
@@ -131,7 +132,7 @@ Phases, one JSON object per line each:
              defaults to pandas, the scan and the bincount kernels launch,
              and an ewm mean and a rolling std repeat bit for bit.
 10. clean  - missing data, dtypes, masked assignment and the sort-shaped
-             breadth at ``--clean-rows`` (1e7) on ``make_frame((rows, 10),
+             breadth at ``--clean-rows`` (2.5e6) on ``make_frame((rows, 10),
              ngroups=100)``, on phase 5's NaN float frame (with +/-inf rows)
              and on that frame with a string column of three values:
              ``isna``/``notna``, ``fillna`` (0, a dict, ``df.mean()``),
@@ -148,7 +149,7 @@ Phases, one JSON object per line each:
              query defaults to pandas, the value columns stay on ``cuda``,
              and ``rank`` launches the scan kernel.
 11. dates  - datetimes, bool keys, statistics and encodings at
-             ``--dates-rows`` (5e6): all 23 ``.dt`` fields of a
+             ``--dates-rows`` (2.5e6): all 23 ``.dt`` fields of a
              datetime64[us] column from 1900 to 2100 with 1 % NaT and of the
              same instants as datetime64[ns], the 5 timedelta fields of their
              difference from 2000-01-01, groupby sum/mean/count by
@@ -168,7 +169,7 @@ Phases, one JSON object per line each:
              ``corr`` being off in its smallest entries and at the
              offset), no query defaults to pandas, and the groupby by two
              ``.dt`` keys launches the bincount kernel.
-12. fusion - deferred chains at ``--fusion-rows`` (2e7): ``df * 2 + 1``,
+12. fusion - deferred chains at ``--fusion-rows`` (1e7): ``df * 2 + 1``,
              ``(df - df.mean()) / df.std()``, ``df1 + df2 * df1``, ``a * b +
              c`` with each reduction tail with and without ``skipna``,
              ``.sum(axis=1)`` of a chain, a filter on a lazy mask,
@@ -183,7 +184,7 @@ Phases, one JSON object per line each:
              kernel as often as predicted.  Every earlier phase runs its
              elementwise queries through the fused kernel too; the kernels
              line gives its launches on every path.
-13. plan   - the whole-query planner at ``--plan-rows`` (5e6) rows of the
+13. plan   - the whole-query planner at ``--plan-rows`` (2.5e6) rows of the
              ``scripts/plan_smoke.py`` CSV shape (columns a-f): ``read_csv(p)
              .query("a > 0")[["b", "c"]].agg(...)`` for sum/mean/var/min/
              max/count, a map chain into a sum, stacked filters and
@@ -230,14 +231,40 @@ Phases, one JSON object per line each:
              ``k.nunique()`` equal pandas' and launch ``groupagg``, the
              fused kernel and ``bincount``; nothing defaults to pandas.
 
-The main-path and relational phases run at ``--earlier-rows`` (2e7 by
-default), the arithmetic phase at ``--arithmetic-rows`` (2e7), the clean
-phase at ``--clean-rows`` (1e7), the window, dates and plan phases at
-``--window-rows``, ``--dates-rows`` and ``--plan-rows`` (5e6 each) and
-the fusion phase at ``--fusion-rows`` (2e7) so that the whole script stays
-well inside its time limit; the kernel checks run at ``--rows``.  ``--phases``
+15. memory - routing and memory (``phase_memory``): the kernel router's
+             calibration on this card (``torch.sort``, the sorted-consume
+             pass and the histogram through ``bincount.cu`` at 2^18 and
+             2^24 rows, each fitted as a fixed and a growing part; pandas'
+             median, quantile, nunique and mode in both cardinality
+             regimes), its wall time and the cache hit of a second
+             resolution; a sweep of median, quantile, nunique of few and of
+             many values and mode over int64 columns of 1e5 to 1e8 rows and
+             at each crossover the model predicts inside that range, each
+             verdict with its predicted costs beside the device's and
+             pandas' measured times (a verdict on the side that measured
+             slower by more than ``MIN_SAVINGS_S`` fails); ``DeviceMemoryBudget`` =
+             20 GiB over int64 frames of ``--memory-rows`` (1e8) x 10: A
+             from ``from_pandas``, B = A * 3 + 1, C = A - 7, D = B + C, then
+             sums and a 100-key groupby of B, exactly as numpy derives them
+             from A's host data, with the spills, restores, their rates and
+             the ledger's and the allocator's bytes; phase 13's filtered
+             reduction and 1000-key groupby twice with no budget (nothing
+             donated, the repeat restoring nothing), then under a budget
+             with the scan's columns donated and pinned (bit-equal, a later
+             read restoring); phase 13's
+             pipelines under ``OptMode`` Auto and Off (bit-equal, re-plans
+             printed).
+
+The main-path and relational phases run at ``--earlier-rows`` (1e7 by
+default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
+``--arithmetic-rows`` (7.5e6), the io, window, clean, dates and plan phases
+at ``--io-rows``, ``--window-rows``, ``--clean-rows``, ``--dates-rows`` and
+``--plan-rows`` (2.5e6 each), the
+fusion phase at ``--fusion-rows`` (1e7) and phase 15's CSV queries at
+``--donation-rows`` (5e6) so that the whole script stays near half of its
+time limit; the kernel checks run at ``--rows``.  ``--phases``
 picks the phases after the kernel check for a quick run; only a run of all
-eleven prints the result lines.  Then the card's name and power limit, one
+of them prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any mismatch raises and the process
 exits non-zero.  Without a CUDA card, or without the package beside this
@@ -259,7 +286,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats")
+              "formats", "memory")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -1312,6 +1339,14 @@ def assert_same_pandas(got, want, what: str, exact: bool = False) -> None:
         got, want = got.to_frame(), want.to_frame()
     if list(got.columns) != list(want.columns):
         raise AssertionError(f"{what}: columns differ")
+    dtypes = set(want.dtypes)
+    if (want.shape[1] > len(want) and len(dtypes) == 1 and isinstance(next(iter(dtypes)), np.dtype)
+            and list(got.dtypes) == list(want.dtypes)):
+        # more columns than rows, of one numpy dtype: they compare as one
+        # array (a transpose of 1e6 rows has 1e6 columns, which a loop over
+        # them takes minutes for; a long frame's copy would cost more)
+        assert_same_values(got.to_numpy(), want.to_numpy(), what, exact)
+        return
     for i, label in enumerate(want.columns):
         g, w = got.iloc[:, i], want.iloc[:, i]
         if g.dtype != w.dtype:
@@ -3019,6 +3054,15 @@ def _chain_161(d):
     return s
 
 
+# ``(x - mean) / std`` subtracts a sum taken in another order: near the mean
+# one ulp of the mean is more than 1e-12 of the result (pandas' own result
+# is up to 7.6e-11 from the exact one at 1e7 rows), so the chain is held bit
+# for bit to pandas' elementwise ops over the port's own mean and std, and
+# those to pandas' within rtol 1e-12
+OWN_REDUCTIONS = Tol("own reductions", rtol=FLOAT_RTOL,
+                     why=f"bit for bit over the port's mean and std, those within rtol {FLOAT_RTOL} of pandas'")
+
+
 def fusion_queries(pandas_frames: dict) -> dict:
     """name -> (query over a dict of frames, tolerance, predicted fused
     launches): one per materialized chain, one per reduction tail (two for
@@ -3027,7 +3071,7 @@ def fusion_queries(pandas_frames: dict) -> dict:
     floats = ["key", "val", "f32"]
     queries = {
         "mul2_add1": (lambda d: d["p"] * 2 + 1, EXACT, 1),
-        "standardize": (lambda d: (d["m"] - d["m"].mean()) / d["m"].std(), RTOL, 1),
+        "standardize": (lambda d: (d["m"] - d["m"].mean()) / d["m"].std(), OWN_REDUCTIONS, 1),
         "df1_plus_df2_times_df1": (lambda d: d["p"] + d["p2"] * d["p"], EXACT, 1),
         "sum_axis1": (lambda d: (d["p"] * 2 + 1).sum(axis=1), EXACT, 1),
         "filter_and": (lambda d: d["p"][(d["p"]["col0"] > 50) & (d["p"]["col1"] < 5)], EXACT, 1),
@@ -3175,7 +3219,12 @@ def phase_fusion(rows: int, seed: int) -> int:
         t0 = time.perf_counter()
         want = fn(frames)
         pandas_ms = (time.perf_counter() - t0) * 1e3
-        if isinstance(want, (pandas.DataFrame, pandas.Series)):
+        if tol is OWN_REDUCTIONS:
+            mean, std = fetch(port["m"].mean()), fetch(port["m"].std())
+            assert_same_pandas(mean, frames["m"].mean(), f"fusion {name} mean")
+            assert_same_pandas(std, frames["m"].std(), f"fusion {name} std")
+            assert_bitwise_pandas(got, (frames["m"] - mean) / std, f"fusion {name}")
+        elif isinstance(want, (pandas.DataFrame, pandas.Series)):
             if tol.kind == "exact":
                 assert_bitwise_pandas(got, want, f"fusion {name}")
             else:
@@ -3442,7 +3491,9 @@ def _fused_and_staged(fn, what: str, agg: str, scale=None, eager: bool = False) 
     warm-up each, then ``PLAN_SWEEP_REPEATS`` runs alternating), the Fused
     runs taking the fused leg (``eager``: the eager groupby's ``groupagg``
     launch) and the Staged runs not, and the two results held to each other
-    as phase 13 holds a query to pandas."""
+    as phase 13 holds a query to pandas.  No budget is set, so no run
+    donates and none pays a restore: each is the repeated query a user
+    pays."""
     from modin_tpu_torch.config import FuseMode
     from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
     from modin_tpu_torch.plan import fuse
@@ -4060,6 +4111,459 @@ def phase_formats(seed: int, workdir: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 15. memory: the router's calibration, budgeted spill, donation, optimizer
+# ---------------------------------------------------------------------- #
+
+MEMORY_SWEEP_ROWS = (10**5, 10**6, 10**7, 10**8)
+# the sweep's many-valued columns: values in [0, 2^21), past the histogram's
+# 2^20 bound (the sort strategy); at 1e8 rows pandas' nunique took 25.8 s
+# over all-distinct values (2^40) and 7.3 s over 2^24 on an H100 host, too
+# much of the phase's share
+MEMORY_WIDE_VALUES = 1 << 21
+MEMORY_BUDGET_BYTES = 20 * 2**30
+MEMORY_GROUP_KEY = "col0"
+# phase 13's pipelines the optimizer legs are held on (Auto against Off)
+MEMORY_OPT_QUERIES = ("filter_project_sum", "map_chain_sum", "groupby_sum")
+
+
+def memory_calibration() -> dict:
+    """The router's table measured on this card (``get_calibration`` with
+    its cache file removed), then resolved again from the file."""
+    from modin_tpu_torch.ops import router
+
+    router.set_calibration(None)
+    path = router._cache_path(router._platform(), router._device_key())
+    if path and os.path.exists(path):
+        os.remove(path)
+    calibrations = router.CALIBRATIONS
+    t0 = time.perf_counter()
+    table = router.get_calibration()
+    wall_s = time.perf_counter() - t0
+    if table is None:
+        raise AssertionError(f"the router's calibration failed on the card: {router.CALIBRATION_ERROR}")
+    router.set_calibration(None)
+    t0 = time.perf_counter()
+    again = router.get_calibration()
+    hit_s = time.perf_counter() - t0
+    if again != table or router.CALIBRATIONS != calibrations + 1:
+        raise AssertionError("the second resolution did not come from the cached table")
+    rec = {"phase": "memory", "part": "calibration", "table": table, "calibration_s": wall_s,
+           "cache_hit_s": hit_s, "cache_file": os.path.relpath(path, HERE) if path else None}
+    emit(rec)
+    return table
+
+
+def router_crossover_rows(op: str, strategies: list, table: dict):
+    """The fewest rows, on a grid of ``2^(k/4)`` from 1e5 to 1e9, at which
+    the router's model sends ``op`` to pandas (predicted device less
+    predicted pandas over ``MIN_SAVINGS_S``), or None where it never does."""
+    from modin_tpu_torch.ops import router
+
+    n = 1e5
+    while n <= 1e9:
+        costs = router.predicted_costs(op, int(n), strategies, table)
+        if costs["device_s"] - costs["host_s"] > router.MIN_SAVINGS_S:
+            return int(n)
+        n *= 2 ** 0.25
+    return None
+
+
+def memory_router_sweep(seed: int, table: dict) -> list:
+    """median, quantile(0.5), nunique of few (1024) and of many
+    (``MEMORY_WIDE_VALUES``) values and mode of int64 columns at
+    ``MEMORY_SWEEP_ROWS`` rows, and at the rows where the model predicts
+    each case to cross over to pandas (``router_crossover_rows``) where
+    that lies inside the sweep's range: the router's verdict with its
+    predicted costs beside the port's time on the device
+    (``KernelRouterMode=Device``, the sorted representation dropped before
+    each call) and pandas'.  A verdict whose side measured slower than the
+    other by more than ``MIN_SAVINGS_S`` fails the phase; so does an answer
+    that differs from pandas'."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import KernelRouterMode
+    from modin_tpu_torch.ops import reductions, router, sorted_cache
+
+    cases = (("median", "wide", lambda d: d.median()), ("quantile", "wide", lambda d: d.quantile(0.5)),
+             ("nunique", "narrow", lambda d: d.nunique()), ("nunique", "wide", lambda d: d.nunique()),
+             ("mode", "narrow", lambda d: d.mode()))
+    records = []
+
+    def run(n, chosen):
+        rng = np.random.default_rng(seed + 150 + n % 997)
+        pdfs = {"wide": pandas.DataFrame({"x": rng.integers(0, MEMORY_WIDE_VALUES, n)}),
+                "narrow": pandas.DataFrame({"x": rng.integers(0, 1024, n)})}
+        dfs = {k: tpd.from_pandas(v) for k, v in pdfs.items()}
+        for op, data, call in chosen:
+            df, pdf = dfs[data], pdfs[data]
+            col = df._query_compiler._modin_frame._columns[0]
+            sorted_cache.invalidate(col)
+            plan = reductions.plan_sort_reduce(op, [{"col": col}], n)
+            strategies = [p.strategy for p in plan]
+            verdict = router.verdict(op, n, strategies)
+            with KernelRouterMode.context("Device"):
+                got, device_ms = host_ms(lambda: tpd.to_pandas(call(df)))
+            sorted_cache.invalidate(col)
+            want, pandas_ms = host_ms(lambda: call(pdf))
+            assert_same_pandas(got, want, f"router sweep {op} {data} at {n} rows",
+                               exact=op not in ("median", "quantile"))
+            slack_ms = router.MIN_SAVINGS_S * 1e3
+            wrong = (verdict["choice"] == "host" and device_ms < pandas_ms - slack_ms) or (
+                verdict["choice"] == "device" and pandas_ms < device_ms - slack_ms)
+            rec = {"phase": "memory", "part": "router_sweep", "op": op, "values": data, "rows": n,
+                   "strategies": strategies, "verdict": verdict["choice"], "reason": verdict["reason"],
+                   "predicted_device_ms": verdict.get("device_s", float("nan")) * 1e3,
+                   "predicted_host_ms": verdict.get("host_s", float("nan")) * 1e3,
+                   "device_ms": device_ms, "pandas_ms": pandas_ms,
+                   "predicted_crossover_rows": router_crossover_rows(op, strategies, table),
+                   "verdict_on_slower_side": wrong}
+            emit(rec)
+            records.append(rec)
+            if wrong:
+                raise AssertionError(f"router sweep: {op} over {n} {data} rows chose {verdict['choice']} "
+                                     f"(predicted {verdict}) where it measured {device_ms:.1f} ms on the "
+                                     f"device and {pandas_ms:.1f} ms in pandas")
+        del dfs, pdfs
+        gc.collect()
+        free_device_memory()
+
+    for n in MEMORY_SWEEP_ROWS:
+        run(n, cases)
+    # the model's own crossovers, each measured once where it falls inside
+    # the sweep's range (the strategies of the largest size)
+    last = {(r["op"], r["values"]): r for r in records}
+    extra = {}
+    for op, data, call in cases:
+        n_x = last[(op, data)]["predicted_crossover_rows"]
+        if n_x is not None and MEMORY_SWEEP_ROWS[0] < n_x <= MEMORY_SWEEP_ROWS[-1]:
+            extra.setdefault(n_x, []).append((op, data, call))
+    emit({"phase": "memory", "part": "router_crossovers",
+          "cases": {f"{op}/{data}": last[(op, data)]["predicted_crossover_rows"] for op, data, _ in cases},
+          "measured_at": sorted(extra)})
+    for n_x, chosen in sorted(extra.items()):
+        run(n_x, chosen)
+    return records
+
+
+def memory_frame_data(rows: int, seed: int, cols: int = 10):
+    """``make_frame_data``'s columns (int64 in [0, 100)), drawn on the card
+    by a seeded generator and fetched, kept off the host's slower
+    generator; and, from the same tensors before they leave the card, the
+    references ``memory_spill`` holds its answers to: each column's sum,
+    the rows of each ``MEMORY_GROUP_KEY`` value and each other column's
+    sum within them (``torch.sum`` and ``torch.bincount``: int64 exact, and
+    none of the port's code).  Returns ``(columns, references)``."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 151)
+    dev = {f"col{i}": torch.randint(0, 100, (rows,), generator=gen, device="cuda") for i in range(cols)}
+    key = dev[MEMORY_GROUP_KEY]
+    weights = torch.arange(100, device="cuda")
+    refs = {"sums": {c: int(t.sum()) for c, t in dev.items()},
+            "key_counts": torch.bincount(key, minlength=100).cpu().numpy(),
+            # each (key, value) pair's count, then the sum of value * count
+            "group_sums": {c: (torch.bincount(key * 100 + t, minlength=100 * 100).reshape(100, 100)
+                               * weights).sum(1).cpu().numpy()
+                           for c, t in dev.items() if c != MEMORY_GROUP_KEY}}
+    return {c: t.cpu().numpy() for c, t in dev.items()}, refs
+
+
+def memory_spill(rows: int, seed: int) -> dict:
+    """``DeviceMemoryBudget`` = 20 GiB over int64 frames of ``rows`` x 10
+    (``make_frame_data``, 8 GB at 1e8): A from ``from_pandas``, B = A * 3 +
+    1 and C = A - 7 materialized, D = B + C; then A's sum (restoring A,
+    which D's admission spilled, pushes B out), B's sum and a 100-key
+    groupby sum of B (by its ``col0``), which restore B, and D's ``col0``
+    sum.  Every answer is held exactly to int64 references derived from
+    A's data (``memory_frame_data``); the spills,
+    restores and their rates, the ledger's resident bytes and the
+    allocator's are printed after each step, and the allocated peak may
+    pass the budget by one launch's new tensors (one frame) and no more."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import DeviceMemoryBudget
+    from modin_tpu_torch.core import memory
+
+    t_setup = time.perf_counter()
+    columns, refs = memory_frame_data(rows, seed)
+    pdf = pandas.DataFrame(columns, copy=False)
+    host = {c: pdf[c].to_numpy() for c in pdf.columns}
+    sum_a = refs["sums"]
+    setup_s = time.perf_counter() - t_setup
+    frame_bytes = sum(v.nbytes for v in host.values())
+    counts0, seconds0 = dict(memory.COUNTS), dict(memory.SECONDS)
+    steps = []
+
+    def step(name, t0):
+        torch.cuda.synchronize()
+        rec = {"step": name, "seconds": time.perf_counter() - t0,
+               "ledger_resident_gb": memory.device_resident_bytes() / 1e9,
+               "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+               "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               **{k: memory.COUNTS[k] - counts0[k] for k in ("memory.device.spill", "memory.device.spill_bytes",
+                                                           "memory.device.spill_copy", "memory.device.restore")}}
+        steps.append(rec)
+        emit({"phase": "memory", "part": "spill", **rec})
+
+    def sums(df):
+        return tpd.to_pandas(df.sum())
+
+    gc.collect()
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    base_allocated = torch.cuda.memory_allocated()
+    with DeviceMemoryBudget.context(MEMORY_BUDGET_BYTES):
+        t0 = time.perf_counter()
+        a = tpd.from_pandas(pdf)
+        step("A = from_pandas", t0)
+        t0 = time.perf_counter()
+        b = a * 3 + 1
+        b._query_compiler._modin_frame.materialize_device()
+        step("B = A * 3 + 1", t0)
+        t0 = time.perf_counter()
+        c = a - 7
+        c._query_compiler._modin_frame.materialize_device()
+        step("C = A - 7", t0)
+        t0 = time.perf_counter()
+        d = b + c
+        d._query_compiler._modin_frame.materialize_device()
+        step("D = B + C", t0)
+        t0 = time.perf_counter()
+        got_a = sums(a)
+        step("A.sum()", t0)
+        r0 = memory.COUNTS["memory.device.restore"]
+        t0 = time.perf_counter()
+        got_b = sums(b)
+        step("B.sum()", t0)
+        b_sum_restores = memory.COUNTS["memory.device.restore"] - r0
+        r0 = memory.COUNTS["memory.device.restore"]
+        t0 = time.perf_counter()
+        got_gb = tpd.to_pandas(b.groupby(MEMORY_GROUP_KEY).sum())
+        step("B.groupby(col0).sum()", t0)
+        b_groupby_restores = memory.COUNTS["memory.device.restore"] - r0
+        t0 = time.perf_counter()
+        got_d = tpd.to_pandas(d[["col0"]].sum())
+        step("D[['col0']].sum()", t0)
+        peak = torch.cuda.max_memory_allocated() - base_allocated
+    n = rows
+    wrap = np.int64
+    want_a = pandas.Series([wrap(v) for v in sum_a.values()], index=pdf.columns)
+    want_b = pandas.Series([wrap(3 * v + n) for v in sum_a.values()], index=pdf.columns)
+    want_d = pandas.Series([wrap(4 * sum_a["col0"] - 6 * n)], index=pdf.columns[:1])
+    for got, want, what in ((got_a, want_a, "A.sum()"), (got_b, want_b, "B.sum()"),
+                            (got_d, want_d, "D[['col0']].sum()")):
+        assert_same_pandas(got, want.astype(np.int64), f"memory spill {what}", exact=True)
+    counts = refs["key_counts"]
+    present = np.nonzero(counts)[0]
+    want_gb = pandas.DataFrame({c: (3 * g + counts)[present] for c, g in refs["group_sums"].items()},
+                               index=pandas.Index(3 * present + 1, name=MEMORY_GROUP_KEY))
+    assert_same_pandas(got_gb, want_gb, "memory spill B.groupby(col0).sum()", exact=True)
+    spilled = {k: memory.COUNTS[k] - counts0[k] for k in memory.COUNTS}
+    copy_s = memory.SECONDS["memory.device.spill_copy"] - seconds0["memory.device.spill_copy"]
+    restore_s = memory.SECONDS["memory.device.restore"] - seconds0["memory.device.restore"]
+    slack = frame_bytes
+    rec = {"phase": "memory", "part": "spill_summary", "rows": rows, "frame_gb": frame_bytes / 1e9,
+           "budget_gb": MEMORY_BUDGET_BYTES / 1e9, "peak_allocated_gb": peak / 1e9,
+           "peak_over_budget_gb": (peak - MEMORY_BUDGET_BYTES) / 1e9, "allowed_over_budget_gb": slack / 1e9,
+           "counts": spilled, "spill_copy_s": copy_s, "restore_s": restore_s,
+           "spill_copy_gb_per_s": spilled["memory.device.spill_copy_bytes"] / copy_s / 1e9 if copy_s else None,
+           "restore_gb_per_s": spilled["memory.device.restore_bytes"] / restore_s / 1e9 if restore_s else None,
+           "b_sum_restores": b_sum_restores, "b_groupby_restores": b_groupby_restores,
+           "setup_s": setup_s}
+    emit(rec)
+    if not (spilled["memory.device.spill"] and spilled["memory.device.spill_copy"] and
+            spilled["memory.device.restore"]):
+        raise AssertionError(f"the budgeted run did not spill, copy and restore: {spilled}")
+    if peak > MEMORY_BUDGET_BYTES + slack:
+        raise AssertionError(f"allocated peak {peak / 1e9:.2f} GB passes the budget by more than one frame")
+    del a, b, c, d, pdf, host
+    gc.collect()
+    free_device_memory()
+    return rec
+
+
+def memory_donation(path: str) -> dict:
+    """Phase 13's ``read_csv(p).query("a > 0")[["b", "c"]].agg("sum")`` and
+    its ``query("a > 0")[["a", "c", "d"]].groupby("d").agg("sum")`` (1000
+    keys), both through the fused leg (``FuseMode=Fused``).  First with no
+    budget, each query twice on the deferred read and twice on the same
+    data as an in-memory frame (``from_pandas``): nothing is donated and
+    the second run restores nothing (the repeated query pays no upload).
+    Then
+    under ``DeviceMemoryBudget`` (``MEMORY_BUDGET_BYTES``, far above the
+    file), once with the scan's columns donated and once with a second
+    reference pinning every scan column (no donation); the file is parsed
+    (all columns) before each pair, outside the measured span.  The answers
+    are bit-equal, and a read of a donated column afterwards restores it."""
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import DeviceMemoryBudget, FuseMode
+    from modin_tpu_torch.core import memory
+    from modin_tpu_torch.core.dataframe.torch.dataframe import DeviceColumn
+    from modin_tpu_torch.plan import defer_frame, fuse, lowering
+
+    def queries(md, frame=lambda md: md):
+        reduce_, reduce_ms = host_ms(lambda: tpd.to_pandas(frame(md).query("a > 0")[["b", "c"]].agg("sum")))
+        groupby, groupby_ms = host_ms(
+            lambda: tpd.to_pandas(frame(md).query("a > 0")[["a", "c", "d"]].groupby("d").agg("sum")))
+        return reduce_, groupby, reduce_ms, groupby_ms
+
+    # no budget: the deferred read, and the same data as an in-memory frame
+    # (each query deferred over it, as phase 13's route sweep runs them)
+    md = tpd.read_csv(path)
+    in_memory = tpd.from_pandas(lowering._lower(md._query_compiler._plan, {}).to_pandas())
+    for what, frame, deferred in (("read_csv", md, lambda d: d), ("from_pandas", in_memory, defer_frame)):
+        c0, d0 = dict(memory.COUNTS), fuse.DISPATCHES
+        with FuseMode.context("Fused"):
+            first = queries(frame, deferred)
+            second = queries(frame, deferred)
+        delta = {k: memory.COUNTS[k] - c0[k] for k in ("fuse.donated", "memory.device.restore")}
+        rec = {"phase": "memory", "part": "donation", "budget_gb": None, "frame": what,
+               "fused_legs": fuse.DISPATCHES - d0, "reduce_first_ms": first[2], "reduce_second_ms": second[2],
+               "groupby_first_ms": first[3], "groupby_second_ms": second[3], **delta}
+        emit(rec)
+        if delta["fuse.donated"] or delta["memory.device.restore"] or rec["fused_legs"] != 4:
+            raise AssertionError(f"with no budget ({what}): {rec['fused_legs']} fused legs of 4, and the fused leg "
+                                 f"donated or a repeated query restored: {delta}")
+        for i, query in enumerate(("reduction", "groupby")):
+            assert_same_pandas(second[i], first[i], f"donation {query} ({what}, repeated, no budget)", exact=True)
+    del md, in_memory
+    gc.collect()
+
+    out = {}
+    for pinned in (False, True):
+        with DeviceMemoryBudget.context(MEMORY_BUDGET_BYTES):
+            md = tpd.read_csv(path)
+            scan_qc = lowering._lower(md._query_compiler._plan, {})
+            cols = [c for c in scan_qc._modin_frame._columns if c.is_device]
+            pins = [DeviceColumn(c.data, c.pandas_dtype, length=c.length) for c in cols] if pinned else []
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            c0 = dict(memory.COUNTS)
+            with FuseMode.context("Fused"):
+                reduce_, groupby, reduce_ms, groupby_ms = queries(md)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            peak = torch.cuda.max_memory_allocated()
+            delta = {k: memory.COUNTS[k] - c0[k] for k in ("fuse.donated", "fuse.donated_bytes",
+                                                           "fuse.donated_restore")}
+            donated_now = [i for i, c in enumerate(cols) if c.donated]
+            restore0 = memory.COUNTS["fuse.donated_restore"]
+            later = float(md["b"].sum())
+        rec = {"phase": "memory", "part": "donation", "budget_gb": MEMORY_BUDGET_BYTES / 1e9, "pinned": pinned,
+               "rows_file": path, "reduce_ms": reduce_ms, "groupby_ms": groupby_ms, **delta,
+               "donated_columns_after": len(donated_now), "allocated_before_gb": before / 1e9,
+               "allocated_after_gb": after / 1e9, "max_allocated_gb": peak / 1e9,
+               "later_read_restores": memory.COUNTS["fuse.donated_restore"] - restore0}
+        emit(rec)
+        if pinned and delta["fuse.donated"]:
+            raise AssertionError("a pinned scan column was donated")
+        if not pinned and (not delta["fuse.donated"] or not rec["later_read_restores"]):
+            raise AssertionError(f"donation: {delta}, a later read restored {rec['later_read_restores']}")
+        out[pinned] = (reduce_, groupby, later, rec)
+        del md, scan_qc, cols, pins
+        gc.collect()
+    for i, what in enumerate(("reduction", "groupby", "later read")):
+        a, b = out[False][i], out[True][i]
+        if isinstance(a, float):
+            if a != b:
+                raise AssertionError(f"donation: the {what} differs pinned ({b!r}) and donated ({a!r})")
+        else:
+            assert_same_pandas(a, b, f"donation {what} (donated against pinned)", exact=True)
+    return {"donated": out[False][3], "pinned": out[True][3]}
+
+
+def memory_optimizer(path: str) -> list:
+    """``MEMORY_OPT_QUERIES`` of phase 13 (``plan_queries``) under
+    ``OptMode`` Auto and Off: bit-equal answers, the wall of each, its
+    re-plans and the optimizer's allocations (none under Off)."""
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import OptMode
+    from modin_tpu_torch.plan import optimizer
+
+    queries = plan_queries({"main": path, "wide": path, "mid": path, "cap": path, "floor_below": path,
+                            "floor_at": path})
+    records = []
+    for name in MEMORY_OPT_QUERIES:
+        pipeline = queries[name][0]
+        got = {}
+        rec = {"phase": "memory", "part": "optimizer", "query": name}
+        for mode in ("Auto", "Off"):
+            replans0, allocs0 = sum(optimizer.REPLANS.values()), optimizer.opt_alloc_count()
+            with OptMode.context(mode):
+                out, ms = host_ms(lambda: pipeline(tpd))
+                got[mode] = tpd.to_pandas(out) if hasattr(out, "_query_compiler") else out
+            key = mode.lower()
+            rec[f"port_{key}_ms"] = ms
+            rec[f"replans_{key}"] = sum(optimizer.REPLANS.values()) - replans0
+            rec[f"strategy_sets_{key}"] = optimizer.opt_alloc_count() - allocs0
+        emit(rec)
+        records.append(rec)
+        if rec["strategy_sets_off"] or not rec["strategy_sets_auto"]:
+            raise AssertionError(f"optimizer {name}: strategy sets built Auto {rec['strategy_sets_auto']}, "
+                                 f"Off {rec['strategy_sets_off']}")
+        if isinstance(got["Auto"], float):
+            if got["Auto"] != got["Off"]:
+                raise AssertionError(f"optimizer {name}: Auto {got['Auto']!r} != Off {got['Off']!r}")
+        else:
+            assert_same_pandas(got["Auto"], got["Off"], f"optimizer {name} (Auto against Off)", exact=True)
+    return records
+
+
+def phase_memory(rows: int, plan_rows: int, seed: int, workdir: str) -> dict:
+    """Routing and memory on the card: the router's calibration and its
+    sweep (``memory_calibration``, ``memory_router_sweep``), the budgeted
+    spill and restore at ``rows`` x 10 (``memory_spill``), donation in the
+    fused leg (``memory_donation``) and the optimizer's Auto against Off
+    (``memory_optimizer``) on phase 13's CSV at ``plan_rows`` rows.  Nothing
+    defaults to pandas.  Returns the launches."""
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+
+    t_phase = time.perf_counter()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    b0 = gk.LAUNCHES
+    seconds = {}
+    t0 = time.perf_counter()
+    table = memory_calibration()
+    seconds["calibration"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memory_router_sweep(seed, table)
+    seconds["router_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memory_spill(rows, seed)
+    seconds["spill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = os.path.join(workdir, "memory.csv")
+    plan_csv(path, plan_rows, seed)
+    seconds["csv"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memory_donation(path)
+    seconds["donation"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memory_optimizer(path)
+    seconds["optimizer"] = time.perf_counter() - t0
+    if tqc.DEFAULTS_TO_PANDAS:
+        raise AssertionError(f"{tqc.DEFAULTS_TO_PANDAS} memory calls defaulted to pandas")
+    launches = {"bincount": gk.LAUNCHES - b0, "fused": fk.LAUNCHES, "groupagg": ga.LAUNCHES}
+    if not launches["bincount"]:
+        raise AssertionError("the memory path never launched bincount (calibration, hist strategy)")
+    emit({"phase": "memory", "launches": launches, "device_hist_s": table["device_hist_s"],
+          "defaults_to_pandas": tqc.DEFAULTS_TO_PANDAS, "seconds_by_part": seconds,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_path: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
     ``io``, ``window``, ``clean``, ``dates``, ``plan``, ``formats``) to its
@@ -4194,34 +4698,39 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", type=int, default=10**8,
                         help="rows of the kernel inputs")
-    # 2e7 (from 2.5e7, 5e7 and 1e8 before) so that the whole run, phase 14
-    # included, stays under 1050 s: it took 1064.0 s with phase 7 at 2.5e7
-    # rows (230.9 s of it) and phase 14 77.5 s; phase 7 took 595 s of 948 at
-    # 1e8 rows and 286-321 s at 5e7 (H100 hosts), most of it its pandas and
-    # numpy references (97 s and 59 s of the 321)
-    parser.add_argument("--arithmetic-rows", type=int, default=2 * 10**7,
+    # Every phase after the kernel check runs at half the rows it had, and
+    # phases 8 and 10 at a quarter: the whole run took 1021.1 s of the
+    # script's own clock (1037.4 s with the call's set-up) on an H100 host
+    # and passed 1200 s on another, most of it pandas' and numpy's
+    # references on the host (phase 7 176.4 s, 10 131.7 s, 8 123.2 s, 9
+    # 111.3 s); at half the rows it took 860.9 s on a slower host (phase 7
+    # 180.9 s, most of it comparing a 1e6-column transpose column by column,
+    # now one array; 10 90.5 s, 8 87.5 s); with phases 8 and 10 at a
+    # quarter, 714.2 s on a third host.  Earlier cuts: phase 7 from 1e8
+    # (595 s of 948), 5e7 (286-321 s) and 2e7 (194.7 s); phase 8 from 2e7
+    # (328 s, to_csv 90 s in pandas and as long in the port); phase 9 from
+    # 2e7 (503 s, pandas 264 s of it); phase 11 from 1e7 (105.8 s)
+    parser.add_argument("--arithmetic-rows", type=int, default=75 * 10**5,
                         help="rows of the arithmetic phase")
-    parser.add_argument("--earlier-rows", type=int, default=2 * 10**7,
+    parser.add_argument("--earlier-rows", type=int, default=10**7,
                         help="rows of the main-path and relational phases")
-    parser.add_argument("--float-rows", type=int, default=10**7)
-    # 1e7: at 2e7 rows the phase took 328 s on an H100 host (to_csv alone
-    # 90 s in pandas and as long in the port), past its 250 s share
-    parser.add_argument("--io-rows", type=int, default=10**7,
+    parser.add_argument("--float-rows", type=int, default=5 * 10**6)
+    parser.add_argument("--io-rows", type=int, default=25 * 10**5,
                         help="rows of the io phase's CSV and Parquet files")
-    # 5e6: at 2e7 rows the phase took 503 s on an H100 host (pandas 264 s of
-    # it, the rolling windows 10-16 s each), past its ~150 s share
-    parser.add_argument("--window-rows", type=int, default=5 * 10**6,
+    parser.add_argument("--window-rows", type=int, default=25 * 10**5,
                         help="rows of the window phase's asv frame")
-    parser.add_argument("--clean-rows", type=int, default=10**7,
+    parser.add_argument("--clean-rows", type=int, default=25 * 10**5,
                         help="rows of the clean phase's frames")
-    # 5e6: at 1e7 rows the phase took 105.8 and 100.9 s on an H100 host
-    # (pandas' references 64-71 s of it), past its 100 s share
-    parser.add_argument("--dates-rows", type=int, default=5 * 10**6,
+    parser.add_argument("--dates-rows", type=int, default=25 * 10**5,
                         help="rows of the dates phase's frames")
-    parser.add_argument("--fusion-rows", type=int, default=2 * 10**7,
+    parser.add_argument("--fusion-rows", type=int, default=10**7,
                         help="rows of the fusion phase's frames")
-    parser.add_argument("--plan-rows", type=int, default=5 * 10**6,
+    parser.add_argument("--plan-rows", type=int, default=25 * 10**5,
                         help="rows of the plan phase's CSV file")
+    parser.add_argument("--donation-rows", type=int, default=5 * 10**6,
+                        help="rows of the memory phase's CSV (donation and optimizer)")
+    parser.add_argument("--memory-rows", type=int, default=10**8,
+                        help="rows of the memory phase's budgeted frames (10 int64 columns)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -4231,7 +4740,7 @@ def main(argv=None) -> int:
                         "kernel check times on the same cases, before and after this one's")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
-                        "(the result lines need all eleven)")
+                        "(the result lines need all of them)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4314,8 +4823,15 @@ def main(argv=None) -> int:
     if "formats" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as workdir:
             launches["formats"] = run("formats", phase_formats, args.seed, workdir)
+    if "memory" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_memory_") as workdir:
+            launches["memory"] = run("memory", phase_memory, args.memory_rows, args.donation_rows, args.seed,
+                                     workdir)
+    from modin_tpu_torch.ops import router
+
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,
-          "groupagg_launches_by_path": groupagg_by_path})
+          "groupagg_launches_by_path": groupagg_by_path, "router_verdicts": dict(router.COUNTS),
+          "router_calibration_error": router.CALIBRATION_ERROR})
     for name in ("main", "arithmetic", "clean", "fusion", "plan", "formats"):
         if name in fused_by_path and fused_by_path[name] == 0:
             raise AssertionError(f"the {name} path never launched the fused kernel")

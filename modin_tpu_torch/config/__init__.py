@@ -1,13 +1,21 @@
 """Settings of the torch port (see :mod:`modin_tpu_torch.config.envvars`)."""
 
 from modin_tpu_torch.config.envvars import (
+    CacheDir,
     CpuCount,
     Device,
+    DeviceMemoryBudget,
     FusedCacheSize,
     FuseMinRows,
     FuseMode,
     GroupbyRangeLimit,
+    KernelRouterCalibrationRows,
     KernelRouterHistBound,
+    KernelRouterMinRows,
+    KernelRouterMode,
+    Memory,
+    OptMode,
+    OptReplanFactor,
     Parameter,
     PlanMaxPasses,
     PlanMode,
@@ -15,6 +23,8 @@ from modin_tpu_torch.config.envvars import (
 )
 
 __all__ = [
-    "CpuCount", "Device", "FusedCacheSize", "FuseMinRows", "FuseMode", "GroupbyRangeLimit",
-    "KernelRouterHistBound", "Parameter", "PlanMaxPasses", "PlanMode", "PlanScanCacheBytes",
+    "CacheDir", "CpuCount", "Device", "DeviceMemoryBudget", "FusedCacheSize", "FuseMinRows", "FuseMode",
+    "GroupbyRangeLimit", "KernelRouterCalibrationRows", "KernelRouterHistBound", "KernelRouterMinRows",
+    "KernelRouterMode", "Memory", "OptMode", "OptReplanFactor", "Parameter", "PlanMaxPasses", "PlanMode",
+    "PlanScanCacheBytes",
 ]

@@ -5,17 +5,26 @@ port runs: the device that holds the columns, the widest key range that
 groupby codes directly instead of sorting, the widest value range that
 ``nunique``/``mode`` count with a histogram instead of sorting, the
 threads that parse a file in parallel, the bound on the cache of fused
-programs, and the whole-query planner's knobs (``PlanMode``,
-``PlanMaxPasses``, ``PlanScanCacheBytes``, ``FuseMode``, ``FuseMinRows``;
-the port's own variable names, so one process can pin the two packages
-apart).
+programs, the whole-query planner's knobs (``PlanMode``,
+``PlanMaxPasses``, ``PlanScanCacheBytes``, ``FuseMode``, ``FuseMinRows``),
+the kernel router's (``KernelRouterMode``, ``KernelRouterMinRows``,
+``KernelRouterCalibrationRows``, ``CacheDir``), the memory budgets
+(``Memory``, ``DeviceMemoryBudget``) and the plan optimizer's
+(``OptMode``, ``OptReplanFactor``); the port's own variable names, so
+one process can pin the two packages apart.  A module that keeps a
+setting in a variable of its own subscribes to it
+(:meth:`Parameter.subscribe`) and sees every change.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Optional
+from typing import Any
+
+
+#: a setting not read from its variable yet (None is a value: no budget)
+_UNREAD = object()
 
 
 class Parameter:
@@ -24,22 +33,36 @@ class Parameter:
 
     varname: str = ""
     default: Any = None
-    _value: Optional[Any] = None
+    _value: Any = _UNREAD
 
     @classmethod
     def _parse(cls, raw: str) -> Any:
         return raw
 
     @classmethod
+    def subscribe(cls, callback: Any) -> None:
+        """Call ``callback(cls)`` now and after every change of the value."""
+        if "_subs" not in cls.__dict__:
+            cls._subs = []
+        cls._subs.append(callback)
+        callback(cls)
+
+    @classmethod
+    def _set(cls, value: Any) -> None:
+        cls._value = value
+        for callback in cls.__dict__.get("_subs", ()):
+            callback(cls)
+
+    @classmethod
     def get(cls) -> Any:
-        if cls._value is None:
+        if cls._value is _UNREAD:
             raw = os.environ.get(cls.varname)
             cls._value = cls.default if raw is None else cls._parse(raw)
         return cls._value
 
     @classmethod
     def put(cls, value: Any) -> None:
-        cls._value = cls._parse(value) if isinstance(value, str) else value
+        cls._set(cls._parse(value) if isinstance(value, str) else value)
 
     @classmethod
     @contextlib.contextmanager
@@ -50,7 +73,7 @@ class Parameter:
         try:
             yield
         finally:
-            cls._value = old
+            cls._set(old)
 
 
 class _Choice(Parameter):
@@ -68,7 +91,7 @@ class _Choice(Parameter):
 
     @classmethod
     def put(cls, value: Any) -> None:
-        cls._value = cls._parse(str(value))
+        cls._set(cls._parse(str(value)))
 
 
 class _Count(Parameter):
@@ -85,7 +108,15 @@ class _Count(Parameter):
 
     @classmethod
     def put(cls, value: Any) -> None:
-        cls._value = cls._parse(str(value))
+        cls._set(cls._parse(str(value)))
+
+
+class _Bytes(_Count):
+    """A byte count that may be unset (``None``: no budget)."""
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(None if value is None else cls._parse(str(value)))
 
 
 class Device(_Choice):
@@ -193,3 +224,97 @@ class FuseMinRows(_Count):
 
     varname = "MODIN_TPU_TORCH_FUSE_MIN_ROWS"
     default = 4096
+
+
+class KernelRouterMode(_Choice):
+    """Routing of the sort-shaped reductions (median, quantile, nunique,
+    mode, describe's quantiles) between the device and pandas
+    (``ops/router.py``).  Auto: a cost model calibrated once per card
+    picks the side predicted faster; frames under ``KernelRouterMinRows``
+    stay on the device.  Device: always the device.  Host: always pandas."""
+
+    varname = "MODIN_TPU_TORCH_KERNEL_ROUTER"
+    choices = ("Auto", "Device", "Host")
+    default = "Auto"
+
+
+class KernelRouterMinRows(_Count):
+    """Rows under which Auto routing takes the device without consulting
+    (or running) the calibration."""
+
+    varname = "MODIN_TPU_TORCH_KERNEL_ROUTER_MIN_ROWS"
+    default = 1 << 20
+
+
+class KernelRouterCalibrationRows(_Count):
+    """Rows the one-shot router calibration times its kernels at; the table
+    is cached under ``CacheDir`` per card and torch version."""
+
+    varname = "MODIN_TPU_TORCH_KERNEL_ROUTER_CALIBRATION_ROWS"
+    default = 1 << 18
+    minimum = 1
+
+
+class CacheDir(Parameter):
+    """Directory of the router's calibration table ("" keeps no table on
+    disk); by default ``modin_tpu_torch/_build/cache`` in the checkout."""
+
+    varname = "MODIN_TPU_TORCH_CACHE_DIR"
+
+    @classmethod
+    def get(cls) -> str:
+        value = super().get()
+        if value is None:
+            here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            value = os.path.join(here, "_build", "cache")
+        return value
+
+
+class Memory(_Bytes):
+    """Host bytes the columns' exact host copies (``DeviceColumn.host_cache``)
+    may hold (unset: no budget); past it the coldest copies whose device
+    tensor is authoritative are dropped (``core/memory.py``)."""
+
+    varname = "MODIN_TPU_TORCH_MEMORY"
+
+
+class DeviceMemoryBudget(_Bytes):
+    """Device bytes the column tensors and sorted representations may hold
+    (unset: no budget).  Before an upload or a fused launch that would pass
+    it, the coldest entries spill to the host (derived ones first, dropped;
+    then columns, kept as exact host copies) and restore on their next
+    read (``core/memory.py``)."""
+
+    varname = "MODIN_TPU_TORCH_DEVICE_MEMORY_BUDGET"
+
+
+class OptMode(_Choice):
+    """The plan optimizer (``plan/optimizer.py``).  Auto: each plan
+    materialization annotates its nodes with strategy legs and estimates
+    from the router's calibration (EXPLAIN shows them) and re-estimates
+    the rest of a query whose node overshoots its estimate; no leg
+    overrides a live router verdict yet (``plan/optimizer.py`` says why).
+    Off: no optimizer state is built."""
+
+    varname = "MODIN_TPU_TORCH_OPT"
+    choices = ("Auto", "Off")
+    default = "Auto"
+
+
+class OptReplanFactor(Parameter):
+    """How far a lowered node's wall may pass its plan-time estimate
+    before the optimizer re-plans the rest of the query (> 1)."""
+
+    varname = "MODIN_TPU_TORCH_OPT_REPLAN_FACTOR"
+    default = 4.0
+
+    @classmethod
+    def _parse(cls, raw: Any) -> float:
+        value = float(raw)
+        if value <= 1.0:
+            raise ValueError(f"{cls.varname} must be > 1, got {raw!r}")
+        return value
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(cls._parse(value))

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from modin_tpu_torch.core import memory
 from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
 from modin_tpu_torch.ops.lazy import LazyExpr, is_lazy, materialize, materialize_exprs
 from modin_tpu_torch.parallel.engine import TorchWrapper
@@ -52,13 +53,27 @@ class DeviceColumn:
 
     ``host_cache`` keeps the original host numpy array of a column that came
     from the host unchanged: ``to_numpy`` answers from it without a device
-    fetch.  Any computed column has none.  ``_sorted_rep`` holds the
-    column's sorted representation once a sort-shaped reduction built it
-    (``ops/sorted_cache.py``); replacing ``data`` drops it.
+    fetch.  Any computed column has none until it spills.  ``_sorted_rep``
+    holds the column's sorted representation once a sort-shaped reduction
+    built it (``ops/sorted_cache.py``); replacing ``data`` drops it.
+
+    The memory protocol (``core/memory.py``, the JAX column's): a concrete
+    tensor registers with the device ledger at construction, a deferred one
+    when it materializes, and ``host_cache`` with the host ledger; the
+    device ledger's LRU order is the order of registration (a read does not
+    refresh it; a restore does).  A
+    **spilled** column (``_data is None``) keeps an exact host copy and
+    restores on its next ``data``/``raw`` read through ``TorchWrapper.put``,
+    which admits first.  A column a fused launch consumed is ``donated``:
+    spilled the same way, after the launch was enqueued.
     """
 
-    __slots__ = ("_data", "pandas_dtype", "length", "host_cache", "_sorted_rep")
+    __slots__ = (
+        "_data", "pandas_dtype", "length", "host_cache", "_sorted_rep", "_ledger_key", "_dev_key",
+        "donated", "_home", "__weakref__",
+    )
     is_device = True
+    is_derived_cache = False
 
     def __init__(
         self,
@@ -72,16 +87,30 @@ class DeviceColumn:
         self.pandas_dtype = np.dtype(pandas_dtype)
         self.length = int(length) if length is not None else int(data.shape[0])
         self.host_cache = host_cache
+        self._ledger_key = None
+        self._dev_key = None
+        self.donated = False
+        # (torch dtype, device) of a spilled column's tensor
+        self._home = None
+        if host_cache is not None:
+            memory.ledger.register(self)
+        if isinstance(data, torch.Tensor):
+            memory.device_ledger.register(self)
 
     @property
     def data(self) -> torch.Tensor:
-        if isinstance(self._data, LazyExpr):
-            self._data = materialize(self._data)
+        if self._data is None:
+            self._restore()
+        elif isinstance(self._data, LazyExpr):
+            self._adopt(materialize(self._data))
         return self._data
 
     @property
     def raw(self) -> Any:
-        """The tensor or the deferred expression, unmaterialized."""
+        """The tensor or the deferred expression, unmaterialized (a spilled
+        column restores first)."""
+        if self._data is None:
+            self._restore()
         return self._data
 
     @property
@@ -89,19 +118,115 @@ class DeviceColumn:
         return is_lazy(self._data)
 
     @property
+    def is_spilled(self) -> bool:
+        """The tensor was dropped; ``host_cache`` is the exact only copy."""
+        return self._data is None
+
+    @property
     def dtype(self) -> torch.dtype:
-        """The torch dtype of the values (a lazy column's without computing)."""
-        return self._data.dtype
+        """The torch dtype of the values (a lazy column's without computing,
+        a spilled one's without restoring)."""
+        return self._home[0] if self._data is None else self._data.dtype
 
     @property
     def device(self) -> torch.device:
-        return self._data.device
+        return self._home[1] if self._data is None else self._data.device
 
     @data.setter
     def data(self, value: torch.Tensor) -> None:
-        self._data = value
-        self._sorted_rep = None
+        memory.ledger.forget(self)
         self.host_cache = None
+        self._adopt(value)
+
+    def _adopt(self, value: Any) -> None:
+        """Take ``value`` as the column's values: a materialized expression's
+        tensor or a replacement.  The sorted representation and the old
+        tensor's ledger entry go; a concrete tensor registers."""
+        memory.device_ledger.deregister(self)
+        if self._sorted_rep is not None:
+            from modin_tpu_torch.ops import sorted_cache
+
+            sorted_cache.invalidate(self)
+        self._data = value
+        self._home = None
+        self.donated = False
+        if isinstance(value, torch.Tensor):
+            memory.device_ledger.register(self)
+
+    # -- spill, restore, donation ------------------------------------------ #
+
+    def _exact_shape(self) -> bool:
+        return isinstance(self._data, torch.Tensor) and self._data.shape[0] == self.length
+
+    def _drop_tensor(self) -> int:
+        from modin_tpu_torch.ops import sorted_cache
+
+        sorted_cache.invalidate(self)
+        freed = memory.device_ledger.deregister(self)
+        self._home = (self._data.dtype, self._data.device)
+        self._data = None
+        return freed
+
+    def spill(self) -> int:
+        """Drop the tensor, keeping an exact host copy (fetched when the
+        column has none); returns the device bytes the ledger got back (0
+        when the column cannot spill now: deferred, already spilled, or a
+        tensor longer than the column)."""
+        if not self._exact_shape():
+            return 0
+        cache = self.host_cache
+        if cache is None:
+            nbytes = int(self._data.numel() * self._data.element_size())
+            cache = memory.timed_copy("memory.device.spill_copy", self.to_numpy)
+            memory.count("memory.device.spill_copy")
+            memory.count("memory.device.spill_copy_bytes", nbytes)
+        # the tensor goes first: a tight host budget must see the column
+        # spilled, or it could drop the only copy as it registers
+        freed = self._drop_tensor()
+        if self.host_cache is None:
+            self.host_cache = cache
+            memory.ledger.register(self)
+        return freed
+
+    def _restore(self) -> None:
+        """Upload a spilled column's host copy as a fresh tensor."""
+        values = self.host_cache
+        if values is None:
+            raise RuntimeError("spilled DeviceColumn has no host copy to restore from")
+        dtype, device = self._home
+        was_donated = self.donated
+        device_values = values.view("int64") if values.dtype.kind in "mM" else values
+
+        def upload() -> torch.Tensor:
+            t = TorchWrapper.put(np.ascontiguousarray(device_values), device)
+            return t if t.dtype == dtype else t.to(dtype)
+
+        self._adopt(memory.timed_copy("memory.device.restore", upload))
+        memory.count("memory.device.restore")
+        memory.count("memory.device.restore_bytes", self._data.numel() * self._data.element_size())
+        if was_donated:
+            memory.count("fuse.donated_restore")
+
+    def donation_eligible(self) -> bool:
+        """The local half of the donation proof: a concrete tensor of the
+        column's own length with an exact host copy to restore from."""
+        return self._exact_shape() and self.host_cache is not None
+
+    def donation_safe(self) -> bool:
+        """:meth:`donation_eligible`, and the device ledger's proof that no
+        other live column holds the same storage."""
+        return self.donation_eligible() and memory.device_ledger.buffer_consumers(self._data) == 1
+
+    def mark_donated(self) -> int:
+        """A fused launch consumed this column's tensor: drop it (after the
+        launch was enqueued: the caching allocator reuses the storage only
+        in the current stream's order), keep the host copy authoritative;
+        the next read restores.  Returns the bytes the ledger got back."""
+        if not self._exact_shape():
+            return 0
+        freed = self._drop_tensor()
+        self.donated = True
+        return freed
 
     @classmethod
     def from_numpy(cls, values: np.ndarray, device: Optional[torch.device] = None) -> "DeviceColumn":
@@ -114,8 +239,10 @@ class DeviceColumn:
         )
 
     def to_numpy(self) -> np.ndarray:
-        if self.host_cache is not None:
-            return self.host_cache
+        cache = self.host_cache
+        if cache is not None:
+            memory.ledger.touch(self)
+            return cache
         return self.host_values(TorchWrapper.materialize(self.data)[: self.length])
 
     def host_values(self, values: np.ndarray) -> np.ndarray:
@@ -237,7 +364,7 @@ class TorchDataframe:
         if not lazy_cols:
             return
         for col, value in zip(lazy_cols, materialize_exprs([c.raw for c in lazy_cols])):
-            col._data = value
+            col._adopt(value)
 
     def device_datas(self, positions: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
         """The values of the device columns at ``positions`` (or all), the
@@ -428,7 +555,8 @@ class TorchDataframe:
         # a lazy mask and the lazy columns materialize in one fused run
         mask, *values = materialize_exprs([mask] + [self._columns[i].raw for i in device_idx])
         for i, value in zip(device_idx, values):
-            self._columns[i]._data = value
+            if self._columns[i].raw is not value:
+                self._columns[i]._adopt(value)
         datas, _, positions = compact_rows(values, mask, len(self))
         return self._with_gathered(device_idx, datas, positions)
 

@@ -62,9 +62,10 @@ goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
 made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
-device path the port does not have yet (the kernel router, the planner,
-out-of-core and range-partition variants of sort and merge), the port
-defaults to pandas.
+device path the port does not have yet (out-of-core and range-partition
+variants of sort and merge, the ``views/`` result caches), the port
+defaults to pandas; so does a sort-shaped reduction the kernel router
+(``ops/router.py``) predicts faster in pandas.
 """
 
 from __future__ import annotations
@@ -894,14 +895,18 @@ class TorchQueryCompiler(BaseQueryCompiler):
     # ----------------------------- reductions ------------------------- #
 
     def _try_device_reduce(
-        self, op: str, axis: Any, skipna: bool, numeric_only: bool, kwargs: dict, keep: Any = None
+        self, op: str, axis: Any, skipna: bool, numeric_only: bool, kwargs: dict, keep: Any = None,
+        donate_cols: Optional[list] = None,
     ) -> Optional["TorchQueryCompiler"]:
         """``keep`` is the whole-plan fused leg (``plan/fuse.py``): a
         deferred bool mask over the uncompacted rows, folded into the
-        reduction's launch instead of a compaction.  It declines (None)
-        where the masked form is not the staged one exactly: axis 1,
-        median, dictionary-encoded host columns, and a filter that keeps no
-        row (pandas' empty-frame answers live with the staged path)."""
+        reduction's launch instead of a compaction, and ``donate_cols`` the
+        scan's columns that launch may consume.  It declines (None) where
+        the masked form is not the staged one exactly: axis 1, median,
+        dictionary-encoded host columns, and a filter that keeps no row
+        (pandas' empty-frame answers live with the staged path; a donated
+        column restores for it).  A median asks the kernel router, which
+        may decline to pandas."""
         if op not in reductions.REDUCTIONS and op != "median":
             return None
         if keep is not None and (op == "median" or axis not in (0, None)):
@@ -975,12 +980,20 @@ class TorchQueryCompiler(BaseQueryCompiler):
             )
         if keep is not None:
             values, kept = reductions.reduce_columns_masked(
-                op, arrays, keep, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool
+                op, arrays, keep, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool,
+                donate_cols=donate_cols,
             )
             if kept == 0:
                 return None
         elif op == "median":
+            from modin_tpu_torch.ops import router, sorted_cache
+
             cols = [frame._columns[i] for i in positions]
+            if router.forced_host("median", len(frame)):
+                return None
+            strategies = ["cached" if sorted_cache.peek(c) else "sort" for c in cols]
+            if router.decide("median", len(frame), strategies) == "host":
+                return None
             values = reductions.median_columns(cols, len(frame), skipna=skipna)
         else:
             values = reductions.reduce_columns(
@@ -1056,13 +1069,19 @@ class TorchQueryCompiler(BaseQueryCompiler):
         """Distinct count per column: string columns from their categories,
         bounded-range ints through one O(n) histogram (the bincount
         kernel), the rest through the shared sorted representation."""
+        from modin_tpu_torch.ops import router
+
+        frame = self._modin_frame
+        n = len(frame)
+        if router.forced_host("nunique", n):
+            return None  # before any device work (materialization, the range probe)
         got = self._sort_reduce_specs()
         if got is None:
             return None
         specs, _ = got
-        frame = self._modin_frame
-        n = len(frame)
         plans = reductions.plan_sort_reduce("nunique", specs, n)
+        if router.decide("nunique", n, [p.strategy for p in plans]) == "host":
+            return None
         counts = reductions.nunique_planned(plans, n, bool(dropna))
         qc = type(self).from_numpy_columns(
             {MODIN_UNNAMED_SERIES_LABEL: np.asarray(counts, dtype=np.int64)},
@@ -1093,14 +1112,20 @@ class TorchQueryCompiler(BaseQueryCompiler):
         for the max count) only where every column plans "hist"."""
         import pandas
 
+        from modin_tpu_torch.ops import router
+
+        frame = self._modin_frame
+        n = len(frame)
+        if router.forced_host("mode", n):
+            return None  # before any device work (materialization, the range probe)
         got = self._sort_reduce_specs(numeric_only)
         if got is None:
             return None
         specs, decoders = got
-        frame = self._modin_frame
-        n = len(frame)
         plans = reductions.plan_sort_reduce("mode", specs, n)
         if not dropna and any(p.strategy != "hist" for p in plans):
+            return None
+        if router.decide("mode", n, [p.strategy for p in plans]) == "host":
             return None
         per_col = reductions.mode_planned(plans, n, bool(dropna))
         if any(v is None for v in per_col):
@@ -1191,10 +1216,14 @@ class TorchQueryCompiler(BaseQueryCompiler):
         self, q: Any, qs: list, interpolation: str, numeric_only: bool, list_like: bool
     ) -> Optional["TorchQueryCompiler"]:
         """Quantiles over the shared sorted representation (one sort per
-        column for the whole sort-shaped family)."""
+        column for the whole sort-shaped family); router-gated."""
         import pandas
 
+        from modin_tpu_torch.ops import router, sorted_cache
+
         frame = self._modin_frame
+        if router.forced_host("quantile", len(frame)):
+            return None  # before any device work
         positions = []
         for i, col in enumerate(frame._columns):
             # bool columns: pandas' quantile raises on them
@@ -1207,6 +1236,9 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if not positions:
             return None
         cols = [frame._columns[i] for i in positions]
+        strategies = ["cached" if sorted_cache.peek(c) else "sort" for c in cols]
+        if router.decide("quantile", len(frame), strategies) == "host":
+            return None
         vals = reductions.quantile_columns(cols, len(frame), qs, interpolation)
         labels = self.get_columns()[positions]
         if list_like:
@@ -1218,6 +1250,17 @@ class TorchQueryCompiler(BaseQueryCompiler):
         qc = type(self).from_pandas(result.to_frame(), self._device())
         qc._shape_hint = "column"
         return qc
+
+    def _describe_routed_device(self) -> bool:
+        """The kernel router's verdict on describe's quantiles (the
+        sort-shaped piece; count/mean/std/min/max are cheap either way)."""
+        from modin_tpu_torch.ops import router, sorted_cache
+
+        frame = self._modin_frame
+        if router.forced_host("quantile", len(frame)):
+            return False
+        strategies = ["cached" if sorted_cache.peek(c) else "sort" for c in frame._columns]
+        return router.decide("quantile", len(frame), strategies) == "device"
 
     def describe(self, percentiles: Any = None, include: Any = None, exclude: Any = None):
         """Numeric describe = count/mean/std + quantiles + min/max, every
@@ -1245,6 +1288,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             and frame.num_cols
             and all(c.is_device and c.pandas_dtype.kind in "iuf" for c in frame._columns)
             and all(0.0 <= q <= 1.0 for q in qs)
+            and self._describe_routed_device()
         ):
             arrays = frame.device_datas()
             n = len(frame)

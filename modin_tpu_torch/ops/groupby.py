@@ -371,10 +371,11 @@ def takes_groupagg(agg: str, dtypes: List[torch.dtype], num_groups: int, n: int)
     (``FUSED_GROUPBY_AGGS``; ``count`` only of float columns, an int
     column's count being its group's size), dtypes it takes, at most
     ``FUSED_MAX_GROUPS`` groups, and the route gate's yes
-    (``ops/route.py``: ``decide_compile`` and ``decide_groupby``, the gate
-    of the fused groupby too)."""
+    (``ops/router.decide_compile`` and ``ops/route.decide_groupby``, the
+    gate of the fused groupby too)."""
     from modin_tpu_torch.ops.cuda.fused_program import DTYPE_CODES
-    from modin_tpu_torch.ops.route import decide_compile, decide_groupby
+    from modin_tpu_torch.ops.route import decide_groupby
+    from modin_tpu_torch.ops.router import decide_compile
 
     if agg not in FUSED_GROUPBY_AGGS or not dtypes or not 0 < num_groups <= FUSED_MAX_GROUPS:
         return False
@@ -385,7 +386,7 @@ def takes_groupagg(agg: str, dtypes: List[torch.dtype], num_groups: int, n: int)
         if not dtypes:
             return False
     any_float = any(d.is_floating_point for d in dtypes)
-    return decide_compile(n) == "fused" and decide_groupby(n, num_groups + 1, agg, len(dtypes), any_float)
+    return decide_compile(None, n) == "fused" and decide_groupby(n, num_groups + 1, agg, len(dtypes), any_float)
 
 
 def _groupagg_columns(
@@ -734,6 +735,7 @@ def fused_group_agg(
     n: int,
     kmin: int,
     n_buckets: int,
+    donate_cols: Optional[List[Any]] = None,
 ) -> Tuple[np.ndarray, List[np.ndarray], List[np.ndarray]]:
     """The masked grouped aggregation of a fused groupby, in two launches:
     one of the fused kernel that writes the slot column (``key - kmin``
@@ -743,15 +745,21 @@ def fused_group_agg(
     ``(sizes[n_buckets + 1], per-column aggregates, per-column non-NaN
     counts)`` (aggregates int64, or float64 for a float column and for a
     mean): the caller keeps the slots with a size and applies pandas' dtype
-    rules (:func:`fused_groupby_dtype`)."""
+    rules (:func:`fused_groupby_dtype`).  ``donate_cols`` (the scan's
+    columns proved donation-safe) that the launches read are marked donated
+    once the ``groupagg`` launch, their last reader, is enqueued."""
     from modin_tpu_torch.ops.cuda import groupagg_kernels
     from modin_tpu_torch.ops.lazy import materialize_exprs
+    from modin_tpu_torch.ops.reductions import donation_map, mark_donated
 
     if agg not in FUSED_GROUPBY_AGGS:
         raise ValueError(f"fused groupby aggregation {agg!r} is not ported")
     G = int(n_buckets)
-    concrete = materialize_exprs([fused_slot_expr(key_expr, keep, kmin, G)] + list(cols))
+    roots = [fused_slot_expr(key_expr, keep, kmin, G)] + list(cols)
+    donated = donation_map(roots, donate_cols)
+    concrete = materialize_exprs(roots)
     table = groupagg_kernels.groupagg(agg, concrete[0], concrete[1:], G + 1)
+    mark_donated(donated)
     sizes, values, counts = groupagg_kernels.finish(agg, table, [c.dtype for c in concrete[1:]])
     host = _engine_materialize([sizes] + values + counts)
     return host[0], host[1: 1 + len(cols)], host[1 + len(cols):]

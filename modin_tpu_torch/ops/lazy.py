@@ -41,6 +41,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from modin_tpu_torch.core import memory as _memory
 from modin_tpu_torch.ops.cuda import fused_kernels
 from modin_tpu_torch.ops.cuda import fused_program as fp
 
@@ -239,6 +240,11 @@ def _linearize(roots: Sequence[Any]) -> Linearized:
         return visit_leaf(e)
 
     out_refs = tuple(visit(r) for r in roots)
+    # the recursive closure is a reference cycle through its cell, and its
+    # scope holds the leaf tensors and the nodes (their results too): break
+    # it, or they outlive this call until the garbage collector runs, and a
+    # spilled or donated column's storage with them
+    visit = None
     fingerprint = (tuple(nodes), out_refs, tuple(leaf_tags), tuple(t for t, _ in scalar_tags))
     return Linearized(
         nodes, node_exprs, [fp.DTYPE_CODES[e.dtype] for e in node_exprs], out_refs,
@@ -273,6 +279,14 @@ def _rows(lin: Linearized) -> Tuple[int, torch.device]:
     return int(t.shape[0]), t.device
 
 
+def _admit(lin: Linearized, out_bytes: int) -> None:
+    """Make room for a launch's outputs under ``DeviceMemoryBudget``
+    (``core/memory.py``), spilling none of the launch's own leaves."""
+    from modin_tpu_torch.core import memory
+
+    memory.device_ledger.admit(out_bytes, exclude_ids={memory.storage_key(t) for t in lin.leaves})
+
+
 def run_fused(
     roots: Sequence[Any],
     tail_key: Optional[Tuple] = None,
@@ -297,6 +311,8 @@ def run_fused(
         if lazy_roots:
             lin, plan = _plan(lazy_roots, None)
             n, dev = _rows(lin)
+            if _memory._DEVICE_BUDGET is not None:
+                _admit(lin, sum(n * r.dtype.itemsize for r in lazy_roots))
             for program in plan:
                 outs, _ = fused_kernels.run_program(program, _leaf_args(lin, program), lin.scalars, n)
                 for k, j in enumerate(program.roots):
@@ -304,6 +320,8 @@ def run_fused(
         return [r._result if isinstance(r, LazyExpr) else r for r in roots]
     lin, plan = _plan(list(roots), tail_key)
     n, dev = _rows(lin)
+    if _memory._DEVICE_BUDGET is not None:
+        _admit(lin, n * 8 if tail_key[0] == "rows" else 0)
     if tail_key[0] == "rows":
         outs, _ = fused_kernels.run_program(plan[0], _leaf_args(lin, plan[0]), lin.scalars, n)
         return tail_builder(outs[0]) if tail_builder is not None else outs[0]

@@ -454,9 +454,9 @@ def _fused_axis1(op_name: str, cols: List[Any], skipna: bool, cast_bool: bool) -
 #             (ops/sorted_cache.py), so median + quantile + nunique + mode
 #             on one column pay ONE O(n log n) sort, not four.
 #
-# The JAX package also asks a calibrated kernel router whether the device
-# plan beats pandas; that is a later slice of the port, which always takes
-# the device.
+# The query compiler asks the calibrated kernel router (ops/router.py)
+# whether the planned device work beats pandas: ``forced_host`` before any
+# device work, ``decide`` with the plans' strategies after planning.
 
 
 class ColumnPlan(NamedTuple):
@@ -812,6 +812,51 @@ def mode_axis1(cols: List[torch.Tensor], n: int) -> Tuple[List[torch.Tensor], in
 # --------------------------------------------------------------------- #
 
 
+def donation_map(roots: List[Any], donate_cols: Optional[List[Any]]) -> dict:
+    """``{id(tensor): column}`` of the ``donate_cols`` (proved donation-safe
+    by the caller) whose tensors the expression forest ``roots`` reads."""
+    if not donate_cols:
+        return {}
+    from modin_tpu_torch.ops.lazy import leaf_buffer_ids
+
+    consumed = leaf_buffer_ids(roots)
+    return {
+        id(col._data): col
+        for col in donate_cols
+        if isinstance(col._data, torch.Tensor) and id(col._data) in consumed
+    }
+
+
+def mark_donated(donated: dict) -> None:
+    """The launches that read the donated columns are enqueued: drop their
+    tensors (``DeviceColumn.mark_donated``).  The caching allocator reuses a
+    freed block in the order of the stream that allocated it, so a tensor
+    read on another stream is recorded on that stream first."""
+    from modin_tpu_torch.core import memory
+
+    if not donated:
+        return
+    freed = 0
+    for col in donated.values():
+        t = col._data
+        if t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
+        freed += col.mark_donated()
+    memory.count("fuse.donated", len(donated))
+    memory.count("fuse.donated_bytes", freed)
+
+
+def _mark_and_run(roots: List[Any], tail_key: Tuple, tail: Any, donate_cols: Optional[List[Any]]):
+    """``run_fused`` with buffer donation (the JAX package's
+    ``_mark_and_run``): the ``donate_cols`` whose tensors the forest reads
+    are marked donated once its launches are enqueued (the tail's result
+    fetched), never before: a failed run donates nothing."""
+    donated = donation_map(roots, donate_cols)
+    out = run_fused(roots, tail_key, tail)
+    mark_donated(donated)
+    return out
+
+
 def reduce_columns_masked(
     op_name: str,
     cols: List[Any],
@@ -820,6 +865,7 @@ def reduce_columns_masked(
     skipna: bool = True,
     ddof: int = 1,
     cast_bool: bool = False,
+    donate_cols: Optional[List[Any]] = None,
 ) -> Tuple[list, int]:
     """Reduce each column over the rows where ``keep`` is true: the masked
     tail of the fused kernel (``modin_tpu/ops/reductions.py::
@@ -829,7 +875,8 @@ def reduce_columns_masked(
     compaction.  Returns ``(values, kept_rows)``: 0-d numpy results by
     :func:`reduce_columns`' rules over the kept rows, and the kept-row count
     (the caller declines when it is 0: pandas' empty-frame answers stay with
-    the staged path)."""
+    the staged path).  ``donate_cols`` are the scan's columns the fused leg
+    proved donation-safe (``plan/fuse._donation_candidates``)."""
     if op_name not in REDUCTIONS:
         raise ValueError(f"reduction {op_name!r} is not ported")
     skipna, ddof = bool(skipna), int(ddof)
@@ -840,4 +887,4 @@ def reduce_columns_masked(
         values = _finish_fused(op_name, cols, first[:-1], second, kept, skipna, ddof, cast_bool)
         return values, kept
 
-    return run_fused(list(cols) + [keep], tail, finish)
+    return _mark_and_run(list(cols) + [keep], tail, finish, donate_cols)

@@ -1,27 +1,14 @@
-"""The route gate between the fused (kernel) legs and the staged path.
+"""Where ``groupagg`` pays: the groupby half of the route gate.
 
-One gate for the planner's masked fused leg (``plan/fuse.py``) and for the
-eager groupby's ``groupagg`` route (``ops/groupby.py::takes_groupagg``):
-``MODIN_TPU_TORCH_FUSE`` pins a side, ``MODIN_TPU_TORCH_FUSE_MIN_ROWS``
-keeps small inputs staged, and :func:`decide_groupby` rules where
-``groupagg`` pays.  It imports no pandas, so the ops layer can ask it.
+The planner's masked fused leg (``plan/fuse.py``) and the eager groupby's
+``groupagg`` route (``ops/groupby.py::takes_groupagg``) first ask the
+kernel router's fused/staged gate (``ops/router.decide_compile``:
+``MODIN_TPU_TORCH_FUSE`` pins a side, ``MODIN_TPU_TORCH_FUSE_MIN_ROWS`` keeps
+small inputs staged), then :func:`decide_groupby` for a groupby's table.
+It imports no pandas, so the ops layer can ask it.
 """
 
 from __future__ import annotations
-
-
-def decide_compile(n: int) -> str:
-    """``"fused"`` or ``"staged"`` for a segment over ``n`` rows (the
-    counterpart of ``modin_tpu/ops/router.py::decide_compile``): a
-    ``FuseMode`` pin, else the row floor ``FuseMinRows``."""
-    from modin_tpu_torch.config import FuseMinRows, FuseMode
-
-    mode = FuseMode.get()
-    if mode == "Fused":
-        return "fused"
-    if mode == "Staged" or n < int(FuseMinRows.get()):
-        return "staged"
-    return "fused"
 
 
 def staged_sorts(agg: str, any_float: bool) -> bool:

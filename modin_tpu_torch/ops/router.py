@@ -1,0 +1,368 @@
+"""The kernel router: device or pandas for the sort-shaped reductions, and
+the fused/staged, layout and residency verdicts.
+
+The port's counterpart of ``modin_tpu/ops/router.py``.  Each sort-shaped
+site of the query compiler (median, quantile, nunique, mode, describe's
+quantiles) asks :func:`forced_host` before any device work and, once
+``ops/reductions.plan_sort_reduce`` has given each column its strategy,
+:func:`decide` whether the device plan or pandas is predicted faster at the
+observed rows; a ``"host"`` verdict declines to pandas like every other
+decline (``DEFAULTS_TO_PANDAS`` counts it).
+
+The model is seeded by a one-shot calibration (:func:`_measure`): on the
+device, ``torch.sort`` of an all-distinct int64 column, the sorted-consume
+pass of ``nunique`` over it and the ``hist`` strategy's histogram through
+the port's bincount kernel (``ops/cuda/groupby_kernels.bincount``), each
+timed with the device synchronised inside the timer; on the host, pandas'
+median, quantile, nunique and mode in both cardinality regimes.  The host
+runs at ``KernelRouterCalibrationRows`` rows.  The device runs there and at
+:data:`DEVICE_FIT_FACTOR` times as many rows, and each device entry is a
+fixed cost plus a term that grows with the rows (n·log n for the sort,
+linear for the rest) fitted through the two: at the calibration size a
+launch costs about what its work does, so scaling that one time would
+predict large frames many times too slow.  The table is cached under
+``CacheDir``, keyed by the platform, the card's name and the torch version,
+so it is paid once per card.  Frames under ``KernelRouterMinRows`` never
+calibrate.
+
+Every verdict adds one to ``COUNTS["router.<op>.<choice>"]`` (and the fused
+gate's to ``router.fuse.<choice>``), plain integers as the port counts its
+launches.  The reference's plan-optimizer consult hook is not ported
+(``plan/optimizer.py`` says why): every verdict here is the router's own.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from modin_tpu_torch.ops import calibration as calstore
+
+#: column strategies a sort-shaped plan may carry (``plan_sort_reduce``):
+#: "dict" costs ~0 (the categories are on the host), "cached" consumes an
+#: existing sorted representation, "hist" is the O(n) histogram, "sort" pays
+#: the O(n log n) device sort.  "view" (a cached whole result) is the JAX
+#: package's fifth and waits for the port's ``views/``; its cost is 0 here too
+STRATEGIES = ("dict", "view", "cached", "hist", "sort")
+
+#: predicted device-minus-host savings (seconds) the host side must clear
+#: before Auto declines a device path: below it the verdict is noise and
+#: device residency wins ties
+MIN_SAVINGS_S = 0.05
+
+_CAL_VERSION = 2
+
+#: the device entries are timed at the calibration rows and at this many
+#: times as many (2^24 rows at the default 2^18), where the card's sort
+#: and histogram are bound by their bytes, not by their launches
+DEVICE_FIT_FACTOR = 64
+
+#: the device entries of a table: ``device_<name>_s`` is the part that
+#: grows with the rows, at the table's ``rows``, and
+#: ``device_<name>_fixed_s`` the fixed part (0 where a table has none)
+DEVICE_ENTRIES = ("sort", "consume", "hist")
+
+#: verdicts so far, ``{"router.<op>.<choice>": count}``
+COUNTS: Dict[str, int] = {}
+#: one-shot measurements run in this process, and the last one's failure
+CALIBRATIONS = 0
+CALIBRATION_ERROR: Optional[str] = None
+
+_lock = threading.RLock()
+#: None = not resolved; False = the calibration failed (route device); a
+#: dict = the live table
+_calibration: Any = None
+_calibration_key: Optional[str] = None
+_calibration_forced = False
+
+
+def _count(name: str) -> None:
+    with _lock:
+        COUNTS[name] = COUNTS.get(name, 0) + 1
+
+
+def set_calibration(table: Optional[Dict[str, float]]) -> None:
+    """Force the calibration table (tests, the smoke's sweep) or reset it to
+    lazy resolution (None)."""
+    global _calibration, _calibration_forced, _calibration_key
+    with _lock:
+        _calibration = table
+        _calibration_forced = table is not None
+        _calibration_key = None
+
+
+def _platform() -> str:
+    from modin_tpu_torch.config import Device
+
+    return "cuda" if Device.get() == "cuda" else "cpu"
+
+
+def _device_key() -> str:
+    """The card (or "cpu") and the torch version a table belongs to."""
+    import torch
+
+    if _platform() == "cuda":
+        from modin_tpu_torch.parallel.mesh import get_device
+
+        name = torch.cuda.get_device_name(get_device())
+    else:
+        name = "cpu"
+    return f"{name}|torch-{torch.__version__}"
+
+
+def _cache_path(platform: str, device_key: str) -> Optional[str]:
+    return calstore.table_path("kernel_router", platform, device_key=device_key, version=_CAL_VERSION)
+
+
+def _time_best(fn: Callable[[], Any], sync: Callable[[], None], reps: int = 2) -> float:
+    """Best wall time of ``fn()`` over ``reps`` runs after one untimed
+    warm-up, each ended by ``sync()`` inside the timer."""
+    fn()
+    sync()
+    best = float("inf")
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def fit_fixed_and_growing(t_small: float, t_large: float, growth: float) -> Tuple[float, float]:
+    """(fixed, growing) seconds of ``t(n) = fixed + growing * g(n)`` through
+    two timings, with ``g`` 1 at the small size and ``growth`` at the large
+    one.  Where noise leaves the large timing no slower, all of it grows."""
+    if growth <= 1.0 or t_large <= t_small:
+        return 0.0, t_large / max(growth, 1.0)
+    growing = (t_large - t_small) / (growth - 1.0)
+    return max(t_small - growing, 0.0), growing
+
+
+def _measure() -> Dict[str, Any]:
+    """Time the device and host kernels at the calibration size, and the
+    device kernels again at ``DEVICE_FIT_FACTOR`` times the rows.
+
+    pandas is timed in both cardinality regimes: its hash-based nunique and
+    mode run many times faster a row on few distinct values (the columns
+    the device answers with a histogram) than on all-distinct ones (the
+    columns that need a sort), so one coefficient an op would mispredict
+    one of them.
+    """
+    import numpy as np
+    import pandas
+    import torch
+
+    from modin_tpu_torch.config import KernelRouterCalibrationRows
+    from modin_tpu_torch.ops.cuda.groupby_kernels import bincount
+    from modin_tpu_torch.ops.reductions import _nunique_sorted
+    from modin_tpu_torch.ops.sort import sorted_valid
+    from modin_tpu_torch.parallel.engine import TorchWrapper
+    from modin_tpu_torch.parallel.mesh import get_device
+
+    rows = int(KernelRouterCalibrationRows.get())
+    device = get_device()
+    if device.type == "cuda":
+        def sync() -> None:
+            torch.cuda.synchronize(device)
+    else:
+        def sync() -> None:
+            return None
+
+    def device_times(values_wide: Any, values_narrow: Any, n: int) -> Dict[str, float]:
+        dev_wide = TorchWrapper.put(values_wide, device)
+        dev_narrow = TorchWrapper.put(values_narrow, device)
+        sorted_dev, n_valid = sorted_valid(dev_wide, n)
+        return {
+            "sort": _time_best(lambda: sorted_valid(dev_wide, n), sync),
+            "consume": _time_best(lambda: _nunique_sorted(sorted_dev, n_valid, n, True), sync),
+            # the hist strategy's work: offset codes, the bincount kernel,
+            # the occupied bins
+            "hist": _time_best(lambda: (bincount((dev_narrow - 0).contiguous(), 1024) > 0).sum(), sync),
+        }
+
+    rng = np.random.default_rng(0)
+    wide = rng.integers(0, 1 << 40, rows)  # ~all distinct: the sort case
+    narrow = rng.integers(0, 1024, rows)  # few distinct: the hist case
+    small = device_times(wide, narrow, rows)
+    fit_rows = rows * DEVICE_FIT_FACTOR
+    large = device_times(rng.integers(0, 1 << 40, fit_rows), rng.integers(0, 1024, fit_rows), fit_rows)
+    table: Dict[str, Any] = {
+        "version": _CAL_VERSION,
+        "platform": _platform(),
+        "device": _device_key(),
+        "rows": rows,
+        "device_fit_rows": fit_rows,
+    }
+    for name in DEVICE_ENTRIES:
+        growth = (calstore.nlogn_scale if name == "sort" else calstore.linear_scale)(fit_rows, rows)
+        fixed, growing = fit_fixed_and_growing(small[name], large[name], growth)
+        table[f"device_{name}_s"] = growing
+        table[f"device_{name}_fixed_s"] = fixed
+        table[f"device_{name}_at_rows_s"] = small[name]
+        table[f"device_{name}_at_fit_rows_s"] = large[name]
+    for regime, values in (("high", wide), ("low", narrow)):
+        host = pandas.Series(values)
+        table[f"host_median_{regime}_s"] = _time_best(lambda: host.median(), sync)
+        table[f"host_quantile_{regime}_s"] = _time_best(lambda: host.quantile(0.5), sync)
+        table[f"host_nunique_{regime}_s"] = _time_best(lambda: host.nunique(), sync)
+        table[f"host_mode_{regime}_s"] = _time_best(lambda: host.mode(), sync)
+    return table
+
+
+def calibration_peek() -> Optional[Dict[str, float]]:
+    """The calibration table if ALREADY resolved, never measuring (the plan
+    optimizer reads it: planning must not trigger the measurement)."""
+    with _lock:
+        table = _calibration
+    return table if isinstance(table, dict) else None
+
+
+def get_calibration() -> Optional[Dict[str, float]]:
+    """The calibration table: memory, then ``CacheDir``, then the one-shot
+    measurement.  None when the measurement failed (the caller routes
+    device, and ``CALIBRATION_ERROR`` says why); a failure is remembered, so
+    a broken device is probed once, not per verdict."""
+    global _calibration, _calibration_key, CALIBRATIONS, CALIBRATION_ERROR
+    with _lock:
+        key = None
+        if _calibration is not None:
+            if _calibration_forced:
+                return _calibration or None
+            key = _device_key()
+            if _calibration_key == key:
+                return _calibration or None
+            _calibration = None  # another card or device setting
+        platform, key = _platform(), key or _device_key()
+        path = _cache_path(platform, key)
+        table = calstore.load_table(path, version=_CAL_VERSION, platform=platform, device_key=key)
+        if table is None:
+            try:
+                table = _measure()
+            except Exception as err:  # noqa: BLE001 -- a failed probe routes device; the smoke prints CALIBRATION_ERROR
+                CALIBRATION_ERROR = f"{type(err).__name__}: {err}"
+                _calibration, _calibration_key = False, key
+                return None
+            CALIBRATIONS += 1
+            CALIBRATION_ERROR = None
+            calstore.store_table(path, table)
+        _calibration, _calibration_key = table, key
+        return table
+
+
+def device_term(table: Dict[str, float], name: str, growth: float) -> float:
+    """One device entry's predicted seconds: its fixed part plus its
+    growing part times ``growth`` (the rows' scale against the table's)."""
+    return table.get(f"device_{name}_fixed_s", 0.0) + table[f"device_{name}_s"] * growth
+
+
+def predicted_costs(op: str, n: int, strategies: List[str], table: Dict[str, float]) -> Dict[str, float]:
+    """Predicted ``{device_s, host_s}`` of ``op`` over ``n`` rows with the
+    given per-column strategies: linear scaling, but the sort term grows
+    n·log2(n); each device term adds its fixed part."""
+    cal_rows = max(int(table["rows"]), 2)
+    scale = calstore.linear_scale(n, cal_rows)
+    logscale = calstore.nlogn_scale(n, cal_rows)
+    consume = device_term(table, "consume", scale)
+    per_strategy = {
+        "dict": 0.0,
+        "view": 0.0,
+        "cached": consume,
+        "hist": device_term(table, "hist", scale),
+        "sort": device_term(table, "sort", logscale) + consume,
+    }
+    device_s = sum(per_strategy[s] for s in strategies)
+    # pandas is cardinality-sensitive: hist/dict columns are the regime it
+    # hashes fast, the others the slow one
+    host_s = sum(
+        table[f"host_{op}_{'low' if s in ('hist', 'dict') else 'high'}_s"] for s in strategies
+    ) * scale
+    return {"device_s": device_s, "host_s": host_s}
+
+
+def decide_layout(op: str, n: int, payload_cols: int = 0, itemsize: int = 8) -> str:
+    """"local" or "sharded" for a collective-eligible op: one device holds
+    every column, so always "local" (the JAX package's ``single_shard``
+    reason); the sharded leg comes with multi-GPU."""
+    _count(f"router.spmd_{op}.local")
+    return "local"
+
+
+def decide_residency(op: str, est_bytes: int, self_bytes: int = 0) -> str:
+    """"resident" or "windowed" for a streaming-eligible op: "windowed"
+    exactly when ``est_bytes`` passes the device ledger's headroom
+    (``budget`` less the other residents: ``self_bytes`` of the op's own
+    inputs are not counted against it); no budget, resident.  The
+    reference's Auto arm; its setting that pins a side, and every consumer
+    of the verdict, come with the streaming executor."""
+    from modin_tpu_torch.core.memory import device_ledger
+
+    budget = device_ledger.budget()
+    if budget is None:
+        choice = "resident"
+    else:
+        headroom = budget - max(device_ledger.total_bytes() - max(int(self_bytes), 0), 0)
+        choice = "windowed" if int(est_bytes) > headroom else "resident"
+    _count(f"router.residency_{op}.{choice}")
+    return choice
+
+
+def decide_compile(plan_sig: Any, n: int) -> str:
+    """"fused" or "staged" for a segment over ``n`` rows: the one gate of
+    the whole-plan fused leg and of the eager groupby's ``groupagg`` route.
+    ``MODIN_TPU_TORCH_FUSE`` pins a side; under Auto a segment under
+    ``MODIN_TPU_TORCH_FUSE_MIN_ROWS`` rows stays staged.  ``plan_sig`` names
+    the segment (None for an eager groupby), as the reference's gate takes
+    it."""
+    from modin_tpu_torch.config import FuseMinRows, FuseMode
+
+    mode = FuseMode.get().lower()
+    if mode in ("fused", "staged"):
+        choice = mode
+    else:
+        choice = "staged" if n < int(FuseMinRows.get()) else "fused"
+    _count(f"router.fuse.{choice}")
+    return choice
+
+
+def forced_host(op: str, n: int) -> bool:
+    """True when routing is pinned to Host: callers ask this BEFORE any
+    device work (materialization, the histogram's range probe), so a pinned
+    op pays no device work on its way to pandas.  Counted like any other
+    verdict."""
+    from modin_tpu_torch.config import KernelRouterMode
+
+    if KernelRouterMode.get().lower() != "host":
+        return False
+    decide(op, n, [])
+    return True
+
+
+def verdict(op: str, n: int, strategies: List[str]) -> Dict[str, Any]:
+    """The verdict of :func:`decide` with its reason and predicted costs,
+    counted the same way (the smoke's sweep prints it)."""
+    from modin_tpu_torch.config import KernelRouterMinRows, KernelRouterMode
+
+    mode = KernelRouterMode.get().lower()
+    costs: Dict[str, float] = {}
+    if mode in ("device", "host"):
+        choice, reason = mode, "forced"
+    elif n < int(KernelRouterMinRows.get()):
+        choice, reason = "device", "below_min_rows"
+    else:
+        table = get_calibration()
+        if table is None:
+            choice, reason = "device", "uncalibrated"
+        else:
+            costs = predicted_costs(op, n, strategies, table)
+            choice = "host" if costs["device_s"] - costs["host_s"] > MIN_SAVINGS_S else "device"
+            reason = "cost_model"
+    _count(f"router.{op}.{choice}")
+    return {"choice": choice, "reason": reason, **costs}
+
+
+def decide(op: str, n: int, strategies: List[str]) -> str:
+    """"device" or "host" for one sort-shaped ``op`` (median, quantile,
+    nunique, mode) over ``n`` rows, with one :data:`STRATEGIES` entry per
+    column."""
+    return verdict(op, n, strategies)["choice"]

@@ -4,7 +4,11 @@ The port's counterpart of ``modin_tpu/parallel/engine.py::JaxWrapper``:
 
 - ``deploy``      -> call the function; torch enqueues its kernels on the
                      current CUDA stream and returns without waiting
-- ``put``         -> ``torch.as_tensor(x).to(device)`` (always a copy)
+- ``put``         -> ``torch.as_tensor(x).to(device)`` (always a copy), after
+                     the device ledger admits its bytes (``core/memory.py``:
+                     under ``DeviceMemoryBudget`` cold columns spill first);
+                     ``from_pandas``, the readers and a spilled column's
+                     restore all upload through it
 - ``materialize`` -> ``.cpu().numpy()`` (waits for the values)
 - ``wait``        -> ``torch.cuda.synchronize()``, nothing on the CPU
 """
@@ -16,6 +20,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from modin_tpu_torch.core import memory
 
 
 class TorchWrapper:
@@ -39,6 +45,8 @@ class TorchWrapper:
             # the tensor below is a copy, never written through
             warnings.simplefilter("ignore", UserWarning)
             src = torch.as_tensor(data)
+        if memory._DEVICE_BUDGET is not None:
+            memory.device_ledger.admit(src.numel() * src.element_size())
         return src.to(device, copy=True)
 
     @classmethod

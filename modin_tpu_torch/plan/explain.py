@@ -4,9 +4,11 @@ The port's counterpart of ``modin_tpu/plan/explain.py``.  ``qc.explain()``
 renders the logical plan before and after the rewrite pass and which rules
 fired on which pass; ``qc.explain(analyze=True)`` executes the plan and
 annotates every node with its measured wall time, rows, bytes and kernel
-launches.  The reference's cost suffix (estimated flops and bytes, padding,
-roofline share) reads a cost model the port does not have yet: the annotation
-says "no cost model" in its place.
+launches.  Under ``MODIN_TPU_TORCH_OPT=Auto`` a materialized plan also
+shows each node's strategy legs with its estimated and measured wall, and the optimizer's re-plans.  The reference's cost
+suffix (estimated flops and bytes, padding, roofline share) reads a cost
+table the port does not have yet: the annotation says "no cost model" in
+its place.
 """
 
 from __future__ import annotations
@@ -47,11 +49,27 @@ def _actual_suffix(measured: Optional[dict]) -> str:
     )
 
 
-def render(root: PlanNode, actuals: Optional[dict] = None) -> str:
+def _strategy_suffix(st: Any) -> str:
+    """The optimizer's annotation of one node: its legs, its modeled wall
+    and, once lowered, its measured one."""
+    if st is None:
+        return ""
+    parts = [f"{leg}={choice}" for leg, choice in sorted(st.legs.items())]
+    if st.est_s > 0.0:
+        cost = f"est={st.est_s * 1e3:.3f}ms"
+        if st.measured_s is not None:
+            cost += f" meas={st.measured_s * 1e3:.3f}ms"
+        parts.append(cost)
+    return "  [strategy: " + " ".join(parts) + "]" if parts else ""
+
+
+def render(root: PlanNode, actuals: Optional[dict] = None, strategies: Any = None) -> str:
     """ASCII tree of a plan; a shared (diamond) node renders once and is
-    referenced as ``^N`` afterwards."""
+    referenced as ``^N`` afterwards.  ``strategies`` (the optimizer's)
+    annotates each node's legs and costs."""
     lines: List[str] = []
     ids: dict = {}
+    by_node = strategies.by_node if strategies is not None else {}
 
     def visit(node: PlanNode, depth: int) -> None:
         indent = "  " * depth
@@ -61,6 +79,7 @@ def render(root: PlanNode, actuals: Optional[dict] = None) -> str:
             return
         ids[id(node)] = len(ids) + 1
         suffix = _actual_suffix(actuals.get(id(node))) if actuals else ""
+        suffix += _strategy_suffix(by_node.get(id(node)))
         lines.append(f"{indent}#{ids[id(node)]} {node.label()}{suffix}")
         for child in node.children:
             visit(child, depth + 1)
@@ -82,20 +101,36 @@ def render_attribution(applied: List[Tuple[str, int]]) -> str:
     return "\n".join(lines)
 
 
+def render_replans(strategies: Any) -> str:
+    """The optimizer's re-plans of one materialization, each with its
+    trigger and the evidence that fired it."""
+    if strategies is None or not strategies.replans:
+        return "re-plans: none"
+    lines = [f"re-plans: {len(strategies.replans)} (correction x{strategies.correction:.2f})"]
+    for event in strategies.replans:
+        detail = " ".join(f"{k}={v}" for k, v in event.items() if k != "trigger")
+        lines.append(f"  - {event['trigger']}: {detail}")
+    return "\n".join(lines)
+
+
 def explain_plan(root: PlanNode, optimized: Optional[PlanNode] = None,
-                 applied: Optional[List[Tuple[str, int]]] = None, actuals: Optional[dict] = None) -> str:
+                 applied: Optional[List[Tuple[str, int]]] = None, actuals: Optional[dict] = None,
+                 strategies: Any = None) -> str:
     if optimized is None:
         optimized, applied = optimize(root)
     after = "with actuals" if actuals else None
-    return "\n".join([
+    parts = [
         "== logical plan (before rewrite) ==",
         render(root),
         "",
         f"== logical plan (after rewrite{', ' + after if after else ''}) ==",
-        render(optimized, actuals),
+        render(optimized, actuals, strategies),
         "",
         render_attribution(applied or []),
-    ])
+    ]
+    if strategies is not None:
+        parts += ["", render_replans(strategies)]
+    return "\n".join(parts)
 
 
 def explain_qc(qc: Any, analyze: bool = False) -> str:
@@ -110,7 +145,7 @@ def explain_qc(qc: Any, analyze: bool = False) -> str:
             return _EAGER.replace("no deferred plan", "nothing to analyze")
         actuals, (root, optimized, applied) = analyzed
         return "status: analyzed (plan executed with per-node measurement)\n" + explain_plan(
-            root, optimized, applied, actuals
+            root, optimized, applied, actuals, getattr(qc, "_plan_strategies", None)
         )
     plan = getattr(qc, "_plan", None)
     if plan is not None:
@@ -118,5 +153,7 @@ def explain_qc(qc: Any, analyze: bool = False) -> str:
     history = getattr(qc, "_plan_explain", None)
     if history is not None:
         root, optimized, applied = history
-        return "status: materialized\n" + explain_plan(root, optimized, applied)
+        return "status: materialized\n" + explain_plan(
+            root, optimized, applied, strategies=getattr(qc, "_plan_strategies", None)
+        )
     return _EAGER

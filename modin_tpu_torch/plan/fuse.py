@@ -17,32 +17,42 @@ groupby tail, runs on the uncompacted rows:
   min, key max and kept rows, three masked tails of one program), the fused
   launch that writes the slot column, and the ``groupagg`` kernel
   (``ops/groupby.fused_group_probe`` and ``fused_group_agg``);
-- the route gate stands in for the reference's ``router.decide_compile``:
-  ``MODIN_TPU_TORCH_FUSE`` pins a side, and below
+- the route gate is the kernel router's ``decide_compile``
+  (``ops/router.py``): ``MODIN_TPU_TORCH_FUSE`` pins a side, and below
   ``MODIN_TPU_TORCH_FUSE_MIN_ROWS`` rows a query stays staged.  Under Auto
   a groupby fuses only where :func:`decide_groupby` says so, the gate the
-  eager ``groupby_reduce`` takes ``groupagg`` by too.
+  eager ``groupby_reduce`` takes ``groupagg`` by too;
+- buffer donation, under a ``DeviceMemoryBudget`` only: a scan column the
+  device ledger proves has a sole consumer (:func:`_donation_candidates`)
+  is dropped once the fused launch that reads it is enqueued, its exact
+  host copy authoritative; a later read restores it
+  (``ops/reductions._mark_and_run``, ``mark_donated``).  Unlike XLA, a
+  torch launch does not write its output into a donated input, so
+  donating only frees the scan's memory early; with no budget nothing
+  needs that memory, and the next query on the frame would pay the
+  host-to-device restore.  ``core/memory.COUNTS["fuse.donated"]``,
+  ``["fuse.donated_bytes"]`` and ``["fuse.donated_restore"]`` count it.
 
 A decline (a key range wider than ``FUSED_MAX_GROUPS``, tables Auto leaves
 to the staged path, no kept row, an aggregation or a dtype the fused leg
 does not take) is the planner's own decision: the staged lowering proceeds,
 and ``DECLINES`` counts it.
 
-Not ported yet: buffer donation (``_donation_candidates``, with the device
-ledger of ``core/memory.py``), the storm feedback and pad buckets (the
-port's fused programs compile nothing per shape, and it has no launch
-ledger), and ``window_reduce_plan`` (streaming); ROADMAP lists where each
-waits.
+Not ported yet: the storm feedback and pad buckets (the port's fused
+programs compile nothing per shape, and it has no launch ledger),
+``window_reduce_plan`` (streaming) and the serving context's donation rule
+(with ``serving/``); ROADMAP lists where each waits.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import pandas
 
-from modin_tpu_torch.ops.route import decide_compile, decide_groupby  # noqa: F401  (the gate of both legs)
+from modin_tpu_torch.ops import router
+from modin_tpu_torch.ops.route import decide_groupby  # noqa: F401  (the groupby gate of both legs)
 from modin_tpu_torch.plan.ir import Filter, GroupbyAgg, Map, PlanNode, Project, Reduce, Ref, Scan, Source, walk
 
 #: fused legs taken (one per materialized segment) and declined
@@ -65,6 +75,22 @@ _SUPPORTED_MAP_METHODS = frozenset(
         "abs", "negative", "invert", "isna", "notna",
     }
 )
+
+
+def _donation_candidates(frame: Any) -> List[Any]:
+    """The leaf frame's columns whose tensors a fused launch may consume,
+    under a device budget: each donation-eligible (concrete, its own
+    length, an exact host copy) and, by one read of the device ledger for
+    the batch, the sole holder of its storage."""
+    from modin_tpu_torch.core import memory
+
+    if memory.device_ledger.budget() is None:
+        return []
+    candidates = [c for c in frame._columns if c.is_device and c.donation_eligible()]
+    if not candidates:
+        return []
+    counts = memory.device_ledger.buffer_consumer_counts([c._data for c in candidates])
+    return [c for c in candidates if counts.get(memory.storage_key(c._data), 0) == 1]
 
 
 class _Decline(Exception):
@@ -163,7 +189,7 @@ def maybe_fuse(node: PlanNode, memo: Dict[int, Any], groupby: bool) -> Optional[
 
     frame = lowering._lower(leaf, memo)._modin_frame
     n = len(frame)
-    if decide_compile(n) != "fused":
+    if router.decide_compile(node.label(), n) != "fused":
         return None
     if n == 0 or not all(c.is_device for c in frame._columns):
         return None  # pandas' empty and object answers live with the staged path
@@ -172,7 +198,11 @@ def maybe_fuse(node: PlanNode, memo: Dict[int, Any], groupby: bool) -> Optional[
     except _Decline:
         DECLINES += 1
         return None
-    result = _fused_groupby(node, qc_top, mask, n) if groupby else _fused_reduce(node, qc_top, mask)
+    donate_cols = _donation_candidates(frame)
+    if groupby:
+        result = _fused_groupby(node, qc_top, mask, n, donate_cols)
+    else:
+        result = _fused_reduce(node, qc_top, mask, donate_cols)
     if result is None:
         DECLINES += 1
         return None
@@ -180,14 +210,15 @@ def maybe_fuse(node: PlanNode, memo: Dict[int, Any], groupby: bool) -> Optional[
     return result
 
 
-def _fused_reduce(node: Reduce, qc_top: Any, mask: Any) -> Optional[Any]:
+def _fused_reduce(node: Reduce, qc_top: Any, mask: Any, donate_cols: List[Any]) -> Optional[Any]:
     kwargs = dict(node.call_kwargs)
     axis = kwargs.pop("axis", 0)
     skipna = kwargs.pop("skipna", True)
     numeric_only = kwargs.pop("numeric_only", False)
     if axis not in (0, None):
         return None
-    return qc_top._try_device_reduce(node.method, axis, skipna, numeric_only, kwargs, keep=mask)
+    return qc_top._try_device_reduce(node.method, axis, skipna, numeric_only, kwargs, keep=mask,
+                                     donate_cols=donate_cols)
 
 
 def _gate_groupby_kwargs(node: GroupbyAgg) -> bool:
@@ -222,7 +253,7 @@ def _gate_groupby_kwargs(node: GroupbyAgg) -> bool:
     return True
 
 
-def _fused_groupby(node: GroupbyAgg, qc_top: Any, mask: Any, n: int) -> Optional[Any]:
+def _fused_groupby(node: GroupbyAgg, qc_top: Any, mask: Any, n: int, donate_cols: List[Any]) -> Optional[Any]:
     from modin_tpu_torch.ops import groupby as gb
 
     agg = node.agg_func
@@ -258,7 +289,7 @@ def _fused_groupby(node: GroupbyAgg, qc_top: Any, mask: Any, n: int) -> Optional
     if not decide_groupby(n, buckets + 1, agg, len(value_pos), any_float):
         return None
     sizes, tables, _counts = gb.fused_group_agg(
-        agg, key_col.raw, [frame._columns[i].raw for i in value_pos], mask, n, kmin, buckets
+        agg, key_col.raw, [frame._columns[i].raw for i in value_pos], mask, n, kmin, buckets, donate_cols
     )
     observed = np.nonzero(sizes[:buckets] > 0)[0]
     keys = (kmin + observed).astype(key_col.pandas_dtype)

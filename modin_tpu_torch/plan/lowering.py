@@ -13,9 +13,10 @@ the main spine (or merged by CSE) is computed once.  Each scan origin keeps a
 cache of its materialized reads, one entry per projection, bounded in bytes
 by ``MODIN_TPU_TORCH_PLAN_SCAN_CACHE_BYTES``.
 
-Not ported yet: the reference's optimizer hooks (its strategies and mid-query
-re-planning, ``plan/optimizer.py``) and ``_maybe_stream`` (out-of-core
-windows); ROADMAP lists where each waits.
+With the plan optimizer on (``MODIN_TPU_TORCH_OPT=Auto``) each node's
+lowering wall goes back to ``optimizer.observe``, which may re-estimate
+the rest of the query.  Not ported yet: ``_maybe_stream``
+(out-of-core windows); ROADMAP lists where it waits.
 """
 
 from __future__ import annotations
@@ -63,20 +64,30 @@ def lower(root: PlanNode) -> Any:
     return lower_traced(root)[0]
 
 
-def lower_traced(root: PlanNode, instrument: Optional[Dict[int, dict]] = None) -> Tuple[Any, Dict[int, Any]]:
+def lower_traced(root: PlanNode, instrument: Optional[Dict[int, dict]] = None,
+                 strategies: Any = None) -> Tuple[Any, Dict[int, Any]]:
     """Lower a plan; also returns the node-id -> lowered-compiler memo.
 
     ``instrument`` (EXPLAIN ANALYZE) is filled in place with one entry per
     lowered node id: wall seconds (total and self), the kernel launches the
     node made, and the result's rows and bytes.  A shared subtree bills its
     first consumer, which is where the work happened.
+
+    ``strategies`` (the optimizer's :class:`~.optimizer.PlanStrategies`,
+    None under ``OptMode=Off``) arms the adaptive loop: each node's wall is
+    measured (one ``perf_counter`` pair) and fed to ``optimizer.observe``.
     """
+    from modin_tpu_torch.plan import optimizer
+
     memo: Dict[int, Any] = {}
     was_lowering = in_lowering()
     _tls.lowering = True
     if instrument is not None:
         _tls.instrument = instrument
         _tls.inst_stack = []
+    if strategies is not None:
+        optimizer.begin(strategies, root, memo)
+        _tls.opt_active = True
     try:
         result = _lower(root, memo)
     finally:
@@ -84,6 +95,9 @@ def lower_traced(root: PlanNode, instrument: Optional[Dict[int, dict]] = None) -
         if instrument is not None:
             _tls.instrument = None
             _tls.inst_stack = None
+        if strategies is not None:
+            _tls.opt_active = False
+            optimizer.end()
     return result, memo
 
 
@@ -92,8 +106,18 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
     if hit is not None:
         return hit
     instrument = getattr(_tls, "instrument", None)
-    if instrument is None:
+    opt_active = getattr(_tls, "opt_active", False)
+    if instrument is None and not opt_active:
         return _lower_node(node, memo)
+    from modin_tpu_torch.plan import optimizer
+
+    if instrument is None:
+        # the adaptive loop alone: the node's wall, observed once it is in
+        # the memo so a re-plan leaves it out
+        t0 = time.perf_counter()
+        result = _lower_node(node, memo)
+        optimizer.observe(node, time.perf_counter() - t0)
+        return result
     stack = _tls.inst_stack
     frame = {"child_s": 0.0, "child_launches": 0}
     stack.append(frame)
@@ -108,6 +132,8 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
         if stack:
             stack[-1]["child_s"] += total_s
             stack[-1]["child_launches"] += total_launches
+    if opt_active:
+        optimizer.observe(node, total_s)
     instrument[id(node)] = {
         "total_s": total_s,
         "self_s": max(total_s - frame["child_s"], 0.0),

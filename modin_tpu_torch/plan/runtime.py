@@ -313,10 +313,15 @@ def defer_sort(qc: Any, columns: Any, ascending: Any, kwargs: dict) -> Optional[
 
 
 def _optimize_and_lower(qc: Any, root: PlanNode, instrument: Optional[dict] = None) -> Tuple[Any, dict]:
-    """One optimize + lower pass; records EXPLAIN's history on ``qc``."""
+    """One optimize + lower pass; records EXPLAIN's history (and, under
+    ``OptMode=Auto``, the optimizer's strategies and re-plans) on ``qc``."""
+    from modin_tpu_torch.plan import optimizer
+
     optimized, applied = optimize(root)
-    result, memo = lowering.lower_traced(optimized, instrument=instrument)
+    strategies = optimizer.choose(optimized) if optimizer.OPT_ON else None
+    result, memo = lowering.lower_traced(optimized, instrument=instrument, strategies=strategies)
     qc._plan_explain = (root, optimized, applied)
+    qc._plan_strategies = strategies
     return result, memo
 
 

@@ -294,14 +294,16 @@ def test_ragged_sizes(tmp_path, n):
 
 
 def test_decide_compile_modes():
+    from modin_tpu_torch.ops import router
+
     with FuseMode.context("Staged"):
-        assert fuse.decide_compile(10**9) == "staged"
+        assert router.decide_compile(None, 10**9) == "staged"
     with FuseMode.context("Fused"):
-        assert fuse.decide_compile(1) == "fused"
+        assert router.decide_compile(None, 1) == "fused"
     with FuseMode.context("Auto"):
         floor = int(FuseMinRows.get())
-        assert fuse.decide_compile(floor - 1) == "staged"
-        assert fuse.decide_compile(floor) == "fused"
+        assert router.decide_compile(None, floor - 1) == "staged"
+        assert router.decide_compile(None, floor) == "fused"
 
 
 def test_auto_keeps_tiny_frames_staged(tmp_path):
