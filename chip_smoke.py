@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
                           [--float-rows N] [--io-rows N] [--window-rows N]
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
-                          [--memory-rows N] [--seed S] [--parent-checkout DIR]
+                          [--memory-rows N] [--views-rows N] [--views-time-rows N] [--seed S]
+                          [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory]
+                                    memory,views]
 
 Phases, one JSON object per line each:
 
@@ -254,14 +255,35 @@ Phases, one JSON object per line each:
              read restoring); phase 13's
              pipelines under ``OptMode`` Auto and Off (bit-equal, re-plans
              printed).
+16. views  - the derived-artifact cache (``phase_views``): (a) at
+             ``--views-rows`` (1e6: int64 ``i``, float64 ``f`` with 20 % NaN,
+             bool ``b``, an int key ``k`` in [0, 1000), a str column ``s``)
+             sum, mean, min, max, count, prod of ``b``, any, all, var,
+             median, nunique, mode and groupby by ``k`` sum/mean/count/
+             size/min/max and by ``s`` sum, each cold, again (a hit), after
+             each of 3 chained appends of a tenth of the rows (a fold where
+             the artifact folds), on a branch appended to the same parent
+             and under ``ViewsMode`` Off, against pandas (ints exactly,
+             floats to rtol 1e-12, grouped float sums and means to 1e-12 of
+             their group's magnitude); (b) at ``--views-time-rows`` (5e7 x
+             ``i, f, k``, 1.2 GB) sum, mean, min, groupby by ``k``
+             sum/mean/count and ``k``'s nunique, cold, hit, after each of 10
+             appends of a hundredth of the rows, and recomputed under Off on
+             the final frame: each stage's ``port_ms``, each kernel's launches
+             and the rows they read, the hit, fold and miss counts; the last
+             fold's answers equal Off's (ints bit for bit, floats to rtol
+             1e-12).  A hit launches no kernel, a fold's launches read only
+             the tail (the first fold of a grouped mean also reads the prefix
+             once, for its valid counts), nothing defaults to pandas.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
 ``--arithmetic-rows`` (7.5e6), the io, window, clean, dates and plan phases
 at ``--io-rows``, ``--window-rows``, ``--clean-rows``, ``--dates-rows`` and
 ``--plan-rows`` (2.5e6 each), the
-fusion phase at ``--fusion-rows`` (1e7) and phase 15's CSV queries at
-``--donation-rows`` (5e6) so that the whole script stays near half of its
+fusion phase at ``--fusion-rows`` (1e7), phase 15's CSV queries at
+``--donation-rows`` (5e6) and phase 16 at ``--views-rows`` (1e6) and
+``--views-time-rows`` (5e7) so that the whole script stays near half of its
 time limit; the kernel checks run at ``--rows``.  ``--phases``
 picks the phases after the kernel check for a quick run; only a run of all
 of them prints the result lines.  Then the card's name and power limit, one
@@ -286,7 +308,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory")
+              "formats", "memory", "views")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -4564,6 +4586,317 @@ def phase_memory(rows: int, plan_rows: int, seed: int, workdir: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 16. views: whole-result reuse and append-only folds
+# ---------------------------------------------------------------------- #
+
+VIEWS_WORDS = ("alpha", "beta", "gamma-delta", "epsilon", "zeta")
+VIEWS_KEYS = 1000
+VIEWS_APPENDS = 3
+VIEWS_TIME_APPENDS = 10
+VIEWS_NUM = ["i", "f", "b", "k"]
+# the reductions and groupbys of (a): (query, result kind); "fold" kinds are
+# the ones whose artifacts absorb an append
+VIEWS_QUERIES = {
+    "sum": (lambda d: d[VIEWS_NUM].sum(), "sum"),
+    "mean": (lambda d: d[VIEWS_NUM].mean(), "mean"),
+    "min": (lambda d: d[VIEWS_NUM].min(), "min"),
+    "max": (lambda d: d[VIEWS_NUM].max(), "max"),
+    "count": (lambda d: d[VIEWS_NUM].count(), "count"),
+    "prod_b": (lambda d: d[["b"]].prod(), "prod"),
+    "any": (lambda d: d[VIEWS_NUM].any(), "any"),
+    "all": (lambda d: d[VIEWS_NUM].all(), "all"),
+    "var": (lambda d: d[VIEWS_NUM].var(), "var"),
+    "median": (lambda d: d[VIEWS_NUM].median(), "median"),
+    "nunique": (lambda d: d.nunique(), "nunique"),
+    "mode": (lambda d: d[["i", "b", "k"]].mode(), "mode"),
+    "groupby_k_sum": (lambda d: d.groupby("k")[["i", "f", "b"]].sum(), "sum"),
+    "groupby_k_mean": (lambda d: d.groupby("k")[["i", "f", "b"]].mean(), "mean"),
+    "groupby_k_count": (lambda d: d.groupby("k")[["i", "f", "b"]].count(), "count"),
+    "groupby_k_size": (lambda d: d[VIEWS_NUM].groupby("k").size(), "count"),
+    "groupby_k_min": (lambda d: d.groupby("k")[["i", "f", "b"]].min(), "min"),
+    "groupby_k_max": (lambda d: d.groupby("k")[["i", "f", "b"]].max(), "max"),
+    "groupby_s_sum": (lambda d: d.groupby("s")[["i", "f"]].sum(), "sum"),
+}
+VIEWS_FOLDABLE = {"sum", "mean", "min", "max", "count", "prod_b", "any", "all"} | {
+    q for q in VIEWS_QUERIES if q.startswith("groupby_k_")}
+# the timed queries of (b), over i, f and k
+VIEWS_TIME_QUERIES = {
+    "sum": lambda d: d.sum(),
+    "mean": lambda d: d.mean(),
+    "min": lambda d: d.min(),
+    "groupby_k_sum": lambda d: d.groupby("k")[["i", "f"]].sum(),
+    "groupby_k_mean": lambda d: d.groupby("k")[["i", "f"]].mean(),
+    "groupby_k_count": lambda d: d.groupby("k")[["i", "f"]].count(),
+    "nunique_k": lambda d: d[["k"]].nunique(),
+}
+
+
+def views_data(rows: int, seed: int, strings: bool = True) -> dict:
+    """int64 ``i``, float64 ``f`` with 20 % NaN, bool ``b``, an int key ``k``
+    in [0, 1000) and a str column ``s`` of five words; (b)'s frames have
+    ``i``, ``f`` and ``k`` only."""
+    rng = np.random.default_rng(seed)
+    data = {"i": rng.integers(-1000, 1000, rows),
+            "f": np.where(rng.random(rows) < 0.2, np.nan, rng.standard_normal(rows))}
+    if strings:
+        data["b"] = rng.random(rows) < 0.5
+    data["k"] = rng.integers(0, VIEWS_KEYS, rows)
+    if strings:
+        data["s"] = rng.choice(np.array(VIEWS_WORDS, dtype=object), rows)
+    return data
+
+
+def _view_counts() -> dict:
+    from modin_tpu_torch.views import registry
+
+    return {k: registry.COUNTS.get(k, 0) for k in ("view.hit", "view.fold", "view.miss", "view.build")}
+
+
+def _kernel_marks() -> dict:
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+
+    return {name: (m.LAUNCHES, m.ROWS) for name, m in (("bincount", gk), ("groupagg", ga), ("fused", fk))}
+
+
+def _since(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before}
+
+
+def _kernel_since(before: dict) -> dict:
+    after = _kernel_marks()
+    return {k: {"launches": after[k][0] - before[k][0], "rows": after[k][1] - before[k][1]} for k in before}
+
+
+def _views_same(got, want, what: str, kind: str, frame, by=None) -> None:
+    """The port's tolerances: ints, bools, min, max, counts and order-free
+    answers exactly; float reductions to rtol 1e-12; a grouped float sum or
+    mean to 1e-12 of its group's sum (mean) of |x| (``frame`` the pandas
+    data, ``by`` the key)."""
+    if kind == "mode":
+        import pandas
+
+        # bools padded with NaN are object columns: pandas' own exact check
+        pandas.testing.assert_frame_equal(got, want, check_exact=True, obj=what)
+        return
+    if by is None or kind not in ("sum", "mean"):
+        assert_same_pandas(got, want, what, exact=kind not in ("sum", "mean", "var"))
+        return
+    values = frame[[c for c in want.columns if want[c].dtype.kind == "f"]]
+    mag = values.astype(np.float64).abs().groupby(frame[by]).sum()
+    if kind == "mean":
+        mag = mag / values.groupby(frame[by]).count()
+    _plan_same(got, want, what, kind, scale=mag.reindex(want.index))
+
+
+def views_correctness(rows: int, seed: int) -> dict:
+    """(a): each query of ``VIEWS_QUERIES`` cold, again (a hit), after each
+    of 3 chained appends of rows / 10 (a fold where the artifact folds),
+    on a branch appended to the same parent, and under ``ViewsMode`` Off,
+    against pandas; the hit, fold and miss counts of each stage."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import ViewsMode
+
+    tail_rows = rows // 10
+    base = pandas.DataFrame(views_data(rows, seed))
+    tails = [pandas.DataFrame(views_data(tail_rows, seed + 1 + j)) for j in range(VIEWS_APPENDS + 1)]
+    t0 = time.perf_counter()
+    frames = {"cold": (tpd.DataFrame(base), base)}
+    frames["hit"] = frames["cold"]
+    t, p = frames["cold"]
+    for j in range(VIEWS_APPENDS):
+        t = tpd.concat([t, tpd.DataFrame(tails[j])], ignore_index=True)
+        p = pandas.concat([p, tails[j]], ignore_index=True)
+        frames[f"fold{j + 1}"] = (t, p)
+    frames["branch"] = (tpd.concat([frames["cold"][0], tpd.DataFrame(tails[-1])], ignore_index=True),
+                        pandas.concat([base, tails[-1]], ignore_index=True))
+    concat_s = time.perf_counter() - t0
+    stages = ["cold", "hit"] + [f"fold{j + 1}" for j in range(VIEWS_APPENDS)] + ["branch"]
+    counts = {}
+    for name, (query, kind) in VIEWS_QUERIES.items():
+        by = "k" if name.startswith("groupby_k") else ("s" if name.startswith("groupby_s") else None)
+        counts[name] = {}
+        for stage in stages:
+            tdf, pdf = frames[stage]
+            c0 = _view_counts()
+            got = tpd.to_pandas(query(tdf))
+            counts[name][stage] = _since(c0, _view_counts())
+            _views_same(got, query(pdf), f"views {name} {stage}", kind, pdf, by)
+        seen = counts[name]
+        if seen["hit"]["view.hit"] == 0 or seen["hit"]["view.miss"] or seen["hit"]["view.build"]:
+            raise AssertionError(f"views {name}: the repeat was no hit: {seen['hit']}")
+        if name in VIEWS_FOLDABLE:
+            for stage in stages[2:]:
+                if seen[stage]["view.fold"] == 0 or seen[stage]["view.miss"]:
+                    raise AssertionError(f"views {name} {stage}: no fold: {seen[stage]}")
+        tdf, pdf = frames[stages[-2]]
+        with ViewsMode.context("Off"):
+            c0 = _view_counts()
+            off = tpd.to_pandas(query(tdf))
+            if any(_since(c0, _view_counts()).values()):
+                raise AssertionError(f"views {name}: Off touched the registry")
+        _views_same(off, query(pdf), f"views {name} off", kind, pdf, by)
+    return {"rows": rows, "tail_rows": tail_rows, "concat_s": concat_s, "counts": counts}
+
+
+def _views_fold_ok(name: str, j: int, kern: dict, n0: int, n_tail: int) -> None:
+    """A fold's launches read only tail rows; the first fold of a grouped
+    mean also reads the prefix once, for the per-group valid counts its
+    cold query did not keep (written back to the artifact)."""
+    for kernel, got in kern.items():
+        extra = got["rows"] - got["launches"] * n_tail
+        prefix_launches, rem = divmod(extra, max(n0 - n_tail, 1))
+        allowed = name.endswith("_mean") and j == 0
+        if rem or prefix_launches < 0 or (prefix_launches and not allowed):
+            raise AssertionError(f"views {name} fold {j + 1}: {kernel} read {got['rows']} rows in "
+                                 f"{got['launches']} launches beyond the {n_tail}-row tail")
+
+
+def views_times(rows: int, seed: int) -> dict:
+    """(b): ``VIEWS_TIME_QUERIES`` over ``i, f, k`` at ``rows``, cold and hit,
+    then after each of 10 appends of rows / 100 (fold, or the miss of a
+    sort-shaped answer), then the final frame under ``ViewsMode`` Off; the
+    port's times (ended by a device synchronise), each stage's launches and
+    rows per kernel, and the hit, fold and miss counts.  The last fold's
+    answers equal Off's: ints bit for bit, floats to rtol 1e-12 (a grouped
+    float sum or mean to 1e-12 of its group's sum (mean) of |x|, from
+    torch on the card)."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import ViewsMode
+
+    tail_rows = rows // 100
+    t0 = time.perf_counter()
+    df = tpd.DataFrame(pandas.DataFrame(views_data(rows, seed, strings=False)))
+    tails = [pandas.DataFrame(views_data(tail_rows, seed + 100 + j, strings=False))
+             for j in range(VIEWS_TIME_APPENDS)]
+    build_s = time.perf_counter() - t0
+    out = {q: {"fold_ms": [], "fold_to_pandas_ms": [], "fold_kernels": [], "fold_counts": []}
+           for q in VIEWS_TIME_QUERIES}
+
+    def timed(q, frame):
+        c0, k0 = _view_counts(), _kernel_marks()
+        res, ms = host_ms(lambda: VIEWS_TIME_QUERIES[q](frame))
+        kern = _kernel_since(k0)
+        counts = _since(c0, _view_counts())
+        got, tp_ms = host_ms(lambda: tpd.to_pandas(res))
+        return got, ms, tp_ms, kern, counts
+
+    for stage in ("cold", "hit"):
+        for q in VIEWS_TIME_QUERIES:
+            _, ms, tp_ms, kern, counts = timed(q, df)
+            out[q][f"{stage}_ms"], out[q][f"{stage}_to_pandas_ms"] = ms, tp_ms
+            out[q][f"{stage}_kernels"], out[q][f"{stage}_counts"] = kern, counts
+            if stage == "hit" and (any(v["launches"] for v in kern.values()) or not counts["view.hit"]):
+                raise AssertionError(f"views {q} hit: {counts}, launches {kern}")
+    concat_ms = []
+    last = {}
+    for j, tail in enumerate(tails):
+        n0 = len(df)
+        df, ms = host_ms(lambda parent=df: tpd.concat([parent, tpd.DataFrame(tail)], ignore_index=True))
+        concat_ms.append(ms)
+        for q in VIEWS_TIME_QUERIES:
+            got, ms, tp_ms, kern, counts = timed(q, df)
+            rec = out[q]
+            rec["fold_ms"].append(ms)
+            rec["fold_to_pandas_ms"].append(tp_ms)
+            rec["fold_kernels"].append(kern)
+            rec["fold_counts"].append(counts)
+            if q == "nunique_k":
+                if not counts["view.miss"] and not counts["view.build"]:
+                    raise AssertionError(f"views {q}: an appended frame answered from the parent")
+            else:
+                if not counts["view.fold"] or counts["view.miss"]:
+                    raise AssertionError(f"views {q} fold {j + 1}: {counts}")
+                _views_fold_ok(q, j, kern, n0, tail_rows)
+            last[q] = got
+    with ViewsMode.context("Off"):
+        for q in VIEWS_TIME_QUERIES:
+            c0, k0 = _view_counts(), _kernel_marks()
+            res, ms = host_ms(lambda: VIEWS_TIME_QUERIES[q](df))
+            out[q]["off_kernels"] = _kernel_since(k0)
+            off, tp_ms = host_ms(lambda: tpd.to_pandas(res))
+            out[q]["off_ms"], out[q]["off_to_pandas_ms"] = ms, tp_ms
+            if any(_since(c0, _view_counts()).values()):
+                raise AssertionError(f"views {q}: Off touched the registry")
+            _views_same_off(last[q], off, q, df)
+    for q, rec in out.items():
+        folds = sorted(rec["fold_ms"])
+        rec["fold_median_ms"] = folds[len(folds) // 2]
+        rec["fold_beats_off"] = rec["fold_median_ms"] < rec["off_ms"]
+    return {"rows": rows, "tail_rows": tail_rows, "appends": VIEWS_TIME_APPENDS, "build_s": build_s,
+            "concat_ms": concat_ms, "final_rows": len(df), "queries": out}
+
+
+def _views_same_off(fold, off, q: str, df) -> None:
+    """The last fold's answer against Off's on the same frame."""
+    import torch
+
+    what = f"views {q} fold against off"
+    if not q.startswith("groupby_k_") or q.endswith("_count"):
+        assert_same_pandas(fold, off, what, exact=q in ("min", "nunique_k", "groupby_k_count"))
+        return
+    # the groups' magnitudes on the card, from the frame's own tensors
+    frame = df._query_compiler._modin_frame
+    cols = {lab: frame.get_column(i).data for i, lab in enumerate(frame.columns)}
+    k = cols["k"]
+    mag = {}
+    for lab in ("i", "f"):
+        x = cols[lab].to(torch.float64)
+        valid = ~torch.isnan(x)
+        s = torch.zeros(VIEWS_KEYS, dtype=torch.float64, device=x.device).index_add_(0, k, torch.where(valid, x.abs(), 0.0))
+        if q.endswith("_mean"):
+            s = s / torch.zeros(VIEWS_KEYS, dtype=torch.float64, device=x.device).index_add_(0, k, valid.to(torch.float64))
+        mag[lab] = s.cpu().numpy()
+    import pandas
+
+    scale = pandas.DataFrame(mag, index=pandas.RangeIndex(VIEWS_KEYS, name="k")).reindex(off.index)
+    _plan_same(fold, off, what, "sum", scale=scale)
+
+
+def phase_views(rows: int, time_rows: int, seed: int) -> dict:
+    """The derived-artifact cache (``views/``) on the card: (a) every query
+    of ``VIEWS_QUERIES`` against pandas at ``rows`` through hits, chained
+    folds, a branch and Off; (b) the times of ``VIEWS_TIME_QUERIES`` at
+    ``time_rows`` cold, hit, folded over 10 appends and recomputed under
+    Off.  Nothing defaults to pandas; a hit launches no kernel; a fold's
+    launches read only the tail.  Returns the launches."""
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.views import registry
+
+    t_phase = time.perf_counter()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    k0 = _kernel_marks()
+    registry.reset()
+    t0 = time.perf_counter()
+    correct = views_correctness(rows, seed)
+    correct["seconds"] = time.perf_counter() - t0
+    emit({"phase": "views", "part": "correctness", **correct})
+    registry.reset()
+    free_device_memory()
+    t0 = time.perf_counter()
+    times = views_times(time_rows, seed)
+    times["seconds"] = time.perf_counter() - t0
+    emit({"phase": "views", "part": "times", **times})
+    registry.reset()
+    free_device_memory()
+    if tqc.DEFAULTS_TO_PANDAS:
+        raise AssertionError(f"{tqc.DEFAULTS_TO_PANDAS} views calls defaulted to pandas")
+    launches = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+    if not launches["bincount"] or not launches["groupagg"]:
+        raise AssertionError(f"the views path never launched bincount or groupagg: {launches}")
+    summary = {q: {f: r[f] for f in ("cold_ms", "hit_ms", "fold_median_ms", "off_ms", "fold_beats_off")}
+               for q, r in times["queries"].items()}
+    emit({"phase": "views", "launches": launches, "defaults_to_pandas": tqc.DEFAULTS_TO_PANDAS,
+          "summary_ms": summary, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_path: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
     ``io``, ``window``, ``clean``, ``dates``, ``plan``, ``formats``) to its
@@ -4731,6 +5064,10 @@ def main(argv=None) -> int:
                         help="rows of the memory phase's CSV (donation and optimizer)")
     parser.add_argument("--memory-rows", type=int, default=10**8,
                         help="rows of the memory phase's budgeted frames (10 int64 columns)")
+    parser.add_argument("--views-rows", type=int, default=10**6,
+                        help="rows of the views phase's correctness frame (tails of a tenth)")
+    parser.add_argument("--views-time-rows", type=int, default=5 * 10**7,
+                        help="rows of the views phase's timed frame (10 tails of a hundredth)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -4827,6 +5164,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_memory_") as workdir:
             launches["memory"] = run("memory", phase_memory, args.memory_rows, args.donation_rows, args.seed,
                                      workdir)
+    if "views" in phases:
+        launches["views"] = run("views", phase_views, args.views_rows, args.views_time_rows, args.seed)
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,

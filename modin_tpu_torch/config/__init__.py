@@ -20,11 +20,16 @@ from modin_tpu_torch.config.envvars import (
     PlanMaxPasses,
     PlanMode,
     PlanScanCacheBytes,
+    ViewsHostBudget,
+    ViewsMaxChain,
+    ViewsMaxEntries,
+    ViewsMaxGroups,
+    ViewsMode,
 )
 
 __all__ = [
     "CacheDir", "CpuCount", "Device", "DeviceMemoryBudget", "FusedCacheSize", "FuseMinRows", "FuseMode",
     "GroupbyRangeLimit", "KernelRouterCalibrationRows", "KernelRouterHistBound", "KernelRouterMinRows",
     "KernelRouterMode", "Memory", "OptMode", "OptReplanFactor", "Parameter", "PlanMaxPasses", "PlanMode",
-    "PlanScanCacheBytes",
+    "PlanScanCacheBytes", "ViewsHostBudget", "ViewsMaxChain", "ViewsMaxEntries", "ViewsMaxGroups", "ViewsMode",
 ]

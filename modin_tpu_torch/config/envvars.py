@@ -9,8 +9,10 @@ programs, the whole-query planner's knobs (``PlanMode``,
 ``PlanMaxPasses``, ``PlanScanCacheBytes``, ``FuseMode``, ``FuseMinRows``),
 the kernel router's (``KernelRouterMode``, ``KernelRouterMinRows``,
 ``KernelRouterCalibrationRows``, ``CacheDir``), the memory budgets
-(``Memory``, ``DeviceMemoryBudget``) and the plan optimizer's
-(``OptMode``, ``OptReplanFactor``); the port's own variable names, so
+(``Memory``, ``DeviceMemoryBudget``), the plan optimizer's
+(``OptMode``, ``OptReplanFactor``) and the derived-artifact cache's
+(``ViewsMode``, ``ViewsMaxEntries``, ``ViewsHostBudget``,
+``ViewsMaxGroups``, ``ViewsMaxChain``); the port's own variable names, so
 one process can pin the two packages apart.  A module that keeps a
 setting in a variable of its own subscribes to it
 (:meth:`Parameter.subscribe`) and sees every change.
@@ -318,3 +320,54 @@ class OptReplanFactor(Parameter):
     @classmethod
     def put(cls, value: Any) -> None:
         cls._set(cls._parse(value))
+
+
+class _Positive(_Count):
+    minimum = 1
+
+
+class ViewsMode(_Choice):
+    """The derived-artifact cache (``views/``): whole reduction results,
+    nunique/mode/median answers and small groupby tables, kept per column
+    token and shared by every query on the same tensors; a column grown by
+    a row ``concat`` folds only its appended rows into the foldable ones.
+    Auto: the query compiler consults and maintains them.  Off: no token is
+    allocated and no hook runs (``views.VIEWS_ON``).  The sorted
+    representations (``ops/sorted_cache.py``) are kept in both modes."""
+
+    varname = "MODIN_TPU_TORCH_VIEWS"
+    choices = ("Auto", "Off")
+    default = "Auto"
+
+
+class ViewsMaxEntries(_Positive):
+    """Live artifacts the registry keeps; past it the coldest go."""
+
+    varname = "MODIN_TPU_TORCH_VIEWS_MAX_ENTRIES"
+    default = 4096
+
+
+class ViewsHostBudget(_Positive):
+    """Host bytes of artifact state (scalar results, groupby tables) the
+    registry keeps; past it the coldest artifacts go.  Device payloads are
+    the device ledger's (``DeviceMemoryBudget``), which drops them before
+    any column."""
+
+    varname = "MODIN_TPU_TORCH_VIEWS_HOST_BUDGET"
+    default = 128 * 1024 * 1024
+
+
+class ViewsMaxGroups(_Positive):
+    """Groups a cached groupby table may have: a result with more is
+    neither cached nor folded."""
+
+    varname = "MODIN_TPU_TORCH_VIEWS_MAX_GROUPS"
+    default = 65536
+
+
+class ViewsMaxChain(_Positive):
+    """Append links a fold lookup walks at most; a column whose chain is
+    deeper has its link re-anchored past ancestors that hold no artifact."""
+
+    varname = "MODIN_TPU_TORCH_VIEWS_MAX_CHAIN"
+    default = 64

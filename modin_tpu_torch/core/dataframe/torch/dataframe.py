@@ -56,6 +56,10 @@ class DeviceColumn:
     fetch.  Any computed column has none until it spills.  ``_sorted_rep``
     holds the column's sorted representation once a sort-shaped reduction
     built it (``ops/sorted_cache.py``); replacing ``data`` drops it.
+    ``_view_token``/``_view_parent`` are the column's identity in the
+    derived-artifact registry (``views/registry.py``) and its append link;
+    every change of the tensor drops the artifacts under the token
+    (:meth:`_invalidate_derived`).
 
     The memory protocol (``core/memory.py``, the JAX column's): a concrete
     tensor registers with the device ledger at construction, a deferred one
@@ -70,7 +74,7 @@ class DeviceColumn:
 
     __slots__ = (
         "_data", "pandas_dtype", "length", "host_cache", "_sorted_rep", "_ledger_key", "_dev_key",
-        "donated", "_home", "__weakref__",
+        "donated", "_home", "_view_token", "_view_parent", "__weakref__",
     )
     is_device = True
     is_derived_cache = False
@@ -84,6 +88,8 @@ class DeviceColumn:
     ):
         self._data = data
         self._sorted_rep = None
+        self._view_token = None
+        self._view_parent = None
         self.pandas_dtype = np.dtype(pandas_dtype)
         self.length = int(length) if length is not None else int(data.shape[0])
         self.host_cache = host_cache
@@ -143,10 +149,7 @@ class DeviceColumn:
         tensor or a replacement.  The sorted representation and the old
         tensor's ledger entry go; a concrete tensor registers."""
         memory.device_ledger.deregister(self)
-        if self._sorted_rep is not None:
-            from modin_tpu_torch.ops import sorted_cache
-
-            sorted_cache.invalidate(self)
+        self._invalidate_derived()
         self._data = value
         self._home = None
         self.donated = False
@@ -158,10 +161,22 @@ class DeviceColumn:
     def _exact_shape(self) -> bool:
         return isinstance(self._data, torch.Tensor) and self._data.shape[0] == self.length
 
-    def _drop_tensor(self) -> int:
-        from modin_tpu_torch.ops import sorted_cache
+    def _invalidate_derived(self) -> None:
+        """Drop every derived cache answering for this column's tensor, which
+        is about to change (spill, restore, materialization, donation,
+        replacement): the sorted representation and the registry's
+        artifacts under the column's token."""
+        if self._sorted_rep is not None:
+            from modin_tpu_torch.ops import sorted_cache
 
-        sorted_cache.invalidate(self)
+            sorted_cache.invalidate(self)
+        if self._view_token is not None:
+            from modin_tpu_torch.views import registry
+
+            registry.invalidate_column(self, reason="buffer")
+
+    def _drop_tensor(self) -> int:
+        self._invalidate_derived()
         freed = memory.device_ledger.deregister(self)
         self._home = (self._data.dtype, self._data.device)
         self._data = None
@@ -263,7 +278,7 @@ class HostColumn:
     the categories here.  A new column (a filter's, a sort's) encodes anew.
     """
 
-    __slots__ = ("data", "_dict_cache", "_cat_cache")
+    __slots__ = ("data", "_dict_cache", "_cat_cache", "__weakref__")
     is_device = False
 
     def __init__(self, data: Any):
@@ -504,9 +519,10 @@ class TorchDataframe:
     # ------------------------------------------------------------------ #
     # Row selection and concatenation
     #
-    # A column these produce carries no host cache: the JAX package gathers
-    # the host copy beside the device one, host work that the query would
-    # pay for every row.  ``to_pandas`` fetches such a column instead.
+    # A column a selection produces carries no host cache: the JAX package
+    # gathers the host copy beside the device one, host work that the query
+    # would pay for every row.  ``to_pandas`` fetches such a column instead.
+    # A concatenation keeps the parts' host copies, as the JAX package does.
     # ------------------------------------------------------------------ #
 
     def take_rows_positional(self, positions: Any) -> "TorchDataframe":
@@ -602,24 +618,46 @@ class TorchDataframe:
 
     def concat_rows(self, others: List["TorchDataframe"]) -> "TorchDataframe":
         """Row-wise concat of frames whose columns line up one to one with
-        equal dtypes, all on the device; the row labels append lazily."""
+        equal dtypes; the row labels append lazily.  Device columns of one
+        torch dtype concatenate on the device and keep the concatenated host
+        copy where every part has one; the others concatenate with numpy in
+        their exact dtype.  Under ``ViewsMode`` Auto each device column is
+        linked to its first part (``views/registry.note_append``: artifacts
+        of the part fold only the appended rows), and a host string column
+        whose first part holds a dictionary encoding gets it extended by the
+        tail's codes."""
+        from modin_tpu_torch import views
         from modin_tpu_torch.ops.structural import concat_columns
 
         frames = [self, *others]
         for f in frames:
             f.materialize_device()
-        for ci in range(self.num_cols):
-            cols = [f._columns[ci] for f in frames]
-            if not all(c.is_device for c in cols) or len({c.data.dtype for c in cols}) != 1:
-                raise ValueError("concat_rows takes device columns of one dtype each")
         lengths = [len(f) for f in frames]
-        datas, total = concat_columns(
-            [[c.data for c in f._columns] for f in frames], lengths
-        )
-        new_columns: List[Column] = [
-            DeviceColumn(d, c.pandas_dtype, length=total)
-            for c, d in zip(self._columns, datas)
+        total = sum(lengths)
+        device_cis = [
+            ci for ci in range(self.num_cols)
+            if all(f._columns[ci].is_device for f in frames)
+            and len({f._columns[ci].dtype for f in frames}) == 1
         ]
+        new_columns: List[Any] = [None] * self.num_cols
+        if device_cis:
+            datas, _ = concat_columns(
+                [[f._columns[ci].data for ci in device_cis] for f in frames], lengths
+            )
+            for ci, d in zip(device_cis, datas):
+                parts = [f._columns[ci] for f in frames]
+                # one read each: the host ledger may drop a copy meanwhile
+                caches = [c.host_cache for c in parts]
+                cache = np.concatenate(caches) if all(c is not None for c in caches) else None
+                new_col = DeviceColumn(d, parts[0].pandas_dtype, length=total, host_cache=cache)
+                if views.VIEWS_ON:
+                    from modin_tpu_torch.views import registry
+
+                    registry.note_append(new_col, parts[0])
+                new_columns[ci] = new_col
+        for ci in range(self.num_cols):
+            if new_columns[ci] is None:
+                new_columns[ci] = _concat_values([f._columns[ci] for f in frames], lengths[0])
         lazies = [f._index for f in frames]
 
         def build_index() -> Any:
@@ -640,6 +678,39 @@ class TorchDataframe:
         this frame completes."""
         self.materialize_device()
         TorchWrapper.wait()
+
+
+def _concat_values(parts: List[Column], head: int) -> Column:
+    """One column of ``concat_rows`` through numpy: device parts of unlike
+    torch dtypes, or host parts, whose pandas dtype is kept exactly (a new
+    inference would turn pandas 3's ``str`` into the ``string`` dtype).
+    ``head`` is the first part's length."""
+    import pandas
+
+    from modin_tpu_torch import views
+
+    values = np.concatenate([np.asarray(c.to_numpy()) for c in parts])
+    if all(c.is_device for c in parts):
+        return DeviceColumn.from_numpy(values, parts[0].device)
+    dtypes = {c.pandas_dtype for c in parts}
+    arr = pandas.array(values, dtype=dtypes.pop()) if len(dtypes) == 1 else pandas.array(values)
+    if isinstance(arr, pandas.arrays.NumpyExtensionArray):
+        # the raw ndarray, as column_of_series stores it: NumpyEADtype
+        # ('object') fails == against np.dtype(object), so a chained concat
+        # would fail its dtype check
+        arr = np.asarray(arr)
+    col = HostColumn(arr)
+    if views.VIEWS_ON and parts[0]._dict_cache not in (None, False):
+        # the first part paid its factorization: extend its code table by
+        # the tail's instead of encoding every row again at the next use
+        from modin_tpu_torch.views import registry
+        from modin_tpu_torch.views.incremental import extend_dict_encoding
+
+        ext = extend_dict_encoding(parts[0], values[head:])
+        if ext is not None:
+            col._dict_cache = ext
+            registry.count("view.fold")
+    return col
 
 
 def _label_eq(a: Any, b: Any) -> bool:

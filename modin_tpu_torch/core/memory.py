@@ -8,12 +8,14 @@ ledgers:
   copies are dropped where the device tensor is authoritative (never the
   only copy of a spilled column).
 - **Device** (``_DeviceLedger``, ``MODIN_TPU_TORCH_DEVICE_MEMORY_BUDGET``):
-  every concrete column tensor and every sorted representation
-  (``ops/sorted_cache.py``).  Before an upload (``TorchWrapper.put``) or a
-  fused launch (``ops/lazy.run_fused``) that would take the resident bytes
-  past the budget, :meth:`_DeviceLedger.admit` spills the coldest entries:
-  derived entries first (a sorted representation is just dropped), then
-  columns, each tier coldest first.  A spilled column keeps an exact host
+  every concrete column tensor and every derived artifact with a device
+  payload (``views/registry.py``; the sorted representations of
+  ``ops/sorted_cache.py`` are such artifacts).  Before an upload
+  (``TorchWrapper.put``) or a fused launch (``ops/lazy.run_fused``) that
+  would take the resident bytes past the budget,
+  :meth:`_DeviceLedger.admit` spills the coldest entries: derived entries
+  first (an artifact is just dropped), then columns, each tier coldest
+  first.  A spilled column keeps an exact host
   copy and restores on its next read.
 
 Entries are keyed on the tensor's **storage** (its device and
@@ -178,7 +180,7 @@ _DEVICE_BUDGET: Optional[int] = None
 
 class _Entry:
     """One storage: its bytes, its live holders by ``id``, and whether it is
-    a derived cache (a sorted representation)."""
+    a derived cache (an artifact of ``views/registry.py``)."""
 
     __slots__ = ("nbytes", "holders", "derived")
 
@@ -191,7 +193,8 @@ class _Entry:
 class _DeviceLedger:
     """LRU accounting of device-resident storages across the column store.
 
-    A holder is a ``DeviceColumn`` or a ``SortedRep``: it has ``_data`` (its
+    A holder is a ``DeviceColumn`` or a ``DerivedArtifact`` (a
+    ``SortedRep`` among them): it has ``_data`` (its
     tensor, None once spilled), ``_dev_key``, ``is_lazy``, ``spill()`` and
     ``is_derived_cache``.  Insertion order is the LRU order; :meth:`touch`
     refreshes it.

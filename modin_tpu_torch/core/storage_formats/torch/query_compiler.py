@@ -90,6 +90,7 @@ from modin_tpu_torch.config import PlanMode
 from modin_tpu_torch.error_message import ErrorMessage
 from modin_tpu_torch.ops import datetime_parts, dictionary, elementwise, reductions, sorted_cache, stats
 from modin_tpu_torch.ops import groupby as gb_ops
+from modin_tpu_torch import views
 from modin_tpu_torch.ops import join as join_ops
 from modin_tpu_torch.ops import sort as sort_ops
 from modin_tpu_torch.ops import window as window_ops
@@ -128,6 +129,13 @@ def _insert_label(labels: Sequence[Any], loc: int, label: Any) -> Sequence[Any]:
         labels = list(labels)
         return labels[:loc] + [label] + labels[loc:]
     return labels.insert(loc, label)
+
+
+def _same_dtype(a: Any, b: Any) -> bool:
+    try:
+        return bool(a == b)
+    except (TypeError, ValueError):
+        return False
 
 
 def _is_number(v: Any) -> bool:
@@ -950,11 +958,10 @@ class TorchQueryCompiler(BaseQueryCompiler):
             labels = labels[positions]  # pandas Index
         except TypeError:
             labels = [list(labels)[i] for i in positions]
+        # a string column reduces through its dictionary codes
+        sel_cols = [decoders[i].codes if i in decoders else frame._columns[i] for i in positions]
         # deferred columns fold into the reductions (one fused run)
-        arrays = [
-            decoders[i].codes.data if i in decoders else frame._columns[i].raw
-            for i in positions
-        ]
+        arrays = [c.data if i in decoders else c.raw for i, c in zip(positions, sel_cols)]
         # bool columns: pandas computes these over ints
         cast_bool = op in ("sum", "prod", "mean", "median", "var", "std", "sem", "skew", "kurt")
         if axis == 1:
@@ -986,19 +993,22 @@ class TorchQueryCompiler(BaseQueryCompiler):
             if kept == 0:
                 return None
         elif op == "median":
-            from modin_tpu_torch.ops import router, sorted_cache
-
-            cols = [frame._columns[i] for i in positions]
-            if router.forced_host("median", len(frame)):
+            values = self._routed_median(sel_cols, skipna)
+            if values is None:
                 return None
-            strategies = ["cached" if sorted_cache.peek(c) else "sort" for c in cols]
-            if router.decide("median", len(frame), strategies) == "host":
-                return None
-            values = reductions.median_columns(cols, len(frame), skipna=skipna)
         else:
-            values = reductions.reduce_columns(
-                op, arrays, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool
-            )
+            values = None
+            if views.VIEWS_ON:
+                # whole results reused and appended columns folded
+                # (``views/reduce_cache.py``); None where a column is
+                # deferred or spilled
+                from modin_tpu_torch.views.reduce_cache import cached_reduce
+
+                values = cached_reduce(op, sel_cols, len(frame), skipna, ddof, cast_bool)
+            if values is None:
+                values = reductions.reduce_columns(
+                    op, arrays, len(frame), skipna=skipna, ddof=ddof, cast_bool=cast_bool
+                )
         if decoders and op in ("min", "max"):
             import pandas
 
@@ -1026,6 +1036,35 @@ class TorchQueryCompiler(BaseQueryCompiler):
         )
         qc._shape_hint = "column"
         return qc
+
+    def _routed_median(self, cols: List[Any], skipna: bool) -> Optional[list]:
+        """The medians of ``cols`` over their sorted representations, the
+        kernel router's verdict first (None: pandas).  A cached whole result
+        answers a column with no device work and plans as "view"."""
+        from modin_tpu_torch.ops import router
+        from modin_tpu_torch.views import reduce_cache as view_reduce
+
+        n = len(self._modin_frame)
+        if router.forced_host("median", n):
+            return None
+        params = (bool(skipna),)
+        cached = view_reduce.sort_reduce_lookup("median", params, cols) if views.VIEWS_ON else {}
+        strategies = [
+            "view" if i in cached else ("cached" if sorted_cache.peek(c) else "sort")
+            for i, c in enumerate(cols)
+        ]
+        if router.decide("median", n, strategies) == "host":
+            return None
+        view_reduce.sort_reduce_consume("median", params, cols, cached)
+        values: list = [cached.get(i) for i in range(len(cols))]
+        miss_is = [i for i in range(len(cols)) if i not in cached]
+        if miss_is:
+            got = reductions.median_columns([cols[i] for i in miss_is], n, skipna=skipna)
+            for i, v in zip(miss_is, got):
+                values[i] = v
+                if views.VIEWS_ON:
+                    view_reduce.sort_reduce_store("median", params, cols[i], v)
+        return values
 
     # ---------------- sort-shaped reductions (axis 0 and 1) ------------- #
 
@@ -1070,6 +1109,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
         bounded-range ints through one O(n) histogram (the bincount
         kernel), the rest through the shared sorted representation."""
         from modin_tpu_torch.ops import router
+        from modin_tpu_torch.views import reduce_cache as view_reduce
 
         frame = self._modin_frame
         n = len(frame)
@@ -1079,10 +1119,22 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if got is None:
             return None
         specs, _ = got
-        plans = reductions.plan_sort_reduce("nunique", specs, n)
-        if router.decide("nunique", n, [p.strategy for p in plans]) == "host":
+        # cached whole results answer their columns with no device work (no
+        # range probe, no sort) and plan as "view"
+        keyed = [None if "n_categories" in spec else spec["col"] for spec in specs]
+        params = (bool(dropna),)
+        cached = view_reduce.sort_reduce_lookup("nunique", params, keyed) if views.VIEWS_ON else {}
+        miss_is = [i for i in range(len(specs)) if i not in cached]
+        plans = reductions.plan_sort_reduce("nunique", [specs[i] for i in miss_is], n)
+        if router.decide("nunique", n, ["view"] * len(cached) + [p.strategy for p in plans]) == "host":
             return None
-        counts = reductions.nunique_planned(plans, n, bool(dropna))
+        view_reduce.sort_reduce_consume("nunique", params, keyed, cached)
+        counts = [cached.get(i) for i in range(len(specs))]
+        if plans:
+            for i, v, p in zip(miss_is, reductions.nunique_planned(plans, n, bool(dropna)), plans):
+                counts[i] = v
+                if views.VIEWS_ON and keyed[i] is not None and p.strategy != "dict":
+                    view_reduce.sort_reduce_store("nunique", params, keyed[i], v)
         qc = type(self).from_numpy_columns(
             {MODIN_UNNAMED_SERIES_LABEL: np.asarray(counts, dtype=np.int64)},
             index=self.get_columns(), device=self._device(),
@@ -1113,6 +1165,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
         import pandas
 
         from modin_tpu_torch.ops import router
+        from modin_tpu_torch.views import reduce_cache as view_reduce
 
         frame = self._modin_frame
         n = len(frame)
@@ -1122,12 +1175,24 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if got is None:
             return None
         specs, decoders = got
-        plans = reductions.plan_sort_reduce("mode", specs, n)
+        # cached (modal values, nan_modal) answers skip the device work and
+        # plan as "view"
+        keyed = [None if "n_categories" in spec else spec["col"] for spec in specs]
+        params = (bool(dropna),)
+        cached = view_reduce.sort_reduce_lookup("mode", params, keyed) if views.VIEWS_ON else {}
+        miss_is = [i for i in range(len(specs)) if i not in cached]
+        plans = reductions.plan_sort_reduce("mode", [specs[i] for i in miss_is], n)
         if not dropna and any(p.strategy != "hist" for p in plans):
             return None
-        if router.decide("mode", n, [p.strategy for p in plans]) == "host":
+        if router.decide("mode", n, ["view"] * len(cached) + [p.strategy for p in plans]) == "host":
             return None
-        per_col = reductions.mode_planned(plans, n, bool(dropna))
+        view_reduce.sort_reduce_consume("mode", params, keyed, cached)
+        per_col = [cached.get(i) for i in range(len(specs))]
+        if plans:
+            for i, v, p in zip(miss_is, reductions.mode_planned(plans, n, bool(dropna)), plans):
+                per_col[i] = v
+                if views.VIEWS_ON and v is not None and keyed[i] is not None and p.strategy != "dict":
+                    view_reduce.sort_reduce_store("mode", params, keyed[i], v)
         if any(v is None for v in per_col):
             return None
         pieces = []
@@ -1681,10 +1746,29 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 return planned
         groupby_kwargs = dict(groupby_kwargs or {})
         agg_kwargs = dict(agg_kwargs or {})
+        views_args = None
+        if views.VIEWS_ON and axis == 0 and not agg_args and isinstance(agg_func, str):
+            # the same aggregation over these tensors answers from the
+            # artifact registry, and an appended frame folds only its tail
+            # rows through the device groupby (``views/groupby_cache.py``)
+            from modin_tpu_torch.views import groupby_cache
+
+            views_args = (by, agg_func, groupby_kwargs, agg_kwargs, drop, series_groupby, selection)
+            try:
+                cached = groupby_cache.groupby_consult(self, *views_args)
+            except Exception:  # a failed consult is a miss: the device path runs
+                cached = None
+            if cached is not None:
+                return cached
         result = self._try_device_groupby(
             by, agg_func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
             series_groupby, selection,
         )
+        if result is not None and views_args is not None:
+            try:
+                groupby_cache.groupby_record(self, result, *views_args)
+            except Exception:  # recording is best-effort: the result stands
+                pass
         if result is None:
             result = self._try_device_groupby_multi(
                 by, agg_func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
@@ -2287,8 +2371,11 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if col is not None and len(positions) <= 1:
             new_cols = list(frame._columns)
             if positions:
-                # the replaced column's sorted representation goes with it
-                sorted_cache.invalidate(new_cols[positions[0]])
+                # the replaced column's derived caches (its sorted
+                # representation, its artifacts) go with it
+                old = new_cols[positions[0]]
+                if old.is_device and old is not col:
+                    old._invalidate_derived()
                 new_cols[positions[0]] = col
                 return type(self)(frame.with_columns(new_cols))
             new_cols.append(col)
@@ -2733,10 +2820,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             labels = list(base.columns)
             if base.num_cols == 0 or not all(
                 list(f.columns) == labels
-                and all(
-                    c.is_device and d.is_device and c.pandas_dtype == d.pandas_dtype
-                    for c, d in zip(base._columns, f._columns)
-                )
+                and all(_same_dtype(c.pandas_dtype, d.pandas_dtype) for c, d in zip(base._columns, f._columns))
                 for f in frames
             ):
                 return None

@@ -20,8 +20,8 @@ version, :func:`run_program_plain`, which walks the semantic instructions
 own formulas, and takes the reductions in the kernel's order (each thread
 its rows in order, a tree over each block's threads, the blocks in order, a
 tree over the merge's threads), so the two agree bit for bit.  ``LAUNCHES``
-counts kernel launches (a reduction's merge included), ``PROGRAMS_RUN``
-programs run on either route.
+counts kernel launches (a reduction's merge included), ``ROWS`` the rows
+they read, ``PROGRAMS_RUN`` programs run on either route.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ import torch
 from modin_tpu_torch.ops.cuda import fused_program as fp
 
 LAUNCHES = 0
+#: rows the launches read
+ROWS = 0
 PROGRAMS_RUN = 0
 
 _LIB_NAME = "fused"
@@ -115,7 +117,7 @@ def run_program(
     ``_shape`` is for measurement only: it overrides the launch shape or the
     prefetch (``fused_program.relower``'s keywords; a tail's order follows it
     on both routes)."""
-    global LAUNCHES, PROGRAMS_RUN
+    global LAUNCHES, PROGRAMS_RUN, ROWS
     dev = leaves[0].device if leaves else (device or torch.device("cpu"))
     PROGRAMS_RUN += 1
     if dev.type == "cpu":
@@ -162,6 +164,7 @@ def run_program(
         msg = lib.fused_error_string(int(err)).decode(errors="replace")
         raise RuntimeError(f"fused kernel: launch failed with CUDA error {err}: {msg}")
     LAUNCHES += 1
+    ROWS += n
     return outs, acc
 
 

@@ -20,7 +20,7 @@ the chunks in 32 runs and the runs in a tree.  On a CUDA tensor
 when it cannot; on CPU tensors it computes the plain version,
 :func:`groupagg_plain`, which takes the same order where the result depends
 on it, so the two agree bit for bit.  ``LAUNCHES`` counts kernel launches
-(the merge included).
+(the merge included), ``ROWS`` the rows they read.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ import torch
 from modin_tpu_torch.ops.cuda.fused_program import DTYPE_CODES
 
 LAUNCHES = 0
+#: rows the launches read (slots and value columns)
+ROWS = 0
 
 AGGS = ("sum", "prod", "count", "mean", "min", "max")
 MAX_COLS = 32
@@ -194,7 +196,7 @@ def groupagg(agg: str, slot: torch.Tensor, cols: Sequence[torch.Tensor], g1: int
     ``agg`` of ``cols`` by ``slot`` (values in ``[0, g1)``).  ``_geometry``
     forces a launch (the kernel check's, held to the plain version with the
     same geometry)."""
-    global LAUNCHES
+    global LAUNCHES, ROWS
     _check(slot, cols, agg, g1)
     if slot.device.type == "cpu":
         return groupagg_plain(agg, slot, cols, g1, _geometry=_geometry)
@@ -232,6 +234,7 @@ def groupagg(agg: str, slot: torch.Tensor, cols: Sequence[torch.Tensor], g1: int
         msg = lib.groupagg_error_string(int(err)).decode(errors="replace")
         raise RuntimeError(f"groupagg kernel: launch failed with CUDA error {err}: {msg}")
     LAUNCHES += 1
+    ROWS += n
     return out
 
 

@@ -9,7 +9,8 @@ note for the bound and the design.
 
 On a CUDA tensor :func:`bincount` launches the kernel (building it on first
 use) and raises when it cannot; on a CPU tensor it computes the plain
-version, :func:`bincount_plain`.  ``LAUNCHES`` counts kernel launches.
+version, :func:`bincount_plain`.  ``LAUNCHES`` counts kernel launches,
+``ROWS`` the rows they read.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import ctypes
 import torch
 
 LAUNCHES = 0
+#: rows the launches read (the codes)
+ROWS = 0
 
 _LIB_NAME = "bincount"
 _bound = False
@@ -71,7 +74,7 @@ def bincount_plain(codes: torch.Tensor, width: int) -> torch.Tensor:
 def bincount(codes: torch.Tensor, width: int) -> torch.Tensor:
     """Counts per group code: int64 ``[width]``; codes outside
     ``[0, width)`` (the overflow/NaN bucket) are dropped."""
-    global LAUNCHES
+    global LAUNCHES, ROWS
     width = int(width)
     if width < 0:
         raise ValueError(f"bincount width must be >= 0, got {width}")
@@ -100,4 +103,5 @@ def bincount(codes: torch.Tensor, width: int) -> torch.Tensor:
     if err != 0:
         _raise_cuda(lib, err, "launch")
     LAUNCHES += 1
+    ROWS += n
     return counts

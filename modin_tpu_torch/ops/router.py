@@ -42,8 +42,8 @@ from modin_tpu_torch.ops import calibration as calstore
 #: column strategies a sort-shaped plan may carry (``plan_sort_reduce``):
 #: "dict" costs ~0 (the categories are on the host), "cached" consumes an
 #: existing sorted representation, "hist" is the O(n) histogram, "sort" pays
-#: the O(n log n) device sort.  "view" (a cached whole result) is the JAX
-#: package's fifth and waits for the port's ``views/``; its cost is 0 here too
+#: the O(n log n) device sort, and "view" a cached whole result
+#: (``views/``), which costs 0
 STRATEGIES = ("dict", "view", "cached", "hist", "sort")
 
 #: predicted device-minus-host savings (seconds) the host side must clear

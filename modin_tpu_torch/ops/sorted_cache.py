@@ -1,4 +1,4 @@
-"""Per-column cache of the sorted representation.
+"""Per-column cache of the sorted representation, over the artifact registry.
 
 The port's counterpart of ``modin_tpu/ops/sorted_cache.py``.  The
 sort-shaped reductions (median, quantile, nunique, mode, describe's
@@ -7,13 +7,19 @@ tail and count the valid prefix (``ops/sort.py::sorted_valid_columns``).
 The first op attaches the ``(sorted values, n_valid)`` pair to its
 ``DeviceColumn``; every later op on that column reuses it.
 
-A representation answers only for the tensor it was computed from: it keeps
-that tensor's identity, and replacing, spilling or donating the column's
-tensor drops it.  The query compiler also drops the representation of a
-column that ``setitem``/``insert`` take out of a frame.  Each representation
-is a derived entry of the device ledger (``core/memory.py``), touched on
-reuse: under ``DeviceMemoryBudget`` pressure it is spilled before any
-column, and spilling it just drops it (the next sort-shaped op sorts again).
+:class:`SortedRep` is a :class:`~modin_tpu_torch.views.registry.
+DerivedArtifact`: the lock, the validity stamps (the tensor it was computed
+from and that tensor's version, the placement) and the device-ledger
+protocol are the registry's.  What stays here is the column's own slot
+(``DeviceColumn._sorted_rep``, read on the sort-shaped hot paths).  A
+representation answers only for the tensor it was computed from;
+replacing, spilling or donating the column's tensor drops it, and so does
+``setitem`` taking the column out of a frame.  Each
+representation is a derived entry of the device ledger (``core/memory.py``),
+touched on reuse: under ``DeviceMemoryBudget`` pressure it is dropped before
+any column, and with it the column's other artifacts (the next query
+computes them again from the column, which stays resident).  It is kept
+whatever ``ViewsMode`` says.
 """
 
 from __future__ import annotations
@@ -22,45 +28,69 @@ import weakref
 from typing import Any, Optional, Tuple
 
 from modin_tpu_torch.core import memory
+from modin_tpu_torch.views import registry as _registry
 
 
-class SortedRep:
-    """One column's sorted values, the valid count, and the identity of the
-    tensor they were computed from; a derived device-ledger entry."""
+class SortedRep(_registry.DerivedArtifact):
+    """One column's sorted values and valid count; a derived device-ledger
+    entry."""
 
-    __slots__ = ("_data", "n_valid", "source_id", "_owner", "_dev_key", "__weakref__")
-    is_derived_cache = True
-    is_lazy = False
+    __slots__ = ("col_ref",)
 
-    def __init__(self, data: Any, n_valid: Any, source_id: int, owner: Any = None):
-        self._data = data
-        self.n_valid = n_valid
-        self.source_id = source_id
-        self._owner = None if owner is None else weakref.ref(owner)
-        self._dev_key = None
+    def __init__(self, data: Any, n_valid: Any, source: Any, col: Any = None):
+        super().__init__(
+            kind="sorted_rep", params=(), token=0, length=0, source=source,
+            state={"n_valid": n_valid}, payload=data,
+        )
+        self.col_ref = None if col is None else weakref.ref(col)
 
     @property
     def data(self) -> Any:
-        return self._data
+        return self._payload
+
+    @property
+    def n_valid(self) -> Any:
+        state = self.state
+        return None if state is None else state["n_valid"]
 
     def spill(self) -> int:
-        """Drop the representation from its column; returns the bytes the
-        ledger got back."""
-        owner = self._owner() if self._owner is not None else None
-        if owner is not None and getattr(owner, "_sorted_rep", None) is self:
-            owner._sorted_rep = None
-        freed = memory.device_ledger.deregister(self)
-        self._data = None
+        """Ledger pressure: drop the representation from its column, and the
+        column's other artifacts with it; returns the bytes the ledger got
+        back."""
+        col = self.col_ref() if self.col_ref is not None else None
+        with _registry.LOCK:
+            if col is not None and col._sorted_rep is self:
+                col._sorted_rep = None
+            freed = self.drop()
+        if freed:
+            _registry.count("view.spill")
+            if col is not None:
+                _registry.invalidate_column(col, reason="pressure")
         return freed
 
 
-def _live_rep(col: Any) -> Optional[SortedRep]:
+def _invalidate_locked(col: Any) -> int:
+    """Detach ``col``'s representation and take it off the ledger; a caller
+    still holding its tensors (a ``get`` in flight) keeps them."""
     rep = getattr(col, "_sorted_rep", None)
     if rep is None:
+        return 0
+    col._sorted_rep = None
+    return memory.device_ledger.deregister(rep)
+
+
+def _live_rep_locked(col: Any) -> Optional[SortedRep]:
+    """``col``'s representation if it answers for the column's tensor as it
+    stands (probing never restores a spilled column); a stale one goes."""
+    rep = getattr(col, "_sorted_rep", None)
+    if rep is None or rep._payload is None:
         return None
-    # the column's tensor as it stands: probing never restores a spilled one
-    if rep._data is None or rep.source_id != id(col._data):
-        invalidate(col)
+    if (
+        not rep.answers_for(col._data)
+        or rep.epoch != _registry._current_epoch()
+        or rep.mesh_key != _registry._mesh_key()
+    ):
+        _invalidate_locked(col)
         return None
     if memory._DEVICE_BUDGET is not None:
         memory.device_ledger.touch(rep)
@@ -69,26 +99,27 @@ def _live_rep(col: Any) -> Optional[SortedRep]:
 
 def peek(col: Any) -> bool:
     """Whether ``col`` holds a current representation."""
-    return _live_rep(col) is not None
+    with _registry.LOCK:
+        return _live_rep_locked(col) is not None
 
 
 def get(col: Any) -> Optional[Tuple[Any, Any]]:
     """``(sorted values, n_valid)`` if ``col`` holds a current one."""
-    rep = _live_rep(col)
-    return None if rep is None else (rep._data, rep.n_valid)
+    with _registry.LOCK:
+        rep = _live_rep_locked(col)
+        return None if rep is None else (rep._payload, rep.n_valid)
 
 
 def attach(col: Any, xs: Any, n_valid: Any) -> None:
     """Cache ``(xs, n_valid)`` as ``col``'s sorted representation."""
-    invalidate(col)
-    rep = SortedRep(xs, n_valid, id(col._data), col)
-    col._sorted_rep = rep
-    memory.device_ledger.register(rep)
+    rep = SortedRep(xs, n_valid, col._data, col)
+    with _registry.LOCK:
+        _invalidate_locked(col)
+        memory.device_ledger.register(rep)
+        col._sorted_rep = rep
 
 
 def invalidate(col: Any) -> None:
     """Drop ``col``'s representation (its tensor changed or left a frame)."""
-    rep = getattr(col, "_sorted_rep", None)
-    if rep is not None:
-        col._sorted_rep = None
-        memory.device_ledger.deregister(rep)
+    with _registry.LOCK:
+        _invalidate_locked(col)

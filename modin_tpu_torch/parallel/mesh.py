@@ -36,3 +36,10 @@ def num_row_shards() -> int:
 def pad_len(n: int) -> int:
     """Physical length of a column of ``n`` rows (no padding on one shard)."""
     return int(n)
+
+
+def mesh_shape_key() -> str:
+    """The placement's identity, e.g. ``"cuda:1"``: the device kind and the
+    row shards.  A derived artifact built under one placement is not an
+    answer under another."""
+    return f"{Device.get()}:{num_row_shards()}"

@@ -8,7 +8,8 @@ the legs the port has:
   (:func:`_estimate_nodes`, from the kernel router's calibration through
   :func:`~modin_tpu_torch.ops.router.calibration_peek`: planning never
   triggers a measurement) and its strategy legs: kernel (a sort-shaped
-  reduction's device or host side under the router's model), compile
+  reduction's device or host side under the router's model, or "view"
+  where a cached artifact answers it), compile
   (fused or staged), layout (local) and residency (resident, or windowed
   where its input passes the device ledger's headroom under
   ``DeviceMemoryBudget``).  EXPLAIN renders them.
@@ -43,8 +44,12 @@ Where the port departs from the reference, and why:
 - the compile-storm trigger: it reads a launch ledger the port does not
   keep (observability);
 - the layout leg answers "local": one device holds every column;
-- the ``view`` kernel leg (``views/``), and the cost-gated rule order of
-  ``plan/rules.optimize`` with its objective ``plan_cost``.
+- the cost-gated rule order of ``plan/rules.optimize`` with its objective
+  ``plan_cost``.
+
+The kernel leg is "view" where a live artifact of ``views/`` already
+answers a sort-shaped reduction over an in-memory source
+(:func:`_view_hit`, a probe that counts nothing).
 """
 
 from __future__ import annotations
@@ -409,13 +414,36 @@ def _would_fuse(est_rows: Optional[int]) -> bool:
 
 
 def _plan_kernel(node: Reduce, in_rows: Optional[int], table: Optional[Dict[str, float]]) -> str:
-    """The planned device/host side of a sort-shaped reduction: the
-    router's prediction for a sorted column (the live ``decide`` sees the
-    real per-column strategies and has the last word)."""
+    """The planned leg of a sort-shaped reduction: "view" where a live
+    artifact already answers it, else the router's device/host prediction
+    for a sorted column (the live ``decide`` sees the real per-column
+    strategies and has the last word)."""
+    if _view_hit(node):
+        return "view"
     if table is None or in_rows is None:
         return "device"
     costs = router.predicted_costs(node.method, in_rows, ["sort"], table)
     return "host" if costs["device_s"] - costs["host_s"] > router.MIN_SAVINGS_S else "device"
+
+
+def _view_hit(node: Reduce) -> bool:
+    """Whether a live artifact of the registry already answers this
+    reduction over an in-memory Source: a planning probe (nothing counted,
+    no LRU touch)."""
+    from modin_tpu_torch import views
+
+    child = node.children[0]
+    if not views.VIEWS_ON or not isinstance(child, Source):
+        return False
+    from modin_tpu_torch.views import registry
+
+    sortred = f"sortred.{node.method}"
+    for col in child.qc._modin_frame._columns:
+        if col.is_device:
+            for kind in registry.column_artifact_kinds(col):
+                if kind == "reduce" or kind == sortred:
+                    return True
+    return False
 
 
 # ---------------------------------------------------------------------- #

@@ -98,12 +98,23 @@ SLICE14_MODULES = [
 ]
 
 
+#: the derived-artifact cache, scanned like every other module
+SLICE15_MODULES = [
+    "views/__init__.py",
+    "views/groupby_cache.py",
+    "views/incremental.py",
+    "views/reduce_cache.py",
+    "views/registry.py",
+]
+
+
 def test_package_has_modules_to_scan():
     assert len(list(PACKAGE.rglob("*.py"))) >= 30
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
     assert set(SLICE3_MODULES) <= scanned
     assert set(SLICE13_MODULES) <= scanned
     assert set(SLICE14_MODULES) <= scanned
+    assert set(SLICE15_MODULES) <= scanned
 
 
 @pytest.mark.parametrize(
@@ -155,6 +166,11 @@ def _import_without_jax_or_modin_tpu(modules) -> subprocess.CompletedProcess:
 
 def test_slice13_modules_import_without_jax_or_modin_tpu():
     proc = _import_without_jax_or_modin_tpu(SLICE13_MODULES)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice15_modules_import_without_jax_or_modin_tpu():
+    proc = _import_without_jax_or_modin_tpu(SLICE15_MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
