@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--rows N] [--arithmetic-rows N] [--earlier-rows N]
                           [--float-rows N] [--io-rows N] [--window-rows N]
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
-                          [--memory-rows N] [--views-rows N] [--views-time-rows N] [--seed S]
+                          [--memory-rows N] [--views-rows N] [--views-time-rows N]
+                          [--robust-cost-rows N] [--seed S]
                           [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory,views]
+                                    memory,views,robust]
 
 Phases, one JSON object per line each:
 
@@ -275,6 +276,23 @@ Phases, one JSON object per line each:
              1e-12).  A hit launches no kernel, a fold's launches read only
              the tail (the first fold of a grouped mean also reads the prefix
              once, for its valid counts), nothing defaults to pandas.
+17. robust - fault-tolerant execution (``phase_robust``): (a) a real
+             ``torch.cuda.OutOfMemoryError`` at 1e8 rows, under a cap between
+             the query's own peak and that peak plus 6 GB of resident cold
+             frames, absorbed by evict-then-retry in ``device_path`` (an
+             int-key groupby mean on ``groupagg``) and in ``engine_call``
+             (``(a * b + c).sum()``, one fused launch through ``deploy``), with
+             no fallback, answers as pandas' and the spilled columns restored
+             exactly; (b) injected faults: transient ones at ``put`` and
+             ``materialize`` retried, losses in a fused chain and a filter ->
+             groupby -> merge re-seating host, io and op lineage bit for bit
+             (nothing unrecoverable, a views artifact of before the loss
+             missing after it), threshold-many losses opening the ``reduce``
+             breaker, a short circuit, a probe closing it (exactly 4
+             fallbacks); (c) five phase-4 queries at ``--robust-cost-rows``
+             (1e7) with ``ResilienceMode``/``RecoveryMode`` on and off.  Every
+             other phase ends with no device-path fallback and every breaker
+             closed; a ``{"resilience": ...}`` line precedes the card's name.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -308,7 +326,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory", "views")
+              "formats", "memory", "views", "robust")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -4897,6 +4915,370 @@ def phase_views(rows: int, time_rows: int, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 17. robust: fault-tolerant execution on the card
+# ---------------------------------------------------------------------- #
+
+#: (a)'s queries: a groupby mean and a fused sum at the main path's width
+ROBUST_OOM_ROWS = 10**8
+#: (a)'s cold frames: ROBUST_COLD_FRAMES frames of ROBUST_COLD_ROWS x 10
+#: float64 columns (2 GB each), resident and never read by the queries
+ROBUST_COLD_FRAMES = 3
+ROBUST_COLD_ROWS = 25 * 10**6
+#: (a)'s cap sits this share of the cold bytes above the query's own peak:
+#: below the resident bytes plus the peak, above the peak alone; the
+#: evictor's first round spills half the resident bytes, more than this
+ROBUST_CAP_SHARE = 0.45
+#: (b)'s frames and CSV
+ROBUST_FAULT_ROWS = 2 * 10**6
+ROBUST_CSV_ROWS = 10**6
+#: (c): the phase-4 queries timed with the layer on and off
+ROBUST_COST_QUERIES = ("df_plus_df", "sum", "mean", "groupby_sum", "groupby_mean")
+
+
+def _resilience_marks() -> dict:
+    from modin_tpu_torch.core import memory
+    from modin_tpu_torch.core.execution import resilience
+
+    return {"counts": dict(resilience.COUNTS), "memory": dict(memory.COUNTS),
+            "fallbacks": resilience.fallback_count()}
+
+
+def _resilience_since(before: dict) -> dict:
+    from modin_tpu_torch.core import memory
+    from modin_tpu_torch.core.execution import resilience
+
+    counts = {k: v - before["counts"].get(k, 0) for k, v in resilience.COUNTS.items()
+              if v != before["counts"].get(k, 0)}
+    spills = {k: memory.COUNTS[k] - before["memory"][k] for k in ("memory.device.spill", "memory.device.spill_bytes",
+                                                                  "memory.device.restore")}
+    return {"counts": counts, "memory": spills, "fallbacks": resilience.fallback_count() - before["fallbacks"]}
+
+
+def robust_oom_case(name: str, make_query_frame, query, reference, make_cold, exact: bool) -> dict:
+    """One real OOM absorbed by evict-then-retry: ``query``'s peak measured
+    on a frame of its own with nothing else resident, then the same query on
+    a fresh frame beside the cold frames ``make_cold()`` returns, ``(frames,
+    their host values)``, under a cap between that peak and the peak plus
+    the cold bytes; then every cold column that spilled restores exactly.
+    Returns the case's record."""
+    import torch
+
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    from modin_tpu_torch.ops import groupby as gb_ops
+
+    free_device_memory()
+    probe = make_query_frame()
+    torch.cuda.reset_peak_memory_stats()
+    _, alone_ms = host_ms(lambda: query(probe))
+    peak = torch.cuda.max_memory_allocated()
+    del probe
+    gb_ops._FACTORIZE_CACHE.clear()  # it holds the probe's key and codes
+    free_device_memory()
+    cold_frames, cold_values = make_cold()
+    frame = make_query_frame()
+    cold_bytes = sum(c.data.numel() * c.data.element_size()
+                     for f in cold_frames for c in f._query_compiler._modin_frame._columns)
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = peak + int(ROBUST_CAP_SHARE * cold_bytes)
+    resident = torch.cuda.memory_allocated()
+    k0, r0 = _kernel_marks(), _resilience_marks()
+    ooms0 = torch.cuda.memory_stats().get("num_ooms", 0)
+    defaults0 = tqc.DEFAULTS_TO_PANDAS
+    torch.cuda.empty_cache()  # the query's allocations need new segments under the cap
+    torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+    try:
+        got, ms = host_ms(lambda: query(frame))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+    ooms = torch.cuda.memory_stats().get("num_ooms", 0) - ooms0
+    since = _resilience_since(r0)
+    launches = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+    want = reference()
+    if np.isscalar(want):
+        if (got != want) if exact else not np.isclose(got, want, rtol=FLOAT_RTOL, atol=0):
+            raise AssertionError(f"{name}: {got} != pandas' {want}")
+    else:
+        import modin_tpu_torch.pandas as tpd
+
+        assert_same_pandas(tpd.to_pandas(got), want, name, exact=exact)
+        gb_ops._FACTORIZE_CACHE.clear()
+    record = {"case": name, "peak_alone_bytes": peak, "cold_bytes": cold_bytes, "cap_bytes": cap,
+              "resident_before_bytes": resident, "alone_ms": alone_ms, "oom_run_ms": ms, "torch_ooms": ooms,
+              "retry_oom": since["counts"].get("recovery.retry.oom", 0),
+              "engine_oom": sum(v for k, v in since["counts"].items()
+                                if k.startswith("resilience.engine.") and k.endswith(".oom")),
+              "spills": since["memory"]["memory.device.spill"], "spill_bytes": since["memory"]["memory.device.spill_bytes"],
+              "fallbacks": since["fallbacks"], "defaults": tqc.DEFAULTS_TO_PANDAS - defaults0,
+              "launches": launches, "counts": since["counts"]}
+    if ooms < 1 or record["retry_oom"] < 1:
+        raise AssertionError(f"{name}: no real OOM was absorbed: {record}")
+    if record["spills"] < 1 or record["fallbacks"] or record["defaults"]:
+        raise AssertionError(f"{name}: the OOM went to pandas or spilled nothing: {record}")
+    del frame, got
+    restored = 0
+    t0 = time.perf_counter()
+    for f, values in zip(cold_frames, cold_values):
+        for col, v in zip(f._query_compiler._modin_frame._columns, values.values()):
+            if col.is_spilled:
+                if not np.array_equal(col.data.cpu().numpy(), v):
+                    raise AssertionError(f"{name}: a spilled cold column did not restore exactly")
+                restored += 1
+    if not restored:
+        raise AssertionError(f"{name}: the OOM spilled no cold column")
+    record["cold_restored_exactly"] = restored
+    record["restore_check_s"] = time.perf_counter() - t0
+    del cold_frames
+    free_device_memory()
+    return record
+
+
+def robust_real_oom(seed: int) -> dict:
+    """(a): a real ``torch.cuda.OutOfMemoryError`` at full width, absorbed
+    in the ``device_path`` leg (a 1e8-row int-key groupby mean on
+    ``groupagg.cu``) and in the ``engine_call`` leg (``(a * b + c).sum()``
+    at 1e8 rows, one fused launch through ``deploy``); the cold frames
+    spilled restore exactly afterwards."""
+    import pandas
+    import torch
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import ViewsMode
+    from modin_tpu_torch.core.storage_formats.torch.query_compiler import TorchQueryCompiler
+
+    rows = ROBUST_OOM_ROWS
+    rng = np.random.default_rng(seed + 1700)
+    gb_data = {"key": rng.integers(0, 100, rows), "v0": rng.integers(0, 100, rows), "v1": rng.integers(0, 100, rows)}
+    # integer-valued floats: every sum below 2^53 is exact in any order
+    ch_data = {c: rng.integers(0, 100, rows).astype(np.float64) for c in "abc"}
+    base = rng.standard_normal(ROBUST_COLD_ROWS)
+    cold_values = [{f"c{j}": base + (10 * f + j) for j in range(10)} for f in range(ROBUST_COLD_FRAMES)]
+    del base
+
+    def frame_of(data):
+        return tpd.DataFrame(query_compiler=TorchQueryCompiler.from_numpy_columns(data))
+
+    def make_cold():
+        return [frame_of(v) for v in cold_values], cold_values
+
+    out = {}
+    with ViewsMode.context("Off"):  # a cached answer would allocate nothing
+        out["groupby_mean"] = robust_oom_case(
+            "groupby_mean_1e8", lambda: frame_of(gb_data), lambda d: d.groupby("key").mean(),
+            lambda: pandas.DataFrame(gb_data).groupby("key").mean(), make_cold, exact=False)
+        if out["groupby_mean"]["launches"]["groupagg"] < 1:
+            raise AssertionError(f"the OOM groupby never launched groupagg: {out['groupby_mean']}")
+        out["sum_chain"] = robust_oom_case(
+            "axpb_sum_1e8", lambda: frame_of(ch_data), lambda d: (d["a"] * d["b"] + d["c"]).sum(),
+            lambda: float((ch_data["a"] * ch_data["b"] + ch_data["c"]).sum()), make_cold, exact=True)
+        if out["sum_chain"]["engine_oom"] < 1 or out["sum_chain"]["launches"]["fused"] < 1:
+            raise AssertionError(f"the chain's OOM did not meet the engine seam: {out['sum_chain']}")
+    del cold_values, gb_data, ch_data
+    free_device_memory()
+    return out
+
+
+def robust_injected(seed: int, workdir: str) -> dict:
+    """(b): injected faults on the card.  A transient fault at ``put`` and at
+    ``materialize`` retried to success; a loss in the middle of a fused
+    chain and of a filter -> groupby -> merge re-seats host, io (a CSV
+    read whose host copies were dropped) and op lineage bit for bit, with
+    nothing unrecoverable, and a views artifact of before the loss misses;
+    threshold-many losses open the ``reduce`` family's breaker, the next
+    call short-circuits, and after the cooldown a clean probe closes it."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import ResilienceBreakerCooldownS, ResilienceBreakerThreshold
+    from modin_tpu_torch.core import memory
+    from modin_tpu_torch.core.execution import recovery, resilience
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.parallel.engine import TorchWrapper
+    from modin_tpu_torch.testing import inject_faults, midquery_device_loss
+    from modin_tpu_torch.views import registry
+
+    rows = ROBUST_FAULT_ROWS
+    rng = np.random.default_rng(seed + 1701)
+    pdf = pandas.DataFrame({"key": rng.integers(0, 50, rows), "a": rng.integers(0, 100, rows).astype(np.float64),
+                            "b": rng.integers(0, 100, rows), "c": rng.integers(0, 100, rows).astype(np.float64)})
+    out = {}
+    # transient faults at put and at materialize
+    r0 = _resilience_marks()
+    with inject_faults("transient", ops=("put",), times=1) as inj:
+        hdf = tpd.DataFrame(pdf)
+    assert_on_cuda(hdf._query_compiler, "robust put retry")
+    with inject_faults("transient", ops=("materialize",), times=1) as inj2:
+        got = tpd.to_pandas(hdf.groupby("key").sum())
+    assert_same_pandas(got, pdf.groupby("key").sum(), "robust materialize retry", exact=True)
+    since = _resilience_since(r0)
+    out["transient"] = {"injected": inj.injected + inj2.injected, "counts": since["counts"]}
+    if (since["counts"].get("resilience.engine.put.retry") != 1
+            or since["counts"].get("resilience.engine.materialize.retry") != 1 or since["fallbacks"]):
+        raise AssertionError(f"a transient fault was not retried to success: {out['transient']}")
+    # the lineage kinds: host (hdf), io (a CSV read), op (a fused column)
+    path = os.path.join(workdir, "robust.csv")
+    pdf.iloc[:ROBUST_CSV_ROWS].to_csv(path, index=False)
+    io_df = tpd.read_csv(path)
+    io_cols = [c for c in io_df._query_compiler._modin_frame._columns if c.is_device]
+    io_values = [c.to_numpy().copy() for c in io_cols]
+    for c in io_cols:  # the host copies go: only the file can make them again
+        memory.ledger.forget(c)
+        c.host_cache = None
+    op_series = hdf["a"] * 2 + hdf["c"]
+    op_col = op_series._query_compiler._modin_frame._columns[0]
+    op_values = TorchWrapper.materialize(op_col.data)
+    kinds = {"host": hdf._query_compiler._modin_frame._columns[0].lineage.kind,
+             "io": io_cols[0].lineage.kind, "op": op_col.lineage.kind}
+    if kinds != {"host": "host", "io": "io", "op": "op"}:
+        raise AssertionError(f"unexpected lineage kinds {kinds}")
+    import weakref
+
+    old_tensors = [weakref.ref(c._data) for c in io_cols + [op_col]]
+    gc.collect()
+    sum_want = pdf.sum()
+    got = tpd.to_pandas(hdf.sum())  # a views artifact of before the loss
+    assert_same_pandas(got, sum_want, "robust sum before the loss", exact=True)
+    r0 = _resilience_marks()
+    v0 = dict(registry.COUNTS)
+    with midquery_device_loss(after_deploys=0, times=1) as inj:
+        got = (hdf["a"] * 3 - hdf["c"]).sum()
+    want = float((pdf["a"] * 3 - pdf["c"]).sum())
+    if got != want:
+        raise AssertionError(f"the fused chain after the loss: {got} != {want}")
+    filt = pdf[pdf.a > 50]
+    merge_want = filt.groupby("key", as_index=False).sum().merge(
+        filt.groupby("key", as_index=False).mean(), on="key", suffixes=("_s", "_m"))
+    with midquery_device_loss(after_deploys=0, times=1) as inj2:
+        f = hdf[hdf.a > 50]
+        got = tpd.to_pandas(f.groupby("key", as_index=False).sum().merge(
+            f.groupby("key", as_index=False).mean(), on="key", suffixes=("_s", "_m")))
+    assert_same_pandas(got, merge_want, "robust groupby -> merge after the loss")
+    since = _resilience_since(r0)
+    for c, v in zip(io_cols, io_values):
+        if not np.array_equal(TorchWrapper.materialize(c.data), v):
+            raise AssertionError("an io column did not re-seat bit for bit")
+    if not np.array_equal(TorchWrapper.materialize(op_col.data), op_values):
+        raise AssertionError("the op column did not re-seat bit for bit")
+    for c in hdf._query_compiler._modin_frame._columns:
+        if not np.array_equal(TorchWrapper.materialize(c.data), c.host_cache):
+            raise AssertionError("a host column did not re-seat bit for bit")
+    fresh = [c for c, old in zip(io_cols + [op_col], old_tensors) if old() is c._data]
+    got = tpd.to_pandas(hdf.sum())
+    assert_same_pandas(got, sum_want, "robust sum after the loss", exact=True)
+    views_after = {k: registry.COUNTS[k] - v0.get(k, 0) for k in ("view.hit", "view.miss")}
+    out["loss"] = {"injected": inj.injected + inj2.injected, "counts": since["counts"], "lineage": kinds,
+                   "epoch": recovery.current_epoch(), "views": views_after, "tensors_not_reseated": len(fresh)}
+    c = since["counts"]
+    if (c.get("recovery.device_lost") != 2 or c.get("recovery.unrecoverable", 0)
+            or not all(c.get(f"recovery.reseat.{k}", 0) for k in ("host", "io", "op"))
+            or since["fallbacks"] or fresh or views_after["view.hit"] or not views_after["view.miss"]):
+        raise AssertionError(f"the loss did not re-seat cleanly: {out['loss']}")
+    # threshold-many losses open the reduce family's breaker
+    threshold = 3
+    defaults0 = tqc.DEFAULTS_TO_PANDAS
+    r0 = _resilience_marks()
+    median_want = pdf.median()
+    states = []
+    with ResilienceBreakerThreshold.context(threshold), ResilienceBreakerCooldownS.context(30.0):
+        with inject_faults("device_lost", ops=("materialize",), times=None) as inj:
+            for _ in range(threshold + 1):
+                assert_same_pandas(tpd.to_pandas(hdf.median()), median_want, "robust median, breaker")
+                states.append(resilience.get_breaker("reduce").state)
+        real_now = resilience._now
+        resilience._now = lambda: real_now() + 31.0
+        try:
+            assert_same_pandas(tpd.to_pandas(hdf.median()), median_want, "robust median, probe")
+        finally:
+            resilience._now = real_now
+        states.append(resilience.get_breaker("reduce").state)
+    since = _resilience_since(r0)
+    expected_fallbacks = threshold + 1  # the strikes, then one short circuit
+    out["breaker"] = {"states": states, "injected": inj.injected, "fallbacks": since["fallbacks"],
+                      "defaults": tqc.DEFAULTS_TO_PANDAS - defaults0, "counts": since["counts"]}
+    if (states != ["closed"] * (threshold - 1) + ["open", "open", "closed"]
+            or since["fallbacks"] != expected_fallbacks
+            or since["counts"].get("resilience.breaker.reduce.short_circuit") != 1
+            or since["counts"].get("resilience.breaker.reduce.half_open") != 1):
+        raise AssertionError(f"the breaker did not open, short-circuit and close: {out['breaker']}")
+    tqc.DEFAULTS_TO_PANDAS = defaults0
+    del hdf, io_df, io_cols, op_series, op_col, f
+    free_device_memory()
+    return out
+
+
+def robust_cost(rows: int, seed: int) -> dict:
+    """(c): five phase-4 queries at ``rows`` with ``ResilienceMode`` and
+    ``RecoveryMode`` Enable against Disable (views off, so each run
+    computes), each query's port and ``to_pandas`` wall in the order
+    Enable, Disable, Disable, Enable; the medians by mode.  Recorded, not
+    claimed."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import RecoveryMode, ResilienceMode, ViewsMode
+
+    p1 = pandas.DataFrame(make_frame_data(rows, seed, ngroups=100))
+    p2 = pandas.DataFrame(make_frame_data(rows, seed + 1, ngroups=100))
+    times = {q: {"Enable": [], "Disable": []} for q in ROBUST_COST_QUERIES}
+    with ViewsMode.context("Off"):
+        t1, t2 = tpd.from_pandas(p1), tpd.from_pandas(p2)
+        for q in ROBUST_COST_QUERIES:
+            tpd.to_pandas(MAIN_QUERIES[q](t1, t2))  # warm-up
+        for mode in ("Enable", "Disable", "Disable", "Enable"):
+            with ResilienceMode.context(mode), RecoveryMode.context(mode):
+                for q in ROBUST_COST_QUERIES:
+                    _, ms = host_ms(lambda: tpd.to_pandas(MAIN_QUERIES[q](t1, t2)))
+                    times[q][mode].append(ms)
+    del t1, t2
+    free_device_memory()
+    return {q: {m: statistics.median(v) for m, v in by.items()} | {"runs_ms": by} for q, by in times.items()}
+
+
+def phase_robust(seed: int, cost_rows: int, workdir: str) -> dict:
+    """Phase 17 (``robust``): (a) ``robust_real_oom``, (b)
+    ``robust_injected``, (c) ``robust_cost``.  Returns its launches and the
+    phase's record for the ``{"resilience": ...}`` line."""
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    t_phase = time.perf_counter()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    k0 = _kernel_marks()
+    record = {}
+    for part, fn, fn_args in (("real_oom", robust_real_oom, (seed,)),
+                              ("injected", robust_injected, (seed, workdir)),
+                              ("cost", robust_cost, (cost_rows, seed))):
+        t0 = time.perf_counter()
+        record[part] = fn(*fn_args)
+        record[part + "_seconds"] = time.perf_counter() - t0
+        emit({"phase": "robust", "part": part, **record[part], "seconds": record[part + "_seconds"]})
+    if tqc.DEFAULTS_TO_PANDAS:
+        raise AssertionError(f"{tqc.DEFAULTS_TO_PANDAS} robust calls defaulted to pandas")
+    resilience.reset_breakers()
+    launches = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "robust", "launches": launches, "seconds": record["seconds"]})
+    return launches, record
+
+
+def resilience_line(robust: dict, by_path: dict) -> dict:
+    """The ``{"resilience": ...}`` line: phase 17's parts in brief and every
+    other path's fallbacks and breakers."""
+    oom = robust["real_oom"]
+    return {
+        "real_oom": {k: {f: v[f] for f in ("torch_ooms", "retry_oom", "engine_oom", "spills", "spill_bytes",
+                                           "fallbacks", "defaults", "launches", "cap_bytes", "peak_alone_bytes",
+                                           "cold_bytes", "alone_ms", "oom_run_ms", "cold_restored_exactly")}
+                     for k, v in oom.items()},
+        "injected": {k: {f: v[f] for f in v if f != "counts"} for k, v in robust["injected"].items()},
+        "cost_ms": {q: {m: v[m] for m in ("Enable", "Disable")} for q, v in robust["cost"].items()},
+        "robust_launches": robust["launches"],
+        "paths": by_path,
+    }
+
+
 def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_path: dict, rows: int) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
     ``io``, ``window``, ``clean``, ``dates``, ``plan``, ``formats``) to its
@@ -5068,6 +5450,8 @@ def main(argv=None) -> int:
                         help="rows of the views phase's correctness frame (tails of a tenth)")
     parser.add_argument("--views-time-rows", type=int, default=5 * 10**7,
                         help="rows of the views phase's timed frame (10 tails of a hundredth)")
+    parser.add_argument("--robust-cost-rows", type=int, default=10**7,
+                        help="rows of the robust phase's timing of the layer (phase-4 queries)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -5120,14 +5504,23 @@ def main(argv=None) -> int:
     from modin_tpu_torch.ops.cuda import fused_kernels as fk
     from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
 
-    launches, fused_by_path, groupagg_by_path = {}, {}, {}
+    from modin_tpu_torch.core.execution import resilience
+
+    launches, fused_by_path, groupagg_by_path, resilience_by_path = {}, {}, {}, {}
 
     def run(name, fn, *fn_args):
         """One path, its fused and groupagg launches counted from 0 just
-        before it."""
+        before it; every path but ``robust`` ends with no device-path
+        fallback and every breaker closed."""
         fk.LAUNCHES = ga.LAUNCHES = 0
+        fallbacks = resilience.fallback_count()
         out = fn(*fn_args)
         fused_by_path[name], groupagg_by_path[name] = fk.LAUNCHES, ga.LAUNCHES
+        not_closed = {k: v for k, v in resilience.breaker_snapshot().items() if v != "closed"}
+        resilience_by_path[name] = {"fallbacks": resilience.fallback_count() - fallbacks,
+                                    "breakers_not_closed": not_closed}
+        if name != "robust" and (resilience_by_path[name]["fallbacks"] or not_closed):
+            raise AssertionError(f"the {name} path fell back from the device: {resilience_by_path[name]}")
         return out
 
     if "main" in phases:
@@ -5166,11 +5559,15 @@ def main(argv=None) -> int:
                                      workdir)
     if "views" in phases:
         launches["views"] = run("views", phase_views, args.views_rows, args.views_time_rows, args.seed)
+    robust = None
+    if "robust" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_robust_") as workdir:
+            launches["robust"], robust = run("robust", phase_robust, args.seed, args.robust_cost_rows, workdir)
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,
           "groupagg_launches_by_path": groupagg_by_path, "router_verdicts": dict(router.COUNTS),
-          "router_calibration_error": router.CALIBRATION_ERROR})
+          "router_calibration_error": router.CALIBRATION_ERROR, "resilience_by_path": resilience_by_path})
     for name in ("main", "arithmetic", "clean", "fusion", "plan", "formats"):
         if name in fused_by_path and fused_by_path[name] == 0:
             raise AssertionError(f"the {name} path never launched the fused kernel")
@@ -5179,6 +5576,7 @@ def main(argv=None) -> int:
     if phases != set(ALL_PHASES):
         print("chip_smoke: a partial run prints no result", file=sys.stderr)
         return 1
+    emit({"resilience": resilience_line(robust, resilience_by_path)})
     print(smi, flush=True)
     emit(kernels_line(kernel, launches, fused_by_path, groupagg_by_path, args.rows))
     emit({"ok": True, "device": {

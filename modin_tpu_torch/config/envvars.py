@@ -371,3 +371,126 @@ class ViewsMaxChain(_Positive):
 
     varname = "MODIN_TPU_TORCH_VIEWS_MAX_CHAIN"
     default = 64
+
+
+class _Seconds(Parameter):
+    """A non-negative float of seconds."""
+
+    @classmethod
+    def _parse(cls, raw: Any) -> float:
+        value = float(raw)
+        if value < 0:
+            raise ValueError(f"{cls.varname} must be >= 0, got {raw!r}")
+        return value
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(cls._parse(value))
+
+
+class ResilienceMode(_Choice):
+    """Fault-tolerant device execution (``core/execution/resilience.py``).
+    Enable: device failures at the engine seam and in the ``_try_*`` device
+    paths are classified (DeviceOOM, DeviceLost, TransientDeviceError),
+    transient ones retried with backoff, and each device path family is
+    guarded by a circuit breaker that degrades it to pandas while it is
+    unhealthy.  Disable: torch's own errors propagate as they are."""
+
+    varname = "MODIN_TPU_TORCH_RESILIENCE_MODE"
+    choices = ("Enable", "Disable")
+    default = "Enable"
+
+
+class ResilienceRetries(_Count):
+    """Retries of a TransientDeviceError at the engine seam."""
+
+    varname = "MODIN_TPU_TORCH_RESILIENCE_RETRIES"
+    default = 2
+
+
+class ResilienceBackoffS(_Seconds):
+    """Base of the exponential retry backoff, seconds (doubles per retry)."""
+
+    varname = "MODIN_TPU_TORCH_RESILIENCE_BACKOFF_S"
+    default = 0.05
+
+
+class ResilienceWatchdogS(_Seconds):
+    """Wall-clock watchdog on ``materialize``/``wait``, seconds (0: off).
+    A fetch that outlives it raises WatchdogTimeout (a DeviceLost).  Off by
+    default: every watched call costs one thread handoff."""
+
+    varname = "MODIN_TPU_TORCH_RESILIENCE_WATCHDOG_S"
+    default = 0.0
+
+
+class ResilienceBreakerThreshold(_Positive):
+    """Consecutive strikes (failures or latency violations) that open a
+    device path family's circuit breaker."""
+
+    varname = "MODIN_TPU_TORCH_RESILIENCE_BREAKER_THRESHOLD"
+    default = 5
+
+
+class ResilienceBreakerCooldownS(_Seconds):
+    """Seconds an open breaker waits before it admits one probe."""
+
+    varname = "MODIN_TPU_TORCH_RESILIENCE_BREAKER_COOLDOWN_S"
+    default = 30.0
+
+
+class ResilienceLatencyBudgetS(_Seconds):
+    """Latency budget of one guarded device path call, seconds (0: none).
+    A call that succeeds past it strikes its breaker."""
+
+    varname = "MODIN_TPU_TORCH_RESILIENCE_LATENCY_BUDGET_S"
+    default = 0.0
+
+
+class RecoveryMode(_Choice):
+    """Lineage recovery of device columns (``core/execution/recovery.py``).
+    Enable: every DeviceColumn carries a lineage record (host, io, op or
+    opaque); a DeviceLost re-seats the live columns from it and the failed
+    call is retried once, and a DeviceOOM spills cold columns and retries
+    (``SpillRetries`` rounds) before the family falls back.  Disable: both
+    failures go straight to the breaker."""
+
+    varname = "MODIN_TPU_TORCH_RECOVERY_MODE"
+    choices = ("Enable", "Disable")
+    default = "Enable"
+
+
+class LineageMaxDepth(_Positive):
+    """Longest op-replay chain a lineage record may carry; a column whose
+    chain would be longer keeps an exact host copy instead (one fetch),
+    which cuts the chain to depth 0."""
+
+    varname = "MODIN_TPU_TORCH_LINEAGE_MAX_DEPTH"
+    default = 8
+
+
+class SpillRetries(_Count):
+    """Evict-then-retry rounds a DeviceOOM gets before it is terminal
+    (0: none)."""
+
+    varname = "MODIN_TPU_TORCH_SPILL_RETRIES"
+    default = 1
+
+
+class SpillTargetFraction(Parameter):
+    """Fraction of the resident device bytes one OOM eviction round tries
+    to spill, coldest first (1.0: everything spillable)."""
+
+    varname = "MODIN_TPU_TORCH_SPILL_TARGET_FRACTION"
+    default = 0.5
+
+    @classmethod
+    def _parse(cls, raw: Any) -> float:
+        value = float(raw)
+        if not 0.0 < value <= 1.0:
+            raise ValueError(f"{cls.varname} must be in (0, 1], got {raw!r}")
+        return value
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(cls._parse(value))

@@ -65,7 +65,10 @@ class DeviceColumn:
     tensor registers with the device ledger at construction, a deferred one
     when it materializes, and ``host_cache`` with the host ledger; the
     device ledger's LRU order is the order of registration (a read does not
-    refresh it; a restore does).  A
+    refresh it; a restore does).  The same registration stamps the tensor's
+    device epoch (``_device_epoch``) and attaches the column's ``lineage``
+    record (``core/execution/recovery.py``): how a re-seat makes the tensor
+    again after a device loss.  A
     **spilled** column (``_data is None``) keeps an exact host copy and
     restores on its next ``data``/``raw`` read through ``TorchWrapper.put``,
     which admits first.  A column a fused launch consumed is ``donated``:
@@ -74,7 +77,7 @@ class DeviceColumn:
 
     __slots__ = (
         "_data", "pandas_dtype", "length", "host_cache", "_sorted_rep", "_ledger_key", "_dev_key",
-        "donated", "_home", "_view_token", "_view_parent", "__weakref__",
+        "donated", "_home", "_view_token", "_view_parent", "lineage", "_device_epoch", "__weakref__",
     )
     is_device = True
     is_derived_cache = False
@@ -98,10 +101,12 @@ class DeviceColumn:
         self.donated = False
         # (torch dtype, device) of a spilled column's tensor
         self._home = None
+        self.lineage = None
+        self._device_epoch = 0
         if host_cache is not None:
             memory.ledger.register(self)
         if isinstance(data, torch.Tensor):
-            memory.device_ledger.register(self)
+            self._register_device()
 
     @property
     def data(self) -> torch.Tensor:
@@ -142,19 +147,33 @@ class DeviceColumn:
     def data(self, value: torch.Tensor) -> None:
         memory.ledger.forget(self)
         self.host_cache = None
+        self.lineage = None
         self._adopt(value)
 
     def _adopt(self, value: Any) -> None:
         """Take ``value`` as the column's values: a materialized expression's
-        tensor or a replacement.  The sorted representation and the old
-        tensor's ledger entry go; a concrete tensor registers."""
+        tensor, a restored or re-seated one, or a replacement.  The sorted
+        representation and the old tensor's ledger entry go; a concrete
+        tensor registers."""
         memory.device_ledger.deregister(self)
         self._invalidate_derived()
         self._data = value
         self._home = None
         self.donated = False
         if isinstance(value, torch.Tensor):
-            memory.device_ledger.register(self)
+            self._register_device()
+
+    def _register_device(self) -> None:
+        """Track the concrete tensor in the device ledger, stamp the current
+        device epoch, index the tensor for op replay and attach the lineage
+        record where the column has none yet."""
+        from modin_tpu_torch.core.execution import recovery
+
+        memory.device_ledger.register(self)
+        self._device_epoch = recovery.current_epoch()
+        recovery.note_column_data(self)
+        if self.lineage is None:
+            recovery.attach_lineage(self)
 
     # -- spill, restore, donation ------------------------------------------ #
 
@@ -205,18 +224,14 @@ class DeviceColumn:
 
     def _restore(self) -> None:
         """Upload a spilled column's host copy as a fresh tensor."""
-        values = self.host_cache
-        if values is None:
+        if self.host_cache is None:
+            if self.donated:
+                from modin_tpu_torch.core.execution.resilience import DONATED_MARKER
+
+                raise RuntimeError(f"the column's tensor {DONATED_MARKER} and it has no host copy")
             raise RuntimeError("spilled DeviceColumn has no host copy to restore from")
-        dtype, device = self._home
         was_donated = self.donated
-        device_values = values.view("int64") if values.dtype.kind in "mM" else values
-
-        def upload() -> torch.Tensor:
-            t = TorchWrapper.put(np.ascontiguousarray(device_values), device)
-            return t if t.dtype == dtype else t.to(dtype)
-
-        self._adopt(memory.timed_copy("memory.device.restore", upload))
+        memory.timed_copy("memory.device.restore", self.reseat_from_host)
         memory.count("memory.device.restore")
         memory.count("memory.device.restore_bytes", self._data.numel() * self._data.element_size())
         if was_donated:
@@ -243,6 +258,33 @@ class DeviceColumn:
         self.donated = True
         return freed
 
+    def reseat_from_host(self) -> None:
+        """Upload the exact host copy as a fresh tensor (a restore, and the
+        ``host`` lineage's re-seat), on the column's own device."""
+        values = self.host_cache  # one read: the host ledger may drop it
+        if values is None:
+            raise RuntimeError("no host copy to re-seat from")
+        dtype, device = self._home if self._data is None else (self._data.dtype, self._data.device)
+        device_values = values.view("int64") if values.dtype.kind in "mM" else values
+        t = TorchWrapper.put(np.ascontiguousarray(device_values), device)
+        self._adopt(t if t.dtype == dtype else t.to(dtype))
+
+    def adopt_host_cache(self, values: np.ndarray, drop_tensor: bool = False) -> None:
+        """Take ``values`` as the exact host copy, registered with the host
+        ledger; ``drop_tensor`` drops the (lost) tensor first, so the copy
+        counts as the only one while it registers."""
+        if drop_tensor and isinstance(self._data, torch.Tensor):
+            self._drop_tensor()
+        memory.ledger.forget(self)
+        self.host_cache = values
+        memory.ledger.register(self)
+
+    def host_checkpoint(self) -> None:
+        """Keep an exact host copy (a lineage depth cut): one fetch now makes
+        the column recoverable at depth 0 from then on."""
+        if self.host_cache is None:
+            self.adopt_host_cache(self.to_numpy())
+
     @classmethod
     def from_numpy(cls, values: np.ndarray, device: Optional[torch.device] = None) -> "DeviceColumn":
         device_values = values.view("int64") if values.dtype.kind in "mM" else values
@@ -258,7 +300,16 @@ class DeviceColumn:
         if cache is not None:
             memory.ledger.touch(self)
             return cache
-        return self.host_values(TorchWrapper.materialize(self.data)[: self.length])
+        try:
+            values = TorchWrapper.materialize(self.data)
+        except Exception as err:  # recover_for_read re-seats on a classified DeviceLost only; anything else re-raises
+            from modin_tpu_torch.core.execution.recovery import recover_for_read
+
+            if not recover_for_read(self, err):
+                raise
+            # the column was re-seated from its lineage: fetch once more
+            values = TorchWrapper.materialize(self.data)
+        return self.host_values(values[: self.length])
 
     def host_values(self, values: np.ndarray) -> np.ndarray:
         """Fetched device values in the column's pandas dtype."""
@@ -318,7 +369,14 @@ def column_of_series(series: Any, device: Optional[torch.device] = None) -> Colu
 
 
 class TorchDataframe:
-    """Columnar frame: host metadata + device/host column store."""
+    """Columnar frame: host metadata + device/host column store.
+
+    ``_blocks`` is None, or for each column the number of the pandas block
+    that held it in the frame ``from_pandas`` was given (row selections and
+    column subsets keep it): pandas picks some result dtypes per block, not
+    per column (a grouped sum of narrow ints widens a whole block), and the
+    port follows it where it knows the layout.
+    """
 
     def __init__(
         self,
@@ -334,6 +392,7 @@ class TorchDataframe:
                 nrows = columns[0].length if columns else 0
             index = LazyIndex(index, nrows)
         self._index = index
+        self._blocks: Optional[List[int]] = None
 
     # ------------------------------------------------------------------ #
     # Construction / materialization
@@ -343,8 +402,23 @@ class TorchDataframe:
     def from_pandas(cls, df: Any, device: Optional[torch.device] = None) -> "TorchDataframe":
         import pandas
 
-        columns = [column_of_series(df.iloc[:, i], device) for i in range(df.shape[1])]
-        return cls(columns, df.columns, df.index, nrows=len(df))
+        from modin_tpu_torch.core.execution.resilience import DeviceFailure
+
+        columns = []
+        for i in range(df.shape[1]):
+            series = df.iloc[:, i]
+            try:
+                columns.append(column_of_series(series, device))
+            except DeviceFailure:
+                # the upload failed past the seam's own recovery (counted
+                # there): the column stays on the host, where every device
+                # path declines it and pandas answers, as in the JAX package
+                columns.append(HostColumn(series.to_numpy()))
+        frame = cls(columns, df.columns, df.index, nrows=len(df))
+        blknos = getattr(getattr(df, "_mgr", None), "blknos", None)
+        if blknos is not None and len(blknos) == len(columns):
+            frame._blocks = [int(b) for b in blknos]
+        return frame
 
     @classmethod
     def from_numpy_columns(
@@ -510,11 +584,19 @@ class TorchDataframe:
 
     def select_columns_by_position(self, positions: Sequence[int]) -> "TorchDataframe":
         labels = list(self._col_labels)
-        return TorchDataframe(
+        frame = TorchDataframe(
             [self._columns[i] for i in positions],
             [labels[i] for i in positions],
             self._index,
         )
+        if self._blocks is not None:
+            frame._blocks = [self._blocks[i] for i in positions]
+        return frame
+
+    def _same_layout(self, frame: "TorchDataframe") -> "TorchDataframe":
+        """``frame`` (this frame's rows, selected) with this frame's blocks."""
+        frame._blocks = self._blocks
+        return frame
 
     # ------------------------------------------------------------------ #
     # Row selection and concatenation
@@ -552,7 +634,7 @@ class TorchDataframe:
             if not col.is_device:
                 new_columns[i] = HostColumn(col.data.take(pos_arr))
         new_index = self._index.map_after(lambda idx: idx.take(pos_arr), n_out)
-        return self.with_columns(new_columns, index=new_index, nrows=n_out)
+        return self._same_layout(self.with_columns(new_columns, index=new_index, nrows=n_out))
 
     def filter_rows_mask(self, mask: np.ndarray) -> "TorchDataframe":
         """Boolean-mask rows with a host mask (its positions go to the
@@ -614,7 +696,7 @@ class TorchDataframe:
                 new_columns[i] = HostColumn(col.data.take(host_positions()))
         if index is None:
             index = self._index.map_after(lambda idx: idx.take(host_positions()), n_out)
-        return self.with_columns(new_columns, index=index, nrows=n_out)
+        return self._same_layout(self.with_columns(new_columns, index=index, nrows=n_out))
 
     def concat_rows(self, others: List["TorchDataframe"]) -> "TorchDataframe":
         """Row-wise concat of frames whose columns line up one to one with

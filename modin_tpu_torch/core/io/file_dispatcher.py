@@ -8,12 +8,18 @@ otherwise.  ``PARALLEL_READS`` counts the reads that took the parallel path,
 so a fall-back to the serial parse shows; ``PARSED_COLUMNS`` adds up the
 columns that the text reads parsed (a projection pushed into ``usecols``
 shows as fewer).
+
+Every device column a read makes gets an **io lineage record**
+(``core/execution/recovery.py``): after a device loss, even with its host
+copy dropped under the ``Memory`` budget, the column can be made again by
+running the same read once more (:class:`_IoReplay`).
 """
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Any
+from typing import Any, Optional
 
 NOT_IMPLEMENTED_MESSAGE = "Implement in children classes!"
 
@@ -23,13 +29,62 @@ PARALLEL_READS = 0
 PARSED_COLUMNS = 0
 
 
+class _IoReplay:
+    """Run a dispatcher's read again and serve each column's exact host
+    values: the io lineage record.  It holds the dispatcher and the call's
+    arguments, no data; the first column a recovery pass asks for re-reads
+    the file once for the pass (per device epoch), and the pass's end drops
+    the memo (``drop_cache``, through ``recovery.note_io_replayer``), so a
+    pass never pins a host copy of the file past its own end."""
+
+    def __init__(self, dispatcher: type, args: tuple, kwargs: dict):
+        self._dispatcher = dispatcher
+        self._args = args
+        self._kwargs = kwargs
+        self._cache: Optional[tuple] = None  # (epoch, [values by position])
+
+    def drop_cache(self) -> None:
+        self._cache = None
+
+    def values_for(self, pos: int) -> Any:
+        from modin_tpu_torch.core.execution import recovery
+
+        epoch = recovery.current_epoch()
+        cache = self._cache
+        if cache is None or cache[0] != epoch:
+            columns = self._dispatcher._read(*self._args, **self._kwargs)._modin_frame._columns
+            cache = self._cache = (epoch, [c.to_numpy() if c.is_device else None for c in columns])
+            recovery.note_io_replayer(self)
+        values = cache[1][pos] if pos < len(cache[1]) else None
+        if values is None:
+            raise RuntimeError(f"column {pos} is not in the {self._dispatcher.__name__} re-read")
+        return values
+
+
 class FileDispatcher:
     query_compiler_cls = None
 
     @classmethod
     def read(cls, *args: Any, **kwargs: Any):
-        """Read a file into a query compiler of ``query_compiler_cls``."""
-        return cls._read(*args, **kwargs)
+        """Read a file into a query compiler of ``query_compiler_cls``; its
+        device columns get io lineage."""
+        result = cls._read(*args, **kwargs)
+        cls._attach_io_lineage(result, args, kwargs)
+        return result
+
+    @classmethod
+    def _attach_io_lineage(cls, result: Any, args: tuple, kwargs: dict) -> None:
+        from modin_tpu_torch.core.execution import recovery
+
+        frame = getattr(result, "_frame", None)
+        if not recovery.RECOVERY_ON or frame is None:
+            return
+        replayer = _IoReplay(cls, args, kwargs)
+        for pos, col in enumerate(frame._columns):
+            if col.is_device:
+                recovery.attach_io_lineage(
+                    col, replay=functools.partial(replayer.values_for, pos), detail=cls.__name__
+                )
 
     @classmethod
     def _read(cls, *args: Any, **kwargs: Any):

@@ -273,6 +273,20 @@ class _DeviceLedger:
         """Spill events since the process started."""
         return self._spill_events
 
+    def live_columns(self) -> list:
+        """The live holders of tracked storages, coldest first, each once:
+        what a recovery pass re-seats (columns) or drops (derived entries)."""
+        with self._lock:
+            refs = [r for e in self._entries.values() for r in e.holders.values()]
+        seen = set()
+        out = []
+        for r in refs:
+            h = r()
+            if h is not None and id(h) not in seen:
+                seen.add(id(h))
+                out.append(h)
+        return out
+
     def buffer_consumers(self, buffer: Any) -> int:
         """How many live tracked holders hold ``buffer``'s storage: the
         donation proof needs exactly one."""

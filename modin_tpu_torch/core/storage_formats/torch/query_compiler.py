@@ -57,7 +57,13 @@ query_compiler.py``, cut to the slices ported so far:
 It is a :class:`BaseQueryCompiler`: every other pandas method exists there
 and defaults to pandas.  Each device path gates on the dtypes and arguments
 it can honor exactly as the JAX compiler's gates do, and declines by
-returning None; a declined operation defaults to pandas too.  The frame
+returning None; a declined operation defaults to pandas too.  Every
+``_try_*`` method carries ``@device_path(family)``
+(``core/execution/resilience.py``): its family's circuit breaker, the
+evict-then-retry leg for an OOM, and a counted fallback to pandas for a
+classified device failure; a port-only method takes the family of its
+nearest JAX counterpart (``concat`` the relational ``merge``, ``isin`` and
+``clip`` the elementwise ``binary``, ``sort`` the ``sort_shuffle`` family).  The frame
 goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
@@ -87,6 +93,7 @@ from modin_tpu_torch.core.storage_formats.base.query_compiler import (
     BaseQueryCompiler,
 )
 from modin_tpu_torch.config import PlanMode
+from modin_tpu_torch.core.execution.resilience import device_path
 from modin_tpu_torch.error_message import ErrorMessage
 from modin_tpu_torch.ops import datetime_parts, dictionary, elementwise, reductions, sorted_cache, stats
 from modin_tpu_torch.ops import groupby as gb_ops
@@ -463,6 +470,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ------------------------------- binary --------------------------- #
 
+    @device_path("binary")
     def _try_dict_compare(self, op: str, other: str) -> Optional["TorchQueryCompiler"]:
         """A comparison of string columns with a string scalar: sorted
         categories turn it into a code threshold (one searchsorted of the
@@ -497,6 +505,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 datas.append(codes < bound if op == "le" else codes >= bound)
         return self._wrap_device_result(datas)
 
+    @device_path("binary")
     def _try_device_binary(self, op: str, other: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         if op not in elementwise.BINARY_OPS:
             return None
@@ -599,6 +608,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 )
         return None
 
+    @device_path("binary")
     def _try_device_binary_along_columns(
         self, op: str, other: "TorchQueryCompiler", kinds: List[str], logical: bool
     ) -> Optional["TorchQueryCompiler"]:
@@ -820,6 +830,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             result = self._try_device_clip(lower, upper)
         return result if result is not None else super().clip(lower, upper, **kwargs)
 
+    @device_path("binary")
     def _try_device_clip(self, lower: Any, upper: Any) -> Optional["TorchQueryCompiler"]:
         """pandas' scalar clip: a NaN bound is no bound, crossed bounds
         swap, NaN stays.  Result dtypes follow pandas' ``where``: a float
@@ -902,6 +913,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ----------------------------- reductions ------------------------- #
 
+    @device_path("reduce")
     def _try_device_reduce(
         self, op: str, axis: Any, skipna: bool, numeric_only: bool, kwargs: dict, keep: Any = None,
         donate_cols: Optional[list] = None,
@@ -1104,6 +1116,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             TorchDataframe([col], [MODIN_UNNAMED_SERIES_LABEL], frame._index), "column"
         )
 
+    @device_path("sort_reduce")
     def _try_sort_reduce_nunique(self, dropna: bool) -> Optional["TorchQueryCompiler"]:
         """Distinct count per column: string columns from their categories,
         bounded-range ints through one O(n) histogram (the bincount
@@ -1156,6 +1169,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 return self._row_result(data)
         return super().nunique(axis=axis, dropna=dropna, **kwargs)
 
+    @device_path("sort_reduce")
     def _try_sort_reduce_mode(self, numeric_only: bool, dropna: bool) -> Optional["TorchQueryCompiler"]:
         """Modal values per column: bounded-range ints and dictionary codes
         through O(n) histograms (no cap on the mode set: every modal value
@@ -1277,6 +1291,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             method=method, **kwargs,
         )
 
+    @device_path("sort_reduce")
     def _try_sort_reduce_quantile(
         self, q: Any, qs: list, interpolation: str, numeric_only: bool, list_like: bool
     ) -> Optional["TorchQueryCompiler"]:
@@ -1306,12 +1321,16 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
         vals = reductions.quantile_columns(cols, len(frame), qs, interpolation)
         labels = self.get_columns()[positions]
+        kept = _quantile_kept_dtypes(frame, positions)
+        if kept is not None:
+            vals = [v.astype(kept) for v in vals]
         if list_like:
             # positional dict first: duplicate labels must survive
             result = pandas.DataFrame(dict(enumerate(vals)), index=pandas.Index(qs))
             result.columns = labels
             return type(self).from_pandas(result, self._device())
-        result = pandas.Series([arr[0] for arr in vals], index=labels, name=q)
+        result = pandas.Series([arr[0] for arr in vals], index=labels, name=q,
+                               dtype=None if kept is None else kept)
         qc = type(self).from_pandas(result.to_frame(), self._device())
         qc._shape_hint = "column"
         return qc
@@ -1412,6 +1431,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ----------------------------- shift/diff -------------------------- #
 
+    @device_path("shift")
     def _try_shift_like(self, kernel: Callable, kwargs: dict, as_diff: bool) -> Optional["TorchQueryCompiler"]:
         periods = kwargs.get("periods", 1)
         if (
@@ -1468,6 +1488,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
         return int(ddof)
 
+    @device_path("rolling")
     def _try_device_rolling(self, op: str, rolling_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         window = rolling_kwargs.get("window")
         if isinstance(window, bool) or not isinstance(window, (int, np.integer)) or window <= 0:
@@ -1494,6 +1515,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             window_ops.rolling_reduce(op, cols, len(self._modin_frame), int(window), int(min_periods), ddof)
         )
 
+    @device_path("expanding")
     def _try_device_expanding(self, op: str, expanding_args: list, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         min_periods = expanding_args[0] if expanding_args else 1
         method = expanding_args[1] if len(expanding_args) > 1 else "single"
@@ -1560,6 +1582,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             a = float(alpha)
         return a, bool(adjust), bool(ignore_na), int(min_periods)
 
+    @device_path("ewm")
     def _try_device_ewm(self, op: str, ewm_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         parsed = self._parse_ewm_kwargs(ewm_kwargs)
         if parsed is None:
@@ -1580,6 +1603,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             window_ops.ewm_reduce(op, cols, len(self._modin_frame), a, adjust, ignore_na, min_periods, bool(bias))
         )
 
+    @device_path("ewm")
     def _try_device_ewm_pair(self, op: str, ewm_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         """ewm cov/corr of a Series with itself or with a label-matched
         Series, or of two frames with the same columns, under joint
@@ -1643,6 +1667,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ------------------------------ resample -------------------------- #
 
+    @device_path("resample")
     def _try_device_resample(self, op: str, resample_kwargs: dict, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         """A resample of a sorted ``DatetimeIndex`` as time-bucket codes and
         the groupby segment aggregations.  pandas' own binner
@@ -1714,6 +1739,10 @@ class TorchQueryCompiler(BaseQueryCompiler):
                     a = a.to(torch.float64)
                 arrays.append(a)
             datas = gb_ops.groupby_reduce(op, arrays, codes, n_groups, n, sizes=sizes, ddof=int(ddof))
+            if op in ("sum", "prod"):
+                datas = gb_ops.widen_blocks(
+                    datas, [a.dtype for a in arrays], _block_groups(frame, value_positions, runs=False)
+                )
             labels = self.get_columns()[value_positions]
         cols = [_agg_column(d, n_groups) for d in datas]
         qc = type(self)(TorchDataframe(cols, labels, bin_labels, nrows=n_groups))
@@ -1804,6 +1833,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
         return self._default_to_pandas(pandas_groupby, by)
 
+    @device_path("groupby")
     def _try_device_groupby(
         self, by, agg_func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
         series_groupby, selection,
@@ -1919,6 +1949,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
         labels = list(frame.columns)
         value_datas = []
         value_labels = []
+        value_src: List[int] = []  # the frame position of each value column
         value_decoders: List[Any] = []  # (categories, source dtype) of string values
         for i in value_positions:
             col = frame._columns[i]
@@ -1929,7 +1960,11 @@ class TorchQueryCompiler(BaseQueryCompiler):
                         return None  # pandas: "Cannot use quantile with bool dtype"
                     if agg_func in ("sum", "prod", "mean", "var", "std", "sem", "median"):
                         data = data.to(torch.int64)  # bools count as ints, as in pandas
+                elif data.dtype == torch.float16 and agg_func in _FLOAT16_GROUPBY:
+                    # pandas aggregates float16 as float32 (median as float64)
+                    data = data.to(_FLOAT16_GROUPBY[agg_func])
                 value_datas.append(data)
+                value_src.append(i)
                 value_labels.append(labels[i])
                 value_decoders.append(None)
                 continue
@@ -1951,6 +1986,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             if enc is None or not len(enc.categories):
                 return None
             value_datas.append(enc.codes.data)
+            value_src.append(i)
             value_labels.append(labels[i])
             value_decoders.append((enc.categories, col.pandas_dtype))
         if agg_func != "size" and not value_datas:
@@ -1985,6 +2021,11 @@ class TorchQueryCompiler(BaseQueryCompiler):
             datas = gb_ops.groupby_reduce(
                 agg_func, value_datas, codes, n_groups, n, sizes=sizes, ddof=int(ddof)
             )
+            if agg_func in ("sum", "prod"):
+                datas = gb_ops.widen_blocks(
+                    datas, [d.dtype for d in value_datas],
+                    _block_groups(frame, value_src, runs=bool(key_positions) or selection is not None),
+                )
         if agg_func == "size":
             value_labels = [MODIN_UNNAMED_SERIES_LABEL]
             value_decoders = [None]
@@ -2026,6 +2067,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             qc._shape_hint = "column"
         return qc
 
+    @device_path("groupby")
     def _try_device_groupby_multi(
         self, by, agg_func, axis, groupby_kwargs, agg_args, agg_kwargs, drop,
         series_groupby, selection,
@@ -2096,6 +2138,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             ))
         return None
 
+    @device_path("groupby")
     def _try_device_groupby_describe(
         self, by, groupby_kwargs, agg_kwargs, drop, selection=None
     ) -> Optional["TorchQueryCompiler"]:
@@ -2160,15 +2203,17 @@ class TorchQueryCompiler(BaseQueryCompiler):
             series_groupby=series_groupby, selection=selection,
         )
 
-    def _rowwise_result(self, datas: List[torch.Tensor], labels: Sequence[Any], series: bool) -> "TorchQueryCompiler":
-        """A row-shaped groupby result: this frame's index, new columns."""
+    def _rowwise_result(self, datas: List[Any], labels: Sequence[Any], series: bool) -> "TorchQueryCompiler":
+        """A row-shaped groupby result: this frame's index, new columns (a
+        uint64 result, a host numpy array, as a host column)."""
         frame = self._modin_frame
-        cols = [DeviceColumn(d, numpy_dtype(d.dtype), length=len(frame)) for d in datas]
+        cols = [_agg_column(d, len(frame)) for d in datas]
         qc = type(self)(TorchDataframe(cols, labels, frame._index, nrows=len(frame)))
         if series:
             qc._shape_hint = "column"
         return qc
 
+    @device_path("groupby")
     def _try_device_groupby_transform(
         self, by, agg_func, groupby_kwargs, drop, series_groupby, selection
     ) -> Optional["TorchQueryCompiler"]:
@@ -2241,6 +2286,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return None
         return value_positions, codes, n_groups, sizes
 
+    @device_path("groupby")
     def _try_device_groupby_cum(
         self, op, by, groupby_kwargs, drop, series_groupby, selection
     ) -> Optional["TorchQueryCompiler"]:
@@ -2255,10 +2301,19 @@ class TorchQueryCompiler(BaseQueryCompiler):
         frame = self._modin_frame
         if any(frame._columns[i].data.dtype == torch.uint64 for i in value_positions):
             return None
-        arrays = frame.device_datas(value_positions)
+        arrays = [
+            a.to(torch.float32) if a.dtype == torch.float16 and op in ("cumsum", "cumprod") else a
+            for a in frame.device_datas(value_positions)
+        ]
         labels = [list(frame.columns)[i] for i in value_positions]
-        return self._rowwise_result(gb_ops.groupby_cumulative(op, arrays, codes), labels, series_groupby)
+        datas = gb_ops.groupby_cumulative(op, arrays, codes)
+        if op in ("cumsum", "cumprod"):
+            datas = gb_ops.widen_blocks(
+                datas, [a.dtype for a in arrays], _block_groups(frame, value_positions, runs=True)
+            )
+        return self._rowwise_result(datas, labels, series_groupby)
 
+    @device_path("groupby")
     def _try_device_groupby_number(
         self, op, by, groupby_kwargs, drop, ascending: bool
     ) -> Optional["TorchQueryCompiler"]:
@@ -2560,6 +2615,8 @@ class TorchQueryCompiler(BaseQueryCompiler):
         first_dev = gb_ops.groupby_first_position(codes, n_groups)
         counts, first_pos = TorchWrapper.materialize([counts_dev, first_dev])
         keys = group_keys[0] if decoder is None else dictionary.decode_codes(group_keys[0], decoder)
+        if getattr(keys, "dtype", None) == np.float16:
+            keys = keys.astype(np.float32)  # pandas has no float16 index: its counts' is float32
         normalize = kwargs.get("normalize", False)
         name = list(frame.columns)[0]
         result = pandas.Series(
@@ -2577,6 +2634,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ------------------------------- .str ------------------------------ #
 
+    @device_path("str_lut")
     def _try_str_lut(self, name: str, args: tuple, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         """A string predicate or measure through the dictionary encoding:
         the pandas method runs once per category on the host, and its
@@ -2634,6 +2692,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ------------------------------- .dt ------------------------------- #
 
+    @device_path("dt_component")
     def _try_dt_component(self, name: str, args: tuple, kwargs: dict, timedelta: bool) -> Optional["TorchQueryCompiler"]:
         """A calendar field of a naive datetime64 Series (or a field of a
         timedelta64 one) over its int64 ticks (``ops/datetime_parts.py``).
@@ -2809,6 +2868,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
         return self._default_to_pandas(pandas_concat, *others)
 
+    @device_path("merge")
     def _try_device_concat(
         self, axis: int, others: List[Any], ignore_index: bool, sort: bool, kwargs: dict
     ) -> Optional["TorchQueryCompiler"]:
@@ -2847,6 +2907,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return result
         return self._default_to_pandas(lambda obj, v: obj.isin(v), values)
 
+    @device_path("binary")
     def _try_device_isin(self, values: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         """Membership in a literal value list: numeric device columns
         compare values, string columns compare the dictionary codes of the
@@ -2948,6 +3009,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
 
     # ---------------------------- corr / cov -------------------------- #
 
+    @device_path("corr_cov")
     def _try_device_corr_cov(
         self, method: str, min_periods: int, ddof: int, numeric_only: bool
     ) -> Optional["TorchQueryCompiler"]:
@@ -3027,6 +3089,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return result
         return super().idxmax(axis=axis, skipna=skipna, numeric_only=numeric_only, **kwargs)
 
+    @device_path("top_k")
     def _try_device_top_k(self, n: int, column_pos: int, largest: bool, keep: str) -> Optional["TorchQueryCompiler"]:
         frame = self._modin_frame
         if keep != "first" or len(frame) == 0:
@@ -3208,6 +3271,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             lambda obj: obj.sort_values(columns, ascending=ascending, **kwargs)
         )
 
+    @device_path("sort_shuffle")
     def _try_device_sort(self, columns: Any, ascending: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         """Stable multi-key sort by numeric device key columns and string
         columns' dictionary codes (sorted categories make the codes
@@ -3258,6 +3322,7 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return result
         return self._default_to_pandas(lambda left, r: left.merge(r, **kwargs), right)
 
+    @device_path("merge")
     def _try_device_merge(self, right: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
         """The device sort-merge join (one or several key columns, every
         ``how``): numeric key pairs as they are, string key pairs through
@@ -3527,6 +3592,71 @@ def _plan_runtime():
     from modin_tpu_torch.plan import runtime
 
     return runtime
+
+
+#: the dtype pandas aggregates a float16 column in, by groupby aggregation
+_FLOAT16_GROUPBY = {
+    "sum": torch.float32, "mean": torch.float32, "prod": torch.float32, "var": torch.float32,
+    "median": torch.float64,
+}
+
+
+def _quantile_kept_dtypes(frame: Any, positions: Sequence[int]) -> Optional[np.dtype]:
+    """The dtype pandas gives quantiles of the float32/float16 columns at
+    ``positions``, or None for float64.  pandas keeps a narrow float dtype
+    for the columns of a block that holds a NaN (a Series: the column has
+    one) and answers float64 otherwise; the result is their common dtype."""
+    blocks = frame._blocks
+    kept = []
+    with_nan = set()
+    for pos in positions:
+        col = frame._columns[pos]
+        if col.pandas_dtype in (np.float32, np.float16) and bool(
+            TorchWrapper.materialize(torch.isnan(col.data).any())
+        ):
+            with_nan.add(pos if blocks is None else blocks[pos])
+    for pos in positions:
+        col = frame._columns[pos]
+        key = pos if blocks is None else blocks[pos]
+        kept.append(col.pandas_dtype if key in with_nan else np.dtype(np.float64))
+    if not kept or all(d == np.float64 for d in kept):
+        return None
+    return np.result_type(*kept)
+
+
+def _block_groups(frame: Any, positions: Sequence[int], runs: bool) -> List[List[int]]:
+    """Indices into ``positions`` whose narrow-int device columns shared a
+    pandas block (``TorchDataframe._blocks``), for ``groupby.widen_blocks``.
+    A groupby that drops its key columns (or selects columns) takes its
+    value columns out of their blocks, and pandas then keeps together only
+    the columns of one block that stand next to each other (``runs``); a
+    resample keeps whole blocks."""
+    blocks = frame._blocks
+    if blocks is None:
+        return []
+
+    def narrow(pos: int) -> bool:
+        col = frame._columns[pos]
+        return col.is_device and col.pandas_dtype.kind in "iu" and col.pandas_dtype.itemsize < 8
+
+    groups: List[List[int]] = []
+    if runs:
+        run: List[int] = []
+        for j, pos in enumerate(positions):
+            if run and narrow(pos) and blocks[pos] == blocks[positions[run[-1]]]:
+                run.append(j)
+                continue
+            if len(run) > 1:
+                groups.append(run)
+            run = [j] if narrow(pos) else []
+        if len(run) > 1:
+            groups.append(run)
+        return groups
+    by_block: dict = {}
+    for j, pos in enumerate(positions):
+        if narrow(pos):
+            by_block.setdefault(blocks[pos], []).append(j)
+    return [g for g in by_block.values() if len(g) > 1]
 
 
 def _agg_column(d: Any, n_groups: int) -> Any:

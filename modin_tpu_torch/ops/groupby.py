@@ -441,6 +441,29 @@ def int_sum_result(r: torch.Tensor, dtype: torch.dtype) -> Any:
     return np.asarray(_engine_materialize(r)).view(np.uint64)
 
 
+def widen_blocks(results: List[Any], dtypes: List[torch.dtype], groups: List[List[int]]) -> List[Any]:
+    """pandas' block-wise dtypes of grouped int sums, products and
+    cumulative sums and products: ``groups`` lists the results whose
+    columns (of ``dtypes``) shared a pandas block; where any of a group
+    widened past its narrow dtype (:func:`int_sum_result`), every member
+    widens, to int64, or to uint64 for unsigned columns (host numpy)."""
+    results = list(results)
+    for group in groups:
+        widened = [
+            isinstance(results[j], np.ndarray) or results[j].dtype != dtypes[j] for j in group
+        ]
+        if not any(widened) or all(widened):
+            continue
+        for j, w in zip(group, widened):
+            if w:
+                continue
+            if torch.iinfo(dtypes[j]).min < 0:
+                results[j] = results[j].to(torch.int64)
+            else:
+                results[j] = np.asarray(_engine_materialize(results[j])).astype(np.uint64)
+    return results
+
+
 def groupby_first_position(codes: torch.Tensor, num_groups: int) -> torch.Tensor:
     """The first row position of each group (pandas' order of first
     appearance); rows with the overflow code ``num_groups`` are dropped."""
@@ -597,13 +620,16 @@ def groupby_broadcast(agg_cols: List[torch.Tensor], codes: torch.Tensor) -> List
 
 
 
-def groupby_cumulative(op: str, value_cols: List[torch.Tensor], codes: torch.Tensor) -> List[torch.Tensor]:
+def groupby_cumulative(op: str, value_cols: List[torch.Tensor], codes: torch.Tensor) -> List[Any]:
     """Row-shaped grouped cumsum/cumprod/cummax/cummin: the rows sorted by
     code (stable), one segmented scan that restarts at each group, the
     result scattered back to row order.  A NaN keeps its place and does
-    not poison later rows (pandas' skipna); each column keeps its dtype.
-    Ints scan as int64 (a narrower int wraps back on the cast, as it does
-    in pandas); floats as float64."""
+    not poison later rows (pandas' skipna).  Floats scan as float64 and
+    keep their dtype; ints scan as int64 and take pandas' result dtype
+    (:func:`cumulative_int_result`): a cumsum or cumprod of a narrow int
+    that passes its range widens instead of wrapping, so a result can be
+    the host numpy array of a uint64 column, which the port keeps off the
+    device."""
     if op not in CUM_AGGS:
         raise ValueError(f"grouped cumulative {op!r} is not ported")
     order = torch.argsort(codes, stable=True)
@@ -619,11 +645,22 @@ def groupby_cumulative(op: str, value_cols: List[torch.Tensor], codes: torch.Ten
                 y = _poison_after_inf(y, x, cs)
             y = torch.where(nan, float("nan"), y).to(c.dtype)
         else:
-            y = scan(CUM_SCAN_MODE[op], x.to(torch.int64), cs).to(c.dtype)
+            y = scan(CUM_SCAN_MODE[op], x.to(torch.int64), cs)
         r = torch.empty_like(y)
         r[order] = y
-        out.append(r)
+        out.append(r if c.dtype.is_floating_point else cumulative_int_result(op, r, c.dtype))
     return out
+
+
+def cumulative_int_result(op: str, r: torch.Tensor, dtype: torch.dtype) -> Any:
+    """pandas' result of a grouped cumulative ``op`` whose int64 scan is
+    ``r``, for a column of int ``dtype``: cummax/cummin keep the dtype; a
+    cumsum or cumprod keeps it where every value fits, else widens to int64
+    (uint64 for an unsigned column), as a grouped sum does
+    (:func:`int_sum_result`)."""
+    if op in ("cummax", "cummin"):
+        return r.to(dtype)
+    return int_sum_result(r, dtype)
 
 
 def _poison_after_inf(y: torch.Tensor, x: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:

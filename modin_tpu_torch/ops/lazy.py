@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from modin_tpu_torch.core import memory as _memory
+from modin_tpu_torch.core.execution import recovery as _recovery
 from modin_tpu_torch.ops.cuda import fused_kernels
 from modin_tpu_torch.ops.cuda import fused_program as fp
 
@@ -257,7 +258,9 @@ def _plan(roots: Sequence[Any], tail_key: Optional[Tuple]) -> Tuple[Linearized, 
     nodes a root cannot fit around materialize first)."""
     while True:
         lin = _linearize(roots)
-        key = (lin.fingerprint, tail_key)
+        # the device epoch joins the key: a re-seat compiles programs anew
+        # rather than trusting one made before the loss
+        key = (lin.fingerprint + (_recovery.current_epoch(),), tail_key)
         plan = _fused_cache_get(key)
         if plan is not None:
             return lin, plan
@@ -287,10 +290,35 @@ def _admit(lin: Linearized, out_bytes: int) -> None:
     memory.device_ledger.admit(out_bytes, exclude_ids={memory.storage_key(t) for t in lin.leaves})
 
 
+def _program_call(program: fp.Program, scalars: Sequence[Any], n: int, second_pass: bool = False) -> Callable:
+    """One fused launch as a function of its tensors alone (the leaves and
+    a first pass's accumulators): what ``TorchWrapper.deploy`` records for
+    op replay, which must hold no tensor of its own."""
+
+    def call(leaves: Tuple[torch.Tensor, ...], first: Optional[torch.Tensor] = None):
+        return fused_kernels.run_program(program, list(leaves), scalars, n, second_pass=second_pass, first=first)
+
+    return call
+
+
+def _launch(lin: "Linearized", program: fp.Program, n: int, donated: bool, second_pass: bool = False,
+            first: Optional[torch.Tensor] = None):
+    """``fused_kernels.run_program`` through the engine seam (the resilience
+    policy and op-replay provenance): ``(outs, accumulators)``."""
+    from modin_tpu_torch.parallel.engine import TorchWrapper
+
+    return TorchWrapper.deploy(
+        _program_call(program, lin.scalars, n, second_pass),
+        (tuple(_leaf_args(lin, program)), first),
+        donated=donated,
+    )
+
+
 def run_fused(
     roots: Sequence[Any],
     tail_key: Optional[Tuple] = None,
     tail_builder: Optional[Callable[..., Any]] = None,
+    donated: bool = False,
 ):
     """Run the whole forest (and an optional tail) as fused launches.
 
@@ -304,7 +332,9 @@ def run_fused(
     column.  Its result is returned.  A masked reduce tail (a sixth item,
     True) takes the last root as the bool mask: ``first`` then holds the
     other roots' accumulators and, last, the mask's, whose count slot is the
-    kept-row count.
+    kept-row count.  Every launch goes through ``TorchWrapper.deploy``;
+    ``donated`` says the caller drops the leaves' columns after the run, so
+    no op-replay record is kept.
     """
     if tail_key is None:
         lazy_roots = list({id(r): r for r in roots if is_lazy(r)}.values())
@@ -314,7 +344,7 @@ def run_fused(
             if _memory._DEVICE_BUDGET is not None:
                 _admit(lin, sum(n * r.dtype.itemsize for r in lazy_roots))
             for program in plan:
-                outs, _ = fused_kernels.run_program(program, _leaf_args(lin, program), lin.scalars, n)
+                outs, _ = _launch(lin, program, n, donated)
                 for k, j in enumerate(program.roots):
                     lazy_roots[j]._result = outs[k]
         return [r._result if isinstance(r, LazyExpr) else r for r in roots]
@@ -323,15 +353,12 @@ def run_fused(
     if _memory._DEVICE_BUDGET is not None:
         _admit(lin, n * 8 if tail_key[0] == "rows" else 0)
     if tail_key[0] == "rows":
-        outs, _ = fused_kernels.run_program(plan[0], _leaf_args(lin, plan[0]), lin.scalars, n)
+        outs, _ = _launch(lin, plan[0], n, donated)
         return tail_builder(outs[0]) if tail_builder is not None else outs[0]
-    firsts = [fused_kernels.run_program(p, _leaf_args(lin, p), lin.scalars, n)[1] for p in plan]
+    firsts = [_launch(lin, p, n, donated)[1] for p in plan]
     seconds = None
     if tail_key[1] in fp.MOMENT_OPS:
-        seconds = [
-            fused_kernels.run_program(p, _leaf_args(lin, p), lin.scalars, n, second_pass=True, first=f)[1]
-            for p, f in zip(plan, firsts)
-        ]
+        seconds = [_launch(lin, p, n, donated, second_pass=True, first=f)[1] for p, f in zip(plan, firsts)]
     if fp.is_masked(tail_key):
         # each program ends with its kept-row count: keep the first one, last
         kept = firsts[0][-1:]

@@ -852,7 +852,7 @@ def _mark_and_run(roots: List[Any], tail_key: Tuple, tail: Any, donate_cols: Opt
     are marked donated once its launches are enqueued (the tail's result
     fetched), never before: a failed run donates nothing."""
     donated = donation_map(roots, donate_cols)
-    out = run_fused(roots, tail_key, tail)
+    out = run_fused(roots, tail_key, tail, donated=bool(donated))
     mark_donated(donated)
     return out
 

@@ -53,6 +53,16 @@ class SortedRep(_registry.DerivedArtifact):
         state = self.state
         return None if state is None else state["n_valid"]
 
+    def drop(self) -> int:
+        """Release the payload and detach from the column: what a recovery
+        pass does with a representation (it never replays one); returns
+        the bytes the ledger got back."""
+        col = self.col_ref() if self.col_ref is not None else None
+        with _registry.LOCK:
+            if col is not None and col._sorted_rep is self:
+                col._sorted_rep = None
+            return super().drop()
+
     def spill(self) -> int:
         """Ledger pressure: drop the representation from its column, and the
         column's other artifacts with it; returns the bytes the ledger got

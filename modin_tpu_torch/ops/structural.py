@@ -9,7 +9,9 @@ is exactly its rows and none of these ops masks anything.
 Each op is a composition of torch library operations (``index_select``,
 ``nonzero``, ``cat``), as the JAX package leaves the same work to XLA
 (``jnp.take``, ``jnp.argsort``, ``jnp.concatenate``); no Pallas kernel sits
-under them.
+under them.  The gathers and concatenations run through
+``TorchWrapper.deploy``, as the JAX package's do: they get the resilience
+policy, and their outputs op-replay lineage.
 """
 
 from __future__ import annotations
@@ -78,9 +80,19 @@ def gather_columns(cols: Sequence[torch.Tensor], positions: np.ndarray) -> Tuple
     return gather_columns_device(cols, device_positions), len(positions)
 
 
+def _gather(cols: Tuple[torch.Tensor, ...], positions: torch.Tensor) -> List[torch.Tensor]:
+    return [torch.index_select(c, 0, positions) for c in cols]
+
+
 def gather_columns_device(cols: Sequence[torch.Tensor], positions: torch.Tensor) -> List[torch.Tensor]:
     """Gather with a positions tensor already on the columns' device."""
-    return [torch.index_select(c, 0, positions) for c in cols]
+    if not cols:
+        return []
+    return TorchWrapper.deploy(_gather, (tuple(cols), positions))
+
+
+def _concat(parts: Tuple[Tuple[torch.Tensor, ...], ...]) -> List[torch.Tensor]:
+    return [torch.cat([p[ci] for p in parts]) for ci in range(len(parts[0]))]
 
 
 def concat_columns(parts: Sequence[Sequence[torch.Tensor]], lengths: Sequence[int]) -> Tuple[List[torch.Tensor], int]:
@@ -92,5 +104,6 @@ def concat_columns(parts: Sequence[Sequence[torch.Tensor]], lengths: Sequence[in
     counterpart here.
     """
     n_out = int(sum(lengths))
-    n_cols = len(parts[0])
-    return [torch.cat([p[ci] for p in parts]) for ci in range(n_cols)], n_out
+    if not parts[0]:
+        return [], n_out
+    return TorchWrapper.deploy(_concat, (tuple(tuple(p) for p in parts),)), n_out

@@ -318,6 +318,14 @@ class SeriesGroupBy(DataFrameGroupBy):
 
     _series_groupby = True
 
+    def size(self):
+        """Group sizes, named after the selected column (or the grouped
+        Series) where the result is a Series, as pandas names them."""
+        result = super().size()
+        if self._kwargs["as_index"]:
+            result.name = self._selection if self._selection is not None else self._df.name
+        return result
+
     def unique(self):
         return self._groupby_agg("unique")
 

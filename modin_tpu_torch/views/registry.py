@@ -51,8 +51,11 @@ Counts are plain integers in :data:`COUNTS` under the JAX package's metric
 names (``view.hit``, ``view.fold``, ``view.miss``, ``view.build``,
 ``view.evict``, ``view.spill``, ``view.chain_compact`` and
 ``view.invalidate.<reason>``), as ``core/memory.py`` counts its spills.
-The device epoch of the JAX package's recovery is one constant here: the
-port has no recovery yet.
+Every artifact is stamped with the device epoch of
+``core/execution/recovery.py``: a re-seat pass bumps it, so no artifact
+built before a device loss answers after it, and the pass drops the
+artifacts (and the sorted representations) that hold device payloads
+instead of replaying them.
 """
 
 from __future__ import annotations
@@ -132,8 +135,9 @@ def _max_chain() -> int:
 
 
 def _current_epoch() -> int:
-    """The device epoch: one constant until the port has recovery."""
-    return 0
+    from modin_tpu_torch.core.execution import recovery
+
+    return recovery.current_epoch()
 
 
 def _mesh_key() -> str:

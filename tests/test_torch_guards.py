@@ -107,6 +107,13 @@ SLICE15_MODULES = [
     "views/registry.py",
 ]
 
+SLICE16_MODULES = [
+    "core/execution/recovery.py",
+    "core/execution/resilience.py",
+    "testing/__init__.py",
+    "testing/faults.py",
+]
+
 
 def test_package_has_modules_to_scan():
     assert len(list(PACKAGE.rglob("*.py"))) >= 30
@@ -115,6 +122,7 @@ def test_package_has_modules_to_scan():
     assert set(SLICE13_MODULES) <= scanned
     assert set(SLICE14_MODULES) <= scanned
     assert set(SLICE15_MODULES) <= scanned
+    assert set(SLICE16_MODULES) <= scanned
 
 
 @pytest.mark.parametrize(
@@ -171,6 +179,11 @@ def test_slice13_modules_import_without_jax_or_modin_tpu():
 
 def test_slice15_modules_import_without_jax_or_modin_tpu():
     proc = _import_without_jax_or_modin_tpu(SLICE15_MODULES)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice16_modules_import_without_jax_or_modin_tpu():
+    proc = _import_without_jax_or_modin_tpu(SLICE16_MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

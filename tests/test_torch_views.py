@@ -15,7 +15,11 @@ The cases of ``tests/test_views.py`` that apply to the port, at its sizes
 - invalidation by setitem, by spill and restore, by an in-place write (the
   tensor's ``_version``), and by pressure (derived entries first);
 - the stale-write guard and its concurrent stress;
-- Off: no token allocated, answers equal to the cache's absence.
+- Off: no token allocated, answers equal to the cache's absence;
+- chaos (``tests/test_views.py``'s): a re-seat drops the column's
+  artifacts, an artifact of an earlier device epoch never answers, a
+  recovery pass leaves nothing that answers, and a loss in the middle of a
+  fold recovers bit for bit through both packages under one schedule.
 
 Then the differential test: one sequence of queries and appends through
 ``modin_tpu.pandas`` and the port gives the same answers and the same
@@ -516,6 +520,119 @@ class TestInvalidation:
 # ---------------------------------------------------------------------- #
 # the stale-write guard
 # ---------------------------------------------------------------------- #
+
+
+class TestChaos:
+    """The views' device epoch (``recovery.current_epoch``) and the chaos
+    cases of ``tests/test_views.py``: a re-seat pass and a loss in the middle
+    of a fold, through the port and the JAX package with one schedule."""
+
+    @pytest.fixture(autouse=True)
+    def _recovery_on(self):
+        from modin_tpu.config import RecoveryMode as JaxRecoveryMode
+        from modin_tpu.config import ResilienceBackoffS as JaxBackoff
+        from modin_tpu.core.execution import recovery as jax_recovery
+
+        from modin_tpu_torch.config import RecoveryMode, ResilienceBackoffS
+        from modin_tpu_torch.core.execution import recovery, resilience
+
+        saved = [(p, p.get()) for p in (JaxRecoveryMode, JaxBackoff, RecoveryMode, ResilienceBackoffS)]
+        for p in (JaxRecoveryMode, RecoveryMode):
+            p.put("Enable")
+        for p in (JaxBackoff, ResilienceBackoffS):
+            p.put(0.0)
+        recovery.reset_for_tests()
+        jax_recovery.reset_for_tests()
+        resilience.reset_counts()
+        yield
+        for p, v in saved:
+            p.put(v)
+        recovery.reset_for_tests()
+        jax_recovery.reset_for_tests()
+
+    def test_reseat_invalidates(self):
+        tdf, pdf = _frames()
+        _same(tdf.max(), pdf.max())
+        col = _column(tdf, "i")
+        token = col._view_token
+        assert token in registry._by_token
+        col.reseat_from_host()
+        assert token not in registry._by_token  # the new tensor's artifacts are gone
+        c0 = _counts()
+        _same(tdf.max(), pdf.max())
+        assert _delta(c0, "view.miss") >= 1
+
+    def test_artifacts_of_an_earlier_epoch_never_answer(self, monkeypatch):
+        from modin_tpu_torch.core.execution import recovery
+
+        tdf, pdf = _frames()
+        _same(tdf.sum(), pdf.sum())
+        assert all(a.epoch == 0 for a in registry.live_artifacts())
+        # the epoch moves without the columns' tensors changing
+        monkeypatch.setattr(recovery, "_device_epoch", recovery.current_epoch() + 1)
+        c0 = _counts()
+        _same(tdf.sum(), pdf.sum())
+        assert _delta(c0, "view.invalidate.device_epoch") >= 1
+        assert _delta(c0, "view.hit") == 0
+
+    def test_recovery_pass_drops_artifacts(self):
+        from modin_tpu.core.execution import recovery as jax_recovery
+        from modin_tpu.views import registry as jreg
+
+        from modin_tpu_torch.core.execution import recovery, resilience
+
+        tdf, pdf = _frames()
+        jdf = mpd.DataFrame(pdf)
+        _same(tdf.sum(), pdf.sum())
+        _same(jax_to_pandas(jdf.sum()), pdf.sum())
+        assert len(registry.live_artifacts()) >= 3 and len(jreg.live_artifacts()) >= 3
+        recovery.reseat_all("test-views-epoch-bump")
+        jax_recovery.reseat_all("test-views-epoch-bump")
+        c0 = _counts()
+        _same(tdf.sum(), pdf.sum())
+        _same(jax_to_pandas(jdf.sum()), pdf.sum())
+        assert _delta(c0, "view.hit") == 0 and _delta(c0, "view.miss") == 3
+        assert all(a.epoch == recovery.current_epoch() == 1 for a in registry.live_artifacts())
+        assert resilience.COUNTS.get("recovery.unrecoverable", 0) == 0
+
+    def test_device_lost_mid_fold_recovers_bit_exact(self):
+        from modin_tpu.logging.metrics import add_metric_handler, clear_metric_handler
+        from modin_tpu.testing.faults import midquery_device_loss as jax_midquery
+
+        from modin_tpu_torch.core.execution import resilience
+        from modin_tpu_torch.testing import midquery_device_loss
+
+        seen = []
+        add_metric_handler(lambda name, value: seen.append(name))
+        try:
+            tdf, pdf = _frames()
+            jdf = mpd.DataFrame(pdf)
+            tdf.sum()
+            jdf.sum()
+            tail = _tails()
+            tdf2 = tpd.concat([tdf, tpd.DataFrame(tail)], ignore_index=True)
+            jdf2 = mpd.concat([jdf, mpd.DataFrame(tail)], ignore_index=True)
+            pdf2 = pandas.concat([pdf, tail], ignore_index=True)
+            # the fold's first seam call dies (the JAX package's tail gather,
+            # the port's fetch: it reduces a concrete tail without a
+            # dispatch); the re-seat and the retry answer
+            ops = ("deploy", "materialize")
+            with midquery_device_loss(after_deploys=0, times=1, ops=ops) as inj:
+                got = tdf2.sum()
+            with jax_midquery(after_deploys=0, times=1, ops=ops) as jinj:
+                jgot = jax_to_pandas(jdf2.sum())
+            assert inj.injected == jinj.injected == 1
+            assert tpd.to_pandas(got)["i"] == jgot["i"] == pdf2.sum()["i"]
+            _same(got, pdf2.sum())
+            assert resilience.COUNTS["recovery.device_lost"] == 1
+            assert resilience.COUNTS.get("recovery.unrecoverable", 0) == 0
+            assert "modin_tpu.recovery.unrecoverable" not in seen
+            # nothing of the dead epoch answers afterwards
+            c0 = _counts()
+            _same(tdf2.mean(), pdf2.mean())
+            assert _delta(c0, "view.hit") == 0
+        finally:
+            clear_metric_handler(seen.append)
 
 
 class TestStaleWriteGuard:
