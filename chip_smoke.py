@@ -287,12 +287,15 @@ Phases, one JSON object per line each:
              ``materialize`` retried, losses in a fused chain and a filter ->
              groupby -> merge re-seating host, io and op lineage bit for bit
              (nothing unrecoverable, a views artifact of before the loss
-             missing after it), threshold-many losses opening the ``reduce``
-             breaker, a short circuit, a probe closing it (exactly 4
-             fallbacks); (c) five phase-4 queries at ``--robust-cost-rows``
-             (1e7) with ``ResilienceMode``/``RecoveryMode`` on and off.  Every
-             other phase ends with no device-path fallback and every breaker
-             closed; a ``{"resilience": ...}`` line precedes the card's name.
+             missing after it), threshold-many losses raising ``DeviceLost``
+             and opening the ``reduce`` breaker, the next call raising
+             ``BreakerOpen`` without touching the card, a probe closing it (no
+             fallback, no default); (c) five phase-4 queries at
+             ``--robust-cost-rows`` (1e7) with ``ResilienceMode``/
+             ``RecoveryMode`` on and off, in five rounds, and the layer's own
+             cost per call and calls per query.  Every other phase ends with no
+             device-path fallback and every breaker closed; a
+             ``{"resilience": ...}`` line precedes the card's name.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -4934,6 +4937,7 @@ ROBUST_FAULT_ROWS = 2 * 10**6
 ROBUST_CSV_ROWS = 10**6
 #: (c): the phase-4 queries timed with the layer on and off
 ROBUST_COST_QUERIES = ("df_plus_df", "sum", "mean", "groupby_sum", "groupby_mean")
+ROBUST_COST_ROUNDS = 5
 
 
 def _resilience_marks() -> dict:
@@ -4955,13 +4959,14 @@ def _resilience_since(before: dict) -> dict:
     return {"counts": counts, "memory": spills, "fallbacks": resilience.fallback_count() - before["fallbacks"]}
 
 
-def robust_oom_case(name: str, make_query_frame, query, reference, make_cold, exact: bool) -> dict:
+def robust_oom_case(name: str, make_query_frame, query, reference, make_cold, exact: bool, seam: str) -> dict:
     """One real OOM absorbed by evict-then-retry: ``query``'s peak measured
     on a frame of its own with nothing else resident, then the same query on
     a fresh frame beside the cold frames ``make_cold()`` returns, ``(frames,
     their host values)``, under a cap between that peak and the peak plus
     the cold bytes; then every cold column that spilled restores exactly.
-    Returns the case's record."""
+    ``seam`` (``device_path`` or ``engine_call``) is the leg that must
+    absorb it.  Returns the case's record."""
     import torch
 
     from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
@@ -5014,6 +5019,10 @@ def robust_oom_case(name: str, make_query_frame, query, reference, make_cold, ex
               "launches": launches, "counts": since["counts"]}
     if ooms < 1 or record["retry_oom"] < 1:
         raise AssertionError(f"{name}: no real OOM was absorbed: {record}")
+    if seam == "device_path" and record["engine_oom"]:
+        raise AssertionError(f"{name}: the OOM met the engine seam, not device_path: {record}")
+    if seam == "engine_call" and record["engine_oom"] < 1:
+        raise AssertionError(f"{name}: the OOM did not meet the engine seam: {record}")
     if record["spills"] < 1 or record["fallbacks"] or record["defaults"]:
         raise AssertionError(f"{name}: the OOM went to pandas or spilled nothing: {record}")
     del frame, got
@@ -5066,14 +5075,15 @@ def robust_real_oom(seed: int) -> dict:
     with ViewsMode.context("Off"):  # a cached answer would allocate nothing
         out["groupby_mean"] = robust_oom_case(
             "groupby_mean_1e8", lambda: frame_of(gb_data), lambda d: d.groupby("key").mean(),
-            lambda: pandas.DataFrame(gb_data).groupby("key").mean(), make_cold, exact=False)
+            lambda: pandas.DataFrame(gb_data).groupby("key").mean(), make_cold, exact=False, seam="device_path")
         if out["groupby_mean"]["launches"]["groupagg"] < 1:
             raise AssertionError(f"the OOM groupby never launched groupagg: {out['groupby_mean']}")
         out["sum_chain"] = robust_oom_case(
             "axpb_sum_1e8", lambda: frame_of(ch_data), lambda d: (d["a"] * d["b"] + d["c"]).sum(),
-            lambda: float((ch_data["a"] * ch_data["b"] + ch_data["c"]).sum()), make_cold, exact=True)
-        if out["sum_chain"]["engine_oom"] < 1 or out["sum_chain"]["launches"]["fused"] < 1:
-            raise AssertionError(f"the chain's OOM did not meet the engine seam: {out['sum_chain']}")
+            lambda: float((ch_data["a"] * ch_data["b"] + ch_data["c"]).sum()), make_cold, exact=True,
+            seam="engine_call")
+        if out["sum_chain"]["launches"]["fused"] < 1:
+            raise AssertionError(f"the chain's OOM run never launched fused: {out['sum_chain']}")
     del cold_values, gb_data, ch_data
     free_device_memory()
     return out
@@ -5085,8 +5095,10 @@ def robust_injected(seed: int, workdir: str) -> dict:
     chain and of a filter -> groupby -> merge re-seats host, io (a CSV
     read whose host copies were dropped) and op lineage bit for bit, with
     nothing unrecoverable, and a views artifact of before the loss misses;
-    threshold-many losses open the ``reduce`` family's breaker, the next
-    call short-circuits, and after the cooldown a clean probe closes it."""
+    threshold-many losses raise ``DeviceLost`` and open the ``reduce``
+    family's breaker, the next call raises ``BreakerOpen`` without touching
+    the card, and after the cooldown a clean probe closes it.  Nothing goes
+    to pandas."""
     import pandas
 
     import modin_tpu_torch.pandas as tpd
@@ -5174,17 +5186,23 @@ def robust_injected(seed: int, workdir: str) -> dict:
             or not all(c.get(f"recovery.reseat.{k}", 0) for k in ("host", "io", "op"))
             or since["fallbacks"] or fresh or views_after["view.hit"] or not views_after["view.miss"]):
         raise AssertionError(f"the loss did not re-seat cleanly: {out['loss']}")
-    # threshold-many losses open the reduce family's breaker
+    # threshold-many losses raise and open the reduce family's breaker
     threshold = 3
     defaults0 = tqc.DEFAULTS_TO_PANDAS
     r0 = _resilience_marks()
     median_want = pdf.median()
-    states = []
+    states, raised, injected = [], [], []
     with ResilienceBreakerThreshold.context(threshold), ResilienceBreakerCooldownS.context(30.0):
         with inject_faults("device_lost", ops=("materialize",), times=None) as inj:
             for _ in range(threshold + 1):
-                assert_same_pandas(tpd.to_pandas(hdf.median()), median_want, "robust median, breaker")
+                try:
+                    tpd.to_pandas(hdf.median())
+                except resilience.DeviceFailure as err:
+                    raised.append(type(err).__name__)
+                else:
+                    raised.append(None)
                 states.append(resilience.get_breaker("reduce").state)
+                injected.append(inj.injected)
         real_now = resilience._now
         resilience._now = lambda: real_now() + 31.0
         try:
@@ -5193,26 +5211,107 @@ def robust_injected(seed: int, workdir: str) -> dict:
             resilience._now = real_now
         states.append(resilience.get_breaker("reduce").state)
     since = _resilience_since(r0)
-    expected_fallbacks = threshold + 1  # the strikes, then one short circuit
-    out["breaker"] = {"states": states, "injected": inj.injected, "fallbacks": since["fallbacks"],
-                      "defaults": tqc.DEFAULTS_TO_PANDAS - defaults0, "counts": since["counts"]}
-    if (states != ["closed"] * (threshold - 1) + ["open", "open", "closed"]
-            or since["fallbacks"] != expected_fallbacks
-            or since["counts"].get("resilience.breaker.reduce.short_circuit") != 1
-            or since["counts"].get("resilience.breaker.reduce.half_open") != 1):
-        raise AssertionError(f"the breaker did not open, short-circuit and close: {out['breaker']}")
-    tqc.DEFAULTS_TO_PANDAS = defaults0
+    c = since["counts"]
+    out["breaker"] = {"states": states, "raised": raised, "injected": injected,
+                      "fallbacks": since["fallbacks"], "defaults": tqc.DEFAULTS_TO_PANDAS - defaults0, "counts": c}
+    if (raised != ["DeviceLost"] * threshold + ["BreakerOpen"]
+            or injected[-1] != injected[-2]  # the open breaker stopped the call before the card
+            or states != ["closed"] * (threshold - 1) + ["open", "open", "closed"]
+            or c.get("resilience.raised.reduce.device_lost") != threshold
+            or c.get("resilience.breaker.reduce.short_circuit") != 1
+            or c.get("resilience.breaker.reduce.half_open") != 1
+            or since["fallbacks"] or out["breaker"]["defaults"]):
+        raise AssertionError(f"the breaker did not raise, open, stop a call and close: {out['breaker']}")
     del hdf, io_df, io_cols, op_series, op_col, f
     free_device_memory()
     return out
 
 
+def _layer_call_costs(calls: int = 20000) -> dict:
+    """The layer's own cost per call on this host, in microseconds: each
+    entry point with a trivial body, ``Enable`` less ``Disable`` (the best
+    of three timings of ``calls`` calls each)."""
+    import torch
+
+    import modin_tpu_torch
+    from modin_tpu_torch.config import RecoveryMode, ResilienceMode
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.parallel.engine import TorchWrapper
+
+    class Probe:
+        _frame = None
+
+        @resilience.device_path("reduce")
+        def _try(self):
+            return None
+
+    probe, t = Probe(), torch.zeros(1, device=modin_tpu_torch.get_device())
+    cases = {
+        "engine_call": lambda: resilience.engine_call("wait", _noop),
+        "device_path": probe._try,
+        "deploy": lambda: TorchWrapper.deploy(_identity, (t,)),
+    }
+    out = {}
+    for name, fn in cases.items():
+        best = {}
+        for mode in ("Enable", "Disable"):
+            with ResilienceMode.context(mode), RecoveryMode.context(mode):
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    walls.append(time.perf_counter() - t0)
+                best[mode] = min(walls) / calls * 1e6
+        out[name] = {"enable_us": best["Enable"], "disable_us": best["Disable"],
+                     "layer_us": best["Enable"] - best["Disable"]}
+    return out
+
+
+def _noop():
+    return None
+
+
+def _identity(x):
+    return x
+
+
+#: the layer's entry points whose calls ``_layer_calls`` counts
+_LAYER_FUNCTIONS = {("resilience.py", "engine_call"), ("resilience.py", "wrapper"),
+                    ("recovery.py", "record_deploy"), ("recovery.py", "record_put"),
+                    ("recovery.py", "note_column_data"), ("recovery.py", "attach_lineage")}
+
+
+def _layer_calls(fn) -> dict:
+    """Calls of the layer's entry points in one run of ``fn`` (traced with
+    ``sys.setprofile``, so not timed)."""
+    import collections
+
+    seen = collections.Counter()
+
+    def tracer(frame, event, arg):
+        if event == "call":
+            code = frame.f_code
+            key = (os.path.basename(code.co_filename), code.co_name)
+            if key in _LAYER_FUNCTIONS and "modin_tpu_torch" in code.co_filename:
+                seen[key[1] if key[1] != "wrapper" else "device_path"] += 1
+
+    sys.setprofile(tracer)
+    try:
+        fn()
+    finally:
+        sys.setprofile(None)
+    return dict(seen)
+
+
 def robust_cost(rows: int, seed: int) -> dict:
     """(c): five phase-4 queries at ``rows`` with ``ResilienceMode`` and
     ``RecoveryMode`` Enable against Disable (views off, so each run
-    computes), each query's port and ``to_pandas`` wall in the order
-    Enable, Disable, Disable, Enable; the medians by mode.  Recorded, not
-    claimed."""
+    computes), each query's port and ``to_pandas`` wall in
+    ``ROBUST_COST_ROUNDS`` rounds of Enable, Disable, Disable, Enable: every
+    run, the medians by mode and their difference, each round's difference
+    of means; the calls of the layer one Enable run makes, and the layer's
+    cost per call (``_layer_call_costs``).  Recorded, not claimed."""
     import pandas
 
     import modin_tpu_torch.pandas as tpd
@@ -5221,18 +5320,34 @@ def robust_cost(rows: int, seed: int) -> dict:
     p1 = pandas.DataFrame(make_frame_data(rows, seed, ngroups=100))
     p2 = pandas.DataFrame(make_frame_data(rows, seed + 1, ngroups=100))
     times = {q: {"Enable": [], "Disable": []} for q in ROBUST_COST_QUERIES}
+    rounds = {q: [] for q in ROBUST_COST_QUERIES}
     with ViewsMode.context("Off"):
         t1, t2 = tpd.from_pandas(p1), tpd.from_pandas(p2)
         for q in ROBUST_COST_QUERIES:
             tpd.to_pandas(MAIN_QUERIES[q](t1, t2))  # warm-up
-        for mode in ("Enable", "Disable", "Disable", "Enable"):
-            with ResilienceMode.context(mode), RecoveryMode.context(mode):
-                for q in ROBUST_COST_QUERIES:
-                    _, ms = host_ms(lambda: tpd.to_pandas(MAIN_QUERIES[q](t1, t2)))
-                    times[q][mode].append(ms)
+        for _ in range(ROBUST_COST_ROUNDS):
+            this = {q: {"Enable": [], "Disable": []} for q in ROBUST_COST_QUERIES}
+            for mode in ("Enable", "Disable", "Disable", "Enable"):
+                with ResilienceMode.context(mode), RecoveryMode.context(mode):
+                    for q in ROBUST_COST_QUERIES:
+                        _, ms = host_ms(lambda: tpd.to_pandas(MAIN_QUERIES[q](t1, t2)))
+                        times[q][mode].append(ms)
+                        this[q][mode].append(ms)
+            for q in ROBUST_COST_QUERIES:
+                rounds[q].append(statistics.mean(this[q]["Enable"]) - statistics.mean(this[q]["Disable"]))
+        calls = {}
+        with ResilienceMode.context("Enable"), RecoveryMode.context("Enable"):
+            for q in ROBUST_COST_QUERIES:
+                calls[q] = _layer_calls(lambda: tpd.to_pandas(MAIN_QUERIES[q](t1, t2)))
     del t1, t2
     free_device_memory()
-    return {q: {m: statistics.median(v) for m, v in by.items()} | {"runs_ms": by} for q, by in times.items()}
+    per_call = _layer_call_costs()
+    out = {"per_call_us": per_call}
+    for q, by in times.items():
+        med = {m: statistics.median(v) for m, v in by.items()}
+        out[q] = med | {"delta_ms": med["Enable"] - med["Disable"], "round_deltas_ms": rounds[q],
+                        "runs_ms": by, "layer_calls": calls[q]}
+    return out
 
 
 def phase_robust(seed: int, cost_rows: int, workdir: str) -> dict:
@@ -5273,7 +5388,9 @@ def resilience_line(robust: dict, by_path: dict) -> dict:
                                            "cold_bytes", "alone_ms", "oom_run_ms", "cold_restored_exactly")}
                      for k, v in oom.items()},
         "injected": {k: {f: v[f] for f in v if f != "counts"} for k, v in robust["injected"].items()},
-        "cost_ms": {q: {m: v[m] for m in ("Enable", "Disable")} for q, v in robust["cost"].items()},
+        "cost_ms": {q: {m: v[m] for m in ("Enable", "Disable", "delta_ms", "round_deltas_ms")}
+                    for q, v in robust["cost"].items() if q != "per_call_us"},
+        "cost_per_call_us": robust["cost"]["per_call_us"],
         "robust_launches": robust["launches"],
         "paths": by_path,
     }

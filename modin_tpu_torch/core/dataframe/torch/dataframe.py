@@ -403,6 +403,7 @@ class TorchDataframe:
         import pandas
 
         from modin_tpu_torch.core.execution.resilience import DeviceFailure
+        from modin_tpu_torch.parallel.mesh import get_device
 
         columns = []
         for i in range(df.shape[1]):
@@ -411,8 +412,11 @@ class TorchDataframe:
                 columns.append(column_of_series(series, device))
             except DeviceFailure:
                 # the upload failed past the seam's own recovery (counted
-                # there): the column stays on the host, where every device
-                # path declines it and pandas answers, as in the JAX package
+                # there).  On the card that raises: no column stays on the
+                # host in the device's place.  On the CPU it stays on the
+                # host, where pandas answers, as in the JAX package
+                if (device if device is not None else get_device()).type == "cuda":
+                    raise
                 columns.append(HostColumn(series.to_numpy()))
         frame = cls(columns, df.columns, df.index, nrows=len(df))
         blknos = getattr(getattr(df, "_mgr", None), "blknos", None)

@@ -17,10 +17,17 @@ runtime decision that can be observed:
      assert, 719 launch failure, 214 uncorrectable ECC, and the other
      kernel faults that poison the context, 714-718), a watchdog expiry and
      a read of a donated tensor are a DeviceLost;
+   - the launch timeout (702), which poisons the context as they do, is a
+     DeviceLost too;
    - launch bugs (9 invalid configuration, 98 invalid device function, 209
-     no kernel image, 701 out of resources), a failed ``nvcc`` build and
-     any exception that is not a CUDA error propagate unclassified: a bug
-     must fail loudly, never turn into a fallback;
+     no kernel image, 701 out of resources) and the errors of a launch's
+     set-up (1 invalid value, which an oversized shared-memory request to
+     ``cudaFuncSetAttribute`` returns, 13 invalid symbol, 200 invalid
+     kernel image, 218 invalid PTX, 222 unsupported PTX version, 400
+     invalid resource handle, 500 symbol not found, 720 cooperative launch
+     too large), a failed ``nvcc`` build and any exception that is not a
+     CUDA error propagate unclassified: a bug must fail loudly, never turn
+     into a retry or a breaker's strike;
    - any other CUDA error is a TransientDeviceError, retried in bounds.
 
    The code comes from ``torch.AcceleratorError.error_code`` where the
@@ -37,9 +44,14 @@ runtime decision that can be observed:
 
 3. **Per-family circuit breakers** -- every ``_try_*`` method of the query
    compiler is wrapped by :func:`device_path`.  ``ResilienceBreakerThreshold``
-   consecutive strikes open a family's breaker and the family goes to
-   pandas without touching the device; after ``ResilienceBreakerCooldownS``
-   one probe is let through, and a clean probe closes it.
+   consecutive strikes open a family's breaker and the family's calls fail
+   at once without touching the device; after ``ResilienceBreakerCooldownS``
+   one probe is let through, and a clean probe closes it.  On the card a
+   failure the legs did not absorb, and a call an open breaker stops, raise
+   (:class:`BreakerOpen`): pandas on the host never answers for a device
+   that failed.  Where the port runs on the CPU (the tests), the family
+   goes to pandas instead, as the JAX package's does, and the tests hold
+   the two to the same counters and states.
 
 Counts are plain integers in :data:`COUNTS` under the JAX package's metric
 names (``resilience.engine.<op>.<kind>``, ``resilience.breaker.<family>.
@@ -60,6 +72,18 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from modin_tpu_torch.config import (
+    Device,
+    ResilienceBackoffS,
+    ResilienceBreakerCooldownS,
+    ResilienceBreakerThreshold,
+    ResilienceLatencyBudgetS,
+    ResilienceMode,
+    ResilienceRetries,
+    ResilienceWatchdogS,
+    SpillRetries,
+)
+
 # test seams: tests patch these to run breaker cooldowns and backoffs
 # without wall-clock sleeps
 _now = time.monotonic
@@ -74,6 +98,8 @@ _fault_hook: Optional[Callable[[str], None]] = None
 #: event counts by metric name (only names that occurred are present)
 COUNTS: Dict[str, int] = {}
 _COUNT_LOCK = threading.Lock()
+#: device-path calls that pandas answered (only where the port runs on the CPU)
+_fallbacks = 0
 
 
 def count(name: str, value: int = 1) -> None:
@@ -82,18 +108,23 @@ def count(name: str, value: int = 1) -> None:
 
 
 def reset_counts() -> None:
+    global _fallbacks
     with _COUNT_LOCK:
         COUNTS.clear()
+        _fallbacks = 0
+
+
+def _count_fallback() -> None:
+    global _fallbacks
+    with _COUNT_LOCK:
+        _fallbacks += 1
 
 
 def fallback_count() -> int:
     """Calls of the ``_try_*`` device paths that a classified failure or an
-    open breaker sent to pandas."""
+    open breaker sent to pandas (never on the card, where they raise)."""
     with _COUNT_LOCK:
-        return sum(
-            v for k, v in COUNTS.items()
-            if k.startswith("resilience.fallback.") or k.endswith(".short_circuit")
-        )
+        return _fallbacks
 
 
 # ---------------------------------------------------------------------- #
@@ -107,6 +138,9 @@ class DeviceFailure(RuntimeError):
     device misbehaved, the inputs were not declined."""
 
     kind = "device_failure"
+    #: set on a failure that already spent its transient retries (at the
+    #: engine seam, or in an inner device path), so no outer leg retries it
+    retried = False
 
 
 class DeviceOOM(DeviceFailure):
@@ -138,10 +172,17 @@ class TransientDeviceError(DeviceFailure):
     kind = "transient"
 
 
+class BreakerOpen(DeviceFailure):
+    """A device-path call on the card that its family's open breaker
+    stopped before it touched the device."""
+
+    kind = "breaker_open"
+
+
 #: CUDA runtime error codes by class (``cudaError_t``)
 CUDA_OOM_CODES = frozenset({2})
-CUDA_LOST_CODES = frozenset({214, 700, 710, 714, 715, 716, 717, 718, 719})
-CUDA_BUG_CODES = frozenset({9, 98, 209, 701})
+CUDA_LOST_CODES = frozenset({214, 700, 702, 710, 714, 715, 716, 717, 718, 719})
+CUDA_BUG_CODES = frozenset({1, 9, 13, 98, 200, 209, 218, 222, 400, 500, 701, 720})
 
 #: the CUDA runtime's error strings (``cudaGetErrorString``), which torch
 #: prints after ``CUDA error:``, and the enum names, by code
@@ -149,6 +190,7 @@ _CUDA_ERROR_TEXT = {
     "out of memory": 2,
     "uncorrectable ECC error encountered": 214,
     "an illegal memory access was encountered": 700,
+    "the launch timed out and was terminated": 702,
     "device-side assert triggered": 710,
     "unspecified launch failure": 719,
     "hardware stack error": 714,
@@ -160,11 +202,20 @@ _CUDA_ERROR_TEXT = {
     "invalid device function": 98,
     "no kernel image is available for execution on the device": 209,
     "too many resources requested for launch": 701,
+    "invalid argument": 1,
+    "invalid device symbol": 13,
+    "device kernel image is invalid": 200,
+    "a PTX JIT compilation failed": 218,
+    "the provided PTX was compiled with an unsupported toolchain": 222,
+    "invalid resource handle": 400,
+    "named symbol not found": 500,
+    "too many blocks in cooperative launch": 720,
 }
 _CUDA_ERROR_NAMES = {
     "cudaErrorMemoryAllocation": 2,
     "cudaErrorECCUncorrectable": 214,
     "cudaErrorIllegalAddress": 700,
+    "cudaErrorLaunchTimeout": 702,
     "cudaErrorAssert": 710,
     "cudaErrorLaunchFailure": 719,
     "cudaErrorHardwareStackError": 714,
@@ -176,6 +227,14 @@ _CUDA_ERROR_NAMES = {
     "cudaErrorInvalidDeviceFunction": 98,
     "cudaErrorNoKernelImageForDevice": 209,
     "cudaErrorLaunchOutOfResources": 701,
+    "cudaErrorInvalidValue": 1,
+    "cudaErrorInvalidSymbol": 13,
+    "cudaErrorInvalidKernelImage": 200,
+    "cudaErrorInvalidPtx": 218,
+    "cudaErrorUnsupportedPtxVersion": 222,
+    "cudaErrorInvalidResourceHandle": 400,
+    "cudaErrorSymbolNotFound": 500,
+    "cudaErrorCooperativeLaunchTooLarge": 720,
 }
 # the port's kernel wrappers: "... failed with CUDA error <code>: <text>"
 _WRAPPER_CODE_RE = re.compile(r"CUDA error (\d+)")
@@ -242,6 +301,7 @@ def _detached(failure: DeviceFailure) -> DeviceFailure:
     while a retry allocates again."""
     fresh = type(failure)(*failure.args)
     fresh.shard_index = getattr(failure, "shard_index", None)
+    fresh.retried = failure.retried
     return fresh
 
 
@@ -250,6 +310,22 @@ def _release_failed_attempt() -> None:
     reference cycles, and their tensors with them."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         gc.collect()
+
+
+def _oom_round(op: str, rounds: int, exclude: Optional[Callable[[], set]]) -> bool:
+    """One evict-then-retry round after a DeviceOOM, run out of the
+    ``except`` block: the failed attempt's leftovers are released and the
+    coldest device entries spill (never the storages ``exclude()`` names,
+    the call's own inputs, worked out only now).  False when the leg is
+    closed (``rounds`` has reached ``SpillRetries``, ``RecoveryMode`` is
+    Disable, a recovery pass is on the stack) or nothing spilled."""
+    if rounds >= int(SpillRetries.get()) or not recovery.RECOVERY_ON or recovery.in_recovery():
+        return False
+    _release_failed_attempt()
+    if recovery.evict_for_oom(op, exclude_ids=exclude() if exclude is not None else None) <= 0:
+        return False
+    count("recovery.retry.oom")
+    return True
 
 
 # ---------------------------------------------------------------------- #
@@ -317,16 +393,9 @@ def engine_call(
 
     A retry runs only after the failed attempt's exception has been let go:
     its traceback holds the attempt's frames, and their tensors would hold
-    the memory the retry asks for.
+    the memory the retry asks for.  A failure raised from here is marked
+    ``retried``: its transient retries are spent.
     """
-    from modin_tpu_torch.config import (
-        ResilienceBackoffS,
-        ResilienceMode,
-        ResilienceRetries,
-        ResilienceWatchdogS,
-        SpillRetries,
-    )
-    from modin_tpu_torch.core.execution import recovery
 
     def attempt_once() -> Any:
         hook = _fault_hook
@@ -339,8 +408,6 @@ def engine_call(
 
     timeout_s = float(ResilienceWatchdogS.get()) if watchdog else 0.0
     retries = int(ResilienceRetries.get())
-    backoff_s = float(ResilienceBackoffS.get())
-    spill_retries = int(SpillRetries.get())
     attempt = oom_rounds = 0
     reseat_spent = False
     while True:
@@ -356,12 +423,7 @@ def engine_call(
             if failure is None:
                 raise
             count(f"resilience.engine.{op}.{failure.kind}")
-            oom_leg = (
-                isinstance(failure, DeviceOOM)
-                and oom_rounds < spill_retries
-                and recovery.RECOVERY_ON
-                and not recovery.in_recovery()
-            )
+            failure.retried = True
             lost_leg = (
                 isinstance(failure, DeviceLost)
                 and not reseat_spent
@@ -369,15 +431,13 @@ def engine_call(
                 and not recovery.in_recovery()
             )
             retry_leg = isinstance(failure, TransientDeviceError) and attempt < retries
-            if not (oom_leg or lost_leg or retry_leg):
+            if not (isinstance(failure, DeviceOOM) or lost_leg or retry_leg):
                 raise failure from err
             failure = _detached(failure)
         # out of the except block: the failed attempt's traceback is gone
         if isinstance(failure, DeviceOOM):
-            _release_failed_attempt()
-            if recovery.evict_for_oom(op, exclude_ids=protect_ids() if protect_ids is not None else None) > 0:
+            if _oom_round(op, oom_rounds, protect_ids):
                 oom_rounds += 1
-                count("recovery.retry.oom")
                 continue
             raise failure
         if isinstance(failure, DeviceLost):
@@ -388,7 +448,7 @@ def engine_call(
             raise failure
         attempt += 1
         count(f"resilience.engine.{op}.retry")
-        _sleep(backoff_s * (2 ** (attempt - 1)))
+        _sleep(float(ResilienceBackoffS.get()) * (2 ** (attempt - 1)))
 
 
 # ---------------------------------------------------------------------- #
@@ -426,7 +486,7 @@ class CircuitBreaker:
 
     CLOSED: calls flow; a device failure or a latency-budget overrun is a
     strike, a clean call resets the count.  ``threshold`` strikes open it:
-    calls go to pandas for ``cooldown_s``.  Then one HALF_OPEN probe is let
+    calls are stopped for ``cooldown_s``.  Then one HALF_OPEN probe is let
     through: success closes it, failure opens it again with a fresh
     cooldown.  The settings are read when they are needed, so a live
     process can be retuned.
@@ -441,14 +501,10 @@ class CircuitBreaker:
 
     @staticmethod
     def _threshold() -> int:
-        from modin_tpu_torch.config import ResilienceBreakerThreshold
-
         return int(ResilienceBreakerThreshold.get())
 
     @staticmethod
     def _cooldown_s() -> float:
-        from modin_tpu_torch.config import ResilienceBreakerCooldownS
-
         return float(ResilienceBreakerCooldownS.get())
 
     def _transition(self, state: str) -> None:
@@ -465,12 +521,10 @@ class CircuitBreaker:
                     self._transition(HALF_OPEN)
                     return True
                 return False
-            # HALF_OPEN: one probe is in flight; hold the rest on pandas
+            # HALF_OPEN: one probe is in flight; stop the rest
             return False
 
     def record_success(self, latency_s: float = 0.0) -> None:
-        from modin_tpu_torch.config import ResilienceLatencyBudgetS
-
         budget = float(ResilienceLatencyBudgetS.get())
         if budget > 0 and latency_s > budget:
             count(f"resilience.breaker.{self.name}.slow")
@@ -525,68 +579,85 @@ def reset_breakers() -> None:
         _BREAKERS.clear()
 
 
-def _input_storages(qc: Any, args: tuple, kwargs: dict) -> set:
-    """Storage keys of the concrete device tensors a ``_try_*`` call reads:
-    its compiler's columns and those of compilers among its arguments.
-    Spilling them frees nothing while the call pins them.  A deferred plan
-    is not forced."""
-    from modin_tpu_torch.core.memory import storage_key
-
-    keys = set()
+def _input_tensors(qc: Any, args: tuple, kwargs: dict):
+    """The concrete device tensors a ``_try_*`` call reads: its compiler's
+    columns and those of compilers among its arguments.  A deferred plan is
+    not forced."""
     for obj in (qc, *args, *kwargs.values()):
         for item in obj if isinstance(obj, (list, tuple)) else (obj,):
             frame = getattr(item, "_frame", None)
             for col in getattr(frame, "_columns", ()):
                 t = getattr(col, "_data", None)
                 if isinstance(t, torch.Tensor):
-                    keys.add(storage_key(t))
-    return keys
+                    yield t
+
+
+def _input_storages(qc: Any, args: tuple, kwargs: dict) -> set:
+    """Storage keys of the call's input tensors: spilling them frees
+    nothing while the call pins them."""
+    from modin_tpu_torch.core.memory import storage_key
+
+    return {storage_key(t) for t in _input_tensors(qc, args, kwargs)}
+
+
+def _on_card(qc: Any, args: tuple, kwargs: dict) -> bool:
+    """Does this call run on the card: the port's device is CUDA, or an
+    input lies there?  There a failure raises instead of going to pandas."""
+    return Device.get() == "cuda" or any(t.is_cuda for t in _input_tensors(qc, args, kwargs))
 
 
 def device_path(family: str) -> Callable:
     """Decorator of the ``TorchQueryCompiler._try_*`` methods: the family's
     breaker.
 
-    The method keeps its contract (a result, or None for "use pandas").
-    The wrapper adds:
+    The method keeps its contract (a result, or None: the inputs are not
+    the device path's, pandas answers).  The wrapper adds:
 
-    - breaker OPEN: None at once, without touching the device, counted;
     - a DeviceOOM raised inside the call: up to ``SpillRetries``
-      evict-then-retry rounds (``recovery.evict_for_oom``, the call's own
-      input storages excluded), and the call runs again.  The port's ops
-      launch their torch calls and kernels directly, not through one
-      dispatch seam, so this is where a sort's or a kernel's OOM meets the
-      evictor.  No ``_try_*`` method writes before it returns (the writing
+      evict-then-retry rounds (:func:`_oom_round`, the call's own input
+      storages excluded), and the call runs again.  The port's ops launch
+      their torch calls and kernels directly, not through one dispatch
+      seam, so this is where a sort's or a kernel's OOM meets the evictor;
+    - a TransientDeviceError that did not spend its retries at the engine
+      seam (a direct launch's): up to ``ResilienceRetries`` runs again with
+      backoff.  No ``_try_*`` method writes before it returns (the writing
       paths, ``setitem``, ``setitem_bool``, ``insert``, are not ``_try_*``
       methods), so running one again is exact;
-    - any other classified failure, or an OOM the rounds did not absorb:
-      a strike, a counted fallback, None (pandas answers); a DeviceLost
-      that opens the breaker re-seats the live columns first;
-    - an unclassified exception propagates untouched (a probe's breaker
-      goes back to OPEN);
+    - any other classified failure, or one the legs did not absorb: a
+      strike (a DeviceLost that opens the breaker re-seats the live
+      columns first).  On the card the failure then raises, marked
+      ``retried``, counted as ``resilience.raised.<family>.<kind>``; where
+      the port runs on the CPU the call returns None and pandas answers,
+      counted as ``resilience.fallback.<family>.<kind>``, as in the JAX
+      package;
+    - breaker OPEN: the call is stopped without touching the device and
+      counted; on the card it raises :class:`BreakerOpen`, on the CPU it
+      returns None;
+    - an unclassified exception, or a BreakerOpen of an inner device path,
+      propagates untouched (a probe's breaker goes back to OPEN);
     - a clean call reports its latency, so budget overruns strike too.
     """
 
     def decorator(fn: Callable) -> Callable:
         @functools.wraps(fn)
         def wrapper(self: Any, *args: Any, **kwargs: Any) -> Any:
-            from modin_tpu_torch.config import ResilienceMode, SpillRetries
-            from modin_tpu_torch.core.execution import recovery
-
             if ResilienceMode.get() == "Disable":
                 return fn(self, *args, **kwargs)
             breaker = get_breaker(family)
             if not breaker.allow():
                 count(f"resilience.breaker.{family}.short_circuit")
+                if _on_card(self, args, kwargs):
+                    raise BreakerOpen(f"the {family} device path's breaker is open after repeated device failures")
+                _count_fallback()
                 return None
-            oom_rounds = 0
+            oom_rounds = attempt = 0
             while True:
                 start = _now()
                 try:
                     result = fn(self, *args, **kwargs)
                 except Exception as err:  # the classification point: re-raises what is not a device failure
                     failure = classify_device_error(err)
-                    if failure is None:
+                    if failure is None or isinstance(failure, BreakerOpen):
                         breaker.abort_probe()
                         raise
                     failure = _detached(failure)
@@ -594,26 +665,38 @@ def device_path(family: str) -> Callable:
                     breaker.record_success(_now() - start)
                     return result
                 # out of the except block: the failed call's frames are gone
-                if (
-                    isinstance(failure, DeviceOOM)
-                    and oom_rounds < int(SpillRetries.get())
-                    and recovery.RECOVERY_ON
-                    and not recovery.in_recovery()
+                if isinstance(failure, DeviceOOM) and _oom_round(
+                    family, oom_rounds, lambda: _input_storages(self, args, kwargs)
                 ):
-                    _release_failed_attempt()
-                    if recovery.evict_for_oom(family, exclude_ids=_input_storages(self, args, kwargs)) > 0:
-                        oom_rounds += 1
-                        count("recovery.retry.oom")
-                        continue
+                    oom_rounds += 1
+                    continue
+                if (
+                    isinstance(failure, TransientDeviceError)
+                    and not failure.retried
+                    and attempt < int(ResilienceRetries.get())
+                ):
+                    attempt += 1
+                    count(f"resilience.device_path.{family}.retry")
+                    _sleep(float(ResilienceBackoffS.get()) * (2 ** (attempt - 1)))
+                    continue
                 breaker.record_failure()
                 if isinstance(failure, DeviceLost) and breaker.state == OPEN and not recovery.in_recovery():
-                    # the family now degrades to pandas: re-seat the columns
-                    # first, so the fallback reads healthy tensors
+                    # the family's breaker is open: re-seat the columns now,
+                    # so the other families' next calls read healthy tensors
                     recovery.reseat_all(f"breaker_open_{family}")
+                if _on_card(self, args, kwargs):
+                    count(f"resilience.raised.{family}.{failure.kind}")
+                    failure.retried = True
+                    raise failure
                 count(f"resilience.fallback.{family}.{failure.kind}")
+                _count_fallback()
                 return None
 
         wrapper._resilience_family = family
         return wrapper
 
     return decorator
+
+
+# recovery imports this module's ``count``: bound last, once both exist
+from modin_tpu_torch.core.execution import recovery  # noqa: E402

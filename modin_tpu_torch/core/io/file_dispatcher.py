@@ -99,7 +99,7 @@ class FileDispatcher:
     def _read_gated(cls, raw_path: Any, path_key: str, kwargs: dict):
         """The parallel path where it applies, else the serial fallback; an
         error on the parallel path degrades to the fallback, which gives
-        pandas' own result or error."""
+        pandas' own result or error (a device failure raises)."""
         global PARALLEL_READS, PARSED_COLUMNS
         path = cls.get_path(raw_path) if isinstance(raw_path, str) else raw_path
         if (
@@ -109,10 +109,14 @@ class FileDispatcher:
         ):
             result = cls._read_fallback(path, kwargs)
         else:
+            from modin_tpu_torch.core.execution.resilience import classify_device_error
+
             try:
                 result = cls._read_parallel(path, kwargs)
                 PARALLEL_READS += 1
-            except Exception:  # any failure of the chunked parse: pandas decides
+            except Exception as err:  # any failure of the chunked parse: pandas decides
+                if classify_device_error(err) is not None:
+                    raise  # the device's failure, not the parse's: the caller sees it
                 result = cls._read_fallback(path, kwargs)
         frame = getattr(result, "_frame", None)
         if frame is not None:

@@ -301,16 +301,17 @@ def _program_call(program: fp.Program, scalars: Sequence[Any], n: int, second_pa
     return call
 
 
-def _launch(lin: "Linearized", program: fp.Program, n: int, donated: bool, second_pass: bool = False,
+def _launch(lin: "Linearized", program: fp.Program, n: int, record: bool, second_pass: bool = False,
             first: Optional[torch.Tensor] = None):
     """``fused_kernels.run_program`` through the engine seam (the resilience
-    policy and op-replay provenance): ``(outs, accumulators)``."""
+    policy, and op-replay provenance where ``record``): ``(outs,
+    accumulators)``."""
     from modin_tpu_torch.parallel.engine import TorchWrapper
 
     return TorchWrapper.deploy(
         _program_call(program, lin.scalars, n, second_pass),
         (tuple(_leaf_args(lin, program)), first),
-        donated=donated,
+        record=record,
     )
 
 
@@ -334,7 +335,8 @@ def run_fused(
     other roots' accumulators and, last, the mask's, whose count slot is the
     kept-row count.  Every launch goes through ``TorchWrapper.deploy``;
     ``donated`` says the caller drops the leaves' columns after the run, so
-    no op-replay record is kept.
+    no op-replay record is kept.  Nor is one kept for a reduce tail's
+    launches: their accumulators feed the tail, never a column.
     """
     if tail_key is None:
         lazy_roots = list({id(r): r for r in roots if is_lazy(r)}.values())
@@ -344,7 +346,7 @@ def run_fused(
             if _memory._DEVICE_BUDGET is not None:
                 _admit(lin, sum(n * r.dtype.itemsize for r in lazy_roots))
             for program in plan:
-                outs, _ = _launch(lin, program, n, donated)
+                outs, _ = _launch(lin, program, n, not donated)
                 for k, j in enumerate(program.roots):
                     lazy_roots[j]._result = outs[k]
         return [r._result if isinstance(r, LazyExpr) else r for r in roots]
@@ -353,12 +355,12 @@ def run_fused(
     if _memory._DEVICE_BUDGET is not None:
         _admit(lin, n * 8 if tail_key[0] == "rows" else 0)
     if tail_key[0] == "rows":
-        outs, _ = _launch(lin, plan[0], n, donated)
+        outs, _ = _launch(lin, plan[0], n, not donated)
         return tail_builder(outs[0]) if tail_builder is not None else outs[0]
-    firsts = [_launch(lin, p, n, donated)[1] for p in plan]
+    firsts = [_launch(lin, p, n, False)[1] for p in plan]
     seconds = None
     if tail_key[1] in fp.MOMENT_OPS:
-        seconds = [_launch(lin, p, n, donated, second_pass=True, first=f)[1] for p, f in zip(plan, firsts)]
+        seconds = [_launch(lin, p, n, False, second_pass=True, first=f)[1] for p, f in zip(plan, firsts)]
     if fp.is_masked(tail_key):
         # each program ends with its kept-row count: keep the first one, last
         kept = firsts[0][-1:]

@@ -55,13 +55,14 @@ class TorchWrapper:
 
     @classmethod
     def deploy(
-        cls, func: Callable, f_args: tuple = (), f_kwargs: Optional[dict] = None, donated: bool = False
+        cls, func: Callable, f_args: tuple = (), f_kwargs: Optional[dict] = None, record: bool = True
     ) -> Any:
         """Run ``func(*f_args, **f_kwargs)``; returns its tensors.
 
         Besides the seam's policy: the call's (func, args) is recorded,
         the tensors weakly, so op-replay lineage can make its outputs again
-        (not for a ``donated`` call, whose inputs are gone once it ran);
+        (unless ``record`` is False: nothing can replay a call whose inputs
+        are donated, or whose outputs feed no column);
         and when the seam's retry after a re-seat still fails with a
         DeviceLost (on a real loss that retry closed over dead tensors),
         the arguments are rebound to the re-seated columns and the call
@@ -80,7 +81,7 @@ class TorchWrapper:
             count("recovery.retry.rebind")
             result = engine_call("deploy", lambda: func(*fresh_args, **kwargs))
             f_args = fresh_args
-        if recovery.RECOVERY_ON and not donated:
+        if record and recovery.RECOVERY_ON:
             recovery.record_deploy(func, f_args, f_kwargs, result)
         return result
 

@@ -15,7 +15,7 @@ deterministic schedule:
 The errors are the types torch raises: ``torch.cuda.OutOfMemoryError`` for
 an OOM, and ``torch.AcceleratorError`` (``RuntimeError`` on a torch without
 it) with torch's ``CUDA error: <runtime text>`` message for a loss (700, an
-illegal address) and a transient fault (702, a launch timeout).  An
+illegal address) and a transient fault (46, a busy or unavailable device).  An
 injected fault leaves every tensor intact, which a real sticky error does
 not.  Faults fire on the first ``times`` matching calls after ``skip``
 clean ones: no randomness, so a failing sequence replays exactly.
@@ -52,7 +52,7 @@ def make_device_error(kind: str) -> BaseException:
     error_type = getattr(torch, "AcceleratorError", RuntimeError)
     text = (
         "an illegal memory access was encountered" if kind == "device_lost"
-        else "the launch timed out and was terminated"
+        else "CUDA-capable device(s) is/are busy or unavailable"
     )
     return error_type(
         f"CUDA error: {text}\nCUDA kernel errors might be asynchronously reported at some "

@@ -145,7 +145,12 @@ TAXONOMY = [
     ("invalid_function", lambda: RuntimeError("CUDA error: invalid device function"), None),
     ("no_kernel_image", lambda: _ACCEL("CUDA error: no kernel image is available for execution on the device"), None),
     ("out_of_resources", lambda: RuntimeError("CUDA error: too many resources requested for launch"), None),
-    ("launch_timeout", lambda: _ACCEL("CUDA error: the launch timed out and was terminated"), TransientDeviceError),
+    ("launch_timeout", lambda: _ACCEL("CUDA error: the launch timed out and was terminated"), DeviceLost),
+    ("device_busy", lambda: _ACCEL("CUDA error: CUDA-capable device(s) is/are busy or unavailable"), TransientDeviceError),
+    ("invalid_argument", lambda: _ACCEL("CUDA error: invalid argument"), None),
+    ("invalid_ptx", lambda: RuntimeError("CUDA error: a PTX JIT compilation failed"), None),
+    ("invalid_handle", lambda: _ACCEL("CUDA error: invalid resource handle"), None),
+    ("cooperative_too_large", lambda: RuntimeError("CUDA error: cudaErrorCooperativeLaunchTooLarge"), None),
     ("unknown_cuda", lambda: RuntimeError("CUDA error: something novel"), TransientDeviceError),
     ("bincount_oom", lambda: RuntimeError(_wrapper_message("groupby_kernels.py", 2, "out of memory", what="launch")), DeviceOOM),
     ("scan_lost", lambda: RuntimeError(_wrapper_message(
@@ -156,6 +161,15 @@ TAXONOMY = [
         "groupagg_kernels.py", 701, "too many resources requested for launch")), None),
     ("fused_launch_failure", lambda: RuntimeError(_wrapper_message(
         "fused_kernels.py", 719, "unspecified launch failure")), DeviceLost),
+    # an oversized shared-memory request: cudaFuncSetAttribute returns 1
+    ("bincount_smem", lambda: RuntimeError(_wrapper_message("groupby_kernels.py", 1, "invalid argument",
+                                                            what="launch")), None),
+    ("scan_smem", lambda: RuntimeError(_wrapper_message("scan_kernels.py", 1, "invalid argument", mode="seg_sum")),
+     None),
+    ("groupagg_smem", lambda: RuntimeError(_wrapper_message("groupagg_kernels.py", 1, "invalid argument")), None),
+    ("fused_smem", lambda: RuntimeError(_wrapper_message("fused_kernels.py", 1, "invalid argument")), None),
+    ("fused_timeout", lambda: RuntimeError(_wrapper_message(
+        "fused_kernels.py", 702, "the launch timed out and was terminated")), DeviceLost),
     ("fused_no_image", lambda: RuntimeError(_wrapper_message(
         "fused_kernels.py", 209, "no kernel image is available for execution on the device")), None),
     ("fused_other", lambda: RuntimeError(_wrapper_message("fused_kernels.py", 999, "unknown error")), TransientDeviceError),
@@ -590,6 +604,187 @@ class TestDevicePathOomLeg:
         assert keys == {memory.storage_key(frame._columns[0]._data)}
         assert trec.evict_for_oom("probe", exclude_ids=keys) > 0
         assert other.is_spilled and not frame._columns[0].is_spilled
+
+
+# ====================================================================== #
+# on the card: a failure the legs did not absorb raises, never pandas
+# ====================================================================== #
+
+
+class _Failing:
+    """A stand-in compiler whose device path raises ``make()`` for its
+    first ``fails`` calls, then answers."""
+
+    def __init__(self, make, fails, family="probe_card"):
+        self.make, self.fails, self.calls = make, fails, 0
+        self._frame = None
+
+        @device_path(family)
+        def _try(qc):
+            qc.calls += 1
+            if qc.calls <= qc.fails:
+                raise qc.make()
+            return "device answer"
+
+        self.run = lambda: _try(self)
+
+
+class TestOnTheCard:
+    """The card's legs, run here with ``_on_card`` patched true: every
+    classified failure that the legs do not absorb raises, an open breaker
+    raises ``BreakerOpen``, and nothing goes to pandas."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self, monkeypatch):
+        monkeypatch.setattr(tres, "_on_card", lambda qc, args, kwargs: True)
+
+    @pytest.mark.parametrize("kind,cls", [("oom", DeviceOOM), ("device_lost", DeviceLost)])
+    def test_a_failure_raises_and_strikes(self, kind, cls):
+        tcfg.ResilienceBreakerThreshold.put(5)
+        probe = _Failing(lambda: t_make(kind), fails=1)
+        with pytest.raises(cls) as info:
+            probe.run()
+        assert info.value.retried
+        assert probe.calls == 1
+        assert get_breaker("probe_card").strikes == 1
+        assert tres.COUNTS[f"resilience.raised.probe_card.{cls.kind}"] == 1
+        assert tres.fallback_count() == 0
+        assert not any(k.startswith("resilience.fallback.") for k in tres.COUNTS)
+        assert probe.run() == "device answer"
+        assert get_breaker("probe_card").strikes == 0
+
+    def test_an_open_breaker_raises_at_once_and_a_probe_closes_it(self, monkeypatch):
+        tcfg.ResilienceBreakerThreshold.put(2)
+        tcfg.ResilienceBreakerCooldownS.put(30.0)
+        clock = [0.0]
+        monkeypatch.setattr(tres, "_now", lambda: clock[0])
+        probe = _Failing(lambda: t_make("device_lost"), fails=2)
+        states = []
+        for _ in range(2):
+            with pytest.raises(DeviceLost):
+                probe.run()
+            states.append(get_breaker("probe_card").state)
+        with pytest.raises(tres.BreakerOpen):
+            probe.run()
+        assert probe.calls == 2  # stopped before the device
+        clock[0] += 31.0
+        assert probe.run() == "device answer"
+        states.append(get_breaker("probe_card").state)
+        assert states == ["closed", "open", "closed"]
+        assert tres.COUNTS["resilience.breaker.probe_card.short_circuit"] == 1
+        assert tres.COUNTS["resilience.raised.probe_card.device_lost"] == 2
+        assert tres.fallback_count() == 0
+
+    def test_oom_rounds_then_raise(self):
+        tcfg.RecoveryMode.put("Enable")
+        tcfg.SpillRetries.put(2)
+        tcfg.SpillTargetFraction.put(0.25)
+        cols = [DeviceColumn.from_numpy(np.arange(1024, dtype=np.int64)) for _ in range(4)]
+        probe = _OomOnce(10)
+        with pytest.raises(DeviceOOM):
+            probe.run()
+        assert probe.calls == 3  # 1 + SpillRetries
+        assert tres.COUNTS["recovery.retry.oom"] == 2
+        assert tres.COUNTS["resilience.raised.probe_oom.oom"] == 1
+        assert tres.fallback_count() == 0
+        absorbed = _OomOnce(1)
+        assert absorbed.run() == "device answer" and absorbed.calls == 2
+        del cols
+
+    def test_a_direct_transient_is_retried_in_bounds(self, monkeypatch):
+        tcfg.ResilienceRetries.put(2)
+        sleeps = []
+        monkeypatch.setattr(tres, "_sleep", sleeps.append)
+        tcfg.ResilienceBackoffS.put(0.5)
+        wrapper = lambda: RuntimeError(_wrapper_message("groupagg_kernels.py", 46, "busy"))
+        assert _Failing(wrapper, fails=2).run() == "device answer"
+        assert sleeps == [0.5, 1.0]
+        assert tres.COUNTS["resilience.device_path.probe_card.retry"] == 2
+        probe = _Failing(wrapper, fails=3)
+        with pytest.raises(TransientDeviceError):
+            probe.run()
+        assert probe.calls == 3
+
+    def test_a_transient_the_seam_retried_is_not_retried_again(self):
+        tcfg.ResilienceRetries.put(2)
+
+        class Seam:
+            _frame = None
+            calls = 0
+
+            @device_path("probe_seam")
+            def _try(self):
+                self.calls += 1
+                return engine_call("materialize", lambda: "fetched")
+
+        seam = Seam()
+        with t_inject("transient", ops=("materialize",), times=None):
+            with pytest.raises(TransientDeviceError):
+                seam._try()
+        assert seam.calls == 1
+        assert tres.COUNTS["resilience.engine.materialize.retry"] == 2
+        assert "resilience.device_path.probe_seam.retry" not in tres.COUNTS
+
+    def test_a_launch_bug_propagates_unstruck(self):
+        probe = _Failing(lambda: RuntimeError(_wrapper_message("fused_kernels.py", 1, "invalid argument")), fails=1)
+        with pytest.raises(RuntimeError, match="CUDA error 1") as info:
+            probe.run()
+        assert not isinstance(info.value, DeviceFailure)
+        assert get_breaker("probe_card").strikes == 0
+        assert not any(k.startswith("resilience.raised.") for k in tres.COUNTS)
+
+    def test_an_inner_open_breaker_does_not_strike_the_outer_family(self):
+        tcfg.ResilienceBreakerThreshold.put(1)
+        tcfg.ResilienceBreakerCooldownS.put(1e9)
+        get_breaker("probe_inner").record_failure()
+
+        class Nested:
+            _frame = None
+
+            @device_path("probe_inner")
+            def _try_inner(self):
+                return "inner"
+
+            @device_path("probe_outer")
+            def _try_outer(self):
+                return self._try_inner()
+
+        with pytest.raises(tres.BreakerOpen):
+            Nested()._try_outer()
+        assert get_breaker("probe_outer").strikes == 0
+
+    def test_from_pandas_raises_an_upload_that_failed(self):
+        from modin_tpu_torch.core.dataframe.torch.dataframe import TorchDataframe
+
+        tcfg.ResilienceRetries.put(0)
+        pdf = pandas.DataFrame({"a": np.arange(8.0)})
+        with t_inject("transient", ops=("put",), times=None):
+            with pytest.raises(TransientDeviceError):
+                TorchDataframe.from_pandas(pdf, device=torch.device("cuda"))
+            # on the CPU the column stays on the host, as in the JAX package
+            frame = TorchDataframe.from_pandas(pdf, device=torch.device("cpu"))
+        assert not frame._columns[0].is_device
+
+    def test_a_device_failure_in_a_parallel_read_raises(self, monkeypatch, tmp_path):
+        from modin_tpu_torch.core.io.file_dispatcher import FileDispatcher
+        from modin_tpu_torch.core.io.text.csv_dispatcher import CSVDispatcher
+
+        path = str(tmp_path / "t.csv")
+        pandas.DataFrame({"a": np.arange(64)}).to_csv(path, index=False)
+        monkeypatch.setattr(FileDispatcher, "MIN_PARALLEL_BYTES", 1)
+
+        def failing(cls, path, kwargs):
+            raise t_make("oom")
+
+        monkeypatch.setattr(CSVDispatcher, "_read_parallel", classmethod(failing))
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            tpd.read_csv(path)._to_pandas()
+
+        def parse_error(cls, path, kwargs):
+            raise ValueError("a chunk the parallel parse refuses")
+
+        monkeypatch.setattr(CSVDispatcher, "_read_parallel", classmethod(parse_error))
+        pandas.testing.assert_frame_equal(tpd.read_csv(path)._to_pandas(), pandas.read_csv(path))
 
 
 # ====================================================================== #
