@@ -5,10 +5,10 @@
                           [--float-rows N] [--io-rows N] [--window-rows N]
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
                           [--memory-rows N] [--views-rows N] [--views-time-rows N]
-                          [--robust-cost-rows N] [--seed S]
+                          [--robust-cost-rows N] [--trace-rows N] [--seed S]
                           [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory,views,robust]
+                                    memory,views,robust,trace]
 
 Phases, one JSON object per line each:
 
@@ -296,6 +296,36 @@ Phases, one JSON object per line each:
              cost per call and calls per query.  Every other phase ends with no
              device-path fallback and every breaker closed; a
              ``{"resilience": ...}`` line precedes the card's name.
+18. trace  - observability (``phase_trace``), at ``--trace-rows`` (1e7): (b)
+             this card's peaks, measured now (a 1 GiB device-to-device copy
+             and the float64 FMA loop of ``csrc/peaks.cu``), the roofline's
+             basis; (a) phase 4's frames (100 groups) under ``profile()``:
+             ``df + df``, ``sum``, ``mean``, grouped sum/mean (``groupagg``)
+             and size (``bincount``), ``(df * 2 + df2).var()`` (``fused``,
+             two launches) and ``cumsum`` (``scan``), each with its
+             ``to_pandas`` under one root span; the rollup (wall, host,
+             engine, device, builds and lowerings, self time by layer), each
+             kernel's launches, event-timed device ms, bytes, achieved GB/s
+             and roofline fraction; the launch ledger's counts equal to the
+             wrappers' ``LAUNCHES`` deltas, each kernel's event time within
+             its root's wall, the Chrome trace written and read back, every
+             answer equal to pandas'; (c) five phase-4 queries with tracing
+             and meters on and off in 5 rounds of on, off, off, on (each
+             median delta beside its rounds' spread), the per-call cost of
+             a wrapped method and of a span (Enable less Disable, best of 3
+             x 20 000), a wrapped method over a bare one with everything
+             off and each query's wrapped calls, and with everything off no
+             span, meter or ledger record made over the queries; (e)
+             EXPLAIN ANALYZE of a deferred 1e6-row CSV query: with tracing
+             on, the nodes that launched show bandwidth and roofline over
+             their launches' events, off, over the host wall (``~host``);
+             (d) losses injected at
+             ``materialize`` open the ``reduce`` breaker, the next call raises
+             ``BreakerOpen``, and the flight recorder has dumped its ring, with
+             the attempt spans and a meter snapshot, to a temporary
+             ``TraceDir``.  An ``{"observability": ...}`` line follows the
+             resilience line, and each kernel's entry of the kernels line
+             carries its ledger.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -329,7 +359,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory", "views", "robust")
+              "formats", "memory", "views", "robust", "trace")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -5378,6 +5408,390 @@ def phase_robust(seed: int, cost_rows: int, workdir: str) -> dict:
     return launches, record
 
 
+# ---------------------------------------------------------------------- #
+# 18. observability: spans, the launch ledger, meters, costs, the recorder
+# ---------------------------------------------------------------------- #
+
+#: phase 18's profiled queries: phase 4's queries on each of the four
+#: kernels (``groupagg``: the grouped sums and means; ``bincount``: size;
+#: ``fused``: the chain with a var tail, two launches; ``scan``: cumsum)
+TRACE_QUERIES = {
+    "df_plus_df": lambda d, d2: d + d2,
+    "sum": lambda d, d2: d.sum(),
+    "mean": lambda d, d2: d.mean(),
+    "groupby_sum": lambda d, d2: d.groupby("groupby_col").sum(),
+    "groupby_mean": lambda d, d2: d.groupby("groupby_col").mean(),
+    "groupby_size": lambda d, d2: d.groupby("groupby_col").size(),
+    "chain_var": lambda d, d2: (d * 2 + d2).var(),
+    "cumsum": lambda d, d2: d.cumsum(),
+}
+TRACE_COST_ROUNDS = 5
+TRACE_CALLS = 20000
+TRACE_KERNELS = ("bincount", "scan", "fused", "groupagg")
+
+
+def _wrapper_launches() -> dict:
+    from modin_tpu_torch.ops.cuda import fused_kernels as fk
+    from modin_tpu_torch.ops.cuda import groupagg_kernels as ga
+    from modin_tpu_torch.ops.cuda import groupby_kernels as gk
+    from modin_tpu_torch.ops.cuda import scan_kernels as sk
+
+    return {"bincount": gk.LAUNCHES, "scan": sk.LAUNCHES, "fused": fk.LAUNCHES, "groupagg": ga.LAUNCHES}
+
+
+def _subtree_launches(node: dict, totals: dict) -> dict:
+    """Per kernel, the launches and event ms of a span and its descendants."""
+    for kernel, rec in node["span"].attrs.get("launches", {}).items():
+        t = totals.setdefault(kernel, {"launches": 0, "device_ms": 0.0})
+        t["launches"] += rec["launches"]
+        t["device_ms"] += rec["device_ms"]
+    for child in node["children"]:
+        _subtree_launches(child, totals)
+    return totals
+
+
+def trace_profile(t1, t2, p1, p2, workdir: str) -> dict:
+    """(a): the main path under ``profile()``.  Each query and its
+    ``to_pandas`` run under one root span (the fetch waits for the card, so
+    the root's wall covers its launches' device time); the rollup, each
+    kernel's launches, event ms, bytes, achieved GB/s and roofline fraction;
+    the ledger's counts against the wrappers' ``LAUNCHES``; the Chrome trace
+    written and read back; every answer against pandas."""
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch import observability as obs
+    from modin_tpu_torch.observability import compile_ledger, costs, spans
+
+    ledger = compile_ledger.get_compile_ledger()
+    ledger.reset()
+    costs.get_cost_ledger().reset()
+    before = _wrapper_launches()
+    got = {}
+    t0 = time.perf_counter()
+    with obs.profile() as prof:
+        for name, fn in TRACE_QUERIES.items():
+            with spans.layer_span(f"query.{name}", "APP"):
+                got[name] = tpd.to_pandas(fn(t1, t2))
+    wall_s = time.perf_counter() - t0
+    deltas = {k: v - before[k] for k, v in _wrapper_launches().items()}
+    snap = ledger.launch_snapshot()
+    ledger_counts = {k: snap.get(k, {}).get("launches", 0) for k in TRACE_KERNELS}
+    if ledger_counts != deltas:
+        raise AssertionError(f"the launch ledger's counts {ledger_counts} differ from the wrappers' {deltas}")
+    missing = [k for k in TRACE_KERNELS if not ledger_counts[k]]
+    if missing:
+        raise AssertionError(f"the profiled main path never launched {missing}")
+    for name, fn in TRACE_QUERIES.items():
+        assert_same_pandas(got[name], fn(p1, p2), f"trace {name}")
+    rollup = prof.rollup()
+    kernels = {}
+    for k in TRACE_KERNELS:
+        rec = snap[k]
+        device_s = rec["device_ms"] / 1e3
+        if rec["timed"] != rec["launches"] or device_s <= 0:
+            raise AssertionError(f"{k}: {rec['timed']} of {rec['launches']} launches were event-timed")
+        fraction = costs.roofline_fraction(rec["flops"] or None, rec["bytes"], device_s)
+        # beside it, the share of the published peaks (H100 SXM data sheet)
+        published = max(rec["bytes"] / HBM_BYTES_PER_S, rec["flops"] / F64_FLOPS) / device_s
+        kernels[k] = {"launches": rec["launches"], "device_ms": rec["device_ms"], "bytes": rec["bytes"],
+                      "flops": rec["flops"], "achieved_gb_s": rec["bytes"] / device_s / 1e9,
+                      "roofline_fraction": fraction, "roofline_fraction_published": published,
+                      "signatures": {s: {f: r[f] for f in ("launches", "device_ms", "bytes")}
+                                     for s, r in rec["signatures"].items()}}
+        if fraction is None:
+            raise AssertionError(f"{k}: no roofline fraction")
+    roots = {}
+    for node in prof.tree():
+        sp = node["span"]
+        totals = _subtree_launches(node, {})
+        roots[sp.name] = {"wall_ms": sp.dur_us / 1e3, "device_interval_ms": sp.attrs.get("device_interval_ms"),
+                          "launches": totals}
+        for k, t in totals.items():
+            if t["device_ms"] > sp.dur_us / 1e3:
+                raise AssertionError(f"{sp.name}: {k}'s event time {t['device_ms']} ms passes its root's "
+                                     f"wall {sp.dur_us / 1e3} ms")
+    path = os.path.join(workdir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    complete = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    if len(complete) != len(prof.spans) or "rollup" not in trace.get("otherData", {}):
+        raise AssertionError(f"the Chrome trace holds {len(complete)} spans of {len(prof.spans)}")
+    return {"rows": len(p1), "wall_s": wall_s, "rollup": {k: v for k, v in rollup.items() if k != "kernels"},
+            "kernels": kernels, "ledger_launches": ledger_counts, "wrapper_launches": deltas,
+            "roots": roots, "chrome_trace_events": len(trace["traceEvents"]),
+            "compiles": ledger.snapshot()["total_compiles"]}
+
+
+def trace_peaks() -> dict:
+    """(b): this card's peaks, measured now (the roofline's basis for the
+    rest of the phase), beside the published figures."""
+    from modin_tpu_torch.observability import costs
+
+    peaks = costs.measure_substrate_peaks()
+    return {**peaks, "copy_gb_s": peaks["bytes_per_s"] / 1e9, "fma_f64_tflop_s": peaks["flops_per_s"] / 1e12}
+
+
+def _observed(on: bool):
+    """Tracing and meters on (cost capture follows the meters) or off."""
+    import contextlib
+
+    from modin_tpu_torch.config import MetersEnabled, TraceEnabled
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(TraceEnabled.context(on))
+    stack.enter_context(MetersEnabled.context(on))
+    return stack
+
+
+def _wrapped_calls(fn) -> int:
+    """Calls of ``ClassLogger``-wrapped methods in one run of ``fn`` (traced
+    with ``sys.setprofile``, so not timed)."""
+    seen = [0]
+
+    def tracer(frame, event, arg):
+        if event == "call":
+            code = frame.f_code
+            if code.co_name == "run_and_log" and code.co_filename.endswith("logger_decorator.py"):
+                seen[0] += 1
+
+    sys.setprofile(tracer)
+    try:
+        fn()
+    finally:
+        sys.setprofile(None)
+    return seen[0]
+
+
+def _observability_call_costs(calls: int = TRACE_CALLS) -> dict:
+    """Cost per call, microseconds, Enable less Disable, best of 3 x
+    ``calls``: a ``ClassLogger``-wrapped method with a trivial body, and a
+    span around nothing; and, with everything off, the wrapped method less
+    the same method on a class without the wrapper (``off_over_bare_us``:
+    what the wrapper costs a call when nothing observes it)."""
+    from modin_tpu_torch.logging import ClassLogger
+    from modin_tpu_torch.observability import spans
+
+    class Probe(ClassLogger, modin_layer="PANDAS-API"):
+        def ping(self):
+            return None
+
+    class Bare:
+        def ping(self):
+            return None
+
+    probe, bare = Probe(), Bare()
+
+    def best_us(fn):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            walls.append(time.perf_counter() - t0)
+        return min(walls) / calls * 1e6
+
+    def span_call():
+        with spans.layer_span("probe", "APP"):
+            pass
+
+    out = {}
+    for name, fn in (("wrapped_method", probe.ping), ("span", span_call)):
+        best = {}
+        for mode, on in (("Enable", True), ("Disable", False)):
+            with _observed(on):
+                best[mode] = best_us(fn)
+        out[name] = {"enable_us": best["Enable"], "disable_us": best["Disable"],
+                     "delta_us": best["Enable"] - best["Disable"]}
+    with _observed(False):
+        wrapped_off, bare_us = best_us(probe.ping), best_us(bare.ping)
+    out["wrapped_method"] |= {"off_us": wrapped_off, "bare_us": bare_us, "off_over_bare_us": wrapped_off - bare_us}
+    return out
+
+
+def trace_cost(t1, t2) -> dict:
+    """(c): five phase-4 queries with tracing and meters on and off in
+    ``TRACE_COST_ROUNDS`` rounds of on, off, off, on (views off, so each
+    run computes): the medians by mode, their difference and each round's;
+    the per-call costs; and, with everything off, the span, meter and
+    ledger counts over the queries (all must stay 0) and each query's calls
+    of wrapped methods, times the wrapper's cost over a bare call
+    (``wrappers_off_ms``: the wrappers' cost to the query when nothing
+    observes)."""
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import ViewsMode
+    from modin_tpu_torch.observability import compile_ledger, meters, spans
+
+    times = {q: {"Enable": [], "Disable": []} for q in ROBUST_COST_QUERIES}
+    rounds = {q: [] for q in ROBUST_COST_QUERIES}
+    with ViewsMode.context("Off"):
+        for q in ROBUST_COST_QUERIES:
+            tpd.to_pandas(MAIN_QUERIES[q](t1, t2))  # warm-up
+        for _ in range(TRACE_COST_ROUNDS):
+            this = {q: {"Enable": [], "Disable": []} for q in ROBUST_COST_QUERIES}
+            for mode in ("Enable", "Disable", "Disable", "Enable"):
+                with _observed(mode == "Enable"):
+                    for q in ROBUST_COST_QUERIES:
+                        _, ms = host_ms(lambda: tpd.to_pandas(MAIN_QUERIES[q](t1, t2)))
+                        times[q][mode].append(ms)
+                        this[q][mode].append(ms)
+            for q in ROBUST_COST_QUERIES:
+                rounds[q].append(statistics.mean(this[q]["Enable"]) - statistics.mean(this[q]["Disable"]))
+        with _observed(False):
+            ledger = compile_ledger.get_compile_ledger()
+            a0 = (spans.span_alloc_count(), meters.meter_alloc_count(), sum(ledger.launch_counts().values()),
+                  ledger.totals()[0])
+            for q in ROBUST_COST_QUERIES:
+                tpd.to_pandas(MAIN_QUERIES[q](t1, t2))
+            a1 = (spans.span_alloc_count(), meters.meter_alloc_count(), sum(ledger.launch_counts().values()),
+                  ledger.totals()[0])
+            wrapped = {q: _wrapped_calls(lambda: tpd.to_pandas(MAIN_QUERIES[q](t1, t2))) for q in ROBUST_COST_QUERIES}
+    allocs = dict(zip(("spans", "meters", "ledger_launches", "ledger_compiles"), (b - a for a, b in zip(a0, a1))))
+    if any(allocs.values()):
+        raise AssertionError(f"with everything off the main path made observability objects: {allocs}")
+    per_call = _observability_call_costs()
+    off_us = per_call["wrapped_method"]["off_over_bare_us"]
+    out = {"per_call_us": per_call, "off_allocations": allocs}
+    for q, by in times.items():
+        med = {m: statistics.median(v) for m, v in by.items()}
+        out[q] = med | {"delta_ms": med["Enable"] - med["Disable"], "round_deltas_ms": rounds[q],
+                        "spread_ms": max(rounds[q]) - min(rounds[q]), "wrapped_calls": wrapped[q],
+                        "wrappers_off_ms": wrapped[q] * off_us / 1e3}
+    return out
+
+
+TRACE_EXPLAIN_ROWS = 10**6
+_COST_LEG = re.compile(r"launches=(\d+) moved=\S+ ops=\S+ bw(~host)?=(\S+) padding=\S+ roofline(~host)?=(\S+)\)")
+
+
+def trace_explain(seed: int, workdir: str) -> dict:
+    """(e): EXPLAIN ANALYZE of a deferred CSV query with tracing on, then
+    off, its filter on the masked fused leg (``FuseMode`` Fused, so that it
+    launches).  On, a node whose launches ran shows its bandwidth and
+    roofline fraction over their event time (``bw=``); off, over its host
+    wall (``bw~host=``)."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import FuseMode, PlanMode
+
+    rng = np.random.default_rng(seed + 1802)
+    n = TRACE_EXPLAIN_ROWS
+    path = os.path.join(workdir, "explain.csv")
+    pandas.DataFrame({"a": rng.integers(-50, 50, n), "b": rng.random(n), "c": rng.random(n)}).to_csv(path, index=False)
+    texts, legs = {}, {}
+    with PlanMode.context("Auto"), FuseMode.context("Fused"):
+        for mode in ("on", "off"):
+            with _observed(mode == "on"):
+                texts[mode] = tpd.read_csv(path).query("a > 0")[["b", "c"]]._query_compiler.explain(analyze=True)
+            legs[mode] = [{"launches": int(m.group(1)), "clock": "host" if m.group(2) else "events",
+                           "bw": m.group(3), "roofline": m.group(5)}
+                          for m in _COST_LEG.finditer(texts[mode])]
+    launched = [leg for leg in legs["on"] if leg["launches"]]
+    if not launched or any(leg["clock"] != "events" or leg["bw"] == "?" for leg in launched):
+        raise AssertionError(f"EXPLAIN ANALYZE with tracing on did not time its launches by events:\n{texts['on']}")
+    if any(leg["clock"] != "host" for leg in legs["off"]):
+        raise AssertionError(f"EXPLAIN ANALYZE with tracing off claimed an event clock:\n{texts['off']}")
+    return {"rows": n, "on": legs["on"], "off": legs["off"], "text_on": texts["on"].splitlines()}
+
+
+def trace_flight_record(seed: int, workdir: str) -> dict:
+    """(d): tracing on, a breaker opened by injected losses at
+    ``materialize``; the next call raises ``BreakerOpen``, and the flight
+    recorder has written its ring to a temporary ``TraceDir``: the spans
+    that led there and a meter snapshot."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import ResilienceBreakerCooldownS, ResilienceBreakerThreshold, TraceDir
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.observability import flight_recorder, meters
+    from modin_tpu_torch.testing import inject_faults
+
+    rng = np.random.default_rng(seed + 1801)
+    pdf = pandas.DataFrame({"a": rng.integers(0, 100, 10**5).astype(np.float64), "b": rng.integers(0, 100, 10**5)})
+    tdir = os.path.join(workdir, "traces")
+    threshold = 2
+    raised = []
+    flight_recorder.reset_for_tests()
+    meters.reset()
+    with _observed(True), TraceDir.context(tdir), ResilienceBreakerThreshold.context(threshold), \
+            ResilienceBreakerCooldownS.context(30.0):
+        old_interval, flight_recorder.MIN_DUMP_INTERVAL_S = flight_recorder.MIN_DUMP_INTERVAL_S, 0.0
+        try:
+            hdf = tpd.DataFrame(pdf)
+            with inject_faults("device_lost", ops=("materialize",), times=None):
+                for _ in range(threshold + 1):
+                    try:
+                        tpd.to_pandas(hdf.median())
+                    except resilience.DeviceFailure as err:
+                        raised.append(type(err).__name__)
+                    else:
+                        raised.append(None)
+        finally:
+            flight_recorder.MIN_DUMP_INTERVAL_S = old_interval
+            resilience.reset_breakers()
+    dumps = sorted(os.listdir(tdir)) if os.path.isdir(tdir) else []
+    if raised != ["DeviceLost"] * threshold + ["BreakerOpen"]:
+        raise AssertionError(f"the breaker did not open and raise: {raised}")
+    opened = [d for d in dumps if "breaker_open" in d]
+    if not opened:
+        raise AssertionError(f"no flight record of the breaker opening: {dumps}")
+    with open(os.path.join(tdir, opened[-1])) as f:
+        record = json.load(f)
+    names = {e["name"] for e in record["traceEvents"] if e.get("ph") == "X"}
+    metrics = (record.get("otherData") or {}).get("metrics") or {}
+    if not any(n.startswith("engine.materialize.attempt") for n in names) or not metrics.get("series"):
+        raise AssertionError(f"the flight record lacks the spans or the meter snapshot: {sorted(names)[:20]}")
+    return {"raised": raised, "dumps": dumps, "record_spans": record["otherData"]["spans"],
+            "record_reason": record["otherData"]["reason"],
+            "record_metric_series": len(metrics["series"]),
+            "breaker_series": {k: v.get("total") for k, v in metrics["series"].items()
+                               if k.startswith("resilience.breaker.reduce")}}
+
+
+def phase_trace(rows: int, seed: int, workdir: str) -> dict:
+    """Phase 18 (``trace``): (b) the peaks, (a) the profiled main path,
+    (c) the cost of observing, (e) EXPLAIN ANALYZE's clocks, (d) the flight
+    recorder.  Returns its
+    launches and the phase's record."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    t_phase = time.perf_counter()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    k0 = _wrapper_launches()
+    record = {}
+    t0 = time.perf_counter()
+    record["peaks"] = trace_peaks()
+    emit({"phase": "trace", "part": "peaks", **record["peaks"], "seconds": time.perf_counter() - t0})
+    p1 = pandas.DataFrame(make_frame_data(rows, seed, ngroups=100))
+    p2 = pandas.DataFrame(make_frame_data(rows, seed + 1, ngroups=100))
+    t1, t2 = tpd.from_pandas(p1), tpd.from_pandas(p2)
+    parts = [("profile", trace_profile, (t1, t2, p1, p2, workdir)), ("cost", trace_cost, (t1, t2)),
+             ("explain", trace_explain, (seed, workdir))]
+    for part, fn, fn_args in parts:
+        t0 = time.perf_counter()
+        record[part] = fn(*fn_args)
+        record[part + "_seconds"] = time.perf_counter() - t0
+        emit({"phase": "trace", "part": part, **record[part], "seconds": record[part + "_seconds"]})
+    # the frames go before the losses: a re-seat re-uploads every live column
+    del t1, t2, p1, p2, fn_args, parts
+    free_device_memory()
+    t0 = time.perf_counter()
+    record["flight"] = trace_flight_record(seed, workdir)
+    record["flight_seconds"] = time.perf_counter() - t0
+    emit({"phase": "trace", "part": "flight", **record["flight"], "seconds": record["flight_seconds"]})
+    if tqc.DEFAULTS_TO_PANDAS:
+        raise AssertionError(f"{tqc.DEFAULTS_TO_PANDAS} trace-phase queries defaulted to pandas")
+    launches = {k: v - k0[k] for k, v in _wrapper_launches().items()}
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "trace", "launches": launches, "seconds": record["seconds"]})
+    return launches, record
+
+
 def resilience_line(robust: dict, by_path: dict) -> dict:
     """The ``{"resilience": ...}`` line: phase 17's parts in brief and every
     other path's fallbacks and breakers."""
@@ -5396,7 +5810,25 @@ def resilience_line(robust: dict, by_path: dict) -> dict:
     }
 
 
-def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_path: dict, rows: int) -> dict:
+def observability_line(trace: dict) -> dict:
+    """The ``{"observability": ...}`` line: phase 18 in brief."""
+    prof, cost = trace["profile"], trace["cost"]
+    return {
+        "rollup": prof["rollup"],
+        "peaks": {k: trace["peaks"][k] for k in ("copy_gb_s", "fma_f64_tflop_s", "published")},
+        "cost_ms": {q: {m: v[m] for m in ("Enable", "Disable", "delta_ms", "round_deltas_ms", "spread_ms",
+                                          "wrapped_calls", "wrappers_off_ms")}
+                    for q, v in cost.items() if q in ROBUST_COST_QUERIES},
+        "cost_per_call_us": cost["per_call_us"],
+        "off_allocations": cost["off_allocations"],
+        "explain": {m: trace["explain"][m] for m in ("on", "off")},
+        "flight": {k: trace["flight"][k] for k in ("raised", "record_reason", "record_spans", "record_metric_series")},
+        "trace_launches": trace["launches"],
+    }
+
+
+def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_path: dict, rows: int,
+                 trace: dict = None) -> dict:
     """``launches`` maps each path (``main``, ``relational``, ``arithmetic``,
     ``io``, ``window``, ``clean``, ``dates``, ``plan``, ``formats``) to its
     kernels' launches; the ``launches`` of a kernel's entry is its own path's:
@@ -5417,7 +5849,7 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_
     gahead = kernel["groupagg"]["by_case"]["sum_float64_w100"]
     bincount_paths = {k: v["bincount"] if isinstance(v, dict) else v for k, v in launches.items()
                       if k != "plan"}
-    return {"kernels": [{
+    line = {"kernels": [{
         "name": "bincount",
         "route": "cuda",
         "source": "modin_tpu_torch/ops/cuda/csrc/bincount.cu",
@@ -5524,6 +5956,14 @@ def kernels_line(kernel: dict, launches: dict, fused_by_path: dict, groupagg_by_
             for k, v in kernel["groupagg"]["by_case"].items()
         },
     }]}
+    if trace is not None:
+        # phase 18's launch ledger: the profiled main path's launches, their
+        # event-timed device ms, bytes, achieved bandwidth and roofline
+        # fraction against the peaks measured in the same run
+        for entry in line["kernels"]:
+            entry["ledger"] = {k: v for k, v in trace["profile"]["kernels"][entry["name"]].items()
+                               if k != "signatures"}
+    return line
 
 
 def main(argv=None) -> int:
@@ -5569,6 +6009,8 @@ def main(argv=None) -> int:
                         help="rows of the views phase's timed frame (10 tails of a hundredth)")
     parser.add_argument("--robust-cost-rows", type=int, default=10**7,
                         help="rows of the robust phase's timing of the layer (phase-4 queries)")
+    parser.add_argument("--trace-rows", type=int, default=10**7,
+                        help="rows of the trace phase's profiled main path and its cost timing")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -5676,10 +6118,13 @@ def main(argv=None) -> int:
                                      workdir)
     if "views" in phases:
         launches["views"] = run("views", phase_views, args.views_rows, args.views_time_rows, args.seed)
-    robust = None
+    robust = trace = None
     if "robust" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_robust_") as workdir:
             launches["robust"], robust = run("robust", phase_robust, args.seed, args.robust_cost_rows, workdir)
+    if "trace" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as workdir:
+            launches["trace"], trace = run("trace", phase_trace, args.trace_rows, args.seed, workdir)
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,
@@ -5694,8 +6139,9 @@ def main(argv=None) -> int:
         print("chip_smoke: a partial run prints no result", file=sys.stderr)
         return 1
     emit({"resilience": resilience_line(robust, resilience_by_path)})
+    emit({"observability": observability_line(trace)})
     print(smi, flush=True)
-    emit(kernels_line(kernel, launches, fused_by_path, groupagg_by_path, args.rows))
+    emit(kernels_line(kernel, launches, fused_by_path, groupagg_by_path, args.rows, trace))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

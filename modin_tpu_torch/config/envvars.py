@@ -494,3 +494,155 @@ class SpillTargetFraction(Parameter):
     @classmethod
     def put(cls, value: Any) -> None:
         cls._set(cls._parse(value))
+
+
+# ---------------------------------------------------------------------- #
+# Observability: logging, metrics, tracing, meters, cost capture
+# ---------------------------------------------------------------------- #
+
+
+class _Flag(Parameter):
+    """An on/off setting (``1``/``true``/``yes``/``on`` or ``0``/...)."""
+
+    default = False
+
+    @classmethod
+    def _parse(cls, raw: Any) -> bool:
+        if isinstance(raw, bool):
+            return raw
+        text = str(raw).strip().lower()
+        if text in ("1", "true", "yes", "on"):
+            return True
+        if text in ("0", "false", "no", "off", ""):
+            return False
+        raise ValueError(f"{cls.varname} must be a boolean, got {raw!r}")
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(cls._parse(value))
+
+    @classmethod
+    def enable(cls) -> None:
+        cls.put(True)
+
+    @classmethod
+    def disable(cls) -> None:
+        cls.put(False)
+
+
+class _BuildPath(Parameter):
+    """A directory, by default ``modin_tpu_torch/_build/<subdir>`` in the
+    checkout (git-ignored)."""
+
+    subdir = ""
+
+    @classmethod
+    def get(cls) -> str:
+        value = super().get()
+        if value is None:
+            here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            value = os.path.join(here, "_build", cls.subdir)
+        return value
+
+
+class LogMode(_Choice):
+    """START/STOP trace log of every logged call (``logging/``): Disable
+    (the default), Enable (every layer) or Enable_Api_Only."""
+
+    varname = "MODIN_TPU_TORCH_LOG_MODE"
+    choices = ("Enable", "Disable", "Enable_Api_Only")
+    default = "Disable"
+
+    @classmethod
+    def enable(cls) -> None:
+        cls.put("Enable")
+
+    @classmethod
+    def disable(cls) -> None:
+        cls.put("Disable")
+
+    @classmethod
+    def enable_api_only(cls) -> None:
+        cls.put("Enable_Api_Only")
+
+
+class LogDir(_BuildPath):
+    """Directory of the trace and memory logs."""
+
+    varname = "MODIN_TPU_TORCH_LOG_DIR"
+    subdir = "logs"
+
+
+class MetricsMode(_Choice):
+    """API timing metrics to the registered handlers: Enable | Disable."""
+
+    varname = "MODIN_TPU_TORCH_METRICS_MODE"
+    choices = ("Enable", "Disable")
+    default = "Enable"
+
+    @classmethod
+    def enable(cls) -> None:
+        cls.put("Enable")
+
+    @classmethod
+    def disable(cls) -> None:
+        cls.put("Disable")
+
+
+class ProgressBar(_Flag):
+    """A progress line for API calls that outlive half a second."""
+
+    varname = "MODIN_TPU_TORCH_PROGRESS_BAR"
+
+
+class MetersEnabled(_Flag):
+    """In-process aggregation of the ``emit_metric`` stream into counters,
+    gauges and histograms (``observability/meters.py``).  Off: one module
+    attribute read per emission, no meter object made.  ``query_stats()``
+    and ``explain(analyze=True)`` account for their scope regardless."""
+
+    varname = "MODIN_TPU_TORCH_METERS"
+
+
+class MetersMaxSeries(_Positive):
+    """Most distinct metric names the meter registry holds; names past it
+    are dropped and counted."""
+
+    varname = "MODIN_TPU_TORCH_METERS_MAX_SERIES"
+    default = 2048
+
+
+class CostCapture(_Choice):
+    """Cost capture of the kernel launches (``observability/costs.py``):
+    bytes and operations from each launch's shapes, the padding sites and
+    the roofline join.  Auto (the default): while meter accounting is on;
+    On: always; Off: never.  (The JAX package's Full, a memory analysis of
+    the compiled program, has no counterpart for a hand kernel.)"""
+
+    varname = "MODIN_TPU_TORCH_COST_CAPTURE"
+    choices = ("Auto", "On", "Off")
+    default = "Auto"
+
+
+class TraceEnabled(_Flag):
+    """Spans at the API, query-compiler, engine and IO layers, the launch
+    ledger's device times and the flight recorder's ring.  Off: one module
+    attribute read per instrumented call, no span made.  ``profile()``
+    collects for its block regardless."""
+
+    varname = "MODIN_TPU_TORCH_TRACE"
+
+
+class TraceFlightRecorderSize(_Count):
+    """Recent spans the flight recorder keeps while tracing is on (0: no
+    ring and no dumps)."""
+
+    varname = "MODIN_TPU_TORCH_TRACE_FLIGHT_RECORDER_SIZE"
+    default = 1024
+
+
+class TraceDir(_BuildPath):
+    """Directory of the flight recorder's dumps."""
+
+    varname = "MODIN_TPU_TORCH_TRACE_DIR"
+    subdir = "traces"

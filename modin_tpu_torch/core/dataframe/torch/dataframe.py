@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.core import memory
 from modin_tpu_torch.core.dataframe.torch.metadata import LazyIndex
 from modin_tpu_torch.ops.lazy import LazyExpr, is_lazy, materialize, materialize_exprs
@@ -368,7 +369,7 @@ def column_of_series(series: Any, device: Optional[torch.device] = None) -> Colu
     return HostColumn(arr)
 
 
-class TorchDataframe:
+class TorchDataframe(ClassLogger, modin_layer="CORE-FRAME"):
     """Columnar frame: host metadata + device/host column store.
 
     ``_blocks`` is None, or for each column the number of the pandas block

@@ -43,6 +43,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from modin_tpu_torch.core.execution.resilience import count
+from modin_tpu_torch.observability import spans as _spans
+from modin_tpu_torch.observability.flight_recorder import dump_flight_record
 
 KIND_HOST = "host"
 KIND_IO = "io"
@@ -439,16 +441,21 @@ def reseat_all(reason: str, observed_epoch: Optional[int] = None) -> int:
                 _device_epoch += 1
             count("recovery.device_lost")
             reseated = 0
-            for col in device_ledger.live_columns():
-                try:
-                    kind = recover_column(col)
-                except Exception:  # Unrecoverable, or a replay that failed: one column never stops the pass
-                    count("recovery.unrecoverable")
-                    continue
-                if kind is not None:
-                    count(f"recovery.reseat.{kind}")
-                    reseated += 1
+            with _spans.span("recovery.reseat", "TORCH-ENGINE", reason=reason) as sp:
+                for col in device_ledger.live_columns():
+                    try:
+                        kind = recover_column(col)
+                    except Exception:  # Unrecoverable, or a replay that failed: one column never stops the pass
+                        count("recovery.unrecoverable")
+                        continue
+                    if kind is not None:
+                        count(f"recovery.reseat.{kind}")
+                        reseated += 1
+                if sp is not None:
+                    sp.attrs["reseated"] = reseated
             _last_reseat_count = reseated
+            if _spans.TRACE_ON and dump_flight_record("recovery_reseat", detail=reason, resolve_device=False):
+                count("trace.flight_dump")
             return reseated
         finally:
             _tls.active = False

@@ -53,11 +53,16 @@ runtime decision that can be observed:
    goes to pandas instead, as the JAX package's does, and the tests hold
    the two to the same counters and states.
 
-Counts are plain integers in :data:`COUNTS` under the JAX package's metric
-names (``resilience.engine.<op>.<kind>``, ``resilience.breaker.<family>.
-<state>``, ``resilience.fallback.<family>.<kind>``, ``recovery.*``), as
-``core/memory.py`` keeps its own.  The JAX package's spans, flight recorder,
-compile ledger and serving-context hooks have no counterpart yet.
+Events are emitted under the JAX package's metric names
+(``resilience.engine.<op>.<kind>``, ``resilience.breaker.<family>.
+<state>``, ``resilience.fallback.<family>.<kind>``, ``recovery.*``) through
+``logging/metrics.py``'s always-on tally, where the meters also fold them;
+:data:`COUNTS` reads that tally.  While tracing is on,
+each engine-seam attempt is an ``engine.<op>.attempt`` span (with a CUDA
+event pair for its device interval), a fallback or a raise a
+``fallback.<family>``/``raised.<family>`` span, and a breaker opening or a
+failure about to raise on the card dumps the flight recorder's ring first.
+The JAX package's serving-context hooks have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -72,6 +77,11 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from modin_tpu_torch.logging.metrics import CountView, emit_counted
+from modin_tpu_torch.observability import compile_ledger as _ledger
+from modin_tpu_torch.observability import meters as _meters
+from modin_tpu_torch.observability import spans as _spans
+from modin_tpu_torch.observability.flight_recorder import dump_flight_record
 from modin_tpu_torch.config import (
     Device,
     ResilienceBackoffS,
@@ -95,16 +105,24 @@ _sleep = time.sleep
 # same classification, retry and breaker as a real one
 _fault_hook: Optional[Callable[[str], None]] = None
 
-#: event counts by metric name (only names that occurred are present)
-COUNTS: Dict[str, int] = {}
+#: event counts by metric name (only names that occurred are present): a
+#: read of the metric layer's tally
+COUNTS = CountView(prefixes=("resilience.", "recovery.", "trace."))
 _COUNT_LOCK = threading.Lock()
 #: device-path calls that pandas answered (only where the port runs on the CPU)
 _fallbacks = 0
 
+count = emit_counted
 
-def count(name: str, value: int = 1) -> None:
-    with _COUNT_LOCK:
-        COUNTS[name] = COUNTS.get(name, 0) + int(value)
+
+def _flight_dump(reason: str, failure: Optional[BaseException] = None, detail: str = "") -> None:
+    """Dump the flight recorder's ring (a no-op unless tracing is on) before
+    a failure raises on the card or a breaker opens.  A lost context skips
+    the synchronize that would resolve the ring's device events."""
+    if _spans.TRACE_ON and dump_flight_record(
+        reason, detail=detail, resolve_device=not isinstance(failure, DeviceLost)
+    ):
+        count("trace.flight_dump")
 
 
 def reset_counts() -> None:
@@ -346,8 +364,13 @@ def _run_with_watchdog(op: str, thunk: Callable[[], Any], timeout_s: float) -> A
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         device = torch.cuda.current_device()
         stream = torch.cuda.current_stream(device)
+    # the worker's spans and metrics bill the caller's call chain and scopes
+    parent_stack = _spans.snapshot_stack() if _spans.TRACE_ON else None
+    parent_scopes = _meters.snapshot_scopes() if _meters.ACCOUNTING_ON else None
 
     def runner() -> None:
+        _spans.seed_thread(parent_stack)
+        _meters.seed_thread_scopes(parent_scopes)
         try:
             if stream is not None:
                 with torch.cuda.device(device), torch.cuda.stream(stream):
@@ -404,7 +427,10 @@ def engine_call(
         return thunk()
 
     if ResilienceMode.get() == "Disable":
-        return attempt_once()
+        result = attempt_once()
+        if op == "deploy" and _meters.ACCOUNTING_ON:
+            _meters.note_dispatch()
+        return result
 
     timeout_s = float(ResilienceWatchdogS.get()) if watchdog else 0.0
     retries = int(ResilienceRetries.get())
@@ -414,12 +440,20 @@ def engine_call(
         # the epoch this attempt launches in: a DeviceLost hands it to
         # reseat_all, so observers of one loss share one recovery pass
         attempt_epoch = recovery.current_epoch()
+        sp = ev = None
+        if _spans.TRACE_ON:
+            sp = _spans.start_span(f"engine.{op}.attempt", "TORCH-ENGINE", {"op": op, "attempt": attempt})
+            ev = _ledger.launch_begin()
         try:
             if timeout_s > 0:
-                return _run_with_watchdog(op, attempt_once, timeout_s)
-            return attempt_once()
+                result = _run_with_watchdog(op, attempt_once, timeout_s)
+            else:
+                result = attempt_once()
         except Exception as err:  # the classification point: re-raises what is not a device failure
             failure = classify_device_error(err)
+            if sp is not None:
+                sp.attrs["failure_kind"] = failure.kind if failure is not None else type(err).__name__
+                _spans.finish_span(sp, status="error")
             if failure is None:
                 raise
             count(f"resilience.engine.{op}.{failure.kind}")
@@ -432,19 +466,35 @@ def engine_call(
             )
             retry_leg = isinstance(failure, TransientDeviceError) and attempt < retries
             if not (isinstance(failure, DeviceOOM) or lost_leg or retry_leg):
+                # terminal for this call: keep the trace that led here
+                _flight_dump(f"terminal_{failure.kind}", failure, detail=op)
                 raise failure from err
             failure = _detached(failure)
+        except BaseException:
+            # an unwind that is no Exception (Ctrl-C) still pops the span
+            if sp is not None:
+                _spans.finish_span(sp, status="error")
+            raise
+        else:
+            if op == "deploy" and _meters.ACCOUNTING_ON:
+                _meters.note_dispatch()
+            if sp is not None:
+                _ledger.note_interval(sp, ev)
+                _spans.finish_span(sp)
+            return result
         # out of the except block: the failed attempt's traceback is gone
         if isinstance(failure, DeviceOOM):
             if _oom_round(op, oom_rounds, protect_ids):
                 oom_rounds += 1
                 continue
+            _flight_dump("terminal_oom", failure, detail=op)
             raise failure
         if isinstance(failure, DeviceLost):
             if recovery.reseat_all(f"engine_{op}", observed_epoch=attempt_epoch) > 0:
                 reseat_spent = True
                 count("recovery.retry.device_lost")
                 continue
+            _flight_dump(f"terminal_{failure.kind}", failure, detail=op)
             raise failure
         attempt += 1
         count(f"resilience.engine.{op}.retry")
@@ -507,9 +557,12 @@ class CircuitBreaker:
     def _cooldown_s() -> float:
         return float(ResilienceBreakerCooldownS.get())
 
-    def _transition(self, state: str) -> None:
+    def _transition(self, state: str) -> bool:
+        """Record the change; True when it opened (the caller dumps the
+        flight record after releasing the breaker's lock)."""
         self.state = state
         count(f"resilience.breaker.{self.name}.{state}")
+        return state == OPEN
 
     def allow(self) -> bool:
         """May the guarded path run now?"""
@@ -541,18 +594,24 @@ class CircuitBreaker:
     def abort_probe(self) -> None:
         """The HALF_OPEN probe ended with an unclassified exception: back to
         OPEN with a fresh cooldown (only a probe can leave HALF_OPEN)."""
+        opened = False
         with self._lock:
             if self.state == HALF_OPEN:
                 self.opened_at = _now()
-                self._transition(OPEN)
+                opened = self._transition(OPEN)
+        if opened:
+            _flight_dump(f"breaker_open_{self.name}")
 
     def _strike(self) -> None:
+        opened = False
         with self._lock:
             self.strikes += 1
             count(f"resilience.breaker.{self.name}.strike")
             if self.state == HALF_OPEN or (self.state == CLOSED and self.strikes >= self._threshold()):
                 self.opened_at = _now()
-                self._transition(OPEN)
+                opened = self._transition(OPEN)
+        if opened:
+            _flight_dump(f"breaker_open_{self.name}")
 
 
 _BREAKERS: Dict[str, CircuitBreaker] = {}
@@ -647,7 +706,12 @@ def device_path(family: str) -> Callable:
             if not breaker.allow():
                 count(f"resilience.breaker.{family}.short_circuit")
                 if _on_card(self, args, kwargs):
+                    if _spans.TRACE_ON:
+                        _spans.event(f"raised.{family}", "QUERY-COMPILER", family=family, reason="breaker_open")
+                    _flight_dump(f"breaker_open_{family}", detail="short_circuit")
                     raise BreakerOpen(f"the {family} device path's breaker is open after repeated device failures")
+                if _spans.TRACE_ON:
+                    _spans.event(f"fallback.{family}", "QUERY-COMPILER", family=family, reason="short_circuit")
                 _count_fallback()
                 return None
             oom_rounds = attempt = 0
@@ -686,9 +750,14 @@ def device_path(family: str) -> Callable:
                     recovery.reseat_all(f"breaker_open_{family}")
                 if _on_card(self, args, kwargs):
                     count(f"resilience.raised.{family}.{failure.kind}")
+                    if _spans.TRACE_ON:
+                        _spans.event(f"raised.{family}", "QUERY-COMPILER", family=family, reason=failure.kind)
+                    _flight_dump(f"raised_{family}_{failure.kind}", failure)
                     failure.retried = True
                     raise failure
                 count(f"resilience.fallback.{family}.{failure.kind}")
+                if _spans.TRACE_ON:
+                    _spans.event(f"fallback.{family}", "QUERY-COMPILER", family=family, reason=failure.kind)
                 _count_fallback()
                 return None
 

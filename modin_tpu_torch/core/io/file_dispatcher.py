@@ -21,6 +21,11 @@ import functools
 import os
 from typing import Any, Optional
 
+from modin_tpu_torch.logging import ClassLogger
+from modin_tpu_torch.logging.metrics import emit_metric
+from modin_tpu_torch.observability import meters as _meters
+from modin_tpu_torch.observability import spans as _spans
+
 NOT_IMPLEMENTED_MESSAGE = "Implement in children classes!"
 
 # reads that the parallel path answered (incremented only in _read_gated)
@@ -61,16 +66,32 @@ class _IoReplay:
         return values
 
 
-class FileDispatcher:
+class FileDispatcher(ClassLogger, modin_layer="CORE-IO"):
     query_compiler_cls = None
 
     @classmethod
     def read(cls, *args: Any, **kwargs: Any):
         """Read a file into a query compiler of ``query_compiler_cls``; its
-        device columns get io lineage."""
-        result = cls._read(*args, **kwargs)
+        device columns get io lineage.  An ``io.read`` span, and the
+        source's bytes billed to the meters while they account."""
+        with _spans.span("io.read", "CORE-IO", dispatcher=cls.__name__):
+            result = cls._read(*args, **kwargs)
+        if _meters.ACCOUNTING_ON:
+            cls._note_read_bytes(args, kwargs)
         cls._attach_io_lineage(result, args, kwargs)
         return result
+
+    @classmethod
+    def _note_read_bytes(cls, args: tuple, kwargs: dict) -> None:
+        """Bill this read's source file size (best effort)."""
+        try:
+            path = kwargs.get("filepath_or_buffer") or kwargs.get("path") or (args[0] if args else None)
+            if isinstance(path, str):
+                path = cls.get_path(path)
+            if cls.is_local_plain_file(path):
+                emit_metric("io.read.bytes", cls.file_size(path))
+        except Exception:
+            pass  # an exotic path goes unbilled
 
     @classmethod
     def _attach_io_lineage(cls, result: Any, args: tuple, kwargs: dict) -> None:
@@ -133,7 +154,15 @@ class FileDispatcher:
 
         if len(ranges) == 1:
             return [parse(ranges[0])]
-        with ThreadPoolExecutor(max_workers=min(CpuCount.get(), len(ranges))) as pool:
+        # the workers' spans and metrics bill the read that spawned them
+        stack = _spans.snapshot_stack() if _spans.TRACE_ON else None
+        scopes = _meters.snapshot_scopes() if _meters.ACCOUNTING_ON else None
+
+        def seed() -> None:
+            _spans.seed_thread(stack)
+            _meters.seed_thread_scopes(scopes)
+
+        with ThreadPoolExecutor(max_workers=min(CpuCount.get(), len(ranges)), initializer=seed) as pool:
             return list(pool.map(parse, ranges))
 
     @classmethod

@@ -23,6 +23,7 @@ from typing import Any, Optional
 import numpy as np
 import pandas
 
+from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.error_message import ErrorMessage
 from modin_tpu_torch.utils import MODIN_UNNAMED_SERIES_LABEL
 
@@ -38,7 +39,7 @@ WRITERS = (
 )
 
 
-class BaseIO:
+class BaseIO(ClassLogger, modin_layer="CORE-IO"):
     """Default implementation of the IO functions."""
 
     query_compiler_cls: type = None

@@ -26,9 +26,10 @@ pin it (it frees only when both spill), and neither is its sole consumer
 (``buffer_consumers``: no donation).  The JAX package's per-shard
 accounting collapses to one device.
 
-Counts are plain integers in :data:`COUNTS` (spills, restores, donations
-and their bytes) and seconds in :data:`SECONDS`, as the port counts its
-kernel launches.
+Counts (spills, restores, donations and their bytes) and seconds are
+emitted through ``logging/metrics.py``'s always-on tally (seconds as
+``<name>_s``); :data:`COUNTS` and :data:`SECONDS` read it.  A spill pass is
+a ``memory.device.spill`` span.
 """
 
 from __future__ import annotations
@@ -39,38 +40,36 @@ import weakref
 from collections import OrderedDict
 from typing import Any, Dict, Iterable, Optional, Tuple
 
+from modin_tpu_torch.logging.metrics import CountView, emit_counted, emit_metric
+from modin_tpu_torch.observability import spans as _spans
+
 #: events and bytes: spills (``memory.device.spill``/``_bytes``; of them the
 #: columns fetched to the host, ``spill_copy``/``_bytes``; the columns whose
 #: host copy did not fit in host memory and so stayed resident,
 #: ``spill_failed``), restores, and the fused leg's donations
 #: (``fuse.donated``/``_bytes``, and the donated columns read again,
 #: ``fuse.donated_restore``)
-COUNTS: Dict[str, int] = {
-    "memory.device.spill": 0,
-    "memory.device.spill_bytes": 0,
-    "memory.device.spill_copy": 0,
-    "memory.device.spill_copy_bytes": 0,
-    "memory.device.spill_failed": 0,
-    "memory.device.restore": 0,
-    "memory.device.restore_bytes": 0,
-    "fuse.donated": 0,
-    "fuse.donated_bytes": 0,
-    "fuse.donated_restore": 0,
-}
+COUNTS = CountView(names=(
+    "memory.device.spill",
+    "memory.device.spill_bytes",
+    "memory.device.spill_copy",
+    "memory.device.spill_copy_bytes",
+    "memory.device.spill_failed",
+    "memory.device.restore",
+    "memory.device.restore_bytes",
+    "fuse.donated",
+    "fuse.donated_bytes",
+    "fuse.donated_restore",
+))
 #: wall seconds of the device-to-host copies of spills and of the restores
-SECONDS: Dict[str, float] = {"memory.device.spill_copy": 0.0, "memory.device.restore": 0.0}
-
-_COUNT_LOCK = threading.Lock()
+SECONDS = CountView(names=("memory.device.spill_copy", "memory.device.restore"), suffix="_s")
 
 
-def count(name: str, value: int = 1) -> None:
-    with _COUNT_LOCK:
-        COUNTS[name] += int(value)
+count = emit_counted
 
 
 def add_seconds(name: str, seconds: float) -> None:
-    with _COUNT_LOCK:
-        SECONDS[name] += float(seconds)
+    emit_counted(f"{name}_s", seconds)
 
 
 def storage_key(t: Any) -> Tuple[str, int]:
@@ -316,30 +315,35 @@ class _DeviceLedger:
         candidates.sort(key=lambda c: not c[1])
         freed = spilled = 0
         try:
-            for key, _derived, refs in candidates:
-                if freed >= target_bytes:
-                    break
-                if exclude_ids is not None and key in exclude_ids:
-                    continue
-                holders = [h for r in refs if (h := r()) is not None]
-                if not holders or any(h.is_lazy for h in holders):
-                    continue
-                for h in holders:
-                    try:
-                        got = h.spill()
-                    except MemoryError:
-                        # no room on the host for the copy: the column stays
-                        # resident, counted; a device error propagates
-                        count("memory.device.spill_failed")
+            with _spans.span("memory.device.spill", "TORCH-ENGINE", target=target_bytes):
+                for key, _derived, refs in candidates:
+                    if freed >= target_bytes:
+                        break
+                    if exclude_ids is not None and key in exclude_ids:
                         continue
-                    freed += got
-                    spilled += 1
+                    holders = [h for r in refs if (h := r()) is not None]
+                    if not holders or any(h.is_lazy for h in holders):
+                        continue
+                    for h in holders:
+                        try:
+                            got = h.spill()
+                        except MemoryError:
+                            # no room on the host for the copy: the column
+                            # stays resident, counted; a device error
+                            # propagates
+                            count("memory.device.spill_failed")
+                            continue
+                        freed += got
+                        spilled += 1
         finally:
             if spilled:
                 with self._lock:
                     self._spill_events += spilled
                 count("memory.device.spill", spilled)
                 count("memory.device.spill_bytes", freed)
+                # the footprint of both ledgers after the pass
+                emit_metric("memory.device.resident_bytes", self._total)
+                emit_metric("memory.host.cache_bytes", ledger.total_bytes())
         return freed
 
     def admit(self, estimate_bytes: int, exclude_ids: Any = None) -> None:

@@ -22,6 +22,7 @@ from typing import Any, Callable, Hashable, List, Optional
 
 import numpy as np
 
+from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.error_message import ErrorMessage
 from modin_tpu_torch.utils import MODIN_UNNAMED_SERIES_LABEL, try_cast_to_pandas
 
@@ -71,7 +72,7 @@ def _set_axis(axis: int):
     return axis_setter
 
 
-class BaseQueryCompiler(abc.ABC):
+class BaseQueryCompiler(ClassLogger, abc.ABC, modin_layer="QUERY-COMPILER"):
     """Interface between the API layer and a storage format."""
 
     _modin_frame: Any = None
@@ -1045,6 +1046,9 @@ def _register_defaults() -> None:
         "floordiv", "rfloordiv", "mod", "rmod", "pow", "rpow",
         "eq", "ne", "lt", "le", "gt", "ge",
         "__and__", "__or__", "__xor__", "__rand__", "__ror__", "__rxor__",
+        # a Series' ``//`` and ``%`` against a Series (pandas' operators
+        # fill a zero int divisor; its flex methods do not)
+        "__floordiv__", "__rfloordiv__", "__mod__", "__rmod__",
     ]
     for qc_name in binary_methods:
         fn = getattr(pandas.DataFrame, qc_name, None)

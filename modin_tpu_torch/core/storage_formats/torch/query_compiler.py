@@ -608,6 +608,49 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 )
         return None
 
+    def _int_series_operands(self, other: Any) -> bool:
+        """Both sides one-column Series compilers whose numpy result dtype
+        is an int one: where pandas' ``//``/``%`` operators depend on
+        whether a divisor is zero."""
+        if not (
+            isinstance(other, TorchQueryCompiler)
+            and self._shape_hint == "column"
+            and other._shape_hint == "column"
+        ):
+            return False
+        dtypes = [c.pandas_dtype for c in self._modin_frame._columns + other._modin_frame._columns]
+        return (
+            len(dtypes) == 2
+            and all(isinstance(d, np.dtype) and d.kind in "iub" for d in dtypes)
+            and np.result_type(*dtypes).kind in "iu"
+        )
+
+    @device_path("binary")
+    def _try_int_division_operator(self, op: str, other: "TorchQueryCompiler") -> Optional["TorchQueryCompiler"]:
+        """pandas' operator ``a // b`` or ``a % b`` (``op`` is the flex
+        name, ``r`` for the reflected side) of two int Series: the int
+        result where no divisor is zero, else float64 with +/-inf (``//``,
+        by the dividend's sign; NaN for 0 // 0) or NaN (``%``) at each zero
+        divisor, as pandas' ``mask_zero_div_zero``/``_fill_zeros`` do.  The
+        flex methods keep numpy's 0 there and take the ordinary path.  One
+        host sync reads whether a divisor is zero: the dtype depends on it."""
+        a, b = self._modin_frame.get_column(0), other._modin_frame.get_column(0)
+        if not (a.is_device and b.is_device) or not self._fast_index_match(other):
+            return None
+        x, y = a.data, b.data
+        num, den = (y, x) if op.startswith("r") else (x, y)
+        zero = den == 0
+        result = elementwise.get_op(op)(x, y)
+        if bool(zero.any()):
+            result = result.to(torch.float64)
+            if op.endswith("floordiv"):
+                fill = torch.where(num > 0, float("inf"), torch.where(num < 0, float("-inf"), float("nan")))
+            else:
+                fill = torch.full_like(result, float("nan"))
+            result = torch.where(zero, fill.to(torch.float64), result)
+        la, lb = self._modin_frame.columns[0], other._modin_frame.columns[0]
+        return self._wrap_device_result([result], col_labels=[la if la == lb else MODIN_UNNAMED_SERIES_LABEL])
+
     @device_path("binary")
     def _try_device_binary_along_columns(
         self, op: str, other: "TorchQueryCompiler", kinds: List[str], logical: bool
@@ -3713,6 +3756,28 @@ def _make_binary_override(op: str):
 
 for _op in sorted(elementwise.BINARY_OPS):
     setattr(TorchQueryCompiler, _op, _make_binary_override(_op))
+
+
+def _make_division_operator(dunder: str):
+    """``__floordiv__`` & co.: a Series' ``//``/``%`` against a Series.  Int
+    operands take pandas' operator result (device, else pandas' operator);
+    any other pair is the flex op's, as in pandas."""
+    flex = dunder.strip("_")
+
+    def method(self: TorchQueryCompiler, other: Any, **kwargs: Any):
+        if not self._int_series_operands(other):
+            return getattr(self, flex)(other, **kwargs)
+        result = self._try_int_division_operator(flex, other)
+        if result is not None:
+            return result
+        return self._default_to_pandas(lambda obj, oth: getattr(obj, dunder)(oth), other)
+
+    method.__name__ = dunder
+    return method
+
+
+for _op in ("__floordiv__", "__rfloordiv__", "__mod__", "__rmod__"):
+    setattr(TorchQueryCompiler, _op, _make_division_operator(_op))
 
 
 def _make_reduce_override(op: str):

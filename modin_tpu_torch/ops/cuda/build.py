@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -25,7 +26,8 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build",
 )
-SOURCES = ("bincount", "scan", "fused", "groupagg")
+#: the four kernels' sources, and the roofline's FMA probe (``peaks``)
+SOURCES = ("bincount", "scan", "fused", "groupagg", "peaks")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -90,23 +92,27 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
     """Build every source that has no current build, all in parallel;
     returns ``{name: library path}``.  Raises with the compiler's output
     when a build fails."""
+    from modin_tpu_torch.observability import compile_ledger, spans
+
     names = list(names or SOURCES)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    started = []
-    paths = {}
-    for name in names:
-        path = library_path(name)
-        paths[name] = path
-        if not os.path.exists(path):
-            started.append((name, *_start(name)))
-    errors = []
-    for name, out, tmp, proc in started:
-        try:
-            _finish(name, out, tmp, proc)
-        except RuntimeError as err:
-            errors.append(str(err))
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name in names if not os.path.exists(paths[name])]
+    if not todo:
+        return paths
+    t0 = time.perf_counter()
+    with spans.span("kernel.build", "TORCH-ENGINE", sources=",".join(todo)):
+        started = [(name, *_start(name)) for name in todo]
+        errors = []
+        for name, out, tmp, proc in started:
+            try:
+                _finish(name, out, tmp, proc)
+            except RuntimeError as err:
+                errors.append(str(err))
     if errors:
         raise RuntimeError("\n".join(errors))
+    if compile_ledger.LEDGER_ON:
+        compile_ledger.note_build(todo, time.perf_counter() - t0)
     return paths
 
 

@@ -21,7 +21,8 @@ own formulas, and takes the reductions in the kernel's order (each thread
 its rows in order, a tree over each block's threads, the blocks in order, a
 tree over the merge's threads), so the two agree bit for bit.  ``LAUNCHES``
 counts kernel launches (a reduction's merge included), ``ROWS`` the rows
-they read, ``PROGRAMS_RUN`` programs run on either route.
+they read, ``PROGRAMS_RUN`` programs run on either route; while the launch
+ledger is on, each launch is reported to it (``observability/compile_ledger.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from modin_tpu_torch.observability import compile_ledger as _ledger
 from modin_tpu_torch.ops.cuda import fused_program as fp
 
 LAUNCHES = 0
@@ -155,6 +157,7 @@ def run_program(
             if first is None or first.device != dev:
                 raise ValueError("fused kernel: the second pass needs the first pass's accumulators")
             p.mean_src = first.data_ptr()
+    start = _ledger.launch_begin(dev) if _ledger.LEDGER_ON else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_run(ctypes.byref(p), n_blocks, low.threads, low.rows_per_thread, low.smem_bytes,
@@ -165,6 +168,12 @@ def run_program(
         raise RuntimeError(f"fused kernel: launch failed with CUDA error {err}: {msg}")
     LAUNCHES += 1
     ROWS += n
+    if _ledger.LEDGER_ON:
+        # the leaves read once, the stored outputs written once; one
+        # operation a row per computing instruction
+        nbytes = n * sum(t.element_size() for t in leaves) + sum(o.numel() * o.element_size() for o in outs)
+        ops = sum(1 for ins in program.instrs if ins[0] not in (fp.STORE, fp.CAST))
+        _ledger.note_launch("fused", dev, start, n, nbytes, n * ops)
     return outs, acc
 
 

@@ -20,7 +20,8 @@ the chunks in 32 runs and the runs in a tree.  On a CUDA tensor
 when it cannot; on CPU tensors it computes the plain version,
 :func:`groupagg_plain`, which takes the same order where the result depends
 on it, so the two agree bit for bit.  ``LAUNCHES`` counts kernel launches
-(the merge included), ``ROWS`` the rows they read.
+(the merge included), ``ROWS`` the rows they read; while the launch ledger
+is on, each launch is reported to it (``observability/compile_ledger.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from modin_tpu_torch.observability import compile_ledger as _ledger
 from modin_tpu_torch.ops.cuda.fused_program import DTYPE_CODES
 
 LAUNCHES = 0
@@ -226,6 +228,7 @@ def groupagg(agg: str, slot: torch.Tensor, cols: Sequence[torch.Tensor], g1: int
     p.smem_bytes = BAR_BYTES + WARPS * geo.stages * p.stage_bytes + geo.copies * p.copy_bytes
     p.slot, p.partial = slot.data_ptr(), partial.data_ptr()
     lib = _lib()
+    start = _ledger.launch_begin(slot.device) if _ledger.LEDGER_ON else None
     with torch.cuda.device(slot.device):
         stream = torch.cuda.current_stream(slot.device).cuda_stream
         err = lib.groupagg_run(ctypes.byref(p), geo.blocks, ctypes.c_void_p(out.data_ptr()),
@@ -235,6 +238,11 @@ def groupagg(agg: str, slot: torch.Tensor, cols: Sequence[torch.Tensor], g1: int
         raise RuntimeError(f"groupagg kernel: launch failed with CUDA error {err}: {msg}")
     LAUNCHES += 1
     ROWS += n
+    if _ledger.LEDGER_ON:
+        # the slots and the columns read once, the merged tables written once;
+        # one fold a row and column
+        nbytes = n * (slot.element_size() + sum(c.element_size() for c in cols)) + out.numel() * 8
+        _ledger.note_launch("groupagg", slot.device, start, n, nbytes, n * C)
     return out
 
 

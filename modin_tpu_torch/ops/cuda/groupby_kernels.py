@@ -10,7 +10,9 @@ note for the bound and the design.
 On a CUDA tensor :func:`bincount` launches the kernel (building it on first
 use) and raises when it cannot; on a CPU tensor it computes the plain
 version, :func:`bincount_plain`.  ``LAUNCHES`` counts kernel launches,
-``ROWS`` the rows they read.
+``ROWS`` the rows they read; while the launch ledger is on, each launch is
+reported to it (``observability/compile_ledger.py``) with its bytes and,
+while tracing, a CUDA event pair.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from modin_tpu_torch.observability import compile_ledger as _ledger
 
 LAUNCHES = 0
 #: rows the launches read (the codes)
@@ -94,6 +98,7 @@ def bincount(codes: torch.Tensor, width: int) -> torch.Tensor:
     if n == 0 or width == 0:
         return counts
     lib = _lib()
+    start = _ledger.launch_begin(codes.device) if _ledger.LEDGER_ON else None
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.bincount_int64(
@@ -104,4 +109,7 @@ def bincount(codes: torch.Tensor, width: int) -> torch.Tensor:
         _raise_cuda(lib, err, "launch")
     LAUNCHES += 1
     ROWS += n
+    if _ledger.LEDGER_ON:
+        # the codes read once, the counts written once; integer adds only
+        _ledger.note_launch("bincount", codes.device, start, n, 8 * n + 8 * width, 0)
     return counts

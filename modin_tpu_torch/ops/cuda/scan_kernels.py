@@ -26,7 +26,8 @@ through at most ceil(log2 tiles) + 56 combines.
 On a CUDA tensor :func:`scan` launches the kernel (building it on first
 use) and raises when it cannot; on a CPU tensor it computes the plain
 version, :func:`scan_plain`, a doubling (Hillis-Steele) scan with the same
-combine.  ``LAUNCHES`` counts kernel launches.
+combine.  ``LAUNCHES`` counts kernel launches, each also reported to the
+launch ledger while it is on (``observability/compile_ledger.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from modin_tpu_torch.observability import compile_ledger as _ledger
 
 LAUNCHES = 0
 
@@ -183,6 +186,7 @@ def scan(mode: str, x: torch.Tensor, aux: Optional[torch.Tensor] = None, *,
     scratch = torch.empty(int(lib.scan_scratch_bytes(n)), dtype=torch.uint8, device=x.device)
     b_ptr = aux.data_ptr() if mode == "linear" else None
     codes_ptr = aux.data_ptr() if (mode != "linear" and aux is not None) else None
+    start = _ledger.launch_begin(x.device) if _ledger.LEDGER_ON else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.scan_run(
@@ -195,4 +199,8 @@ def scan(mode: str, x: torch.Tensor, aux: Optional[torch.Tensor] = None, *,
         msg = lib.scan_error_string(int(err)).decode(errors="replace")
         raise RuntimeError(f"scan kernel ({mode}): launch failed with CUDA error {err}: {msg}")
     LAUNCHES += 1
+    if _ledger.LEDGER_ON:
+        # x (and aux) read once, y written once; one combine a row
+        row_bytes = 2 * x.element_size() + (aux.element_size() if aux is not None else 0)
+        _ledger.note_launch("scan", x.device, start, n, row_bytes * n, n if x.dtype.is_floating_point else 0)
     return y

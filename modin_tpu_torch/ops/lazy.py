@@ -27,6 +27,9 @@ columns once and writes no intermediate column.
 - An op the kernel does not take (the scan-kernel cumulative ops, a float16
   result) is a *barrier*: its inputs materialize in one fused launch, it runs
   eagerly, and its result is a leaf.  ``BARRIERS`` counts them.
+- A program-cache miss lowers the forest on the host (a ``fusion.lower``
+  span, billed to the launch ledger as a compile); a hit counts
+  ``fusion.cache.hit`` while meter accounting is on.
 
 A chain holds references to its leaf tensors until it materializes, so no
 path of the port writes into a column tensor in place.
@@ -35,6 +38,7 @@ path of the port writes into a column tensor in place.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -42,6 +46,10 @@ import numpy as np
 import torch
 
 from modin_tpu_torch.core import memory as _memory
+from modin_tpu_torch.logging.metrics import emit_metric
+from modin_tpu_torch.observability import compile_ledger as _ledger
+from modin_tpu_torch.observability import meters as _meters
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.core.execution import recovery as _recovery
 from modin_tpu_torch.ops.cuda import fused_kernels
 from modin_tpu_torch.ops.cuda import fused_program as fp
@@ -66,6 +74,11 @@ def _fused_cache_get(key: Any) -> Optional[Any]:
         plan = _FUSED_CACHE.get(key)
         if plan is not None:
             _FUSED_CACHE.move_to_end(key)
+    if plan is not None:
+        if _meters.ACCOUNTING_ON:
+            emit_metric("fusion.cache.hit", 1)
+        if _ledger.LEDGER_ON:
+            _ledger.note_cache_hit()
     return plan
 
 
@@ -74,13 +87,17 @@ def _fused_cache_put(key: Any, plan: Any) -> None:
     from modin_tpu_torch.config import FusedCacheSize
 
     limit = FusedCacheSize.get()
+    evicted = 0
     with _FUSED_LOCK:
         _FUSED_CACHE[key] = plan
         _FUSED_CACHE.move_to_end(key)
         if limit > 0:
             while len(_FUSED_CACHE) > limit:
                 _FUSED_CACHE.popitem(last=False)
-                _evictions += 1
+                evicted += 1
+        _evictions += evicted
+    if evicted:
+        emit_metric("fusion.cache.evict", evicted)
 
 
 def fused_cache_evictions() -> int:
@@ -264,8 +281,12 @@ def _plan(roots: Sequence[Any], tail_key: Optional[Tuple]) -> Tuple[Linearized, 
         plan = _fused_cache_get(key)
         if plan is not None:
             return lin, plan
-        plan = fp.compile_forest(lin.nodes, lin.node_codes, lin.out_refs, lin.leaf_codes,
-                                 lin.scalar_tags, tail_key)
+        t0 = time.perf_counter()
+        with _spans.span("fusion.lower", "TORCH-ENGINE", nodes=len(lin.nodes)):
+            plan = fp.compile_forest(lin.nodes, lin.node_codes, lin.out_refs, lin.leaf_codes,
+                                     lin.scalar_tags, tail_key)
+        if _ledger.LEDGER_ON:
+            _ledger.note_lowering(time.perf_counter() - t0)
         if isinstance(plan, fp.Cut):
             materialize_exprs([lin.node_exprs[i] for i in plan.nodes])
             continue

@@ -25,6 +25,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.ops.lazy import is_lazy, materialize, materialize_exprs, run_fused
 from modin_tpu_torch.parallel.engine import materialize as _engine_materialize
 
@@ -533,7 +534,10 @@ def _sorted_inputs(plans: List[ColumnPlan], n: int) -> dict:
             missing.append(i)
         else:
             reps[i] = got
-    built = sorted_valid_columns([plans[i].col.data for i in missing], int(n))
+    if not missing:
+        return reps
+    with _spans.span("sortcache.build", "QUERY-COMPILER", cols=len(missing)):
+        built = sorted_valid_columns([plans[i].col.data for i in missing], int(n))
     for i, pair in zip(missing, built):
         sorted_cache.attach(plans[i].col, *pair)
         reps[i] = pair

@@ -27,7 +27,8 @@ calibrate.
 
 Every verdict adds one to ``COUNTS["router.<op>.<choice>"]`` (and the fused
 gate's to ``router.fuse.<choice>``), plain integers as the port counts its
-launches.  The reference's plan-optimizer consult hook is not ported
+launches, each also emitted to the metric stream; while tracing, a verdict
+of :func:`verdict` is a ``router.decide`` span with its predicted costs.  The reference's plan-optimizer consult hook is not ported
 (``plan/optimizer.py`` says why): every verdict here is the router's own.
 """
 
@@ -37,6 +38,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from modin_tpu_torch.logging.metrics import CountView, emit_counted, emit_metric
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.ops import calibration as calstore
 
 #: column strategies a sort-shaped plan may carry (``plan_sort_reduce``):
@@ -63,8 +66,9 @@ DEVICE_FIT_FACTOR = 64
 #: ``device_<name>_fixed_s`` the fixed part (0 where a table has none)
 DEVICE_ENTRIES = ("sort", "consume", "hist")
 
-#: verdicts so far, ``{"router.<op>.<choice>": count}``
-COUNTS: Dict[str, int] = {}
+#: verdicts so far, ``{"router.<op>.<choice>": count}``: a read of the
+#: metric layer's tally
+COUNTS = CountView(prefixes=("router.",))
 #: one-shot measurements run in this process, and the last one's failure
 CALIBRATIONS = 0
 CALIBRATION_ERROR: Optional[str] = None
@@ -78,8 +82,7 @@ _calibration_forced = False
 
 
 def _count(name: str) -> None:
-    with _lock:
-        COUNTS[name] = COUNTS.get(name, 0) + 1
+    emit_counted(name, 1)
 
 
 def set_calibration(table: Optional[Dict[str, float]]) -> None:
@@ -238,11 +241,13 @@ def get_calibration() -> Optional[Dict[str, float]]:
         table = calstore.load_table(path, version=_CAL_VERSION, platform=platform, device_key=key)
         if table is None:
             try:
-                table = _measure()
+                with _spans.span("router.calibrate", "QUERY-COMPILER", platform=platform):
+                    table = _measure()
             except Exception as err:  # noqa: BLE001 -- a failed probe routes device; the smoke prints CALIBRATION_ERROR
                 CALIBRATION_ERROR = f"{type(err).__name__}: {err}"
                 _calibration, _calibration_key = False, key
                 return None
+            emit_metric("router.calibrate", 1)
             CALIBRATIONS += 1
             CALIBRATION_ERROR = None
             calstore.store_table(path, table)
@@ -358,6 +363,11 @@ def verdict(op: str, n: int, strategies: List[str]) -> Dict[str, Any]:
             choice = "host" if costs["device_s"] - costs["host_s"] > MIN_SAVINGS_S else "device"
             reason = "cost_model"
     _count(f"router.{op}.{choice}")
+    if _spans.TRACE_ON:
+        _spans.event(
+            "router.decide", "QUERY-COMPILER", op=op, n=n, choice=choice, reason=reason,
+            strategies=",".join(strategies), **{k: round(v, 6) for k, v in costs.items()},
+        )
     return {"choice": choice, "reason": reason, **costs}
 
 

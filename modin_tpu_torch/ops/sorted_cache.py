@@ -28,6 +28,7 @@ import weakref
 from typing import Any, Optional, Tuple
 
 from modin_tpu_torch.core import memory
+from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.views import registry as _registry
 
 
@@ -73,6 +74,7 @@ class SortedRep(_registry.DerivedArtifact):
                 col._sorted_rep = None
             freed = self.drop()
         if freed:
+            emit_metric("sortcache.spill", 1)
             _registry.count("view.spill")
             if col is not None:
                 _registry.invalidate_column(col, reason="pressure")
@@ -86,6 +88,7 @@ def _invalidate_locked(col: Any) -> int:
     if rep is None:
         return 0
     col._sorted_rep = None
+    emit_metric("sortcache.invalidate", 1)
     return memory.device_ledger.deregister(rep)
 
 
@@ -117,7 +120,10 @@ def get(col: Any) -> Optional[Tuple[Any, Any]]:
     """``(sorted values, n_valid)`` if ``col`` holds a current one."""
     with _registry.LOCK:
         rep = _live_rep_locked(col)
-        return None if rep is None else (rep._payload, rep.n_valid)
+        hit = None if rep is None else (rep._payload, rep.n_valid)
+    if hit is not None:
+        emit_metric("sortcache.hit", 1)
+    return hit
 
 
 def attach(col: Any, xs: Any, n_valid: Any) -> None:
@@ -127,6 +133,7 @@ def attach(col: Any, xs: Any, n_valid: Any) -> None:
         _invalidate_locked(col)
         memory.device_ledger.register(rep)
         col._sorted_rep = rep
+    emit_metric("sortcache.build", 1)
 
 
 def invalidate(col: Any) -> None:

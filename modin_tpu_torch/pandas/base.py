@@ -31,6 +31,7 @@ from pandas._libs.lib import no_default
 from pandas.api.types import is_bool_dtype, is_list_like, is_numeric_dtype
 from pandas.core.dtypes.common import is_integer
 
+from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.core.storage_formats.torch.query_compiler import (
     TorchQueryCompiler,
 )
@@ -50,7 +51,7 @@ _DEFAULT_BEHAVIOUR = {
 }
 
 
-class ModinAPI:
+class ModinAPI(ClassLogger, modin_layer="PANDAS-API"):
     """``obj.modin``: conversions specific to this package."""
 
     def __init__(self, data: Any) -> None:
@@ -61,7 +62,7 @@ class ModinAPI:
         return self._data._to_pandas()
 
 
-class BasePandasDataset:
+class BasePandasDataset(ClassLogger, modin_layer="PANDAS-API"):
     """Implementation of the operations common to DataFrame and Series."""
 
     _pandas_class = pandas.DataFrame

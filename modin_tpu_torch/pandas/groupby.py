@@ -23,11 +23,12 @@ import numpy as np
 import pandas
 from pandas.api.types import is_list_like
 
+from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.pandas.base import BasePandasDataset
 from modin_tpu_torch.utils import hashable
 
 
-class DataFrameGroupBy:
+class DataFrameGroupBy(ClassLogger, modin_layer="PANDAS-API"):
     def __init__(
         self,
         df: Any,

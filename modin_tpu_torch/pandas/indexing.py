@@ -23,6 +23,7 @@ import pandas
 from pandas.api.types import is_bool_dtype, is_list_like, is_scalar
 from pandas.core.dtypes.common import is_bool, is_integer
 
+from modin_tpu_torch.logging import ClassLogger
 
 
 def is_boolean_array(x: Any) -> bool:
@@ -45,7 +46,7 @@ class _FallbackToPandas(Exception):
     pass
 
 
-class _LocationIndexerBase:
+class _LocationIndexerBase(ClassLogger, modin_layer="PANDAS-API"):
     def __init__(self, modin_df: Any):
         self.df = modin_df
         self.qc = modin_df._query_compiler

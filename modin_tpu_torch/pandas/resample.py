@@ -11,10 +11,11 @@ from __future__ import annotations
 
 from typing import Any
 
+from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.utils import MODIN_UNNAMED_SERIES_LABEL
 
 
-class Resampler:
+class Resampler(ClassLogger, modin_layer="PANDAS-API"):
     def __init__(self, dataframe: Any, rule: Any, **kwargs: Any) -> None:
         self._dataframe = dataframe
         self.resample_kwargs = {"rule": rule, **kwargs}

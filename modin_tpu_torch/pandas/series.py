@@ -622,10 +622,35 @@ class Series(BasePandasDataset):
     # IO
     # ------------------------------------------------------------------ #
 
+    # pandas' ``//`` and ``%`` of int Series fill a zero divisor with
+    # +/-inf or NaN in float64; its flex methods (``floordiv``, ``mod``,
+    # ``divmod``) keep numpy's 0 there, so against a Series the operators
+    # take their own compiler methods
+    def __floordiv__(self, other: Any):
+        return self._division_operator("__floordiv__", other)
+
+    def __rfloordiv__(self, other: Any):
+        return self._division_operator("__rfloordiv__", other)
+
+    def __mod__(self, other: Any):
+        return self._division_operator("__mod__", other)
+
+    def __rmod__(self, other: Any):
+        return self._division_operator("__rmod__", other)
+
+    def _division_operator(self, dunder: str, other: Any):
+        if isinstance(other, (Series, pandas.Series)):
+            return self._binary_op(dunder, other, axis=0)
+        return getattr(self, dunder.strip("_"))(other)
+
     def __divmod__(self, other: Any):
+        if isinstance(other, (Series, pandas.Series)):
+            return self // other, self % other
         return self.divmod(other)
 
     def __rdivmod__(self, other: Any):
+        if isinstance(other, (Series, pandas.Series)):
+            return self.__rfloordiv__(other), self.__rmod__(other)
         return self.rdivmod(other)
 
     def __matmul__(self, other: Any):

@@ -13,9 +13,10 @@ from typing import Any
 import numpy as np
 import pandas
 
+from modin_tpu_torch.logging import ClassLogger
 
 
-class _AccessorBase:
+class _AccessorBase(ClassLogger, modin_layer="PANDAS-API"):
     _prefix = ""
 
     def __init__(self, series: Any) -> None:

@@ -16,6 +16,8 @@ from typing import Any
 
 import pandas
 
+from modin_tpu_torch.logging import ClassLogger
+
 _ROLLING_AGGS = [
     "count", "sum", "mean", "median", "var", "std", "min", "max", "skew",
     "kurt", "sem", "quantile", "rank",
@@ -32,7 +34,7 @@ def _other_arg(other: Any) -> Any:
     return other._query_compiler if isinstance(other, BasePandasDataset) else other
 
 
-class _Window:
+class _Window(ClassLogger, modin_layer="PANDAS-API"):
     """What the three window kinds share: the handle and the wrapping of a
     compiler result as the port's DataFrame or Series."""
 
@@ -198,7 +200,7 @@ class Ewm(_Window):
         return fallback
 
 
-class _GroupByWindow:
+class _GroupByWindow(ClassLogger, modin_layer="PANDAS-API"):
     """``df.groupby(...).rolling/expanding/ewm(...)``: every aggregation goes
     to the compiler's ``groupby_window``, which defaults to pandas (counted)
     as the JAX package's does.  The names are pandas' groupby window

@@ -31,6 +31,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.core import memory
 from modin_tpu_torch.core.execution import recovery
 from modin_tpu_torch.core.execution.resilience import DeviceLost, count, engine_call
@@ -50,7 +51,7 @@ def _arg_storages(f_args: Any) -> set:
     return keys
 
 
-class TorchWrapper:
+class TorchWrapper(ClassLogger, modin_layer="TORCH-ENGINE"):
     """Uniform engine API over eager torch and device tensors."""
 
     @classmethod

@@ -4,11 +4,14 @@ The port's counterpart of ``modin_tpu/plan/explain.py``.  ``qc.explain()``
 renders the logical plan before and after the rewrite pass and which rules
 fired on which pass; ``qc.explain(analyze=True)`` executes the plan and
 annotates every node with its measured wall time, rows, bytes and kernel
-launches.  Under ``MODIN_TPU_TORCH_OPT=Auto`` a materialized plan also
-shows each node's strategy legs with its estimated and measured wall, and the optimizer's re-plans.  The reference's cost
-suffix (estimated flops and bytes, padding, roofline share) reads a cost
-table the port does not have yet: the annotation says "no cost model" in
-its place.
+launches, and its cost: the bytes and operations its launches moved (from
+each kernel wrapper's shapes, ``observability/costs.py``), the bandwidth
+and the roofline fraction against the peaks measured on this device, over
+the launches' event time while tracing is on and over the node's wall
+(marked ``~host``) otherwise, and the padding share.  Under
+``MODIN_TPU_TORCH_OPT=Auto`` a materialized plan also shows each node's
+strategy legs with its estimated and measured wall, and the optimizer's
+re-plans.
 """
 
 from __future__ import annotations
@@ -34,6 +37,51 @@ def _fmt_bytes(n: Optional[int]) -> str:
     return f"{n}B"
 
 
+def _fmt_count(n: Optional[float]) -> str:
+    """Compact rendering of an operation count: 1234567 -> ``1.2M``."""
+    if n is None:
+        return "?"
+    n = float(n)
+    for scale, suffix in ((1e12, "T"), (1e9, "G"), (1e6, "M"), (1e3, "k")):
+        if n >= scale:
+            return f"{n / scale:.1f}{suffix}"
+    return f"{n:.0f}"
+
+
+def _cost_suffix(measured: dict) -> str:
+    """The cost leg of a node: the bytes and operations its launches moved,
+    the bandwidth and the roofline fraction over its launches' event time
+    (device clock) where events were on, else over the node's measured wall
+    (host clock, marked ``~host``: the wall includes the fetch that waits
+    for the card where the node's result comes to the host), and the
+    padding share.  ``cost=off`` when cost capture was off for the run."""
+    if "est_bytes" not in measured:
+        return " cost=off"
+    from modin_tpu_torch.observability import costs as _costs
+
+    est_flops, est_bytes = measured["est_flops"], measured["est_bytes"]
+    device = measured.get("device")
+    if device is not None and device["launches"]:
+        seconds, clock = device["device_ms"] / 1e3, ""
+    else:
+        seconds, clock = measured["total_s"], "~host"
+    padded = measured.get("padded_bytes", 0)
+    pad_pct = f"{measured.get('padding_waste_bytes', 0) / padded:.0%}" if padded > 0 else "0%"
+    bandwidth = roofline = "?"
+    if est_bytes > 0 and seconds > 0:
+        bandwidth = f"{est_bytes / seconds / 1e9:.1f}GB/s"
+        try:
+            fraction = _costs.roofline_fraction(est_flops or None, est_bytes, seconds)
+            if fraction is not None:
+                roofline = f"{fraction:.1%}"
+        except Exception:
+            pass
+    return (
+        f" moved={_fmt_bytes(int(est_bytes))} ops={_fmt_count(est_flops)} "
+        f"bw{clock}={bandwidth} padding={pad_pct} roofline{clock}={roofline}"
+    )
+
+
 def _actual_suffix(measured: Optional[dict]) -> str:
     """``(actual: ...)`` annotation of one analyzed node."""
     if measured is None:
@@ -45,7 +93,7 @@ def _actual_suffix(measured: Optional[dict]) -> str:
         f"self={measured['self_s'] * 1e3:.3f}ms "
         f"rows={'?' if rows is None else rows} "
         f"bytes={_fmt_bytes(measured.get('bytes'))} "
-        f"launches={measured['launches']} cost=no cost model)"
+        f"launches={measured['launches']}{_cost_suffix(measured)})"
     )
 
 

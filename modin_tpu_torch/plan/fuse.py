@@ -36,12 +36,15 @@ groupby tail, runs on the uncompacted rows:
 A decline (a key range wider than ``FUSED_MAX_GROUPS``, tables Auto leaves
 to the staged path, no kept row, an aggregation or a dtype the fused leg
 does not take) is the planner's own decision: the staged lowering proceeds,
-and ``DECLINES`` counts it.
+and ``DECLINES`` counts it (both also emitted, ``fuse.dispatch``/
+``fuse.decline``; a leg is a ``fuse.lower`` span, and the pow2 group table's
+padding is billed to the cost layer).
 
-Not ported yet: the storm feedback and pad buckets (the port's fused
-programs compile nothing per shape, and it has no launch ledger),
-``window_reduce_plan`` (streaming) and the serving context's donation rule
-(with ``serving/``); ROADMAP lists where each waits.
+Not ported yet: the storm feedback and pad buckets (the launch ledger now
+names the signatures that lower often, ``recompile_storms``; the feedback
+that re-buckets them waits), ``window_reduce_plan`` (streaming) and the
+serving context's donation rule (with ``serving/``); ROADMAP lists where
+each waits.
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import pandas
 
+from modin_tpu_torch.logging.metrics import emit_metric
+from modin_tpu_torch.observability import costs as _costs
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.ops import router
 from modin_tpu_torch.ops.route import decide_groupby  # noqa: F401  (the groupby gate of both legs)
 from modin_tpu_torch.plan.ir import Filter, GroupbyAgg, Map, PlanNode, Project, Reduce, Ref, Scan, Source, walk
@@ -197,16 +203,23 @@ def maybe_fuse(node: PlanNode, memo: Dict[int, Any], groupby: bool) -> Optional[
         qc_top, mask = _walk_masked(node.children[0], memo, {})
     except _Decline:
         DECLINES += 1
+        emit_metric("fuse.decline", 1)
         return None
     donate_cols = _donation_candidates(frame)
-    if groupby:
-        result = _fused_groupby(node, qc_top, mask, n, donate_cols)
-    else:
-        result = _fused_reduce(node, qc_top, mask, donate_cols)
+    with _spans.span("fuse.lower", "QUERY-COMPILER", signature=node.label(), rows=n,
+                     donated=len(donate_cols)) as sp:
+        if groupby:
+            result = _fused_groupby(node, qc_top, mask, n, donate_cols)
+        else:
+            result = _fused_reduce(node, qc_top, mask, donate_cols)
+        if sp is not None:
+            sp.attrs["fused"] = result is not None
     if result is None:
         DECLINES += 1
+        emit_metric("fuse.decline", 1)
         return None
     DISPATCHES += 1
+    emit_metric("fuse.dispatch", 1)
     return result
 
 
@@ -285,6 +298,11 @@ def _fused_groupby(node: GroupbyAgg, qc_top: Any, mask: Any, n: int, donate_cols
     if width > gb.FUSED_MAX_GROUPS:
         return None
     buckets = gb.fused_groups_bucket(width)
+    if _costs.COST_ON:
+        # the group table's slots rounded up to a power of two: one count
+        # row and two rows a value column, 8 bytes a slot
+        rows = 1 + 2 * len(value_pos)
+        _costs.note_padding("fuse.groupby.slots", rows * (buckets + 1) * 8, rows * (width + 1) * 8)
     any_float = any(frame._columns[i].pandas_dtype.kind == "f" for i in value_pos)
     if not decide_groupby(n, buckets + 1, agg, len(value_pos), any_float):
         return None

@@ -25,6 +25,10 @@ import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
+from modin_tpu_torch.logging.metrics import emit_metric
+from modin_tpu_torch.observability import compile_ledger as _ledger
+from modin_tpu_torch.observability import costs as _costs
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.plan.ir import (
     Filter,
     GroupbyAgg,
@@ -36,6 +40,7 @@ from modin_tpu_torch.plan.ir import (
     Scan,
     Sort,
     Source,
+    count_nodes,
 )
 
 _tls = threading.local()
@@ -89,7 +94,8 @@ def lower_traced(root: PlanNode, instrument: Optional[Dict[int, dict]] = None,
         optimizer.begin(strategies, root, memo)
         _tls.opt_active = True
     try:
-        result = _lower(root, memo)
+        with _spans.span("plan.lower", "QUERY-COMPILER", nodes=count_nodes(root)):
+            result = _lower(root, memo)
     finally:
         _tls.lowering = was_lowering
         if instrument is not None:
@@ -98,6 +104,7 @@ def lower_traced(root: PlanNode, instrument: Optional[Dict[int, dict]] = None,
         if strategies is not None:
             _tls.opt_active = False
             optimizer.end()
+    emit_metric("plan.lower.nodes", len(memo))
     return result, memo
 
 
@@ -123,9 +130,15 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
     stack.append(frame)
     t0 = time.perf_counter()
     l0 = kernel_launches()
+    # one COST_ON read: both deltas or neither
+    cost_on = _costs.COST_ON
+    c0 = _costs.thread_cost() if cost_on else None
+    p0 = _costs.thread_padding() if cost_on else None
+    acc = _ledger.push_device_acc() if cost_on else None
     try:
         result = _lower_node(node, memo)
     finally:
+        _ledger.pop_device_acc(acc)
         stack.pop()
         total_s = time.perf_counter() - t0
         total_launches = kernel_launches() - l0
@@ -134,13 +147,25 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
             stack[-1]["child_launches"] += total_launches
     if opt_active:
         optimizer.observe(node, total_s)
-    instrument[id(node)] = {
+    entry = {
         "total_s": total_s,
         "self_s": max(total_s - frame["child_s"], 0.0),
         "launches": max(total_launches - frame["child_launches"], 0),
         "rows": _result_rows(result),
         "bytes": _result_bytes(result),
     }
+    if c0 is not None:
+        # the bytes and operations the node's launches (its subtree's, as
+        # total_s) billed, and the padding it observed
+        c1, p1 = _costs.thread_cost(), _costs.thread_padding()
+        entry["est_flops"] = c1[0] - c0[0]
+        entry["est_bytes"] = c1[1] - c0[1]
+        entry["padded_bytes"] = p1[0] - p0[0]
+        entry["padding_waste_bytes"] = p1[1] - p0[1]
+        if acc is not None:
+            # the event times of the subtree's launches, once resolved
+            entry["device"] = acc
+    instrument[id(node)] = entry
     return result
 
 
@@ -205,17 +230,24 @@ def _lower_scan(node: Scan, memo: Dict[int, Any]) -> Any:
                 hit = cached[0]
                 break
     if hit is not None:
+        emit_metric("plan.scan.cache_hit", 1)
         return hit if need is None else hit.getitem_column_array(list(need))
+    if need is not None:
+        emit_metric("plan.scan.pruned_columns", len(node.all_columns) - len(node.pruned))
     qc = node.dispatcher.read(**scan_read_kwargs(node))
     budget = int(PlanScanCacheBytes.get())
     if origin.cache is not None and budget > 0:
         nbytes = _result_bytes(qc) or 0
+        evicted = 0
         with _SCAN_CACHE_LOCK:
             origin.cache[need] = (qc, nbytes)
             total = sum(b for _qc, b in origin.cache.values())
             while total > budget and origin.cache:
                 _dropped, dropped_bytes = origin.cache.pop(next(iter(origin.cache)))
                 total -= dropped_bytes
+                evicted += 1
+        if evicted:
+            emit_metric("plan.scan.cache_evict", evicted)
     return qc
 
 

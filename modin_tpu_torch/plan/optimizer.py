@@ -59,6 +59,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Set, Tuple
 
+from modin_tpu_torch.logging.metrics import emit_metric
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.ops import calibration as calstore
 from modin_tpu_torch.ops import router
 from modin_tpu_torch.plan.ir import Filter, GroupbyAgg, Map, PlanNode, Project, Reduce, Scan, Sort, Source, walk
@@ -353,27 +355,30 @@ def choose(root: PlanNode, state: Optional[PlanStrategies] = None,
     """Annotate every node with its strategy legs.  With ``state`` it is a
     re-plan: the nodes not in ``exclude`` (the already-lowered ones) are
     re-chosen in place under the accumulated correction."""
+    replanning = state is not None
     if state is None:
         state = PlanStrategies()
         state.root = root
         state.priors = _resolve_priors()
     exclude = exclude or set()
-    table = router.calibration_peek()
-    est = _estimate_nodes(root, state.priors, state.correction, table)
-    for node in walk(root):
-        if id(node) in exclude:
-            continue
-        st = state.by_node.get(id(node))
-        if st is None:
-            st = state.by_node[id(node)] = NodeStrategy(node)
-        entry = est.get(id(node), {})
-        st.est_rows = entry.get("rows")
-        st.est_bytes = entry.get("bytes")
-        st.est_s = float(entry.get("s") or 0.0)
-        # the legs are chosen over the node's input (a reduction's own
-        # output is one row, which decides nothing)
-        child_entry = est.get(id(node.children[0]), {}) if node.children else {}
-        _choose_node(node, st, table, child_entry)
+    with _spans.span("opt.choose", "QUERY-COMPILER", replanning=replanning):
+        table = router.calibration_peek()
+        est = _estimate_nodes(root, state.priors, state.correction, table)
+        for node in walk(root):
+            if id(node) in exclude:
+                continue
+            st = state.by_node.get(id(node))
+            if st is None:
+                st = state.by_node[id(node)] = NodeStrategy(node)
+            entry = est.get(id(node), {})
+            st.est_rows = entry.get("rows")
+            st.est_bytes = entry.get("bytes")
+            st.est_s = float(entry.get("s") or 0.0)
+            # the legs are chosen over the node's input (a reduction's own
+            # output is one row, which decides nothing)
+            child_entry = est.get(id(node.children[0]), {}) if node.children else {}
+            _choose_node(node, st, table, child_entry)
+    emit_metric("opt.choose", 1)
     return state
 
 
@@ -502,6 +507,9 @@ def _replan(state: PlanStrategies, trigger: str, key: Any, **attrs: Any) -> bool
         "replan_s": round(time.perf_counter() - t0, 6),
     })
     REPLANS[trigger] = REPLANS.get(trigger, 0) + 1
+    emit_metric(f"opt.replan.{trigger}", 1)
+    if _spans.TRACE_ON:
+        _spans.event("opt.replan", "QUERY-COMPILER", **state.replans[-1])
     return True
 
 

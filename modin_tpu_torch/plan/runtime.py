@@ -27,6 +27,10 @@ from typing import Any, Optional, Tuple
 
 import pandas
 
+from modin_tpu_torch.logging.metrics import emit_metric
+from modin_tpu_torch.observability import compile_ledger as _compile_ledger
+from modin_tpu_torch.observability import meters as _meters
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.plan import lowering
 from modin_tpu_torch.plan.ir import (
     MAX_PLAN_DEPTH,
@@ -40,6 +44,7 @@ from modin_tpu_torch.plan.ir import (
     Scan,
     Sort,
     Source,
+    count_nodes,
 )
 from modin_tpu_torch.plan.rules import optimize
 from modin_tpu_torch.utils import MODIN_UNNAMED_SERIES_LABEL
@@ -108,6 +113,7 @@ def defer_read(dispatcher: type, kwargs: dict) -> Optional[Any]:
     except Exception:  # any sniff failure: not deferrable, the eager read raises
         return None
     scan = Scan(dispatcher, dict(kwargs), columns, colarg="usecols")
+    emit_metric("plan.defer.scan", 1)
     return dispatcher.query_compiler_cls.from_plan(scan)
 
 
@@ -317,7 +323,14 @@ def _optimize_and_lower(qc: Any, root: PlanNode, instrument: Optional[dict] = No
     ``OptMode=Auto``, the optimizer's strategies and re-plans) on ``qc``."""
     from modin_tpu_torch.plan import optimizer
 
-    optimized, applied = optimize(root)
+    with _spans.span("plan.optimize", "QUERY-COMPILER", nodes=count_nodes(root)) as sp:
+        optimized, applied = optimize(root)
+        passes = (applied[-1][1] + 1) if applied else 1
+        if sp is not None:
+            sp.attrs["passes"] = passes
+    emit_metric("plan.optimize.passes", passes)
+    for name, _pass_index in applied:
+        emit_metric(f"plan.rule.{name}", 1)
     strategies = optimizer.choose(optimized) if optimizer.OPT_ON else None
     result, memo = lowering.lower_traced(optimized, instrument=instrument, strategies=strategies)
     qc._plan_explain = (root, optimized, applied)
@@ -343,7 +356,12 @@ def explain_analyze(qc: Any) -> Optional[Tuple[dict, Any]]:
             return None
         root = history[0]
     instrument: dict = {}
-    result, _memo = _optimize_and_lower(qc, root, instrument=instrument)
+    # a meter scope: accounting (and, under Auto, cost capture) is on for
+    # the run, so each node bills the bytes and operations of its launches
+    with _meters.query_stats("explain.analyze"):
+        result, _memo = _optimize_and_lower(qc, root, instrument=instrument)
+    # the nodes' launch events (while tracing is on), with one synchronize
+    _compile_ledger.resolve_events()
     if pending:
         qc._frame = result._modin_frame
         qc._plan = None

@@ -21,6 +21,7 @@ from __future__ import annotations
 import weakref
 from typing import Any, List, Optional
 
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.views import incremental, registry
 
 _KIND = "groupby"
@@ -202,6 +203,17 @@ def groupby_consult(qc, by, agg_func, groupby_kwargs, agg_kwargs, drop, series_g
 
 def _fold(qc, by, agg_func, groupby_kwargs, agg_kwargs, drop, series_groupby, selection,
           positions, fp, state, idents, anchor):
+    n0 = state.get("n")
+    with _spans.span(
+        "view.fold", "QUERY-COMPILER", op=f"groupby.{agg_func}", cols=len(positions),
+        base=n0, tail=len(qc._modin_frame) - n0 if n0 is not None else None,
+    ):
+        return _fold_groups(qc, by, agg_func, groupby_kwargs, agg_kwargs, drop, series_groupby, selection,
+                            positions, fp, state, idents, anchor)
+
+
+def _fold_groups(qc, by, agg_func, groupby_kwargs, agg_kwargs, drop, series_groupby, selection,
+                 positions, fp, state, idents, anchor):
     from modin_tpu_torch.config import ViewsMaxGroups
     from modin_tpu_torch.core.dataframe.torch.dataframe import DeviceColumn, TorchDataframe
 

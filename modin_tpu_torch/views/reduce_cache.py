@@ -21,6 +21,7 @@ from typing import Any, List, Optional
 
 import numpy as np
 
+from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.views import incremental, registry
 
 
@@ -83,34 +84,16 @@ def _fold_reduces(
 ) -> None:
     """Reduce each fold column's tail and combine it with its cached prefix;
     the columns of one base length reduce together."""
-    from modin_tpu_torch.ops import reductions
-
     by_base: dict = {}
     for i, state, base in folds:
         by_base.setdefault(base, []).append((i, state))
     for base, group in by_base.items():
         n_tail = n - base
         idxs = [i for i, _ in group]
-        tail_values = tail_counts = base_counts = None
-        if n_tail:
-            tails = [datas[i][base:n] for i in idxs]
-            tail_values = reductions.reduce_columns(
-                op, tails, n_tail, skipna=skipna, ddof=ddof, cast_bool=cast_bool,
+        with _spans.span("view.fold", "QUERY-COMPILER", op=op, cols=len(idxs), base=base, tail=n_tail):
+            tail_values, tail_counts, base_counts = _reduce_tails(
+                op, cols, datas, n, skipna, ddof, cast_bool, group, idxs, base, n_tail
             )
-            if op == "mean":
-                need_k = [j for j, i in enumerate(idxs) if _mean_k(cols[i], n_tail, skipna) is None]
-                if need_k:
-                    counted = reductions.reduce_columns("count", [tails[j] for j in need_k], n_tail, skipna=True)
-                    tail_counts = dict(zip(need_k, counted))
-                # the prefix's valid counts the cold query did not pay for:
-                # rows [0, base) are the ancestor's rows, and the count is
-                # written back to the ancestor so later folds skip it
-                need_k0 = [j for j, (_i, st) in enumerate(group) if st.get("k") is None]
-                if need_k0:
-                    counted0 = reductions.reduce_columns(
-                        "count", [datas[idxs[j]][:base] for j in need_k0], base, skipna=True
-                    )
-                    base_counts = dict(zip(need_k0, counted0))
         for j, (i, state) in enumerate(group):
             if tail_values is None:
                 new_state = dict(state)  # an empty tail: the prefix's answer
@@ -131,6 +114,35 @@ def _fold_reduces(
                 cols[i], "reduce", params, new_state, can_fold=True, host_bytes=64, folded=True,
                 source=datas[i],
             )
+
+
+def _reduce_tails(op, cols, datas, n, skipna, ddof, cast_bool, group, idxs, base, n_tail):
+    """The tail's reductions of one fold group, and the valid counts a mean
+    needs: ``(tail_values, tail_counts, base_counts)``, Nones for an empty
+    tail."""
+    from modin_tpu_torch.ops import reductions
+
+    tail_values = tail_counts = base_counts = None
+    if n_tail:
+        tails = [datas[i][base:n] for i in idxs]
+        tail_values = reductions.reduce_columns(
+            op, tails, n_tail, skipna=skipna, ddof=ddof, cast_bool=cast_bool,
+        )
+        if op == "mean":
+            need_k = [j for j, i in enumerate(idxs) if _mean_k(cols[i], n_tail, skipna) is None]
+            if need_k:
+                counted = reductions.reduce_columns("count", [tails[j] for j in need_k], n_tail, skipna=True)
+                tail_counts = dict(zip(need_k, counted))
+            # the prefix's valid counts the cold query did not pay for:
+            # rows [0, base) are the ancestor's rows, and the count is
+            # written back to the ancestor so later folds skip it
+            need_k0 = [j for j, (_i, st) in enumerate(group) if st.get("k") is None]
+            if need_k0:
+                counted0 = reductions.reduce_columns(
+                    "count", [datas[idxs[j]][:base] for j in need_k0], base, skipna=True
+                )
+                base_counts = dict(zip(need_k0, counted0))
+    return tail_values, tail_counts, base_counts
 
 
 # ---------------------------------------------------------------------- #

@@ -47,10 +47,10 @@ the column still holds the tensor the caller read, so a spill (or any
 buffer change) between lookup and commit makes the commit a no-op instead
 of a stale write.
 
-Counts are plain integers in :data:`COUNTS` under the JAX package's metric
-names (``view.hit``, ``view.fold``, ``view.miss``, ``view.build``,
-``view.evict``, ``view.spill``, ``view.chain_compact`` and
-``view.invalidate.<reason>``), as ``core/memory.py`` counts its spills.
+Events are emitted under the JAX package's metric names (``view.hit``,
+``view.fold``, ``view.miss``, ``view.build``, ``view.evict``,
+``view.spill``, ``view.chain_compact`` and ``view.invalidate.<reason>``)
+through ``logging/metrics.py``'s always-on tally; :data:`COUNTS` reads it.
 Every artifact is stamped with the device epoch of
 ``core/execution/recovery.py``: a re-seat pass bumps it, so no artifact
 built before a device loss answers after it, and the pass drops the
@@ -65,26 +65,20 @@ import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
+from modin_tpu_torch.logging.metrics import CountView, emit_counted
+
 #: the derived-cache lock (reentrant: a ledger spill drops artifacts under
 #: it, and the sorted-representation shim re-enters through invalidation)
 LOCK = threading.RLock()
 
-#: events by the JAX package's metric names
-COUNTS: Dict[str, int] = {
-    "view.hit": 0,
-    "view.miss": 0,
-    "view.fold": 0,
-    "view.build": 0,
-    "view.evict": 0,
-    "view.spill": 0,
-    "view.chain_compact": 0,
-}
-_COUNT_LOCK = threading.Lock()
+#: events by the JAX package's metric names: a read of the metric layer's
+#: tally
+COUNTS = CountView(
+    prefixes=("view.",),
+    names=("view.hit", "view.miss", "view.fold", "view.build", "view.evict", "view.spill", "view.chain_compact"),
+)
 
-
-def count(name: str, value: int = 1) -> None:
-    with _COUNT_LOCK:
-        COUNTS[name] = COUNTS.get(name, 0) + int(value)
+count = emit_counted
 
 
 _token_counter = 0

@@ -25,6 +25,7 @@ a build error that must propagate.  ``RecoveryMode`` is Disable here, as in
 
 import collections
 import re
+import threading
 import time
 
 import numpy as np
@@ -90,6 +91,17 @@ def _clean_state():
         p.put(v)
     jres.reset_breakers()
     tres.reset_breakers()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _join_jax_watchdog_threads():
+    """Let the JAX package's watchdog threads, wedged on purpose by the
+    tests here, end before the next test file runs in this worker
+    (``tests/test_watch.py`` counts threads)."""
+    yield
+    for t in threading.enumerate():
+        if t.name.startswith("modin-tpu-watchdog"):
+            t.join(timeout=5)
 
 
 @pytest.fixture

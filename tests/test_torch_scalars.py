@@ -164,3 +164,98 @@ def test_a_comparison_with_an_out_of_range_int_compiles_apart():
     big = lazy.materialize(ew.binary_op_columns("eq", [s], 300)[0])
     assert small.tolist() == [True, False, False, False, False]
     assert big.tolist() == [False] * 5
+
+
+# ---------------------------------------------------------------------- #
+# Series // and % by an int Series holding a zero
+# ---------------------------------------------------------------------- #
+
+INT_WIDTHS = ["int8", "int16", "int32", "int64", "uint8", "uint16", "uint32", "uint64"]
+DIVIDENDS = [5, -3, 0, 7, 4, 0, -9]
+DIVISORS = [0, 0, 0, 2, 0, 3, -4]
+
+
+def _int_pair(dtype: str):
+    signed = np.dtype(dtype).kind == "i"
+    a = np.array([v if signed else abs(v) for v in DIVIDENDS], dtype=dtype)
+    z = np.array([v if signed else abs(v) for v in DIVISORS], dtype=dtype)
+    return pandas.Series(a, name="a"), pandas.Series(z, name="z")
+
+
+# the reflected forms divide by ``a`` (``z // a``), whose zero is the third row
+OPERATORS = {
+    "floordiv": lambda a, z: a // z,
+    "mod": lambda a, z: a % z,
+    "rfloordiv": lambda a, z: a.__rfloordiv__(z),
+    "rmod": lambda a, z: a.__rmod__(z),
+}
+
+
+@pytest.mark.parametrize("other", ["port", "pandas"])
+@pytest.mark.parametrize("op", sorted(OPERATORS))
+@pytest.mark.parametrize("dtype", INT_WIDTHS)
+def test_int_division_operator_by_a_zero_follows_pandas(dtype, op, other):
+    """``s // z`` and ``s % z`` give pandas' operator result: float64 with
+    +/-inf and NaN at each zero divisor, on the device (no default) for the
+    widths the port keeps there (uint16-uint64 columns stay on the host,
+    where pandas' operator answers)."""
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    a, z = _int_pair(dtype)
+    want = OPERATORS[op](a, z)
+    assert want.dtype == np.float64
+    ma = mpd.Series(a)
+    mz = mpd.Series(z) if other == "port" else z
+    defaults = tqc.DEFAULTS_TO_PANDAS
+    got = OPERATORS[op](ma, mz)
+    on_device = ma._query_compiler._modin_frame._columns[0].is_device
+    assert on_device == (dtype not in ("uint16", "uint32", "uint64"))
+    assert tqc.DEFAULTS_TO_PANDAS - defaults == (0 if on_device else 1)
+    _assert_same(got._to_pandas(), want)
+
+
+@pytest.mark.parametrize("dtype", INT_WIDTHS)
+def test_int_divmod_by_a_zero_follows_pandas(dtype):
+    a, z = _int_pair(dtype)
+    ma, mz = mpd.Series(a), mpd.Series(z)
+    for got, want in zip(divmod(ma, mz), divmod(a, z)):
+        _assert_same(got._to_pandas(), want)
+    for got, want in zip(divmod(ma, z), divmod(a, z)):
+        _assert_same(got._to_pandas(), want)
+
+
+@pytest.mark.parametrize("dtype", INT_WIDTHS)
+def test_int_division_operator_with_no_zero_keeps_the_int_dtype(dtype):
+    a, _ = _int_pair(dtype)
+    z = pandas.Series(np.array([1, 2, 3, 4, 5, 6, 7], dtype=dtype), name="z")
+    ma, mz = mpd.Series(a), mpd.Series(z)
+    for got, want in ((ma // mz, a // z), (ma % mz, a % z)):
+        assert want.dtype == np.dtype(dtype)
+        _assert_same(got._to_pandas(), want)
+
+
+@pytest.mark.parametrize("dtype", INT_WIDTHS)
+def test_int_flex_division_by_a_zero_keeps_pandas_flex_result(dtype):
+    """pandas' flex methods leave numpy's 0 at a zero divisor and keep the
+    int dtype, unlike its operators; the port keeps both."""
+    a, z = _int_pair(dtype)
+    ma, mz = mpd.Series(a), mpd.Series(z)
+    for name in ("floordiv", "mod", "rfloordiv", "rmod"):
+        want = getattr(a, name)(z)
+        assert want.dtype.kind in "iu"
+        _assert_same(getattr(ma, name)(mz)._to_pandas(), want)
+    for got, want in zip(ma.divmod(mz), a.divmod(z)):
+        _assert_same(got._to_pandas(), want)
+
+
+def test_the_jax_package_gives_the_flex_result_for_the_operator():
+    """A known difference (ROADMAP Queue 3, item 6): the JAX package answers
+    ``s // z`` and ``s % z`` with pandas' flex result; the port follows
+    pandas' operator."""
+    import modin_tpu.pandas as jpd
+
+    a, z = _int_pair("int64")
+    ja, jz = jpd.Series(a), jpd.Series(z)
+    _assert_same((ja // jz)._to_pandas(), a.floordiv(z))
+    _assert_same((ja % jz)._to_pandas(), a.mod(z))
+    _assert_same((mpd.Series(a) // mpd.Series(z))._to_pandas(), a // z)
