@@ -5,10 +5,10 @@
                           [--float-rows N] [--io-rows N] [--window-rows N]
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
                           [--memory-rows N] [--views-rows N] [--views-time-rows N]
-                          [--robust-cost-rows N] [--trace-rows N] [--seed S]
-                          [--parent-checkout DIR]
+                          [--robust-cost-rows N] [--trace-rows N] [--stream-rows N]
+                          [--stream-sort-rows N] [--seed S] [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory,views,robust,trace]
+                                    memory,views,robust,trace,stream]
 
 Phases, one JSON object per line each:
 
@@ -326,6 +326,25 @@ Phases, one JSON object per line each:
              ``TraceDir``.  An ``{"observability": ...}`` line follows the
              resilience line, and each kernel's entry of the kernels line
              carries its ledger.
+19. stream - out-of-core streaming (``phase_stream``): (a) a
+             ``--stream-rows`` (5e6) CSV of ``i`` (int64 over 2e9), ``f``
+             (float64, 20 % NaN) and ``k`` (1000 keys) under a 128 MiB
+             ``DeviceMemoryBudget`` (``StreamMode`` Auto): a filtered sum and
+             mean and a filtered grouped sum and mean, each streamed in
+             windows, against the resident port (no budget) and pandas (ints
+             exactly, floats to 1e-12 of the magnitudes they sum), with the
+             windows, the prefetch's overlap and wait seconds, the device
+             peak against the budget plus one window's working set, and the
+             launch ledger's launches (bincount, groupagg and fused each
+             above 0); (b) ``sort_values`` of a ``--stream-sort-rows`` (5e6)
+             frame by an int64 key with ties and by a float64 key with NaN,
+             in both directions, under 64 MiB, external against resident
+             and pandas, exactly; (c) an inner and a left ``merge`` of half
+             by a tenth of ``--stream-rows`` with misses under 32 MiB; (d) a
+             device loss injected into window 3 of a 2e6-row stream under 32
+             MiB, past the seams, raising and replaying that one window;
+             each part's ``port_ms``, ``resident_ms`` and ``pandas_ms``, and
+             ``defaults_to_pandas`` 0.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -359,7 +378,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory", "views", "robust", "trace")
+              "formats", "memory", "views", "robust", "trace", "stream")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -5792,6 +5811,341 @@ def phase_trace(rows: int, seed: int, workdir: str) -> dict:
     return launches, record
 
 
+# ---------------------------------------------------------------------- #
+# 19. stream: out-of-core windows, the external sort and the merge-join
+# ---------------------------------------------------------------------- #
+
+# The phase's sizes were cut from 1e7 CSV rows under 256 MiB, a 4e7-row sort
+# under 512 MiB and a 1e7 x 2e6 merge under 128 MiB (182.2 s of phase on an
+# H100 host, pandas' sorts 60 s of it) to an eighth of the sort and half of
+# the rest, each budget cut with its data so that every query still streams
+#: (a)'s device budget: under the 5e6-row CSV's 154 MB (``i`` spans 2e9 so
+#: that its text passes the budget), over one window
+STREAM_BUDGET_BYTES = 128 << 20
+#: (b)'s budget, under the 5e6-row sorted frame's 4 x 8 bytes a row
+STREAM_SORT_BUDGET_BYTES = 64 << 20
+#: (c)'s budget, under the two frames' 16 bytes a row
+STREAM_MERGE_BUDGET_BYTES = 32 << 20
+STREAM_KEYS = 1000
+#: (d)'s CSV rows, its budget (under the 74 MB CSV), and the window whose
+#: consume loses the device
+STREAM_LOSS_ROWS = 2 * 10**6
+STREAM_LOSS_BUDGET_BYTES = 32 << 20
+STREAM_LOSS_WINDOW = 3
+# the queries of (a) over the CSV's i (int64), f (float64, 20 % NaN) and k
+STREAM_QUERIES = {
+    "filtered_sum": lambda m: m[m["i"] > 0][["f", "i"]].sum(),
+    "filtered_mean": lambda m: m[m["i"] > 0][["f", "i"]].mean(),
+    "grouped_sum": lambda m: m[m["i"] > 0].groupby("k").sum(),
+    "grouped_mean": lambda m: m[m["i"] > 0].groupby("k").mean(),
+}
+# each query's scale of rounding: sums of magnitudes, means of magnitudes
+STREAM_SCALES = {
+    "filtered_sum": lambda p: p[p["i"] > 0][["f", "i"]].abs().sum(),
+    "filtered_mean": lambda p: p[p["i"] > 0][["f", "i"]].abs().mean(),
+    "grouped_sum": lambda p: p[p["i"] > 0].abs().assign(k=p["k"]).groupby("k").sum(),
+    "grouped_mean": lambda p: p[p["i"] > 0].abs().assign(k=p["k"]).groupby("k").mean(),
+}
+
+
+def stream_columns(rows: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed + 90)
+    return {"i": rng.integers(-10**9, 10**9, rows),
+            "f": np.where(rng.random(rows) < 0.2, np.nan, rng.standard_normal(rows)),
+            "k": rng.integers(0, STREAM_KEYS, rows)}
+
+
+def _stream_same(got, want, what: str, scale=None) -> None:
+    """Labels, dtypes, ints and NaN positions exactly; floats exactly, or,
+    where sums reorder across windows, to 1e-12 of ``scale`` (the sum or
+    mean of the magnitudes, per column or group)."""
+    import pandas
+
+    if isinstance(want, pandas.Series):
+        got, want = got.to_frame(), want.to_frame()
+        scale = None if scale is None else scale.to_frame()
+    if not got.index.equals(want.index) or list(got.columns) != list(want.columns):
+        raise AssertionError(f"{what}: index or columns differ")
+    for j, label in enumerate(want.columns):
+        g, w = got.iloc[:, j], want.iloc[:, j]
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{what}[{label}]: dtype {g.dtype} != {w.dtype}")
+        if w.dtype.kind != "f" or scale is None:
+            assert_same_values(g.to_numpy(), w.to_numpy(), f"{what}[{label}]", exact=True)
+            continue
+        gv, wv = g.to_numpy(np.float64), w.to_numpy(np.float64)
+        if not np.array_equal(np.isnan(gv), np.isnan(wv)):
+            raise AssertionError(f"{what}[{label}]: NaN positions differ")
+        bound = FLOAT_RTOL * scale.iloc[:, j].to_numpy(np.float64)
+        ok = np.isnan(wv) | (np.abs(gv - wv) <= bound)
+        if not ok.all():
+            raise AssertionError(f"{what}[{label}]: values beyond 1e-12 of their magnitudes")
+
+
+def _stream_marks() -> dict:
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.streaming import executor
+
+    counts = {k: executor.COUNTS.get(k, 0) for k in ("stream.window.count", "stream.window.replay",
+                                                     "stream.prefetch.overlap_s", "stream.prefetch.wait_s",
+                                                     "stream.spill.run_bytes", "stream.degrade")}
+    counts["fallbacks"] = resilience.fallback_count()
+    counts["defaults"] = tqc.DEFAULTS_TO_PANDAS
+    return counts
+
+
+def _stream_delta(before: dict) -> dict:
+    after = _stream_marks()
+    return {k.replace("stream.", "").replace("prefetch.", "").replace(".", "_"): after[k] - before[k]
+            for k in before}
+
+
+def _streamed(fn, budget: int, what: str) -> tuple:
+    """``fn()`` under ``budget`` (``StreamMode`` Auto): (result, wall ms, its
+    stream counts, the device peak).  The peak leaves out what the device
+    ledger did not hold when the query started (earlier phases' tensors the
+    collector has not reached), so it is the ledger's residents, which the
+    budget bounds, and the query's own working set."""
+    import torch
+
+    from modin_tpu_torch.config import DeviceMemoryBudget
+    from modin_tpu_torch.core import memory
+
+    with DeviceMemoryBudget.context(budget):
+        # the ledger within the budget first: the resident reference run of
+        # an earlier case restored the inputs with no budget
+        memory.device_ledger.admit(0)
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        untracked = max(torch.cuda.memory_allocated() - memory.device_ledger.total_bytes(), 0)
+        marks = _stream_marks()
+        out, ms = host_ms(fn)
+    counts = _stream_delta(marks)
+    peak = torch.cuda.max_memory_allocated() - untracked
+    if counts["window_count"] <= 0:
+        raise AssertionError(f"{what}: the residency router kept it resident under {budget} bytes")
+    if counts["fallbacks"] or counts["defaults"]:
+        raise AssertionError(f"{what}: {counts['fallbacks']} fallbacks, {counts['defaults']} defaults to pandas")
+    return out, ms, counts, peak
+
+
+def _peak_bound(budget: int) -> int:
+    """The budget plus one window's launch: by the window sizing a window's
+    device working set is at most ``budget / (1 + prefetch)``."""
+    from modin_tpu_torch.config import StreamPrefetch
+
+    return budget + budget // (1 + int(StreamPrefetch.get()))
+
+
+def stream_pipeline(rows: int, seed: int, workdir: str) -> dict:
+    """(a): the window loop over a ``rows``-row CSV under
+    ``STREAM_BUDGET_BYTES``, each query against the resident port (no
+    budget) and pandas, in a ``query_stats`` scope whose launch ledger
+    counts each kernel's launches."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.observability import compile_ledger, meters
+
+    path = os.path.join(workdir, "stream.csv")
+    t0 = time.perf_counter()
+    write_csv(path, stream_columns(rows, seed))
+    csv_s = time.perf_counter() - t0
+    ledger = compile_ledger.get_compile_ledger()
+    before = {k: v["launches"] for k, v in ledger.launch_snapshot().items()}
+    queries = {}
+    with meters.query_stats("stream") as stats:
+        for name, query in STREAM_QUERIES.items():
+            got, ms, counts, peak = _streamed(lambda: tpd.to_pandas(query(tpd.read_csv(path))),
+                                              STREAM_BUDGET_BYTES, name)
+            queries[name] = {"port_ms": ms, "peak_bytes": peak, **counts}
+            if peak > _peak_bound(STREAM_BUDGET_BYTES):
+                raise AssertionError(f"{name}: device peak {peak} past the budget plus one window")
+            queries[name]["got"] = got
+    launches = {k: v["launches"] - before.get(k, 0) for k, v in ledger.launch_snapshot().items()}
+    for kernel in ("bincount", "groupagg", "fused"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"the streamed queries never launched {kernel}: {launches}")
+    t0 = time.perf_counter()
+    md = tpd.read_csv(path)
+    md._query_compiler._modin_frame
+    resident_read_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pdf = pandas.read_csv(path)
+    pandas_read_ms = (time.perf_counter() - t0) * 1e3
+    for name, query in STREAM_QUERIES.items():
+        got = queries[name].pop("got")
+        resident, ms = host_ms(lambda: tpd.to_pandas(query(md)))
+        want, pandas_ms = host_ms(lambda: query(pdf))
+        scale = STREAM_SCALES[name](pdf)
+        _stream_same(got, resident, f"{name} (streamed vs resident)", scale)
+        _stream_same(got, want, f"{name} (streamed vs pandas)", scale)
+        queries[name].update(resident_ms=resident_read_ms + ms, pandas_ms=pandas_read_ms + pandas_ms)
+    del md, pdf
+    return {"rows": rows, "budget_bytes": STREAM_BUDGET_BYTES, "peak_bound_bytes": _peak_bound(STREAM_BUDGET_BYTES),
+            "csv_bytes": os.path.getsize(path), "csv_s": csv_s, "queries": queries, "launches": launches,
+            "stats": {k: stats.as_dict()[k] for k in ("stream_windows", "stream_replays", "stream_overlap_s",
+                                                    "stream_wait_s", "bytes_parsed", "hbm_high_water")}}
+
+
+def stream_sort(rows: int, seed: int) -> dict:
+    """(b): ``sort_values`` of a ``rows``-row frame (an int64 key with ties,
+    a float64 key with 5 % NaN, an int64 and a float64 payload) by each key
+    in both directions under ``STREAM_SORT_BUDGET_BYTES``: the external
+    sort against the resident port's (no budget) and pandas' stable sort,
+    exactly."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import DeviceMemoryBudget, StreamMode
+
+    rng = np.random.default_rng(seed + 91)
+    kf = rng.integers(0, max(rows // 8, 1), rows).astype(np.float64) * 0.5
+    kf[rng.random(rows) < 0.05] = np.nan
+    pdf = pandas.DataFrame({"ki": rng.integers(0, max(rows // 16, 1), rows), "kf": kf,
+                            "p": rng.integers(-10**9, 10**9, rows), "q": rng.standard_normal(rows)})
+    with DeviceMemoryBudget.context(STREAM_SORT_BUDGET_BYTES):
+        md = tpd.DataFrame(pdf)  # made under the budget, as a user's would be
+    cases = {}
+    for key in ("ki", "kf"):
+        for ascending in (True, False):
+            name = f"{key}_{'asc' if ascending else 'desc'}"
+            got, ms, counts, peak = _streamed(lambda: tpd.to_pandas(md.sort_values(key, ascending=ascending)),
+                                              STREAM_SORT_BUDGET_BYTES, name)
+            if peak > _peak_bound(STREAM_SORT_BUDGET_BYTES):
+                raise AssertionError(f"sort {name}: device peak {peak} past the budget plus one window")
+            with StreamMode.context("Resident"):
+                resident, resident_ms = host_ms(lambda: tpd.to_pandas(md.sort_values(key, ascending=ascending)))
+            want, pandas_ms = host_ms(lambda: pdf.sort_values(key, ascending=ascending, kind="stable"))
+            _stream_same(got, resident, f"sort {name} (external vs resident)")
+            _stream_same(got, want, f"sort {name} (external vs pandas)")
+            cases[name] = {"port_ms": ms, "resident_ms": resident_ms, "pandas_ms": pandas_ms, "peak_bytes": peak,
+                           **counts}
+            del got, resident, want
+    del md, pdf
+    return {"rows": rows, "budget_bytes": STREAM_SORT_BUDGET_BYTES,
+            "peak_bound_bytes": _peak_bound(STREAM_SORT_BUDGET_BYTES), "cases": cases}
+
+
+def stream_merge(left_rows: int, right_rows: int, seed: int) -> dict:
+    """(c): an inner and a left ``merge`` of ``left_rows`` x ``right_rows``
+    (int64 keys in twice the right side's range: ties and misses) under
+    ``STREAM_MERGE_BUDGET_BYTES``, against the resident port's merge (no
+    budget) and pandas', exactly."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import DeviceMemoryBudget, StreamMode
+
+    rng = np.random.default_rng(seed + 92)
+    left = pandas.DataFrame({"k": rng.integers(0, 2 * right_rows, left_rows),
+                             "lv": rng.integers(0, 1000, left_rows)})
+    right = pandas.DataFrame({"k": rng.integers(0, 2 * right_rows, right_rows),
+                              "rv": rng.standard_normal(right_rows)})
+    with DeviceMemoryBudget.context(STREAM_MERGE_BUDGET_BYTES):
+        ml, mr = tpd.DataFrame(left), tpd.DataFrame(right)
+    cases = {}
+    for how in ("inner", "left"):
+        got, ms, counts, peak = _streamed(lambda: tpd.to_pandas(ml.merge(mr, on="k", how=how)),
+                                          STREAM_MERGE_BUDGET_BYTES, how)
+        if peak > _peak_bound(STREAM_MERGE_BUDGET_BYTES):
+            raise AssertionError(f"merge {how}: device peak {peak} past the budget plus one window")
+        with StreamMode.context("Resident"):
+            resident, resident_ms = host_ms(lambda: tpd.to_pandas(ml.merge(mr, on="k", how=how)))
+        want, pandas_ms = host_ms(lambda: left.merge(right, on="k", how=how))
+        _stream_same(got, resident, f"merge {how} (external vs resident)")
+        _stream_same(got, want, f"merge {how} (external vs pandas)")
+        cases[how] = {"port_ms": ms, "resident_ms": resident_ms, "pandas_ms": pandas_ms, "peak_bytes": peak,
+                      "out_rows": len(got), "misses": int(got["rv"].isna().sum()), **counts}
+        del got, resident, want
+    del ml, mr
+    return {"rows": [left_rows, right_rows], "budget_bytes": STREAM_MERGE_BUDGET_BYTES,
+            "peak_bound_bytes": _peak_bound(STREAM_MERGE_BUDGET_BYTES), "cases": cases}
+
+
+def stream_loss(seed: int, workdir: str) -> dict:
+    """(d): a device loss injected into window ``STREAM_LOSS_WINDOW``'s
+    consume of a ``STREAM_LOSS_ROWS``-row stream (the filtered grouped
+    sum under ``STREAM_LOSS_BUDGET_BYTES``): six failed deploys in a row,
+    past the seam's re-seat and the deploy's rebind, so it raises on the
+    card, and the window loop replays that one window; the answer equals
+    pandas'.  A clean run first finds the deploys each window makes."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import DeviceMemoryBudget, ResilienceBackoffS
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.logging import metrics
+    from modin_tpu_torch.testing.faults import midquery_device_loss
+
+    path = os.path.join(workdir, "loss.csv")
+    write_csv(path, stream_columns(STREAM_LOSS_ROWS, seed + 1))
+    query = STREAM_QUERIES["grouped_sum"]
+    pdf = pandas.read_csv(path)
+    want = query(pdf)
+    scale = STREAM_SCALES["grouped_sum"](pdf)
+    boundaries = []
+    probe = midquery_device_loss(after_deploys=10**12, times=1)
+
+    def at_window_end(name, value):
+        if name.endswith("stream.window.count"):
+            boundaries.append(probe.calls)
+
+    metrics.add_metric_handler(at_window_end)
+    try:
+        with probe, DeviceMemoryBudget.context(STREAM_LOSS_BUDGET_BYTES):
+            clean = tpd.to_pandas(query(tpd.read_csv(path)))
+    finally:
+        metrics.clear_metric_handler(at_window_end)
+    _stream_same(clean, want, "loss run, clean", scale)
+    if len(boundaries) <= STREAM_LOSS_WINDOW + 1:
+        raise AssertionError(f"the loss stream has {len(boundaries)} windows")
+    marks = _stream_marks()
+    with ResilienceBackoffS.context(0.0), \
+            midquery_device_loss(after_deploys=boundaries[STREAM_LOSS_WINDOW - 1], times=6) as inj, \
+            DeviceMemoryBudget.context(STREAM_LOSS_BUDGET_BYTES):
+        got, ms = host_ms(lambda: tpd.to_pandas(query(tpd.read_csv(path))))
+    counts = _stream_delta(marks)
+    _stream_same(got, want, "loss run, injected", scale)
+    breakers = resilience.breaker_snapshot()
+    resilience.reset_breakers()  # the strikes were this case's own
+    if inj.injected != 6 or counts["window_replay"] != 1:
+        raise AssertionError(f"the injected loss: {inj.injected} failures, {counts['window_replay']} replays")
+    if counts["fallbacks"] or counts["defaults"]:
+        raise AssertionError(f"the injected loss: {counts['fallbacks']} fallbacks, {counts['defaults']} defaults")
+    return {"rows": STREAM_LOSS_ROWS, "windows": len(boundaries), "deploys_by_window": boundaries,
+            "loss_window": STREAM_LOSS_WINDOW, "injected": inj.injected, "port_ms": ms,
+            "breakers_after": {k: v for k, v in breakers.items() if v != "closed"}, **counts}
+
+
+def phase_stream(rows: int, sort_rows: int, seed: int, workdir: str) -> dict:
+    """Out-of-core streaming on the card: (a) ``stream_pipeline``, (b)
+    ``stream_sort``, (c) ``stream_merge`` at ``rows / 2`` x ``rows / 10``,
+    (d) ``stream_loss``.  Nothing defaults to pandas.  Returns the
+    launches."""
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    t_phase = time.perf_counter()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    marks = _kernel_marks()
+    seconds, parts = {}, {}
+    for name, fn, fn_args in (("pipeline", stream_pipeline, (rows, seed, workdir)),
+                              ("sort", stream_sort, (sort_rows, seed)),
+                              ("merge", stream_merge, (rows // 2, rows // 10, seed)),
+                              ("loss", stream_loss, (seed, workdir))):
+        t0 = time.perf_counter()
+        parts[name] = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t0
+        free_device_memory()
+    if tqc.DEFAULTS_TO_PANDAS:
+        raise AssertionError(f"{tqc.DEFAULTS_TO_PANDAS} stream calls defaulted to pandas")
+    launches = {k: v["launches"] for k, v in _kernel_since(marks).items()}
+    emit({"phase": "stream", **parts, "launches": launches, "defaults_to_pandas": tqc.DEFAULTS_TO_PANDAS,
+          "seconds_by_part": seconds, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def resilience_line(robust: dict, by_path: dict) -> dict:
     """The ``{"resilience": ...}`` line: phase 17's parts in brief and every
     other path's fallbacks and breakers."""
@@ -6011,6 +6365,10 @@ def main(argv=None) -> int:
                         help="rows of the robust phase's timing of the layer (phase-4 queries)")
     parser.add_argument("--trace-rows", type=int, default=10**7,
                         help="rows of the trace phase's profiled main path and its cost timing")
+    parser.add_argument("--stream-rows", type=int, default=5 * 10**6,
+                        help="rows of the stream phase's CSV (a); its merge (c) takes half and a tenth")
+    parser.add_argument("--stream-sort-rows", type=int, default=5 * 10**6,
+                        help="rows of the stream phase's externally sorted frame (b)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -6125,6 +6483,10 @@ def main(argv=None) -> int:
     if "trace" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as workdir:
             launches["trace"], trace = run("trace", phase_trace, args.trace_rows, args.seed, workdir)
+    if "stream" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as workdir:
+            launches["stream"] = run("stream", phase_stream, args.stream_rows, args.stream_sort_rows, args.seed,
+                                     workdir)
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,

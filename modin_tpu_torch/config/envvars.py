@@ -9,7 +9,9 @@ programs, the whole-query planner's knobs (``PlanMode``,
 ``PlanMaxPasses``, ``PlanScanCacheBytes``, ``FuseMode``, ``FuseMinRows``),
 the kernel router's (``KernelRouterMode``, ``KernelRouterMinRows``,
 ``KernelRouterCalibrationRows``, ``CacheDir``), the memory budgets
-(``Memory``, ``DeviceMemoryBudget``), the plan optimizer's
+(``Memory``, ``DeviceMemoryBudget``), the out-of-core streaming
+executor's (``StreamMode``, ``StreamWindowBytes``, ``StreamPrefetch``,
+``StreamMaxGroups``), the plan optimizer's
 (``OptMode``, ``OptReplanFactor``) and the derived-artifact cache's
 (``ViewsMode``, ``ViewsMaxEntries``, ``ViewsHostBudget``,
 ``ViewsMaxGroups``, ``ViewsMaxChain``); the port's own variable names, so
@@ -288,6 +290,45 @@ class DeviceMemoryBudget(_Bytes):
     read (``core/memory.py``)."""
 
     varname = "MODIN_TPU_TORCH_DEVICE_MEMORY_BUDGET"
+
+
+class StreamMode(_Choice):
+    """Out-of-core residency (``streaming/``): Auto (the default) lets the
+    kernel router's ``decide_residency`` stream an op whose estimated bytes
+    pass the device ledger's headroom under ``DeviceMemoryBudget`` (no
+    budget: always resident); Resident never streams; Windowed streams
+    every op the streaming executor supports."""
+
+    varname = "MODIN_TPU_TORCH_STREAM"
+    choices = ("Auto", "Resident", "Windowed")
+    default = "Auto"
+
+
+class StreamWindowBytes(_Count):
+    """Source bytes of one streamed window; 0 (the default) derives it from
+    the budget so that ``1 + StreamPrefetch`` windows and a 2x kernel
+    working set fit under it."""
+
+    varname = "MODIN_TPU_TORCH_STREAM_WINDOW_BYTES"
+    default = 0
+
+
+class StreamPrefetch(_Count):
+    """Windows parsed and uploaded ahead of the one being consumed: 1 (the
+    default) overlaps window i+1's parse and upload with window i's
+    kernels; 0 runs parse, upload, consume and drop serially."""
+
+    varname = "MODIN_TPU_TORCH_STREAM_PREFETCH"
+    default = 1
+
+
+class StreamMaxGroups(_Count):
+    """Distinct groups a streamed groupby's partial table may hold across
+    windows; past it the query degrades to the resident path."""
+
+    varname = "MODIN_TPU_TORCH_STREAM_MAX_GROUPS"
+    default = 1 << 20
+    minimum = 1
 
 
 class OptMode(_Choice):

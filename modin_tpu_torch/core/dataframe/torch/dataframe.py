@@ -296,6 +296,19 @@ class DeviceColumn:
             host_cache=values,
         )
 
+    @classmethod
+    def spilled(cls, values: np.ndarray, device: Optional[torch.device] = None) -> "DeviceColumn":
+        """A column born spilled: ``values`` (exact) is its only copy until a
+        read restores it to ``device`` (an out-of-core result claims no
+        device memory until a consumer reads it)."""
+        if device is None:
+            from modin_tpu_torch.parallel.mesh import get_device
+
+            device = get_device()
+        col = cls(None, values.dtype, length=len(values), host_cache=values)
+        col._home = (torch_dtype(np.dtype("int64") if values.dtype.kind in "mM" else values.dtype), device)
+        return col
+
     def to_numpy(self) -> np.ndarray:
         cache = self.host_cache
         if cache is not None:

@@ -68,10 +68,12 @@ goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
 made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
-device path the port does not have yet (out-of-core and range-partition
-variants of sort and merge, the ``views/`` result caches), the port
-defaults to pandas; so does a sort-shaped reduction the kernel router
-(``ops/router.py``) predicts faster in pandas.
+device path the port does not have yet (the range-partition variants of
+sort and merge), the port defaults to pandas; so does a sort-shaped
+reduction the kernel router (``ops/router.py``) predicts faster in pandas.
+A sort or merge of frames larger than the device ledger's headroom runs
+out-of-core (``streaming/external.py``) where ``decide_residency`` says
+"windowed" (``_decide_windowed``).
 """
 
 from __future__ import annotations
@@ -97,6 +99,7 @@ from modin_tpu_torch.core.execution.resilience import device_path
 from modin_tpu_torch.error_message import ErrorMessage
 from modin_tpu_torch.ops import datetime_parts, dictionary, elementwise, reductions, sorted_cache, stats
 from modin_tpu_torch.ops import groupby as gb_ops
+from modin_tpu_torch import streaming
 from modin_tpu_torch import views
 from modin_tpu_torch.ops import join as join_ops
 from modin_tpu_torch.ops import sort as sort_ops
@@ -116,6 +119,17 @@ from modin_tpu_torch.utils import (
 # operations that went to pandas because no device path took them
 # (incremented only by ErrorMessage.default_to_pandas)
 DEFAULTS_TO_PANDAS = 0
+
+
+def _decide_windowed(op: str, frames: tuple) -> bool:
+    """The residency router's verdict for ``op`` over concrete frames (the
+    caller has read the ``streaming.STREAM_ON`` fast path first)."""
+    from modin_tpu_torch.ops import router
+    from modin_tpu_torch.streaming import windows as stream_windows
+
+    est = sum(stream_windows.frame_nbytes(f) for f in frames)
+    resident = sum(stream_windows.frame_resident_bytes(f) for f in frames)
+    return router.decide_residency(op, est, resident) == "windowed"
 
 
 def _is_categorical(col: Any) -> bool:
@@ -3307,6 +3321,12 @@ class TorchQueryCompiler(BaseQueryCompiler):
             planned = _plan_runtime().defer_sort(self, columns, ascending, kwargs)
             if planned is not None:
                 return planned
+        if streaming.STREAM_ON and _decide_windowed("sort", (self._modin_frame,)):
+            # out-of-core: the external per-window sort and k-way run merge,
+            # the resident sort's answer
+            streamed = streaming.external_sort_qc(self, columns, ascending, kwargs)
+            if streamed is not None:
+                return streamed
         result = self._try_device_sort(columns, ascending, kwargs)
         if result is not None:
             return result
@@ -3360,6 +3380,16 @@ class TorchQueryCompiler(BaseQueryCompiler):
     # ------------------------------- merge ---------------------------- #
 
     def merge(self, right: Any, **kwargs: Any) -> "TorchQueryCompiler":
+        if (
+            streaming.STREAM_ON
+            and isinstance(right, TorchQueryCompiler)
+            and _decide_windowed("merge", (self._modin_frame, right._modin_frame))
+        ):
+            # out-of-core: the residency router, not a flag, sends the join
+            # through the spill-aware external merge
+            streamed = streaming.external_merge_qc(self, right, kwargs)
+            if streamed is not None:
+                return streamed
         result = self._try_device_merge(right, kwargs)
         if result is not None:
             return result

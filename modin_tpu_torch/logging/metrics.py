@@ -40,8 +40,8 @@ _handlers_on: bool = False
 #: to fold the family: ``counter`` (sum), ``gauge`` (last value, min/max)
 #: or ``histogram`` (the buckets of ``meters.HISTOGRAM_BUCKETS``).  The
 #: JAX package's names are kept where the port emits the same event; the
-#: families of layers the port has not ported (streaming, serving, ingest,
-#: durability, fleet, shuffle) are left out until their layers come.
+#: families of layers the port has not ported (serving, ingest, durability,
+#: fleet, shuffle) are left out until their layers come.
 METRICS = (
     (
         "resilience.engine.*.*",
@@ -320,6 +320,53 @@ METRICS = (
         "plan.scan.cache_evict",
         "counter",
         "parsed-column entries evicted by MODIN_TPU_TORCH_PLAN_SCAN_CACHE_BYTES",
+    ),
+    (
+        "stream.window.count",
+        "counter",
+        "resident windows completed by the out-of-core executor (scan "
+        "window loops and external-sort windows)",
+    ),
+    (
+        "stream.window.rows",
+        "counter",
+        "rows processed per streaming window (parse or sort slice)",
+    ),
+    (
+        "stream.window.bytes",
+        "counter",
+        "source bytes parsed per streaming scan window (record-aligned "
+        "byte range)",
+    ),
+    (
+        "stream.window.replay",
+        "counter",
+        "windows replayed after a device failure the seams did not absorb: "
+        "one window's byte range parsed and run again, never the dataset",
+    ),
+    (
+        "stream.prefetch.wait_s",
+        "counter",
+        "seconds the consuming thread waited on the prefetch worker per "
+        "window (0 when the parse hid behind the previous window's work)",
+    ),
+    (
+        "stream.prefetch.overlap_s",
+        "counter",
+        "seconds of a window's parse and upload hidden behind the previous "
+        "window's consume (parse wall less the consumer's wait, at least 0)",
+    ),
+    (
+        "stream.degrade",
+        "counter",
+        "streamed groupbys degraded to the resident path because the "
+        "partial table passed MODIN_TPU_TORCH_STREAM_MAX_GROUPS groups",
+    ),
+    (
+        "stream.spill.run_bytes",
+        "counter",
+        "host bytes of the sorted runs the external sort wrote (merge keys "
+        "and row ids per window)",
     ),
     (
         "opt.choose",

@@ -17,9 +17,12 @@ handlers; this module is the measurement layer on that stream:
   memory high-water (``torch.cuda.memory_allocated`` samples and the
   device ledger's resident bytes, and ``torch.cuda.max_memory_allocated``
   when the process peak rose inside the scope), spills and restores,
-  recoveries and cache hits.  Scopes nest and are thread-isolated.  The
-  stream fields and ``collective_bytes`` stay 0 until those layers are
-  ported; the field set is the JAX package's, so snapshots line up.
+  recoveries and cache hits, and a streamed query's windows, replays and
+  prefetch overlap and wait (a window's parsed bytes count in
+  ``bytes_parsed``, an external sort's spilled runs in ``spill_bytes``).
+  Scopes nest and are thread-isolated.  ``collective_bytes`` stays 0 until
+  the multi-card layer is ported; the field set is the JAX package's, so
+  snapshots line up.
 
 Disabled contract (the default, ``MODIN_TPU_TORCH_METERS=0`` and no open
 scope): ``emit_metric`` reads ``metrics._aggregate`` (None) and the seams
@@ -536,7 +539,7 @@ class QueryStats:
         # query can complete correct via fallback yet be striking paths)
         self.breaker_trips = 0
         # streamed windows, their replays and the prefetch overlap/wait
-        # split: 0 until the streaming layer is ported
+        # split
         self.stream_windows = 0
         self.stream_replays = 0
         self.stream_overlap_s = 0.0
@@ -576,8 +579,19 @@ class QueryStats:
         elif name == "memory.device.spill":
             self.spills += int(value)
             self._sample_hbm()
-        elif name == "memory.device.spill_bytes":
+        elif name in ("memory.device.spill_bytes", "stream.spill.run_bytes"):
             self.spill_bytes += int(value)
+        elif name == "stream.window.bytes":
+            self.bytes_parsed += int(value)
+        elif name == "stream.window.count":
+            self.stream_windows += int(value)
+            self._sample_hbm()
+        elif name == "stream.window.replay":
+            self.stream_replays += int(value)
+        elif name == "stream.prefetch.overlap_s":
+            self.stream_overlap_s += value
+        elif name == "stream.prefetch.wait_s":
+            self.stream_wait_s += value
         elif name == "memory.device.restore":
             self.restores += int(value)
             self._sample_hbm()
@@ -689,6 +703,15 @@ class QueryStats:
                 f"views: {self.view_hits} artifact hit(s), "
                 f"{self.view_folds} incremental fold(s), "
                 f"{self.view_invalidations} invalidation(s)"
+            )
+        if self.stream_windows:
+            busy = self.stream_overlap_s + self.stream_wait_s
+            eff = f"{self.stream_overlap_s / busy:.0%}" if busy > 0 else "?"
+            lines.append(
+                f"stream: {self.stream_windows} window(s), "
+                f"{self.stream_replays} replay(s), overlap efficiency {eff} "
+                f"({self.stream_overlap_s:.3f}s hidden, "
+                f"{self.stream_wait_s:.3f}s waited)"
             )
         return "\n".join(lines)
 

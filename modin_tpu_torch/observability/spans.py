@@ -131,6 +131,17 @@ SPANS = (
         "kernel.build",
         "one nvcc build of the port's kernel sources (names in attributes)",
     ),
+    (
+        "stream.window",
+        "one resident window of the out-of-core executor: parse, upload, "
+        "consume and drop of a record-aligned byte range (scan loop), or one "
+        "external-sort window slice (window index in attributes)",
+    ),
+    (
+        "stream.merge",
+        "one k-way fold of the external sort's spilled sorted runs into the "
+        "final permutation (run count in attributes)",
+    ),
 )
 
 _EPOCH_PERF = time.perf_counter()

@@ -28,8 +28,9 @@ calibrate.
 Every verdict adds one to ``COUNTS["router.<op>.<choice>"]`` (and the fused
 gate's to ``router.fuse.<choice>``), plain integers as the port counts its
 launches, each also emitted to the metric stream; while tracing, a verdict
-of :func:`verdict` is a ``router.decide`` span with its predicted costs.  The reference's plan-optimizer consult hook is not ported
-(``plan/optimizer.py`` says why): every verdict here is the router's own.
+of :func:`verdict` is a ``router.decide`` span with its predicted costs.  The reference's plan-optimizer consult hook answers
+the residency verdict only (:data:`_opt_consult`, ``plan/optimizer.py`` says why): the kernel, compile and layout
+verdicts are the router's own.
 """
 
 from __future__ import annotations
@@ -79,6 +80,13 @@ _lock = threading.RLock()
 _calibration: Any = None
 _calibration_key: Optional[str] = None
 _calibration_forced = False
+
+
+#: the plan optimizer's consult hook, installed by ``plan/optimizer.py``
+#: while ``OptMode`` is Auto: offered a live residency verdict of the
+#: reasons below, it may answer the plan's ``(choice, reason)`` instead
+_opt_consult: Optional[Callable[..., Optional[Tuple[str, str]]]] = None
+_OPT_REASONS = frozenset({"fits", "over_headroom"})
 
 
 def _count(name: str) -> None:
@@ -294,21 +302,46 @@ def decide_layout(op: str, n: int, payload_cols: int = 0, itemsize: int = 8) -> 
 
 
 def decide_residency(op: str, est_bytes: int, self_bytes: int = 0) -> str:
-    """"resident" or "windowed" for a streaming-eligible op: "windowed"
-    exactly when ``est_bytes`` passes the device ledger's headroom
-    (``budget`` less the other residents: ``self_bytes`` of the op's own
-    inputs are not counted against it); no budget, resident.  The
-    reference's Auto arm; its setting that pins a side, and every consumer
-    of the verdict, come with the streaming executor."""
+    """"resident" or "windowed" for one streaming-eligible op.
+
+    ``op`` names the family (``scan_reduce``/``scan_groupby`` for the
+    planner's window loop, ``sort``/``merge`` for the external kernels);
+    ``est_bytes`` is the op's working set (the source's size or the
+    frames' bytes) and ``self_bytes`` the share of the device ledger its
+    own inputs already hold (taken off, so a frame is not counted against
+    its own headroom).  Under ``StreamMode`` Auto the op streams exactly
+    when its estimate passes the headroom, ``budget`` less the other
+    residents; no budget, resident.  Resident and Windowed pin a side.
+    The optimizer's consult (:data:`_opt_consult`) may answer an Auto
+    verdict from the plan.  Counted as ``router.residency_<op>.<choice>``;
+    while tracing, a ``router.decide`` event with the estimate and the
+    headroom."""
+    from modin_tpu_torch.config import StreamMode
     from modin_tpu_torch.core.memory import device_ledger
 
-    budget = device_ledger.budget()
-    if budget is None:
-        choice = "resident"
+    mode = StreamMode.get()
+    headroom = None
+    if mode == "Resident":
+        choice, reason = "resident", "forced"
+    elif mode == "Windowed":
+        choice, reason = "windowed", "forced"
     else:
-        headroom = budget - max(device_ledger.total_bytes() - max(int(self_bytes), 0), 0)
-        choice = "windowed" if int(est_bytes) > headroom else "resident"
+        budget = device_ledger.budget()
+        if budget is None:
+            choice, reason = "resident", "no_budget"
+        else:
+            headroom = budget - max(device_ledger.total_bytes() - max(int(self_bytes), 0), 0)
+            choice, reason = ("windowed", "over_headroom") if int(est_bytes) > headroom else ("resident", "fits")
+    consult = _opt_consult
+    if consult is not None and reason in _OPT_REASONS:
+        planned = consult("residency", choice, reason, op=op, est_bytes=int(est_bytes))
+        if planned is not None:
+            choice, reason = planned
     _count(f"router.residency_{op}.{choice}")
+    if _spans.TRACE_ON:
+        extra = {} if headroom is None else {"headroom_bytes": int(headroom)}
+        _spans.event("router.decide", "QUERY-COMPILER", op=f"residency_{op}", est_bytes=int(est_bytes),
+                     choice=choice, reason=reason, **extra)
     return choice
 
 

@@ -98,16 +98,19 @@ def _actual_suffix(measured: Optional[dict]) -> str:
 
 
 def _strategy_suffix(st: Any) -> str:
-    """The optimizer's annotation of one node: its legs, its modeled wall
-    and, once lowered, its measured one."""
+    """The optimizer's annotation of one node: its legs (``!`` marks a firm
+    one, which answers the live router), its modeled wall and, once
+    lowered, its measured one, and a streamed source's size."""
     if st is None:
         return ""
-    parts = [f"{leg}={choice}" for leg, choice in sorted(st.legs.items())]
+    parts = [f"{leg}={choice}" + ("!" if leg in st.firm else "") for leg, choice in sorted(st.legs.items())]
     if st.est_s > 0.0:
         cost = f"est={st.est_s * 1e3:.3f}ms"
         if st.measured_s is not None:
             cost += f" meas={st.measured_s * 1e3:.3f}ms"
         parts.append(cost)
+    if st.measured_bytes is not None:
+        parts.append(f"stream_bytes={_fmt_bytes(st.measured_bytes)}")
     return "  [strategy: " + " ".join(parts) + "]" if parts else ""
 
 

@@ -40,11 +40,19 @@ and ``DECLINES`` counts it (both also emitted, ``fuse.dispatch``/
 ``fuse.decline``; a leg is a ``fuse.lower`` span, and the pow2 group table's
 padding is billed to the cost layer).
 
+A streamed reduction's window body (``streaming/executor.py``) takes the
+same masked leg a window at a time (:func:`window_reduce_plan`): a filtered
+window's chain and its reduction are one masked launch, its gate
+``decide_compile`` on the first window's rows.  A plan whose residency the
+optimizer planned windowed never takes the whole-plan leg and never
+donates (the joint constraints, ``plan/optimizer.py``).
+
 Not ported yet: the storm feedback and pad buckets (the launch ledger now
 names the signatures that lower often, ``recompile_storms``; the feedback
-that re-buckets them waits), ``window_reduce_plan`` (streaming) and the
-serving context's donation rule (with ``serving/``); ROADMAP lists where
-each waits.
+that re-buckets them waits; the reference's ``stream_bucket`` feeds pad
+buckets the port's unpadded windows do not have) and the serving
+context's donation rule (with ``serving/``); ROADMAP lists where each
+waits.
 """
 
 from __future__ import annotations
@@ -89,8 +97,9 @@ def _donation_candidates(frame: Any) -> List[Any]:
     length, an exact host copy) and, by one read of the device ledger for
     the batch, the sole holder of its storage."""
     from modin_tpu_torch.core import memory
+    from modin_tpu_torch.plan import optimizer
 
-    if memory.device_ledger.budget() is None:
+    if memory.device_ledger.budget() is None or not optimizer.donate_ok():
         return []
     candidates = [c for c in frame._columns if c.is_device and c.donation_eligible()]
     if not candidates:
@@ -191,8 +200,10 @@ def maybe_fuse(node: PlanNode, memo: Dict[int, Any], groupby: bool) -> Optional[
     leaf = _segment_leaf(node)
     if leaf is None:
         return None
-    from modin_tpu_torch.plan import lowering
+    from modin_tpu_torch.plan import lowering, optimizer
 
+    if optimizer.planned_compile() == "staged":
+        return None  # a windowed residency's joint constraint
     frame = lowering._lower(leaf, memo)._modin_frame
     n = len(frame)
     if router.decide_compile(node.label(), n) != "fused":
@@ -221,6 +232,53 @@ def maybe_fuse(node: PlanNode, memo: Dict[int, Any], groupby: bool) -> Optional[
     DISPATCHES += 1
     emit_metric("fuse.dispatch", 1)
     return result
+
+
+def window_reduce_plan(node: Reduce, scan_node: Any, call_kwargs: dict):
+    """The per-stream part of a streamed reduction's fused window body, or
+    None where the chain can never fuse.
+
+    Returns ``run(window_qc) -> reduced compiler | None``: one window's
+    chain and its reduction as one masked launch (no compaction).  The
+    stream-invariant gates (the segment's shape, the kwargs) are computed
+    once here, the route verdict on the first window; ``run`` answers None
+    for an unfiltered window (the staged body is one launch already), a
+    window with a host column, or a declined walk, and the staged body
+    runs."""
+    if node.method not in SUPPORTED_REDUCE or _segment_leaf(node) is None:
+        return None
+    kwargs = dict(call_kwargs)
+    axis = kwargs.pop("axis", 0)
+    skipna = kwargs.pop("skipna", True)
+    numeric_only = kwargs.pop("numeric_only", False)
+    if axis not in (0, None):
+        return None
+    # the windows share one size (the last one is smaller), so the route
+    # is decided on the first and kept
+    verdict: List[bool] = []
+
+    def run(window_qc: Any) -> Optional[Any]:
+        global DISPATCHES
+        frame = window_qc._modin_frame
+        n = len(frame)
+        if not verdict:
+            verdict.append(router.decide_compile(node.label(), n) == "fused")
+        if not verdict[0] or n == 0 or not all(c.is_device for c in frame._columns):
+            return None
+        try:
+            qc_top, mask = _walk_masked(node.children[0], {id(scan_node): window_qc}, {})
+        except _Decline:
+            return None
+        if mask is None:
+            return None
+        with _spans.span("fuse.lower", "QUERY-COMPILER", signature=node.label(), rows=n, donated=0):
+            result = qc_top._try_device_reduce(node.method, axis, skipna, numeric_only, dict(kwargs), keep=mask)
+        if result is not None:
+            DISPATCHES += 1
+            emit_metric("fuse.dispatch", 1)
+        return result
+
+    return run
 
 
 def _fused_reduce(node: Reduce, qc_top: Any, mask: Any, donate_cols: List[Any]) -> Optional[Any]:

@@ -13,10 +13,17 @@ the main spine (or merged by CSE) is computed once.  Each scan origin keeps a
 cache of its materialized reads, one entry per projection, bounded in bytes
 by ``MODIN_TPU_TORCH_PLAN_SCAN_CACHE_BYTES``.
 
+A reduce or groupby tail is first offered to the out-of-core window loop
+(:func:`_maybe_stream`, ``streaming/executor.py``): where its chain is one
+streamable CSV scan that ``decide_residency`` judges larger than the device
+ledger's headroom, the chain runs window by window and only the partials
+combine.
+
 With the plan optimizer on (``MODIN_TPU_TORCH_OPT=Auto``) each node's
-lowering wall goes back to ``optimizer.observe``, which may re-estimate
-the rest of the query.  Not ported yet: ``_maybe_stream``
-(out-of-core windows); ROADMAP lists where it waits.
+lowering runs inside its node scope (``optimizer.push_node``: the router's
+residency consult and the donation rule read the node's strategy), and its
+wall goes back to ``optimizer.observe``, which may re-estimate the rest of
+the query.
 """
 
 from __future__ import annotations
@@ -119,12 +126,18 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
     from modin_tpu_torch.plan import optimizer
 
     if instrument is None:
-        # the adaptive loop alone: the node's wall, observed once it is in
-        # the memo so a re-plan leaves it out
+        # the adaptive loop alone: the node's wall, observed once its scope
+        # is popped and it is in the memo, so a re-plan leaves it out
+        optimizer.push_node(node)
         t0 = time.perf_counter()
-        result = _lower_node(node, memo)
+        try:
+            result = _lower_node(node, memo)
+        finally:
+            optimizer.pop_node()
         optimizer.observe(node, time.perf_counter() - t0)
         return result
+    if opt_active:
+        optimizer.push_node(node)
     stack = _tls.inst_stack
     frame = {"child_s": 0.0, "child_launches": 0}
     stack.append(frame)
@@ -140,6 +153,8 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
     finally:
         _ledger.pop_device_acc(acc)
         stack.pop()
+        if opt_active:
+            optimizer.pop_node()
         total_s = time.perf_counter() - t0
         total_launches = kernel_launches() - l0
         if stack:
@@ -278,9 +293,26 @@ def _lower_map(node: Map, memo: Dict[int, Any]) -> Any:
     return qc
 
 
+def _maybe_stream(node: PlanNode, memo: Dict[int, Any], groupby: bool) -> Any:
+    """The out-of-core hook of a Reduce or GroupbyAgg root: its windowed
+    lowering where the chain below it is one streamable scan the residency
+    router judges out-of-core, else None.  One attribute read while
+    streaming is off (the default)."""
+    from modin_tpu_torch import streaming
+
+    if not streaming.STREAM_ON:
+        return None
+    if groupby:
+        return streaming.maybe_stream_groupby(node, memo)
+    return streaming.maybe_stream_reduce(node, memo)
+
+
 def _lower_reduce(node: Reduce, memo: Dict[int, Any]) -> Any:
     from modin_tpu_torch.plan import fuse
 
+    streamed = _maybe_stream(node, memo, groupby=False)
+    if streamed is not None:
+        return streamed
     fused = fuse.maybe_fuse(node, memo, groupby=False)
     if fused is not None:
         return fused
@@ -291,6 +323,9 @@ def _lower_reduce(node: Reduce, memo: Dict[int, Any]) -> Any:
 def _lower_groupby(node: GroupbyAgg, memo: Dict[int, Any]) -> Any:
     from modin_tpu_torch.plan import fuse
 
+    streamed = _maybe_stream(node, memo, groupby=True)
+    if streamed is not None:
+        return streamed
     fused = fuse.maybe_fuse(node, memo, groupby=True)
     if fused is not None:
         return fused

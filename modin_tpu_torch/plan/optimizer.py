@@ -24,18 +24,23 @@ the legs the port has:
 
 Where the port departs from the reference, and why:
 
-- no leg overrides a live router verdict: the reference's routers offer
-  each verdict to a consult hook that answers from a firm plan leg or the
-  wall correction.  The port's legs have nothing firmer than the live
-  verdict behind them: the correction comes from whole-node walls against
+- only the residency leg answers a live router verdict: the reference's
+  routers offer each verdict to a consult hook that answers from a firm
+  plan leg or the wall correction.  The port installs the hook
+  (``router._opt_consult``, :func:`_consult`) for ``decide_residency``
+  alone: a plan whose residency was planned resident but meets a
+  windowed live verdict re-plans (``ledger_pressure``) and follows it, and
+  a planned verdict that disagrees with the live one answers for it.  The
+  kernel and compile legs have nothing firmer than the live verdict
+  behind them: the correction comes from whole-node walls against
   :data:`DEFAULT_PRIORS` (not measurements of any card), so a slow parse
   or a first kernel build would send a sort-shaped reduction on
-  card-resident columns to pandas; and a windowed residency has no window
-  loop to run it (streaming).  So the kernel leg is the router's
-  uncorrected prediction, the residency leg constrains neither the
-  compile leg nor donation, and the hook, with the node scope
-  (``push_node``/``pop_node``) that tells it which node asks, waits for
-  card priors;
+  card-resident columns to pandas.  So the kernel leg is the router's
+  uncorrected prediction, and the compile leg is firm only under the
+  joint constraints: a windowed tail runs the staged body per window
+  (``streaming/executor.py``; a filtered reduction's window still takes
+  one masked launch through ``fuse.window_reduce_plan``) and never
+  donates, since the window loop owns its inputs (:func:`donate_ok`);
 - priors: the reference seeds its per-row coefficients from its
   ``PERF_HISTORY.json``, TPU and CPU walls that must not seed the port;
   :func:`priors_from_history` takes only runs recorded on ``cuda``, and no
@@ -109,16 +114,23 @@ class NodeStrategy:
     (kernel, layout, compile, residency) to its planned choice and
     ``leg_ops`` to the router op it stands for."""
 
-    __slots__ = ("node", "legs", "leg_ops", "est_rows", "est_bytes", "est_s", "measured_s")
+    __slots__ = ("node", "legs", "leg_ops", "firm", "donate", "est_rows", "est_bytes", "est_s", "measured_s",
+                 "measured_bytes")
 
     def __init__(self, node: PlanNode):
         self.node = node
         self.legs: Dict[str, str] = {}
         self.leg_ops: Dict[str, str] = {}
+        #: legs the joint constraints fixed (EXPLAIN marks them ``!``)
+        self.firm: Set[str] = set()
+        #: whether the node's fused leg may donate its inputs
+        self.donate: bool = True
         self.est_rows: Optional[int] = None
         self.est_bytes: Optional[int] = None
         self.est_s: float = 0.0
         self.measured_s: Optional[float] = None
+        #: a streamed source's size, as the window loop sniffed it
+        self.measured_bytes: Optional[int] = None
 
 
 class PlanStrategies:
@@ -141,6 +153,9 @@ class PlanStrategies:
 def _on_opt_mode(param: Any) -> None:
     global OPT_ON
     OPT_ON = param.get().lower() != "off"
+    # the router's consult hook comes and goes with the mode: Off pays one
+    # `is not None` read a residency verdict
+    router._opt_consult = _consult if OPT_ON else None
 
 
 def set_priors(priors: Optional[Dict[str, Any]]) -> None:
@@ -387,9 +402,19 @@ def _choose_node(node: PlanNode, st: NodeStrategy, table: Optional[Dict[str, flo
     in_rows = child_entry.get("rows")
     if isinstance(node, (Reduce, GroupbyAgg)):
         groupby = isinstance(node, GroupbyAgg)
-        st.legs["residency"] = _plan_residency(child_entry.get("bytes"))
+        residency = _plan_residency(child_entry.get("bytes"))
+        st.legs["residency"] = residency
         st.leg_ops["residency"] = "scan_groupby" if groupby else "scan_reduce"
-        st.legs["compile"] = "fused" if _would_fuse(in_rows) else "staged"
+        st.firm.add("residency")
+        if residency == "windowed":
+            # the joint constraints: a windowed tail runs its segment once a
+            # window, never as one whole-plan launch, and donating would
+            # free tensors the window loop still owns
+            st.legs["compile"] = "staged"
+            st.firm.add("compile")
+            st.donate = False
+        else:
+            st.legs["compile"] = "fused" if _would_fuse(in_rows) else "staged"
         if not groupby and node.method in SORT_SHAPED:
             st.legs["kernel"] = _plan_kernel(node, in_rows, table)
             st.leg_ops["kernel"] = node.method
@@ -399,10 +424,15 @@ def _choose_node(node: PlanNode, st: NodeStrategy, table: Optional[Dict[str, flo
 
 
 def _plan_residency(in_bytes: Optional[int]) -> str:
-    """``decide_residency`` over the plan-time estimate: "windowed" where
-    the input passes the device ledger's headroom under a budget."""
+    """``decide_residency`` over the plan-time estimate of the consumed
+    working set (the same pins, ledger and headroom), so a steady plan
+    agrees with the live router and only a re-plan departs from it."""
+    from modin_tpu_torch.config import StreamMode
     from modin_tpu_torch.core.memory import device_ledger
 
+    mode = StreamMode.get()
+    if mode != "Auto":
+        return mode.lower()
     budget = device_ledger.budget()
     if budget is None or in_bytes is None:
         return "resident"
@@ -461,10 +491,58 @@ def begin(state: PlanStrategies, root: PlanNode, memo: dict) -> None:
     state.root = root
     state.done = memo
     _tls.state = state
+    _tls.stack = []
 
 
 def end() -> None:
     _tls.state = None
+    _tls.stack = None
+
+
+def push_node(node: PlanNode) -> None:
+    """Enter ``node``'s lowering: the consult and :func:`donate_ok` read the
+    innermost node's strategy."""
+    state = getattr(_tls, "state", None)
+    if state is not None:
+        _tls.stack.append(state.by_node.get(id(node)))
+
+
+def pop_node() -> None:
+    stack = getattr(_tls, "stack", None)
+    if stack:
+        stack.pop()
+
+
+def _current() -> Tuple[Optional[PlanStrategies], Optional[NodeStrategy]]:
+    state = getattr(_tls, "state", None)
+    if state is None:
+        return None, None
+    stack = getattr(_tls, "stack", None)
+    return state, (stack[-1] if stack else None)
+
+
+def planned_compile() -> Optional[str]:
+    """The node being lowered's compile leg where the joint constraints
+    fixed it (a windowed residency: "staged"), else None."""
+    _state, st = _current()
+    if st is None or "compile" not in st.firm:
+        return None
+    return st.legs.get("compile")
+
+
+def donate_ok() -> bool:
+    """Whether the node being lowered may donate its inputs: False once the
+    joint constraints or a re-plan windowed it."""
+    _state, st = _current()
+    return st.donate if st is not None else True
+
+
+def note_stream_bytes(nbytes: int) -> None:
+    """The window loop's sniffed source size, for EXPLAIN beside the
+    estimate."""
+    _state, st = _current()
+    if st is not None:
+        st.measured_bytes = int(nbytes)
 
 
 def observe(node: PlanNode, total_s: float) -> None:
@@ -513,8 +591,40 @@ def _replan(state: PlanStrategies, trigger: str, key: Any, **attrs: Any) -> bool
     return True
 
 
-# the subscription fires at once (setting OPT_ON), so it stands below the
-# function it names
+# ---------------------------------------------------------------------- #
+# the router's consult hook
+# ---------------------------------------------------------------------- #
+
+
+def _consult(leg: str, choice: str, reason: str, **ctx: Any) -> Optional[Tuple[str, str]]:
+    """Answer one live residency verdict from the plan: a replacement
+    ``(choice, reason)`` only where the plan disagrees (agreement keeps the
+    router's own choice and reason)."""
+    state, st = _current()
+    if state is None or leg != "residency":
+        return None
+    if st is None or st.leg_ops.get("residency") != ctx.get("op"):
+        return None
+    planned = st.legs.get("residency")
+    if planned is None:
+        return None
+    if planned == "resident" and choice == "windowed":
+        # live ledger pressure contradicts the plan: re-plan the rest
+        # against the pressured ledger, and window this node (its compile
+        # leg staged, no donation) whatever the re-plan's estimate says
+        _replan(state, "ledger_pressure", key=id(st.node), est_bytes=int(ctx.get("est_bytes") or 0))
+        st.legs["residency"] = "windowed"
+        st.legs["compile"] = "staged"
+        st.firm.update(("residency", "compile"))
+        st.donate = False
+        return ("windowed", "opt_replan")
+    if planned != choice:
+        return (planned, "opt")
+    return None
+
+
+# the subscription fires at once (setting OPT_ON and the consult hook), so
+# it stands below the functions it names
 from modin_tpu_torch.config import OptMode as _OptMode  # noqa: E402
 
 _OptMode.subscribe(_on_opt_mode)

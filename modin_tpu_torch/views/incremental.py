@@ -23,13 +23,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 
-#: the reductions with an algebraic combine of partials (the JAX package's
-#: ``streaming/executor.py`` ``REDUCE_COMBINABLE``; streaming is not ported)
-REDUCE_COMBINABLE = frozenset({"sum", "prod", "min", "max", "count", "mean"})
-
-#: the groupby aggregations with a partial-table combine (its
-#: ``GROUPBY_COMBINABLE``)
-GROUPBY_COMBINABLE = frozenset({"sum", "min", "max", "count", "mean"})
+# the reductions with an algebraic combine of partials, and the groupby
+# aggregations with a partial-table combine: the streaming layer's sets, one
+# source of truth for which aggregations recombine from partials
+from modin_tpu_torch.streaming import GROUPBY_COMBINABLE, REDUCE_COMBINABLE  # noqa: F401
 
 #: scalar reductions whose artifact folds over an append
 FOLDABLE_REDUCES = REDUCE_COMBINABLE | frozenset({"any", "all"})

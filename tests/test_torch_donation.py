@@ -170,8 +170,9 @@ def test_donation_only_under_a_budget(tmp_path, budget):
     """With no budget the fused leg donates nothing, so the same query on
     the same frame again uploads nothing; under a budget it donates, and
     the second query restores what the first donated.  A residency leg
-    the optimizer plans windowed (a budget under the frame's bytes) keeps
-    the fused leg and its donation: the port has no window loop."""
+    the optimizer plans windowed (a budget under the frame's bytes) runs
+    the window loop instead, which never donates
+    (``test_a_windowed_residency_keeps_fusion_and_donation``)."""
     path = _write_csv(tmp_path, name="budget.csv")
     want = PIPELINES["reduce"](pandas.read_csv(path))
     donated0, dispatches0 = memory.COUNTS["fuse.donated"], fuse.DISPATCHES
@@ -192,7 +193,13 @@ def test_donation_only_under_a_budget(tmp_path, budget):
 
 
 def test_a_windowed_residency_keeps_fusion_and_donation(tmp_path, monkeypatch):
+    """A budget under the file's bytes: the optimizer plans the residency
+    windowed, and the joint constraints fix the compile leg staged and turn
+    donation off.  The window loop keeps the fused kernel: each filtered
+    window's chain and sum is one masked launch (``fuse.DISPATCHES``), and
+    it donates nothing, since the loop owns its windows' tensors."""
     from modin_tpu_torch.plan import optimizer
+    from modin_tpu_torch.streaming import executor
 
     path = _write_csv(tmp_path, name="windowed.csv")
     want = PIPELINES["reduce"](pandas.read_csv(path))
@@ -200,10 +207,14 @@ def test_a_windowed_residency_keeps_fusion_and_donation(tmp_path, monkeypatch):
     choose = optimizer.choose
     monkeypatch.setattr(optimizer, "choose", lambda root, *a, **k: chosen.append(choose(root, *a, **k)) or chosen[-1])
     donated0, dispatches0 = memory.COUNTS["fuse.donated"], fuse.DISPATCHES
+    windows0 = executor.COUNTS.get("stream.window.count", 0)
     budget = memory.device_ledger.total_bytes() + 4096  # under the file's columns
     with FuseMode.context("Auto"), FuseMinRows.context(1), DeviceMemoryBudget.context(budget):
         got = tpd.to_pandas(PIPELINES["reduce"](tpd.read_csv(path)))
-    legs = [st.legs for state in chosen for st in state.by_node.values() if "residency" in st.legs]
-    assert legs and all(leg["residency"] == "windowed" and leg["compile"] == "fused" for leg in legs)
-    assert fuse.DISPATCHES > dispatches0 and memory.COUNTS["fuse.donated"] > donated0
+    strategies = [st for state in chosen for st in state.by_node.values() if "residency" in st.legs]
+    assert strategies and all(st.legs["residency"] == "windowed" and st.legs["compile"] == "staged"
+                              and not st.donate for st in strategies)
+    windows = executor.COUNTS.get("stream.window.count", 0) - windows0
+    assert windows > 1 and fuse.DISPATCHES - dispatches0 == windows
+    assert memory.COUNTS["fuse.donated"] == donated0
     _equal(got, want)

@@ -9,8 +9,8 @@ legs:
    Off builds no strategy set and clears the router's consult hook.
 2. Plan-time model: ``estimate_selectivity`` equal to the JAX package's on
    the same mask shapes, estimates flowing bottom up, the residency leg
-   over the budget and the ledger (advisory: the port has no window loop,
-   so it constrains neither the compile leg nor donation), the kernel leg
+   over the budget and the ledger (a windowed one fixes the compile leg
+   staged and turns donation off, the joint constraints), the kernel leg
    under a forced table, which a wall correction never moves.
 3. Re-planning: the re-plan factor and the noise floor, one re-plan per
    (node, trigger), the clamped correction, lowered nodes kept; a slow
@@ -236,9 +236,13 @@ def test_choose_residency_leg_reads_the_budget_and_the_ledger(csv_path, budget, 
     with DeviceMemoryBudget.context(budget), FuseMode.context("Fused"):
         st = optimizer.choose(root).by_node[id(root)]
     assert st.legs["residency"] == want and st.leg_ops["residency"] == "scan_reduce"
-    # advisory: no window loop runs a windowed tail, so the compile leg is
-    # the fused gate's own
-    assert st.legs["compile"] == "fused"
+    # the joint constraints: a windowed tail runs per window (the staged
+    # compile leg, firm) and never donates; a resident one takes the fused
+    # gate's own leg
+    if want == "windowed":
+        assert st.legs["compile"] == "staged" and "compile" in st.firm and not st.donate
+    else:
+        assert st.legs["compile"] == "fused" and "compile" not in st.firm and st.donate
 
 
 def test_kernel_leg_ignores_the_wall_correction(csv_path):

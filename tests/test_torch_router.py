@@ -95,8 +95,9 @@ def test_decide_compile_agrees_with_the_jax_router(mode):
 
 @pytest.mark.parametrize("budget", [None, 1 << 20, 1 << 30])
 def test_decide_residency_agrees_with_the_jax_router(budget):
-    """The port's verdict is the reference's Auto arm (the reference's
-    setting that pins a side has no counterpart in the port)."""
+    """The port's verdict is the reference's Auto arm (the pins, Resident
+    and Windowed, are held to the reference's in
+    ``test_torch_streaming.py``)."""
     from modin_tpu.core.memory import device_ledger as jax_ledger
 
     from modin_tpu_torch.core.memory import device_ledger
