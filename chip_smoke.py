@@ -6,9 +6,9 @@
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
                           [--memory-rows N] [--views-rows N] [--views-time-rows N]
                           [--robust-cost-rows N] [--trace-rows N] [--stream-rows N]
-                          [--stream-sort-rows N] [--seed S] [--parent-checkout DIR]
+                          [--stream-sort-rows N] [--mesh-rows N] [--seed S] [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory,views,robust,trace,stream]
+                                    memory,views,robust,trace,stream,mesh]
 
 Phases, one JSON object per line each:
 
@@ -345,6 +345,28 @@ Phases, one JSON object per line each:
              MiB, past the seams, raising and replaying that one window;
              each part's ``port_ms``, ``resident_ms`` and ``pandas_ms``, and
              ``defaults_to_pandas`` 0.
+20. mesh   - the row-shard mesh and the range shuffle (``phase_mesh``) under
+             ``MeshShape`` (4, 1): four shards on one card, or on distinct
+             cards where there are several (a line says which).  Each query
+             runs once to warm up and once timed.  (e) the
+             layout router's calibration on this mesh (the shuffle's sharded
+             sort, the block exchange's bytes a second) and its Auto
+             verdicts with their predicted costs; then, each query under
+             ``SpmdMode`` Sharded held bit for bit against ``SpmdMode``
+             Local and exactly against pandas (order, dtypes, index): (a)
+             ``sort_values`` of a ``--mesh-rows`` (1e7) frame by an int64
+             key with ties and by a float64 key with NaN and +/-inf, both
+             directions, nine payload columns; (b) ``median``,
+             ``quantile``, ``nunique`` and ``mode`` of the float key and of a
+             wide int column through the sharded sorted representation; (c)
+             inner, left and outer merges of ``--mesh-rows`` x a fifth of it
+             with misses; (d) ``groupby(k).apply(udf)`` over 1e6 rows and
+             1000 keys.  Each sharded query's ``port_ms`` beside the local
+             path's and pandas', the shuffle's stages by CUDA events (sample,
+             pack, exchange, compaction, gather), the exchange's bytes and
+             rate, ``collective_bytes``, rows a shard, slack retries, the
+             device peak and ``defaults_to_pandas`` 0, and the phase's
+             bincount launches (the shuffle's per-destination counts).
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -378,7 +400,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory", "views", "robust", "trace", "stream")
+              "formats", "memory", "views", "robust", "trace", "stream", "mesh")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -6146,6 +6168,320 @@ def phase_stream(rows: int, sort_rows: int, seed: int, workdir: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 20. the row-shard mesh and the range shuffle
+# ---------------------------------------------------------------------- #
+
+MESH_SHARDS = 4
+#: (c)'s right side: a fifth of the left's rows
+MESH_RIGHT_SHARE = 5
+MESH_APPLY_ROWS = 10**6
+MESH_APPLY_KEYS = 1000
+#: the int key's range against the rows (ties); the wide int column takes
+#: a quarter as many values as rows, spaced past the histogram's bound (its
+#: nunique and mode sort) with repeats (a mode set of a few values)
+MESH_TIE_SHARE = 10
+MESH_WIDE_STEP = 1 << 21
+MESH_REDUCTIONS = {
+    "median": lambda s: s.median(),
+    "quantile": lambda s: s.quantile([0.1, 0.5, 0.9]),
+    "nunique": lambda s: s.nunique(),
+    "mode": lambda s: s.mode(),
+}
+
+
+def mesh_frame(rows: int, seed: int) -> dict:
+    """(a)'s ten columns: an int64 key with ties, a float64 key with 5 % NaN
+    and 0.1 % each of +inf and -inf, and eight payload columns (``w`` a wide
+    int64, then float64 and int64 in turn)."""
+    rng = np.random.default_rng(seed + 100)
+    kf = rng.standard_normal(rows)
+    kf[rng.random(rows) < 0.05] = np.nan
+    kf[rng.random(rows) < 0.001] = np.inf
+    kf[rng.random(rows) < 0.001] = -np.inf
+    data = {"ki": rng.integers(0, max(rows // MESH_TIE_SHARE, 1), rows), "kf": kf,
+            "w": rng.integers(0, max(rows // 4, 1), rows) * MESH_WIDE_STEP}
+    for j in range(7):
+        data[f"p{j}"] = rng.integers(-10**9, 10**9, rows) if j % 2 else rng.standard_normal(rows)
+    return data
+
+
+def _mesh_marks() -> dict:
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    return {"defaults": tqc.DEFAULTS_TO_PANDAS, "fallbacks": resilience.fallback_count(),
+            "skew_fallbacks": resilience.COUNTS.get("resilience.shuffle.skew_fallback", 0)}
+
+
+def _mesh_run(fn, sharded: bool, prepare=None) -> dict:
+    """``fn()`` (ended by a synchronise) under ``SpmdMode`` Sharded or
+    Local, once to warm up (the kernels loaded, the allocator's blocks
+    cached) and once timed: its result, wall ms, the device peak and,
+    sharded, the shuffle's last stages and sizes and ``collective_bytes``;
+    a sharded query that ran no shuffle, counted no collective bytes,
+    defaulted to pandas or declined fails, and so does any fallback.
+    ``prepare()``, where given, makes each run's ``fn`` (a frame of its
+    own, so the timed run reads no artifact of the warm-up)."""
+    import torch
+
+    from modin_tpu_torch.config import SpmdMode
+    from modin_tpu_torch.observability import meters
+    from modin_tpu_torch.parallel import shuffle
+
+    mode = "Sharded" if sharded else "Local"
+    with SpmdMode.context(mode):
+        (prepare() if prepare is not None else fn)()
+    fn = prepare() if prepare is not None else fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    marks = _mesh_marks()
+    shuffle.LAST_RUN.clear()
+    shuffle.LAST_STAGES_MS = {}
+    shuffle.TIME_STAGES = sharded
+    try:
+        with SpmdMode.context(mode), meters.query_stats("mesh") as stats:
+            out, ms = host_ms(fn)
+    finally:
+        shuffle.TIME_STAGES = False
+    after = _mesh_marks()
+    run = {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           **{k: after[k] - marks[k] for k in marks}, "collective_bytes": stats.collective_bytes}
+    if sharded:
+        last = dict(shuffle.LAST_RUN)
+        if not last:
+            raise AssertionError("a sharded query ran no shuffle")
+        if stats.collective_bytes <= 0:
+            raise AssertionError("a sharded query counted no collective bytes")
+        stages = dict(shuffle.LAST_STAGES_MS)
+        exchange_ms = stages.get("exchange") or float("nan")
+        run.update(shards=last["shards"], rows_per_shard=last["counts"], capacity=last["capacity"],
+                   slack_retries=last["slack_retries"], exchange_bytes=last["exchange_bytes"], stages_ms=stages,
+                   # read and written once, PR 17's copy-rate convention
+                   exchange_gb_s=2 * last["exchange_bytes"] / exchange_ms / 1e6)
+    if run["fallbacks"] or run["skew_fallbacks"] or (sharded and run["defaults"]):
+        raise AssertionError(f"a {'sharded' if sharded else 'local'} query fell back or declined: {run}")
+    return {"out": out, **run}
+
+
+def _same_device_frames(a, b, what: str) -> None:
+    """Two port results bit for bit: every column's bytes and the index."""
+    import torch
+
+    fa, fb = a._query_compiler._modin_frame, b._query_compiler._modin_frame
+    if list(fa.columns) != list(fb.columns) or len(fa) != len(fb):
+        raise AssertionError(f"{what}: shapes or labels differ")
+    for label, ca, cb in zip(fa.columns, fa._columns, fb._columns):
+        if ca.pandas_dtype != cb.pandas_dtype:
+            raise AssertionError(f"{what}[{label}]: dtypes differ")
+        if ca.is_device:
+            ta, tb = ca.data.contiguous(), cb.data.contiguous()
+            if ta.dtype != tb.dtype or not torch.equal(ta.view(torch.uint8), tb.view(torch.uint8)):
+                raise AssertionError(f"{what}[{label}]: bytes differ")
+        elif not np.array_equal(ca.to_numpy(), cb.to_numpy()):
+            raise AssertionError(f"{what}[{label}]: host values differ")
+    if not fa.index.equals(fb.index):
+        raise AssertionError(f"{what}: index differs")
+
+
+def _mesh_record(sharded: dict, local: dict, pandas_ms: float) -> dict:
+    return {"port_ms": sharded["ms"], "local_ms": local["ms"], "pandas_ms": pandas_ms,
+            "sharded_over_local": sharded["ms"] / local["ms"],
+            **{k: v for k, v in sharded.items() if k not in ("out", "ms")},
+            "local_peak_bytes": local["peak_bytes"], "local_defaults": local["defaults"]}
+
+
+def mesh_calibration(rows: int) -> dict:
+    """(e): the table measured on this mesh and the Auto verdicts of the
+    phase's own queries with their predicted costs."""
+    from modin_tpu_torch.config import SpmdMode
+    from modin_tpu_torch.ops import router
+
+    t0 = time.perf_counter()
+    table = router.get_calibration()
+    if table is None or "device_shuffle_s" not in table:
+        raise AssertionError(f"no sharded calibration on this mesh: {router.CALIBRATION_ERROR}")
+    seconds = time.perf_counter() - t0
+    verdicts = {}
+    with SpmdMode.context("Auto"):
+        for name, op, n, payload in (("sort", "sort", rows, 10), ("rep_build", "sort", rows, 0),
+                                     ("merge", "merge", rows // MESH_RIGHT_SHARE, 1),
+                                     ("apply", "apply", MESH_APPLY_ROWS, 1)):
+            verdicts[name] = router.layout_verdict(op, n, payload_cols=payload)
+    return {"seconds": seconds, "verdicts": verdicts,
+            "entries": {k: v for k, v in table.items()
+                        if k.startswith(("device_sort", "device_shuffle", "collective", "mesh", "rows"))}}
+
+
+def mesh_sorts(rows: int, seed: int) -> dict:
+    """(a): the ten-column frame by each key in each direction."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+
+    data = mesh_frame(rows, seed)
+    pdf = pandas.DataFrame(data)
+    md = tpd.DataFrame(data)
+    cases = {}
+    for key in ("ki", "kf"):
+        for ascending in (True, False):
+            name = f"{key}_{'asc' if ascending else 'desc'}"
+            sharded = _mesh_run(lambda: md.sort_values(key, ascending=ascending), True)
+            local = _mesh_run(lambda: md.sort_values(key, ascending=ascending), False)
+            _same_device_frames(sharded["out"], local["out"], f"sort {name} (sharded vs local)")
+            want, pandas_ms = host_ms(lambda: pdf.sort_values(key, ascending=ascending, kind="stable"))
+            assert_same_pandas(tpd.to_pandas(sharded["out"]), want, f"sort {name} (sharded vs pandas)", exact=True)
+            cases[name] = _mesh_record(sharded, local, pandas_ms)
+            del sharded, local, want
+    del md, pdf
+    return cases
+
+
+def mesh_reductions(rows: int, seed: int) -> dict:
+    """(b): the sort-shaped reductions of the float key and the wide int
+    column; each side on a frame of its own, so neither reads the other's
+    sorted representation or cached result.  ``KernelRouterMode`` Device:
+    the layout leg is what is measured here."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import KernelRouterMode
+
+    data = mesh_frame(rows, seed)
+    cols = {"kf": data["kf"], "w": data["w"]}
+    pdf = pandas.DataFrame(cols)
+    cases = {}
+
+    def reduce(col: str, call, sharded: bool) -> dict:
+        def prepare():
+            # a frame of its own: the reduction builds its representation
+            md = tpd.DataFrame({col: cols[col]})
+            return lambda: call(md[col])
+
+        out = _mesh_run(None, sharded, prepare)
+        if hasattr(out["out"], "_query_compiler"):
+            out["out"] = tpd.to_pandas(out["out"])
+        return out
+
+    with KernelRouterMode.context("Device"):
+        for col in cols:
+            for op, call in MESH_REDUCTIONS.items():
+                got, local = reduce(col, call, True), reduce(col, call, False)
+                want, pandas_ms = host_ms(lambda: call(pdf[col]))
+                for other, what in ((local["out"], "local"), (want, "pandas")):
+                    if isinstance(want, pandas.Series):
+                        assert_same_pandas(got["out"], other, f"{op}({col}) (sharded vs {what})", exact=True)
+                    elif not (got["out"] == other or (np.isnan(got["out"]) and np.isnan(other))):
+                        raise AssertionError(f"{op}({col}): {got['out']} != {other} ({what})")
+                cases[f"{op}_{col}"] = _mesh_record(got, local, pandas_ms)
+    return cases
+
+
+def mesh_merges(rows: int, seed: int) -> dict:
+    """(c): inner, left and outer merges; left keys over twice the right's
+    unique keys' range (misses), the right keys shuffled."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+
+    rng = np.random.default_rng(seed + 101)
+    right_rows = max(rows // MESH_RIGHT_SHARE, 1)
+    left = {"k": rng.integers(0, 2 * right_rows, rows), "a": rng.integers(0, 1000, rows)}
+    right = {"k": rng.permutation(right_rows) * 2, "b": rng.standard_normal(right_rows)}
+    pl, pr = pandas.DataFrame(left), pandas.DataFrame(right)
+    ml, mr = tpd.DataFrame(left), tpd.DataFrame(right)
+    cases = {}
+    for how in ("inner", "left", "outer"):
+        sharded = _mesh_run(lambda: ml.merge(mr, on="k", how=how), True)
+        local = _mesh_run(lambda: ml.merge(mr, on="k", how=how), False)
+        _same_device_frames(sharded["out"], local["out"], f"merge {how} (sharded vs local)")
+        want, pandas_ms = host_ms(lambda: pl.merge(pr, on="k", how=how))
+        got = tpd.to_pandas(sharded["out"])
+        assert_same_pandas(got, want, f"merge {how} (sharded vs pandas)", exact=True)
+        cases[how] = {**_mesh_record(sharded, local, pandas_ms), "out_rows": len(got),
+                      "misses": int(got["b"].isna().sum())}
+        del sharded, local, want, got
+    return cases
+
+
+def _mesh_udf(g):
+    return g["a"].max() - g["b"].mean()
+
+
+def mesh_apply(seed: int) -> dict:
+    """(d): ``groupby(k).apply(udf)`` through the shuffle; its local side is
+    the default one-shard mesh, where pandas answers (counted)."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch.config import MeshShape
+
+    rng = np.random.default_rng(seed + 102)
+    data = {"k": rng.integers(0, MESH_APPLY_KEYS, MESH_APPLY_ROWS), "a": rng.standard_normal(MESH_APPLY_ROWS),
+            "b": rng.integers(0, 100, MESH_APPLY_ROWS)}
+    pdf, md = pandas.DataFrame(data), tpd.DataFrame(data)
+    sharded = _mesh_run(lambda: tpd.to_pandas(md.groupby("k").apply(_mesh_udf)), True)
+    with MeshShape.context((1, 1)):
+        one = _mesh_run(lambda: tpd.to_pandas(md.groupby("k").apply(_mesh_udf)), False)
+    if one["defaults"] != 1:
+        raise AssertionError(f"the one-shard apply did not default to pandas once: {one['defaults']}")
+    want, pandas_ms = host_ms(lambda: pdf.groupby("k").apply(_mesh_udf))
+    assert_same_pandas(sharded["out"], one["out"], "apply (sharded vs one shard)", exact=True)
+    assert_same_pandas(sharded["out"], want, "apply (sharded vs pandas)", exact=True)
+    return {"rows": MESH_APPLY_ROWS, "keys": MESH_APPLY_KEYS, **_mesh_record(sharded, one, pandas_ms)}
+
+
+def phase_mesh(rows: int, seed: int) -> dict:
+    """The row-shard mesh on the card: (e) ``mesh_calibration``, (a)
+    ``mesh_sorts``, (b) ``mesh_reductions``, (c) ``mesh_merges``, (d)
+    ``mesh_apply``, under ``MeshShape`` (``MESH_SHARDS``, 1); the mesh comes
+    back to its default after.  Returns the launches."""
+    import torch
+
+    from modin_tpu_torch.config import MeshShape
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    placement = ("the four shards share cuda:0 (one card)" if cards < 2
+                 else f"the four shards on {min(cards, MESH_SHARDS)} cards")
+    emit({"phase": "mesh", "note": placement})
+    defaults0 = tqc.DEFAULTS_TO_PANDAS
+    marks = _kernel_marks()
+    seconds, parts = {}, {}
+    with MeshShape.context((MESH_SHARDS, 1)):
+        devices = [str(d) for d in mesh.shard_devices()]
+        for name, fn, fn_args in (("calibration", mesh_calibration, (rows,)),
+                                  ("sort", mesh_sorts, (rows, seed)),
+                                  ("reductions", mesh_reductions, (rows, seed)),
+                                  ("merge", mesh_merges, (rows, seed)),
+                                  ("apply", mesh_apply, (seed,))):
+            t0 = time.perf_counter()
+            parts[name] = fn(*fn_args)
+            seconds[name] = time.perf_counter() - t0
+            free_device_memory()
+    if mesh.num_row_shards() != max(cards, 1):
+        raise AssertionError("the mesh did not come back to its default")
+    launches = {k: v["launches"] for k, v in _kernel_since(marks).items()}
+    if launches["bincount"] <= 0:
+        raise AssertionError("the shuffles never launched bincount")
+    # the defaults expected: (d)'s one-shard side, warm-up and timed run
+    defaults = tqc.DEFAULTS_TO_PANDAS - defaults0
+    if defaults != 2:
+        raise AssertionError(f"{defaults} mesh calls defaulted to pandas (the one-shard apply's 2 expected)")
+    rates = {}
+    for part in ("sort", "reductions", "merge", "apply"):
+        records = [parts[part]] if part == "apply" else list(parts[part].values())
+        got = [r["exchange_gb_s"] for r in records]
+        rates[part] = {"min": min(got), "max": max(got)}
+    emit({"phase": "mesh", "rows": rows, "shards": MESH_SHARDS, "devices": devices, **parts,
+          "exchange_gb_s_by_part": rates, "launches": launches, "defaults_to_pandas_sharded": 0,
+          "seconds_by_part": seconds, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def resilience_line(robust: dict, by_path: dict) -> dict:
     """The ``{"resilience": ...}`` line: phase 17's parts in brief and every
     other path's fallbacks and breakers."""
@@ -6369,6 +6705,10 @@ def main(argv=None) -> int:
                         help="rows of the stream phase's CSV (a); its merge (c) takes half and a tenth")
     parser.add_argument("--stream-sort-rows", type=int, default=5 * 10**6,
                         help="rows of the stream phase's externally sorted frame (b)")
+    # phase 20 took 77.9 s at 1e7 rows (pandas' ten-column stable sorts
+    # 5.3-6.2 s each, its merges 1.3-6.7 s): past its 40 s share
+    parser.add_argument("--mesh-rows", type=int, default=5 * 10**6,
+                        help="rows of the mesh phase's sorted frame and merge's left side")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -6487,6 +6827,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as workdir:
             launches["stream"] = run("stream", phase_stream, args.stream_rows, args.stream_sort_rows, args.seed,
                                      workdir)
+    if "mesh" in phases:
+        launches["mesh"] = run("mesh", phase_mesh, args.mesh_rows, args.seed)
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,

@@ -14,7 +14,9 @@ executor's (``StreamMode``, ``StreamWindowBytes``, ``StreamPrefetch``,
 ``StreamMaxGroups``), the plan optimizer's
 (``OptMode``, ``OptReplanFactor``) and the derived-artifact cache's
 (``ViewsMode``, ``ViewsMaxEntries``, ``ViewsHostBudget``,
-``ViewsMaxGroups``, ``ViewsMaxChain``); the port's own variable names, so
+``ViewsMaxGroups``, ``ViewsMaxChain``) and the row-shard mesh's
+(``DeviceCount``, ``MeshShape``, ``RangePartitioning``, ``SpmdMode``,
+``SpmdMinRows``); the port's own variable names, so
 one process can pin the two packages apart.  A module that keeps a
 setting in a variable of its own subscribes to it
 (:meth:`Parameter.subscribe`) and sees every change.
@@ -687,3 +689,98 @@ class TraceDir(_BuildPath):
 
     varname = "MODIN_TPU_TORCH_TRACE_DIR"
     subdir = "traces"
+
+
+# ---------------------------------------------------------------------- #
+# The row-shard mesh and the range shuffle
+# ---------------------------------------------------------------------- #
+
+
+class DeviceCount(_Count):
+    """How many devices of the port's kind the mesh spans:
+    ``torch.cuda.device_count()`` on ``"cuda"`` and 1 on ``"cpu"`` by
+    default (the JAX package's ``MODIN_TPU_DEVICES``)."""
+
+    varname = "MODIN_TPU_TORCH_DEVICES"
+    default = None
+    minimum = 1
+
+    @classmethod
+    def get(cls) -> int:
+        value = super().get()
+        if value is not None:
+            return value
+        if Device.get() == "cuda":
+            import torch
+
+            return max(torch.cuda.device_count(), 1)
+        return 1
+
+
+class MeshShape(Parameter):
+    """The mesh as ``(rows, cols)`` shards, e.g. ``4,1``; ``(DeviceCount,
+    1)`` by default, so one card is one shard.  Row shard s runs on device
+    ``s % DeviceCount``: more shards than devices wrap onto them (the JAX
+    package's tests put 8 virtual devices on one host the same way).  The
+    column axis is kept for the shape's key and shards nothing."""
+
+    varname = "MODIN_TPU_TORCH_MESH_SHAPE"
+    default = None
+
+    @classmethod
+    def _parse(cls, raw: Any) -> tuple:
+        parts = [p for p in str(raw).replace("x", ",").split(",") if p.strip()] if isinstance(raw, str) else raw
+        shape = tuple(int(p) for p in parts)
+        if len(shape) != 2 or min(shape) < 1:
+            raise ValueError(f"{cls.varname} must be two positive ints 'rows,cols', got {raw!r}")
+        return shape
+
+    @classmethod
+    def get(cls) -> tuple:
+        value = super().get()
+        return value if value is not None else (DeviceCount.get(), 1)
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(None if value is None else cls._parse(value))
+
+    @classmethod
+    @contextlib.contextmanager
+    def context(cls, value: Any):
+        """As :meth:`Parameter.context`, but an unset shape comes back
+        unset, so its default goes on following the devices."""
+        old = cls._value
+        cls.put(value)
+        try:
+            yield
+        finally:
+            cls._set(old)
+
+
+class RangePartitioning(_Flag):
+    """Sort through the range shuffle (sample, pivots, all-to-all, a local
+    sort per shard) on a mesh of two or more row shards: read as
+    ``SpmdMode`` Sharded for the sort family (``sort_values`` and the
+    sorted-representation build) while ``SpmdMode`` is Auto."""
+
+    varname = "MODIN_TPU_TORCH_RANGE_PARTITIONING"
+
+
+class SpmdMode(_Choice):
+    """The layout router (``ops/router.decide_layout``) of the sort,
+    sorted-representation build and merge: Auto, the calibrated cost model
+    on a mesh of two or more row shards (frames under ``SpmdMinRows`` and a
+    single shard stay local); Local, never the shuffle; Sharded, the
+    shuffle whenever the mesh has two or more row shards."""
+
+    varname = "MODIN_TPU_TORCH_SPMD"
+    choices = ("Auto", "Local", "Sharded")
+    default = "Auto"
+
+
+class SpmdMinRows(_Count):
+    """Rows under which Auto layout routing stays local without reading
+    (or running) the calibration."""
+
+    varname = "MODIN_TPU_TORCH_SPMD_MIN_ROWS"
+    default = 1 << 18

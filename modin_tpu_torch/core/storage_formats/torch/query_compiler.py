@@ -67,10 +67,13 @@ nearest JAX counterpart (``concat`` the relational ``merge``, ``isin`` and
 goes to pandas, pandas computes the result, and the result comes back
 through ``from_pandas``.  That is modin's correctness floor, not a device
 fallback; ``DEFAULTS_TO_PANDAS`` counts every such call, wherever it is
-made (``ErrorMessage.default_to_pandas``).  Where the JAX compiler has a
-device path the port does not have yet (the range-partition variants of
-sort and merge), the port defaults to pandas; so does a sort-shaped
-reduction the kernel router (``ops/router.py``) predicts faster in pandas.
+made (``ErrorMessage.default_to_pandas``).  A sort-shaped reduction the
+kernel router (``ops/router.py``) predicts faster in pandas defaults to it
+too.  On a mesh of two or more row shards (``parallel/mesh.py``) a
+one-key sort (``_try_range_partition_sort``), the sorted-representation
+build and the merge's right-side sort go through the range shuffle where
+the layout router says "sharded", and a groupby UDF
+(``_try_shuffle_groupby_apply``) runs on pandas shard by shard.
 A sort or merge of frames larger than the device ledger's headroom runs
 out-of-core (``streaming/external.py``) where ``decide_residency`` says
 "windowed" (``_decide_windowed``).
@@ -115,6 +118,10 @@ from modin_tpu_torch.utils import (
     torch_dtype,
     try_cast_to_pandas,
 )
+
+# frames under this many rows take pandas' groupby UDF path: one fetch of
+# the frame costs less than the shuffle and a fetch a shard
+_SHUFFLE_APPLY_MIN_ROWS = 1 << 19
 
 # operations that went to pandas because no device path took them
 # (incremented only by ErrorMessage.default_to_pandas)
@@ -1875,6 +1882,13 @@ class TorchQueryCompiler(BaseQueryCompiler):
                 result = self._try_device_groupby_describe(
                     by, groupby_kwargs, agg_kwargs, drop, selection
                 )
+        if result is None and axis == 0 and not series_groupby and (
+            (callable(agg_func) and not getattr(agg_func, "_row_shaped_groupby", False))
+            or (agg_func == "apply" and agg_args and callable(agg_args[0]))
+        ):
+            result = self._try_shuffle_groupby_apply(
+                by, agg_func, groupby_kwargs, agg_args, agg_kwargs, selection
+            )
         if result is not None:
             return result
 
@@ -1889,6 +1903,192 @@ class TorchQueryCompiler(BaseQueryCompiler):
             return gb.agg(agg_func, *agg_args, **agg_kwargs)
 
         return self._default_to_pandas(pandas_groupby, by)
+
+    @device_path("shuffle_apply")
+    def _try_shuffle_groupby_apply(
+        self, by, agg_func, groupby_kwargs, agg_args, agg_kwargs, selection
+    ) -> Optional["TorchQueryCompiler"]:
+        """A groupby UDF (``apply``, ``agg`` of a callable) through the range
+        shuffle, the JAX package's ``_try_shuffle_groupby_apply``: the row ids
+        range-partition by the rows' sorted group codes on the device
+        (``parallel/shuffle.py``), so every group lies whole in one shard,
+        and pandas runs the UDF on each shard's rows, fetched shard by shard
+        (the host holds one shard's rows at a time, not the frame), in key
+        order; the chunks' results concatenate into pandas' answer.  Taken
+        on a mesh of two or more row shards from ``_SHUFFLE_APPLY_MIN_ROWS``
+        rows where the layout router (``ops/router.decide_layout("apply")``)
+        says "sharded": under Auto it answers "local", since pandas runs the
+        same UDF on the same rows either way and the shuffle is all the
+        sharded side adds.  A transform or filter (results in the frame's
+        row order), ``group_keys=False``, a ``level`` key and skewed keys
+        past the shuffle's slack decline, and pandas answers as before."""
+        import pandas
+
+        from modin_tpu_torch.ops import router
+        from modin_tpu_torch.parallel.mesh import num_row_shards
+        from modin_tpu_torch.parallel.shuffle import ShuffleSkewError, range_shuffle
+
+        frame = self._modin_frame
+        n = len(frame)
+        if num_row_shards() < 2 or n < _SHUFFLE_APPLY_MIN_ROWS:
+            return None
+        gk = dict(groupby_kwargs)
+        if gk.get("level") is not None or gk.pop("axis", 0) not in (0, "index"):
+            return None
+        if gk.get("group_keys", True) is False:
+            # pandas then restores the frame's row order for like-indexed
+            # results: the key-ordered concat cannot
+            return None
+        sort = gk.get("sort", True)
+        as_index = gk.get("as_index", True)
+        dropna = gk.get("dropna", True)
+        if not sort and not dropna:
+            # the appearance-order reorder finds a group by its key value;
+            # a NaN key matches none
+            return None
+        if router.decide_layout("apply", n, payload_cols=1) != "sharded":
+            return None
+
+        # the keys: this frame's columns by label (numeric, or string through
+        # the dictionary codes) and external Series-shaped compilers
+        by_list = list(by) if isinstance(by, list) else [by]
+        key_datas, key_decoders, external = [], [], {}
+        for bi, b in enumerate(by_list):
+            if isinstance(b, TorchQueryCompiler):
+                eframe = b._modin_frame
+                if eframe.num_cols != 1 or len(eframe) != n or not self._fast_index_match(b):
+                    return None
+                col = eframe.get_column(0)
+                external[bi] = b
+            elif hasattr(b, "to_pandas") or not hashable(b):
+                return None
+            else:
+                pos = frame.column_position(b)
+                if len(pos) != 1:
+                    return None
+                col = frame._columns[pos[0]]
+            if col.is_device and col.pandas_dtype.kind in "biuf":
+                key_datas.append(col.data)
+                key_decoders.append(None)
+            else:
+                enc = self._encoded(col)
+                if enc is None:
+                    return None
+                key_datas.append(enc.codes.data)
+                key_decoders.append(enc.categories)
+
+        # one sorted group code a row is the shuffle's key: shards hold code
+        # ranges, so the chunks come in pandas' sort=True group order; NaN
+        # keys take the overflow code past n_groups
+        try:
+            codes, n_groups, group_keys_u, _sizes = gb_ops.factorize_keys_cached(key_datas, n, dropna=dropna)
+        except gb_ops._TooManyGroups:
+            return None
+        if n_groups == 0:
+            return None
+        row_ids = torch.arange(n, dtype=torch.int64, device=codes.device)
+        try:
+            key_out, (rowid_out,), counts, _ = range_shuffle(codes, [row_ids], n)
+        except ShuffleSkewError:
+            return None
+        rowids = TorchWrapper.materialize(rowid_out)
+        counts = [int(c) for c in counts]
+        # the dropped NaN-key rows must not reach a chunk: a chunk of them
+        # alone gives an empty result that breaks the concat's index
+        if dropna and int(TorchWrapper.materialize((codes >= n_groups).sum())):
+            keep = TorchWrapper.materialize(key_out) < n_groups
+            bounds = np.cumsum([0] + counts)
+            counts = [int(keep[a:b].sum()) for a, b in zip(bounds[:-1], bounds[1:])]
+            rowids = rowids[keep]
+
+        inner_gk = dict(groupby_kwargs, as_index=True, sort=True)
+        inner_gk.pop("axis", None)
+        results = []
+        start = 0
+        for count in counts:
+            stop = start + count
+            if stop == start:
+                continue
+            chunk_ids = rowids[start:stop]
+            sub = self.take_2d_positional(index=chunk_ids).to_pandas()
+            by_arg = []
+            for bi, b in enumerate(by_list):
+                if bi in external:
+                    ser = external[bi].take_2d_positional(index=chunk_ids).to_pandas().iloc[:, 0]
+                    if ser.name == MODIN_UNNAMED_SERIES_LABEL:
+                        ser.name = None
+                    by_arg.append(ser)
+                else:
+                    by_arg.append(b)
+            grp = sub.groupby(by=by_arg if len(by_arg) > 1 else by_arg[0], **inner_gk)
+            if selection is not None:
+                grp = grp[selection]
+            if isinstance(agg_func, str):
+                results.append(getattr(grp, agg_func)(*agg_args, **agg_kwargs))
+            else:
+                results.append(agg_func(grp, *agg_args, **agg_kwargs))
+            start = stop
+        if not results or not all(isinstance(r, (pandas.Series, pandas.DataFrame)) for r in results):
+            return None
+        nkeys = len(by_list)
+        # With group_keys=True a Series or DataFrame UDF result carries the
+        # key levels in front (nlevels > nkeys), so a chunk frame of exactly
+        # nkeys levels is pandas widening Series results: (a) in one chunk,
+        # whose single group's like-indexed results became its columns
+        # (stacked back to the Series the other chunks hold), or (b) in all,
+        # from a constant-index Series (the same columns everywhere: pandas'
+        # own shape for the whole frame, concatenated as it is)
+        wide = [r for r in results if isinstance(r, pandas.DataFrame) and r.index.nlevels == nkeys]
+        if wide and not (len(wide) == len(results) and all(f.columns.equals(wide[0].columns) for f in wide)):
+
+            def unwiden(r):
+                stacked = r.stack()
+                stacked.index = stacked.index.set_names(list(r.index.names) + [None])
+                stacked.name = r.columns.name
+                return stacked
+
+            results = [
+                unwiden(r) if isinstance(r, pandas.DataFrame) and r.index.nlevels == nkeys else r for r in results
+            ]
+        if len({type(r) for r in results}) > 1:
+            return None
+        result = pandas.concat(results)
+
+        if not sort:
+            # the chunks come in key order; pandas' sort=False orders the
+            # groups by first appearance (the device's first row per group)
+            first_pos = TorchWrapper.materialize(gb_ops.groupby_first_position(codes, n_groups))
+            rank_of_gid = np.empty(n_groups, dtype=np.int64)
+            rank_of_gid[np.argsort(first_pos, kind="stable")] = np.arange(n_groups)
+            levels = [
+                dictionary.decode_codes(vals, cats) if cats is not None else vals
+                for vals, cats in zip(group_keys_u, key_decoders)
+            ]
+            if nkeys == 1:
+                gid_of_key = {k: g for g, k in enumerate(levels[0])}
+                row_keys = result.index.get_level_values(0)
+            else:
+                gid_of_key = {k: g for g, k in enumerate(zip(*levels))}
+                row_keys = list(zip(*[result.index.get_level_values(i) for i in range(nkeys)]))
+            try:
+                row_rank = np.fromiter((rank_of_gid[gid_of_key[k]] for k in row_keys), dtype=np.int64,
+                                       count=len(result))
+            except KeyError:
+                return None  # a key value did not round-trip: pandas answers
+            result = result.iloc[np.argsort(row_rank, kind="stable")]
+
+        if not as_index:
+            if isinstance(result, pandas.Series) and result.index.nlevels == nkeys:
+                # a scalar a group: the keys become columns and the values
+                # column is named None, pandas' shape for as_index=False
+                key_names = list(result.index.names)
+                result = result.reset_index()
+                result.columns = pandas.Index([*key_names, None], dtype=object)
+            elif result.index.nlevels == nkeys:
+                result = result.reset_index()
+            else:
+                result = result.droplevel(list(range(nkeys)))
+        return self._from_pandas_result(result)
 
     @device_path("groupby")
     def _try_device_groupby(
@@ -3327,12 +3527,62 @@ class TorchQueryCompiler(BaseQueryCompiler):
             streamed = streaming.external_sort_qc(self, columns, ascending, kwargs)
             if streamed is not None:
                 return streamed
-        result = self._try_device_sort(columns, ascending, kwargs)
+        result = self._try_range_partition_sort(columns, ascending, kwargs)
+        if result is None:
+            result = self._try_device_sort(columns, ascending, kwargs)
         if result is not None:
             return result
         return self._default_to_pandas(
             lambda obj: obj.sort_values(columns, ascending=ascending, **kwargs)
         )
+
+    @device_path("sort_shuffle")
+    def _try_range_partition_sort(self, columns: Any, ascending: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
+        """A one-key sort through the range shuffle over the row-shard mesh
+        (``parallel/shuffle.py``: sample, pivots, the block exchange, a
+        stable local sort per shard), the JAX package's range-partitioning
+        sort.  Taken on a mesh of two or more row shards where the layout
+        router (``ops/router.decide_layout``) says "sharded", with every device
+        column and the row ids as the shuffle's payload (host columns and
+        the index follow the row ids).  The answer is the local stable
+        sort's bit for bit; skewed keys past the shuffle's slack decline to
+        it."""
+        from modin_tpu_torch.ops import router
+        from modin_tpu_torch.parallel.mesh import num_row_shards
+        from modin_tpu_torch.parallel.shuffle import ShuffleSkewError, range_shuffle
+
+        if num_row_shards() < 2:
+            return None
+        if kwargs.get("na_position", "last") != "last" or kwargs.get("key") is not None:
+            return None
+        col_list = list(columns) if isinstance(columns, (list, tuple)) else [columns]
+        if len(col_list) != 1:
+            return None
+        asc = ascending[0] if isinstance(ascending, (list, tuple)) else ascending
+        frame = self._modin_frame
+        n = len(frame)
+        pos = frame.column_position(col_list[0])
+        if len(pos) != 1 or n == 0:
+            return None
+        key_col = frame._columns[pos[0]]
+        if not key_col.is_device or key_col.pandas_dtype.kind not in "biuf":
+            return None
+        if router.decide_layout("sort", n, payload_cols=frame.num_cols) != "sharded":
+            return None
+        device_idx = [i for i, c in enumerate(frame._columns) if c.is_device]
+        datas = frame.device_datas(device_idx)
+        key_at = device_idx.index(pos[0])
+        others = [d for j, d in enumerate(datas) if j != key_at]
+        row_ids = torch.arange(n, dtype=torch.int64, device=datas[key_at].device)
+        try:
+            key_out, (perm, *others_out), _counts, _pivots = range_shuffle(
+                datas[key_at], [row_ids] + others, n, descending=not asc, local_sort=True
+            )
+        except ShuffleSkewError:
+            return None  # the local sort takes any distribution
+        gathered = others_out[:key_at] + [key_out] + others_out[key_at:]
+        index = LazyIndex(None, n) if kwargs.get("ignore_index", False) else None
+        return type(self)(frame._with_gathered(device_idx, gathered, perm, index), self._shape_hint)
 
     @device_path("sort_shuffle")
     def _try_device_sort(self, columns: Any, ascending: Any, kwargs: dict) -> Optional["TorchQueryCompiler"]:
@@ -3520,12 +3770,12 @@ class TorchQueryCompiler(BaseQueryCompiler):
         if how == "right":
             # probe from the right side: output rows follow right order and
             # the left side is the nullable one
-            rprobe_left, rprobe_right, n_out, has_miss = join_ops.sort_merge_positions(
+            rprobe_left, rprobe_right, n_out, has_miss = join_ops.merge_positions(
                 rkey, lkey, len(rframe), len(lframe), how="left"
             )
             left_pos, right_pos = rprobe_right, rprobe_left
         else:
-            left_pos, right_pos, n_out, has_miss = join_ops.sort_merge_positions(
+            left_pos, right_pos, n_out, has_miss = join_ops.merge_positions(
                 lkey, rkey, len(lframe), len(rframe),
                 how="left" if how in ("left", "outer") else "inner",
             )

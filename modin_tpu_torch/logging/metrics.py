@@ -41,7 +41,7 @@ _handlers_on: bool = False
 #: or ``histogram`` (the buckets of ``meters.HISTOGRAM_BUCKETS``).  The
 #: JAX package's names are kept where the port emits the same event; the
 #: families of layers the port has not ported (serving, ingest, durability,
-#: fleet, shuffle) are left out until their layers come.
+#: fleet) are left out until their layers come.
 METRICS = (
     (
         "resilience.engine.*.*",
@@ -72,6 +72,17 @@ METRICS = (
         "counter",
         "device failures the legs did not absorb, raised on the card per "
         "family and failure kind (pandas never answers for the card)",
+    ),
+    (
+        "resilience.shuffle.slack_retry",
+        "counter",
+        "range_shuffle capacity overflows retried with doubled slack",
+    ),
+    (
+        "resilience.shuffle.skew_fallback",
+        "counter",
+        "range_shuffle giving up on pathologically skewed keys "
+        "(ShuffleSkewError: the caller's local path answers)",
     ),
     (
         "resilience.device_path.*.retry",
@@ -118,6 +129,13 @@ METRICS = (
         "counter",
         "the pad share of engine.cost.padded_bytes: physical minus "
         "logical bytes",
+    ),
+    (
+        "engine.cost.collective_bytes",
+        "counter",
+        "payload bytes of the range shuffle's block exchange between the "
+        "row shards (every routed column's [S, S, capacity] blocks): the "
+        "traffic term of the layout router's sharded-vs-local model",
     ),
     (
         "engine.cost.peaks_unreadable",

@@ -28,6 +28,11 @@ well the card was used.  Three legs, on the seams the earlier layers cut:
    bytes, to ``engine.cost.padded_bytes``/``padding_waste_bytes``, the
    per-thread counters, the per-site ledger and the Chrome counter track.
 
+4. **Collective bytes.**  The range shuffle's block exchange
+   (``parallel/shuffle.py``) calls :func:`note_collective`: the bytes of
+   every routed column's blocks, to ``engine.cost.collective_bytes``, the
+   per-thread counter and the per-site ledger.
+
 Disabled contract: ``COST_ON`` is False unless ``MODIN_TPU_TORCH_COST_CAPTURE``
 is On or, under Auto (the default), meter accounting is on; every site reads
 that one attribute first.  The JAX package's ``Full`` (a second compile for
@@ -113,6 +118,7 @@ class CostLedger:
         self._entries: Dict[str, dict] = {}
         self._kernels: Dict[str, dict] = {}
         self._padding: Dict[str, dict] = {}
+        self._collective: Dict[str, dict] = {}
 
     @staticmethod
     def _blank(clock: str) -> dict:
@@ -147,6 +153,12 @@ class CostLedger:
             entry["events"] += 1
             entry["padded_bytes"] += padded_bytes
             entry["waste_bytes"] += max(padded_bytes - valid_bytes, 0)
+
+    def record_collective(self, site: str, nbytes: int) -> None:
+        with self._lock:
+            entry = self._collective.setdefault(site, {"events": 0, "bytes": 0})
+            entry["events"] += 1
+            entry["bytes"] += nbytes
 
     @staticmethod
     def _efficiency(entry: Optional[dict]) -> Optional[dict]:
@@ -183,6 +195,7 @@ class CostLedger:
                 "signatures": {s: dict(e) for s, e in self._entries.items()},
                 "kernels": {k: dict(e) for k, e in self._kernels.items()},
                 "padding": {s: dict(e) for s, e in self._padding.items()},
+                "collective": {s: dict(e) for s, e in self._collective.items()},
             }
 
     def reset(self) -> None:
@@ -190,6 +203,7 @@ class CostLedger:
             self._entries.clear()
             self._kernels.clear()
             self._padding.clear()
+            self._collective.clear()
 
 
 _LEDGER = CostLedger()
@@ -222,6 +236,11 @@ def thread_cost() -> Tuple[float, float]:
 def thread_padding() -> Tuple[int, int]:
     """Monotonic per-thread (padded bytes, padding-waste bytes)."""
     return (getattr(_tls, "padded", 0), getattr(_tls, "waste", 0))
+
+
+def thread_collective() -> int:
+    """Monotonic per-thread bytes of the shuffle's block exchanges."""
+    return getattr(_tls, "collective", 0)
 
 
 # ---------------------------------------------------------------------- #
@@ -277,6 +296,24 @@ def note_padding(site: str, padded_bytes: int, valid_bytes: int) -> None:
             sp = _spans.current_span()
             if sp is not None:
                 sp.attrs["padding_waste_bytes"] = sp.attrs.get("padding_waste_bytes", 0) + waste
+    except Exception:
+        pass
+
+
+def note_collective(site: str, nbytes: int) -> None:
+    """One exchange between the row shards: ``nbytes`` of blocks moved at
+    ``site`` (``shuffle.all_to_all``).  Sites check :data:`COST_ON` first.
+    Feeds ``engine.cost.collective_bytes`` (``QueryStats.collective_bytes``),
+    the per-thread counter EXPLAIN ANALYZE bills and the per-site ledger."""
+    try:
+        nbytes = int(nbytes)
+        _tls.collective = getattr(_tls, "collective", 0) + nbytes
+        _LEDGER.record_collective(site, nbytes)
+        emit_metric("engine.cost.collective_bytes", nbytes)
+        if _spans.TRACE_ON:
+            sp = _spans.current_span()
+            if sp is not None:
+                sp.attrs["collective_bytes"] = sp.attrs.get("collective_bytes", 0) + nbytes
     except Exception:
         pass
 

@@ -20,9 +20,9 @@ handlers; this module is the measurement layer on that stream:
   recoveries and cache hits, and a streamed query's windows, replays and
   prefetch overlap and wait (a window's parsed bytes count in
   ``bytes_parsed``, an external sort's spilled runs in ``spill_bytes``).
-  Scopes nest and are thread-isolated.  ``collective_bytes`` stays 0 until
-  the multi-card layer is ported; the field set is the JAX package's, so
-  snapshots line up.
+  Scopes nest and are thread-isolated.  ``collective_bytes`` adds the
+  range shuffle's block exchanges (``costs.note_collective``); the field
+  set is the JAX package's, so snapshots line up.
 
 Disabled contract (the default, ``MODIN_TPU_TORCH_METERS=0`` and no open
 scope): ``emit_metric`` reads ``metrics._aggregate`` (None) and the seams
@@ -531,8 +531,7 @@ class QueryStats:
         self.est_bytes = 0.0
         self.padded_bytes = 0
         self.padding_waste_bytes = 0
-        # payload bytes this scope moved through collectives: 0 until the
-        # multi-card layer is ported
+        # bytes of the range shuffle's block exchanges under this scope
         self.collective_bytes = 0
         # device-path breaker strikes observed
         # while this scope's query ran (its own fallbacks included — a
@@ -603,6 +602,8 @@ class QueryStats:
             self.padded_bytes += int(value)
         elif name == "engine.cost.padding_waste_bytes":
             self.padding_waste_bytes += int(value)
+        elif name == "engine.cost.collective_bytes":
+            self.collective_bytes += int(value)
         elif name == "sortcache.hit":
             self.cache_hits["sorted_rep"] += int(value)
         elif name == "fusion.cache.hit":
@@ -693,6 +694,8 @@ class QueryStats:
             f"cache hits: {hits}",
             self._cost_line(),
         ]
+        if self.collective_bytes:
+            lines.append(f"collective: {self.collective_bytes} bytes exchanged between row shards")
         if self.fused_dispatches:
             lines.append(
                 f"fuse: {self.fused_dispatches} whole-plan dispatch(es), "

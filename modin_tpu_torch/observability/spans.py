@@ -9,7 +9,7 @@ flight recorder's ring (``observability/flight_recorder.py``).
 Layer tags are the ``modin_layer`` of the ``ClassLogger`` mixin
 (``PANDAS-API``, ``QUERY-COMPILER``, ``CORE-FRAME``, ``CORE-IO``,
 ``TORCH-ENGINE``), plus the seams' own (``MEMORY``, ``ROUTER``, ``PLAN``,
-``VIEWS``, ``RECOVERY``).
+``VIEWS``, ``RECOVERY``, ``SHUFFLE``).
 
 Clocks.  A span's ``dur_us`` is the host clock: around a kernel launch it
 is the enqueue.  Device time comes from CUDA event pairs, recorded while
@@ -141,6 +141,17 @@ SPANS = (
         "stream.merge",
         "one k-way fold of the external sort's spilled sorted runs into the "
         "final permutation (run count in attributes)",
+    ),
+    (
+        "shuffle.sample_pivots",
+        "the strided key sample fetched to the host and its quantile pivots, "
+        "ahead of a range shuffle",
+    ),
+    (
+        "shuffle.range_shuffle",
+        "one range-partition shuffle over the row-shard mesh: bucketize, "
+        "count and pack per shard, the block exchange, compaction and the "
+        "gather back; shards, capacity and slack retries in attributes",
     ),
 )
 

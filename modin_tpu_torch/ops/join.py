@@ -17,9 +17,11 @@ total-order int mapping so pandas' merge equality holds exactly (-0.0 ==
 0.0; every NaN key matches every other NaN key).  Counts and positions are
 int64 throughout: an expansion past 2^31 output rows stays exact.
 
-The JAX package's ``merge_positions`` picks between this local sort-merge
-and a shuffle across devices; the port has one device and calls
-:func:`sort_merge_positions` directly.
+:func:`merge_positions` asks the layout router (``ops/router.
+decide_layout``) whether the right side's sort runs through the range
+shuffle over the row-shard mesh (``ops/spmd.sharded_merge_positions``) or
+here; the shuffle's positions are bit for bit these, and a single shard or
+skewed keys fall back here.
 
 :func:`duplicated_mask` (``DataFrame.duplicated``/``drop_duplicates``) folds
 one frame's key columns into a row code by the same ranks.
@@ -66,17 +68,23 @@ def composite_key_codes(
     return lc, rc
 
 
-def _match_bounds(left_key: torch.Tensor, right_key: torch.Tensor):
-    """(perm, lo, counts, total_inner, total_left) of every left key against
-    the stably sorted right keys; the totals stay on the device."""
-    left_key, right_key = int64_key(left_key), int64_key(right_key)
-    rs, perm = torch.sort(right_key, stable=True)
+def probe_sorted(rs: torch.Tensor, left_key: torch.Tensor):
+    """(lo, counts, total_inner, total_left) of every int64 left key against
+    the sorted int64 right keys ``rs``; the totals stay on the device."""
     lo = torch.searchsorted(rs, left_key, side="left")
     hi = torch.searchsorted(rs, left_key, side="right")
     counts = hi - lo
     total_inner = counts.sum()
     total_left = counts.clamp(min=1).sum()
-    return perm, lo, counts, total_inner, total_left
+    return lo, counts, total_inner, total_left
+
+
+def _match_bounds(left_key: torch.Tensor, right_key: torch.Tensor):
+    """(perm, lo, counts, total_inner, total_left) of every left key against
+    the stably sorted right keys."""
+    left_key, right_key = int64_key(left_key), int64_key(right_key)
+    rs, perm = torch.sort(right_key, stable=True)
+    return (perm, *probe_sorted(rs, left_key))
 
 
 def _expand(
@@ -116,17 +124,51 @@ def sort_merge_positions(
         raise ValueError(f"sort_merge_positions joins inner or left, not {how!r}")
     if left_key.shape[0] != n_left or right_key.shape[0] != n_right:
         raise ValueError("key lengths differ from n_left/n_right")
-    perm, lo, counts, total_inner, total_left = _match_bounds(left_key, right_key)
+    return positions_from_bounds(*_match_bounds(left_key, right_key), how)
+
+
+def positions_from_bounds(
+    perm: torch.Tensor,
+    lo: torch.Tensor,
+    counts: torch.Tensor,
+    total_inner: torch.Tensor,
+    total_left: torch.Tensor,
+    how: str,
+) -> Tuple[torch.Tensor, torch.Tensor, int, bool]:
+    """The join's positions from the probe of the sorted right keys (their
+    stable sort permutation ``perm``): one host sync for the two counts."""
     inner_count, left_count = (
         int(v) for v in _engine_materialize(torch.stack([total_inner, total_left]))
     )
     n_out = left_count if how == "left" else inner_count
     has_miss = how == "left" and left_count > inner_count
     if n_out == 0:
-        empty = torch.empty(0, dtype=torch.int64, device=left_key.device)
+        empty = torch.empty(0, dtype=torch.int64, device=lo.device)
         return empty, empty, 0, False
     left_pos, right_pos = _expand(perm, lo, counts, n_out, how == "left")
     return left_pos, right_pos, n_out, has_miss
+
+
+def merge_positions(
+    left_key: torch.Tensor,
+    right_key: torch.Tensor,
+    n_left: int,
+    n_right: int,
+    how: str = "inner",
+) -> Tuple[torch.Tensor, torch.Tensor, int, bool]:
+    """:func:`sort_merge_positions`, with the right side's sort through the
+    range shuffle where the layout router says "sharded" (the row ids are
+    the one payload it moves); the local sort-merge is the fallback for a
+    single shard and for skewed keys."""
+    from modin_tpu_torch.ops import router
+
+    if router.decide_layout("merge", int(n_right), payload_cols=1) == "sharded":
+        from modin_tpu_torch.ops import spmd
+
+        result = spmd.sharded_merge_positions(left_key, right_key, int(n_left), int(n_right), how)
+        if result is not None:
+            return result
+    return sort_merge_positions(left_key, right_key, n_left, n_right, how)
 
 
 def right_only_positions(right_pos: torch.Tensor, n_right: int) -> Tuple[torch.Tensor, int]:

@@ -521,7 +521,7 @@ def plan_sort_reduce(op: str, specs: List[dict], n: int) -> List[ColumnPlan]:
 def _sorted_inputs(plans: List[ColumnPlan], n: int) -> dict:
     """{plan index: (sorted values, n_valid)} for every sorted-strategy
     plan; missing representations are built and cached on their columns."""
-    from modin_tpu_torch.ops import sorted_cache
+    from modin_tpu_torch.ops import router, sorted_cache
     from modin_tpu_torch.ops.sort import sorted_valid_columns
 
     reps: dict = {}
@@ -537,7 +537,17 @@ def _sorted_inputs(plans: List[ColumnPlan], n: int) -> dict:
     if not missing:
         return reps
     with _spans.span("sortcache.build", "QUERY-COMPILER", cols=len(missing)):
-        built = sorted_valid_columns([plans[i].col.data for i in missing], int(n))
+        datas = [plans[i].col.data for i in missing]
+        built = None
+        if router.decide_layout("sort", int(n)) == "sharded":
+            # through the range shuffle over the row-shard mesh: the same
+            # representation bit for bit; a decline (a single shard, skewed
+            # keys) builds it here
+            from modin_tpu_torch.ops import spmd
+
+            built = spmd.sharded_sorted_valid_columns(datas, int(n))
+        if built is None:
+            built = sorted_valid_columns(datas, int(n))
     for i, pair in zip(missing, built):
         sorted_cache.attach(plans[i].col, *pair)
         reps[i] = pair

@@ -21,16 +21,28 @@ fixed cost plus a term that grows with the rows (n·log n for the sort,
 linear for the rest) fitted through the two: at the calibration size a
 launch costs about what its work does, so scaling that one time would
 predict large frames many times too slow.  The table is cached under
-``CacheDir``, keyed by the platform, the card's name and the torch version,
-so it is paid once per card.  Frames under ``KernelRouterMinRows`` never
+``CacheDir``, keyed by the platform, the card's name, the torch version
+and the mesh, so it is paid once per card and mesh.  Frames under ``KernelRouterMinRows`` never
 calibrate.
+
+The layout leg (:func:`decide_layout`) sends the sort, the
+sorted-representation build, the merge's right-side sort and a groupby
+UDF through the range shuffle over the row-shard mesh (``ops/spmd.py``,
+the query compiler) or keeps them local: a single shard is always local,
+``SpmdMode`` pins a side (``RangePartitioning`` reads as Sharded for the
+sort), and under Auto a frame of ``SpmdMinRows`` rows or more takes the
+side the table predicts faster.  On a mesh of two or more shards the
+table also holds the shuffle's sharded sort and the block exchange's bytes
+a second, measured on that mesh (:func:`_measure_sharded`); the table's
+key names the mesh (``parallel/mesh.mesh_shape_key``), so a reshape
+measures again.
 
 Every verdict adds one to ``COUNTS["router.<op>.<choice>"]`` (and the fused
 gate's to ``router.fuse.<choice>``), plain integers as the port counts its
 launches, each also emitted to the metric stream; while tracing, a verdict
-of :func:`verdict` is a ``router.decide`` span with its predicted costs.  The reference's plan-optimizer consult hook answers
-the residency verdict only (:data:`_opt_consult`, ``plan/optimizer.py`` says why): the kernel, compile and layout
-verdicts are the router's own.
+of :func:`verdict` and :func:`layout_verdict` is a ``router.decide`` span with its predicted costs.  The plan
+optimizer's consult hook (:data:`_opt_consult`) is offered the residency verdict only (``plan/optimizer.py`` says
+why): the kernel, compile and layout verdicts are the router's own.
 """
 
 from __future__ import annotations
@@ -55,7 +67,7 @@ STRATEGIES = ("dict", "view", "cached", "hist", "sort")
 #: device residency wins ties
 MIN_SAVINGS_S = 0.05
 
-_CAL_VERSION = 2
+_CAL_VERSION = 3
 
 #: the device entries are timed at the calibration rows and at this many
 #: times as many (2^24 rows at the default 2^18), where the card's sort
@@ -85,6 +97,7 @@ _calibration_forced = False
 #: the plan optimizer's consult hook, installed by ``plan/optimizer.py``
 #: while ``OptMode`` is Auto: offered a live residency verdict of the
 #: reasons below, it may answer the plan's ``(choice, reason)`` instead
+#: (the forced modes and the missing budget stay the router's)
 _opt_consult: Optional[Callable[..., Optional[Tuple[str, str]]]] = None
 _OPT_REASONS = frozenset({"fits", "over_headroom"})
 
@@ -110,8 +123,11 @@ def _platform() -> str:
 
 
 def _device_key() -> str:
-    """The card (or "cpu") and the torch version a table belongs to."""
+    """The card (or "cpu"), the torch version and the mesh a table belongs
+    to (its sharded entries are measured on that mesh)."""
     import torch
+
+    from modin_tpu_torch.parallel.mesh import mesh_shape_key
 
     if _platform() == "cuda":
         from modin_tpu_torch.parallel.mesh import get_device
@@ -119,7 +135,7 @@ def _device_key() -> str:
         name = torch.cuda.get_device_name(get_device())
     else:
         name = "cpu"
-    return f"{name}|torch-{torch.__version__}"
+    return f"{name}|torch-{torch.__version__}|mesh-{mesh_shape_key()}"
 
 
 def _cache_path(platform: str, device_key: str) -> Optional[str]:
@@ -218,7 +234,75 @@ def _measure() -> Dict[str, Any]:
         table[f"host_quantile_{regime}_s"] = _time_best(lambda: host.quantile(0.5), sync)
         table[f"host_nunique_{regime}_s"] = _time_best(lambda: host.nunique(), sync)
         table[f"host_mode_{regime}_s"] = _time_best(lambda: host.mode(), sync)
+    _measure_sharded(table, rows, fit_rows, device, sync)
     return table
+
+
+def _measure_sharded(table: Dict[str, Any], rows: int, fit_rows: int, device: Any,
+                     sync: Callable[[], None]) -> None:
+    """The layout router's entries, measured on this mesh where it has two
+    or more row shards (else none, and the layout stays local):
+
+    - ``device_shuffle_s`` (and its fixed part): the shuffle's sharded sort
+      of an all-distinct int64 key with one payload column, timed at the
+      calibration rows and at the fit rows as the device entries are.  A
+      shuffle no slower at the fit rows is all fixed cost (its launches and
+      copies), and the growing part is at least the local sort's over the
+      distinct shard devices (each row is still sorted once);
+    - ``collective_bytes_per_s``: the bare block exchange of one int64
+      column at the fit rows, ``S x S`` blocks of ``fit_rows / S^2`` rows.
+
+    A failure propagates: :func:`get_calibration` records it in
+    ``CALIBRATION_ERROR`` and stores no table (on the card a device failure
+    raises)."""
+    from modin_tpu_torch.parallel import shuffle
+    from modin_tpu_torch.parallel.engine import TorchWrapper
+    from modin_tpu_torch.parallel.mesh import num_row_shards, shard_devices
+
+    shards = num_row_shards()
+    if shards < 2:
+        return
+    import numpy as np
+    import torch
+
+    devices = shard_devices()
+
+    def sync_all() -> None:
+        # every shard device: the exchange's last copies land on them
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        sync()
+
+    rng = np.random.default_rng(1)
+    timed = []
+    for n in (rows, fit_rows):
+        key = TorchWrapper.put(rng.integers(0, 1 << 40, n), device)
+        payload = TorchWrapper.put(rng.integers(0, 1 << 40, n), device)
+        timed.append(_time_best(lambda: shuffle.range_shuffle(key, [payload], n, local_sort=True), sync_all))
+        del key, payload
+    fixed, growing = fit_fixed_and_growing(timed[0], timed[1], calstore.nlogn_scale(fit_rows, rows))
+    if timed[1] <= timed[0]:
+        # no slower at the fit rows: both timings are the shuffle's launches
+        # and copies, a fixed cost
+        fixed, growing = min(timed), 0.0
+    # every row is still sorted once, the shards' sorts side by side only
+    # across distinct devices
+    growing = max(growing, table["device_sort_s"] / len(set(devices)))
+    table.update(device_shuffle_s=growing, device_shuffle_fixed_s=fixed, device_shuffle_at_rows_s=timed[0],
+                 device_shuffle_at_fit_rows_s=timed[1], mesh_shards=shards)
+    block = max(fit_rows // (shards * shards), 8)
+    send = [[torch.zeros(shards * block, dtype=torch.int64, device=dev)] for dev in devices]
+    sent = np.full((shards, shards), block)
+    wall = _time_best(lambda: shuffle.exchange(send, sent, devices), sync_all)
+    if wall > 0:
+        table["collective_bytes_per_s"] = shards * shards * block * 8 / wall
+
+
+def _device_failure(err: BaseException) -> bool:
+    from modin_tpu_torch.core.execution.resilience import classify_device_error
+
+    return classify_device_error(err) is not None
 
 
 def calibration_peek() -> Optional[Dict[str, float]]:
@@ -233,7 +317,9 @@ def get_calibration() -> Optional[Dict[str, float]]:
     """The calibration table: memory, then ``CacheDir``, then the one-shot
     measurement.  None when the measurement failed (the caller routes
     device, and ``CALIBRATION_ERROR`` says why); a failure is remembered, so
-    a broken device is probed once, not per verdict."""
+    a broken device is probed once, not per verdict, and no table is
+    stored.  On the card a device failure of the probe (an OOM, a kernel
+    or a copy that did not run) raises instead, as the device paths do."""
     global _calibration, _calibration_key, CALIBRATIONS, CALIBRATION_ERROR
     with _lock:
         key = None
@@ -253,6 +339,8 @@ def get_calibration() -> Optional[Dict[str, float]]:
                     table = _measure()
             except Exception as err:  # noqa: BLE001 -- a failed probe routes device; the smoke prints CALIBRATION_ERROR
                 CALIBRATION_ERROR = f"{type(err).__name__}: {err}"
+                if platform == "cuda" and _device_failure(err):
+                    raise  # not remembered: the next verdict measures again
                 _calibration, _calibration_key = False, key
                 return None
             emit_metric("router.calibrate", 1)
@@ -293,12 +381,84 @@ def predicted_costs(op: str, n: int, strategies: List[str], table: Dict[str, flo
     return {"device_s": device_s, "host_s": host_s}
 
 
+def _layout_choice(op: str, n: int, payload_cols: int, itemsize: int,
+                   resolve_table: Callable[[], Optional[Dict[str, float]]]) -> Tuple[str, str, Dict[str, float]]:
+    """(choice, reason, predicted costs) of the layout verdict; the table is
+    resolved only on the cost model's arm."""
+    from modin_tpu_torch.config import RangePartitioning, SpmdMinRows, SpmdMode
+    from modin_tpu_torch.parallel.mesh import num_row_shards
+
+    mode = SpmdMode.get()
+    if mode == "Auto" and op == "sort" and RangePartitioning.get():
+        mode = "Sharded"
+    if num_row_shards() < 2:
+        return "local", "single_shard", {}
+    if mode == "Sharded":
+        return "sharded", "forced", {}
+    if mode == "Local":
+        return "local", "forced", {}
+    if n < int(SpmdMinRows.get()):
+        return "local", "below_min_rows", {}
+    table = resolve_table()
+    if table is None or "device_shuffle_s" not in table:
+        return "local", "uncalibrated", {}
+    costs = predicted_layout_costs(n, payload_cols, itemsize, table, op)
+    return ("sharded" if costs["sharded_s"] < costs["local_s"] else "local"), "cost_model", costs
+
+
+def predicted_layout_costs(n: int, payload_cols: int, itemsize: int, table: Dict[str, float],
+                           op: str = "sort") -> Dict[str, float]:
+    """Predicted ``{local_s, sharded_s}`` of one sort over ``n`` rows: both
+    sides grow n·log n from their calibrated entries (the local sort and
+    the shuffle's sharded sort of a key and one payload column), and each
+    payload column past that one is billed at the measured
+    ``collective_bytes_per_s``.  A groupby UDF (``apply``) runs in pandas
+    on the same rows on either side, so its sides differ by the shuffle
+    alone: ``local_s`` is 0."""
+    logscale = calstore.nlogn_scale(n, int(table["rows"]))
+    local_s = 0.0 if op == "apply" else device_term(table, "sort", logscale)
+    sharded_s = device_term(table, "shuffle", logscale)
+    bw = float(table.get("collective_bytes_per_s") or 0.0)
+    if bw > 0 and payload_cols > 1:
+        sharded_s += (payload_cols - 1) * n * itemsize / bw
+    return {"local_s": local_s, "sharded_s": sharded_s}
+
+
+def layout_verdict(op: str, n: int, payload_cols: int = 0, itemsize: int = 8) -> Dict[str, Any]:
+    """The verdict of :func:`decide_layout` with its reason and predicted
+    costs, counted the same way (the smoke prints it)."""
+    choice, reason, costs = _layout_choice(op, n, payload_cols, itemsize, get_calibration)
+    _count(f"router.spmd_{op}.{choice}")
+    if _spans.TRACE_ON:
+        _spans.event("router.decide", "QUERY-COMPILER", op=f"spmd_{op}", n=n, choice=choice, reason=reason,
+                     payload_cols=payload_cols, **{k: round(v, 6) for k, v in costs.items()})
+    return {"choice": choice, "reason": reason, **costs}
+
+
 def decide_layout(op: str, n: int, payload_cols: int = 0, itemsize: int = 8) -> str:
-    """"local" or "sharded" for a collective-eligible op: one device holds
-    every column, so always "local" (the JAX package's ``single_shard``
-    reason); the sharded leg comes with multi-GPU."""
-    _count(f"router.spmd_{op}.local")
-    return "local"
+    """"local" or "sharded" for one collective-eligible op over ``n`` rows.
+
+    ``op`` names the family (``sort`` for ``sort_values`` and the
+    sorted-representation build, ``merge`` for the join's right-side
+    sort, ``apply`` for a groupby UDF); ``payload_cols`` counts the columns
+    the shuffle would move beside the key.  A single-shard mesh answers
+    "local" (``single_shard``) before anything else; ``SpmdMode`` Sharded
+    and Local pin a side (``RangePartitioning`` pins the sort Sharded
+    under Auto); under Auto a frame under ``SpmdMinRows`` stays local,
+    a table without the sharded entries (measured on a single shard, or
+    not at all) too (``uncalibrated``), and otherwise
+    :func:`predicted_layout_costs` decides.  Counted as
+    ``router.spmd_<op>.<choice>``; while tracing, a ``router.decide`` event
+    with the predicted costs."""
+    return layout_verdict(op, n, payload_cols, itemsize)["choice"]
+
+
+def planned_layout(op: str, n: Optional[int]) -> str:
+    """The plan-time layout leg: :func:`decide_layout`'s arms over the
+    already resolved table (planning never measures), not counted."""
+    if n is None:
+        return "local"
+    return _layout_choice(op, int(n), 1, 8, calibration_peek)[0]
 
 
 def decide_residency(op: str, est_bytes: int, self_bytes: int = 0) -> str:

@@ -81,18 +81,24 @@ def sorted_valid(c: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     nunique, mode): ``ops/sorted_cache.py`` keeps it per column so that
     consecutive ops on one column pay one sort.
     """
+    x, n_valid = sorted_valid_prep(c, n)
+    return torch.sort(x, stable=True).values, n_valid
+
+
+def sorted_valid_prep(c: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values to sort, n_valid) of :func:`sorted_valid`: NaN as +inf and
+    not counted, bool as int8.  The sort is stable, so -0.0 and 0.0 keep
+    their row order, as the range shuffle's per-shard sorts keep it
+    (``ops/spmd.sharded_sorted_valid``): the two representations are equal
+    bit for bit."""
     if c.shape[0] != n:
         raise ValueError(f"column of {c.shape[0]} rows for {n} rows")
     if c.dtype == torch.bool:
         c = c.to(torch.int8)  # 0/1 round-trips every caller
     if c.dtype.is_floating_point:
         nanm = torch.isnan(c)
-        x = torch.where(nanm, float("inf"), c)
-        n_valid = n - nanm.sum()
-    else:
-        x = c
-        n_valid = torch.tensor(n, dtype=torch.int64, device=c.device)
-    return torch.sort(x).values, n_valid
+        return torch.where(nanm, float("inf"), c), n - nanm.sum()
+    return c, torch.tensor(n, dtype=torch.int64, device=c.device)
 
 
 def sorted_valid_columns(arrays: List[torch.Tensor], n: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:

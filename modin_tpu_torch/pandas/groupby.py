@@ -228,7 +228,11 @@ class DataFrameGroupBy(ClassLogger, modin_layer="PANDAS-API"):
                 series_groupby=self._series_groupby,
                 selection=self._selection,
             ))
-        return self._groupby_agg(lambda grp, *a, **kw: grp.transform(func, *a, **kw), kwargs, args)
+        transformer = lambda grp, *a, **kw: grp.transform(func, *a, **kw)  # noqa: E731
+        # a row-shaped result (the frame's row order): the key-ordered
+        # shuffle of the compiler's groupby UDF path must not take it
+        transformer._row_shaped_groupby = True
+        return self._groupby_agg(transformer, kwargs, args)
 
     def rolling(self, window: Any = None, min_periods: Any = None, center: bool = False, win_type: Any = None,
                 on: Any = None, closed: Any = None, method: str = "single"):

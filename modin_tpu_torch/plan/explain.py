@@ -54,7 +54,9 @@ def _cost_suffix(measured: dict) -> str:
     (device clock) where events were on, else over the node's measured wall
     (host clock, marked ``~host``: the wall includes the fetch that waits
     for the card where the node's result comes to the host), and the
-    padding share.  ``cost=off`` when cost capture was off for the run."""
+    padding share, and the bytes its range shuffles exchanged between the
+    row shards where there were any.  ``cost=off`` when cost capture was
+    off for the run."""
     if "est_bytes" not in measured:
         return " cost=off"
     from modin_tpu_torch.observability import costs as _costs
@@ -76,9 +78,11 @@ def _cost_suffix(measured: dict) -> str:
                 roofline = f"{fraction:.1%}"
         except Exception:
             pass
+    collective = measured.get("collective_bytes", 0)
     return (
         f" moved={_fmt_bytes(int(est_bytes))} ops={_fmt_count(est_flops)} "
         f"bw{clock}={bandwidth} padding={pad_pct} roofline{clock}={roofline}"
+        + (f" collective={_fmt_bytes(int(collective))}" if collective else "")
     )
 
 

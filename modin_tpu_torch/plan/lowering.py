@@ -147,6 +147,7 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
     cost_on = _costs.COST_ON
     c0 = _costs.thread_cost() if cost_on else None
     p0 = _costs.thread_padding() if cost_on else None
+    x0 = _costs.thread_collective() if cost_on else None
     acc = _ledger.push_device_acc() if cost_on else None
     try:
         result = _lower_node(node, memo)
@@ -177,6 +178,7 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
         entry["est_bytes"] = c1[1] - c0[1]
         entry["padded_bytes"] = p1[0] - p0[0]
         entry["padding_waste_bytes"] = p1[1] - p0[1]
+        entry["collective_bytes"] = _costs.thread_collective() - x0
         if acc is not None:
             # the event times of the subtree's launches, once resolved
             entry["device"] = acc

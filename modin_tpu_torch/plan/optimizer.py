@@ -10,7 +10,8 @@ the legs the port has:
   triggers a measurement) and its strategy legs: kernel (a sort-shaped
   reduction's device or host side under the router's model, or "view"
   where a cached artifact answers it), compile
-  (fused or staged), layout (local) and residency (resident, or windowed
+  (fused or staged), layout (local, or sharded over a mesh of two or more
+  row shards) and residency (resident, or windowed
   where its input passes the device ledger's headroom under
   ``DeviceMemoryBudget``).  EXPLAIN renders them.
 - Mid-query re-estimation: lowering times each node and feeds its wall
@@ -48,7 +49,12 @@ Where the port departs from the reference, and why:
   calibration and :data:`DEFAULT_PRIORS`;
 - the compile-storm trigger: it reads a launch ledger the port does not
   keep (observability);
-- the layout leg answers "local": one device holds every column;
+- the layout leg is ``decide_layout``'s arms over the resolved table
+  (``router.planned_layout``: a single shard, the forced modes and the row
+  floor answer first, a table without the sharded entries "local"); the
+  live verdict is the router's: both sides of the layout model scale by
+  the same correction, so a re-plan never flips it, and the live verdict
+  sees the payload widths the plan does not;
 - the cost-gated rule order of ``plan/rules.optimize`` with its objective
   ``plan_cost``.
 
@@ -419,7 +425,7 @@ def _choose_node(node: PlanNode, st: NodeStrategy, table: Optional[Dict[str, flo
             st.legs["kernel"] = _plan_kernel(node, in_rows, table)
             st.leg_ops["kernel"] = node.method
     elif isinstance(node, Sort):
-        st.legs["layout"] = "local"
+        st.legs["layout"] = router.planned_layout("sort", in_rows)
         st.leg_ops["layout"] = "sort"
 
 
