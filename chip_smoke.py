@@ -6,9 +6,10 @@
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
                           [--memory-rows N] [--views-rows N] [--views-time-rows N]
                           [--robust-cost-rows N] [--trace-rows N] [--stream-rows N]
-                          [--stream-sort-rows N] [--mesh-rows N] [--seed S] [--parent-checkout DIR]
+                          [--stream-sort-rows N] [--mesh-rows N] [--serve-rows N] [--seed S]
+                          [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory,views,robust,trace,stream,mesh]
+                                    memory,views,robust,trace,stream,mesh,serve]
 
 Phases, one JSON object per line each:
 
@@ -367,6 +368,47 @@ Phases, one JSON object per line each:
              rate, ``collective_bytes``, rows a shard, slack retries, the
              device peak and ``defaults_to_pandas`` 0, and the phase's
              bincount launches (the shuffle's per-destination counts).
+21. serve  - multi-tenant serving (``phase_serve``): ``serving.submit``
+             from threads on one card over a ``--serve-rows`` (1e7) frame of
+             float64 ``a``, ``b``, ``c``, int64 ``i`` and a key ``k`` of 100
+             values, ``ViewsMode`` Off so that every query runs its kernels.
+             (f) first, lockdep off: one query alone with serving off and
+             on (a no-op and the chain sum), us a query, and no context or
+             validator object made while off; ns of one acquisition of a
+             bare ``threading`` lock, a named lock and a named lock on the
+             validating methods; with ``--parent-checkout`` a host-bound
+             hot path (chain sum and filtered mean on 4096 rows) on the
+             earlier commit and on this one, processes of their own in the
+             order parent, this, this, parent, this, parent, parent, this.  Then, under strict lockdep:
+             (a) 200 queries of a mix (``(a * b + c).sum()`` and a filtered
+             mean on ``fused.cu``, grouped sum and mean on ``groupagg.cu``,
+             grouped size on ``bincount.cu``, a ``sort_values`` head) by
+             three tenants weighted 2 : 1 : 1 from 8 threads, at
+             ``ServingMaxConcurrent`` 1, 2, 4 and 8: each result bit for bit
+             the query's serial run (held to pandas: exact, or floats to
+             1e-12 of the magnitudes summed), queries/s, p50/p99 wall and
+             execution, the queries executing at once, the dispatch lock's
+             held share and wait, the slowest query, device memory, OOM and
+             spill tallies and GC pauses, each kernel's launches; then 48
+             queries at MaxConcurrent 8 with tracing on: the launch ledger's
+             CUDA event pairs from eight threads, its launches equal to the
+             wrappers' and each one timed; (b) a burst of 16 at MaxConcurrent 1 and QueueDepth
+             2: 13 typed ``queue_full`` sheds, as the snapshot counts them;
+             (c) a deadline expiring in the queue and one mid-query, both
+             ``DeadlineExceeded``, with their overshoots, then 16 mid-query
+             deadlines while 7 threads keep MaxConcurrent 8 busy (each
+             raised, at a seam or waiting for the dispatch lock); (d) byte
+             headroom under a ``DeviceMemoryBudget`` of the residency plus
+             two working sets (the residency past 0.9 of it): admissions
+             queue (none shed or degraded), two at most run with costs set
+             to half the budget, and the budget over the billed cost at
+             most with the costs the gate billed for earlier served runs,
+             the device peak within the budget plus one query's working
+             set; then a budget of 0.9 of the residency, every query
+             answered on the card through spills; (e) a breaker opened by
+             injected faults:
+             the typed ``degraded`` shed, nothing run or sent to pandas.
+             The observed lock edges, 0 violations, and the launches.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -374,8 +416,8 @@ default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
 at ``--io-rows``, ``--window-rows``, ``--clean-rows``, ``--dates-rows`` and
 ``--plan-rows`` (2.5e6 each), the
 fusion phase at ``--fusion-rows`` (1e7), phase 15's CSV queries at
-``--donation-rows`` (5e6) and phase 16 at ``--views-rows`` (1e6) and
-``--views-time-rows`` (5e7) so that the whole script stays near half of its
+``--donation-rows`` (5e6), phase 16 at ``--views-rows`` (1e6) and
+``--views-time-rows`` (5e7) and phase 21 at ``--serve-rows`` (1e7) so that the whole script stays near half of its
 time limit; the kernel checks run at ``--rows``.  ``--phases``
 picks the phases after the kernel check for a quick run; only a run of all
 of them prints the result lines.  Then the card's name and power limit, one
@@ -400,7 +442,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory", "views", "robust", "trace", "stream", "mesh")
+              "formats", "memory", "views", "robust", "trace", "stream", "mesh", "serve")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -6482,6 +6524,865 @@ def phase_mesh(rows: int, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 21. serving: concurrent queries from threads on one card
+# ---------------------------------------------------------------------- #
+
+SERVE_KEYS = 100
+#: the tenants' weights 2 : 1 : 1, scaled by 64 as the JAX package's bench
+#: scales its own: a bucket refills weight x ServingMaxConcurrent queries a
+#: second, so at 2, 1, 1 bob would get one query a second at MaxConcurrent
+#: 1 and the limiter, which the CPU tests cover, would be all the phase
+#: measured
+SERVE_WEIGHTS = "alice=128,bob=64,carol=64"
+SERVE_TENANTS = ("alice", "bob", "carol")
+SERVE_THREADS = 8
+SERVE_QUERIES_TOTAL = 200
+SERVE_CONCURRENCY = (1, 2, 4, 8)
+#: (a)'s traced level: queries at MaxConcurrent 8 with tracing on
+SERVE_TRACED_QUERIES = 48
+#: (b): a burst of this many submits at MaxConcurrent 1 and QueueDepth 2
+SERVE_BURST = 16
+#: (c): the queued query's deadline; the mid-query deadline is a share of
+#: its query's measured wall
+SERVE_QUEUE_DEADLINE_MS = 50.0
+SERVE_MID_SHARE = 0.3
+SERVE_MID_STEPS = 10
+#: (c) under load: deadline queries run one after another while the other
+#: threads keep MaxConcurrent 8 saturated
+SERVE_CONTENDED_QUERIES = 16
+#: (d): the queries of a round, and the past-budget round's budget as a
+#: share of the residency
+SERVE_HEADROOM_QUERIES = 2 * SERVE_THREADS
+SERVE_PAST_BUDGET_SHARE = 0.9
+#: (f): calls of each side a round, rounds in the order off, on, on, off
+SERVE_COST_CALLS = 40
+#: (f): ``with lock: pass`` a timing, best of the repeats
+SERVE_LOCK_ACQUIRES = 200_000
+SERVE_LOCK_REPEATS = 5
+#: (f) with ``--parent-checkout``: the hot path's frame, queries a round,
+#: rounds a process and the sides' processes in order (twice parent,
+#: this, this, parent, the second time mirrored)
+SERVE_HOT_ROWS = 4096
+SERVE_HOT_QUERIES = 500
+SERVE_HOT_ROUNDS = 5
+SERVE_HOT_ORDER = ("parent", "change", "change", "parent", "change", "parent", "parent", "change")
+
+
+def serve_frame(rows: int, seed: int) -> dict:
+    """``make_frame``-style columns: float64 ``a``, ``b``, ``c``, int64 ``i``
+    and a key ``k`` of ``SERVE_KEYS`` values."""
+    rng = np.random.default_rng(seed + 210)
+    return {"a": rng.standard_normal(rows), "b": rng.standard_normal(rows), "c": rng.standard_normal(rows),
+            "i": rng.integers(-1000, 1000, rows), "k": rng.integers(0, SERVE_KEYS, rows)}
+
+
+def _host(x):
+    """A query's result on the host: pandas objects, Python floats."""
+    from modin_tpu_torch.pandas.utils import to_pandas
+
+    return to_pandas(x) if hasattr(x, "_query_compiler") else x
+
+
+#: the served mix: (query on a frame -> host result, pandas reference,
+#: the scale of its rounding or None for an exact result, the kernel on its path)
+SERVE_QUERIES = {
+    "chain_sum": (lambda d: float((d["a"] * d["b"] + d["c"]).sum()),
+                  lambda p: float((p["a"] * p["b"] + p["c"]).sum()),
+                  lambda p: float((p["a"] * p["b"]).abs().sum() + p["c"].abs().sum()), "fused"),
+    "filtered_mean": (lambda d: float(d[d["a"] > 0]["b"].mean()),
+                      lambda p: float(p[p["a"] > 0]["b"].mean()),
+                      lambda p: float(p[p["a"] > 0]["b"].abs().mean()), "fused"),
+    "group_sum": (lambda d: _host(d.groupby("k").sum()), lambda p: p.groupby("k").sum(),
+                  lambda p: p.abs().assign(k=p["k"]).groupby("k").sum(), "groupagg"),
+    "group_mean": (lambda d: _host(d.groupby("k").mean()), lambda p: p.groupby("k").mean(),
+                   lambda p: p.abs().assign(k=p["k"]).groupby("k").mean(), "groupagg"),
+    # grouped by ``k % SERVE_KEYS`` (equal to ``k``, computed anew each
+    # query): ``ops/groupby.py``'s factorization cache keeps a key
+    # tensor's codes and sizes, so a repeated ``groupby("k").size()`` on
+    # one frame would launch bincount only once
+    "group_size": (lambda d: _host(d.groupby(d["k"] % SERVE_KEYS).size()),
+                   lambda p: p.groupby(p["k"] % SERVE_KEYS).size(), None, "bincount"),
+    "sort_head": (lambda d: _host(d.sort_values("a").head(10)), lambda p: p.sort_values("a").head(10), None, None),
+}
+
+
+def _bitwise_same(got, want, what: str) -> None:
+    """The same bits: floats by their bit patterns, frames column by column
+    with labels and dtypes."""
+    import pandas
+
+    if isinstance(want, float):
+        if np.float64(got).view(np.int64) != np.float64(want).view(np.int64):
+            raise AssertionError(f"{what}: {got!r} != {want!r} bit for bit")
+        return
+    if isinstance(want, pandas.Series):
+        got, want = got.to_frame(), want.to_frame()
+    if not got.index.equals(want.index) or list(got.columns) != list(want.columns):
+        raise AssertionError(f"{what}: index or columns differ")
+    for j, label in enumerate(want.columns):
+        g, w = got.iloc[:, j].to_numpy(), want.iloc[:, j].to_numpy()
+        if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what}[{label}]: not bit for bit the serial result")
+
+
+def _serve_same(got, want, scale, what: str) -> None:
+    """Against pandas: exact, or floats to 1e-12 of the magnitudes summed."""
+    if isinstance(want, float):
+        if abs(got - want) > FLOAT_RTOL * scale:
+            raise AssertionError(f"{what}: {got!r} against pandas' {want!r}, past 1e-12 of {scale!r}")
+        return
+    _stream_same(got, want, what, scale)
+
+
+def _percentile(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def _serve_marks() -> dict:
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    return {"defaults": tqc.DEFAULTS_TO_PANDAS, "fallbacks": resilience.fallback_count()}
+
+
+class _TimedDispatchLock:
+    """Stands in for ``serving.context.dispatch_lock`` during (a): the same
+    lock, plus the seconds threads waited for it and held it (outermost
+    acquisitions; it is reentrant)."""
+
+    def __init__(self, inner):
+        import threading
+
+        self.inner = inner
+        self._tls = threading.local()
+        self._sum = threading.Lock()
+        self.wait_s = self.hold_s = 0.0
+        self.acquires = 0
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        depth = getattr(self._tls, "depth", 0)
+        t0 = time.perf_counter()
+        if not self.inner.acquire(blocking, timeout):
+            with self._sum:
+                self.wait_s += time.perf_counter() - t0
+            return False
+        if depth == 0:
+            self._tls.t1 = t1 = time.perf_counter()
+            with self._sum:
+                self.wait_s += t1 - t0
+                self.acquires += 1
+        self._tls.depth = depth + 1
+        return True
+
+    def release(self) -> None:
+        self._tls.depth -= 1
+        if self._tls.depth == 0:
+            with self._sum:
+                self.hold_s += time.perf_counter() - self._tls.t1
+        self.inner.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc_info):
+        self.release()
+        return False
+
+
+class _GcPauses:
+    """The interpreter's garbage-collection pauses while it is entered
+    (``gc.callbacks``): every thread stops for one."""
+
+    def __enter__(self):
+        self.count, self.total_s, self.max_s, self._t0 = 0, 0.0, 0.0, None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            pause = time.perf_counter() - self._t0
+            self.count += 1
+            self.total_s += pause
+            self.max_s = max(self.max_s, pause)
+
+    def __exit__(self, *exc_info):
+        gc.callbacks.remove(self._note)
+        return False
+
+
+def _serve_counts() -> dict:
+    """The resilience and memory tallies (OOM legs, spills, restores)."""
+    from modin_tpu_torch.core import memory
+    from modin_tpu_torch.core.execution import resilience
+
+    return {**dict(resilience.COUNTS), **dict(memory.COUNTS)}
+
+
+def _serve_threads(jobs, threads: int) -> list:
+    """Run ``jobs`` (callables) on ``threads`` worker threads, in order of
+    the list; returns each job's (result or exception, submit wall s)."""
+    import threading
+
+    out = [None] * len(jobs)
+    next_job = [0]
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = next_job[0]
+                next_job[0] += 1
+            if i >= len(jobs):
+                return
+            t0 = time.perf_counter()
+            try:
+                got = jobs[i]()
+            except Exception as err:  # noqa: BLE001 - the caller checks each outcome
+                got = err
+            out[i] = (got, time.perf_counter() - t0)
+
+    pool = [threading.Thread(target=worker, name=f"serve-{t}", daemon=True) for t in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in pool):
+        raise AssertionError("a serving thread hung")
+    return out
+
+
+def serve_mixed(df, serial: dict, seed: int) -> dict:
+    """(a): ``SERVE_QUERIES_TOTAL`` queries of the mix from
+    ``SERVE_THREADS`` threads by three weighted tenants, at each
+    ``ServingMaxConcurrent`` of ``SERVE_CONCURRENCY``; every result bit for
+    bit the query's serial run (which was held to pandas).  The dispatch
+    lock is timed (``_TimedDispatchLock``) to show how much of the level ran
+    serialized under it.  Returns each
+    level's rates, walls and launches."""
+    import torch
+
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.config import ServingMaxConcurrent, ServingQueueDepth
+    from modin_tpu_torch.serving import context as serving_context
+    from modin_tpu_torch.serving.gate import gate
+
+    rng = np.random.default_rng(seed + 211)
+    names = list(SERVE_QUERIES)
+    plan = [(names[j], SERVE_TENANTS[t]) for j, t in zip(rng.integers(0, len(names), SERVE_QUERIES_TOTAL),
+                                                           rng.integers(0, len(SERVE_TENANTS), SERVE_QUERIES_TOTAL))]
+    levels = {}
+    for level in SERVE_CONCURRENCY:
+        ServingMaxConcurrent.put(level)
+        ServingQueueDepth.put(SERVE_QUERIES_TOTAL)
+        gate.reset_for_tests()
+        exec_s = [0.0] * len(plan)
+
+        def job(i, name, tenant):
+            fn = SERVE_QUERIES[name][0]
+
+            def run():
+                t0 = time.perf_counter()
+                try:
+                    return fn(df)
+                finally:
+                    exec_s[i] = time.perf_counter() - t0
+            return lambda: serving.submit(run, tenant=tenant, label=name)
+
+        marks, k0, counts0 = _serve_marks(), _kernel_marks(), _serve_counts()
+        timed = _TimedDispatchLock(serving_context.dispatch_lock)
+        serving_context.dispatch_lock = timed
+        try:
+            torch.cuda.synchronize()
+            allocated0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _GcPauses() as pauses:
+                outcomes = _serve_threads([job(i, n, t) for i, (n, t) in enumerate(plan)], SERVE_THREADS)
+            elapsed = time.perf_counter() - t0
+        finally:
+            serving_context.dispatch_lock = timed.inner
+        counts = {k: v - counts0.get(k, 0) for k, v in _serve_counts().items() if v != counts0.get(k, 0)}
+        launches = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+        after = _serve_marks()
+        for (name, tenant), (got, _wall) in zip(plan, outcomes):
+            if isinstance(got, BaseException):
+                raise AssertionError(f"(a) {name} for {tenant} at MaxConcurrent {level}: {got!r}") from got
+            _bitwise_same(got, serial[name], f"(a) {name} at MaxConcurrent {level}")
+        if after != marks:
+            raise AssertionError(f"(a) at MaxConcurrent {level}: defaults or fallbacks {marks} -> {after}")
+        snap = gate.snapshot()
+        if snap["shed"] or snap["completed"] != len(plan):
+            raise AssertionError(f"(a) at MaxConcurrent {level}: {snap}")
+        walls = [w for _got, w in outcomes]
+        levels[str(level)] = {
+            "queries": len(plan), "seconds": elapsed, "queries_per_s": len(plan) / elapsed,
+            "p50_ms": _percentile(walls, 50) * 1e3, "p99_ms": _percentile(walls, 99) * 1e3,
+            "exec_p50_ms": _percentile(exec_s, 50) * 1e3, "exec_p99_ms": _percentile(exec_s, 99) * 1e3,
+            # queries executing at once, on average: their execution
+            # seconds (inside the gate) over the level's elapsed seconds
+            "mean_executing": sum(exec_s) / elapsed,
+            # the dispatch lock: the share of the level's wall it was held
+            # (the device paths' serialized part) and the mean wait for it
+            "dispatch_held_share": timed.hold_s / elapsed, "dispatch_acquires": timed.acquires,
+            "dispatch_wait_ms_mean": timed.wait_s / max(timed.acquires, 1) * 1e3,
+            "ever_queued": snap["ever_queued"], "launches": launches,
+            # what a slow tail is made of: the slowest query, the device
+            # memory the level started with and its peak, the OOM and spill
+            # tallies it moved, and the interpreter's GC pauses
+            "slowest": {"query": plan[int(np.argmax(exec_s))][0], "exec_ms": max(exec_s) * 1e3},
+            "device_allocated_start_bytes": allocated0, "device_peak_bytes": torch.cuda.max_memory_allocated(),
+            "counts": counts, "gc": {"collections": pauses.count, "pause_s": pauses.total_s, "max_s": pauses.max_s},
+        }
+    for kernel in ("fused", "groupagg", "bincount"):
+        if not all(lv["launches"][kernel] > 0 for lv in levels.values()):
+            raise AssertionError(f"(a) the served queries never launched {kernel}: {levels}")
+    mix = {name: sum(1 for n, _t in plan if n == name) for name in names}
+    tenants = {t: sum(1 for _n, x in plan if x == t) for t in SERVE_TENANTS}
+    return {"mix": mix, "tenants": tenants, "by_max_concurrent": levels, "defaults_to_pandas": 0}
+
+
+def serve_traced(df, serial: dict, seed: int) -> dict:
+    """(a), traced: ``SERVE_TRACED_QUERIES`` of the mix at MaxConcurrent 8
+    with ``TraceEnabled`` on, so every kernel launch of the eight threads
+    records a CUDA event pair in the launch ledger: the ledger's launches
+    equal the wrappers' counts, each of them resolves to a device time, and
+    every result is still bit for bit its serial run."""
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.config import ServingMaxConcurrent, ServingQueueDepth, TraceEnabled
+    from modin_tpu_torch.observability import compile_ledger
+    from modin_tpu_torch.serving.gate import gate
+
+    rng = np.random.default_rng(seed + 212)
+    names = list(SERVE_QUERIES)
+    plan = [names[j] for j in rng.integers(0, len(names), SERVE_TRACED_QUERIES)]
+    ServingMaxConcurrent.put(SERVE_THREADS)
+    ServingQueueDepth.put(SERVE_TRACED_QUERIES)
+    gate.reset_for_tests()
+    ledger = compile_ledger.get_compile_ledger()
+    fields = ("launches", "timed", "device_ms")
+    with TraceEnabled.context(True):
+        before = {k: {f: v[f] for f in fields} for k, v in ledger.launch_snapshot().items()}
+        k0 = _kernel_marks()
+        t0 = time.perf_counter()
+        outcomes = _serve_threads([lambda n=n, i=i: serving.submit(SERVE_QUERIES[n][0], df,
+                                                                  tenant=SERVE_TENANTS[i % 3], label=n)
+                                   for i, n in enumerate(plan)], SERVE_THREADS)
+        elapsed = time.perf_counter() - t0
+        wrappers = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+        after = ledger.launch_snapshot()
+    for name, (got, _wall) in zip(plan, outcomes):
+        if isinstance(got, BaseException):
+            raise AssertionError(f"(a) traced {name}: {got!r}") from got
+        _bitwise_same(got, serial[name], f"(a) traced {name}")
+    kernels = {}
+    for kernel, launched in wrappers.items():
+        zero = {f: 0 for f in fields}
+        delta = {f: after.get(kernel, zero)[f] - before.get(kernel, zero)[f] for f in fields}
+        if delta["launches"] != launched or launched <= 0 or delta["timed"] != launched:
+            raise AssertionError(f"(a) traced {kernel}: the ledger {delta}, the wrapper {launched} launches")
+        kernels[kernel] = delta
+    return {"queries": len(plan), "queries_per_s": len(plan) / elapsed, "kernels": kernels}
+
+
+def serve_sheds(df) -> dict:
+    """(b): a burst of ``SERVE_BURST`` submits at MaxConcurrent 1 and
+    QueueDepth 2; each admitted query waits for a go signal that comes once
+    every submit is running, queued or shed, so the counts are exact: one
+    running, two queued, the rest typed ``queue_full`` sheds."""
+    import threading
+
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.config import ServingMaxConcurrent, ServingQueueDepth
+    from modin_tpu_torch.serving.gate import gate
+
+    ServingMaxConcurrent.put(1)
+    ServingQueueDepth.put(2)
+    gate.reset_for_tests()
+    go = threading.Event()
+    fn = SERVE_QUERIES["group_sum"][0]
+
+    def query():
+        if not go.wait(timeout=60):
+            raise AssertionError("(b) no go signal")
+        return fn(df)
+
+    jobs = [lambda t=t: serving.submit(query, tenant=SERVE_TENANTS[t % 3], label="burst") for t in range(SERVE_BURST)]
+    out = []
+    runner = threading.Thread(target=lambda: out.extend(_serve_threads(jobs, SERVE_BURST)), daemon=True)
+    runner.start()
+    deadline = time.monotonic() + 30
+    expected_shed = SERVE_BURST - 3
+    while time.monotonic() < deadline:
+        snap = gate.snapshot()
+        if snap["running"] == 1 and snap["queued"] == 2 and snap["shed"] == expected_shed:
+            break
+        time.sleep(0.005)
+    at_burst = gate.snapshot()
+    go.set()
+    runner.join(timeout=120)
+    rejected = [g for g, _w in out if isinstance(g, serving.QueryRejected)]
+    done = [g for g, _w in out if not isinstance(g, BaseException)]
+    other = [g for g, _w in out if isinstance(g, BaseException) and not isinstance(g, serving.QueryRejected)]
+    snap = serving.serving_snapshot()
+    tenant_sheds = sum(t["shed"] for t in snap["tenants"].values())
+    if other or len(rejected) != expected_shed or len(done) != 3:
+        raise AssertionError(f"(b) {len(done)} done, {len(rejected)} shed, other {other!r}")
+    if {r.reason for r in rejected} != {"queue_full"} or not all(r.retry_after_s > 0 for r in rejected):
+        raise AssertionError("(b) the sheds are not typed queue_full with a retry hint")
+    if (snap["shed"], tenant_sheds, snap["completed"]) != (expected_shed, expected_shed, 3):
+        raise AssertionError(f"(b) the snapshot disagrees with the sheds: {snap}")
+    return {"burst": SERVE_BURST, "at_burst": {k: at_burst[k] for k in ("running", "queued", "shed")},
+            "shed": len(rejected), "completed": len(done), "snapshot_shed": snap["shed"],
+            "tenant_sheds": tenant_sheds, "retry_after_ms": sorted(r.retry_after_s * 1e3 for r in rejected)[:3]}
+
+
+def serve_deadlines(df, serial: dict) -> dict:
+    """(c): a deadline that expires while the query is queued behind a held
+    slot, and one that expires mid-query (a chain of ``SERVE_MID_STEPS``
+    fused reductions under a deadline of ``SERVE_MID_SHARE`` of its measured
+    wall): both raise ``DeadlineExceeded``; each one's overshoot past its
+    deadline in ms."""
+    import threading
+
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.config import ServingMaxConcurrent, ServingQueueDepth
+
+    ServingMaxConcurrent.put(1)
+    ServingQueueDepth.put(4)
+    release, started = threading.Event(), threading.Event()
+
+    def holder():
+        started.set()
+        release.wait(timeout=60)
+        return SERVE_QUERIES["chain_sum"][0](df)
+
+    held = threading.Thread(target=lambda: serving.submit(holder, tenant="alice"), daemon=True)
+    held.start()
+    started.wait(timeout=60)
+    t0 = time.perf_counter()
+    try:
+        serving.submit(SERVE_QUERIES["chain_sum"][0], df, tenant="bob", deadline_ms=SERVE_QUEUE_DEADLINE_MS)
+        raise AssertionError("(c) the queued query outlived its deadline")
+    except serving.DeadlineExceeded as err:
+        queued = {"where": err.where, "deadline_ms": SERVE_QUEUE_DEADLINE_MS,
+                  "overshoot_ms": (time.perf_counter() - t0) * 1e3 - SERVE_QUEUE_DEADLINE_MS}
+    release.set()
+    held.join(timeout=60)
+
+    def steps(d):
+        return [float((d["a"] * d["b"] + d["c"] * step).sum()) for step in range(SERVE_MID_STEPS)]
+
+    steps(df)  # the programs lowered and cached, so the timed run is the served one's
+    _, alone_ms = host_ms(lambda: steps(df))
+    deadline_ms = max(alone_ms * SERVE_MID_SHARE, 1.0)
+    t0 = time.perf_counter()
+    try:
+        serving.submit(steps, df, tenant="carol", deadline_ms=deadline_ms)
+        raise AssertionError(f"(c) the query ran to its end past a {deadline_ms:.3f} ms deadline")
+    except serving.DeadlineExceeded as err:
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        mid = {"where": err.where, "deadline_ms": deadline_ms, "alone_ms": alone_ms, "wall_ms": wall_ms,
+               "overshoot_ms": wall_ms - deadline_ms, "step_ms": alone_ms / SERVE_MID_STEPS}
+    if queued["where"] != "serving.queue" or mid["where"] in ("", "serving.queue"):
+        raise AssertionError(f"(c) deadlines seen at {queued['where']!r} and {mid['where']!r}")
+    return {"queued": queued, "mid_query": mid, "contended": _serve_contended_deadlines(df, serial, steps, deadline_ms)}
+
+
+def _serve_contended_deadlines(df, serial: dict, steps, deadline_ms: float) -> dict:
+    """(c) under load: ``SERVE_THREADS - 1`` threads keep submitting the mix
+    at MaxConcurrent ``SERVE_THREADS`` while ``SERVE_CONTENDED_QUERIES``
+    runs of ``steps`` go one after another under the mid-query deadline.
+    Each raises ``DeadlineExceeded``, at a seam or while it waits for the
+    dispatch lock; their overshoots past the deadline, and where each was
+    seen."""
+    import threading
+
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.config import ServingMaxConcurrent, ServingQueueDepth
+    from modin_tpu_torch.serving.gate import gate
+
+    ServingMaxConcurrent.put(SERVE_THREADS)
+    ServingQueueDepth.put(4 * SERVE_THREADS)
+    gate.reset_for_tests()
+    names = list(SERVE_QUERIES)
+    stop = threading.Event()
+    served, failures = [], []
+
+    def load(t):
+        i = t
+        while not stop.is_set():
+            name = names[i % len(names)]
+            i += 1
+            try:
+                got = serving.submit(SERVE_QUERIES[name][0], df, tenant=SERVE_TENANTS[t % 3], label=name)
+            except Exception as err:  # noqa: BLE001 - raised below
+                failures.append(err)
+                return
+            served.append((name, got))
+
+    pool = [threading.Thread(target=load, args=(t,), name=f"load-{t}", daemon=True)
+            for t in range(SERVE_THREADS - 1)]
+    for t in pool:
+        t.start()
+    time.sleep(0.2)  # the load saturates the slots first
+    overshoots, where, completed = [], {}, 0
+    try:
+        for _ in range(SERVE_CONTENDED_QUERIES):
+            t0 = time.perf_counter()
+            try:
+                serving.submit(steps, df, tenant="carol", deadline_ms=deadline_ms)
+                completed += 1
+            except serving.DeadlineExceeded as err:
+                overshoots.append((time.perf_counter() - t0) * 1e3 - deadline_ms)
+                site = err.where.split(".")[0] if err.where.startswith("device_path.") else err.where
+                where[site] = where.get(site, 0) + 1
+    finally:
+        stop.set()
+        for t in pool:
+            t.join(timeout=120)
+    if failures or any(t.is_alive() for t in pool):
+        raise AssertionError(f"(c) under load: the load failed or hung: {failures!r}")
+    for name, got in served:
+        _bitwise_same(got, serial[name], f"(c) load {name}")
+    if completed:
+        raise AssertionError(f"(c) under load: {completed} queries ran to their end past a {deadline_ms:.3f} ms deadline")
+    return {"max_concurrent": SERVE_THREADS, "load_threads": len(pool), "load_queries": len(served),
+            "queries": len(overshoots), "deadline_ms": deadline_ms, "where": where,
+            "overshoot_ms": {"p50": _percentile(overshoots, 50), "p99": _percentile(overshoots, 99),
+                             "max": max(overshoots), "all": overshoots}}
+
+
+def serve_headroom(df, serial: dict) -> dict:
+    """(d): under a ``DeviceMemoryBudget`` of the frame's residency plus two
+    queries' working sets (the resident data past 0.9 of it: the CPU's
+    degraded high water, which the card does not shed on), rounds of
+    ``SERVE_HEADROOM_QUERIES`` grouped means from ``SERVE_THREADS`` threads,
+    each query from a tenant of its own (so no query's billing moves
+    another's estimate).  ``planted``: each tenant's cost set to half the
+    budget, so byte headroom, not the eight slots, bounds the running
+    queries at two.  ``billed``: each tenant's cost what the gate billed for
+    its one earlier served run (``_finish_accounting``), so the budget over
+    the smallest billed cost bounds them.  In both, admissions queue, none
+    is shed or degraded, and the device peak stays within the budget plus
+    one query's working set (measured alone).  ``past_budget``: the budget
+    ``SERVE_PAST_BUDGET_SHARE`` of the residency; every query still answers
+    on the card, bit for bit, through the ledger's spills."""
+    import threading
+
+    import torch
+
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.config import DeviceMemoryBudget, ServingMaxConcurrent, ServingQueueDepth
+    from modin_tpu_torch.core import memory
+    from modin_tpu_torch.serving import tenants
+    from modin_tpu_torch.serving.gate import gate
+
+    fn = SERVE_QUERIES["group_mean"][0]
+    free_device_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(df)
+    torch.cuda.synchronize()
+    working = torch.cuda.max_memory_allocated() - base
+    resident = memory.device_ledger.total_bytes()
+    budget = resident + 2 * working
+    ServingMaxConcurrent.put(SERVE_THREADS)
+    ServingQueueDepth.put(4 * SERVE_THREADS)
+    running = []
+    lock = threading.Lock()
+
+    def query():
+        with lock:
+            running.append(gate._running)
+        return fn(df)
+
+    def burst(prefix: str, round_budget: int) -> dict:
+        """One round's queries from the threads, each checked; the round's
+        gate snapshot, running counts, peak and spills."""
+        gate.reset_for_tests()
+        running.clear()
+        with DeviceMemoryBudget.context(round_budget):
+            memory.device_ledger.admit(0)
+            free_device_memory()
+            untracked = max(torch.cuda.memory_allocated() - memory.device_ledger.total_bytes(), 0)
+            torch.cuda.reset_peak_memory_stats()
+            marks, spills0 = _serve_marks(), memory.COUNTS.get("memory.device.spill", 0)
+            jobs = [lambda t=t: serving.submit(query, tenant=f"{prefix}{t}") for t in range(SERVE_HEADROOM_QUERIES)]
+            outcomes = _serve_threads(jobs, SERVE_THREADS)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - untracked
+            snap = gate.snapshot()
+        for got, _w in outcomes:
+            if isinstance(got, BaseException):
+                raise AssertionError(f"(d) {prefix}: {got!r}") from got
+            _bitwise_same(got, serial["group_mean"], f"(d) {prefix}: group_mean under the budget")
+        if _serve_marks() != marks:
+            raise AssertionError(f"(d) {prefix}: a query defaulted to pandas or fell back")
+        if snap["shed"] or snap["degraded"] or snap["completed"] != len(jobs):
+            raise AssertionError(f"(d) {prefix}: {snap}")
+        return {"budget_bytes": round_budget, "resident_share": resident / round_budget, "queries": len(jobs),
+                "ever_queued": snap["ever_queued"], "shed": snap["shed"], "degraded": snap["degraded"],
+                "max_running": max(running), "peak_bytes": peak,
+                "spills": memory.COUNTS.get("memory.device.spill", 0) - spills0}
+
+    bound = budget + working
+    tenants.registry.reset()
+    for t in range(SERVE_HEADROOM_QUERIES):
+        tenants.registry.observe(f"planted{t}", budget / 2, 0.0)
+    planted = burst("planted", budget)
+    with DeviceMemoryBudget.context(budget):
+        for t in range(SERVE_HEADROOM_QUERIES):
+            _bitwise_same(serving.submit(fn, df, tenant=f"billed{t}"), serial["group_mean"], "(d) billed: the run billed")
+    billed_costs = [tenants.registry.get(f"billed{t}").cost_ewma_bytes for t in range(SERVE_HEADROOM_QUERIES)]
+    if None in billed_costs:
+        raise AssertionError(f"(d) billed: a served run billed no cost: {billed_costs}")
+    billed = burst("billed", budget)
+    billed_cap = max(1, int(budget // min(billed_costs)))
+    past = burst("past", int(resident * SERVE_PAST_BUDGET_SHARE))
+    for name, rnd, cap in (("planted", planted, 2), ("billed", billed, billed_cap)):
+        if (cap < SERVE_THREADS and not rnd["ever_queued"]) or rnd["max_running"] > cap or rnd["peak_bytes"] > bound:
+            raise AssertionError(f"(d) {name}: queued {rnd['ever_queued']}, running at most {rnd['max_running']} "
+                                 f"against {cap}, peak {rnd['peak_bytes']} against {bound}")
+    if not past["spills"]:
+        raise AssertionError(f"(d) past the budget, nothing spilled: {past}")
+    return {"resident_bytes": resident, "working_bytes": working, "bound_bytes": bound, "planted": planted,
+            "billed": {**billed, "billed_cost_bytes": {"min": min(billed_costs), "max": max(billed_costs)},
+                       "cap": billed_cap},
+            "past_budget": past}
+
+
+def serve_degraded(df) -> dict:
+    """(e): a device-path breaker opened by injected faults
+    (``testing/faults.py``: transient errors at every ``deploy`` with no
+    retry, threshold 1): a served query is shed, typed ``degraded`` with a
+    retry hint; it never runs, nothing defaults to pandas or falls back."""
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.config import ResilienceBreakerThreshold, ResilienceRetries
+    from modin_tpu_torch.core.execution import resilience
+    from modin_tpu_torch.serving.gate import gate
+    from modin_tpu_torch.testing import inject_faults
+
+    gate.reset_for_tests()
+    marks = _serve_marks()
+    with ResilienceBreakerThreshold.context(1), ResilienceRetries.context(0):
+        with inject_faults("transient", ops=("deploy",), times=None) as inj:
+            try:
+                SERVE_QUERIES["chain_sum"][0](df)
+                raise AssertionError("(e) the injected fault did not raise on the card")
+            except resilience.DeviceFailure as err:
+                raised = err.kind
+    opened = {k: v for k, v in resilience.breaker_snapshot().items() if v == "open"}
+    ran = []
+    try:
+        serving.submit(lambda: ran.append(SERVE_QUERIES["group_sum"][0](df)), tenant="alice")
+        raise AssertionError("(e) a query was admitted into a sick device")
+    except serving.QueryRejected as err:
+        shed = {"reason": err.reason, "retry_after_s": err.retry_after_s}
+    snap = gate.snapshot()
+    resilience.reset_breakers()
+    if not opened or shed["reason"] != "degraded" or ran or _serve_marks() != marks:
+        raise AssertionError(f"(e) opened {opened}, shed {shed}, ran {len(ran)}, {marks} -> {_serve_marks()}")
+    if (snap["degraded"], snap["shed"], snap["admitted"]) != (1, 1, 0):
+        raise AssertionError(f"(e) the snapshot: {snap}")
+    return {"injected": inj.injected, "raised": raised, "opened": sorted(opened), **shed,
+            "snapshot": {k: snap[k] for k in ("degraded", "shed", "admitted")}}
+
+
+def serve_cost(df) -> dict:
+    """(f): one query alone, serving off against on (rounds off, on, on,
+    off, ``SERVE_COST_CALLS`` calls each), in us a query, for a no-op and
+    for the chain sum; with serving and lockdep off no context and no
+    validator object is made."""
+    import torch
+
+    from modin_tpu_torch import serving
+    from modin_tpu_torch.concurrency import lockdep
+    from modin_tpu_torch.config import ServingEnabled, ServingMaxConcurrent
+
+    ServingMaxConcurrent.put(SERVE_THREADS)
+    query = SERVE_QUERIES["chain_sum"][0]
+    out = {}
+    for name, fn in (("noop", lambda: None), ("chain_sum", lambda: query(df))):
+        times = {False: [], True: []}
+        fn()
+        for on in (False, True, True, False):
+            ServingEnabled.put(on)
+            allocs = (serving.context_alloc_count(), lockdep.lockdep_alloc_count())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SERVE_COST_CALLS):
+                serving.submit(fn, tenant="alice")
+            torch.cuda.synchronize()
+            times[on].append((time.perf_counter() - t0) / SERVE_COST_CALLS * 1e6)
+            if not on and (serving.context_alloc_count(), lockdep.lockdep_alloc_count()) != allocs:
+                raise AssertionError("(f) serving off allocated a context or a validator object")
+        out[name] = {"off_us": times[False], "on_us": times[True],
+                     "delta_us": statistics.median(times[True]) - statistics.median(times[False])}
+    ServingEnabled.put(True)
+    return {**out, "calls_a_round": SERVE_COST_CALLS, "off_allocations": 0, "lock_ns": serve_lock_ns()}
+
+
+def serve_lock_ns() -> dict:
+    """(f): ns of one ``with lock: pass`` (best of ``SERVE_LOCK_REPEATS``
+    timings of ``SERVE_LOCK_ACQUIRES``) with lockdep off: a bare
+    ``threading.Lock``/``RLock``, a named lock/rlock on the raw methods the
+    port installs while lockdep is off, and a named lock on the validating
+    methods with no validator (each call checks ``_validator`` in Python:
+    the off path before the raw methods were installed)."""
+    import threading
+
+    from modin_tpu_torch.concurrency import lockdep
+
+    def ns(lock) -> float:
+        best = float("inf")
+        for _ in range(SERVE_LOCK_REPEATS):
+            t0 = time.perf_counter()
+            for _ in range(SERVE_LOCK_ACQUIRES):
+                with lock:
+                    pass
+            best = min(best, time.perf_counter() - t0)
+        return best / SERVE_LOCK_ACQUIRES * 1e9
+
+    if lockdep.enabled():
+        raise AssertionError("(f) the lock costs are lockdep-off costs")
+    named, named_r = lockdep.named_lock("serving.gate"), lockdep.named_rlock("resilience.dispatch")
+    out = {"threading_lock": ns(threading.Lock()), "threading_rlock": ns(threading.RLock()),
+           "named_lock": ns(named), "named_rlock": ns(named_r)}
+    lockdep._install(lockdep._CHECKED_METHODS)
+    try:
+        out["named_lock_checked_off"] = ns(named)
+    finally:
+        lockdep._install(lockdep._RAW_METHODS)
+    return out
+
+
+#: (f) with ``--parent-checkout``: the hot path a side times, run in a
+#: process of its own at the side's checkout, serving and lockdep off
+_HOT_PATH = """
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np, torch
+import modin_tpu_torch
+import modin_tpu_torch.pandas as tpd
+modin_tpu_torch.set_device("cuda")
+rng = np.random.default_rng({seed})
+d = tpd.DataFrame({{c: rng.standard_normal({rows}) for c in "abc"}})
+def q():
+    return float((d["a"] * d["b"] + d["c"]).sum()), float(d[d["a"] > 0]["b"].mean())
+want = q()
+for _ in range(50):
+    assert q() == want
+rounds = []
+for _ in range({rounds}):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range({queries}):
+        q()
+    torch.cuda.synchronize()
+    rounds.append((time.perf_counter() - t0) / {queries} * 1e6)
+print(json.dumps({{"us": rounds, "result": want}}))
+"""
+
+
+def serve_hot_path(parent: str, seed: int) -> dict:
+    """(f) with ``--parent-checkout``: a host-bound hot path (the chain sum
+    and the filtered mean on a ``SERVE_HOT_ROWS`` frame: fused launches,
+    the engine seam, the launch ledger, the metric counters, every one of
+    them taking the port's locks) in us a query, on the parent's checkout
+    and on this one, each side in processes of its own in the order of
+    ``SERVE_HOT_ORDER``; the two sides' results must be equal."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("MODIN_TPU_TORCH_SERVING", "MODIN_TPU_TORCH_LOCKDEP"))}
+    code = _HOT_PATH.format(seed=seed, rows=SERVE_HOT_ROWS, rounds=SERVE_HOT_ROUNDS, queries=SERVE_HOT_QUERIES)
+    sides = {"parent": [], "change": []}
+    results = {}
+    for side in SERVE_HOT_ORDER:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=parent if side == "parent" else HERE, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"(f) the {side}'s hot path failed:\n{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        sides[side].extend(got["us"])
+        results.setdefault(side, got["result"])
+    if results["parent"] != results["change"]:
+        raise AssertionError(f"(f) the hot path's results differ: {results}")
+    return {"rows": SERVE_HOT_ROWS, "queries_a_round": SERVE_HOT_QUERIES,
+            "parent_us": sides["parent"], "change_us": sides["change"],
+            "delta_us": statistics.median(sides["change"]) - statistics.median(sides["parent"])}
+
+
+def phase_serve(rows: int, seed: int, parent: str = None) -> dict:
+    """Phase 21 (``serve``): ``serving.submit`` from threads on one card.
+    (f) the layer's cost first, with lockdep off; then, under strict
+    lockdep, (a) ``serve_mixed`` and ``serve_traced``, (b) ``serve_sheds``, (c)
+    ``serve_deadlines``, (d) ``serve_headroom``, (e) ``serve_degraded``.
+    The serving settings come back to their defaults after.  Returns the
+    launches."""
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch import config
+    from modin_tpu_torch.concurrency import lockdep
+    from modin_tpu_torch.serving import tenants
+    from modin_tpu_torch.serving.gate import gate
+
+    t_phase = time.perf_counter()
+    data = serve_frame(rows, seed)
+    pdf = pandas.DataFrame(data)
+    df = tpd.DataFrame(data)
+    df._query_compiler._modin_frame
+    assert_on_cuda(df._query_compiler, "serve frame")
+    k0 = _kernel_marks()
+    serial = {}
+    for name, (fn, ref, scale, _kernel) in SERVE_QUERIES.items():
+        serial[name] = fn(df)
+        _serve_same(serial[name], ref(pdf), None if scale is None else scale(pdf), f"(a) {name} against pandas")
+        _bitwise_same(fn(df), serial[name], f"{name} run twice")
+    del pdf
+    knobs = (config.ServingEnabled, config.ServingMaxConcurrent, config.ServingQueueDepth,
+             config.ServingTenantWeights, config.ViewsMode)
+    saved = [(k, k.get()) for k in knobs]
+    parts, seconds = {}, {}
+    try:
+        config.ServingTenantWeights.put(SERVE_WEIGHTS)
+        # every query recomputes on the kernels: the artifact cache would
+        # answer the repeated groupbys from the host
+        config.ViewsMode.put("Off")
+        t0 = time.perf_counter()
+        parts["cost"] = serve_cost(df)
+        if parent:
+            parts["cost"]["hot_path"] = serve_hot_path(parent, seed)
+        seconds["cost"] = time.perf_counter() - t0
+        lockdep.enable(strict=True)
+        for name, fn, fn_args in (("mixed", serve_mixed, (df, serial, seed)),
+                                  ("traced", serve_traced, (df, serial, seed)),
+                                  ("sheds", serve_sheds, (df,)),
+                                  ("deadlines", serve_deadlines, (df, serial)),
+                                  ("headroom", serve_headroom, (df, serial)),
+                                  ("degraded", serve_degraded, (df,))):
+            t0 = time.perf_counter()
+            parts[name] = fn(*fn_args)
+            seconds[name] = time.perf_counter() - t0
+            emit({"phase": "serve", "part": name, **parts[name], "seconds": seconds[name]})
+        violations = [v.render() for v in lockdep.violations()]
+        edges = sorted(f"{a} -> {b}" for a, b in lockdep.observed_edges())
+    finally:
+        lockdep.disable()
+        for k, v in saved:
+            k.put(v)
+        gate.reset_for_tests()
+        tenants.registry.reset()
+    if violations:
+        raise AssertionError(f"lockdep: {violations}")
+    launches = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+    emit({"phase": "serve", "rows": rows, "cost": parts["cost"], "lockdep": {"violations": 0, "edges": edges},
+          "launches": launches, "seconds_by_part": seconds, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def resilience_line(robust: dict, by_path: dict) -> dict:
     """The ``{"resilience": ...}`` line: phase 17's parts in brief and every
     other path's fallbacks and breakers."""
@@ -6709,13 +7610,16 @@ def main(argv=None) -> int:
     # 5.3-6.2 s each, its merges 1.3-6.7 s): past its 40 s share
     parser.add_argument("--mesh-rows", type=int, default=5 * 10**6,
                         help="rows of the mesh phase's sorted frame and merge's left side")
+    parser.add_argument("--serve-rows", type=int, default=10**7,
+                        help="rows of the serve phase's frame")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
                         "each after a warm-up (no checks, no result lines)")
     parser.add_argument("--parent-checkout", default=None, metavar="DIR",
                         help="a checkout of an earlier commit (git archive) whose fused kernel the "
-                        "kernel check times on the same cases, before and after this one's")
+                        "kernel check times on the same cases, before and after this one's, and "
+                        "whose host-bound hot path the serve phase times beside this one's")
     parser.add_argument("--phases", default=",".join(ALL_PHASES),
                         help="comma-separated phases after the kernel check "
                         "(the result lines need all of them)")
@@ -6829,6 +7733,9 @@ def main(argv=None) -> int:
                                      workdir)
     if "mesh" in phases:
         launches["mesh"] = run("mesh", phase_mesh, args.mesh_rows, args.seed)
+    if "serve" in phases:
+        launches["serve"] = run("serve", phase_serve, args.serve_rows, args.seed,
+                                args.parent_checkout and os.path.abspath(args.parent_checkout))
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,

@@ -16,7 +16,11 @@ executor's (``StreamMode``, ``StreamWindowBytes``, ``StreamPrefetch``,
 (``ViewsMode``, ``ViewsMaxEntries``, ``ViewsHostBudget``,
 ``ViewsMaxGroups``, ``ViewsMaxChain``) and the row-shard mesh's
 (``DeviceCount``, ``MeshShape``, ``RangePartitioning``, ``SpmdMode``,
-``SpmdMinRows``); the port's own variable names, so
+``SpmdMinRows``), multi-tenant serving's (``ServingEnabled``,
+``ServingMaxConcurrent``, ``ServingQueueDepth``,
+``ServingDefaultDeadlineMs``, ``ServingTenantWeights``,
+``ServingDegradedHighWater``) and the lock-order validator's
+(``LockdepEnabled``); the port's own variable names, so
 one process can pin the two packages apart.  A module that keeps a
 setting in a variable of its own subscribes to it
 (:meth:`Parameter.subscribe`) and sees every change.
@@ -784,3 +788,92 @@ class SpmdMinRows(_Count):
 
     varname = "MODIN_TPU_TORCH_SPMD_MIN_ROWS"
     default = 1 << 18
+
+
+# ---------------------------------------------------------------------- #
+# Multi-tenant serving and the lock-order validator
+# ---------------------------------------------------------------------- #
+
+
+class ServingEnabled(_Flag):
+    """Multi-tenant serving (``serving/``): admission control, latency
+    budgets, per-tenant fairness and health.  Off (the default):
+    ``serving.submit`` is a direct call of the query, and the seams read
+    ``context.CONTEXT_ON`` and nothing else (``serving.context_alloc_count()``
+    stays put)."""
+
+    varname = "MODIN_TPU_TORCH_SERVING"
+
+
+class ServingMaxConcurrent(_Positive):
+    """Queries the admission gate lets run at once.  Each admitted query
+    also reserves its estimated device bytes (the tenant's cost EWMA, or
+    ``DeviceMemoryBudget / ServingMaxConcurrent`` for an unknown tenant)
+    against the budget's headroom."""
+
+    varname = "MODIN_TPU_TORCH_SERVING_MAX_CONCURRENT"
+    default = 4
+
+
+class ServingQueueDepth(_Count):
+    """Queries that may wait for a slot (weighted-fair wake order); past
+    this depth they are shed with a typed ``QueryRejected`` and a retry
+    hint.  0: never queue."""
+
+    varname = "MODIN_TPU_TORCH_SERVING_QUEUE_DEPTH"
+    default = 16
+
+
+class ServingDefaultDeadlineMs(_Seconds):
+    """Latency budget, milliseconds, of a query submitted without
+    ``deadline_ms`` (0: unbounded).  Expiry raises ``DeadlineExceeded`` at
+    the next seam check or while the query waits for the dispatch lock, so
+    the overshoot is bounded by the work in flight when it expires: one
+    attempt, or one held device path that cannot be stopped midway."""
+
+    varname = "MODIN_TPU_TORCH_SERVING_DEFAULT_DEADLINE_MS"
+    default = 0.0
+
+
+class ServingTenantWeights(Parameter):
+    """Per-tenant fairness weights, ``"name=weight,name=weight"`` (unlisted
+    tenants weigh 1.0): a tenant's token bucket refills at ``weight *
+    ServingMaxConcurrent`` a second, and the saturated gate wakes the queued
+    tenant with the fewest queries in flight per weight first."""
+
+    varname = "MODIN_TPU_TORCH_SERVING_TENANT_WEIGHTS"
+    default = ""
+
+
+class ServingDegradedHighWater(Parameter):
+    """Fraction of ``DeviceMemoryBudget`` past which the device ledger
+    counts as pressured where the port runs on the CPU: there, as in the
+    JAX package, an admission while the ledger is past it (or while a
+    device-path breaker is open) goes to pandas.  The card ignores it: the
+    ledger's budgeted spill answers pressure there, and only an open
+    device-path breaker sheds with reason ``degraded``."""
+
+    varname = "MODIN_TPU_TORCH_SERVING_DEGRADED_HIGH_WATER"
+    default = 0.9
+
+    @classmethod
+    def _parse(cls, raw: Any) -> float:
+        value = float(raw)
+        if not 0.0 < value <= 1.0:
+            raise ValueError(f"{cls.varname} must be in (0, 1], got {raw!r}")
+        return value
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(cls._parse(value))
+
+
+class LockdepEnabled(_Flag):
+    """Runtime lock-order validation (``concurrency/lockdep.py``): every
+    ``named_lock``/``named_rlock`` acquisition is checked against the
+    declared order, and an inversion raises ``LockdepViolation``.  A debug
+    mode for the concurrency tests and the smoke; off, an acquisition costs
+    one attribute read and allocates nothing.  Read once, when the
+    validator's module imports; ``lockdep.enable()`` turns it on later."""
+
+    varname = "MODIN_TPU_TORCH_LOCKDEP"

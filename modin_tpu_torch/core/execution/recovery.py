@@ -42,9 +42,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from modin_tpu_torch.concurrency import named_lock, named_rlock
 from modin_tpu_torch.core.execution.resilience import count
 from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.observability.flight_recorder import dump_flight_record
+from modin_tpu_torch.serving import context as serving_context
 
 KIND_HOST = "host"
 KIND_IO = "io"
@@ -57,13 +59,13 @@ RECOVERY_ON: bool = True
 
 _tls = threading.local()
 
-_epoch_lock = threading.Lock()
+_epoch_lock = named_lock("recovery.epoch")
 _device_epoch = 0
 
 #: serializes whole re-seat passes and carries the reseat-once handshake:
 #: of several threads that observe one loss, one runs the pass; the others
 #: find the epoch moved past what they saw and take that pass's result
-_reseat_lock = threading.Lock()
+_reseat_lock = named_lock("recovery.reseat")
 _last_reseat_count = 0
 
 
@@ -145,7 +147,7 @@ class _Record:
 
 #: serializes the inserts and the purge of ``_columns_by_data``; the
 #: provenance map takes single-key inserts and pops only (atomic in CPython)
-_prov_lock = threading.RLock()
+_prov_lock = named_rlock("recovery.provenance")
 _provenance: Dict[int, _Record] = {}
 #: id(tensor) -> (weakref(owning column), weakref(tensor)): op replay
 #: resolves an input tensor back to its column (and the column's host or io
@@ -432,9 +434,21 @@ def reseat_all(reason: str, observed_epoch: Optional[int] = None) -> int:
 
     if observed_epoch is None:
         observed_epoch = _device_epoch
-    with _reseat_lock:
+    # lock order: the dispatch lock, then the re-seat lock, always.  A
+    # device path reaches here holding the dispatch lock (it wraps the
+    # whole guarded call), and the pass re-uploads through deploys that
+    # take it; taking it first here makes the order the same for every
+    # thread (one holding dispatch and wanting reseat, another the reverse,
+    # would deadlock)
+    with serving_context.dispatch_lock, _reseat_lock:
         if _device_epoch > observed_epoch:
             return _last_reseat_count
+        # the pass is shared work (every query's columns come back through
+        # it), so the triggering thread's deadline must not abort it: its
+        # serving context is cleared for the pass and restored after
+        saved_ctx = serving_context.snapshot_context()
+        if saved_ctx is not None:
+            serving_context.seed_thread_context(None)
         _tls.active = True
         try:
             with _epoch_lock:
@@ -459,6 +473,8 @@ def reseat_all(reason: str, observed_epoch: Optional[int] = None) -> int:
             return reseated
         finally:
             _tls.active = False
+            if saved_ctx is not None:
+                serving_context.seed_thread_context(saved_ctx)
             _purge_io_caches()
 
 

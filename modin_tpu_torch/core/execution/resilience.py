@@ -62,7 +62,15 @@ each engine-seam attempt is an ``engine.<op>.attempt`` span (with a CUDA
 event pair for its device interval), a fallback or a raise a
 ``fallback.<family>``/``raised.<family>`` span, and a breaker opening or a
 failure about to raise on the card dumps the flight recorder's ring first.
-The JAX package's serving-context hooks have no counterpart yet.
+
+While a serving context is active (``serving/context.py``; one attribute
+read, ``CONTEXT_ON``, otherwise) the seams enforce the query's deadline:
+``engine_call`` checks it before any work and at each attempt, backoff
+sleeps never outlive it, and the watchdog's worker adopts the owner's
+context and waits no longer than the budget left.  ``deploy``/``put``
+attempts and every ``device_path`` call run under the dispatch lock, and
+a query admitted while the device was sick goes to pandas (on the CPU:
+on the card the gate sheds it instead).
 """
 
 from __future__ import annotations
@@ -77,11 +85,14 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from modin_tpu_torch.logging.metrics import CountView, emit_counted
+from modin_tpu_torch.concurrency import named_lock
+from modin_tpu_torch.logging.metrics import CountView, emit_counted, emit_metric
 from modin_tpu_torch.observability import compile_ledger as _ledger
 from modin_tpu_torch.observability import meters as _meters
 from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.observability.flight_recorder import dump_flight_record
+from modin_tpu_torch.serving import context as serving_context
+from modin_tpu_torch.serving.errors import ServingError
 from modin_tpu_torch.config import (
     Device,
     ResilienceBackoffS,
@@ -108,7 +119,7 @@ _fault_hook: Optional[Callable[[str], None]] = None
 #: event counts by metric name (only names that occurred are present): a
 #: read of the metric layer's tally
 COUNTS = CountView(prefixes=("resilience.", "recovery.", "trace."))
-_COUNT_LOCK = threading.Lock()
+_COUNT_LOCK = named_lock("resilience.counts")
 #: device-path calls that pandas answered (only where the port runs on the CPU)
 _fallbacks = 0
 
@@ -294,9 +305,11 @@ def cuda_error_code(exc: BaseException) -> Optional[int]:
 def classify_device_error(exc: BaseException) -> Optional[DeviceFailure]:
     """Map ``exc`` onto the taxonomy, or None when it is not a device
     failure (a semantic signal, a launch or build bug, any other error):
-    None means it must propagate, untouched."""
+    None means it must propagate, untouched (a serving decision among them)."""
     if isinstance(exc, DeviceFailure):
         return exc
+    if isinstance(exc, ServingError):
+        return None
     if isinstance(exc, torch.cuda.OutOfMemoryError):
         return DeviceOOM(str(exc))
     if isinstance(exc, (ValueError, RuntimeError)) and DONATED_MARKER in str(exc):
@@ -367,10 +380,15 @@ def _run_with_watchdog(op: str, thunk: Callable[[], Any], timeout_s: float) -> A
     # the worker's spans and metrics bill the caller's call chain and scopes
     parent_stack = _spans.snapshot_stack() if _spans.TRACE_ON else None
     parent_scopes = _meters.snapshot_scopes() if _meters.ACCOUNTING_ON else None
+    # and the query's serving context: its deadline bounds what the worker
+    # does on the owner's behalf
+    parent_ctx = serving_context.snapshot_context() if serving_context.CONTEXT_ON else None
 
     def runner() -> None:
         _spans.seed_thread(parent_stack)
         _meters.seed_thread_scopes(parent_scopes)
+        if parent_ctx is not None:
+            serving_context.seed_thread_context(parent_ctx)
         try:
             if stream is not None:
                 with torch.cuda.device(device), torch.cuda.stream(stream):
@@ -383,17 +401,54 @@ def _run_with_watchdog(op: str, thunk: Callable[[], Any], timeout_s: float) -> A
 
     thread = threading.Thread(target=runner, daemon=True, name=f"modin-tpu-torch-watchdog-{op}")
     thread.start()
-    try:
-        ok, payload = result_q.get(timeout=timeout_s)
-    except queue.Empty:
-        count(f"resilience.watchdog.{op}.timeout")
-        raise WatchdogTimeout(
-            f"{op} exceeded the {timeout_s:g}s resilience watchdog "
-            "(MODIN_TPU_TORCH_RESILIENCE_WATCHDOG_S); treating the device as lost"
-        ) from None
+    # a query deadline tighter than the watchdog bounds the wait instead:
+    # the fetch is abandoned once the budget is gone and the expiry raises
+    # the typed serving error, not a WatchdogTimeout (which would read a
+    # slow but healthy device as lost and re-seat for nothing).  The wait
+    # loops, so a deadline-clamped wait that wakes before the watchdog's
+    # window closes keeps waiting.
+    started = time.monotonic()  # the real clock: tests patch _now for breakers
+    while True:
+        wait_s = timeout_s - (time.monotonic() - started)
+        if wait_s <= 0:
+            count(f"resilience.watchdog.{op}.timeout")
+            raise WatchdogTimeout(
+                f"{op} exceeded the {timeout_s:g}s resilience watchdog "
+                "(MODIN_TPU_TORCH_RESILIENCE_WATCHDOG_S); treating the device as lost"
+            ) from None
+        if serving_context.CONTEXT_ON:
+            serving_context.check_deadline(f"engine.{op}.watchdog")
+            remaining = serving_context.remaining_s()
+            if remaining is not None:
+                wait_s = min(wait_s, max(remaining, 1e-3))
+        try:
+            ok, payload = result_q.get(timeout=wait_s)
+            break
+        except queue.Empty:
+            continue
     if ok:
         return payload
     raise payload
+
+
+def _run_attempt(op: str, attempt_once: Callable[[], Any], timeout_s: float) -> Any:
+    """One attempt: under the watchdog when asked for, else, while a
+    serving context is active, ``deploy``/``put`` under the dispatch lock.
+
+    The watchdog branch is never serialized: a fetch only drains results,
+    and the lock must never span a handoff to a worker (an owner holding it
+    while an abandoned worker still enqueues would let another thread's
+    launches interleave, and a nested deploy on the worker would wait on
+    its own owner)."""
+    if timeout_s > 0:
+        return _run_with_watchdog(op, attempt_once, timeout_s)
+    if serving_context.CONTEXT_ON and op in ("deploy", "put"):
+        serving_context.acquire_dispatch(f"engine.{op}.dispatch")
+        try:
+            return attempt_once()
+        finally:
+            serving_context.dispatch_lock.release()
+    return attempt_once()
 
 
 def engine_call(
@@ -418,7 +473,13 @@ def engine_call(
     its traceback holds the attempt's frames, and their tensors would hold
     the memory the retry asks for.  A failure raised from here is marked
     ``retried``: its transient retries are spent.
+
+    While a serving context is active, the query's deadline is checked
+    before any work (``ResilienceMode=Disable`` too) and at the start of
+    every attempt, so the overshoot is bounded by one attempt.
     """
+    if serving_context.CONTEXT_ON:
+        serving_context.check_deadline(f"engine.{op}")
 
     def attempt_once() -> Any:
         hook = _fault_hook
@@ -427,7 +488,7 @@ def engine_call(
         return thunk()
 
     if ResilienceMode.get() == "Disable":
-        result = attempt_once()
+        result = _run_attempt(op, attempt_once, 0.0)
         if op == "deploy" and _meters.ACCOUNTING_ON:
             _meters.note_dispatch()
         return result
@@ -437,6 +498,9 @@ def engine_call(
     attempt = oom_rounds = 0
     reseat_spent = False
     while True:
+        if serving_context.CONTEXT_ON:
+            # a retry, evict-then-retry or re-seat comes back here
+            serving_context.check_deadline(f"engine.{op}.attempt")
         # the epoch this attempt launches in: a DeviceLost hands it to
         # reseat_all, so observers of one loss share one recovery pass
         attempt_epoch = recovery.current_epoch()
@@ -445,10 +509,7 @@ def engine_call(
             sp = _spans.start_span(f"engine.{op}.attempt", "TORCH-ENGINE", {"op": op, "attempt": attempt})
             ev = _ledger.launch_begin()
         try:
-            if timeout_s > 0:
-                result = _run_with_watchdog(op, attempt_once, timeout_s)
-            else:
-                result = attempt_once()
+            result = _run_attempt(op, attempt_once, timeout_s)
         except Exception as err:  # the classification point: re-raises what is not a device failure
             failure = classify_device_error(err)
             if sp is not None:
@@ -498,7 +559,17 @@ def engine_call(
             raise failure
         attempt += 1
         count(f"resilience.engine.{op}.retry")
-        _sleep(float(ResilienceBackoffS.get()) * (2 ** (attempt - 1)))
+        _sleep(_backoff_s(attempt))
+
+
+def _backoff_s(attempt: int) -> float:
+    """The retry's exponential backoff; while a serving context is active
+    it never outlives the query's budget (the next attempt's check then
+    raises the typed abort)."""
+    delay_s = float(ResilienceBackoffS.get()) * (2 ** (attempt - 1))
+    if serving_context.CONTEXT_ON:
+        delay_s = serving_context.clamp_sleep(delay_s)
+    return delay_s
 
 
 # ---------------------------------------------------------------------- #
@@ -547,7 +618,7 @@ class CircuitBreaker:
         self.state = CLOSED
         self.strikes = 0
         self.opened_at = 0.0
-        self._lock = threading.Lock()
+        self._lock = named_lock("resilience.breaker")
 
     @staticmethod
     def _threshold() -> int:
@@ -615,7 +686,7 @@ class CircuitBreaker:
 
 
 _BREAKERS: Dict[str, CircuitBreaker] = {}
-_breakers_lock = threading.Lock()
+_breakers_lock = named_lock("resilience.breakers")
 
 
 def get_breaker(name: str) -> CircuitBreaker:
@@ -636,6 +707,14 @@ def reset_breakers() -> None:
     """Forget every breaker's state."""
     with _breakers_lock:
         _BREAKERS.clear()
+
+
+def drop_breaker(name: str) -> None:
+    """Forget one breaker (the serving tenant registry drops an evicted
+    idle tenant's health breaker, so per-user tenants cannot grow this
+    table without bound; device-path families are never dropped)."""
+    with _breakers_lock:
+        _BREAKERS.pop(name, None)
 
 
 def _input_tensors(qc: Any, args: tuple, kwargs: dict):
@@ -702,6 +781,15 @@ def device_path(family: str) -> Callable:
         def wrapper(self: Any, *args: Any, **kwargs: Any) -> Any:
             if ResilienceMode.get() == "Disable":
                 return fn(self, *args, **kwargs)
+            if serving_context.CONTEXT_ON and serving_context.degraded_active():
+                # the query was admitted while the device was sick (only on
+                # the CPU: on the card the gate sheds instead): pandas
+                # answers, as for an open breaker, without touching the device
+                emit_metric("serving.degraded.fallback", 1)
+                if _spans.TRACE_ON:
+                    _spans.event(f"fallback.{family}", "QUERY-COMPILER", family=family, reason="degraded")
+                _count_fallback()
+                return None
             breaker = get_breaker(family)
             if not breaker.allow():
                 count(f"resilience.breaker.{family}.short_circuit")
@@ -718,7 +806,18 @@ def device_path(family: str) -> Callable:
             while True:
                 start = _now()
                 try:
-                    result = fn(self, *args, **kwargs)
+                    if serving_context.CONTEXT_ON:
+                        # one thread at a time launches a device path's work
+                        # (serving/context.py); pandas fallbacks stay
+                        # concurrent, and a query whose deadline passes while
+                        # it waits for the lock raises instead of waiting on
+                        serving_context.acquire_dispatch(f"device_path.{family}")
+                        try:
+                            result = fn(self, *args, **kwargs)
+                        finally:
+                            serving_context.dispatch_lock.release()
+                    else:
+                        result = fn(self, *args, **kwargs)
                 except Exception as err:  # the classification point: re-raises what is not a device failure
                     failure = classify_device_error(err)
                     if failure is None or isinstance(failure, BreakerOpen):
@@ -741,7 +840,7 @@ def device_path(family: str) -> Callable:
                 ):
                     attempt += 1
                     count(f"resilience.device_path.{family}.retry")
-                    _sleep(float(ResilienceBackoffS.get()) * (2 ** (attempt - 1)))
+                    _sleep(_backoff_s(attempt))
                     continue
                 breaker.record_failure()
                 if isinstance(failure, DeviceLost) and breaker.state == OPEN and not recovery.in_recovery():

@@ -15,11 +15,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.ops.cuda.build import BUILD_DIR
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native_src", "chunker.cpp")
@@ -28,7 +28,7 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 # splits made by the native library (the Python splitter does not count)
 NATIVE_SPLITS = 0
 
-_lock = threading.Lock()
+_lock = named_lock("io.chunker")
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 

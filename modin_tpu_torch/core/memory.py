@@ -34,14 +34,15 @@ a ``memory.device.spill`` span.
 
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 from collections import OrderedDict
 from typing import Any, Dict, Iterable, Optional, Tuple
 
+from modin_tpu_torch.concurrency import named_rlock
 from modin_tpu_torch.logging.metrics import CountView, emit_counted, emit_metric
 from modin_tpu_torch.observability import spans as _spans
+from modin_tpu_torch.serving import context as serving_context
 
 #: events and bytes: spills (``memory.device.spill``/``_bytes``; of them the
 #: columns fetched to the host, ``spill_copy``/``_bytes``; the columns whose
@@ -86,7 +87,7 @@ class _HostCacheLedger:
 
     def __init__(self) -> None:
         # reentrant: a weakref callback can fire (GC) while this thread holds it
-        self._lock = threading.RLock()
+        self._lock = named_rlock("memory.host_cache")
         self._entries: "OrderedDict[int, tuple]" = OrderedDict()
         self._total = 0
         self._next_id = 0
@@ -200,7 +201,7 @@ class _DeviceLedger:
     """
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = named_rlock("memory.device_ledger")
         self._entries: "OrderedDict[Tuple[str, int], _Entry]" = OrderedDict()
         self._total = 0
         self._spill_events = 0
@@ -319,6 +320,12 @@ class _DeviceLedger:
                 for key, _derived, refs in candidates:
                     if freed >= target_bytes:
                         break
+                    if serving_context.CONTEXT_ON:
+                        # a query past its deadline must not go on paying
+                        # device-to-host copies for columns it will never
+                        # use (each spill is whole: stopping between two
+                        # leaves no torn state)
+                        serving_context.check_deadline("memory.device.spill")
                     if exclude_ids is not None and key in exclude_ids:
                         continue
                     holders = [h for r in refs if (h := r()) is not None]

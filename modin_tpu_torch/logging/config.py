@@ -22,6 +22,7 @@ import time
 import uuid
 from typing import Optional
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.config import LogDir, LogMode
 
 __LOGGER_CONFIGURED__: bool = False
@@ -33,7 +34,7 @@ LOG_FILE_MB = 10
 
 # configure once: two threads racing through get_logger's first call must
 # not add two handlers or start two samplers
-_configure_lock = threading.Lock()
+_configure_lock = named_lock("logging.configure")
 _mem_sampler: "threading.Thread | None" = None
 
 

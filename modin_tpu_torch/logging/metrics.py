@@ -19,9 +19,10 @@ tally, then the same emission.  ``resilience.COUNTS``, ``memory.COUNTS``/
 from __future__ import annotations
 
 import re
-import threading
 from collections.abc import Mapping
 from typing import Callable, Dict, Iterable, Iterator, Optional, Union
+
+from modin_tpu_torch.concurrency import named_lock
 
 _metric_handlers: list = []
 _metric_name_pattern = re.compile(r"^[a-zA-Z0-9\-_\.]+$")
@@ -40,8 +41,8 @@ _handlers_on: bool = False
 #: to fold the family: ``counter`` (sum), ``gauge`` (last value, min/max)
 #: or ``histogram`` (the buckets of ``meters.HISTOGRAM_BUCKETS``).  The
 #: JAX package's names are kept where the port emits the same event; the
-#: families of layers the port has not ported (serving, ingest, durability,
-#: fleet) are left out until their layers come.
+#: families of layers the port has not ported (ingest, durability, fleet,
+#: watch) are left out until their layers come.
 METRICS = (
     (
         "resilience.engine.*.*",
@@ -164,6 +165,13 @@ METRICS = (
         "histogram",
         "bytes per FileDispatcher read (source file size, best-effort; "
         "emitted while meter accounting is active)",
+    ),
+    (
+        "concurrency.lockdep.violation",
+        "counter",
+        "lock-order violations the runtime lockdep validator detected "
+        "(MODIN_TPU_TORCH_LOCKDEP=1): self-deadlock, same-name instance pair, "
+        "declared-order contradiction, or observed ABBA inversion",
     ),
     (
         "recovery.device_lost",
@@ -444,6 +452,58 @@ METRICS = (
         "flight-recorder dumps written on a breaker opening or a terminal "
         "device failure",
     ),
+    (
+        "serving.admit",
+        "counter",
+        "queries admitted by the serving gate (serving/)",
+    ),
+    (
+        "serving.queued",
+        "counter",
+        "admissions that waited in the bounded queue before a slot opened",
+    ),
+    (
+        "serving.queue_wait_s",
+        "histogram",
+        "seconds an admitted query spent in the admission queue",
+    ),
+    (
+        "serving.shed",
+        "counter",
+        "queries rejected with a typed QueryRejected (queue_full, throttled, "
+        "unhealthy, and on the card degraded) before any work ran",
+    ),
+    (
+        "serving.deadline_exceeded",
+        "counter",
+        "queries aborted by their latency budget (typed DeadlineExceeded "
+        "at a seam or while queued)",
+    ),
+    (
+        "serving.degraded",
+        "counter",
+        "admissions while a device-path breaker was open or the device "
+        "ledger was past the degraded high-water fraction: routed to pandas "
+        "on the CPU, shed on the card",
+    ),
+    (
+        "serving.degraded.fallback",
+        "counter",
+        "device-path families short-circuited to pandas because the running "
+        "query was admitted in degraded mode (CPU only)",
+    ),
+    (
+        "serving.query_wall_s",
+        "histogram",
+        "wall seconds per submitted query (admission to result)",
+    ),
+    (
+        "serving.tenant.*.*",
+        "counter",
+        "per-tenant serving outcomes: admit, complete, degraded, deadline, "
+        "device_failure, and the shed reasons (queue_full, throttled, "
+        "unhealthy)",
+    ),
 )
 
 
@@ -493,7 +553,7 @@ def clear_metric_handler(handler: Callable[[str, Union[int, float]], None]) -> N
 #: the always-on tally of :func:`emit_counted`, by metric name (only names
 #: that occurred are present)
 _counted: Dict[str, Union[int, float]] = {}
-_counted_lock = threading.Lock()
+_counted_lock = named_lock("metrics.counted")
 
 
 def emit_counted(name: str, value: Union[int, float] = 1) -> None:

@@ -31,6 +31,9 @@ COUNTER_TRACKS = (
     "spans.live",
     "engine.cost.padding_waste_bytes",
     "engine.cost.achieved_bw_bytes_s",
+    # the serving gate's queue depth and queries in flight
+    "serving.gate.queued",
+    "serving.gate.running",
 )
 
 

@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.observability import spans as _spans
 
@@ -59,7 +60,7 @@ class CompileLedger:
     per-kernel, per-signature launches."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = named_lock("compile_ledger.entries")
         self._entries: Dict[str, dict] = {}
         self._launches: Dict[str, Dict[str, dict]] = {}
         self.total_compiles = 0
@@ -216,7 +217,7 @@ def _cuda_available() -> bool:
 
 # (kind, payload..., start event, end event), resolved by resolve_events
 _pending: List[tuple] = []
-_pending_lock = threading.Lock()
+_pending_lock = named_lock("compile_ledger.pending")
 
 #: pairs held before the next one resolves the batch (one synchronize)
 PENDING_MAX = 2048

@@ -47,6 +47,7 @@ import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.observability import spans as _spans
 
@@ -59,7 +60,7 @@ _mode = "Auto"
 
 _tls = threading.local()
 
-_pad_lock = threading.Lock()
+_pad_lock = named_lock("costs.padding")
 _total_padded_bytes = 0
 _total_waste_bytes = 0
 _last_achieved_bw = 0.0
@@ -114,7 +115,7 @@ class CostLedger:
     """Thread-safe per-signature and per-kernel costs joined with time."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = named_lock("costs.ledger")
         self._entries: Dict[str, dict] = {}
         self._kernels: Dict[str, dict] = {}
         self._padding: Dict[str, dict] = {}
@@ -341,7 +342,7 @@ PEAK_FMA_ITERS = 1 << 16
 PEAK_FMA_THREADS = 256
 
 _peaks_cache: Optional[dict] = None
-_peaks_lock = threading.Lock()
+_peaks_lock = named_lock("costs.peaks")
 
 
 def published_peaks(device_name: str) -> Optional[dict]:

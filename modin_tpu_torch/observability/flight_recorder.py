@@ -21,10 +21,10 @@ import os
 import pathlib
 import re
 import tempfile
-import threading
 import time
 from typing import List, Optional
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.observability.chrome_trace import to_chrome_trace
 
@@ -34,7 +34,7 @@ MIN_DUMP_INTERVAL_S = 5.0
 # "no dump yet": -inf, not 0.0 (monotonic time is the machine's uptime)
 _NEVER_DUMPED = float("-inf")
 _last_dump = _NEVER_DUMPED
-_dump_lock = threading.Lock()
+_dump_lock = named_lock("flight.dump")
 
 _REASON_SANITIZE = re.compile(r"[^A-Za-z0-9_.-]+")
 

@@ -38,6 +38,8 @@ import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
+from modin_tpu_torch.concurrency import named_lock
+
 
 #: The seams' fast path: True while the aggregation registry
 #: (``MODIN_TPU_TORCH_METERS``) or at least one ``query_stats()`` scope is
@@ -69,6 +71,16 @@ HISTOGRAM_BUCKETS: Dict[str, Tuple[float, ...]] = {
     "plan.optimize.passes": (1, 2, 3, 4, 6, 8, 12, 16),
     # distinct plan nodes lowered per materialization
     "plan.lower.nodes": (1, 2, 4, 8, 16, 32, 64, 128, 256),
+    # seconds an admitted query spent in the serving gate's queue
+    "serving.queue_wait_s": (
+        0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+        0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+    ),
+    # wall seconds of one submitted query, admission to result
+    "serving.query_wall_s": (
+        0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+        1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+    ),
 }
 
 VALID_KINDS = ("counter", "gauge", "histogram")
@@ -77,7 +89,7 @@ _alloc_count = 0  # meter objects ever constructed (the zero-alloc assertion)
 
 _qs_tls = threading.local()  # .stack: active QueryStats; .dispatches: count
 
-_scope_lock = threading.Lock()
+_scope_lock = named_lock("meters.scopes")
 _active_scopes = 0
 
 _env_enabled = False
@@ -234,7 +246,7 @@ class MeterRegistry:
     ``METRICS`` declarations."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = named_lock("meters.registry")
         self._meters: Dict[str, Any] = {}
         self._kinds: Dict[str, Tuple[str, Optional[Tuple[float, ...]]]] = {}
         self._dropped = 0  # observations refused by the cardinality guard
@@ -509,7 +521,7 @@ class QueryStats:
         # abandoned mid-thunk): accumulation takes this lock, and a closed
         # scope stops accepting so late emissions from an abandoned worker
         # can never mutate a rollup the owner already read
-        self._lock = threading.Lock()
+        self._lock = named_lock("meters.query_stats")
         self._closed = False
         self.signature = None  # innermost QUERY-COMPILER span, if tracing
         self.wall_s = 0.0
@@ -628,7 +640,16 @@ class QueryStats:
             self.view_invalidations += int(value)
         elif name.startswith("recovery."):
             self.recoveries += int(value)
-        elif name.startswith("resilience.breaker.") and name.endswith(".strike"):
+        elif (
+            name.startswith("resilience.breaker.")
+            and name.endswith(".strike")
+            and not name.startswith("resilience.breaker.tenant_")
+        ):
+            # device-path strikes only: a nested submit's tenant-health
+            # strike (the gate records it on this thread while the outer
+            # scope is open) is a serving verdict, and counting it would
+            # cascade one tenant's failures into the outer tenant's
+            # quarantine
             self.breaker_trips += int(value)
         elif name.startswith("pandas-api."):
             self.api_calls += 1

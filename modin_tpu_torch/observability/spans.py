@@ -41,6 +41,8 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional
 
+from modin_tpu_torch.concurrency import named_lock
+
 #: the one attribute an instrumented site reads first: while False no span
 #: is ever made.  Written only by :func:`_refresh_enabled`.
 TRACE_ON: bool = False
@@ -153,6 +155,17 @@ SPANS = (
         "count and pack per shard, the block exchange, compaction and the "
         "gather back; shards, capacity and slack retries in attributes",
     ),
+    (
+        "serving.admit",
+        "one admission decision of the serving gate: tenant, queue wait and "
+        "the degraded-route flag in attributes; error status means the query "
+        "was shed or its deadline expired while queued",
+    ),
+    (
+        "serving.query",
+        "one admitted query's execution under its serving context (tenant, "
+        "label, degraded in attributes); everything it launched nests under it",
+    ),
 )
 
 _EPOCH_PERF = time.perf_counter()
@@ -164,7 +177,7 @@ _alloc_count = 0  # Span objects ever made (the zero-alloc assertion)
 _tls = threading.local()
 
 _collectors: List[list] = []  # active profile() collectors
-_state_lock = threading.Lock()
+_state_lock = named_lock("spans.state")
 
 #: bounded ring of recently finished spans (the flight recorder's memory)
 _RING: Optional[deque] = None
@@ -175,7 +188,7 @@ _RING: Optional[deque] = None
 _COUNTERS: Optional[deque] = None
 
 _live_spans = 0
-_live_lock = threading.Lock()
+_live_lock = named_lock("spans.live")
 
 _env_enabled = False
 
@@ -377,7 +390,7 @@ def _deliver(sp: Span) -> None:
         ring.append(sp)
     counters = _COUNTERS
     if counters is not None:
-        counters.append((sp.start_us + sp.dur_us, _ledger_bytes() + (_live_spans,) + _cost_samples()))
+        counters.append((sp.start_us + sp.dur_us, _ledger_bytes() + (_live_spans,) + _cost_samples() + _gate_samples()))
     if _collectors:
         with _state_lock:
             for collector in _collectors:
@@ -404,6 +417,18 @@ def _cost_samples() -> tuple:
         return (0, 0)
     try:
         return costs.counter_sample()
+    except Exception:
+        return (0, 0)
+
+
+def _gate_samples() -> tuple:
+    """(admission-queue depth, queries in flight) from the serving gate: 0s
+    until it is imported, read without its lock."""
+    gate = sys.modules.get("modin_tpu_torch.serving.gate")
+    if gate is None:
+        return (0, 0)
+    try:
+        return gate.counter_sample()
     except Exception:
         return (0, 0)
 

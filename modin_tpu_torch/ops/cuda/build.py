@@ -17,9 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+from modin_tpu_torch.concurrency import named_lock
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = named_lock("ops.cuda.build")
 _loaded: Dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register/shared-memory report) of builds made by
 # this process, by source name

@@ -37,7 +37,6 @@ path of the port writes into a column tensor in place.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -45,6 +44,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.core import memory as _memory
 from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.observability import compile_ledger as _ledger
@@ -53,6 +53,7 @@ from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.core.execution import recovery as _recovery
 from modin_tpu_torch.ops.cuda import fused_kernels
 from modin_tpu_torch.ops.cuda import fused_program as fp
+from modin_tpu_torch.serving import context as serving_context
 
 _MAX_NODES = 160
 
@@ -65,7 +66,7 @@ BARRIERS = 0
 # every access holds _FUSED_LOCK (a move_to_end racing a popitem can corrupt
 # an OrderedDict)
 _FUSED_CACHE: "OrderedDict[Any, Any]" = OrderedDict()
-_FUSED_LOCK = threading.Lock()
+_FUSED_LOCK = named_lock("ops.fused_cache")
 _evictions = 0
 
 
@@ -359,6 +360,10 @@ def run_fused(
     no op-replay record is kept.  Nor is one kept for a reduce tail's
     launches: their accumulators feed the tail, never a column.
     """
+    if serving_context.CONTEXT_ON:
+        # a deferred query pays for its whole expression forest here: the
+        # deadline is checked before the plan and the launches, not after
+        serving_context.check_deadline("fusion.run_fused")
     if tail_key is None:
         lazy_roots = list({id(r): r for r in roots if is_lazy(r)}.values())
         if lazy_roots:

@@ -47,10 +47,10 @@ why): the kernel, compile and layout verdicts are the router's own.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from modin_tpu_torch.concurrency import named_rlock
 from modin_tpu_torch.logging.metrics import CountView, emit_counted, emit_metric
 from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.ops import calibration as calstore
@@ -86,7 +86,7 @@ COUNTS = CountView(prefixes=("router.",))
 CALIBRATIONS = 0
 CALIBRATION_ERROR: Optional[str] = None
 
-_lock = threading.RLock()
+_lock = named_rlock("ops.router")
 #: None = not resolved; False = the calibration failed (route device); a
 #: dict = the live table
 _calibration: Any = None

@@ -29,11 +29,11 @@ was built under another shape.
 
 from __future__ import annotations
 
-import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.config import Device, DeviceCount, MeshShape
 
 
@@ -54,7 +54,7 @@ class Mesh:
         return f"Mesh({self.key}, devices={[str(d) for d in self.devices]})"
 
 
-_lock = threading.Lock()
+_lock = named_lock("parallel.mesh")
 # the live mesh: built on first use, dropped by every change of the
 # settings it depends on (the subscriptions at the bottom) and by
 # ``reset_mesh``

@@ -47,12 +47,14 @@ window's chain and its reduction are one masked launch, its gate
 optimizer planned windowed never takes the whole-plan leg and never
 donates (the joint constraints, ``plan/optimizer.py``).
 
+No donation while a serving context is active: a concurrent query may
+hold a leaf's tensor where the device ledger cannot see it.
+
 Not ported yet: the storm feedback and pad buckets (the launch ledger now
 names the signatures that lower often, ``recompile_storms``; the feedback
 that re-buckets them waits; the reference's ``stream_bucket`` feeds pad
-buckets the port's unpadded windows do not have) and the serving
-context's donation rule (with ``serving/``); ROADMAP lists where each
-waits.
+buckets the port's unpadded windows do not have); ROADMAP lists where
+they wait.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.ops import router
 from modin_tpu_torch.ops.route import decide_groupby  # noqa: F401  (the groupby gate of both legs)
 from modin_tpu_torch.plan.ir import Filter, GroupbyAgg, Map, PlanNode, Project, Reduce, Ref, Scan, Source, walk
+from modin_tpu_torch.serving import context as serving_context
 
 #: fused legs taken (one per materialized segment) and declined
 DISPATCHES = 0
@@ -95,7 +98,11 @@ def _donation_candidates(frame: Any) -> List[Any]:
     """The leaf frame's columns whose tensors a fused launch may consume,
     under a device budget: each donation-eligible (concrete, its own
     length, an exact host copy) and, by one read of the device ledger for
-    the batch, the sole holder of its storage."""
+    the batch, the sole holder of its storage.  None while a serving
+    context is active: a concurrent query may hold the tensor in work the
+    ledger cannot see."""
+    if serving_context.CONTEXT_ON:
+        return []
     from modin_tpu_torch.core import memory
     from modin_tpu_torch.plan import optimizer
 

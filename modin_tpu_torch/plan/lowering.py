@@ -32,10 +32,12 @@ import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.observability import compile_ledger as _ledger
 from modin_tpu_torch.observability import costs as _costs
 from modin_tpu_torch.observability import spans as _spans
+from modin_tpu_torch.serving import context as serving_context
 from modin_tpu_torch.plan.ir import (
     Filter,
     GroupbyAgg,
@@ -53,7 +55,7 @@ from modin_tpu_torch.plan.ir import (
 _tls = threading.local()
 
 #: one lock for every origin's read cache (the parse itself runs outside it)
-_SCAN_CACHE_LOCK = threading.Lock()
+_SCAN_CACHE_LOCK = named_lock("plan.scan_cache")
 
 
 def kernel_launches() -> int:
@@ -119,6 +121,10 @@ def _lower(node: PlanNode, memo: Dict[int, Any]) -> Any:
     hit = memo.get(id(node))
     if hit is not None:
         return hit
+    if serving_context.CONTEXT_ON:
+        # between plan nodes is the cheapest safe place to abort a deferred
+        # query: nothing is half-lowered
+        serving_context.check_deadline("plan.lower")
     instrument = getattr(_tls, "instrument", None)
     opt_active = getattr(_tls, "opt_active", False)
     if instrument is None and not opt_active:

@@ -70,6 +70,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Set, Tuple
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.ops import calibration as calstore
@@ -105,7 +106,7 @@ REPLANS: Dict[str, int] = {}
 
 _alloc_count = 0
 _tls = threading.local()
-_priors_lock = threading.Lock()
+_priors_lock = named_lock("plan.optimizer")
 #: None = not resolved; False = no ledger; a dict = the priors
 _priors: Any = None
 

@@ -26,12 +26,12 @@ The JAX package's replica and disk injectors wait for ``fleet/`` and
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Iterable, Optional
 
 import torch
 
+from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.core.execution import resilience
 
 _INJECTED = "[injected by modin_tpu_torch.testing.faults]"
@@ -92,7 +92,7 @@ class FaultInjector:
         self.slow_s = slow_s
         self.injected = 0
         self.calls = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("testing.faults")
 
     def _fire(self, kind: str) -> None:
         if kind == "slow_kernel":

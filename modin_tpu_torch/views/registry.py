@@ -60,16 +60,16 @@ instead of replaying them.
 
 from __future__ import annotations
 
-import threading
 import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
+from modin_tpu_torch.concurrency import named_rlock
 from modin_tpu_torch.logging.metrics import CountView, emit_counted
 
 #: the derived-cache lock (reentrant: a ledger spill drops artifacts under
 #: it, and the sorted-representation shim re-enters through invalidation)
-LOCK = threading.RLock()
+LOCK = named_rlock("views.registry")
 
 #: events by the JAX package's metric names: a read of the metric layer's
 #: tally
