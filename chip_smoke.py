@@ -6,10 +6,10 @@
                           [--clean-rows N] [--dates-rows N] [--fusion-rows N] [--plan-rows N]
                           [--memory-rows N] [--views-rows N] [--views-time-rows N]
                           [--robust-cost-rows N] [--trace-rows N] [--stream-rows N]
-                          [--stream-sort-rows N] [--mesh-rows N] [--serve-rows N] [--seed S]
-                          [--parent-checkout DIR]
+                          [--stream-sort-rows N] [--mesh-rows N] [--serve-rows N] [--ingest-rows N]
+                          [--seed S] [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory,views,robust,trace,stream,mesh,serve]
+                                    memory,views,robust,trace,stream,mesh,serve,ingest]
 
 Phases, one JSON object per line each:
 
@@ -409,6 +409,37 @@ Phases, one JSON object per line each:
              injected faults:
              the typed ``degraded`` shed, nothing run or sent to pandas.
              The observed lock edges, 0 violations, and the launches.
+22. ingest - continuous ingestion and durability (``phase_ingest``): (a) a
+             feed (``k`` unique int64, ``i`` int64, ``x`` float64, ``g`` of
+             1000 groups, ``ts`` seconds) bootstrapped with ``--ingest-rows``
+             (5e6) rows in one append, then 100 micro-batches of 1e4 rows,
+             with five live views (``sum(x)``, ``mean(x) where i > 0``,
+             ``groupby(g).mean(x)``, ``topk(x, 10)``, a count over 60 s
+             buckets of ``ts``): each read held to pandas over the admitted
+             rows (ints exactly, float sums and means to 1e-12 of the
+             magnitudes they sum) and to ``feed.recompute`` on the card, the
+             read's, the recompute's and pandas' ms; the ad-hoc
+             ``frame["x"].sum()`` and ``frame.groupby("g")["x"].sum()``
+             every 10 batches against pandas, folding (the views registry's
+             counts); the append's p50/p99 with the mirror's concat, the
+             batch's upload and the device concat timed apart (each ended
+             by a synchronise); the zero-row frame of a new feed and every
+             grown frame on ``cuda``; (b) a keyed feed of 1e6 rows under a
+             retention of 1e6 and 10 upsert batches of 1e4 rows, half of
+             their keys stored: every (integer or order-free) view exactly
+             pandas' after each upsert, the frame exactly pandas' at the
+             end, the re-upload and the key-index rebuild timed per call;
+             (c) a child process on the card: a durable GroupCommit feed of
+             1e6 rows, micro-batches of 1e3 rows until 40 records past
+             ``WalMaxReplayBatches`` a ``DiskFaultInjector("torn_write")``
+             SIGKILLs it; this process reopens it: one ``wal.torn_tail``,
+             the checkpoint loaded, the replayed records, the frame and
+             every view pandas' over the acked batches, the checkpoint's
+             bytes and ms and the recovery's ms; (d) four threads append and
+             read a durable feed through ``ServingEnabled`` at
+             MaxConcurrent 4 under strict lockdep: 0 violations, the four
+             ingest edges observed.  ``DEFAULTS_TO_PANDAS`` 0 and bincount,
+             groupagg and fused each launched in the phase.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -417,8 +448,8 @@ at ``--io-rows``, ``--window-rows``, ``--clean-rows``, ``--dates-rows`` and
 ``--plan-rows`` (2.5e6 each), the
 fusion phase at ``--fusion-rows`` (1e7), phase 15's CSV queries at
 ``--donation-rows`` (5e6), phase 16 at ``--views-rows`` (1e6) and
-``--views-time-rows`` (5e7) and phase 21 at ``--serve-rows`` (1e7) so that the whole script stays near half of its
-time limit; the kernel checks run at ``--rows``.  ``--phases``
+``--views-time-rows`` (5e7), phase 21 at ``--serve-rows`` (1e7) and phase 22 at ``--ingest-rows`` (5e6) so that the
+whole script stays near half of its time limit; the kernel checks run at ``--rows``.  ``--phases``
 picks the phases after the kernel check for a quick run; only a run of all
 of them prints the result lines.  Then the card's name and power limit, one
 ``{"kernels": [...]}`` line, and
@@ -442,7 +473,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory", "views", "robust", "trace", "stream", "mesh", "serve")
+              "formats", "memory", "views", "robust", "trace", "stream", "mesh", "serve", "ingest")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -7383,6 +7414,528 @@ def phase_serve(rows: int, seed: int, parent: str = None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 22. ingest
+# ---------------------------------------------------------------------- #
+
+#: (a): micro-batches after the bootstrap, their rows, the key's groups,
+#: the windowed view's bucket and the top-k's k
+INGEST_BATCHES = 100
+INGEST_BATCH_ROWS = 10_000
+INGEST_GROUPS = 1000
+INGEST_BUCKET_S = 60.0
+INGEST_TOPK = 10
+#: (a): the views are held against pandas and recomputed on the card after
+#: the bootstrap and after the last micro-batch; the ad-hoc queries run every
+#: ``INGEST_ADHOC_EVERY`` micro-batches (on an H100 80GB HBM3 at 700 W,
+#: phase 22 took 92.2 s with a check after 50 batches too, ad-hoc queries
+#: every 10, (c) past 256 records and (d) on 1e6 rows x 100 batches; its
+#: share of the run is about 40 s)
+INGEST_ADHOC_EVERY = 20
+#: (b): the keyed feed's rows (its retention too), bootstrapped in batches of
+#: ``INGEST_UPSERT_ROWS``, and the upsert batches, half of their keys stored
+INGEST_KEYED_ROWS = 10**6
+INGEST_UPSERT_ROWS = 10_000
+INGEST_UPSERTS = 10
+#: (c): the durable feed's bootstrap, its micro-batches' rows, its
+#: ``WalMaxReplayBatches`` (at the default 256 the child took 30.5 s on the
+#: same H100 host) and the
+#: records past it at which the torn write kills it
+INGEST_CRASH_ROWS = 10**6
+INGEST_CRASH_BATCH_ROWS = 1000
+INGEST_CRASH_REPLAY = 64
+INGEST_CRASH_PAST = 40
+#: (d): threads, each appending this many micro-batches of
+#: ``INGEST_BATCH_ROWS`` onto a durable feed of ``INGEST_THREAD_ROWS``
+INGEST_THREADS = 4
+INGEST_THREAD_BATCHES = 10
+INGEST_THREAD_ROWS = 200_000
+
+INGEST_SCHEMA = {"k": "int64", "i": "int64", "x": "float64", "g": "int64", "ts": "float64"}
+INGEST_VIEWS = {
+    "sum_x": {"kind": "scalar", "column": "x", "agg": "sum"},
+    "mean_x_where_i_pos": {"kind": "filtered", "column": "x", "agg": "mean", "predicate": ("i", ">", 0)},
+    "mean_x_by_g": {"kind": "groupby", "by": "g", "column": "x", "agg": "mean"},
+    "top_x": {"kind": "topk", "column": "x", "k": INGEST_TOPK},
+    "count_60s": {"kind": "windowed", "column": "x", "time_column": "ts", "agg": "count",
+                  "bucket_s": INGEST_BUCKET_S},
+}
+#: (b): integer views and order-free ones, which an upsert's exact rebuild
+#: and the folds keep bit for bit
+INGEST_KEYED_VIEWS = {
+    "sum_i": {"kind": "scalar", "column": "i", "agg": "sum"},
+    "sum_i_where_x_pos": {"kind": "filtered", "column": "i", "agg": "sum", "predicate": ("x", ">", 0.0)},
+    "sum_i_by_g": {"kind": "groupby", "by": "g", "column": "i", "agg": "sum"},
+    "top_x": {"kind": "topk", "column": "x", "k": INGEST_TOPK},
+    "count_60s": INGEST_VIEWS["count_60s"],
+}
+
+_INGEST_CRASH_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, os.environ["INGEST_HERE"])
+import chip_smoke
+import modin_tpu_torch
+modin_tpu_torch.set_device(os.environ["INGEST_DEVICE"])
+from modin_tpu_torch import config, ingest
+from modin_tpu_torch.logging.metrics import add_metric_handler
+from modin_tpu_torch.testing import DiskFaultInjector
+
+config.IngestEnabled.put(True)
+config.WalFsync.put("GroupCommit")
+config.WalMaxReplayBatches.put(int(os.environ["INGEST_MAX_REPLAY"]))
+seed = int(os.environ["INGEST_SEED"])
+ckpt = {}
+add_metric_handler(lambda name, value: ckpt.__setitem__(name, value) if name.startswith("modin_tpu_torch.checkpoint.") else None)
+feed = ingest.open_feed("crash", schema=chip_smoke.INGEST_SCHEMA, durable=True,
+                        durability_dir=os.environ["INGEST_DIR"])
+for name, plan in chip_smoke.INGEST_VIEWS.items():
+    feed.register_view(name, plan)
+dur = feed._wal
+checkpoint = dur.checkpoint
+
+def say(line):
+    # one write a line: the group-commit flusher's checkpoint prints too
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+def timed_checkpoint():
+    t0 = time.perf_counter()
+    wrote = checkpoint()
+    if wrote:
+        say("CHECKPOINT " + json.dumps({"ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": ckpt.get("modin_tpu_torch.checkpoint.bytes"), "wal_seq": dur._ckpt_seq}))
+    return wrote
+
+dur.checkpoint = timed_checkpoint
+boot_rows, rows = int(os.environ["INGEST_ROWS"]), int(os.environ["INGEST_BATCH_ROWS"])
+feed.append(chip_smoke.ingest_batch(seed, -1, boot_rows, 0, 0.0))
+say("BOOTSTRAPPED")
+skip = config.WalMaxReplayBatches.get() + int(os.environ["INGEST_PAST"])
+DiskFaultInjector("torn_write", ops=("wal.write",), times=1, skip=skip).__enter__()  # never exits
+for b in range(10**6):
+    feed.append(chip_smoke.ingest_batch(seed, b, rows, boot_rows + b * rows, 3600.0 + b))
+    say(f"ACKED {b + 1}")
+"""
+
+
+def ingest_batch(seed: int, b: int, rows: int, key_start: int, t0: float):
+    """Micro-batch ``b`` of a feed (``b == -1``: its bootstrap): unique keys
+    from ``key_start``, ints, normal floats, ``INGEST_GROUPS`` groups and
+    timestamps over the hour (the bootstrap) or the minute from ``t0``."""
+    import pandas
+
+    rng = np.random.default_rng([seed, 22, b + 1])
+    span = 3600.0 if b < 0 else 60.0
+    return pandas.DataFrame({
+        "k": np.arange(key_start, key_start + rows, dtype=np.int64),
+        "i": rng.integers(-1000, 1000, rows),
+        "x": rng.standard_normal(rows),
+        "g": rng.integers(0, INGEST_GROUPS, rows),
+        "ts": t0 + rng.uniform(0.0, span, rows),
+    })
+
+
+def _ingest_mask(lhs, op: str, val):
+    import operator
+
+    return {">": operator.gt, ">=": operator.ge, "<": operator.lt, "<=": operator.le, "==": operator.eq,
+            "!=": operator.ne}[op](lhs, val)
+
+
+def ingest_truth(plan: dict, pdf):
+    """A view's answer by pandas over the admitted rows ``pdf``, and the
+    scale its float result may differ by 1e-12 of (None: exact)."""
+    kind, col = plan["kind"], plan["column"]
+    x = pdf[col]
+    if kind == "filtered":
+        x = x[_ingest_mask(pdf[plan["predicate"][0]], plan["predicate"][1], plan["predicate"][2])]
+    agg = plan.get("agg")
+    floats = x.dtype.kind == "f" and agg in ("sum", "mean")
+    if kind in ("scalar", "filtered"):
+        want = getattr(x, agg)()
+        return want, (float(x.abs().sum() if agg == "sum" else x.abs().mean()) if floats else None)
+    if kind == "groupby":
+        grouped = x.groupby(pdf[plan["by"]])
+        want = getattr(grouped, agg)()
+        return want, (getattr(x.abs().groupby(pdf[plan["by"]]), agg)() if floats else None)
+    if kind == "topk":
+        return x.reset_index(drop=True).nlargest(plan["k"], keep="first"), None
+    keys = np.floor(pdf[plan["time_column"]].to_numpy(np.float64) / plan["bucket_s"]).astype(np.int64)
+    return getattr(x.groupby(keys), agg)(), None
+
+
+def ingest_same(got, want, scale, what: str) -> None:
+    """A view's answer against pandas: ints, counts, top-k rows and buckets
+    exactly; float sums and means to 1e-12 of the magnitudes they sum."""
+    import pandas
+
+    if isinstance(want, pandas.Series):
+        if not isinstance(got, pandas.Series):
+            raise AssertionError(f"{what}: {type(got).__name__}, not a Series")
+        _stream_same(got.rename("v"), want.rename("v"), what, None if scale is None else scale.rename("v"))
+        return
+    g, w = np.float64(got), np.float64(want)
+    if scale is None:
+        if not (g == w or (np.isnan(g) and np.isnan(w))) or np.asarray(got).dtype.kind != np.asarray(want).dtype.kind:
+            raise AssertionError(f"{what}: {got!r} != pandas' {want!r}")
+    elif not abs(g - w) <= FLOAT_RTOL * scale:
+        raise AssertionError(f"{what}: {got!r} against pandas' {want!r}, past 1e-12 of {scale!r}")
+
+
+def _sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _timed_method(obj, name: str, sink: list) -> None:
+    """Replace ``obj.name`` (on the instance) by the same call timed to its
+    device work's end, each call's ms appended to ``sink``."""
+    inner = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        _sync()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _ms_stats(values) -> dict:
+    values = list(values)
+    if not values:
+        return {"n": 0}
+    return {"n": len(values), "p50": _percentile(values, 50), "p99": _percentile(values, 99),
+            "max": float(max(values)), "sum": float(sum(values))}
+
+
+def _ingest_check(feed, views: dict, pdf, what: str, recompute: bool = True) -> dict:
+    """Every view's maintained read and its ``recompute`` on the card held
+    to pandas over ``pdf``; the ms of each read, recompute and pandas."""
+    out = {}
+    for name, plan in views.items():
+        t0 = time.perf_counter()
+        want, scale = ingest_truth(plan, pdf)
+        pandas_ms = (time.perf_counter() - t0) * 1e3
+        reads = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = feed.read(name).value
+            reads.append((time.perf_counter() - t0) * 1e3)
+        ingest_same(got, want, scale, f"ingest {what}: {name} maintained")
+        entry = {"read_ms": statistics.median(reads), "pandas_ms": pandas_ms}
+        if recompute:
+            again, entry["recompute_ms"] = host_ms(lambda: feed.recompute(name))
+            ingest_same(again, want, scale, f"ingest {what}: {name} recomputed on the card")
+        out[name] = entry
+    return out
+
+
+def ingest_live(rows: int, seed: int) -> dict:
+    """(a): a feed of ``rows`` bootstrap rows and ``INGEST_BATCHES``
+    micro-batches with the five live views, the ad-hoc folds and the
+    append's time by part."""
+    import pandas
+
+    from modin_tpu_torch import ingest
+
+    feed = ingest.create_feed("live", INGEST_SCHEMA)
+    assert_on_cuda(feed.frame._query_compiler, "ingest (a) the zero-row frame")
+    for name, plan in INGEST_VIEWS.items():
+        feed.register_view(name, plan)
+    boot = ingest_batch(seed, -1, rows, 0, 0.0)
+    _, boot_ms = host_ms(lambda: feed.append(boot))
+    assert_on_cuda(feed.frame._query_compiler, "ingest (a) the bootstrapped frame")
+    host_cached = all(c.host_cache is not None for c in feed.frame._query_compiler._modin_frame._columns)
+    checks = {"bootstrap": _ingest_check(feed, INGEST_VIEWS, boot, "after the bootstrap")}
+    parts = {"mirror_concat": [], "upload": [], "device_concat": []}
+    _timed_method(feed, "_concat_mirror_locked", parts["mirror_concat"])
+    _timed_method(feed, "_upload", parts["upload"])
+    _timed_method(feed, "_concat_frame_locked", parts["device_concat"])
+    xs, gs, batches = [boot["x"].to_numpy()], [boot["g"].to_numpy()], [boot]
+    adhoc = {"sum": [], "groupby_sum": [], "checks": 0}
+    counts0 = _view_counts()
+    # the artifacts the appends fold into
+    feed.frame["x"].sum()
+    feed.frame.groupby("g")["x"].sum()
+    appends = []
+    for b in range(INGEST_BATCHES):
+        batch = ingest_batch(seed, b, INGEST_BATCH_ROWS, rows + b * INGEST_BATCH_ROWS, 3600.0 + 6.0 * b)
+        _, ms = host_ms(lambda: feed.append(batch))
+        appends.append(ms)
+        batches.append(batch)
+        xs.append(batch["x"].to_numpy())
+        gs.append(batch["g"].to_numpy())
+        if (b + 1) % INGEST_ADHOC_EVERY == 0:
+            x, g = np.concatenate(xs), np.concatenate(gs)
+            frame = feed.frame
+            got, ms = host_ms(lambda: frame["x"].sum())
+            adhoc["sum"].append(ms)
+            ingest_same(got, float(x.sum()), float(np.abs(x).sum()), f"ingest (a) ad-hoc sum after {b + 1}")
+            got, ms = host_ms(lambda: frame.groupby("g")["x"].sum()._to_pandas())
+            adhoc["groupby_sum"].append(ms)
+            sx = pandas.Series(x)
+            ingest_same(got, sx.groupby(g).sum(), sx.abs().groupby(g).sum(),
+                        f"ingest (a) ad-hoc groupby sum after {b + 1}")
+            adhoc["checks"] += 1
+    adhoc["views_registry"] = _since(counts0, _view_counts())
+    if adhoc["views_registry"]["view.fold"] < adhoc["checks"]:
+        raise AssertionError(f"ingest (a): the ad-hoc queries folded {adhoc['views_registry']}")
+    assert_on_cuda(feed.frame._query_compiler, "ingest (a) the grown frame")
+    pdf = pandas.concat(batches, ignore_index=True)
+    checks[f"after_{INGEST_BATCHES}"] = _ingest_check(feed, INGEST_VIEWS, pdf, f"after {INGEST_BATCHES} micro-batches")
+    got = feed.frame._to_pandas().reset_index(drop=True)
+    assert_same_pandas(got, pdf.astype(INGEST_SCHEMA), "ingest (a) the feed's frame", exact=True)
+    ingest.drop_feed("live")
+    return {"rows": rows, "batches": INGEST_BATCHES, "batch_rows": INGEST_BATCH_ROWS, "bootstrap_ms": boot_ms,
+            "host_cache_kept": host_cached, "append_ms": _ms_stats(appends),
+            "append_parts_ms": {k: _ms_stats(v) for k, v in parts.items()}, "views": checks, "adhoc": adhoc}
+
+
+def _keyed_reference(ref, batch_rows: list, up, retention: int):
+    """The upsert's and the trim's semantics by pandas: the batch's last row
+    of a key wins, stored keys update in place, new keys append as one
+    batch, then whole oldest batches go while the rows pass ``retention``."""
+    import pandas
+
+    up = up.drop_duplicates(subset=["k"], keep="last").reset_index(drop=True)
+    pos = pandas.Index(ref["k"]).get_indexer(up["k"])
+    hit = pos >= 0
+    ref = ref.copy()
+    ref.iloc[pos[hit]] = up[hit].to_numpy()
+    new = up[~hit]
+    if len(new):
+        ref = pandas.concat([ref, new], ignore_index=True)
+        batch_rows.append(len(new))
+    while len(batch_rows) > 1 and len(ref) > retention:
+        ref = ref.iloc[batch_rows.pop(0):].reset_index(drop=True)
+    return ref.astype(INGEST_SCHEMA)
+
+
+def ingest_keyed(seed: int) -> dict:
+    """(b): a keyed feed of ``INGEST_KEYED_ROWS`` under a retention of as
+    many rows, and ``INGEST_UPSERTS`` upsert batches half of whose keys are
+    stored: every view exactly pandas', the re-upload and the key-index
+    rebuild timed per call."""
+    import pandas
+
+    from modin_tpu_torch import ingest
+
+    feed = ingest.create_feed("keyed", INGEST_SCHEMA, key="k", retention_rows=INGEST_KEYED_ROWS)
+    for name, plan in INGEST_KEYED_VIEWS.items():
+        feed.register_view(name, plan)
+    nboot = INGEST_KEYED_ROWS // INGEST_UPSERT_ROWS
+    boots = [ingest_batch(seed + 1, b, INGEST_UPSERT_ROWS, b * INGEST_UPSERT_ROWS, 6.0 * b) for b in range(nboot)]
+    for batch in boots:
+        feed.append(batch)
+    ref = pandas.concat(boots, ignore_index=True).astype(INGEST_SCHEMA)
+    batch_rows = [len(b) for b in boots]
+    timed = {"reupload": [], "key_index": [], "upsert": []}
+    _timed_method(feed, "_rebuild_frame_locked", timed["reupload"])
+    _timed_method(feed, "_rebuild_key_index_locked", timed["key_index"])
+    rng = np.random.default_rng([seed, 22, 1000])
+    next_key = INGEST_KEYED_ROWS
+    for u in range(INGEST_UPSERTS):
+        half = INGEST_UPSERT_ROWS // 2
+        stored = rng.choice(ref["k"].to_numpy(), half, replace=False)
+        keys = np.concatenate([stored, np.arange(next_key, next_key + half, dtype=np.int64)])
+        next_key += half
+        up = ingest_batch(seed + 2, u, INGEST_UPSERT_ROWS, 0, 3600.0 + 6.0 * u).assign(k=rng.permutation(keys))
+        _, ms = host_ms(lambda: feed.upsert(up))
+        timed["upsert"].append(ms)
+        ref = _keyed_reference(ref, batch_rows, up, INGEST_KEYED_ROWS)
+        if feed.rows != len(ref):
+            raise AssertionError(f"ingest (b) upsert {u}: {feed.rows} rows, pandas {len(ref)}")
+        for name, plan in INGEST_KEYED_VIEWS.items():
+            want, _scale = ingest_truth(plan, ref)
+            ingest_same(feed.read(name).value, want, None, f"ingest (b) upsert {u}: {name}")
+    assert_on_cuda(feed.frame._query_compiler, "ingest (b) the keyed frame")
+    got = feed.frame._to_pandas().reset_index(drop=True)
+    assert_same_pandas(got, ref, "ingest (b) the keyed frame", exact=True)
+    views = _ingest_check(feed, INGEST_KEYED_VIEWS, ref, "(b) after the upserts")
+    ingest.drop_feed("keyed")
+    return {"rows": INGEST_KEYED_ROWS, "upserts": INGEST_UPSERTS, "upsert_rows": INGEST_UPSERT_ROWS,
+            "final_rows": len(ref), "ms": {k: _ms_stats(v) for k, v in timed.items()}, "views": views}
+
+
+def ingest_crash(seed: int, workdir: str) -> dict:
+    """(c): a child process on the card ingests into a durable GroupCommit
+    feed until ``DiskFaultInjector("torn_write")`` SIGKILLs it past a
+    checkpoint; this process recovers the directory: one torn tail, the
+    checkpoint loaded, the tail replayed, the frame and every view pandas'
+    over the admitted batches."""
+    import pandas
+
+    import modin_tpu_torch
+    from modin_tpu_torch import ingest
+    from modin_tpu_torch.logging.metrics import add_metric_handler, clear_metric_handler
+
+    root = os.path.join(workdir, "wal")
+    env = dict(os.environ, INGEST_HERE=HERE, INGEST_DIR=root, INGEST_SEED=str(seed),
+               INGEST_DEVICE=str(modin_tpu_torch.get_device().type), INGEST_ROWS=str(INGEST_CRASH_ROWS),
+               INGEST_BATCH_ROWS=str(INGEST_CRASH_BATCH_ROWS), INGEST_PAST=str(INGEST_CRASH_PAST),
+               INGEST_MAX_REPLAY=str(INGEST_CRASH_REPLAY))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _INGEST_CRASH_CHILD], env=env, cwd=HERE, capture_output=True,
+                          text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -9 or "BOOTSTRAPPED" not in proc.stdout:
+        raise AssertionError(f"ingest (c): the child ended with {proc.returncode}, not SIGKILL:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    acked = len(re.findall(r"^ACKED \d+$", proc.stdout, re.M))
+    ckpts = [json.loads(m) for m in re.findall(r"CHECKPOINT (\{[^}]*\})", proc.stdout)]
+    if not ckpts:
+        raise AssertionError("ingest (c): the child wrote no checkpoint")
+    seen = []
+    handler = lambda name, value: seen.append((name, value))  # noqa: E731
+    add_metric_handler(handler)
+    try:
+        feed, recovery_ms = host_ms(lambda: ingest.open_feed("crash", durable=True, durability_dir=root))
+    finally:
+        clear_metric_handler(handler)
+    tally = {}
+    for name, value in seen:
+        short = name[len("modin_tpu_torch."):]
+        if short.startswith(("wal.", "checkpoint.", "recovery.")):
+            tally[short] = tally.get(short, 0) + value
+    if tally.get("wal.torn_tail") != 1 or tally.get("checkpoint.load") != 1 or tally.get("recovery.feed") != 1:
+        raise AssertionError(f"ingest (c): recovery's counts {tally}")
+    extra = feed.rows - INGEST_CRASH_ROWS
+    recovered = extra // INGEST_CRASH_BATCH_ROWS
+    if extra % INGEST_CRASH_BATCH_ROWS or not acked <= recovered <= acked + 1:
+        raise AssertionError(f"ingest (c): {feed.rows} rows recovered after {acked} acked batches")
+    assert_on_cuda(feed.frame._query_compiler, "ingest (c) the recovered frame")
+    pdf = pandas.concat([ingest_batch(seed, -1, INGEST_CRASH_ROWS, 0, 0.0)] + [
+        ingest_batch(seed, b, INGEST_CRASH_BATCH_ROWS, INGEST_CRASH_ROWS + b * INGEST_CRASH_BATCH_ROWS, 3600.0 + b)
+        for b in range(recovered)], ignore_index=True)
+    got = feed.frame._to_pandas().reset_index(drop=True)
+    assert_same_pandas(got, pdf.astype(INGEST_SCHEMA), "ingest (c) the recovered frame", exact=True)
+    views = _ingest_check(feed, INGEST_VIEWS, pdf, "(c) after recovery")
+    replayed = feed._wal.replayed_batches
+    ckpt_files = [f for f in os.listdir(os.path.join(root, "crash")) if f.startswith("ckpt_")]
+    ingest.drop_feed("crash")
+    return {"acked": acked, "recovered_batches": recovered, "replayed_records": replayed,
+            "max_replay": INGEST_CRASH_REPLAY, "checkpoints": ckpts, "checkpoint_files": ckpt_files,
+            "recovery_ms": recovery_ms, "recovery_counts": tally, "child_s": child_s, "views": views}
+
+
+def ingest_threads(seed: int, workdir: str) -> dict:
+    """(d): ``INGEST_THREADS`` threads append to and read one durable feed
+    through the serving gate at MaxConcurrent 4 under strict lockdep: no
+    violation, the four ingest edges observed, the frame and the views
+    pandas' over every batch."""
+    import threading
+
+    import pandas
+
+    from modin_tpu_torch import config, ingest
+    from modin_tpu_torch.concurrency import lockdep
+    from modin_tpu_torch.serving import tenants
+    from modin_tpu_torch.serving.gate import gate
+
+    feed = ingest.open_feed("threads", schema=INGEST_SCHEMA, durable=True,
+                            durability_dir=os.path.join(workdir, "threads"))
+    for name, plan in INGEST_VIEWS.items():
+        feed.register_view(name, plan)
+    boot = ingest_batch(seed + 3, -1, INGEST_THREAD_ROWS, 0, 0.0)
+    feed.append(boot)
+    jobs = [[ingest_batch(seed + 3, t * INGEST_THREAD_BATCHES + j, INGEST_BATCH_ROWS,
+                          INGEST_THREAD_ROWS + (t * INGEST_THREAD_BATCHES + j) * INGEST_BATCH_ROWS, 3600.0 + j)
+             for j in range(INGEST_THREAD_BATCHES)] for t in range(INGEST_THREADS)]
+    errors, walls = [], []
+    views = list(INGEST_VIEWS)
+
+    def worker(t):
+        try:
+            for j, batch in enumerate(jobs[t]):
+                t0 = time.perf_counter()
+                feed.append(batch, tenant=f"ingest{t}")
+                feed.read(views[(t + j) % len(views)], fresh_within_ms=0.0, tenant=f"reader{t}")
+                ingest.max_fold_lag_ms()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        except BaseException as err:  # reported after the join
+            errors.append(repr(err))
+
+    saved = [(k, k.get()) for k in (config.ServingEnabled, config.ServingMaxConcurrent)]
+    config.ServingEnabled.put(True)
+    config.ServingMaxConcurrent.put(4)
+    lockdep.enable(strict=True)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(INGEST_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall_s = time.perf_counter() - t0
+        violations = [v.render() for v in lockdep.violations()]
+        edges = sorted(f"{a} -> {b}" for a, b in lockdep.observed_edges())
+    finally:
+        lockdep.disable()
+        for k, v in saved:
+            k.put(v)
+        gate.reset_for_tests()
+        tenants.registry.reset()
+    if errors or violations:
+        raise AssertionError(f"ingest (d): errors {errors}, lockdep {violations}")
+    wanted = {"ingest.feeds -> ingest.feed", "ingest.feed -> views.registry", "ingest.feed -> resilience.dispatch",
+              "ingest.feed -> durability.wal"}
+    if not wanted <= set(edges):
+        raise AssertionError(f"ingest (d): edges {sorted(wanted - set(edges))} not observed")
+    pdf = pandas.concat([boot] + [b for job in jobs for b in job], ignore_index=True).astype(INGEST_SCHEMA)
+    got = feed.frame._to_pandas().sort_values("k").reset_index(drop=True)
+    assert_same_pandas(got, pdf, "ingest (d) the frame, by key", exact=True)
+    checked = {}
+    for name, plan in INGEST_VIEWS.items():
+        if plan["kind"] == "topk":
+            continue  # its row ids follow the threads' order; the values are checked by (a)-(c)
+        want, scale = ingest_truth(plan, pdf)
+        ingest_same(feed.read(name).value, want, scale, f"ingest (d) {name}")
+        checked[name] = True
+    ingest.drop_feed("threads")
+    return {"threads": INGEST_THREADS, "batches": INGEST_THREADS * INGEST_THREAD_BATCHES, "wall_s": wall_s,
+            "append_and_read_ms": _ms_stats(walls), "lockdep": {"violations": 0, "edges": edges},
+            "views_checked": sorted(checked)}
+
+
+def phase_ingest(rows: int, seed: int, workdir: str) -> dict:
+    """Phase 22 (``ingest``): (a) ``ingest_live``, (b) ``ingest_keyed``, (c)
+    ``ingest_crash``, (d) ``ingest_threads``.  Returns the launches."""
+    from modin_tpu_torch import config, ingest
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+
+    t_phase = time.perf_counter()
+    saved = [(k, k.get()) for k in (config.IngestEnabled,)]
+    config.IngestEnabled.put(True)
+    k0 = _kernel_marks()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    parts, seconds = {}, {}
+    try:
+        for name, fn, fn_args in (("live", ingest_live, (rows, seed)), ("keyed", ingest_keyed, (seed,)),
+                                  ("crash", ingest_crash, (seed, workdir)),
+                                  ("threads", ingest_threads, (seed, workdir))):
+            t0 = time.perf_counter()
+            parts[name] = fn(*fn_args)
+            seconds[name] = time.perf_counter() - t0
+            emit({"phase": "ingest", "part": name, **parts[name], "seconds": seconds[name]})
+            free_device_memory()
+    finally:
+        ingest.reset()
+        for k, v in saved:
+            k.put(v)
+    launches = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+    if tqc.DEFAULTS_TO_PANDAS:
+        raise AssertionError(f"ingest: {tqc.DEFAULTS_TO_PANDAS} queries defaulted to pandas")
+    missing = [k for k in ("bincount", "groupagg", "fused") if not launches[k]]
+    if missing:
+        raise AssertionError(f"ingest: {missing} never launched ({launches})")
+    emit({"phase": "ingest", "rows": rows, "launches": launches, "defaults_to_pandas": 0,
+          "seconds_by_part": seconds, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def resilience_line(robust: dict, by_path: dict) -> dict:
     """The ``{"resilience": ...}`` line: phase 17's parts in brief and every
     other path's fallbacks and breakers."""
@@ -7612,6 +8165,8 @@ def main(argv=None) -> int:
                         help="rows of the mesh phase's sorted frame and merge's left side")
     parser.add_argument("--serve-rows", type=int, default=10**7,
                         help="rows of the serve phase's frame")
+    parser.add_argument("--ingest-rows", type=int, default=5 * 10**6,
+                        help="rows of the ingest phase's bootstrap (a); its micro-batches are 1e4 rows")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -7736,6 +8291,9 @@ def main(argv=None) -> int:
     if "serve" in phases:
         launches["serve"] = run("serve", phase_serve, args.serve_rows, args.seed,
                                 args.parent_checkout and os.path.abspath(args.parent_checkout))
+    if "ingest" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as workdir:
+            launches["ingest"] = run("ingest", phase_ingest, args.ingest_rows, args.seed, workdir)
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,

@@ -61,6 +61,10 @@ LOCKS: Tuple[Tuple[str, str, str], ...] = (
     ("views.registry", "rlock", "THE derived-artifact cache (invalidation re-enters via drop hooks)"),
     ("parallel.mesh", "lock", "global mesh build-once"),
     ("io.chunker", "lock", "chunker native-library build-once"),
+    # -- continuous ingestion and durability ------------------------------ #
+    ("ingest.feeds", "lock", "the named-feed table: create/get/drop"),
+    ("ingest.feed", "rlock", "one feed's frame, batch log, key index, and registered-view state (folds re-enter via forced reads)"),
+    ("durability.wal", "lock", "one durable feed's WAL segment file, fsync-policy dirty flag, and checkpoint claim"),
     # -- observability ----------------------------------------------------- #
     ("meters.scopes", "lock", "process-wide open QueryStats scope set + registry acquires"),
     ("meters.registry", "lock", "meter families: create/observe/snapshot"),
@@ -119,6 +123,10 @@ LOCK_ORDER: Tuple[Tuple[str, str, str], ...] = (
     ("meters.scopes", "meters.registry", "scope open/close folds into the registry; registry code never opens scopes"),
     ("meters.scopes", "meters.query_stats", "the spill/fold pass walks open scopes and accumulates into each"),
     ("serving.gate", "serving.tenants", "admission reads tenant weights/costs while deciding; tenant bookkeeping never re-enters the gate"),
+    ("ingest.feeds", "ingest.feed", "the fold-lag probe walks each feed under the table lock; feed code never re-enters the table"),
+    ("ingest.feed", "views.registry", "an append under the feed serialization runs concat_rows, which records its append link in the artifact registry"),
+    ("ingest.feed", "resilience.dispatch", "appends/trims under the feed serialization dispatch device concats through the engine seam; seam code never re-enters a feed"),
+    ("ingest.feed", "durability.wal", "a durable append logs its pre-encoded WAL record under the feed serialization BEFORE mutating feed state; WAL code never re-enters a feed"),
 )
 
 

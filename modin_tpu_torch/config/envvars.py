@@ -19,8 +19,12 @@ executor's (``StreamMode``, ``StreamWindowBytes``, ``StreamPrefetch``,
 ``SpmdMinRows``), multi-tenant serving's (``ServingEnabled``,
 ``ServingMaxConcurrent``, ``ServingQueueDepth``,
 ``ServingDefaultDeadlineMs``, ``ServingTenantWeights``,
-``ServingDegradedHighWater``) and the lock-order validator's
-(``LockdepEnabled``); the port's own variable names, so
+``ServingDegradedHighWater``), the lock-order validator's
+(``LockdepEnabled``), continuous ingestion's (``IngestEnabled``,
+``IngestFoldEvery``, ``IngestRetentionRows``, ``IngestRetentionAgeS``,
+``IngestFoldLagMs``), durability's (``WalDir``, ``WalFsync``,
+``WalGroupCommitMs``, ``WalSegmentBytes``, ``WalMaxReplayBatches``) and
+the IO's descriptor audit (``TrackFileLeaks``); the port's own variable names, so
 one process can pin the two packages apart.  A module that keeps a
 setting in a variable of its own subscribes to it
 (:meth:`Parameter.subscribe`) and sees every change.
@@ -877,3 +881,115 @@ class LockdepEnabled(_Flag):
     validator's module imports; ``lockdep.enable()`` turns it on later."""
 
     varname = "MODIN_TPU_TORCH_LOCKDEP"
+
+
+class TrackFileLeaks(_Flag):
+    """Audit every ``FileDispatcher.read`` for file descriptors it left open
+    (a ``ResourceWarning``; ``utils/file_leaks.py``).  Off by default: the
+    ``/proc/self/fd`` listing costs on every read."""
+
+    varname = "MODIN_TPU_TORCH_TEST_TRACK_FILE_LEAKS"
+
+
+# ---------------------------------------------------------------------- #
+# Continuous ingestion and durability
+# ---------------------------------------------------------------------- #
+
+
+class _PositiveSeconds(_Seconds):
+    """A float that must be > 0."""
+
+    @classmethod
+    def _parse(cls, raw: Any) -> float:
+        value = float(raw)
+        if value <= 0:
+            raise ValueError(f"{cls.varname} must be > 0, got {raw!r}")
+        return value
+
+
+class IngestEnabled(_Flag):
+    """Continuous ingestion (``ingest/``): named feeds taking append and
+    upsert micro-batches, live views maintained on every batch, reads
+    bounded in staleness.  Off (the default): ``create_feed`` refuses and no
+    feed, view or batch object is made (``ingest.ingest_alloc_count()``)."""
+
+    varname = "MODIN_TPU_TORCH_INGEST"
+
+
+class IngestFoldEvery(_Positive):
+    """Fold the live views every N admitted micro-batches (1: on every
+    batch).  Between folds the pending batches are the fold lag, and a read
+    whose ``fresh_within_ms`` bound the lag passes folds them first."""
+
+    varname = "MODIN_TPU_TORCH_INGEST_FOLD_EVERY"
+    default = 1
+
+
+class IngestRetentionRows(_Count):
+    """A feed's default retention, in rows (0: unbounded): past it whole
+    oldest micro-batches are trimmed off the frame's front and the views
+    refold from their kept per-batch partials.  ``create_feed`` takes a
+    per-feed value."""
+
+    varname = "MODIN_TPU_TORCH_INGEST_RETENTION_ROWS"
+    default = 0
+
+
+class IngestRetentionAgeS(_Seconds):
+    """A feed's default retention age, seconds (0: unbounded): micro-batches
+    that arrived longer ago are trimmed at the next batch."""
+
+    varname = "MODIN_TPU_TORCH_INGEST_RETENTION_AGE_S"
+    default = 0.0
+
+
+class IngestFoldLagMs(_PositiveSeconds):
+    """The fold lag, milliseconds, past which the watch layer's ``fold_lag``
+    tripwire fires (read by that layer, which the port has not yet)."""
+
+    varname = "MODIN_TPU_TORCH_INGEST_FOLD_LAG_MS"
+    default = 1000.0
+
+
+class WalDir(Parameter):
+    """Root directory of the durable feeds (per feed: WAL segments,
+    checkpoints, ``meta.json``).  "" (the default) is ``<CacheDir>/wal``;
+    ``open_feed(..., durability_dir=...)`` overrides it per call."""
+
+    varname = "MODIN_TPU_TORCH_WAL_DIR"
+    default = ""
+
+
+class WalFsync(_Choice):
+    """When a WAL record reaches the disk: ``PerBatch`` (the default: an
+    fsync after every admitted batch), ``GroupCommit`` (a flusher thread
+    fsyncs every ``WalGroupCommitMs``) or ``Off`` (no fsync: survives a
+    process crash, not a power loss)."""
+
+    varname = "MODIN_TPU_TORCH_WAL_FSYNC"
+    choices = ("PerBatch", "GroupCommit", "Off")
+    default = "PerBatch"
+
+
+class WalGroupCommitMs(_PositiveSeconds):
+    """The group-commit flusher's interval, milliseconds (``GroupCommit``
+    only): the window a power loss may take."""
+
+    varname = "MODIN_TPU_TORCH_WAL_GROUP_COMMIT_MS"
+    default = 25.0
+
+
+class WalSegmentBytes(_Positive):
+    """A WAL segment's size past which the writer starts the next
+    ``wal_<first_seq>.seg``; checkpoints delete whole covered segments."""
+
+    varname = "MODIN_TPU_TORCH_WAL_SEGMENT_BYTES"
+    default = 4 * 1024 * 1024
+
+
+class WalMaxReplayBatches(_Positive):
+    """A checkpoint is written once the WAL holds this many records past the
+    newest one, which bounds what a recovery replays."""
+
+    varname = "MODIN_TPU_TORCH_WAL_MAX_REPLAY_BATCHES"
+    default = 256

@@ -25,6 +25,7 @@ from modin_tpu_torch.logging import ClassLogger
 from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.observability import meters as _meters
 from modin_tpu_torch.observability import spans as _spans
+from modin_tpu_torch.utils.file_leaks import track_file_leaks
 
 NOT_IMPLEMENTED_MESSAGE = "Implement in children classes!"
 
@@ -73,9 +74,12 @@ class FileDispatcher(ClassLogger, modin_layer="CORE-IO"):
     def read(cls, *args: Any, **kwargs: Any):
         """Read a file into a query compiler of ``query_compiler_cls``; its
         device columns get io lineage.  An ``io.read`` span, and the
-        source's bytes billed to the meters while they account."""
+        source's bytes billed to the meters while they account.  Under the
+        ``TrackFileLeaks`` setting a read that leaves a file descriptor open
+        warns (``ResourceWarning``)."""
         with _spans.span("io.read", "CORE-IO", dispatcher=cls.__name__):
-            result = cls._read(*args, **kwargs)
+            with track_file_leaks():
+                result = cls._read(*args, **kwargs)
         if _meters.ACCOUNTING_ON:
             cls._note_read_bytes(args, kwargs)
         cls._attach_io_lineage(result, args, kwargs)

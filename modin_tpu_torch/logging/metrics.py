@@ -41,8 +41,8 @@ _handlers_on: bool = False
 #: to fold the family: ``counter`` (sum), ``gauge`` (last value, min/max)
 #: or ``histogram`` (the buckets of ``meters.HISTOGRAM_BUCKETS``).  The
 #: JAX package's names are kept where the port emits the same event; the
-#: families of layers the port has not ported (ingest, durability, fleet,
-#: watch) are left out until their layers come.
+#: families of layers the port has not ported (fleet, watch) are left out
+#: until their layers come.
 METRICS = (
     (
         "resilience.engine.*.*",
@@ -503,6 +503,157 @@ METRICS = (
         "per-tenant serving outcomes: admit, complete, degraded, deadline, "
         "device_failure, and the shed reasons (queue_full, throttled, "
         "unhealthy)",
+    ),
+    (
+        "ingest.batch",
+        "counter",
+        "micro-batches a feed admitted (an append, or the appending part of "
+        "an upsert) after schema validation"
+    ),
+    (
+        "ingest.rows",
+        "counter",
+        "rows a feed admitted (value: the batch's rows)"
+    ),
+    (
+        "ingest.reject",
+        "counter",
+        "micro-batches refused with a typed IngestRejected (schema or dtype "
+        "mismatch, malformed payload, key violation)"
+    ),
+    (
+        "ingest.upsert",
+        "counter",
+        "keyed rows an upsert updated in place (value: the rows; each "
+        "upsert also rebuilds the views)"
+    ),
+    (
+        "ingest.trim.rows",
+        "counter",
+        "rows trimmed off a feed's front by its retention bounds (rows or "
+        "age)"
+    ),
+    (
+        "ingest.fold",
+        "counter",
+        "pending micro-batches folded into every live view's state (value: "
+        "the batches of the pass)"
+    ),
+    (
+        "ingest.rebuild",
+        "counter",
+        "exact rebuilds of live views (value: the views): an upsert, or a "
+        "trim into a view's bootstrap partial, collapses its log into one "
+        "partial over the retained rows"
+    ),
+    (
+        "ingest.view.refused",
+        "counter",
+        "view registrations refused with a typed ViewNotIncrementalizable"
+    ),
+    (
+        "ingest.read.served",
+        "counter",
+        "view reads answered from the maintained state (fold lag inside the "
+        "freshness bound)"
+    ),
+    (
+        "ingest.read.forced_fold",
+        "counter",
+        "view reads whose freshness bound made them fold the pending "
+        "batches first"
+    ),
+    (
+        "view.lag_ms",
+        "histogram",
+        "fold lag, milliseconds, at each view read: the age of the oldest "
+        "unfolded batch (0 after a forced fold)"
+    ),
+    (
+        "wal.append",
+        "counter",
+        "WAL records written (admitted batches and view registrations), "
+        "each on disk before the change it describes"
+    ),
+    (
+        "wal.append.bytes",
+        "counter",
+        "bytes written to WAL segments (value: the record with its header)"
+    ),
+    (
+        "wal.fsync",
+        "counter",
+        "fsyncs of a WAL segment (one a batch under PerBatch, one a flusher "
+        "tick under GroupCommit)"
+    ),
+    (
+        "wal.segment.roll",
+        "counter",
+        "WAL segments closed past MODIN_TPU_TORCH_WAL_SEGMENT_BYTES"
+    ),
+    (
+        "wal.truncate.segments",
+        "counter",
+        "WAL segment and checkpoint files deleted (value: files): covered "
+        "by a checkpoint, freed by an ENOSPC reclaim, or past a torn tail"
+    ),
+    (
+        "wal.torn_tail",
+        "counter",
+        "torn WAL tails cut at recovery: a short header or body or a CRC "
+        "mismatch, everything past the last whole record dropped"
+    ),
+    (
+        "wal.degraded",
+        "counter",
+        "durable feeds whose WAL breaker an EIO-class write or fsync "
+        "failure opened: ingestion goes on in memory only"
+    ),
+    (
+        "wal.enospc.reclaim",
+        "counter",
+        "ENOSPC reclaim passes: covered segments and older checkpoints "
+        "deleted before the refused write is tried again"
+    ),
+    (
+        "wal.replay.batches",
+        "counter",
+        "WAL records replayed through the feed's own ingest path at "
+        "recovery (value: records past the checkpoint)"
+    ),
+    (
+        "wal.replay.skipped",
+        "counter",
+        "WAL records skipped at recovery because the state already held "
+        "them (covered by the checkpoint)"
+    ),
+    (
+        "checkpoint.write",
+        "counter",
+        "checkpoints written (temporary file, fsync and rename of the "
+        "feed's rows and every view's fold state)"
+    ),
+    (
+        "checkpoint.bytes",
+        "counter",
+        "bytes of the checkpoints written (value: the pickled snapshot)"
+    ),
+    (
+        "checkpoint.load",
+        "counter",
+        "checkpoints loaded at recovery"
+    ),
+    (
+        "checkpoint.invalid",
+        "counter",
+        "checkpoint files refused at recovery (CRC or unpickling failure, "
+        "another schema): the next older one is tried"
+    ),
+    (
+        "recovery.feed",
+        "counter",
+        "durable feeds recovered (checkpoint restore and WAL replay, run "
+        "through the serving gate as the maintenance tenant)"
     ),
 )
 

@@ -16,17 +16,16 @@ tracing is off, and dumps at most once every :data:`MIN_DUMP_INTERVAL_S`.
 
 from __future__ import annotations
 
-import json
 import os
 import pathlib
 import re
-import tempfile
 import time
 from typing import List, Optional
 
 from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.observability import spans as _spans
 from modin_tpu_torch.observability.chrome_trace import to_chrome_trace
+from modin_tpu_torch.utils import atomic_io
 
 #: least seconds between two dumps (tests lower it)
 MIN_DUMP_INTERVAL_S = 5.0
@@ -76,23 +75,6 @@ def reset_for_tests() -> None:
     _last_dump = _NEVER_DUMPED
 
 
-def _atomic_write_json(path: str, obj: dict) -> None:
-    """Write ``obj`` as JSON to ``path`` through a renamed temporary file: a
-    dump that dies mid-write leaves no truncated trace behind."""
-    directory = os.path.dirname(path)
-    fd, tmp = tempfile.mkstemp(dir=directory, prefix=".flightrec_", suffix=".tmp")
-    try:
-        with os.fdopen(fd, "w") as f:
-            json.dump(obj, f)
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-
-
 def dump_flight_record(reason: str, detail: str = "", resolve_device: bool = True) -> Optional[str]:
     """Write the ring to a trace file; the path, or None (tracing off, an
     empty ring, the rate limit, a failed write).  Never raises.
@@ -136,7 +118,9 @@ def dump_flight_record(reason: str, detail: str = "", resolve_device: bool = Tru
             other_data={"reason": reason, "detail": detail, "spans": len(snapshot), "metrics": metrics_snapshot},
             counters=counters,
         )
-        _atomic_write_json(str(path), trace)
+        # temporary file, fsync, rename: a dump that dies mid-write leaves
+        # no truncated trace behind
+        atomic_io.atomic_write_json(str(path), trace)
         return str(path)
     except Exception:
         # a failed dump must not worsen the fault, nor spend the window

@@ -71,6 +71,11 @@ HISTOGRAM_BUCKETS: Dict[str, Tuple[float, ...]] = {
     "plan.optimize.passes": (1, 2, 3, 4, 6, 8, 12, 16),
     # distinct plan nodes lowered per materialization
     "plan.lower.nodes": (1, 2, 4, 8, 16, 32, 64, 128, 256),
+    # fold lag (ms) at each view read of a feed
+    "view.lag_ms": (
+        0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+        500.0, 1000.0, 2500.0, 5000.0, 10000.0,
+    ),
     # seconds an admitted query spent in the serving gate's queue
     "serving.queue_wait_s": (
         0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,

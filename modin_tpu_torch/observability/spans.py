@@ -162,6 +162,32 @@ SPANS = (
         "was shed or its deadline expired while queued",
     ),
     (
+        "ingest.append",
+        "one micro-batch admitted into a feed under its lock: key checks, the "
+        "WAL record, the mirror and device concats, the fold and the trim "
+        "(feed and rows in attributes)",
+    ),
+    (
+        "ingest.fold",
+        "one pending micro-batch folded into every live view of its feed "
+        "(feed and batch sequence number in attributes)",
+    ),
+    (
+        "ingest.read",
+        "one staleness-bounded view read, with the forced fold when the lag "
+        "passes the bound (feed and view in attributes)",
+    ),
+    (
+        "checkpoint.write",
+        "one checkpoint of a durable feed: the snapshot under the feed lock, "
+        "the pickle, the atomic write and the truncation of covered segments",
+    ),
+    (
+        "recovery.replay",
+        "one durable feed's recovery: the newest valid checkpoint restored "
+        "and the WAL tail replayed through the ingest path",
+    ),
+    (
         "serving.query",
         "one admitted query's execution under its serving context (tenant, "
         "label, degraded in attributes); everything it launched nests under it",

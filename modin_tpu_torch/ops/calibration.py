@@ -15,8 +15,9 @@ from __future__ import annotations
 import json
 import math
 import os
-import tempfile
 from typing import Any, Dict, Optional
+
+from modin_tpu_torch.utils import atomic_io
 
 
 def nlogn_scale(n: int, cal_rows: int) -> float:
@@ -68,21 +69,13 @@ def load_table(path: Optional[str], version: Optional[int] = None, platform: Opt
 
 
 def store_table(path: Optional[str], table: Dict[str, Any]) -> None:
-    """Write one table atomically (a temporary file renamed over the old
-    one); an unwritable ``CacheDir`` keeps no table, and the next process
-    measures again."""
+    """Write one table atomically (``utils/atomic_io.py``: a temporary file
+    renamed over the old one); an unwritable ``CacheDir`` keeps no table,
+    and the next process measures again."""
     if path is None:
         return
     try:
-        directory = os.path.dirname(path)
-        os.makedirs(directory, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=directory, prefix=".calibration_", suffix=".json")
-        try:
-            with os.fdopen(fd, "w") as f:
-                json.dump(table, f, sort_keys=True)
-            os.replace(tmp, path)
-        except BaseException:
-            os.unlink(tmp)
-            raise
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        atomic_io.atomic_write_json(path, table, sort_keys=True)
     except OSError:
         pass

@@ -20,12 +20,16 @@ injected fault leaves every tensor intact, which a real sticky error does
 not.  Faults fire on the first ``times`` matching calls after ``skip``
 clean ones: no randomness, so a failing sequence replays exactly.
 
-The JAX package's replica and disk injectors wait for ``fleet/`` and
-``durability/``.
+:class:`DiskFaultInjector` fails the WAL's and the checkpoints' disk
+operations (``durability/wal.disk_op``) the same way.  The JAX package's
+replica injectors wait for ``fleet/``.
 """
 
 from __future__ import annotations
 
+import errno
+import os
+import signal
 import time
 from typing import Any, Iterable, Optional
 
@@ -254,3 +258,90 @@ class MixedFaultInjector(FaultInjector):
             kind = self.kinds[self.injected % len(self.kinds)]
             self.injected += 1
         self._fire(kind)
+
+
+# ---------------------------------------------------------------------- #
+# disk faults at the durability seam
+# ---------------------------------------------------------------------- #
+
+_DISK_OPS = ("wal.write", "wal.fsync", "wal.truncate", "checkpoint.write", "checkpoint.truncate")
+_DISK_KINDS = ("enospc", "eio", "fsync_fail", "torn_write", "kill")
+
+
+class DiskFaultInjector:
+    """Deterministic disk faults at ``durability/wal._disk_fault_hook``,
+    which every WAL and checkpoint disk operation consults first:
+
+    - ``"enospc"``: ``OSError(ENOSPC)`` (the reclaim-then-retry leg and the
+      typed ``DurabilityError`` refusal);
+    - ``"eio"``: ``OSError(EIO)`` (the feed's breaker opens: memory only,
+      ``wal.degraded``);
+    - ``"fsync_fail"``: ``OSError(EIO)`` aimed at fsyncs;
+    - ``"torn_write"`` (``wal.write`` only): the first ``torn_bytes`` bytes
+      of the record land on disk and the process SIGKILLs itself, a real
+      torn tail;
+    - ``"kill"``: SIGKILL just before the operation.
+
+    Faults fire on the first ``times`` matching calls after ``skip`` clean
+    ones; one injector is active at a time::
+
+        with DiskFaultInjector("enospc", ops=("wal.write",)) as inj:
+            feed.append(batch)       # reclaim runs, then the retry lands
+        assert inj.injected == 1
+    """
+
+    def __init__(self, kind: str = "eio", ops: Iterable[str] = ("wal.write",), times: Optional[int] = 1,
+                 skip: int = 0, torn_bytes: int = 5):
+        if kind not in _DISK_KINDS:
+            raise ValueError(f"unknown disk fault kind {kind!r}")
+        unknown = set(ops) - set(_DISK_OPS)
+        if unknown:
+            raise ValueError(f"unknown disk ops {sorted(unknown)}")
+        if kind == "torn_write" and set(ops) != {"wal.write"}:
+            raise ValueError("torn_write is only meaningful for ops=('wal.write',)")
+        self.kind = kind
+        self.ops = frozenset(ops)
+        self.times = times
+        self.skip = skip
+        self.torn_bytes = int(torn_bytes)
+        self.injected = 0
+        self.calls = 0
+        self._lock = named_lock("testing.faults")
+
+    def _hook(self, op: str) -> Optional[int]:
+        if op not in self.ops:
+            return None
+        with self._lock:
+            self.calls += 1
+            if self.calls <= self.skip:
+                return None
+            if self.times is not None and self.injected >= self.times:
+                return None
+            self.injected += 1
+        if self.kind == "enospc":
+            raise OSError(errno.ENOSPC, f"No space left on device {_INJECTED}")
+        if self.kind in ("eio", "fsync_fail"):
+            raise OSError(errno.EIO, f"Input/output error {_INJECTED}")
+        if self.kind == "torn_write":
+            return self.torn_bytes  # the writer lands a prefix and SIGKILLs
+        os.kill(os.getpid(), signal.SIGKILL)  # "kill": nothing of the op lands
+        return None  # pragma: no cover - unreachable
+
+    def __enter__(self) -> "DiskFaultInjector":
+        from modin_tpu_torch.durability import wal
+
+        if wal._disk_fault_hook is not None:
+            raise RuntimeError("another DiskFaultInjector is already active")
+        wal._disk_fault_hook = self._hook
+        return self
+
+    def __exit__(self, *exc_info: Any) -> None:
+        from modin_tpu_torch.durability import wal
+
+        wal._disk_fault_hook = None
+
+
+def inject_disk_faults(kind: str = "eio", ops: Iterable[str] = ("wal.write",), times: Optional[int] = 1,
+                       skip: int = 0, torn_bytes: int = 5) -> DiskFaultInjector:
+    """``DiskFaultInjector(...)``; see its docstring."""
+    return DiskFaultInjector(kind=kind, ops=ops, times=times, skip=skip, torn_bytes=torn_bytes)

@@ -115,6 +115,24 @@ SLICE16_MODULES = [
 ]
 
 
+#: continuous ingestion and durability with the utils they need, scanned
+#: like every other module
+SLICE21_MODULES = [
+    "durability/__init__.py",
+    "durability/checkpoint.py",
+    "durability/errors.py",
+    "durability/manager.py",
+    "durability/wal.py",
+    "ingest/__init__.py",
+    "ingest/errors.py",
+    "ingest/feed.py",
+    "ingest/live.py",
+    "utils/__init__.py",
+    "utils/atomic_io.py",
+    "utils/file_leaks.py",
+]
+
+
 def test_package_has_modules_to_scan():
     assert len(list(PACKAGE.rglob("*.py"))) >= 30
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
@@ -123,6 +141,7 @@ def test_package_has_modules_to_scan():
     assert set(SLICE14_MODULES) <= scanned
     assert set(SLICE15_MODULES) <= scanned
     assert set(SLICE16_MODULES) <= scanned
+    assert set(SLICE21_MODULES) <= scanned
 
 
 @pytest.mark.parametrize(
@@ -184,6 +203,11 @@ def test_slice15_modules_import_without_jax_or_modin_tpu():
 
 def test_slice16_modules_import_without_jax_or_modin_tpu():
     proc = _import_without_jax_or_modin_tpu(SLICE16_MODULES)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice21_modules_import_without_jax_or_modin_tpu():
+    proc = _import_without_jax_or_modin_tpu(SLICE21_MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
