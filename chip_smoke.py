@@ -7,9 +7,9 @@
                           [--memory-rows N] [--views-rows N] [--views-time-rows N]
                           [--robust-cost-rows N] [--trace-rows N] [--stream-rows N]
                           [--stream-sort-rows N] [--mesh-rows N] [--serve-rows N] [--ingest-rows N]
-                          [--seed S] [--parent-checkout DIR]
+                          [--fleet-rows N] [--seed S] [--parent-checkout DIR]
                           [--phases main,float,relational,arithmetic,io,window,clean,dates,fusion,plan,formats,
-                                    memory,views,robust,trace,stream,mesh,serve,ingest]
+                                    memory,views,robust,trace,stream,mesh,serve,ingest,fleet]
 
 Phases, one JSON object per line each:
 
@@ -440,6 +440,32 @@ Phases, one JSON object per line each:
              MaxConcurrent 4 under strict lockdep: 0 violations, the four
              ingest edges observed.  ``DEFAULTS_TO_PANDAS`` 0 and bincount,
              groupagg and fused each launched in the phase.
+23. fleet  - the replicated serving fleet and live telemetry
+             (``phase_fleet``) over a ``--fleet-rows`` (2e6) Parquet file
+             (``k`` int64 of 1000 groups, ``i`` int64, ``x`` float64): (a)
+             the fleet off: ``fleet.submit`` bit for bit the local serving
+             answer, no fleet object or thread made; then, with strict
+             lockdep and the launch ledger here and in every replica, (b)
+             three replica processes on the card (spawn-to-hello seconds
+             each) warmed through ``register_dataset(..., "read_parquet",
+             path)``; 240 catalog queries from 8 threads of 3 tenants, each
+             answer held to pandas (ints exactly, float sums and means to
+             1e-12 of the magnitudes summed), the routed p50 and p99; each
+             replica's wrapper and ledger launches (``bincount`` and
+             ``groupagg`` in every one), pandas defaults 0, lockdep clean;
+             (c) kill -9 of a replica under the same load: every query a
+             result or a typed rejection before its join deadline, the
+             MTTR from the kill to the slot respawned, warmed and routable,
+             ``fleet.replica.lost``/``fleet.drain.redistributed``/
+             ``fleet.replica.respawned`` in this process's meters, the
+             respawned replica's ``view.ingest`` and a direct grouped sum
+             there answered warm with no launch; (d) a crash inside the
+             next respawn's warm request, and the retry; (e) the watch
+             service here: 8 serving sessions under a 25 ms SLO with an
+             80 ms slow deploy injected, ``/metrics`` scraped mid-load and
+             parsed, ``slo_burn`` tripped with exactly one evidence bundle
+             of four legs, ``/statusz`` and ``/debug/queries``, a feed's
+             fold lag tripping ``fold_lag``.
 
 The main-path and relational phases run at ``--earlier-rows`` (1e7 by
 default), the float phase at ``--float-rows`` (5e6), the arithmetic phase at
@@ -448,7 +474,8 @@ at ``--io-rows``, ``--window-rows``, ``--clean-rows``, ``--dates-rows`` and
 ``--plan-rows`` (2.5e6 each), the
 fusion phase at ``--fusion-rows`` (1e7), phase 15's CSV queries at
 ``--donation-rows`` (5e6), phase 16 at ``--views-rows`` (1e6) and
-``--views-time-rows`` (5e7), phase 21 at ``--serve-rows`` (1e7) and phase 22 at ``--ingest-rows`` (5e6) so that the
+``--views-time-rows`` (5e7), phase 21 at ``--serve-rows`` (1e7), phase 22 at ``--ingest-rows`` (5e6) and phase 23
+at ``--fleet-rows`` (2e6) so that the
 whole script stays near half of its time limit; the kernel checks run at ``--rows``.  ``--phases``
 picks the phases after the kernel check for a quick run; only a run of all
 of them prints the result lines.  Then the card's name and power limit, one
@@ -473,7 +500,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("main", "float", "relational", "arithmetic", "io", "window", "clean", "dates", "fusion", "plan",
-              "formats", "memory", "views", "robust", "trace", "stream", "mesh", "serve", "ingest")
+              "formats", "memory", "views", "robust", "trace", "stream", "mesh", "serve", "ingest", "fleet")
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 FLOAT_RTOL = 1e-12
@@ -7936,6 +7963,586 @@ def phase_ingest(rows: int, seed: int, workdir: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# 23. fleet
+# ---------------------------------------------------------------------- #
+
+#: (b)-(d): replicas, tenants, client threads, queries, key groups, the
+#: heartbeat, each query's deadline and each wait's own bound
+FLEET_REPLICAS = 3
+FLEET_TENANTS = ("t0", "t1", "t2")
+FLEET_THREADS = 8
+FLEET_QUERIES = 240
+FLEET_GROUPS = 1000
+FLEET_HEARTBEAT_S = 0.3
+FLEET_DEADLINE_MS = 30_000.0
+FLEET_JOIN_S = 120.0
+FLEET_RESPAWN_S = 120.0
+FLEET_RPC_S = 60.0
+#: the replicas' tenant weights: each tenant's token bucket refills at
+#: weight x ServingMaxConcurrent a second, so the load is never throttled
+FLEET_WEIGHTS = "t0=128,t1=128,t2=128,warm_check=128"
+#: (e): the watch-smoke shape on the card
+WATCH_SESSIONS = 8
+WATCH_QUERIES_PER_SESSION = 4
+WATCH_ROWS = 4096
+WATCH_SLO_MS = 25.0
+WATCH_SLOW_S = 0.08
+WATCH_WAIT_S = 30.0
+
+
+def fleet_frame(rows: int, seed: int, workdir: str):
+    """The Parquet file every replica reads: ``k`` int64 of
+    ``FLEET_GROUPS`` groups, ``i`` int64, ``x`` float64; its path and
+    pandas' read of it."""
+    import pandas
+
+    rng = np.random.default_rng(seed + 230)
+    pdf = pandas.DataFrame({"k": rng.integers(0, FLEET_GROUPS, rows).astype(np.int64),
+                            "i": rng.integers(-1000, 1000, rows).astype(np.int64),
+                            "x": rng.standard_normal(rows)})
+    path = os.path.join(workdir, "fleet.parquet")
+    pdf.to_parquet(path)
+    return path, pandas.read_parquet(path)
+
+
+def fleet_expected(pdf) -> dict:
+    """Per catalog query: pandas' answer and the scale of its rounding (the
+    magnitudes summed; 0 for an int column, which must be exact; None for
+    an exact answer)."""
+    absd = pdf.abs()
+    kept = pdf[pdf["i"] > 0]
+    sum_scale, kept_scale = absd.sum(), kept.abs().sum()
+    sum_scale[["k", "i"]] = kept_scale[["k", "i"]] = 0.0  # int sums: exactly
+    return {
+        "sum": (pdf.sum(), sum_scale),
+        "mean": (pdf.mean(), absd.mean()),
+        "count": (pdf.count(), None),
+        "min": (pdf.min(), None),
+        "max": (pdf.max(), None),
+        "groupby_sum": (pdf.groupby("k").sum(), absd.assign(k=pdf["k"]).groupby("k").sum()),
+        "filter_sum": (kept.sum(), kept_scale),
+    }
+
+
+def _fleet_same(got, expected: dict, name: str, what: str) -> None:
+    want, scale = expected[name]
+    _stream_same(got, want, f"{what} {name}", scale)
+
+
+def _fleet_threads() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate() if t.name.startswith("modin-tpu-torch-fleet")]
+
+
+def _fleet_wait(predicate, timeout_s: float, what: str) -> float:
+    """Poll ``predicate`` until true; the seconds it took (raises past the
+    bound)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if predicate():
+            return time.perf_counter() - t0
+        time.sleep(0.02)
+    raise AssertionError(f"fleet: timed out after {timeout_s}s waiting for {what}")
+
+
+#: (slot, generation) -> that replica process's wrapper launches at its
+#: latest snapshot.  A killed generation keeps the one taken just before
+#: its SIGKILL: launches in the moments between are not counted.
+FLEET_GENERATION_LAUNCHES: dict = {}
+
+
+def _replica_snapshot(coord, index: int) -> dict:
+    generation = coord._replicas[index].generation
+    reply = coord._call(coord._replicas[index], {"type": "snapshot"}, timeout=FLEET_RPC_S)
+    if not reply.get("ok"):
+        raise AssertionError(f"fleet: replica {index}'s snapshot failed: {reply}")
+    series = reply["meters"]["series"]
+    FLEET_GENERATION_LAUNCHES[(index, generation)] = reply["launches"]
+    return {
+        "device": reply["device"],
+        "defaults_to_pandas": reply["defaults_to_pandas"],
+        "lockdep": reply["lockdep"],
+        "launches": reply["launches"],
+        "ledger_launches": {k[len("kernel.launch."):]: v["total"] for k, v in series.items()
+                            if k.startswith("kernel.launch.")},
+        "view": {k: series.get(k, {}).get("total", 0) for k in ("view.hit", "view.miss", "view.ingest",
+                                                                  "view.export", "view.build")},
+    }
+
+
+def _check_replica(snap: dict, index: int, need_kernels: bool) -> None:
+    if not snap["device"].startswith("cuda"):
+        raise AssertionError(f"fleet: replica {index} serves on {snap['device']}, not the card")
+    if snap["defaults_to_pandas"]:
+        raise AssertionError(f"fleet: replica {index} sent {snap['defaults_to_pandas']} queries to pandas")
+    if snap["lockdep"] != {"enabled": True, "violations": 0}:
+        raise AssertionError(f"fleet: replica {index}'s lockdep: {snap['lockdep']}")
+    if need_kernels:
+        missing = [k for k in ("bincount", "groupagg")
+                   if not snap["launches"].get(k) or not snap["ledger_launches"].get(k)]
+        if missing:
+            raise AssertionError(f"fleet: replica {index} never launched {missing}: {snap}")
+
+
+def _fleet_load(fleet, expected: dict, queries: int, on_progress=None) -> dict:
+    """``queries`` catalog queries from ``FLEET_THREADS`` threads of the three
+    tenants: every answer held to pandas; each outcome a result or a typed
+    rejection; the routed walls, each query's (start, end) and the typed
+    outcomes that answered nothing.  No thread outlives ``FLEET_JOIN_S``."""
+    import threading
+
+    from modin_tpu_torch.serving.errors import DeadlineExceeded, QueryRejected
+
+    names = sorted(expected)
+    lock = threading.Lock()
+    walls, typed, errors, unanswered, spans = [], {"rejected": 0, "deadline": 0}, [], [], []
+    done = [0]
+
+    def worker(tid: int) -> None:
+        tenant = FLEET_TENANTS[tid % len(FLEET_TENANTS)]
+        for j in range(tid, queries, FLEET_THREADS):
+            name = names[j % len(names)]
+            t0 = time.perf_counter()
+            try:
+                got = fleet.submit("ds", name, tenant=tenant, deadline_ms=FLEET_DEADLINE_MS)
+                wall = time.perf_counter() - t0
+                _fleet_same(got, expected, name, f"routed {tenant}")
+            except QueryRejected as err:
+                with lock:
+                    typed["rejected"] += 1
+                    typed[f"rejected.{err.reason}"] = typed.get(f"rejected.{err.reason}", 0) + 1
+                    unanswered.append({"kind": f"rejected.{err.reason}", "started": t0})
+                    spans.append((t0, time.perf_counter()))
+                continue
+            except DeadlineExceeded:
+                with lock:
+                    typed["deadline"] += 1
+                    unanswered.append({"kind": "deadline", "started": t0})
+                    spans.append((t0, time.perf_counter()))
+                continue
+            except BaseException as err:  # noqa: BLE001 - recorded, then raised below
+                with lock:
+                    errors.append(f"{tenant}:{name}: {type(err).__name__}: {err}")
+                continue
+            with lock:
+                spans.append((t0, t0 + wall))
+                walls.append(wall)
+                done[0] += 1
+                n_done = done[0]
+            if on_progress is not None:
+                on_progress(n_done)
+
+    threads = [threading.Thread(target=worker, args=(tid,), name=f"fleet-load-{tid}", daemon=True)
+               for tid in range(FLEET_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=max(FLEET_JOIN_S - (time.perf_counter() - t0), 0.1))
+    hung = [t.name for t in threads if t.is_alive()]
+    if hung:
+        raise AssertionError(f"fleet: {len(hung)} query threads still waiting after {FLEET_JOIN_S}s: {hung}")
+    if errors:
+        raise AssertionError("fleet: untyped failures or wrong answers:\n" + "\n".join(errors[:10]))
+    return {"completed": done[0], "typed": typed, "unanswered": unanswered, "spans": spans,
+            "seconds": time.perf_counter() - t0,
+            "routed_p50_ms": _percentile(walls, 50) * 1e3 if walls else None,
+            "routed_p99_ms": _percentile(walls, 99) * 1e3 if walls else None}
+
+
+def fleet_off(fleet, path: str, expected: dict) -> dict:
+    """(a) The fleet off: ``fleet.submit`` is the local serving path bit for
+    bit, with no fleet object or thread made."""
+    from modin_tpu_torch.fleet.queries import QUERIES
+    from modin_tpu_torch.serving import gate as gate_mod
+
+    allocs = fleet.fleet_alloc_count()
+    if fleet.FLEET_ON:
+        raise AssertionError("fleet: MODIN_TPU_TORCH_FLEET is on before leg (a)")
+    fleet.register_dataset("ds", "read_parquet", path)
+    frame = fleet._local_frames["ds"]
+    assert_on_cuda(frame._query_compiler, "fleet (a) frame")
+    for name, fn in QUERIES.items():
+        got = fleet.submit("ds", name, tenant="t0")
+        _bitwise_same(got, gate_mod.submit(fn, frame, tenant="t0"), f"(a) {name} against the local path")
+        _fleet_same(got, expected, name, "(a)")
+    if fleet.fleet_alloc_count() != allocs or _fleet_threads():
+        raise AssertionError(f"fleet: off made {fleet.fleet_alloc_count() - allocs} objects, threads "
+                             f"{_fleet_threads()}")
+    return {"queries": len(QUERIES), "fleet_allocs": 0, "fleet_threads": 0}
+
+
+def fleet_warm(fleet, coord, path: str, expected: dict) -> dict:
+    """(b) Three replicas warm from the manifest; the mixed load; each
+    replica's launches, defaults and lockdep."""
+    t0 = time.perf_counter()
+    fleet.register_dataset("ds", "read_parquet", path)
+    register_s = time.perf_counter() - t0
+    rows = coord.snapshot()["replicas"]
+    if [r["state"] for r in rows] != ["up"] * FLEET_REPLICAS:
+        raise AssertionError(f"fleet: replicas not up after the warm: {rows}")
+    ports = [r["watch_port"] for r in rows]
+    if not all(p > 0 for p in ports) or len(set(ports)) != FLEET_REPLICAS:
+        raise AssertionError(f"fleet: watch ports unreported or shared: {ports}")
+    load = _fleet_load(fleet, expected, FLEET_QUERIES)
+    del load["spans"], load["unanswered"]
+    if load["completed"] != FLEET_QUERIES:
+        raise AssertionError(f"fleet: {load['completed']} of {FLEET_QUERIES} queries answered: {load}")
+    snaps = {i: _replica_snapshot(coord, i) for i in range(FLEET_REPLICAS)}
+    for i, snap in snaps.items():
+        _check_replica(snap, i, need_kernels=True)
+    return {"hello_s": [r["hello_s"] for r in rows], "register_s": register_s, "watch_ports": ports,
+            "assignments": coord.snapshot()["assignments"], **load, "replicas": snaps}
+
+
+def fleet_kill(fleet, coord, expected: dict) -> dict:
+    """(c) kill -9 of one replica under the load: no query hangs, the
+    tenants drain, the slot respawns warm; the MTTR; the respawned
+    replica's ingest and a direct query answered warm with no launch."""
+    import threading
+
+    from modin_tpu_torch.observability import meters
+    from modin_tpu_torch.testing import ReplicaFaultInjector
+
+    from modin_tpu_torch.fleet.queries import QUERIES
+
+    inj = ReplicaFaultInjector(coord)
+    victim = coord.snapshot()["assignments"]["t0"]
+    gen0 = coord._replicas[victim].generation
+    killed = {}
+    started = threading.Event()
+
+    def progress(done: int) -> None:
+        if done >= FLEET_QUERIES // 6 and not started.is_set():
+            started.set()
+            try:  # the victim's launches as late as they can be read
+                _replica_snapshot(coord, victim)
+            except BaseException as err:  # noqa: BLE001 - raised below, with the kill's outcome
+                killed["error"] = f"{type(err).__name__}: {err}"
+            killed["t0"] = time.perf_counter()
+            killed["pid"] = inj.kill(victim)
+            killed["t"] = time.perf_counter()
+
+    recovered = {}
+
+    def watcher() -> None:
+        started.wait(FLEET_JOIN_S)
+        t_end = time.perf_counter() + FLEET_RESPAWN_S
+        while time.perf_counter() < t_end:
+            rep = coord._replicas[victim]
+            if rep.generation > gen0 and rep.state == "up":
+                recovered["t"] = time.perf_counter()
+                return
+            time.sleep(0.01)
+
+    w = threading.Thread(target=watcher, name="fleet-mttr", daemon=True)
+    w.start()
+    load = _fleet_load(fleet, expected, FLEET_QUERIES, on_progress=progress)
+    w.join(timeout=FLEET_RESPAWN_S + 1)
+    if "t" not in killed or "t" not in recovered or "error" in killed:
+        raise AssertionError(f"fleet: kill {killed}, recovery {recovered}")
+    # Only a query in flight when the SIGKILL landed may go unanswered, and
+    # only as ``replica_lost``: the two survivors take everything else, so a
+    # ``replica_error`` (a fault inside a survivor), ``no_replicas`` or a
+    # deadline fails the leg.
+    inflight = sum(1 for start, end in load.pop("spans") if start <= killed["t"] and end >= killed["t0"])
+    unanswered = load.pop("unanswered")
+    bad = [u for u in unanswered if u["kind"] != "rejected.replica_lost" or u["started"] > killed["t"]]
+    if bad or load["completed"] < FLEET_QUERIES - inflight:
+        raise AssertionError(f"fleet: {load['completed']} of {FLEET_QUERIES} answered across the kill with "
+                             f"{inflight} in flight at it; outcomes {load['typed']}; not excused: {bad}")
+    load["inflight_at_kill"] = inflight
+    snap = coord.snapshot()
+    series = meters.snapshot()["series"]
+    counters = {k: series.get(k, {}).get("total", 0) for k in
+                ("fleet.replica.lost", "fleet.drain.redistributed", "fleet.replica.respawned",
+                 "fleet.query.routed", "fleet.query.redispatch", "fleet.replica.heartbeat_miss")}
+    missing = [k for k in ("fleet.replica.lost", "fleet.drain.redistributed", "fleet.replica.respawned")
+               if not counters[k]]
+    if missing:
+        raise AssertionError(f"fleet: {missing} missing from the coordinator's meters: {counters}")
+    rep = coord._replicas[victim]
+    before = _replica_snapshot(coord, victim)
+    _check_replica(before, victim, need_kernels=False)
+    if before["view"]["view.ingest"] <= 0:
+        raise AssertionError(f"fleet: the respawned replica ingested no view artifacts: {before}")
+    direct = coord._call(rep, {"type": "query", "dataset": "ds", "fn": QUERIES["groupby_sum"],
+                               "args": (), "kwargs": {}, "tenant": "warm_check", "deadline_ms": None,
+                               "label": "warm_check"}, timeout=FLEET_RPC_S)
+    if not direct.get("ok"):
+        raise AssertionError(f"fleet: the direct query failed: {direct}")
+    _fleet_same(direct["result"], expected, "groupby_sum", "(c) respawned")
+    after = _replica_snapshot(coord, victim)
+    if after["launches"] != before["launches"] or after["view"]["view.hit"] <= before["view"]["view.hit"]:
+        raise AssertionError(f"fleet: the respawned replica answered cold: {before} -> {after}")
+    return {"victim": victim, "killed_pid": killed["pid"], "mttr_s": recovered["t"] - killed["t"],
+            "respawned_hello_s": snap["replicas"][victim]["hello_s"], **load, "counters": counters,
+            "respawned": {"view": after["view"], "launches": after["launches"]}}
+
+
+def fleet_crash_respawn(fleet, coord, expected: dict) -> dict:
+    """(d) The next respawn crashes inside its warm request; the attempt
+    after succeeds."""
+    from modin_tpu_torch.testing import ReplicaFaultInjector
+
+    snap0 = coord.snapshot()
+    inj = ReplicaFaultInjector(coord)
+    inj.crash_next_respawn()
+    victim = next(r["index"] for r in snap0["replicas"] if r["state"] == "up")
+    _replica_snapshot(coord, victim)  # its launches up to the kill
+    inj.kill(victim)
+    t_fail = _fleet_wait(lambda: coord.snapshot()["respawn_failures"] > snap0["respawn_failures"],
+                         FLEET_RESPAWN_S, "the crashed respawn")
+    t_up = _fleet_wait(lambda: all(r["state"] == "up" for r in coord.snapshot()["replicas"])
+                       and coord.snapshot()["respawned"] > snap0["respawned"], FLEET_RESPAWN_S,
+                       "the retried respawn")
+    _fleet_same(fleet.submit("ds", "sum", tenant="t1", deadline_ms=FLEET_DEADLINE_MS), expected, "sum",
+                "(d) after the crashed respawn")
+    final = coord.snapshot()
+    for i in range(FLEET_REPLICAS):
+        _check_replica(_replica_snapshot(coord, i), i, need_kernels=False)
+    return {"victim": victim, "failed_attempt_s": t_fail, "recovered_s": t_fail + t_up,
+            "respawn_failures": final["respawn_failures"], "respawned": final["respawned"], "lost": final["lost"]}
+
+
+def fleet_watch(seed: int, workdir: str) -> dict:
+    """(e) The watch service in this process: eight serving sessions under a
+    25 ms SLO and an injected 80 ms slow deploy; ``/metrics`` scraped
+    mid-load through the port's Prometheus parser; ``slo_burn`` trips and
+    writes exactly one evidence bundle of four legs; ``/statusz`` and
+    ``/debug/queries`` answer; a feed's fold lag trips ``fold_lag``."""
+    import glob
+    import threading
+    import urllib.request
+
+    import pandas
+
+    import modin_tpu_torch.pandas as tpd
+    from modin_tpu_torch import config, ingest, serving
+    from modin_tpu_torch.observability import flight_recorder, watch
+    from modin_tpu_torch.observability.exposition import parse_prometheus
+    from modin_tpu_torch.testing import inject_faults
+
+    tracedir = os.path.join(workdir, "watch_traces")
+    rng = np.random.default_rng(seed + 231)
+    data = {"a": rng.standard_normal(WATCH_ROWS), "b": rng.integers(0, 1000, WATCH_ROWS).astype(np.int64),
+            "key": rng.integers(0, 13, WATCH_ROWS).astype(np.int64)}
+    pdf = pandas.DataFrame(data)
+    df = tpd.DataFrame(data)
+    df._query_compiler._modin_frame
+    assert_on_cuda(df._query_compiler, "watch frame")
+    queries = [("gb_sum", lambda: _host(df.groupby("key").sum()), pdf.groupby("key").sum(),
+                pdf.abs().assign(key=pdf["key"]).groupby("key").sum()),
+               ("ew_reduce", lambda: float((df["a"] * 2 + df["b"]).sum()), float((pdf["a"] * 2 + pdf["b"]).sum()),
+                float((pdf["a"] * 2).abs().sum() + pdf["b"].abs().sum())),
+               ("mean", lambda: _host(df.mean()), pdf.mean(), pdf.abs().mean())]
+    for _name, q, _want, _scale in queries:
+        q()
+    knobs = (config.TraceDir, config.TraceEnabled, config.ServingEnabled, config.ServingMaxConcurrent,
+             config.ServingQueueDepth, config.WatchSloMs, config.WatchIntervalS, config.WatchPort,
+             config.WatchEnabled, config.ResilienceBackoffS, config.IngestEnabled, config.IngestFoldEvery,
+             config.IngestFoldLagMs)
+    saved = [(k, k.get()) for k in knobs]
+    try:
+        config.TraceDir.put(tracedir)
+        config.TraceEnabled.put(True)
+        config.ResilienceBackoffS.put(0.0)
+        config.ServingEnabled.put(True)
+        config.ServingMaxConcurrent.put(4)
+        config.ServingQueueDepth.put(WATCH_SESSIONS * WATCH_QUERIES_PER_SESSION)
+        config.WatchSloMs.put(f"default={WATCH_SLO_MS:g}")
+        config.WatchIntervalS.put(0.1)
+        config.WatchPort.put(0)
+        flight_recorder.reset_for_tests()
+        config.WatchEnabled.put(True)
+        port = watch.httpd_port()
+        if not port:
+            raise AssertionError("watch: the exporter bound no port")
+
+        def scrape(path: str) -> str:
+            return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10).read().decode()
+
+        lock = threading.Lock()
+        failures, walls = [], []
+
+        def session(tid: int) -> None:
+            for k in range(WATCH_QUERIES_PER_SESSION):
+                name, q, want, scale = queries[(tid + k) % len(queries)]
+                t0 = time.perf_counter()
+                try:
+                    got = serving.submit(q, tenant=f"session{tid}", deadline_ms=0, label=name)
+                    _serve_same(got, want, scale, f"(e) {name}")
+                except BaseException as err:  # noqa: BLE001 - recorded, then raised below
+                    with lock:
+                        failures.append(f"session {tid} {name}: {type(err).__name__}: {err}")
+                    continue
+                with lock:
+                    walls.append(time.perf_counter() - t0)
+
+        parses = 0
+        with inject_faults("slow_kernel", ops=("deploy",), times=None, slow_s=WATCH_SLOW_S):
+            threads = [threading.Thread(target=session, args=(tid,), name=f"watch-session-{tid}", daemon=True)
+                       for tid in range(WATCH_SESSIONS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            while any(t.is_alive() for t in threads) and time.perf_counter() - t0 < FLEET_JOIN_S:
+                if not parse_prometheus(scrape("/metrics")):
+                    raise AssertionError("watch: a mid-load /metrics parsed to nothing")
+                parses += 1
+                time.sleep(0.05)
+            for t in threads:
+                t.join(timeout=max(FLEET_JOIN_S - (time.perf_counter() - t0), 0.1))
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("watch: a session thread still runs")
+        if failures:
+            raise AssertionError("watch: " + "; ".join(failures[:5]))
+        if not parses:
+            raise AssertionError("watch: the load ended before a mid-load /metrics scrape")
+        _fleet_wait(lambda: any(t["rule"] == "slo_burn" for t in watch.recent_trips()), WATCH_WAIT_S,
+                    "the slo_burn tripwire")
+        snap = serving.serving_snapshot()
+        if not any(v["breaching"] for v in snap.get("slo", {}).values()):
+            raise AssertionError(f"watch: serving_snapshot shows no breach: {snap.get('slo')}")
+        statusz = scrape("/statusz")
+        if "BREACHING" not in statusz:
+            raise AssertionError("watch: /statusz shows no breach")
+        debug = json.loads(scrape("/debug/queries"))
+        bundles = glob.glob(os.path.join(tracedir, "watchtrip_*.json"))
+        if len(bundles) != 1:
+            raise AssertionError(f"watch: {len(bundles)} evidence bundles, not one: {bundles}")
+        with open(bundles[0]) as f:
+            bundle = json.load(f)
+        legs = [leg for leg in ("trace", "metrics", "rings", "slo") if leg in bundle]
+        if bundle["rule"] != "slo_burn" or len(legs) != 4 or not bundle["trace"]["traceEvents"]:
+            raise AssertionError(f"watch: the bundle is {bundle['rule']} with legs {legs}")
+        # the feed: pending batches past a 5 ms fold-lag bound
+        config.IngestEnabled.put(True)
+        config.IngestFoldEvery.put(1000)
+        config.IngestFoldLagMs.put(5.0)
+        feed = ingest.create_feed("watch_feed", {"k": "int64", "x": "float64"})
+        feed.register_view("total", {"kind": "scalar", "column": "x", "agg": "sum"})
+        feed.append(pandas.DataFrame({"k": np.arange(1000, dtype=np.int64), "x": np.ones(1000)}))
+        _fleet_wait(lambda: any(t["rule"] == "fold_lag" for t in watch.recent_trips()), WATCH_WAIT_S,
+                    "the fold_lag tripwire")
+        read = feed.read("total", fresh_within_ms=0.0)
+        if float(read.value) != 1000.0:
+            raise AssertionError(f"watch: the feed's view read {read.value}")
+        wsnap = watch.watch_snapshot()
+        if wsnap["sampler"]["died"]:
+            raise AssertionError(f"watch: the sampler died: {wsnap}")
+        return {"completed": len(walls), "midload_scrapes": parses, "session_p50_ms": _percentile(walls, 50) * 1e3,
+                "session_p99_ms": _percentile(walls, 99) * 1e3, "bundle_legs": legs,
+                "bundle_trace_events": len(bundle["trace"]["traceEvents"]), "open_scopes": debug["open_scopes"],
+                "trips": sorted({t["rule"] for t in watch.recent_trips()}), "sampler_ticks": wsnap["sampler"]["ticks"],
+                "statusz_lines": len(statusz.splitlines())}
+    finally:
+        config.WatchEnabled.put(False)
+        ingest.reset()
+        for k, v in saved:
+            k.put(v)
+        watch.reset_for_tests()
+
+
+def phase_fleet(rows: int, seed: int, workdir: str) -> dict:
+    """Phase 23 (``fleet``): (a) ``fleet_off``, then under strict lockdep
+    here and in every replica (b) ``fleet_warm``, (c) ``fleet_kill``, (d)
+    ``fleet_crash_respawn``, (e) ``fleet_watch``.  Returns the launches,
+    the replicas' beside this process's."""
+    import modin_tpu_torch.fleet as fleet
+    from modin_tpu_torch import config
+    from modin_tpu_torch.concurrency import lockdep
+    from modin_tpu_torch.core.execution import recovery
+    from modin_tpu_torch.core.storage_formats.torch import query_compiler as tqc
+    from modin_tpu_torch.serving import tenants
+    from modin_tpu_torch.serving.gate import gate
+
+    t_phase = time.perf_counter()
+    path, pdf = fleet_frame(rows, seed, workdir)
+    expected = fleet_expected(pdf)
+    del pdf
+    k0 = _kernel_marks()
+    tqc.DEFAULTS_TO_PANDAS = 0
+    knobs = (config.FleetEnabled, config.FleetReplicas, config.FleetHeartbeatS, config.MetersEnabled)
+    saved = [(k, k.get()) for k in knobs]
+    env_keys = ("MODIN_TPU_TORCH_LOCKDEP", "MODIN_TPU_TORCH_METERS", "MODIN_TPU_TORCH_SERVING_TENANT_WEIGHTS")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    parts, seconds = {}, {}
+    replica_launches = {}
+    FLEET_GENERATION_LAUNCHES.clear()
+    coord = None
+    try:
+        t0 = time.perf_counter()
+        parts["off"] = fleet_off(fleet, path, expected)
+        seconds["off"] = time.perf_counter() - t0
+        emit({"phase": "fleet", "part": "off", **parts["off"], "seconds": seconds["off"]})
+        # the replicas inherit strict lockdep and the launch ledger (meters)
+        os.environ["MODIN_TPU_TORCH_LOCKDEP"] = "1"
+        os.environ["MODIN_TPU_TORCH_METERS"] = "1"
+        os.environ["MODIN_TPU_TORCH_SERVING_TENANT_WEIGHTS"] = FLEET_WEIGHTS
+        config.MetersEnabled.put(True)
+        config.FleetEnabled.put(True)
+        config.FleetReplicas.put(FLEET_REPLICAS)
+        config.FleetHeartbeatS.put(FLEET_HEARTBEAT_S)
+        lockdep.enable(strict=True)
+        t0 = time.perf_counter()
+        coord = fleet.start_fleet()
+        start_s = time.perf_counter() - t0
+        for name, fn, fn_args in (("warm", fleet_warm, (fleet, coord, path, expected)),
+                                  ("kill", fleet_kill, (fleet, coord, expected)),
+                                  ("crash_respawn", fleet_crash_respawn, (fleet, coord, expected)),
+                                  ("watch", fleet_watch, (seed, workdir))):
+            t0 = time.perf_counter()
+            parts[name] = fn(*fn_args)
+            seconds[name] = time.perf_counter() - t0
+            if name == "warm":
+                parts[name]["start_fleet_s"] = start_s
+                replica_launches = {i: s["launches"] for i, s in parts[name].pop("replicas").items()}
+                emit({"phase": "fleet", "part": name, **parts[name], "replica_launches": replica_launches,
+                      "seconds": seconds[name]})
+            else:
+                emit({"phase": "fleet", "part": name, **parts[name], "seconds": seconds[name]})
+        # every replica process's launches: the living ones' now, a killed
+        # one's at its snapshot just before the kill
+        for i in range(FLEET_REPLICAS):
+            _replica_snapshot(coord, i)
+        replica_launches = {f"{i}.{g}": v for (i, g), v in sorted(FLEET_GENERATION_LAUNCHES.items())}
+        violations = [v.render() for v in lockdep.violations()]
+    finally:
+        lockdep.disable()
+        fleet.reset_for_tests()
+        recovery.reset_for_tests()
+        for k, v in saved:
+            k.put(v)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        gate.reset_for_tests()
+        tenants.registry.reset()
+        if coord is not None:
+            for rep in coord._replicas:
+                if rep.proc is not None and rep.proc.poll() is None:
+                    rep.proc.kill()
+                    rep.proc.wait(timeout=10)
+    if violations:
+        raise AssertionError(f"fleet: lockdep in this process: {violations}")
+    if tqc.DEFAULTS_TO_PANDAS:
+        raise AssertionError(f"fleet: {tqc.DEFAULTS_TO_PANDAS} queries defaulted to pandas in this process")
+    if _fleet_threads():
+        raise AssertionError(f"fleet: threads left after the fleet stopped: {_fleet_threads()}")
+    here = {k: v["launches"] for k, v in _kernel_since(k0).items()}
+    replicas_total = {k: sum(v.get(k, 0) for v in replica_launches.values()) for k in ("bincount", "groupagg", "fused")}
+    launches = {k: here[k] + replicas_total[k] for k in here}
+    emit({"phase": "fleet", "rows": rows, "launches": launches, "launches_here": here,
+          "launches_per_replica_generation": replica_launches, "defaults_to_pandas": 0, "lockdep": {"violations": 0},
+          "seconds_by_part": seconds, "seconds": time.perf_counter() - t_phase})
+    return {**launches, "here": here, "replicas": replicas_total, "per_replica": replica_launches}
+
+
 def resilience_line(robust: dict, by_path: dict) -> dict:
     """The ``{"resilience": ...}`` line: phase 17's parts in brief and every
     other path's fallbacks and breakers."""
@@ -8167,6 +8774,8 @@ def main(argv=None) -> int:
                         help="rows of the serve phase's frame")
     parser.add_argument("--ingest-rows", type=int, default=5 * 10**6,
                         help="rows of the ingest phase's bootstrap (a); its micro-batches are 1e4 rows")
+    parser.add_argument("--fleet-rows", type=int, default=2 * 10**6,
+                        help="rows of the fleet phase's Parquet dataset, read by every replica")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-windows", type=int, default=0, metavar="R",
                         help="only time phase 9's window queries at --window-rows, R calls "
@@ -8294,6 +8903,13 @@ def main(argv=None) -> int:
     if "ingest" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as workdir:
             launches["ingest"] = run("ingest", phase_ingest, args.ingest_rows, args.seed, workdir)
+    if "fleet" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as workdir:
+            launches["fleet"] = run("fleet", phase_fleet, args.fleet_rows, args.seed, workdir)
+        # the replicas' launches, counted by their own wrappers (a killed
+        # process's up to its snapshot just before the kill)
+        fused_by_path["fleet_replicas"] = launches["fleet"]["replicas"]["fused"]
+        groupagg_by_path["fleet_replicas"] = launches["fleet"]["replicas"]["groupagg"]
     from modin_tpu_torch.ops import router
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "fused_launches_by_path": fused_by_path,

@@ -49,9 +49,15 @@ LOCKS: Tuple[Tuple[str, str, str], ...] = (
     ("recovery.epoch", "lock", "device-epoch counter bumps"),
     ("recovery.reseat", "lock", "whole reseat passes + the reseat-once handshake"),
     ("recovery.provenance", "rlock", "deploy provenance table (weakref callbacks re-enter)"),
+    ("recovery.manifest", "lock", "dataset manifest for warm respawn replay"),
     # -- memory ------------------------------------------------------------ #
     ("memory.host_cache", "rlock", "host spill-cache ledger (weakref callbacks re-enter)"),
     ("memory.device_ledger", "rlock", "device residency ledger + LRU spill order (weakref callbacks re-enter)"),
+    # -- fleet ------------------------------------------------------------- #
+    ("fleet.coordinator", "rlock", "replica table, tenant assignments, routing counters"),
+    ("fleet.replica_state", "lock", "one replica slot's in-flight dispatch socket set"),
+    ("fleet.frames", "lock", "a replica process's warmed dataset map"),
+    ("fleet.control", "lock", "a replica's serialized control-socket writes"),
     # -- ops / plan caches ------------------------------------------------- #
     ("ops.router", "rlock", "kernel-router calibration table resolve-once (a calibration reads the table it fills)"),
     ("ops.fused_cache", "lock", "fused-program LRU cache linkage"),
@@ -78,6 +84,10 @@ LOCKS: Tuple[Tuple[str, str, str], ...] = (
     ("compile_ledger.entries", "lock", "per-signature launch accounting"),
     ("compile_ledger.pending", "lock", "CUDA event pairs waiting to resolve, and the event pool"),
     ("flight.dump", "lock", "flight-dump rate-limit claim token"),
+    ("watch.state", "rlock", "watch service lifecycle (start/stop/degrade re-enter)"),
+    ("watch.rings", "lock", "ring-store series table"),
+    ("watch.ring", "lock", "one time-series ring's sample deque"),
+    ("watch.slo", "lock", "per-tenant SLO burn observation windows"),
     ("logging.configure", "lock", "log-handler + memory-sampler configure-once"),
     # -- test harness ------------------------------------------------------ #
     ("testing.faults", "lock", "fault-injector hook counters"),
@@ -89,6 +99,9 @@ NESTABLE: FrozenSet[str] = frozenset(
     {
         # one QueryStats scope closing can fold into its parent scope
         "meters.query_stats",
+        # the sampler folds many rings in one pass; rings never nest the
+        # other way
+        "watch.ring",
     }
 )
 
@@ -120,6 +133,10 @@ LOCK_ORDER: Tuple[Tuple[str, str, str], ...] = (
     ("views.registry", "memory.device_ledger", "artifact drop deregisters its device payload under the registry serialization; ledger spill snapshots candidates under its own lock and drops outside it"),
     ("resilience.breakers", "resilience.breaker", "breaker lookup creates/reads one breaker under the table lock"),
     ("serving.tenants", "resilience.breakers", "tenant health/eviction reads its breaker under the tenant table lock"),
+    ("fleet.coordinator", "fleet.replica_state", "coordinator passes walk one replica's in-flight set under the table lock"),
+    ("watch.state", "watch.rings", "watch lifecycle resets the store it owns"),
+    ("watch.rings", "watch.ring", "the store creates/samples one ring under the series-table lock"),
+    ("watch.state", "watch.slo", "watch lifecycle resets the SLO tracker it owns"),
     ("meters.scopes", "meters.registry", "scope open/close folds into the registry; registry code never opens scopes"),
     ("meters.scopes", "meters.query_stats", "the spill/fold pass walks open scopes and accumulates into each"),
     ("serving.gate", "serving.tenants", "admission reads tenant weights/costs while deciding; tenant bookkeeping never re-enters the gate"),

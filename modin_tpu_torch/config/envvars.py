@@ -23,7 +23,12 @@ executor's (``StreamMode``, ``StreamWindowBytes``, ``StreamPrefetch``,
 (``LockdepEnabled``), continuous ingestion's (``IngestEnabled``,
 ``IngestFoldEvery``, ``IngestRetentionRows``, ``IngestRetentionAgeS``,
 ``IngestFoldLagMs``), durability's (``WalDir``, ``WalFsync``,
-``WalGroupCommitMs``, ``WalSegmentBytes``, ``WalMaxReplayBatches``) and
+``WalGroupCommitMs``, ``WalSegmentBytes``, ``WalMaxReplayBatches``), the
+replicated serving fleet's (``FleetEnabled``, ``FleetReplicas``,
+``FleetHeartbeatS``, ``FleetRespawn`` and the spawn environment's
+``FleetCoordAddress``, ``FleetReplicaIndex``, ``FleetReplicaGeneration``,
+``FleetTestCrash``, ``FleetDurabilityDir``), the live telemetry service's
+(``WatchEnabled``, ``WatchIntervalS``, ``WatchPort``, ``WatchSloMs``) and
 the IO's descriptor audit (``TrackFileLeaks``); the port's own variable names, so
 one process can pin the two packages apart.  A module that keeps a
 setting in a variable of its own subscribes to it
@@ -944,8 +949,8 @@ class IngestRetentionAgeS(_Seconds):
 
 
 class IngestFoldLagMs(_PositiveSeconds):
-    """The fold lag, milliseconds, past which the watch layer's ``fold_lag``
-    tripwire fires (read by that layer, which the port has not yet)."""
+    """The fold lag, milliseconds, past which the watch service's
+    ``fold_lag`` tripwire fires (``observability/watch/tripwires.py``)."""
 
     varname = "MODIN_TPU_TORCH_INGEST_FOLD_LAG_MS"
     default = 1000.0
@@ -993,3 +998,144 @@ class WalMaxReplayBatches(_Positive):
 
     varname = "MODIN_TPU_TORCH_WAL_MAX_REPLAY_BATCHES"
     default = 256
+
+
+# ---------------------------------------------------------------------- #
+# The replicated serving fleet and the live telemetry service
+# ---------------------------------------------------------------------- #
+
+
+class FleetEnabled(_Flag):
+    """The replicated serving fleet (``fleet/``): a coordinator spawns and
+    supervises replica serving processes (each with its own admission gate
+    and watch exporter on an ephemeral port, on the coordinator's device),
+    routes tenant queries to them over local socket RPC with the deadline
+    riding along, detects a lost replica (heartbeat silence with a failed
+    liveness probe, process exit, a dead socket under a dispatch), drains
+    its tenants onto the survivors weighted by their shed rates, and
+    respawns it warm from the dataset manifest and a survivor's exported
+    view artifacts.  Off (the default): ``fleet.submit`` is one attribute
+    read and then the local ``serving.submit``; nothing is allocated
+    (``fleet.fleet_alloc_count()``)."""
+
+    varname = "MODIN_TPU_TORCH_FLEET"
+
+
+class FleetReplicas(_Positive):
+    """Replica serving processes ``start_fleet()`` spawns."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_REPLICAS"
+    default = 2
+
+
+class FleetHeartbeatS(_PositiveSeconds):
+    """Seconds between a replica's heartbeats to its coordinator.  A
+    replica silent for about 3 intervals gets one liveness probe (a fresh
+    dial and a ping); a failed probe declares it lost.  The monitor reads
+    this every tick."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_HEARTBEAT_S"
+    default = 0.5
+
+
+class FleetRespawn(_Flag):
+    """Respawn a lost replica (a fresh process, its generation + 1) and
+    re-warm it from the dataset manifest and a survivor's exported view
+    artifacts before routing to it again.  Off: the fleet runs on the
+    survivors."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_RESPAWN"
+    default = True
+
+
+class FleetCoordAddress(Parameter):
+    """``host:port`` of the coordinator's control listener, set by the
+    coordinator in a replica's spawn environment (never by hand)."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_COORD"
+    default = ""
+
+
+class FleetReplicaIndex(_Count):
+    """A replica's slot in its coordinator's table, set by the coordinator
+    in the spawn environment."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_INDEX"
+    default = 0
+
+
+class FleetReplicaGeneration(_Count):
+    """A replica's spawn generation (bumped at every respawn, so a resumed
+    stale process's hello and heartbeats are ignored), set by the
+    coordinator in the spawn environment."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_GEN"
+    default = 0
+
+
+class FleetTestCrash(Parameter):
+    """A fault leg of the tests: ``warm`` makes a replica exit with code 3
+    when its warm request arrives (a crash during a respawn).  Set once by
+    ``ReplicaFaultInjector.crash_next_respawn()``, never by hand."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_TEST_CRASH"
+    default = ""
+
+
+class FleetDurabilityDir(Parameter):
+    """The durable-feed root a replica recovers its feeds from when it
+    warms (``durability.recover_feeds``); "" (the default) recovers none.
+    The coordinator hands its own on in the spawn environment."""
+
+    varname = "MODIN_TPU_TORCH_FLEET_DURABILITY_DIR"
+    default = ""
+
+
+class WatchEnabled(_Flag):
+    """The live telemetry service (``observability/watch/``): a sampler
+    thread folds the meter registry, the ledger gauges, the gate's depth
+    and the launch ledger's totals into bounded rings every
+    ``WatchIntervalS``; an HTTP exporter on 127.0.0.1 serves ``/metrics``,
+    ``/statusz`` and ``/debug/queries``; per-tenant SLO burn rates and
+    anomaly tripwires run over the rings.  Off (the default): no thread, no
+    socket, and the gate's per-query hook reads one attribute
+    (``watch.watch_alloc_count()`` stays put)."""
+
+    varname = "MODIN_TPU_TORCH_WATCH"
+
+
+class WatchIntervalS(_PositiveSeconds):
+    """Seconds between the sampler's ticks (read every tick)."""
+
+    varname = "MODIN_TPU_TORCH_WATCH_INTERVAL_S"
+    default = 1.0
+
+
+class WatchPort(Parameter):
+    """TCP port of the exporter on 127.0.0.1: 0 (the default) binds an
+    ephemeral port (``watch.httpd_port()`` reads it back), -1 runs no
+    exporter (rings, SLOs and tripwires still run)."""
+
+    varname = "MODIN_TPU_TORCH_WATCH_PORT"
+    default = 0
+
+    @classmethod
+    def _parse(cls, raw: Any) -> int:
+        value = int(raw)
+        if not -1 <= value <= 65535:
+            raise ValueError(f"{cls.varname} must be -1, 0 or a TCP port, got {raw!r}")
+        return value
+
+    @classmethod
+    def put(cls, value: Any) -> None:
+        cls._set(cls._parse(value))
+
+
+class WatchSloMs(Parameter):
+    """Per-tenant latency objectives, milliseconds, ``"default=250,alice=50"``
+    (a bare number is ``default=``): the ``default`` entry covers every
+    tenant without its own; "" (the default) keeps observations and
+    computes no burn rate."""
+
+    varname = "MODIN_TPU_TORCH_WATCH_SLO_MS"
+    default = ""

@@ -28,9 +28,13 @@ call fails, the re-seat's uploads too, and the failure reaches the caller
 as a DeviceLost.  Re-seat is exercised with injected faults, which leave
 the tensors intact.  A column is never re-seated onto the CPU.
 
-The JAX package's dataset manifest (``register_dataset``,
-``warm_from_manifest``) waits for ``fleet/``, and its single-shard re-seat
-for the multi-GPU port.
+A dead process has no tensors left to re-seat.  The **dataset manifest**
+(:func:`register_dataset`, :func:`dataset_manifest`,
+:func:`warm_from_manifest`) records how each serving dataset was read (a
+public reader's name and its picklable arguments), and a respawned fleet
+replica warms by replaying those reads through ``modin_tpu_torch.pandas``,
+so io lineage, spans and costs see the replay as they saw the first read.
+The JAX package's single-shard re-seat waits for the multi-GPU port.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from __future__ import annotations
 import functools
 import threading
 import weakref
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -549,6 +553,56 @@ def evict_for_oom(op: str, exclude_ids: Any = None) -> int:
 
 
 # ---------------------------------------------------------------------- #
+# the dataset manifest (a fleet replica's warm path)
+# ---------------------------------------------------------------------- #
+
+_manifest_lock = named_lock("recovery.manifest")
+_dataset_manifest: Dict[str, dict] = {}
+
+
+def register_dataset(name: str, reader: str, args: tuple = (), kwargs: Optional[dict] = None) -> None:
+    """Record how dataset ``name`` is read: ``reader``, a public
+    ``modin_tpu_torch.pandas`` reader's name (``read_csv``,
+    ``read_parquet``, ...), with ``args``/``kwargs``.  The entry crosses the
+    coordinator's socket to a replica, so an argument that does not pickle
+    is refused here, at registration, with a ``TypeError``."""
+    import pickle
+
+    entry = {"name": str(name), "reader": str(reader), "args": tuple(args), "kwargs": dict(kwargs or {})}
+    try:
+        pickle.dumps(entry)
+    except Exception as err:
+        raise TypeError(f"dataset {name!r} manifest entry is not picklable: {err}") from err
+    with _manifest_lock:
+        _dataset_manifest[entry["name"]] = entry
+
+
+def dataset_manifest() -> List[dict]:
+    """A picklable copy of every registered dataset's entry."""
+    with _manifest_lock:
+        return [dict(entry) for entry in _dataset_manifest.values()]
+
+
+def warm_from_manifest(entries: List[dict]) -> Dict[str, Any]:
+    """Replay manifest ``entries`` through the public readers:
+    ``{name: frame}``.  Each replayed entry is registered here too, so the
+    warmed process can hand the manifest on.  A reader that fails raises: a
+    replica that cannot warm never reports ready with a dataset missing."""
+    from modin_tpu_torch.logging.metrics import emit_metric
+    import modin_tpu_torch.pandas as _pd
+
+    frames: Dict[str, Any] = {}
+    for entry in entries:
+        reader = getattr(_pd, entry["reader"], None)
+        if reader is None:
+            raise ValueError(f"manifest names unknown reader {entry['reader']!r}")
+        frames[entry["name"]] = reader(*entry["args"], **entry["kwargs"])
+        register_dataset(entry["name"], entry["reader"], entry["args"], entry["kwargs"])
+        emit_metric("fleet.warm.dataset", 1)
+    return frames
+
+
+# ---------------------------------------------------------------------- #
 # config wiring and test seams
 # ---------------------------------------------------------------------- #
 
@@ -559,7 +613,7 @@ def _on_recovery_param(param: Any) -> None:
 
 
 def reset_for_tests() -> None:
-    """Forget provenance and the epoch."""
+    """Forget provenance, the epoch and the dataset manifest."""
     global _device_epoch, _last_reseat_count
     with _prov_lock:
         _provenance.clear()
@@ -567,6 +621,8 @@ def reset_for_tests() -> None:
     with _epoch_lock:
         _device_epoch = 0
     _last_reseat_count = 0
+    with _manifest_lock:
+        _dataset_manifest.clear()
 
 
 from modin_tpu_torch.config import RecoveryMode as _RecoveryMode  # noqa: E402

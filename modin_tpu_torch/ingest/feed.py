@@ -26,8 +26,10 @@ One departure from the JAX package: a batch column whose dtype numpy
 cannot interpret (pandas' ``str``) is a typed ``dtype`` rejection, where
 the JAX package's ``np.can_cast`` raises a bare ``TypeError``; such a
 column against an ``object`` schema column casts to ``object``, as a safe
-cast of any numpy dtype to ``object`` does.  The watch layer's view-read
-hook and ``fold_lag`` tripwire wait for ``observability/watch/``.
+cast of any numpy dtype to ``object`` does.  With the watch service on,
+every view read feeds its fold lag into the SLO series of the tenant
+``view:<feed>/<view>`` (``watch.observe_view_read``), and the service's
+``fold_lag`` tripwire reads :func:`max_fold_lag_ms`.
 """
 
 from __future__ import annotations
@@ -506,6 +508,10 @@ class Feed:
                 result = ViewRead(value, lag, forced, covered, self._base_offset, view.folded_seq)
         emit_metric("ingest.read.forced_fold" if forced else "ingest.read.served", 1)
         emit_metric("view.lag_ms", lag)
+        from modin_tpu_torch.observability import watch as _watch
+
+        if _watch.WATCH_ON:
+            _watch.observe_view_read(f"{self.name}/{view_name}", lag / 1e3)
         return result
 
 

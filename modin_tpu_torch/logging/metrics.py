@@ -40,9 +40,7 @@ _handlers_on: bool = False
 #: family, a failure kind, a kernel).  The kind tells the meter layer how
 #: to fold the family: ``counter`` (sum), ``gauge`` (last value, min/max)
 #: or ``histogram`` (the buckets of ``meters.HISTOGRAM_BUCKETS``).  The
-#: JAX package's names are kept where the port emits the same event; the
-#: families of layers the port has not ported (fleet, watch) are left out
-#: until their layers come.
+#: JAX package's names are kept where the port emits the same event.
 METRICS = (
     (
         "resilience.engine.*.*",
@@ -654,6 +652,91 @@ METRICS = (
         "counter",
         "durable feeds recovered (checkpoint restore and WAL replay, run "
         "through the serving gate as the maintenance tenant)"
+    ),
+    (
+        "watch.sampler.died",
+        "counter",
+        "watch sampler-thread crashes: the telemetry service turned itself "
+        "off instead of taking queries down"
+    ),
+    (
+        "watch.trip.*",
+        "counter",
+        "watch tripwires fired, per rule (latency_shift / recompile_storm / "
+        "spill_thrash / shed_spike / slo_burn / fold_lag)"
+    ),
+    (
+        "watch.evidence",
+        "counter",
+        "watch evidence bundles written to MODIN_TPU_TORCH_TRACE_DIR after a "
+        "tripwire fired (rate-limited through the flight recorder's claim "
+        "window)"
+    ),
+    (
+        "watch.scrape",
+        "counter",
+        "HTTP requests served by the watch exporter (/metrics, /statusz, "
+        "/debug/queries)"
+    ),
+    (
+        "view.export",
+        "counter",
+        "view artifacts exported for a respawning fleet replica (host-state "
+        "records a survivor hands the coordinator)"
+    ),
+    (
+        "view.ingest",
+        "counter",
+        "view artifacts ingested by a re-warming fleet replica (warm answers "
+        "restored without recomputation)"
+    ),
+    (
+        "fleet.replica.spawn",
+        "counter",
+        "fleet replica processes spawned (the fleet's start and every "
+        "respawn generation)"
+    ),
+    (
+        "fleet.replica.lost",
+        "counter",
+        "fleet replicas declared lost: process exit, heartbeat silence with "
+        "a failed liveness probe, or a dead socket under a dispatched query"
+    ),
+    (
+        "fleet.replica.heartbeat_miss",
+        "counter",
+        "fleet heartbeat-age trips (about 3 intervals silent); each one "
+        "probes the replica before any loss verdict"
+    ),
+    (
+        "fleet.replica.respawned",
+        "counter",
+        "fleet replicas respawned and re-warmed (manifest replay and view "
+        "artifact ingest) back to routable"
+    ),
+    (
+        "fleet.query.routed",
+        "counter",
+        "fleet queries dispatched to a replica and joined to a typed outcome"
+    ),
+    (
+        "fleet.query.redispatch",
+        "counter",
+        "fleet in-flight queries re-dispatched to a survivor after their "
+        "replica died mid-query (idempotent queries only)"
+    ),
+    (
+        "fleet.drain.redistributed",
+        "counter",
+        "fleet tenants drained off a lost replica and reassigned across the "
+        "survivors (value: tenants moved; a survivor's shed rate weighs "
+        "against it)"
+    ),
+    (
+        "fleet.warm.dataset",
+        "counter",
+        "fleet datasets re-warmed from the recovery manifest through the "
+        "public readers (io lineage, spans and costs see the replay)"
     ),
 )
 

@@ -1,5 +1,5 @@
-"""Observability of the port: spans, the launch ledger, meters, costs and
-the flight recorder.
+"""Observability of the port: spans, the launch ledger, meters, costs, the
+flight recorder and the live telemetry service (``watch/``).
 
 The port's counterpart of ``modin_tpu/observability/``, with its public
 names.  Where a query spends its time, across the seams of the port:
@@ -27,8 +27,9 @@ Quick use::
     prof.export_chrome_trace("query.trace.json")       # chrome://tracing
 
 Always on: ``MODIN_TPU_TORCH_TRACE=1`` (spans, the flight recorder's ring),
-``MODIN_TPU_TORCH_METERS=1`` (the meter registry), and
-``MODIN_TPU_TORCH_COST_CAPTURE=On``.  All off (the default), an
+``MODIN_TPU_TORCH_METERS=1`` (the meter registry),
+``MODIN_TPU_TORCH_COST_CAPTURE=On``, and ``MODIN_TPU_TORCH_WATCH=1`` (the
+sampler, the exporter on 127.0.0.1, SLO burn and tripwires).  All off (the default), an
 instrumented call reads one module attribute and makes nothing.
 """
 
@@ -83,4 +84,12 @@ from modin_tpu_torch.observability.costs import (  # noqa: F401
     note_padding,
     roofline_fraction,
     substrate_peaks,
+)
+from modin_tpu_torch.observability.watch import (  # noqa: F401
+    WatchService,
+    httpd_port,
+    recent_trips,
+    slo_health,
+    watch_alloc_count,
+    watch_snapshot,
 )

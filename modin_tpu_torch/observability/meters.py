@@ -97,7 +97,32 @@ _qs_tls = threading.local()  # .stack: active QueryStats; .dispatches: count
 _scope_lock = named_lock("meters.scopes")
 _active_scopes = 0
 
+#: every open QueryStats scope, process-wide (open order), kept under
+#: ``_scope_lock``; the watch exporter's ``/debug/queries`` renders it
+_live_scopes: Dict[int, "QueryStats"] = {}
+
 _env_enabled = False
+
+#: long-lived registry consumers (the watch service): the registry
+#: aggregates while any holds an acquire, whatever ``MODIN_TPU_TORCH_METERS``
+#: says, so the watch rings and ``/metrics`` see series
+_registry_consumers = 0
+
+
+def acquire_registry() -> None:
+    """Turn registry aggregation on for a long-lived consumer; balanced by
+    :func:`release_registry` (one acquire a consumer)."""
+    global _registry_consumers
+    with _scope_lock:
+        _registry_consumers += 1
+        _refresh_enabled()
+
+
+def release_registry() -> None:
+    global _registry_consumers
+    with _scope_lock:
+        _registry_consumers = max(_registry_consumers - 1, 0)
+        _refresh_enabled()
 
 
 def meter_alloc_count() -> int:
@@ -364,7 +389,7 @@ def reset() -> None:
 def _refresh_enabled() -> None:
     """Recompute the fast-path flags and (un)install the emit hook."""
     global ACCOUNTING_ON, METERS_ON
-    METERS_ON = _env_enabled
+    METERS_ON = _env_enabled or _registry_consumers > 0
     on = METERS_ON or _active_scopes > 0
     ACCOUNTING_ON = on
     metrics = sys.modules.get("modin_tpu_torch.logging.metrics")
@@ -771,6 +796,13 @@ class QueryStats:
         )
 
 
+def live_scopes() -> List["QueryStats"]:
+    """Every ``QueryStats`` scope open now on any thread (open order): live
+    objects of their threads, read through :meth:`QueryStats.as_dict`."""
+    with _scope_lock:
+        return list(_live_scopes.values())
+
+
 def snapshot_scopes() -> Optional[List["QueryStats"]]:
     """Copy of this thread's open QueryStats stack (outermost first), or None.
 
@@ -823,6 +855,7 @@ def query_stats(label: str = "query") -> Iterator[QueryStats]:
             qs.signature = sig
     with _scope_lock:
         _active_scopes += 1
+        _live_scopes[id(qs)] = qs
         _refresh_enabled()
     stack = getattr(_qs_tls, "stack", None)
     if stack is None:
@@ -845,6 +878,7 @@ def query_stats(label: str = "query") -> Iterator[QueryStats]:
             pass
         with _scope_lock:
             _active_scopes -= 1
+            _live_scopes.pop(id(qs), None)
             _refresh_enabled()
 
 

@@ -42,10 +42,10 @@ Off (``MODIN_TPU_TORCH_SERVING=0``, the default) ``submit`` calls the
 query directly: no token, no scope, no allocation
 (``context.context_alloc_count``), and the seams see ``CONTEXT_ON`` False.
 
-Not ported yet: the watch service's hooks (the per-tenant SLO series of a
-finished query and the snapshot's ``slo``) and the fleet coordinator's
-table in the snapshot; they come with ``observability/watch/`` and
-``fleet/``.
+With the watch service on, every finished query feeds its tenant's SLO
+series (``watch.observe_query``) and :func:`serving_snapshot` carries the
+burn verdicts under ``slo``; with a fleet coordinator live in the process,
+the snapshot carries its replica table under ``fleet``.
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ from modin_tpu_torch.concurrency import named_lock
 from modin_tpu_torch.logging.metrics import emit_metric
 from modin_tpu_torch.observability import meters as _meters
 from modin_tpu_torch.observability import spans as _spans
+from modin_tpu_torch.observability import watch as _watch
 from modin_tpu_torch.serving import context as _context
 from modin_tpu_torch.serving import tenants as _tenants
 from modin_tpu_torch.serving.errors import DeadlineExceeded, QueryRejected, ServingError
@@ -432,9 +433,22 @@ _tls = threading.local()
 
 
 def serving_snapshot() -> dict:
-    """Gate and tenant state for dashboards and debugging."""
+    """Gate and tenant state for dashboards and debugging.  With the watch
+    service on, the tenants' SLO burn verdicts ride along under ``slo``: an
+    advisory signal beside the breakers (the gate never sheds for it)."""
     snap = gate.snapshot()
     snap["tenants"] = _tenants.registry.snapshot()
+    if _watch.WATCH_ON:
+        snap["slo"] = _watch.slo_health()
+    # a fleet coordinator live in this process adds its replica table (read
+    # through sys.modules: a snapshot never imports the fleet)
+    import sys as _sys
+
+    fleet = _sys.modules.get("modin_tpu_torch.fleet")
+    if fleet is not None and fleet.FLEET_ON:
+        coordinator = fleet.get_coordinator()
+        if coordinator is not None:
+            snap["fleet"] = coordinator.snapshot()
     return snap
 
 
@@ -523,6 +537,10 @@ def submit(
         gate.release(permit)
         wall_s = time.perf_counter() - t0
         emit_metric("serving.query_wall_s", wall_s)
+        if _watch.WATCH_ON:
+            # the tenant's latency series for SLO burn (one attribute read
+            # while watch is off)
+            _watch.observe_query(tenant, wall_s, failure_kind)
         _finish_accounting(tenant, stats, wall_s, failure_kind)
 
 

@@ -21,8 +21,9 @@ not.  Faults fire on the first ``times`` matching calls after ``skip``
 clean ones: no randomness, so a failing sequence replays exactly.
 
 :class:`DiskFaultInjector` fails the WAL's and the checkpoints' disk
-operations (``durability/wal.disk_op``) the same way.  The JAX package's
-replica injectors wait for ``fleet/``.
+operations (``durability/wal.disk_op``) the same way, and
+:class:`ReplicaFaultInjector` kills, wedges and re-crashes live fleet
+replicas with real signals.
 """
 
 from __future__ import annotations
@@ -266,6 +267,59 @@ class MixedFaultInjector(FaultInjector):
 
 _DISK_OPS = ("wal.write", "wal.fsync", "wal.truncate", "checkpoint.write", "checkpoint.truncate")
 _DISK_KINDS = ("enospc", "eio", "fsync_fail", "torn_write", "kill")
+
+
+class ReplicaFaultInjector:
+    """Kill, wedge and re-crash live fleet replicas on demand.
+
+    Real signals at real supervised processes, so each of the fleet's
+    detection legs has to earn its verdict:
+
+    - :meth:`kill`: SIGKILL (``kill -9``): the process-exit and
+      dead-socket legs;
+    - :meth:`hang`: SIGSTOP: the process freezes with its sockets connected
+      (the kernel keeps accepting on the backlog), so only the
+      heartbeat-age leg and its probe's timeout catch it;
+    - :meth:`resume`: SIGCONT, to wake a wedged replica;
+    - :meth:`crash_next_respawn`: the next respawned replica exits inside
+      its warm request, before any dataset loads: the coordinator has to
+      survive a respawn that dies and retry the slot at a later tick.
+
+        inj = ReplicaFaultInjector(coordinator)
+        inj.kill(1)          # replica 1 dies under its queries
+        inj.hang(0)          # replica 0 wedges; the probe declares it lost
+    """
+
+    def __init__(self, coordinator: Any):
+        self.coordinator = coordinator
+
+    def _pid(self, index: int) -> int:
+        rep = self.coordinator._replicas[index]
+        if rep.pid is None:
+            raise RuntimeError(f"replica {index} has no live process")
+        return rep.pid
+
+    def kill(self, index: int) -> int:
+        """SIGKILL replica ``index``; the pid it killed."""
+        pid = self._pid(index)
+        os.kill(pid, signal.SIGKILL)
+        return pid
+
+    def hang(self, index: int) -> int:
+        """SIGSTOP replica ``index`` (its sockets stay, it wedges)."""
+        pid = self._pid(index)
+        os.kill(pid, signal.SIGSTOP)
+        return pid
+
+    def resume(self, index: int) -> int:
+        """SIGCONT replica ``index`` (undoes :meth:`hang`)."""
+        pid = self._pid(index)
+        os.kill(pid, signal.SIGCONT)
+        return pid
+
+    def crash_next_respawn(self) -> None:
+        """Make the next respawned replica crash inside its warm request."""
+        self.coordinator._test_crash_next_respawn = True
 
 
 class DiskFaultInjector:

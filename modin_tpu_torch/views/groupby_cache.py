@@ -14,6 +14,14 @@ The gates are tight: the frame's own columns as keys, a string
 aggregation; folding also needs sorted ``as_index=True``, ``dropna=True``
 results over numeric device keys and values.  Anything else declines and
 the ordinary device path (or pandas) runs as it would.
+
+An artifact a fleet replica ingested from a survivor
+(``views/exporter.py``) carries ``registry.ADOPT_IDENTS`` in place of
+its column identities and, as the ingest left it, an ``adopt_guard``: a
+weak reference to every column tensor of the frame it was ingested onto,
+with each tensor's version.  Its first hit with the same row count on
+those very tensors adopts this process's identities; a frame whose rows
+differ (another length, another tensor, a write since) never hits it.
 """
 
 from __future__ import annotations
@@ -105,6 +113,41 @@ def _host_guards_hold(qc: Any, positions: List[int], guards: Any) -> bool:
     return True
 
 
+def adopt_guard(frame: Any) -> tuple:
+    """Per column position of ``frame``: a device column's ``("d", weak
+    reference to its tensor, its version)``, a host column's ``("h", weak
+    reference to the column)``, or None (a deferred or spilled column,
+    which no hit reads as it is)."""
+    guard = []
+    for col in frame._columns:
+        if col.is_device:
+            t = registry._tensor(col)
+            guard.append(None if t is None else ("d", weakref.ref(t), int(t._version)))
+        else:
+            guard.append(("h", weakref.ref(col)))
+    return tuple(guard)
+
+
+def _adopt_guard_holds(qc: Any, positions: List[int], guard: Any) -> bool:
+    """Whether every participant is still the column the artifact was
+    ingested onto, unwritten since."""
+    if not guard:
+        return False
+    frame = qc._modin_frame
+    for p in positions:
+        entry = guard[p] if p < len(guard) else None
+        if entry is None:
+            return False
+        col = frame._columns[p]
+        if entry[0] == "d":
+            t = registry._tensor(col) if col.is_device else None
+            if t is None or entry[1]() is not t or int(t._version) != entry[2]:
+                return False
+        elif entry[1]() is not col:
+            return False
+    return True
+
+
 def _fingerprint(by, agg_func, groupby_kwargs, agg_kwargs, drop, series_groupby, selection) -> Optional[tuple]:
     gk = tuple(sorted(groupby_kwargs.items())) if groupby_kwargs else ()
     ak = tuple(sorted(agg_kwargs.items())) if agg_kwargs else ()
@@ -191,6 +234,18 @@ def groupby_consult(qc, by, agg_func, groupby_kwargs, agg_kwargs, drop, series_g
     outcome, state, _base = registry.lookup(anchor, _KIND, fp)
     if (
         outcome == "hit"
+        and state.get("idents") == registry.ADOPT_IDENTS
+        and state.get("n") == len(qc._modin_frame)
+        and _adopt_guard_holds(qc, positions, state.get("adopt_guard"))
+    ):
+        # an ingested artifact: adopt this process's identities on its first
+        # exact-length hit on the columns it was ingested onto (an in-place
+        # rewrite; every adopter computes the same values)
+        state["idents"] = idents
+        state["host_guards"] = _host_guards(qc, positions)
+        state.pop("adopt_guard", None)
+    if (
+        outcome == "hit"
         and state.get("idents") == idents
         and _host_guards_hold(qc, positions, state.get("host_guards"))
     ):
@@ -221,7 +276,7 @@ def _fold_groups(qc, by, agg_func, groupby_kwargs, agg_kwargs, drop, series_grou
     n = len(frame)
     n0 = state.get("n")
     old_idents = state.get("idents")
-    if n0 is None or old_idents is None or len(old_idents) != len(idents):
+    if n0 is None or old_idents is None or old_idents == registry.ADOPT_IDENTS or len(old_idents) != len(idents):
         return None
     for p, old_ident in zip(positions, old_idents):
         if _chain_base(frame._columns[p], old_ident) != n0:

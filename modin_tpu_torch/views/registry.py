@@ -80,6 +80,12 @@ COUNTS = CountView(
 
 count = emit_counted
 
+#: the sentinel an exported artifact's state carries in place of its
+#: column identities (``views/exporter.py``: ids and weak references do not
+#: cross a process); the consuming cache adopts the ingesting process's
+#: identities on its first exact-length hit
+ADOPT_IDENTS = "__adopt__"
+
 
 _token_counter = 0
 

@@ -133,6 +133,23 @@ SLICE21_MODULES = [
 ]
 
 
+#: the replicated serving fleet, the view exporter and the live telemetry
+#: service, scanned like every other module
+SLICE22_MODULES = [
+    "fleet/__init__.py",
+    "fleet/coordinator.py",
+    "fleet/queries.py",
+    "fleet/replica.py",
+    "fleet/wire.py",
+    "observability/watch/__init__.py",
+    "observability/watch/httpd.py",
+    "observability/watch/slo.py",
+    "observability/watch/timeseries.py",
+    "observability/watch/tripwires.py",
+    "views/exporter.py",
+]
+
+
 def test_package_has_modules_to_scan():
     assert len(list(PACKAGE.rglob("*.py"))) >= 30
     scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
@@ -142,6 +159,7 @@ def test_package_has_modules_to_scan():
     assert set(SLICE15_MODULES) <= scanned
     assert set(SLICE16_MODULES) <= scanned
     assert set(SLICE21_MODULES) <= scanned
+    assert set(SLICE22_MODULES) <= scanned
 
 
 @pytest.mark.parametrize(
@@ -208,6 +226,11 @@ def test_slice16_modules_import_without_jax_or_modin_tpu():
 
 def test_slice21_modules_import_without_jax_or_modin_tpu():
     proc = _import_without_jax_or_modin_tpu(SLICE21_MODULES)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_slice22_modules_import_without_jax_or_modin_tpu():
+    proc = _import_without_jax_or_modin_tpu(SLICE22_MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
